@@ -1,0 +1,160 @@
+"""Throughput of the surface train step: rays per second through the fused
+forward, backward and RMSprop, under the protocol of the repository's
+``bench.py`` (BASELINE.md).
+
+    python -m alphasurf_torch.app.bench_step [--reso 512] [--batch 40960]
+
+The grid is bench.py's sphere shell: the analytic SDF of a sphere of radius
+reso/4, kept where |sdf| < 3 voxels and dilated twice over the 26
+neighbours, density 0.5, SH 0, fake_sample_std 0.1, rows in flat order,
+built on the device. Rays are the 800x800 camera at pose_spherical(30, 20,
+2.7) with fx = 1.1 W; batches of ``batch`` consecutive rays cycle over
+rows 35-65% of the image, where the sphere is, against a target of 0.5.
+The occupancy is refreshed every 16 steps. One warm-up step must render
+geometry (loss < 0.24; an empty batch scores 0.25); then ``steps`` timed
+steps. Prints one JSON line and returns it as a dict.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import time
+
+import torch
+import torch.nn.functional as F
+
+from .. import defs
+from ..core.device import resolve_device
+from ..core.grid import SparseGrid
+from ..core.options import RenderOptions
+from ..core.rays import Camera, Rays
+from ..data.synthetic import pose_spherical
+from ..render.surface import occupancy_words
+from ..train.steps import HParams, StepConfig, init_rms, make_surface_step
+
+
+def bench_options() -> RenderOptions:
+    """bench.py's render options."""
+    return RenderOptions(sigma_thresh=-1e9, stop_thresh=1e-7, only_outward_intersect=True,
+                         surf_fake_sample=True, limited_fake_sample=True,
+                         truncated_vol_render=True)
+
+
+def bench_hparams() -> HParams:
+    """bench.py's learning rates and loss weights."""
+    return HParams(lr_alpha=1e-3, lr_surface=1e-5, lr_sh=1e-3, lambda_tv_alpha=1e-5,
+                   lambda_tv_surface=1e-3, lambda_normal_l1=1e-6, lambda_l_entropy=1e-4)
+
+
+def build_bench_grid(reso: int, device) -> tuple[SparseGrid, torch.Tensor]:
+    """bench.py's shell grid on ``device`` and its row coords (capacity, 3)."""
+    dev = resolve_device(device)
+    idx = torch.arange(reso, dtype=torch.float32, device=dev)
+    r = torch.sqrt((idx[:, None, None] - reso / 2) ** 2 + (idx[None, :, None] - reso / 2) ** 2
+                   + (idx[None, None, :] - reso / 2) ** 2)
+    sdf = (reso / 4.0 - r) / (reso / 4.0)
+    del r
+    keep = (torch.abs(sdf) < 3.0 / (reso / 4.0)).float()[None, None]
+    for _ in range(2):  # 26-neighbourhood dilation, twice
+        keep = F.max_pool3d(keep, 3, 1, 1)
+    flat = keep.reshape(-1) > 0
+    del keep
+    links = torch.where(flat, torch.cumsum(flat.int(), 0, dtype=torch.int32) - 1,
+                        torch.full_like(flat, -1, dtype=torch.int32))
+    occ_idx = torch.nonzero(flat)[:, 0]
+    cap = occ_idx.numel()
+    row_coords = torch.stack([occ_idx // (reso * reso), (occ_idx // reso) % reso, occ_idx % reso],
+                             -1).to(torch.int32)
+    f32 = dict(dtype=torch.float32, device=dev)
+    grid = SparseGrid(
+        links=links.reshape(reso, reso, reso), density_data=torch.full((cap, 1), 0.5, **f32),
+        sh_data=torch.zeros((cap, 27), **f32),
+        surface_data=sdf.reshape(-1)[occ_idx][:, None].contiguous(),
+        level_set_data=torch.zeros(1, **f32), fake_sample_std=torch.full((1, 1), 0.1, **f32),
+        truncated_vol_render_a=torch.tensor(1.0, **f32), radius=torch.ones(3, **f32),
+        center=torch.zeros(3, **f32), basis_dim=9, surface_type=defs.SURFACE_TYPE_SDF,
+    )
+    return grid, row_coords
+
+
+def bench_rays(width: int, device) -> Rays:
+    """All rays of bench.py's width x width camera, made on the device."""
+    cam = Camera.make(pose_spherical(30.0, 20.0, 2.7), fx=1.1 * width, width=width, height=width)
+    return cam.gen_rays_device(device)
+
+
+def run(reso: int = 512, batch: int = 40960, steps: int = 33, width: int = 800,
+        device="cuda", seed: int = 0) -> dict:
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    grid, row_coords = build_bench_grid(reso, dev)
+    rays = bench_rays(width, dev)
+    opt = bench_options()
+    step = make_surface_step(StepConfig(opt=opt, cache_size=None, renderer="packed"))
+    rms = init_rms(grid)
+    hp = bench_hparams()
+    gen = torch.Generator().manual_seed(seed)
+    gt = torch.full((batch, 3), 0.5, dtype=torch.float32, device=dev)
+    n = rays.origins.shape[0]
+    lo = int(n * 0.35)
+    span = max(int(n * 0.30) - batch, 1)
+    state = {"occ": occupancy_words(grid, opt), "grid": grid, "rms": rms}
+    setup = time.perf_counter() - t0
+
+    def run_batch(i):
+        if i > 0 and i % 16 == 0:
+            state["occ"] = occupancy_words(state["grid"], opt)
+        s = lo + (i * batch) % span
+        r = Rays(rays.origins[s:s + batch], rays.dirs[s:s + batch])
+        state["grid"], state["rms"], stats = step(state["grid"], state["rms"], r, gt, hp, gen,
+                                                  occ=state["occ"], row_coords=row_coords)
+        return stats
+
+    first = float(run_batch(0)["loss"])
+    if not first < 0.24:
+        raise AssertionError(f"the first bench batch renders no geometry (loss {first}); the "
+                             "batch window must cover sphere-bearing rows")
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    losses = [run_batch(i)["loss"] for i in range(steps)]
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    losses = torch.stack(losses).tolist()
+    g = state["grid"]
+    moved = int(((g.density_data != 0.5).any(dim=1) | (g.sh_data != 0).any(dim=1)).sum())
+    return {
+        "metric": "rays_per_s_fwd_bwd",
+        "rays_per_s_fwd_bwd": steps * batch / seconds,
+        "batch": batch,
+        "reso": reso,
+        "capacity": grid.capacity,
+        "steps": steps,
+        "seconds": seconds,
+        "setup_seconds": setup,
+        "first_loss": first,
+        "last_loss": losses[-1],
+        "losses_finite": all(math.isfinite(x) for x in losses),
+        "rows_moved": moved,
+        "card": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+    }
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reso", type=int, default=512)
+    ap.add_argument("--batch", type=int, default=40960)
+    ap.add_argument("--steps", type=int, default=33)
+    ap.add_argument("--width", type=int, default=800, help="image width and height")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the regularizer windows")
+    ap.add_argument("--device", default="cuda")
+    a = ap.parse_args(argv)
+    out = run(a.reso, a.batch, a.steps, a.width, a.device, a.seed)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -15,6 +15,7 @@ from .device import resolve_device
 class Rays:
     origins: torch.Tensor  # (B, 3)
     dirs: torch.Tensor  # (B, 3)
+    masks: torch.Tensor | None = None  # (B,) bool: rays the image loss counts
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,455 @@
+// K5: the backward of the packed surface renderer (K2-K4), in two passes
+// over what the forward saved.
+//
+// Replaces jax.grad of the JAX package's render/surface.py:
+// volume_render_surface_packed (1737-2015) with the root JVP of
+// ops/cubic.py:_cubic_roots_T_jvp (230-242). The cotangents it takes are
+// those of rgb (B, 3) and ray_losses (12, B); depth, normal and log_T carry
+// none (the autograd Function raises on one).
+//
+// K5a, backward_ray: one thread per ray, like K4. Pass 1 walks the ray's
+// slots in (entry, slot) order as K4 does (truncation by running
+// intersection index, the stop_thresh kill of whole entries, transmittance)
+// and parks in the output arrays what pass 2 needs: the slot's truncated
+// alpha (-1 where it does not contribute), its transmittance, and the
+// prefix parts of the l_dist(_a) derivatives. Pass 2 walks back and turns
+// them into per-slot cotangents of the pre-truncation alpha, of t and of
+// the three clipped colours. The suffix sum Sigma carries d loss / d
+// log(1 - alpha) of every later slot plus the background term; the
+// l_dist(_a) pairs split into a prefix part (pass 1) and a suffix part
+// (pass 2), so every sum is a running sum and none is a difference of
+// totals.
+//
+// K5b, backward_entry: one thread per pool entry, like K3. It recomputes
+// the entry's samples with the very code of K3 (samples.cuh) and chains
+// the slot cotangents, plus the inward-norm and density-lap terms of
+// ray_losses, into the 8 corner rows: density through the trilinear
+// weights; SH through the weights times the SH basis where the colour was
+// not clipped; surface through the root (implicit differentiation:
+// dt/df_i = -t^i / f'(t), |f'| kept >= 1e-10) and the cubic's
+// coefficients, through the sample position into the weights, and through
+// the fake sample's normalised surface value and the std of the 8 corners;
+// fake_sample_std through the Gaussian reweight. Rows are scattered with
+// atomicAdd; the fake_sample_std gradient is summed over the warp first,
+// since every entry of the pool adds to that one address.
+//
+// Bound: K5a by bytes (each slot's t, alpha, colour and flags read, its
+// cotangents written: about 40 bytes a slot), K5b by the random 8-row
+// gathers and the atomics into the rows (each entry reads 8 rows of 32
+// floats and adds to 8 x 29). Design: one thread per ray and one per entry,
+// no shared memory; nothing is sorted. Clamps and maxima take JAX's
+// derivative at an exact tie (half the gradient), so the kernel and the
+// plain version (autograd of the plain renderer) agree on ties in float32.
+#include "samples.cuh"
+
+// ---------------------------------------------------------------------------
+// K5a
+// ---------------------------------------------------------------------------
+
+struct BackRayParams {
+    const int64_t* offsets;
+    int B;
+    int64_t M;
+    int S0;
+    const float* t;
+    const float* alpha;
+    const bool* contrib;
+    const bool* fake;
+    const int* counted;
+    const float* rgb;  // (3, S0, M), clipped colours
+    int truncated;
+    const float* trunc_a;
+    float trunc_wmin;
+    int stop_on;
+    float log_stop;
+    float bg;
+    int fake_l_dist;
+    const float* g_rgb;  // (B, 3)
+    const float* g_rl;   // (12, B)
+    float* d_alpha;      // (S0, M), cotangent of the pre-truncation alpha
+    float* d_t;          // (S0, M)
+    float* d_col;        // (3, S0, M), cotangent of the clipped colour
+};
+
+// d/dx of -x log(max(x, 1e-8)) for x > 0
+HD float entropy_grad(float x) {
+    const float cx = fmaxf(x, 1e-8f);
+    return -logf(cx) - x * clip_lo_grad(x, 1e-8f) / cx;
+}
+
+// d/da of log(max(-log(max(1 - a, 1e-8)), 1e-8)) (sp_logsig)
+HD float logsig_grad(float a) {
+    const float om = 1.0f - a;
+    const float u = fmaxf(om, 1e-8f);
+    const float v = -logf(u);
+    return clip_lo_grad(v, 1e-8f) / fmaxf(v, 1e-8f) / u * clip_lo_grad(om, 1e-8f);
+}
+
+HD float alpha_trunc(const BackRayParams& p, int64_t i, int cnt, float ta) {
+    const float a = p.alpha[i];
+    return p.truncated ? a * trunc_rw(cnt - (p.fake[i] ? 1 : 0), ta, p.trunc_wmin) : a;
+}
+
+HD void backward_ray_thread(const BackRayParams& p, int r) {
+    const int64_t e0 = p.offsets[r], e1 = p.offsets[r + 1];
+    const int64_t SM = (int64_t)p.S0 * p.M;
+    const float ta = p.trunc_a[0];
+    const float g_ld = p.g_rl[r], g_lda = p.g_rl[p.B + r];
+    const float g_ent = p.g_rl[2 * p.B + r], g_enta = p.g_rl[3 * p.B + r];
+    const float g_sls = p.g_rl[4 * p.B + r], g_slsw = p.g_rl[5 * p.B + r];
+    const float G[3] = {p.g_rgb[3 * (int64_t)r], p.g_rgb[3 * (int64_t)r + 1],
+                        p.g_rgb[3 * (int64_t)r + 2]};
+
+    // pass 1: forward, as K4
+    int cnt = 0;
+    float entry_pre = 0.0f, P = 0.0f;
+    float Aw = 0.0f, Sw = 0.0f, Aa = 0.0f, Sa = 0.0f;
+    for (int64_t e = e0; e < e1; ++e) {
+        bool alive = true;
+        if (p.stop_on) {
+            float la = 0.0f;
+            int c = cnt;
+            for (int s = 0; s < p.S0; ++s) {
+                const int64_t i = (int64_t)s * p.M + e;
+                if (p.contrib[i]) la = la + logf(one_minus(alpha_trunc(p, i, c, ta)));
+                c += p.counted[i];
+            }
+            alive = entry_pre > p.log_stop;
+            entry_pre = entry_pre + la;
+        }
+        for (int s = 0; s < p.S0; ++s) {
+            const int64_t i = (int64_t)s * p.M + e;
+            const float at = alpha_trunc(p, i, cnt, ta);
+            cnt += p.counted[i];
+            if (!(p.contrib[i] && alive)) {
+                p.d_alpha[i] = -1.0f;  // not contributing
+                continue;
+            }
+            const float om = one_minus(at);
+            const float T = expf(fminf(P, 0.0f));
+            P = P + logf(om);
+            const bool inc = p.fake_l_dist || !p.fake[i];
+            const float w = T * (1.0f - om);
+            const float wi = inc ? w : 0.0f, a = inc ? at : 0.0f;
+            const float t = p.t[i];
+            p.d_alpha[i] = at;
+            p.d_t[i] = g_ld * wi * Aw + g_lda * a * Aa;
+            p.d_col[i] = g_ld * (t * Aw - Sw);
+            p.d_col[SM + i] = g_lda * (t * Aa - Sa);
+            p.d_col[2 * SM + i] = T;
+            Aw = Aw + wi;
+            Sw = Sw + wi * t;
+            Aa = Aa + a;
+            Sa = Sa + a * t;
+        }
+    }
+
+    // pass 2: backward; A*, S* now sum the slots after the current one
+    float Sigma = p.bg * (G[0] + G[1] + G[2]) * expf(P);
+    Aw = Sw = Aa = Sa = 0.0f;
+    for (int64_t e = e1 - 1; e >= e0; --e) {
+        for (int s = p.S0 - 1; s >= 0; --s) {
+            const int64_t i = (int64_t)s * p.M + e;
+            cnt -= p.counted[i];
+            const float at = p.d_alpha[i];
+            if (at < 0.0f) {
+                p.d_alpha[i] = 0.0f;
+                p.d_t[i] = 0.0f;
+                for (int k = 0; k < 3; ++k) p.d_col[k * SM + i] = 0.0f;
+                continue;
+            }
+            const float T = p.d_col[2 * SM + i];
+            const float om = one_minus(at);
+            const float w = T * (1.0f - om);
+            const bool inc = p.fake_l_dist || !p.fake[i];
+            const float wi = inc ? w : 0.0f, a = inc ? at : 0.0f;
+            const float t = p.t[i];
+            float Wbar = G[0] * p.rgb[i];
+            Wbar = Wbar + G[1] * p.rgb[SM + i];
+            Wbar = Wbar + G[2] * p.rgb[2 * SM + i];
+            float abar = (g_sls + g_slsw * w) * logsig_grad(at);
+            float dt = p.d_t[i];
+            if (inc) {
+                Wbar = Wbar + p.d_col[i] + g_ld * (Sw - t * Aw);
+                if (wi > 0.0f) Wbar = Wbar + g_ent * entropy_grad(wi);
+                abar = abar + p.d_col[SM + i] + g_lda * (Sa - t * Aa);
+                if (a > 0.0f) abar = abar + g_enta * entropy_grad(a);
+                dt = dt - g_ld * wi * Aw - g_lda * a * Aa;
+            }
+            const float d_om = -T * Wbar + Sigma / om;
+            const float d_at = abar - d_om * clip_grad(1.0f - at, 1e-7f, 1.0f - 1e-7f);
+            const float rw = p.truncated ? trunc_rw(cnt - (p.fake[i] ? 1 : 0), ta, p.trunc_wmin) : 1.0f;
+            p.d_alpha[i] = d_at * rw;
+            p.d_t[i] = dt;
+            for (int k = 0; k < 3; ++k) p.d_col[k * SM + i] = G[k] * w;
+            Sigma = Sigma + Wbar * w;
+            Aw = Aw + wi;
+            Sw = Sw + wi * t;
+            Aa = Aa + a;
+            Sa = Sa + a * t;
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K5b
+// ---------------------------------------------------------------------------
+
+struct BackEntryParams {
+    const int* ray_id;
+    const int* l;
+    const float* close_t;
+    const float* far_t;
+    int64_t M;
+    int B;
+    const float* origins;
+    const float* dirs;
+    const float* sh_mult;
+    int bd;
+    const int* links;
+    int X, Y, Z;
+    const float* packed;
+    int cap, C8, n_surf_c;
+    const float* level_sets;
+    int n_lv;
+    int S0;
+    float near_grid_t, sigma_thresh;
+    const float* fs_std;  // (1,) or null
+    float min_vox_len;
+    int only_outward, fake_sample, limited_fake, normalize_surf, act_sigmoid, no_sh_surf_grad;
+    const bool* contrib;  // (S0, M) from K3
+    const float* d_alpha;
+    const float* d_t;
+    const float* d_col;
+    const float* g_rl;
+    float* g_density;  // (cap,)
+    float* g_surface;  // (cap, n_surf_c)
+    float* g_sh;       // (cap, 3 bd)
+    float* g_fss;      // (1,) or null
+};
+
+// vector-Jacobian product of trilerp_weights at (x, y, z)
+HD void trilerp_weights_vjp(const float fs[3], const float dw[8], float dfs[3]) {
+    dfs[0] = dfs[1] = dfs[2] = 0.0f;
+    for (int c = 0; c < 8; ++c) {
+        const float wx = corner_dx(c) ? fs[0] : 1.0f - fs[0];
+        const float wy = corner_dy(c) ? fs[1] : 1.0f - fs[1];
+        const float wz = corner_dz(c) ? fs[2] : 1.0f - fs[2];
+        const float sx = corner_dx(c) ? 1.0f : -1.0f;
+        const float sy = corner_dy(c) ? 1.0f : -1.0f;
+        const float sz = corner_dz(c) ? 1.0f : -1.0f;
+        dfs[0] = dfs[0] + dw[c] * (sx * (wy * wz));
+        dfs[1] = dfs[1] + dw[c] * (wx * (sy * wz));
+        dfs[2] = dfs[2] + dw[c] * (wx * (wy * sz));
+    }
+}
+
+// |f'| < 1e-10 becomes sign(f') 1e-10, and 1e-10 where f' == 0 (cubic.py:236)
+HD float safe_fp(float fp) {
+    if (fabsf(fp) >= 1e-10f) return fp;
+    return fp < 0.0f ? -1e-10f : 1e-10f;
+}
+
+// returns this entry's part of the fake_sample_std gradient
+HD float backward_entry_thread(const BackEntryParams& p, int64_t m) {
+    const int r = p.ray_id[m];
+    const int l[3] = {p.l[3 * m], p.l[3 * m + 1], p.l[3 * m + 2]};
+    const float close_t = p.close_t[m], far_t = p.far_t[m];
+    float o[3], d[3];
+    for (int a = 0; a < 3; ++a) {
+        o[a] = p.origins[3 * (int64_t)r + a];
+        d[a] = p.dirs[3 * (int64_t)r + a];
+    }
+    const float* shm = p.sh_mult + (int64_t)r * p.bd;
+    Corners cs;
+    gather_corners(p.links, p.X, p.Y, p.Z, p.packed, p.cap, p.C8, p.n_surf_c, p.bd, shm,
+                   p.sigma_thresh, l, cs);
+    if (!cs.vox_ok) return 0.0f;  // no slot of the entry contributes
+
+    float smin = cs.surf8[0], smax = cs.surf8[0];
+    for (int c = 1; c < 8; ++c) {
+        smin = fminf(smin, cs.surf8[c]);
+        smax = fmaxf(smax, cs.surf8[c]);
+    }
+    float u[3], f[4];
+    for (int a = 0; a < 3; ++a) u[a] = o[a] + close_t * d[a] - (float)l[a];
+    cubic_coeffs(cs.surf8, u, d, f);
+
+    const int64_t SM = (int64_t)p.S0 * p.M;
+    const float g_in = p.g_rl[7 * p.B + r], g_lap = p.g_rl[8 * p.B + r];
+    float dA8[8], dS8[8], dC[3][8];
+    for (int c = 0; c < 8; ++c) {
+        dA8[c] = dS8[c] = 0.0f;
+        for (int ch = 0; ch < 3; ++ch) dC[ch][c] = 0.0f;
+    }
+    float df[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    bool vox_has_sample = false, vox_has_surf = false;
+    for (int i = 0; i < p.n_lv; ++i) {
+        const float lv = p.level_sets[i];
+        const bool lv_ok = cs.vox_ok && lv >= smin && lv <= smax;
+        vox_has_surf = vox_has_surf || lv_ok;
+        float roots[3];
+        bool has[3];
+        cubic_roots(f[0] - lv, f[1], f[2], f[3], roots, has);
+        for (int j = 0; j < 3; ++j) {
+            RealSlot s;
+            real_slot(cs, o, d, l, close_t, roots[j], lv_ok, p.near_grid_t, p.only_outward, s);
+            vox_has_sample = vox_has_sample || s.geo_pre;
+            const int64_t k = (int64_t)(3 * i + j) * p.M + m;
+            float da = p.d_alpha[k];
+            if (p.contrib[k]) {
+                const float alpha = alpha_act(s.raw, p.act_sigmoid);
+                da = da + g_in * inward_sq(s.sn, d) + g_lap * lap_grad(alpha);
+            }
+            const float dcol[3] = {p.d_col[k], p.d_col[SM + k], p.d_col[2 * SM + k]};
+            const float dt_in = p.d_t[k];
+            if (da == 0.0f && dt_in == 0.0f && dcol[0] == 0.0f && dcol[1] == 0.0f && dcol[2] == 0.0f)
+                continue;
+            const float draw = da * alpha_act_grad(s.raw, p.act_sigmoid);
+            float dw8[8];
+            for (int c = 0; c < 8; ++c) {
+                dA8[c] = dA8[c] + draw * s.w8[c];
+                dw8[c] = draw * cs.alpha8[c];
+            }
+            for (int ch = 0; ch < 3; ++ch) {
+                const float dpre = dcol[ch] * clip_lo_grad(s.pre_rgb[ch], 0.0f);
+                for (int c = 0; c < 8; ++c) {
+                    dC[ch][c] = dC[ch][c] + dpre * s.w8[c];
+                    if (!p.no_sh_surf_grad) dw8[c] = dw8[c] + dpre * cs.crgb[ch][c];
+                }
+            }
+            // the sample position: clip(where(geo_ok, o + t d - l, 0.5), 0, 1)
+            float dfs[3];
+            trilerp_weights_vjp(s.fs, dw8, dfs);
+            float dt = dt_in;
+            if (s.geo_pre)
+                for (int a = 0; a < 3; ++a) dt = dt + dfs[a] * clip_grad(s.frac[a], 0.0f, 1.0f) * d[a];
+            // t = close_t + root; the root moves with the coefficients
+            if (has[j] && dt != 0.0f) {
+                const float ts = roots[j];
+                const float fp = 3.0f * f[3] * ts * ts + 2.0f * f[2] * ts + f[1];
+                const float gt = -dt / safe_fp(fp);
+                df[0] = df[0] + gt;
+                df[1] = df[1] + gt * ts;
+                df[2] = df[2] + gt * ts * ts;
+                df[3] = df[3] + gt * ts * ts * ts;
+            }
+        }
+    }
+    if (df[0] != 0.0f || df[1] != 0.0f || df[2] != 0.0f || df[3] != 0.0f) {
+        // the coefficients are linear in the corner values: f(e_c) is d f / d s_c
+        for (int c = 0; c < 8; ++c) {
+            float e[8], fc[4];
+            for (int k = 0; k < 8; ++k) e[k] = k == c ? 1.0f : 0.0f;
+            cubic_coeffs(e, u, d, fc);
+            dS8[c] = dS8[c] + df[0] * fc[0] + df[1] * fc[1] + df[2] * fc[2] + df[3] * fc[3];
+        }
+    }
+
+    float g_fss = 0.0f;
+    if (p.fake_sample) {
+        const float fss = p.fs_std ? p.fs_std[0] : 1.0f;
+        FakeSlot fk;
+        fake_slot(cs, o, d, l, close_t, far_t, vox_has_sample, vox_has_surf, p.min_vox_len,
+                  p.limited_fake, p.normalize_surf, p.level_sets, p.n_lv, p.sigma_thresh, fss,
+                  p.act_sigmoid, fk);
+        const int64_t k = (int64_t)(p.S0 - 1) * p.M + m;
+        float da = p.d_alpha[k];
+        if (p.contrib[k]) da = da + g_in * inward_sq(fk.fsn, d) + g_lap * lap_grad(fk.falpha);
+        const float dcol[3] = {p.d_col[k], p.d_col[SM + k], p.d_col[2 * SM + k]};
+        if (da != 0.0f || dcol[0] != 0.0f || dcol[1] != 0.0f || dcol[2] != 0.0f) {
+            // falpha = alpha_act(fraw) * exp(-q^2 / 2), q = fake_dist / fss
+            const float draw = da * fk.gauss * alpha_act_grad(fk.fraw, p.act_sigmoid);
+            for (int c = 0; c < 8; ++c) dA8[c] = dA8[c] + draw * fk.fw8[c];
+            const float dq = da * fk.base * (fk.gauss * -fk.q);
+            g_fss = dq * (-fk.q / fss);
+            const float ds = dq / fss;  // d fake_dist = d s_norm
+            if (p.normalize_surf) {
+                // s_norm = sum_c fw8 s_c / std, std = sqrt(max(var, 1e-9))
+                for (int c = 0; c < 8; ++c) dS8[c] = dS8[c] + ds * (fk.fw8[c] / fk.std_);
+                const float dstd = -ds * fk.s_norm / fk.std_;
+                const float dvar = dstd * (0.5f / fk.std_) * clip_lo_grad(fk.var, 1e-9f);
+                float dmu = 0.0f;
+                for (int c = 0; c < 8; ++c) {
+                    const float gv = dvar * (2.0f * (cs.surf8[c] - fk.mu) / 8.0f);
+                    dS8[c] = dS8[c] + gv;
+                    dmu = dmu - gv;
+                }
+                for (int c = 0; c < 8; ++c) dS8[c] = dS8[c] + dmu / 8.0f;
+            } else {
+                for (int c = 0; c < 8; ++c) dS8[c] = dS8[c] + ds * fk.fw8[c];
+            }
+            for (int ch = 0; ch < 3; ++ch) {
+                const float dpre = dcol[ch] * clip_lo_grad(fk.pre_rgb[ch], 0.0f);
+                for (int c = 0; c < 8; ++c) dC[ch][c] = dC[ch][c] + dpre * fk.fw8[c];
+            }
+        }
+    }
+
+    const int nsh = 3 * p.bd;
+    for (int c = 0; c < 8; ++c) {
+        const int64_t row = cs.link[c];  // present: vox_ok holds
+        if (dA8[c] != 0.0f) atomic_add(p.g_density + row, dA8[c]);
+        if (dS8[c] != 0.0f) atomic_add(p.g_surface + row * p.n_surf_c, dS8[c]);
+        for (int ch = 0; ch < 3; ++ch) {
+            if (dC[ch][c] == 0.0f) continue;
+            for (int b = 0; b < p.bd; ++b)
+                atomic_add(p.g_sh + row * nsh + ch * p.bd + b, dC[ch][c] * shm[b]);
+        }
+    }
+    return g_fss;
+}
+
+#ifdef __CUDACC__
+__global__ void backward_ray_kernel(BackRayParams p) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r < p.B) backward_ray_thread(p, r);
+}
+
+__global__ void backward_entry_kernel(BackEntryParams p) {
+    const int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    float g = m < p.M ? backward_entry_thread(p, m) : 0.0f;
+    g = warp_sum(g);
+    if ((threadIdx.x & 31) == 0 && g != 0.0f && p.g_fss) atomicAdd(p.g_fss, g);
+}
+
+extern "C" cudaError_t backward_ray(const int64_t* offsets, int B, long long M, int S0,
+                                    const float* t, const float* alpha, const bool* contrib,
+                                    const bool* fake, const int* counted, const float* rgb,
+                                    int truncated, const float* trunc_a, float trunc_wmin,
+                                    int stop_on, float log_stop, float bg, int fake_l_dist,
+                                    const float* g_rgb, const float* g_rl, float* d_alpha,
+                                    float* d_t, float* d_col, void* stream) {
+    if (B <= 0) return cudaSuccess;
+    const BackRayParams p{offsets, B, M, S0, t, alpha, contrib, fake, counted, rgb, truncated,
+                          trunc_a, trunc_wmin, stop_on, log_stop, bg, fake_l_dist, g_rgb, g_rl,
+                          d_alpha, d_t, d_col};
+    const int block = 128;
+    backward_ray_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(p);
+    return cudaGetLastError();
+}
+
+extern "C" cudaError_t backward_entry(const int* ray_id, const int* l, const float* close_t,
+                                      const float* far_t, long long M, int B, const float* origins,
+                                      const float* dirs, const float* sh_mult, int bd,
+                                      const int* links, int X, int Y, int Z, const float* packed,
+                                      int cap, int C8, int n_surf_c, const float* level_sets,
+                                      int n_lv, int S0, float near_grid_t, float sigma_thresh,
+                                      const float* fs_std, float min_vox_len, int only_outward,
+                                      int fake_sample, int limited_fake, int normalize_surf,
+                                      int act_sigmoid, int no_sh_surf_grad, const bool* contrib,
+                                      const float* d_alpha, const float* d_t, const float* d_col,
+                                      const float* g_rl, float* g_density, float* g_surface,
+                                      float* g_sh, float* g_fss, void* stream) {
+    if (M <= 0) return cudaSuccess;
+    const BackEntryParams p{ray_id, l, close_t, far_t, M, B, origins, dirs, sh_mult, bd, links,
+                            X, Y, Z, packed, cap, C8, n_surf_c, level_sets, n_lv, S0,
+                            near_grid_t, sigma_thresh, fs_std, min_vox_len, only_outward,
+                            fake_sample, limited_fake, normalize_surf, act_sigmoid,
+                            no_sh_surf_grad, contrib, d_alpha, d_t, d_col, g_rl, g_density,
+                            g_surface, g_sh, g_fss};
+    const int block = 128;
+    backward_entry_kernel<<<(unsigned)((M + block - 1) / block), block, 0, (cudaStream_t)stream>>>(p);
+    return cudaGetLastError();
+}
+#endif

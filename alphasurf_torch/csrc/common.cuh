@@ -49,3 +49,60 @@ HD float corner_dot(const float w[8], const float v[8]) {
     for (int k = 1; k < 8; ++k) acc = acc + w[k] * v[k];
     return acc;
 }
+
+// truncated-vol-render cosine ramp at running intersection index ids
+// (surface.py:trunc_vol_render_rw)
+HD float trunc_rw(int ids, float a, float wmin) {
+    const float x = fminf(fmaxf(a - (float)ids, 0.0f), 1.0f);
+    const float pi = 3.14159265358979323846f;
+    return fmaxf(0.5f * (1.0f - cosf(pi * x)), wmin);
+}
+
+// the compositor's clamp of 1 - alpha
+HD float one_minus(float a) {
+    return fminf(fmaxf(1.0f - a, 1e-7f), 1.0f - 1e-7f);
+}
+
+// Derivative factor of jnp.clip (a maximum, then a minimum): 1 strictly
+// inside, 0 outside, and 1/2 at an exact tie, where JAX's maximum and
+// minimum split the gradient between their two arguments.
+HD float clip_grad(float x, float lo, float hi) {
+    return (x > lo && x < hi) ? 1.0f : ((x == lo || x == hi) ? 0.5f : 0.0f);
+}
+
+HD float clip_lo_grad(float x, float lo) {
+    return x > lo ? 1.0f : (x == lo ? 0.5f : 0.0f);
+}
+
+// atomic add on the device; a plain add when the per-thread code runs on
+// the host
+HD void atomic_add(float* p, float v) {
+#ifdef __CUDA_ARCH__
+    atomicAdd(p, v);
+#else
+    *p += v;
+#endif
+}
+
+#ifdef __CUDACC__
+__device__ __forceinline__ float warp_sum(float v) {
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    return v;
+}
+
+// sum of v over the block, added to *out by one atomic in double, so that
+// the sum over many blocks does not drift; every thread of the block must
+// call it (blockDim.x a multiple of 32, at most 1024)
+__device__ __forceinline__ void block_sum_atomic(float v, double* out) {
+    __shared__ float part[32];
+    v = warp_sum(v);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (lane == 0) part[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+        v = lane < (int)(blockDim.x >> 5) ? part[lane] : 0.0f;
+        v = warp_sum(v);
+        if (lane == 0 && v != 0.0f) atomicAdd(out, (double)v);
+    }
+}
+#endif

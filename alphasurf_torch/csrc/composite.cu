@@ -32,7 +32,8 @@ struct CompositeParams {
     const float* snorm;
     const float* loss_e;
     int truncated;
-    float trunc_a, trunc_wmin;
+    const float* trunc_a;  // (1,) on the device
+    float trunc_wmin;
     int stop_on;
     float log_stop;
     float bg;
@@ -48,24 +49,14 @@ struct CompositeParams {
     float* weight;  // (S0, M)
 };
 
-// truncated-vol-render cosine ramp (surface.py:trunc_vol_render_rw)
-HD float trunc_rw(const CompositeParams& p, int ids) {
-    const float x = fminf(fmaxf(p.trunc_a - (float)ids, 0.0f), 1.0f);
-    const float pi = 3.14159265358979323846f;
-    return fmaxf(0.5f * (1.0f - cosf(pi * x)), p.trunc_wmin);
-}
-
-HD float alpha_trunc(const CompositeParams& p, int64_t i, int cnt) {
+HD float alpha_trunc(const CompositeParams& p, int64_t i, int cnt, float ta) {
     const float a = p.alpha[i];
-    return p.truncated ? a * trunc_rw(p, cnt - (p.fake[i] ? 1 : 0)) : a;
-}
-
-HD float one_minus(float a) {
-    return fminf(fmaxf(1.0f - a, 1e-7f), 1.0f - 1e-7f);
+    return p.truncated ? a * trunc_rw(cnt - (p.fake[i] ? 1 : 0), ta, p.trunc_wmin) : a;
 }
 
 HD void composite_ray(const CompositeParams& p, int r) {
     const int64_t e0 = p.offsets[r], e1 = p.offsets[r + 1];
+    const float ta = p.trunc_a[0];
     int cnt = 0;
     int64_t e_dead = e1;  // entries from here on were killed by stop_thresh
     float entry_pre = 0.0f, pre_att = 0.0f, totW = 0.0f;
@@ -85,7 +76,7 @@ HD void composite_ray(const CompositeParams& p, int r) {
             int c = cnt;
             for (int s = 0; s < p.S0; ++s) {
                 const int64_t i = (int64_t)s * p.M + e;
-                if (p.contrib[i]) la = la + logf(one_minus(alpha_trunc(p, i, c)));
+                if (p.contrib[i]) la = la + logf(one_minus(alpha_trunc(p, i, c, ta)));
                 c += p.counted[i];
             }
             alive = entry_pre > p.log_stop;
@@ -96,7 +87,7 @@ HD void composite_ray(const CompositeParams& p, int r) {
         float w_best = -1.0f, t_best = 0.0f;
         for (int s = 0; s < p.S0; ++s) {
             const int64_t i = (int64_t)s * p.M + e;
-            const float at = alpha_trunc(p, i, cnt);
+            const float at = alpha_trunc(p, i, cnt, ta);
             cnt += p.counted[i];
             const bool c = p.contrib[i] && alive;
             const float ac = c ? at : 0.0f;
@@ -182,7 +173,7 @@ extern "C" cudaError_t composite(const int64_t* offsets, int B, long long M, int
                                  const float* t, const float* alpha, const bool* contrib,
                                  const bool* fake, const int* counted, const float* rgb,
                                  const float* snorm, const float* loss_e, int truncated,
-                                 float trunc_a, float trunc_wmin, int stop_on, float log_stop,
+                                 const float* trunc_a, float trunc_wmin, int stop_on, float log_stop,
                                  float bg, int fake_l_dist, float* out_rgb, float* depth,
                                  float* normal, float* log_T, float* depth_mode, float* depth_med,
                                  int* n_int, float* losses, float* weight, void* stream) {

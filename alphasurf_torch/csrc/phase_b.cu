@@ -18,8 +18,11 @@
 // values and 8x3 colours in registers instead of 8x32 floats.
 //
 // Outputs keep the JAX package's layout: slot arrays (S0, M), vectors
-// (3, S0, M), loss sums (3, M).
-#include "common.cuh"
+// (3, S0, M), loss sums (3, M). The per-entry math is in samples.cuh,
+// which K5b (backward.cu) shares to recompute the samples it
+// differentiates.
+#include "samples.cuh"
+
 
 struct PhaseBParams {
     const int* ray_id;
@@ -38,7 +41,9 @@ struct PhaseBParams {
     const float* level_sets;
     int n_lv;
     int S0;
-    float near_grid_t, sigma_thresh, fs_std, min_vox_len;
+    float near_grid_t, sigma_thresh;
+    const float* fs_std;  // (1,) on the device, or null for 1
+    float min_vox_len;
     int only_outward, fake_sample, limited_fake, normalize_surf, act_sigmoid;
     float* t;
     float* alpha;
@@ -49,111 +54,6 @@ struct PhaseBParams {
     float* snorm;
     float* loss_e;
 };
-
-HD float alpha_act(float raw, int sigmoid) {
-    return sigmoid ? 1.0f / (1.0f + expf(-raw)) : 1.0f - expf(-fmaxf(raw, 0.0f));
-}
-
-// ops/cubic.py:cubic_coeffs_T
-HD void cubic_coeffs(const float s[8], const float u[3], const float v[3], float f[4]) {
-    const float ux = u[0], uy = u[1], uz = u[2];
-    const float vx = v[0], vy = v[1], vz = v[2];
-    const float a00 = s[0] * (1.0f - uz) + s[1] * uz;
-    const float a01 = s[2] * (1.0f - uz) + s[3] * uz;
-    const float a10 = s[4] * (1.0f - uz) + s[5] * uz;
-    const float a11 = s[6] * (1.0f - uz) + s[7] * uz;
-    const float b00 = s[1] - s[0];
-    const float b01 = s[3] - s[2];
-    const float b10 = s[5] - s[4];
-    const float b11 = s[7] - s[6];
-    const float c0 = a00 * (1.0f - uy) + a01 * uy;
-    const float c1 = a10 * (1.0f - uy) + a11 * uy;
-    const float d0 = -(a00 * vy - vz * b00 * (1.0f - uy)) + (a01 * vy + vz * b01 * uy);
-    const float d1 = -(a10 * vy - vz * b10 * (1.0f - uy)) + (a11 * vy + vz * b11 * uy);
-    const float e0 = vy * vz * (b01 - b00);
-    const float e1 = vy * vz * (b11 - b10);
-    f[3] = (e1 - e0) * vx;
-    f[2] = -d0 * vx + e0 * (1.0f - ux) + d1 * vx + e1 * ux;
-    f[1] = -c0 * vx + d0 * (1.0f - ux) + c1 * vx + d1 * ux;
-    f[0] = c0 * (1.0f - ux) + c1 * ux;
-}
-
-// ops/cubic.py:_cubic_roots_raw; slots without a root hold -1
-HD void cubic_roots(float f0, float f1, float f2, float f3, float r[3]) {
-    const bool is3 = fabsf(f3) >= 1e-10f;
-    const bool is2 = !is3 && fabsf(f2) >= 1e-10f;
-    const bool is1 = !is3 && !is2 && fabsf(f1) >= 1e-10f;
-    const float t_lin = -f0 / (is1 ? f1 : 1.0f);
-
-    const float qb = is2 ? f2 : 1.0f;
-    const float D = f1 * f1 - 4.0f * f2 * f0;
-    const bool has2 = is2 && D > 0.0f;
-    const float sqrtD = sqrtf(has2 ? D : 0.0f);
-    const float q0 = (-f1 - sqrtD) / (2.0f * qb);
-    const float q1 = (-f1 + sqrtD) / (2.0f * qb);
-
-    const float cf3 = is3 ? f3 : 1.0f;
-    const float b = f2 / cf3, c = f1 / cf3, d = f0 / cf3;
-    const float Q = (b * b - 3.0f * c) / 9.0f;
-    const float R = (2.0f * (b * b * b) - 9.0f * b * c + 27.0f * d) / 54.0f;
-    const bool three = is3 && (R * R < Q * Q * Q);
-    const float sqrtQ = sqrtf(three ? Q : 1.0f);
-    const float arg = fminf(fmaxf(R / (sqrtQ * sqrtQ * sqrtQ), -1.0f + 1e-10f), 1.0f - 1e-10f);
-    const float theta = acosf(arg);
-    const float pi = 3.14159265358979323846f;
-    const float t_c0 = -2.0f * sqrtQ * cosf(theta / 3.0f) - b / 3.0f;
-    const float t_c1 = -2.0f * sqrtQ * cosf((theta - 2.0f * pi) / 3.0f) - b / 3.0f;
-    const float t_c2 = -2.0f * sqrtQ * cosf((theta + 2.0f * pi) / 3.0f) - b / 3.0f;
-
-    const bool one = is3 && !three;
-    const float disc = one ? R * R - Q * Q * Q : 1.0f;
-    const float sgn = R > 0.0f ? 1.0f : (R < 0.0f ? -1.0f : 0.0f);
-    const float A = -sgn * powf(fabsf(R) + sqrtf(fmaxf(disc, 1e-8f)), 1.0f / 3.0f);
-    const float Bv = A == 0.0f ? 0.0f : Q / A;
-    const float t_s = A + Bv - b / 3.0f;
-
-    r[0] = three ? t_c0 : one ? t_s : has2 ? fminf(q0, q1) : is1 ? t_lin : 0.0f;
-    r[1] = three ? t_c1 : has2 ? fmaxf(q0, q1) : 0.0f;
-    r[2] = three ? t_c2 : 0.0f;
-    const bool has[3] = {three || one || has2 || is1, three || has2, three};
-    for (int j = 0; j < 3; ++j) {
-        float x = r[j];
-        for (int it = 0; it < 2; ++it) {
-            const float ft = ((f3 * x + f2) * x + f1) * x + f0;
-            const float fp = (3.0f * f3 * x + 2.0f * f2) * x + f1;
-            const float step = fabsf(fp) > 1e-6f ? ft / fp : 0.0f;
-            x = x - fminf(fmaxf(step, -0.5f), 0.5f);
-        }
-        r[j] = (has[j] && fabsf(x) < 1e4f) ? x : -1.0f;
-    }
-}
-
-// render/surface.py:trilerp_field_grad_T
-HD void field_grad(const float s[8], float x, float y, float z, float g[3]) {
-    const float c00 = s[0] * (1.0f - z) + s[1] * z;
-    const float c01 = s[2] * (1.0f - z) + s[3] * z;
-    const float c10 = s[4] * (1.0f - z) + s[5] * z;
-    const float c11 = s[6] * (1.0f - z) + s[7] * z;
-    const float c0 = c00 * (1.0f - y) + c01 * y;
-    const float c1 = c10 * (1.0f - y) + c11 * y;
-    g[0] = c1 - c0;
-    g[1] = x * (c11 - c10) + (1.0f - x) * (c01 - c00);
-    g[2] = x * (y * (s[7] - s[6]) + (1.0f - y) * (s[5] - s[4])) +
-           (1.0f - x) * (y * (s[3] - s[2]) + (1.0f - y) * (s[1] - s[0]));
-}
-
-HD float dot3(const float a[3], const float b[3]) {
-    float acc = a[0] * b[0];
-    acc = acc + a[1] * b[1];
-    return acc + a[2] * b[2];
-}
-
-// -g / |g|, with |g|^2 floored at 1e-20
-HD void unit_normal(const float g[3], float n[3]) {
-    const float nsq = dot3(g, g);
-    const float den = sqrtf(nsq > 1e-20f ? nsq : 1e-20f);
-    for (int k = 0; k < 3; ++k) n[k] = -g[k] / den;
-}
 
 struct SlotSums {
     float inward = 0.0f, lap = 0.0f, lap_cnt = 0.0f;
@@ -175,10 +75,8 @@ HD void write_slot(const PhaseBParams& p, int64_t m, int s, float t, float alpha
 
 // the inward-norm and density-lap terms of one slot (normal sn_in)
 HD void add_slot_losses(SlotSums& acc, bool contrib, float alpha, const float sn_in[3], const float d[3]) {
-    const float in_pos = fmaxf(dot3(sn_in, d), 0.0f);
-    acc.inward = acc.inward + (contrib ? alpha * (in_pos * in_pos) : 0.0f);
-    const float p_lap = expf(-alpha) + expf(-(1.0f - alpha));
-    acc.lap = acc.lap + (contrib ? -logf(p_lap) : 0.0f);
+    acc.inward = acc.inward + (contrib ? alpha * inward_sq(sn_in, d) : 0.0f);
+    acc.lap = acc.lap + (contrib ? lap_term(alpha) : 0.0f);
     acc.lap_cnt = acc.lap_cnt + (contrib ? 1.0f : 0.0f);
 }
 
@@ -191,110 +89,51 @@ HD void phase_b_entry(const PhaseBParams& p, int64_t m) {
         o[a] = p.origins[3 * (int64_t)r + a];
         d[a] = p.dirs[3 * (int64_t)r + a];
     }
-    const float* shm = p.sh_mult + (int64_t)r * p.bd;
+    Corners cs;
+    gather_corners(p.links, p.X, p.Y, p.Z, p.packed, p.cap, p.C8, p.n_surf_c, p.bd,
+                   p.sh_mult + (int64_t)r * p.bd, p.sigma_thresh, l, cs);
 
-    // gather the 8 corner rows; colours contracted with the SH basis
-    float alpha8[8], surf8[8], crgb[3][8];
-    bool vox_ok = true, any_alpha = false;
-    const int sh_base = 1 + p.n_surf_c;
-    for (int c = 0; c < 8; ++c) {
-        const int cx = clampi(l[0] + corner_dx(c), 0, p.X - 1);
-        const int cy = clampi(l[1] + corner_dy(c), 0, p.Y - 1);
-        const int cz = clampi(l[2] + corner_dz(c), 0, p.Z - 1);
-        const int link = p.links[((int64_t)cx * p.Y + cy) * p.Z + cz];
-        const bool present = link >= 0;
-        vox_ok = vox_ok && present;
-        const float* row = p.packed + (int64_t)clampi(link, 0, p.cap - 1) * p.C8;
-        alpha8[c] = present ? row[0] : 0.0f;
-        surf8[c] = present ? row[1] : 0.0f;
-        for (int ch = 0; ch < 3; ++ch) {
-            const float* sh = row + sh_base + ch * p.bd;
-            float acc = (present ? sh[0] : 0.0f) * shm[0];
-            for (int b = 1; b < p.bd; ++b) acc = acc + (present ? sh[b] : 0.0f) * shm[b];
-            crgb[ch][c] = acc;
-        }
-        any_alpha = any_alpha || alpha8[c] >= p.sigma_thresh;
-    }
-    vox_ok = vox_ok && any_alpha;
-
-    float smin = surf8[0], smax = surf8[0];
+    float smin = cs.surf8[0], smax = cs.surf8[0];
     for (int c = 1; c < 8; ++c) {
-        smin = fminf(smin, surf8[c]);
-        smax = fmaxf(smax, surf8[c]);
+        smin = fminf(smin, cs.surf8[c]);
+        smax = fmaxf(smax, cs.surf8[c]);
     }
     float u[3], f[4];
     for (int a = 0; a < 3; ++a) u[a] = o[a] + close_t * d[a] - (float)l[a];
-    cubic_coeffs(surf8, u, d, f);
+    cubic_coeffs(cs.surf8, u, d, f);
 
     SlotSums sums;
     bool vox_has_sample = false, vox_has_surf = false;
     for (int i = 0; i < p.n_lv; ++i) {
         const float lv = p.level_sets[i];
-        const bool lv_ok = vox_ok && lv >= smin && lv <= smax;
+        const bool lv_ok = cs.vox_ok && lv >= smin && lv <= smax;
         vox_has_surf = vox_has_surf || lv_ok;
         float roots[3];
-        cubic_roots(f[0] - lv, f[1], f[2], f[3], roots);
+        bool has[3];
+        cubic_roots(f[0] - lv, f[1], f[2], f[3], roots, has);
         for (int j = 0; j < 3; ++j) {
-            const float t = close_t + roots[j];
-            float frac[3];
-            bool in_cube = true;
-            for (int a = 0; a < 3; ++a) {
-                frac[a] = o[a] + t * d[a] - (float)l[a];
-                in_cube = in_cube && frac[a] >= 0.0f && frac[a] <= 1.0f;
-            }
-            bool geo_ok = lv_ok && roots[j] > 0.0f && in_cube && t >= p.near_grid_t;
-            vox_has_sample = vox_has_sample || geo_ok;
-            for (int a = 0; a < 3; ++a) frac[a] = fminf(fmaxf(geo_ok ? frac[a] : 0.5f, 0.0f), 1.0f);
-            float g[3], sn[3], w8[8], rgb[3];
-            field_grad(surf8, frac[0], frac[1], frac[2], g);
-            if (p.only_outward) geo_ok = geo_ok && dot3(g, d) > 0.0f;
-            unit_normal(g, sn);
-            trilerp_weights(frac[0], frac[1], frac[2], w8);
-            const float raw = corner_dot(w8, alpha8);
-            for (int ch = 0; ch < 3; ++ch) rgb[ch] = fmaxf(corner_dot(w8, crgb[ch]) + 0.5f, 0.0f);
-            const bool contrib = geo_ok && raw > p.sigma_thresh;
-            const float alpha = alpha_act(raw, p.act_sigmoid);
-            write_slot(p, m, 3 * i + j, t, alpha, rgb, contrib, false, geo_ok ? 1 : 0, sn);
-            add_slot_losses(sums, contrib, alpha, sn, d);
+            RealSlot s;
+            real_slot(cs, o, d, l, close_t, roots[j], lv_ok, p.near_grid_t, p.only_outward, s);
+            vox_has_sample = vox_has_sample || s.geo_pre;
+            float rgb[3];
+            for (int ch = 0; ch < 3; ++ch) rgb[ch] = fmaxf(s.pre_rgb[ch], 0.0f);
+            const bool contrib = s.geo_ok && s.raw > p.sigma_thresh;
+            const float alpha = alpha_act(s.raw, p.act_sigmoid);
+            write_slot(p, m, 3 * i + j, s.t, alpha, rgb, contrib, false, s.geo_ok ? 1 : 0, s.sn);
+            add_slot_losses(sums, contrib, alpha, s.sn, d);
         }
     }
 
     if (p.fake_sample) {
-        bool take = vox_ok && !vox_has_sample && (far_t - close_t) > p.min_vox_len;
-        if (p.limited_fake) take = take && vox_has_surf;
-        const float tf = 0.5f * (close_t + far_t);
-        float ff[3];
-        for (int a = 0; a < 3; ++a)
-            ff[a] = fminf(fmaxf(take ? o[a] + tf * d[a] - (float)l[a] : 0.5f, 0.0f), 1.0f);
-        float fw8[8], frgb[3];
-        trilerp_weights(ff[0], ff[1], ff[2], fw8);
-        const float fraw = corner_dot(fw8, alpha8);
-        for (int ch = 0; ch < 3; ++ch) frgb[ch] = fmaxf(corner_dot(fw8, crgb[ch]) + 0.5f, 0.0f);
-        float mu = surf8[0];
-        for (int c = 1; c < 8; ++c) mu = mu + surf8[c];
-        mu = mu / 8.0f;
-        float var = (surf8[0] - mu) * (surf8[0] - mu);
-        for (int c = 1; c < 8; ++c) var = var + (surf8[c] - mu) * (surf8[c] - mu);
-        var = var / 8.0f;
-        const float std_ = p.normalize_surf ? sqrtf(fmaxf(var, 1e-9f)) : 1.0f;
-        float sn8[8];
-        for (int c = 0; c < 8; ++c) sn8[c] = surf8[c] / std_;
-        const float s_norm = corner_dot(fw8, sn8);
-        // signed distance to the nearest level set (first on ties)
-        float fake_dist = s_norm - p.level_sets[0];
-        for (int i = 1; i < p.n_lv; ++i) {
-            const float di = s_norm - p.level_sets[i];
-            if (fabsf(di) < fabsf(fake_dist)) fake_dist = di;
-        }
-        take = take && fraw > p.sigma_thresh;
-        const float q = fake_dist / p.fs_std;
-        const float falpha = alpha_act(fraw, p.act_sigmoid) * expf(-0.5f * (q * q));
-        float g[3], fsn[3];
-        field_grad(surf8, ff[0], ff[1], ff[2], g);
-        unit_normal(g, fsn);
+        FakeSlot fs;
+        fake_slot(cs, o, d, l, close_t, far_t, vox_has_sample, vox_has_surf, p.min_vox_len,
+                  p.limited_fake, p.normalize_surf, p.level_sets, p.n_lv, p.sigma_thresh,
+                  p.fs_std ? p.fs_std[0] : 1.0f, p.act_sigmoid, fs);
+        float frgb[3];
+        for (int ch = 0; ch < 3; ++ch) frgb[ch] = fmaxf(fs.pre_rgb[ch], 0.0f);
         const float zero3[3] = {0.0f, 0.0f, 0.0f};
-        write_slot(p, m, p.S0 - 1, tf, falpha, frgb, take, true, 0, zero3);
-        add_slot_losses(sums, take, falpha, fsn, d);
+        write_slot(p, m, p.S0 - 1, fs.tf, fs.falpha, frgb, fs.take, true, 0, zero3);
+        add_slot_losses(sums, fs.take, fs.falpha, fs.fsn, d);
     }
     p.loss_e[m] = sums.inward;
     p.loss_e[p.M + m] = sums.lap;
@@ -312,7 +151,7 @@ extern "C" cudaError_t phase_b(const int* ray_id, const int* l, const float* clo
                                const float* dirs, const float* sh_mult, int bd, const int* links,
                                int X, int Y, int Z, const float* packed, int cap, int C8,
                                int n_surf_c, const float* level_sets, int n_lv, int S0,
-                               float near_grid_t, float sigma_thresh, float fs_std,
+                               float near_grid_t, float sigma_thresh, const float* fs_std,
                                float min_vox_len, int only_outward, int fake_sample,
                                int limited_fake, int normalize_surf, int act_sigmoid, float* t,
                                float* alpha, bool* contrib, bool* fake, int* counted, float* rgb,

@@ -1,0 +1,369 @@
+// K6: the cell regularizers, loss and row gradients in one pass.
+//
+// Replaces the JAX package's losses/reg.py: tv_loss (126-155) and
+// surface_tv_loss (158-183) in reg_tv, surface_normal_loss (202-302) in
+// reg_normal, alpha_surf_sparsify_loss (305-330) in reg_sparsify, each with
+// its jax.grad, as svox2's loss_kernel.cu computed loss and gradient
+// together. With a cell list the cells are a sampled window (flat lattice
+// ids, reg.py:sample_present_cells or sample_cells); without one, every
+// lattice cell is a thread, which is the dense variants
+// surface_tv_loss_dense (384) and surface_normal_loss_dense (428): the
+// latter covers the cells whose 3x3x3 window lies inside the lattice, as
+// its slab formulation does. The caller's ``scale`` is 1/n for a window of
+// n cells and 1/links.size for every cell.
+//
+// Each thread reads its cell's links (+x/+y/+z neighbours, or the 3x3x3
+// window), the rows they name, computes the cell's loss and its analytic
+// gradient, and adds the gradient into its own and its neighbours' rows with
+// atomicAdd; the loss is summed over the block and added with one atomic,
+// in double: a float32 sum over millions of cells (every-cell mode) drifts.
+//
+// Bound: bytes, and at the main path's window (0.01 of 2.47M rows) the
+// launch itself: each cell reads 4 (TV) or 27 (normal) links and as many
+// rows and adds as many gradients. Design: one thread per cell, flat ids
+// decoded in the thread, zero gradients not added.
+#include "common.cuh"
+
+HD int link_at(const int* links, int X, int Y, int Z, int64_t x, int64_t y, int64_t z) {
+    if (x < 0 || x >= X || y < 0 || y >= Y || z < 0 || z >= Z) return -1;
+    return links[(x * Y + y) * Z + z];
+}
+
+HD void decode_cell(int64_t cell, int Y, int Z, int64_t& x, int64_t& y, int64_t& z) {
+    z = cell % Z;
+    const int64_t xy = cell / Z;
+    y = xy % Y;
+    x = xy / Y;
+}
+
+// ---------------------------------------------------------------------------
+// TV over channels [c0, c1) of a (cap, C) array; optionally each cell
+// weighted by sigmoid of its raw alpha (detached), as surface_tv_loss's
+// alpha_weighted
+// ---------------------------------------------------------------------------
+
+struct TVParams {
+    const int* links;
+    int X, Y, Z;
+    const int* cells;  // (n,) flat ids, or null for every lattice cell
+    int64_t n;
+    const float* data;
+    int C, c0, c1;
+    const float* wdens;  // (cap,) raw alpha, or null for no weighting
+    float scale;
+    double* loss;  // (1,), float64
+    float* grad;  // (cap, C)
+};
+
+HD float tv_cell(const TVParams& p, int64_t n) {
+    int64_t x, y, z;
+    decode_cell(p.cells ? (int64_t)p.cells[n] : n, p.Y, p.Z, x, y, z);
+    const int l0 = link_at(p.links, p.X, p.Y, p.Z, x, y, z);
+    const int lx = link_at(p.links, p.X, p.Y, p.Z, x + 1, y, z);
+    const int ly = link_at(p.links, p.X, p.Y, p.Z, x, y + 1, z);
+    const int lz = link_at(p.links, p.X, p.Y, p.Z, x, y, z + 1);
+    float aw = 1.0f;
+    if (p.wdens) aw = 1.0f / (1.0f + expf(-(l0 >= 0 ? p.wdens[l0] : 0.0f)));
+    float loss = 0.0f;
+    for (int ch = p.c0; ch < p.c1; ++ch) {
+        const float v0 = l0 >= 0 ? p.data[(int64_t)l0 * p.C + ch] : 0.0f;
+        const float vx = lx >= 0 ? p.data[(int64_t)lx * p.C + ch] : 0.0f;
+        const float vy = ly >= 0 ? p.data[(int64_t)ly * p.C + ch] : 0.0f;
+        const float vz = lz >= 0 ? p.data[(int64_t)lz * p.C + ch] : 0.0f;
+        const float dx = (l0 >= 0 && lx >= 0) ? vx - v0 : 0.0f;
+        const float dy = (l0 >= 0 && ly >= 0) ? vy - v0 : 0.0f;
+        const float dz = (l0 >= 0 && lz >= 0) ? vz - v0 : 0.0f;
+        const float sq = sqrtf(1e-5f + dx * dx + dy * dy + dz * dz);
+        loss = loss + sq;
+        const float g = p.scale * aw / sq;
+        if (dx != 0.0f) atomic_add(p.grad + (int64_t)lx * p.C + ch, g * dx);
+        if (dy != 0.0f) atomic_add(p.grad + (int64_t)ly * p.C + ch, g * dy);
+        if (dz != 0.0f) atomic_add(p.grad + (int64_t)lz * p.C + ch, g * dz);
+        const float g0 = -(g * dx + g * dy + g * dz);
+        if (g0 != 0.0f) atomic_add(p.grad + (int64_t)l0 * p.C + ch, g0);
+    }
+    return loss * aw * p.scale;
+}
+
+// ---------------------------------------------------------------------------
+// normal consistency over the 3x3x3 vertex window of each cell
+// ---------------------------------------------------------------------------
+
+struct NormalParams {
+    const int* links;
+    int X, Y, Z;
+    const int* cells;  // (n,) flat ids, or null for every cell of the interior box
+    int64_t n;
+    const float* surf;  // (cap, n_surf_c), channel 0
+    int n_surf_c;
+    const float* level_sets;
+    int n_lv;
+    int con_check, ignore_empty, use_l1;
+    float scale;
+    double* loss;  // (1,), float64
+    float* grad;  // (cap, n_surf_c)
+};
+
+// corner-averaged gradient of the cell at base offset (bx, by, bz) of the
+// window (reg.py:_cell_normal)
+HD void cell_normal(const float S[3][3][3], int bx, int by, int bz, float n[3]) {
+    const int x = bx, y = by, z = bz;
+    n[0] = ((S[x + 1][y][z] + S[x + 1][y][z + 1] + S[x + 1][y + 1][z] + S[x + 1][y + 1][z + 1]) -
+            (S[x][y][z] + S[x][y][z + 1] + S[x][y + 1][z] + S[x][y + 1][z + 1])) / 4.0f;
+    n[1] = ((S[x][y + 1][z] + S[x][y + 1][z + 1] + S[x + 1][y + 1][z] + S[x + 1][y + 1][z + 1]) -
+            (S[x][y][z] + S[x][y][z + 1] + S[x + 1][y][z] + S[x + 1][y][z + 1])) / 4.0f;
+    n[2] = ((S[x][y][z + 1] + S[x][y + 1][z + 1] + S[x + 1][y][z + 1] + S[x + 1][y + 1][z + 1]) -
+            (S[x][y][z] + S[x][y + 1][z] + S[x + 1][y][z] + S[x + 1][y + 1][z])) / 4.0f;
+}
+
+// the transpose of cell_normal: add dn into the window's 8 values
+HD void cell_normal_vjp(const float dn[3], int x, int y, int z, float G[3][3][3]) {
+    for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 2; ++j)
+            for (int k = 0; k < 2; ++k) {
+                const float sx = i ? 0.25f : -0.25f, sy = j ? 0.25f : -0.25f, sz = k ? 0.25f : -0.25f;
+                G[x + i][y + j][z + k] =
+                    G[x + i][y + j][z + k] + (dn[0] * sx + dn[1] * sy + dn[2] * sz);
+            }
+}
+
+struct Unit {
+    float v[3], N[3], sq, q, m;
+};
+
+// v / max(sqrt(sq > 1e-20 ? sq : 1e-20), 1e-10)
+HD void unit(const float v[3], Unit& u) {
+    for (int k = 0; k < 3; ++k) u.v[k] = v[k];
+    u.sq = v[0] * v[0] + v[1] * v[1] + v[2] * v[2];
+    u.q = sqrtf(u.sq > 1e-20f ? u.sq : 1e-20f);
+    u.m = fmaxf(u.q, 1e-10f);
+    for (int k = 0; k < 3; ++k) u.N[k] = v[k] / u.m;
+}
+
+HD void unit_vjp(const Unit& u, const float gN[3], float gv[3]) {
+    const float vg = u.v[0] * gN[0] + u.v[1] * gN[1] + u.v[2] * gN[2];
+    // through the norm: only where sq > 1e-20, halved at the max's tie
+    const float through = (u.sq > 1e-20f ? 1.0f : 0.0f) * clip_lo_grad(u.q, 1e-10f);
+    const float c = through * vg / (u.q * u.m * u.m);
+    for (int k = 0; k < 3; ++k) gv[k] = gN[k] / u.m - u.v[k] * c;
+}
+
+HD bool exists(const int L[3][3][3], int x, int y, int z) {
+    bool m = true;
+    for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 2; ++j)
+            for (int k = 0; k < 2; ++k) m = m && L[x + i][y + j][z + k] >= 0;
+    return m;
+}
+
+HD bool empty(const float S[3][3][3], int x, int y, int z) {
+    bool le = true, ge = true;
+    for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 2; ++j)
+            for (int k = 0; k < 2; ++k) {
+                le = le && S[x + i][y + j][z + k] <= 0.0f;
+                ge = ge && S[x + i][y + j][z + k] >= 0.0f;
+            }
+    return le || ge;
+}
+
+HD bool face_con(const NormalParams& p, float a, float b, float c, float d) {
+    const float mn = fminf(fminf(a, b), fminf(c, d));
+    const float mx = fmaxf(fmaxf(a, b), fmaxf(c, d));
+    bool con = false;
+    for (int i = 0; i < p.n_lv; ++i) con = con || (p.level_sets[i] >= mn && p.level_sets[i] <= mx);
+    return con;
+}
+
+// sum of |a - b| (L1) or (a - b)^2 over 3 components, and its derivative
+// in a: sign(a - b) (sign(0) = 0) or 2 (a - b)
+HD float ndiff(const float a[3], const float b[3], int use_l1, float g[3]) {
+    float acc = 0.0f;
+    for (int k = 0; k < 3; ++k) {
+        const float e = a[k] - b[k];
+        acc = acc + (use_l1 ? fabsf(e) : e * e);
+        g[k] = use_l1 ? (e > 0.0f ? 1.0f : (e < 0.0f ? -1.0f : 0.0f)) : 2.0f * e;
+    }
+    return acc;
+}
+
+HD float normal_cell(const NormalParams& p, int64_t n) {
+    int64_t x, y, z;
+    if (p.cells)
+        decode_cell(p.cells[n], p.Y, p.Z, x, y, z);
+    else
+        decode_cell(n, p.Y - 2, p.Z - 2, x, y, z);
+    int L[3][3][3];
+    float S[3][3][3];
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j)
+            for (int k = 0; k < 3; ++k) {
+                L[i][j][k] = link_at(p.links, p.X, p.Y, p.Z, x + i, y + j, z + k);
+                S[i][j][k] = L[i][j][k] >= 0 ? p.surf[(int64_t)L[i][j][k] * p.n_surf_c] : 0.0f;
+            }
+    const bool m000 = exists(L, 0, 0, 0), m001 = exists(L, 0, 0, 1);
+    const bool m010 = exists(L, 0, 1, 0), m100 = exists(L, 1, 0, 0);
+    bool con001 = true, con010 = true, con100 = true;
+    if (p.con_check) {
+        con001 = face_con(p, S[0][0][1], S[0][1][1], S[1][0][1], S[1][1][1]);
+        con010 = face_con(p, S[0][1][0], S[0][1][1], S[1][1][0], S[1][1][1]);
+        con100 = face_con(p, S[1][0][0], S[1][0][1], S[1][1][0], S[1][1][1]);
+    }
+    bool e000 = false, e001 = false, e010 = false, e100 = false;
+    if (p.ignore_empty) {
+        e000 = empty(S, 0, 0, 0);
+        e001 = empty(S, 0, 0, 1);
+        e010 = empty(S, 0, 1, 0);
+        e100 = empty(S, 1, 0, 0);
+    }
+    const bool skip_z = !m001 || !m000 || !con001 || (e000 && e001);
+    const bool skip_y = !m010 || !m000 || !con010 || (e000 && e010);
+    const bool skip_x = !m100 || !m000 || !con100 || (e000 && e100);
+    const int count = 3 - (int)skip_z - (int)skip_y - (int)skip_x;
+    if (count == 0) return 0.0f;
+
+    float v[3];
+    Unit u000, u001, u010, u100;
+    cell_normal(S, 0, 0, 0, v);
+    unit(v, u000);
+    cell_normal(S, 0, 0, 1, v);
+    unit(v, u001);
+    cell_normal(S, 0, 1, 0, v);
+    unit(v, u010);
+    cell_normal(S, 1, 0, 0, v);
+    unit(v, u100);
+    float gz[3], gy[3], gx[3];
+    const float dz = skip_z ? 0.0f : ndiff(u001.N, u000.N, p.use_l1, gz);
+    const float dy = skip_y ? 0.0f : ndiff(u010.N, u000.N, p.use_l1, gy);
+    const float dx = skip_x ? 0.0f : ndiff(u100.N, u000.N, p.use_l1, gx);
+    const float cell_loss = (dx + dy + dz) / (float)count;
+
+    // gradient: d per_cell / d N, through unit() and cell_normal() into S
+    const float c = p.scale / (float)count;
+    float g000[3] = {0.0f, 0.0f, 0.0f}, g001[3] = {0.0f, 0.0f, 0.0f};
+    float g010[3] = {0.0f, 0.0f, 0.0f}, g100[3] = {0.0f, 0.0f, 0.0f};
+    for (int k = 0; k < 3; ++k) {
+        if (!skip_z) {
+            g001[k] = c * gz[k];
+            g000[k] = g000[k] - c * gz[k];
+        }
+        if (!skip_y) {
+            g010[k] = c * gy[k];
+            g000[k] = g000[k] - c * gy[k];
+        }
+        if (!skip_x) {
+            g100[k] = c * gx[k];
+            g000[k] = g000[k] - c * gx[k];
+        }
+    }
+    float G[3][3][3];
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j)
+            for (int k = 0; k < 3; ++k) G[i][j][k] = 0.0f;
+    float gv[3];
+    unit_vjp(u000, g000, gv);
+    cell_normal_vjp(gv, 0, 0, 0, G);
+    unit_vjp(u001, g001, gv);
+    cell_normal_vjp(gv, 0, 0, 1, G);
+    unit_vjp(u010, g010, gv);
+    cell_normal_vjp(gv, 0, 1, 0, G);
+    unit_vjp(u100, g100, gv);
+    cell_normal_vjp(gv, 1, 0, 0, G);
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j)
+            for (int k = 0; k < 3; ++k)
+                if (L[i][j][k] >= 0 && G[i][j][k] != 0.0f)
+                    atomic_add(p.grad + (int64_t)L[i][j][k] * p.n_surf_c, G[i][j][k]);
+    return cell_loss * p.scale;
+}
+
+// ---------------------------------------------------------------------------
+// alpha/surface sparsifier
+// ---------------------------------------------------------------------------
+
+struct SparsifyParams {
+    const int* links;
+    int X, Y, Z;
+    const int* cells;
+    int64_t n;
+    const float* density;  // (cap,)
+    const float* surf;     // (cap, n_surf_c), channel 0
+    int n_surf_c;
+    float scale_alpha, scale_surf, surf_sign, surf_thresh, scale;
+    double* loss;  // (1,), float64
+    float* g_density;
+    float* g_surface;
+};
+
+HD float sparsify_cell(const SparsifyParams& p, int64_t n) {
+    int64_t x, y, z;
+    decode_cell(p.cells ? (int64_t)p.cells[n] : n, p.Y, p.Z, x, y, z);
+    const int l0 = link_at(p.links, p.X, p.Y, p.Z, x, y, z);
+    const float a = l0 >= 0 ? p.density[l0] : 0.0f;
+    const float s = l0 >= 0 ? p.surf[(int64_t)l0 * p.n_surf_c] : 0.0f;
+    // log_sigmoid(a) = -softplus(-a); sigmoid(-a) is its derivative
+    const float log_sig = -(fmaxf(-a, 0.0f) + log1pf(expf(-fabsf(a))));
+    const float sig_neg = 1.0f / (1.0f + expf(a));
+    const float w = a < p.surf_thresh ? sig_neg : 0.0f;
+    if (l0 >= 0) {
+        const float ga = p.scale * p.scale_alpha * sig_neg;
+        const float gs = p.scale * p.scale_surf * w * p.surf_sign;
+        if (ga != 0.0f) atomic_add(p.g_density + l0, ga);
+        if (gs != 0.0f) atomic_add(p.g_surface + (int64_t)l0 * p.n_surf_c, gs);
+    }
+    return (p.scale_alpha * log_sig + p.scale_surf * (w * s * p.surf_sign)) * p.scale;
+}
+
+#ifdef __CUDACC__
+constexpr int REG_BLOCK = 256;
+
+__global__ void reg_tv_kernel(TVParams p) {
+    const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    block_sum_atomic(n < p.n ? tv_cell(p, n) : 0.0f, p.loss);
+}
+
+__global__ void reg_normal_kernel(NormalParams p) {
+    const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    block_sum_atomic(n < p.n ? normal_cell(p, n) : 0.0f, p.loss);
+}
+
+__global__ void reg_sparsify_kernel(SparsifyParams p) {
+    const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    block_sum_atomic(n < p.n ? sparsify_cell(p, n) : 0.0f, p.loss);
+}
+
+static unsigned n_blocks(int64_t n) { return (unsigned)((n + REG_BLOCK - 1) / REG_BLOCK); }
+
+extern "C" cudaError_t reg_tv(const int* links, int X, int Y, int Z, const int* cells, long long n,
+                              const float* data, int C, int c0, int c1, const float* wdens,
+                              float scale, double* loss, float* grad, void* stream) {
+    if (n <= 0) return cudaSuccess;
+    const TVParams p{links, X, Y, Z, cells, n, data, C, c0, c1, wdens, scale, loss, grad};
+    reg_tv_kernel<<<n_blocks(n), REG_BLOCK, 0, (cudaStream_t)stream>>>(p);
+    return cudaGetLastError();
+}
+
+extern "C" cudaError_t reg_normal(const int* links, int X, int Y, int Z, const int* cells,
+                                  long long n, const float* surf, int n_surf_c,
+                                  const float* level_sets, int n_lv, int con_check,
+                                  int ignore_empty, int use_l1, float scale, double* loss,
+                                  float* grad, void* stream) {
+    if (n <= 0) return cudaSuccess;
+    const NormalParams p{links, X, Y, Z, cells, n, surf, n_surf_c, level_sets, n_lv, con_check,
+                         ignore_empty, use_l1, scale, loss, grad};
+    reg_normal_kernel<<<n_blocks(n), REG_BLOCK, 0, (cudaStream_t)stream>>>(p);
+    return cudaGetLastError();
+}
+
+extern "C" cudaError_t reg_sparsify(const int* links, int X, int Y, int Z, const int* cells,
+                                    long long n, const float* density, const float* surf,
+                                    int n_surf_c, float scale_alpha, float scale_surf,
+                                    float surf_sign, float surf_thresh, float scale, double* loss,
+                                    float* g_density, float* g_surface, void* stream) {
+    if (n <= 0) return cudaSuccess;
+    const SparsifyParams p{links, X, Y, Z, cells, n, density, surf, n_surf_c, scale_alpha,
+                           scale_surf, surf_sign, surf_thresh, scale, loss, g_density, g_surface};
+    reg_sparsify_kernel<<<n_blocks(n), REG_BLOCK, 0, (cudaStream_t)stream>>>(p);
+    return cudaGetLastError();
+}
+#endif

@@ -1,0 +1,266 @@
+// The per-entry sample math of phase B, shared by K3 (phase_b.cu, forward)
+// and K5b (backward.cu, which recomputes each entry's samples before it
+// differentiates them). One copy of the arithmetic keeps the backward's
+// recomputation bit-identical to the forward.
+//
+// JAX counterparts: render/surface.py:_voxel_samples_T (469-734),
+// ops/cubic.py:cubic_coeffs_T and _cubic_roots_raw, ops/trilerp.py.
+#pragma once
+
+#include "common.cuh"
+
+HD float alpha_act(float raw, int sigmoid) {
+    return sigmoid ? 1.0f / (1.0f + expf(-raw)) : 1.0f - expf(-fmaxf(raw, 0.0f));
+}
+
+// d alpha_act / d raw; relu'(0) = 0 as jax.nn.relu
+HD float alpha_act_grad(float raw, int sigmoid) {
+    if (sigmoid) {
+        const float a = 1.0f / (1.0f + expf(-raw));
+        return a * (1.0f - a);
+    }
+    return raw > 0.0f ? expf(-raw) : 0.0f;
+}
+
+// ops/cubic.py:cubic_coeffs_T (linear in s)
+HD void cubic_coeffs(const float s[8], const float u[3], const float v[3], float f[4]) {
+    const float ux = u[0], uy = u[1], uz = u[2];
+    const float vx = v[0], vy = v[1], vz = v[2];
+    const float a00 = s[0] * (1.0f - uz) + s[1] * uz;
+    const float a01 = s[2] * (1.0f - uz) + s[3] * uz;
+    const float a10 = s[4] * (1.0f - uz) + s[5] * uz;
+    const float a11 = s[6] * (1.0f - uz) + s[7] * uz;
+    const float b00 = s[1] - s[0];
+    const float b01 = s[3] - s[2];
+    const float b10 = s[5] - s[4];
+    const float b11 = s[7] - s[6];
+    const float c0 = a00 * (1.0f - uy) + a01 * uy;
+    const float c1 = a10 * (1.0f - uy) + a11 * uy;
+    const float d0 = -(a00 * vy - vz * b00 * (1.0f - uy)) + (a01 * vy + vz * b01 * uy);
+    const float d1 = -(a10 * vy - vz * b10 * (1.0f - uy)) + (a11 * vy + vz * b11 * uy);
+    const float e0 = vy * vz * (b01 - b00);
+    const float e1 = vy * vz * (b11 - b10);
+    f[3] = (e1 - e0) * vx;
+    f[2] = -d0 * vx + e0 * (1.0f - ux) + d1 * vx + e1 * ux;
+    f[1] = -c0 * vx + d0 * (1.0f - ux) + c1 * vx + d1 * ux;
+    f[0] = c0 * (1.0f - ux) + c1 * ux;
+}
+
+// ops/cubic.py:_cubic_roots_raw; slots without a root hold -1, has[j] says
+// which slots hold one
+HD void cubic_roots(float f0, float f1, float f2, float f3, float r[3], bool has[3]) {
+    const bool is3 = fabsf(f3) >= 1e-10f;
+    const bool is2 = !is3 && fabsf(f2) >= 1e-10f;
+    const bool is1 = !is3 && !is2 && fabsf(f1) >= 1e-10f;
+    const float t_lin = -f0 / (is1 ? f1 : 1.0f);
+
+    const float qb = is2 ? f2 : 1.0f;
+    const float D = f1 * f1 - 4.0f * f2 * f0;
+    const bool has2 = is2 && D > 0.0f;
+    const float sqrtD = sqrtf(has2 ? D : 0.0f);
+    const float q0 = (-f1 - sqrtD) / (2.0f * qb);
+    const float q1 = (-f1 + sqrtD) / (2.0f * qb);
+
+    const float cf3 = is3 ? f3 : 1.0f;
+    const float b = f2 / cf3, c = f1 / cf3, d = f0 / cf3;
+    const float Q = (b * b - 3.0f * c) / 9.0f;
+    const float R = (2.0f * (b * b * b) - 9.0f * b * c + 27.0f * d) / 54.0f;
+    const bool three = is3 && (R * R < Q * Q * Q);
+    const float sqrtQ = sqrtf(three ? Q : 1.0f);
+    const float arg = fminf(fmaxf(R / (sqrtQ * sqrtQ * sqrtQ), -1.0f + 1e-10f), 1.0f - 1e-10f);
+    const float theta = acosf(arg);
+    const float pi = 3.14159265358979323846f;
+    const float t_c0 = -2.0f * sqrtQ * cosf(theta / 3.0f) - b / 3.0f;
+    const float t_c1 = -2.0f * sqrtQ * cosf((theta - 2.0f * pi) / 3.0f) - b / 3.0f;
+    const float t_c2 = -2.0f * sqrtQ * cosf((theta + 2.0f * pi) / 3.0f) - b / 3.0f;
+
+    const bool one = is3 && !three;
+    const float disc = one ? R * R - Q * Q * Q : 1.0f;
+    const float sgn = R > 0.0f ? 1.0f : (R < 0.0f ? -1.0f : 0.0f);
+    const float A = -sgn * powf(fabsf(R) + sqrtf(fmaxf(disc, 1e-8f)), 1.0f / 3.0f);
+    const float Bv = A == 0.0f ? 0.0f : Q / A;
+    const float t_s = A + Bv - b / 3.0f;
+
+    r[0] = three ? t_c0 : one ? t_s : has2 ? fminf(q0, q1) : is1 ? t_lin : 0.0f;
+    r[1] = three ? t_c1 : has2 ? fmaxf(q0, q1) : 0.0f;
+    r[2] = three ? t_c2 : 0.0f;
+    has[0] = three || one || has2 || is1;
+    has[1] = three || has2;
+    has[2] = three;
+    for (int j = 0; j < 3; ++j) {
+        float x = r[j];
+        for (int it = 0; it < 2; ++it) {
+            const float ft = ((f3 * x + f2) * x + f1) * x + f0;
+            const float fp = (3.0f * f3 * x + 2.0f * f2) * x + f1;
+            const float step = fabsf(fp) > 1e-6f ? ft / fp : 0.0f;
+            x = x - fminf(fmaxf(step, -0.5f), 0.5f);
+        }
+        has[j] = has[j] && fabsf(x) < 1e4f;
+        r[j] = has[j] ? x : -1.0f;
+    }
+}
+
+// render/surface.py:trilerp_field_grad_T
+HD void field_grad(const float s[8], float x, float y, float z, float g[3]) {
+    const float c00 = s[0] * (1.0f - z) + s[1] * z;
+    const float c01 = s[2] * (1.0f - z) + s[3] * z;
+    const float c10 = s[4] * (1.0f - z) + s[5] * z;
+    const float c11 = s[6] * (1.0f - z) + s[7] * z;
+    const float c0 = c00 * (1.0f - y) + c01 * y;
+    const float c1 = c10 * (1.0f - y) + c11 * y;
+    g[0] = c1 - c0;
+    g[1] = x * (c11 - c10) + (1.0f - x) * (c01 - c00);
+    g[2] = x * (y * (s[7] - s[6]) + (1.0f - y) * (s[5] - s[4])) +
+           (1.0f - x) * (y * (s[3] - s[2]) + (1.0f - y) * (s[1] - s[0]));
+}
+
+HD float dot3(const float a[3], const float b[3]) {
+    float acc = a[0] * b[0];
+    acc = acc + a[1] * b[1];
+    return acc + a[2] * b[2];
+}
+
+// -g / |g|, with |g|^2 floored at 1e-20
+HD void unit_normal(const float g[3], float n[3]) {
+    const float nsq = dot3(g, g);
+    const float den = sqrtf(nsq > 1e-20f ? nsq : 1e-20f);
+    for (int k = 0; k < 3; ++k) n[k] = -g[k] / den;
+}
+
+// the 8 corner rows of one voxel: raw alpha, surface, and the SH colour
+// contracted with the ray's basis while each row streams in
+struct Corners {
+    int link[8];
+    float alpha8[8], surf8[8], crgb[3][8];
+    bool vox_ok;  // all 8 corners present and some raw alpha >= sigma_thresh
+};
+
+HD void gather_corners(const int* links, int X, int Y, int Z, const float* packed, int cap, int C8,
+                       int n_surf_c, int bd, const float* shm, float sigma_thresh, const int l[3],
+                       Corners& cs) {
+    bool vox_ok = true, any_alpha = false;
+    const int sh_base = 1 + n_surf_c;
+    for (int c = 0; c < 8; ++c) {
+        const int cx = clampi(l[0] + corner_dx(c), 0, X - 1);
+        const int cy = clampi(l[1] + corner_dy(c), 0, Y - 1);
+        const int cz = clampi(l[2] + corner_dz(c), 0, Z - 1);
+        const int link = links[((int64_t)cx * Y + cy) * Z + cz];
+        cs.link[c] = link;
+        const bool present = link >= 0;
+        vox_ok = vox_ok && present;
+        const float* row = packed + (int64_t)clampi(link, 0, cap - 1) * C8;
+        cs.alpha8[c] = present ? row[0] : 0.0f;
+        cs.surf8[c] = present ? row[1] : 0.0f;
+        for (int ch = 0; ch < 3; ++ch) {
+            const float* sh = row + sh_base + ch * bd;
+            float acc = (present ? sh[0] : 0.0f) * shm[0];
+            for (int b = 1; b < bd; ++b) acc = acc + (present ? sh[b] : 0.0f) * shm[b];
+            cs.crgb[ch][c] = acc;
+        }
+        any_alpha = any_alpha || cs.alpha8[c] >= sigma_thresh;
+    }
+    cs.vox_ok = vox_ok && any_alpha;
+}
+
+// one real-root slot: root -> t -> position in the voxel -> alpha, colour,
+// normal (surface.py:626-670)
+struct RealSlot {
+    float t;
+    float frac[3];  // o + t d - l, before the clip
+    float fs[3];    // the clipped position the sample is taken at
+    float w8[8];
+    float raw;
+    float pre_rgb[3];  // colour before max(., 0)
+    float sn[3];
+    bool geo_pre;  // geo_ok before the outward-only filter
+    bool geo_ok;
+};
+
+HD void real_slot(const Corners& cs, const float o[3], const float d[3], const int l[3],
+                  float close_t, float root, bool lv_ok, float near_grid_t, int only_outward,
+                  RealSlot& s) {
+    s.t = close_t + root;
+    bool in_cube = true;
+    for (int a = 0; a < 3; ++a) {
+        s.frac[a] = o[a] + s.t * d[a] - (float)l[a];
+        in_cube = in_cube && s.frac[a] >= 0.0f && s.frac[a] <= 1.0f;
+    }
+    s.geo_pre = lv_ok && root > 0.0f && in_cube && s.t >= near_grid_t;
+    for (int a = 0; a < 3; ++a) s.fs[a] = fminf(fmaxf(s.geo_pre ? s.frac[a] : 0.5f, 0.0f), 1.0f);
+    float g[3];
+    field_grad(cs.surf8, s.fs[0], s.fs[1], s.fs[2], g);
+    s.geo_ok = s.geo_pre && (!only_outward || dot3(g, d) > 0.0f);
+    unit_normal(g, s.sn);
+    trilerp_weights(s.fs[0], s.fs[1], s.fs[2], s.w8);
+    s.raw = corner_dot(s.w8, cs.alpha8);
+    for (int ch = 0; ch < 3; ++ch) s.pre_rgb[ch] = corner_dot(s.w8, cs.crgb[ch]) + 0.5f;
+}
+
+// the fake sample at mid-segment with its Gaussian reweight
+// (surf_trav.cu:423-541; surface.py:672-717)
+struct FakeSlot {
+    float tf;
+    float ff[3];
+    float fw8[8];
+    float fraw;
+    float pre_rgb[3];
+    float mu, var, std_;
+    float s_norm, fake_dist, q;
+    float base, gauss, falpha;
+    float fsn[3];
+    bool take;
+};
+
+HD void fake_slot(const Corners& cs, const float o[3], const float d[3], const int l[3],
+                  float close_t, float far_t, bool vox_has_sample, bool vox_has_surf,
+                  float min_vox_len, int limited_fake, int normalize_surf, const float* level_sets,
+                  int n_lv, float sigma_thresh, float fs_std, int act_sigmoid, FakeSlot& f) {
+    bool take = cs.vox_ok && !vox_has_sample && (far_t - close_t) > min_vox_len;
+    if (limited_fake) take = take && vox_has_surf;
+    f.tf = 0.5f * (close_t + far_t);
+    for (int a = 0; a < 3; ++a)
+        f.ff[a] = fminf(fmaxf(take ? o[a] + f.tf * d[a] - (float)l[a] : 0.5f, 0.0f), 1.0f);
+    trilerp_weights(f.ff[0], f.ff[1], f.ff[2], f.fw8);
+    f.fraw = corner_dot(f.fw8, cs.alpha8);
+    for (int ch = 0; ch < 3; ++ch) f.pre_rgb[ch] = corner_dot(f.fw8, cs.crgb[ch]) + 0.5f;
+    float mu = cs.surf8[0];
+    for (int c = 1; c < 8; ++c) mu = mu + cs.surf8[c];
+    f.mu = mu / 8.0f;
+    float var = (cs.surf8[0] - f.mu) * (cs.surf8[0] - f.mu);
+    for (int c = 1; c < 8; ++c) var = var + (cs.surf8[c] - f.mu) * (cs.surf8[c] - f.mu);
+    f.var = var / 8.0f;
+    f.std_ = normalize_surf ? sqrtf(fmaxf(f.var, 1e-9f)) : 1.0f;
+    float sn8[8];
+    for (int c = 0; c < 8; ++c) sn8[c] = cs.surf8[c] / f.std_;
+    f.s_norm = corner_dot(f.fw8, sn8);
+    // signed distance to the nearest level set (first on ties)
+    f.fake_dist = f.s_norm - level_sets[0];
+    for (int i = 1; i < n_lv; ++i) {
+        const float di = f.s_norm - level_sets[i];
+        if (fabsf(di) < fabsf(f.fake_dist)) f.fake_dist = di;
+    }
+    f.take = take && f.fraw > sigma_thresh;
+    f.q = f.fake_dist / fs_std;
+    f.base = alpha_act(f.fraw, act_sigmoid);
+    f.gauss = expf(-0.5f * (f.q * f.q));
+    f.falpha = f.base * f.gauss;
+    float g[3];
+    field_grad(cs.surf8, f.ff[0], f.ff[1], f.ff[2], g);
+    unit_normal(g, f.fsn);
+}
+
+// the inward-norm and density-lap terms of one slot (surface.py:737-753)
+HD float inward_sq(const float sn_in[3], const float d[3]) {
+    const float in_pos = fmaxf(dot3(sn_in, d), 0.0f);
+    return in_pos * in_pos;
+}
+
+HD float lap_term(float alpha) {
+    const float p_lap = expf(-alpha) + expf(-(1.0f - alpha));
+    return -logf(p_lap);
+}
+
+HD float lap_grad(float alpha) {
+    const float e0 = expf(-alpha), e1 = expf(-(1.0f - alpha));
+    return (e0 - e1) / (e0 + e1);
+}

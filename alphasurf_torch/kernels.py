@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("occupancy", "phase_a", "phase_b", "composite")
+SOURCES = ("occupancy", "phase_a", "phase_b", "composite", "backward", "reg", "rmsprop")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
@@ -39,6 +39,12 @@ LAUNCHES = {
     "phase_a_fill": 0,
     "phase_b": 0,
     "composite": 0,
+    "backward_ray": 0,
+    "backward_entry": 0,
+    "reg_tv": 0,
+    "reg_normal": 0,
+    "reg_sparsify": 0,
+    "rmsprop": 0,
 }
 
 _P = ctypes.c_void_p
@@ -50,15 +56,27 @@ _ARGTYPES = {
     "phase_a_count": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "phase_a_fill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "phase_b": [_P, _P, _P, _P, _L, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _I,
-                _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "composite": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _F, _F, _I,
+                _I, _F, _F, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "composite": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _I,
                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "backward_ray": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _I, _P, _P,
+                     _P, _P, _P, _P],
+    "backward_entry": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P,
+                       _I, _I, _F, _F, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P],
+    "reg_tv": [_P, _I, _I, _I, _P, _L, _P, _I, _I, _I, _P, _F, _P, _P, _P],
+    "reg_normal": [_P, _I, _I, _I, _P, _L, _P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P],
+    "reg_sparsify": [_P, _I, _I, _I, _P, _L, _P, _P, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P],
+    "rmsprop": [_P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _F, _I, _F, _I, _P],
 }
 _FUNCS = {
     "occupancy": ("occupancy_words",),
     "phase_a": ("phase_a_count", "phase_a_fill"),
     "phase_b": ("phase_b",),
     "composite": ("composite",),
+    "backward": ("backward_ray", "backward_entry"),
+    "reg": ("reg_tv", "reg_normal", "reg_sparsify"),
+    "rmsprop": ("rmsprop",),
 }
 
 _libs: dict = {}
@@ -82,7 +100,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for f in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for f in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -218,9 +236,19 @@ def phase_a_fill(origins, dirs, tnear, tmax, words, reso, offsets, M: int):
 # K3
 # ---------------------------------------------------------------------------
 
-def phase_b(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed, n_surf_c: int,
-            level_sets, near_grid_t: float, fs_std: float, opt) -> dict:
-    """K3: slot arrays of every pool entry (see render.surface.voxel_samples)."""
+def _scalar_ptr(name: str, x) -> int:
+    """Pointer to a one-element float32 tensor on the card (read by the
+    kernel, so the host never waits on its value), or 0 for None."""
+    if x is None:
+        return 0
+    _check(name, x, torch.float32)
+    if x.numel() != 1:
+        raise ValueError(f"{name}: expected one element, got shape {tuple(x.shape)}")
+    return _ptr(x)
+
+
+def _pool_args(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed, n_surf_c: int,
+               level_sets):
     M = close_t.shape[0]
     B = origins.shape[0]
     _check("ray_id", ray_id, torch.int32, (M,))
@@ -237,8 +265,22 @@ def phase_b(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed, n_
     cap, C8 = packed.shape
     if 1 + n_surf_c + 3 * bd > C8:
         raise ValueError(f"packed rows hold {C8} channels, fewer than 1 + {n_surf_c} + 3*{bd}")
+    return M, B, bd, cap, C8
+
+
+def _n_slots(level_sets, opt) -> int:
+    return 3 * level_sets.numel() + (1 if opt.surf_fake_sample else 0)
+
+
+def phase_b(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed, n_surf_c: int,
+            level_sets, near_grid_t: float, fs_std, opt) -> dict:
+    """K3: slot arrays of every pool entry (see render.surface.voxel_samples).
+    ``fs_std`` is the grid's (1, 1) fake_sample_std on the card, or None."""
+    M, B, bd, cap, C8 = _pool_args(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links,
+                                   packed, n_surf_c, level_sets)
+    fss = _scalar_ptr("fs_std", fs_std)
     n_lv = level_sets.numel()
-    S0 = 3 * n_lv + (1 if opt.surf_fake_sample else 0)
+    S0 = _n_slots(level_sets, opt)
     dev = close_t.device
     out = {
         "t": torch.empty((S0, M), dtype=torch.float32, device=dev),
@@ -257,7 +299,7 @@ def phase_b(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed, n_
                 _ptr(ray_id), _ptr(l), _ptr(close_t), _ptr(far_t), M,
                 _ptr(origins), _ptr(dirs), _ptr(sh_mult), bd, _ptr(links), X, Y, Z,
                 _ptr(packed), cap, C8, n_surf_c, _ptr(level_sets), n_lv, S0,
-                float(near_grid_t), float(opt.sigma_thresh), float(fs_std),
+                float(near_grid_t), float(opt.sigma_thresh), fss,
                 float(opt.surf_fake_sample_min_vox_len), int(opt.only_outward_intersect),
                 int(opt.surf_fake_sample), int(opt.limited_fake_sample),
                 int(opt.fake_sample_normalize_surf), int(opt.alpha_activation_type == 0),
@@ -270,18 +312,34 @@ def phase_b(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed, n_
 # K4
 # ---------------------------------------------------------------------------
 
-def composite(offsets, smp: dict, trunc_a: float, opt) -> dict:
-    """K4: per-ray compositing (see render.surface.composite)."""
-    B = offsets.shape[0] - 1
-    S0, M = smp["t"].shape
-    _check("offsets", offsets, torch.int64, (B + 1,))
+_SLOT_KEYS = ("t", "alpha", "contrib", "fake", "counted", "rgb")
+
+
+def _check_slots(smp: dict, S0: int, M: int, keys=_SLOT_KEYS + ("snorm", "loss_e")) -> None:
     for k, dt, shape in (
         ("t", torch.float32, (S0, M)), ("alpha", torch.float32, (S0, M)),
         ("contrib", torch.bool, (S0, M)), ("fake", torch.bool, (S0, M)),
         ("counted", torch.int32, (S0, M)), ("rgb", torch.float32, (3, S0, M)),
         ("snorm", torch.float32, (3, S0, M)), ("loss_e", torch.float32, (3, M)),
     ):
-        _check(k, smp[k], dt, shape)
+        if k in keys:
+            _check(k, smp[k], dt, shape)
+
+
+def _composite_opts(opt) -> tuple:
+    stop_on = opt.stop_thresh > 0
+    return (int(stop_on), float(math.log(opt.stop_thresh) if stop_on else 0.0),
+            float(opt.background_brightness), int(opt.fake_sample_l_dist))
+
+
+def composite(offsets, smp: dict, trunc_a, opt) -> dict:
+    """K4: per-ray compositing (see render.surface.composite); ``trunc_a``
+    is the grid's truncated_vol_render_a on the card."""
+    B = offsets.shape[0] - 1
+    S0, M = smp["t"].shape
+    _check("offsets", offsets, torch.int64, (B + 1,))
+    _check_slots(smp, S0, M)
+    ta = _scalar_ptr("trunc_a", trunc_a)
     dev = offsets.device
     f32 = torch.float32
     out = {
@@ -296,16 +354,174 @@ def composite(offsets, smp: dict, trunc_a: float, opt) -> dict:
         "weight": torch.empty((S0, M), dtype=f32, device=dev),
     }
     if B > 0:
-        stop_on = opt.stop_thresh > 0
-        log_stop = math.log(opt.stop_thresh) if stop_on else 0.0
+        stop_on, log_stop, bg, fake_l_dist = _composite_opts(opt)
         _launch("composite", "composite", "composite",
                 _ptr(offsets), B, M, S0,
-                *(_ptr(smp[k]) for k in ("t", "alpha", "contrib", "fake", "counted", "rgb",
-                                         "snorm", "loss_e")),
-                int(opt.truncated_vol_render), float(trunc_a), float(opt.trunc_vol_weight_min),
-                int(stop_on), float(log_stop), float(opt.background_brightness),
-                int(opt.fake_sample_l_dist),
+                *(_ptr(smp[k]) for k in _SLOT_KEYS + ("snorm", "loss_e")),
+                int(opt.truncated_vol_render), ta, float(opt.trunc_vol_weight_min),
+                stop_on, log_stop, bg, fake_l_dist,
                 *(_ptr(out[k]) for k in ("rgb", "depth", "normal", "log_T", "depth_mode",
                                          "depth_med", "n_intersections", "ray_losses",
                                          "weight")))
     return out
+
+
+# ---------------------------------------------------------------------------
+# K5
+# ---------------------------------------------------------------------------
+
+def backward_ray(offsets, smp: dict, trunc_a, opt, g_rgb, g_ray_losses):
+    """K5a: per-slot cotangents (d_alpha of the pre-truncation alpha (S0, M),
+    d_t (S0, M), d_col of the clipped colour (3, S0, M)) from the cotangents
+    of rgb (B, 3) and ray_losses (12, B)."""
+    B = offsets.shape[0] - 1
+    S0, M = smp["t"].shape
+    _check("offsets", offsets, torch.int64, (B + 1,))
+    _check_slots(smp, S0, M, _SLOT_KEYS)
+    _check("g_rgb", g_rgb, torch.float32, (B, 3))
+    _check("g_ray_losses", g_ray_losses, torch.float32, (12, B))
+    ta = _scalar_ptr("trunc_a", trunc_a)
+    dev = offsets.device
+    d_alpha = torch.empty((S0, M), dtype=torch.float32, device=dev)
+    d_t = torch.empty((S0, M), dtype=torch.float32, device=dev)
+    d_col = torch.empty((3, S0, M), dtype=torch.float32, device=dev)
+    if B > 0 and M > 0:
+        stop_on, log_stop, bg, fake_l_dist = _composite_opts(opt)
+        _launch("backward", "backward_ray", "backward_ray",
+                _ptr(offsets), B, M, S0, *(_ptr(smp[k]) for k in _SLOT_KEYS),
+                int(opt.truncated_vol_render), ta, float(opt.trunc_vol_weight_min),
+                stop_on, log_stop, bg, fake_l_dist, _ptr(g_rgb), _ptr(g_ray_losses),
+                _ptr(d_alpha), _ptr(d_t), _ptr(d_col))
+    return d_alpha, d_t, d_col
+
+
+def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed,
+                   n_surf_c: int, level_sets, near_grid_t: float, fs_std, opt, contrib, d_alpha,
+                   d_t, d_col, g_ray_losses):
+    """K5b: gradients of the density (cap,), surface (cap, n_surf_c) and SH
+    (cap, 3 bd) rows and of fake_sample_std (1,) from K5a's slot cotangents
+    and the inward-norm and density-lap rows of the ray-loss cotangents."""
+    M, B, bd, cap, C8 = _pool_args(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links,
+                                   packed, n_surf_c, level_sets)
+    fss = _scalar_ptr("fs_std", fs_std)
+    S0 = _n_slots(level_sets, opt)
+    _check("contrib", contrib, torch.bool, (S0, M))
+    _check("d_alpha", d_alpha, torch.float32, (S0, M))
+    _check("d_t", d_t, torch.float32, (S0, M))
+    _check("d_col", d_col, torch.float32, (3, S0, M))
+    _check("g_ray_losses", g_ray_losses, torch.float32, (12, B))
+    dev = close_t.device
+    g_density = torch.zeros(cap, dtype=torch.float32, device=dev)
+    g_surface = torch.zeros((cap, n_surf_c), dtype=torch.float32, device=dev)
+    g_sh = torch.zeros((cap, 3 * bd), dtype=torch.float32, device=dev)
+    g_fss = torch.zeros(1, dtype=torch.float32, device=dev)
+    if M > 0:
+        X, Y, Z = links.shape
+        _launch("backward", "backward_entry", "backward_entry",
+                _ptr(ray_id), _ptr(l), _ptr(close_t), _ptr(far_t), M, B,
+                _ptr(origins), _ptr(dirs), _ptr(sh_mult), bd, _ptr(links), X, Y, Z,
+                _ptr(packed), cap, C8, n_surf_c, _ptr(level_sets), level_sets.numel(), S0,
+                float(near_grid_t), float(opt.sigma_thresh), fss,
+                float(opt.surf_fake_sample_min_vox_len), int(opt.only_outward_intersect),
+                int(opt.surf_fake_sample), int(opt.limited_fake_sample),
+                int(opt.fake_sample_normalize_surf), int(opt.alpha_activation_type == 0),
+                int(opt.no_surf_grad_from_sh), _ptr(contrib), _ptr(d_alpha), _ptr(d_t),
+                _ptr(d_col), _ptr(g_ray_losses), _ptr(g_density), _ptr(g_surface), _ptr(g_sh),
+                _ptr(g_fss) if fs_std is not None else 0)
+    return g_density, g_surface, g_sh, g_fss
+
+
+# ---------------------------------------------------------------------------
+# K6
+# ---------------------------------------------------------------------------
+
+def _cells_arg(links, cells):
+    _check("links", links, torch.int32)
+    if cells is None:
+        return 0
+    _check("cells", cells, torch.int32)
+    return _ptr(cells)
+
+
+def reg_tv(links, cells, data, c0: int, c1: int, wdens, scale: float):
+    """K6, TV over channels [c0, c1) of ``data`` (cap, C) at ``cells``
+    (flat ids, int32) or at every lattice cell (None); cells weighted by
+    sigmoid(wdens) when ``wdens`` (cap,) is given. Returns the loss (1,),
+    summed in float64 and returned as float32, and its gradient (cap, C)."""
+    cap, C = data.shape
+    _check("data", data, torch.float32)
+    cp = _cells_arg(links, cells)
+    if wdens is not None:
+        _check("wdens", wdens, torch.float32, (cap,))
+    n = links.numel() if cells is None else cells.numel()
+    loss = torch.zeros(1, dtype=torch.float64, device=data.device)
+    grad = torch.zeros_like(data)
+    X, Y, Z = links.shape
+    if n > 0:
+        _launch("reg", "reg_tv", "reg_tv", _ptr(links), X, Y, Z, cp, n, _ptr(data), C, c0, c1,
+                0 if wdens is None else _ptr(wdens), float(scale), _ptr(loss), _ptr(grad))
+    return loss.float(), grad
+
+
+def reg_normal(links, cells, surface, level_sets, con_check: bool, ignore_empty: bool,
+               use_l1: bool, scale: float):
+    """K6, normal consistency of surface channel 0 at ``cells``, or at every
+    cell whose 3x3x3 window lies in the lattice (None). Returns the loss (1,)
+    and its gradient (cap, n_surf_c)."""
+    _check("surface", surface, torch.float32)
+    _check("level_sets", level_sets, torch.float32)
+    cp = _cells_arg(links, cells)
+    X, Y, Z = links.shape
+    n = max(X - 2, 0) * max(Y - 2, 0) * max(Z - 2, 0) if cells is None else cells.numel()
+    loss = torch.zeros(1, dtype=torch.float64, device=surface.device)
+    grad = torch.zeros_like(surface)
+    if n > 0:
+        _launch("reg", "reg_normal", "reg_normal", _ptr(links), X, Y, Z, cp, n, _ptr(surface),
+                surface.shape[1], _ptr(level_sets), level_sets.numel(), int(con_check),
+                int(ignore_empty), int(use_l1), float(scale), _ptr(loss), _ptr(grad))
+    return loss.float(), grad
+
+
+def reg_sparsify(links, cells, density, surface, scale_alpha: float, scale_surf: float,
+                 surf_decrease: bool, surf_thresh: float, scale: float):
+    """K6, the alpha/surface sparsifier at ``cells``. Returns the loss (1,)
+    and the gradients of density (cap, 1) and surface (cap, n_surf_c)."""
+    cap = density.shape[0]
+    _check("density", density, torch.float32, (cap, 1))
+    _check("surface", surface, torch.float32)
+    cp = _cells_arg(links, cells)
+    n = links.numel() if cells is None else cells.numel()
+    loss = torch.zeros(1, dtype=torch.float64, device=density.device)
+    g_density = torch.zeros_like(density)
+    g_surface = torch.zeros_like(surface)
+    X, Y, Z = links.shape
+    if n > 0:
+        _launch("reg", "reg_sparsify", "reg_sparsify", _ptr(links), X, Y, Z, cp, n, _ptr(density),
+                _ptr(surface), surface.shape[1], float(scale_alpha), float(scale_surf),
+                1.0 if surf_decrease else -1.0, float(surf_thresh), float(scale), _ptr(loss),
+                _ptr(g_density), _ptr(g_surface))
+    return loss.float(), g_density, g_surface
+
+
+# ---------------------------------------------------------------------------
+# K7
+# ---------------------------------------------------------------------------
+
+def rmsprop(param, rms, grad, lr: float, beta: float, epsilon: float, minval, grad_abs_max,
+            frozen: bool) -> None:
+    """K7: one masked RMSprop step of ``param`` and ``rms`` (rows, C), in
+    place."""
+    rows = param.shape[0]
+    shape = tuple(param.shape)
+    _check("param", param, torch.float32)
+    _check("rms", rms, torch.float32, shape)
+    _check("grad", grad, torch.float32, shape)
+    if rows == 0:
+        return
+    C = param[0].numel()
+    if C > 32:
+        raise ValueError(f"rmsprop: rows of {C} channels; the kernel takes at most 32")
+    _launch("rmsprop", "rmsprop", "rmsprop", _ptr(param), _ptr(rms), _ptr(grad), rows, C,
+            float(lr), float(beta), float(1.0 - beta), float(epsilon),
+            int(grad_abs_max is not None), float(grad_abs_max or 0.0), int(minval is not None),
+            float(minval or 0.0), int(frozen))

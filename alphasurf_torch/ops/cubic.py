@@ -1,7 +1,12 @@
 """Ray/trilinear-isosurface intersection: cubic coefficients and roots, the
 counterpart of the JAX package's ``ops.cubic`` (svox2 render_util.cuh:789-848,
-1126-1203; svox2.py:1987-2164). Forward only: the implicit-differentiation
-JVP comes with the backward kernel (ROADMAP §1 item 3).
+1126-1203; svox2.py:1987-2164).
+
+Roots carry gradients to the coefficients by implicit differentiation, as
+the JAX package's custom JVP does (cubic.py:230-242): at a root t of f,
+dt/df_i = -t^i / f'(t), with |f'| kept away from 0 and no gradient in slots
+without a root. The backward kernel (``csrc/backward.cu``) applies the same
+rule.
 
 Powers are written as products so that the plain version rounds exactly
 where the CUDA kernel (``csrc/phase_b.cu``) does.
@@ -131,7 +136,27 @@ def _cubic_roots_raw(f0, f1, f2, f3):
     return _where(has, roots, NO_ROOT), has
 
 
+class _CubicRootsT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f0, f1, f2, f3):
+        roots, has = _cubic_roots_raw(f0, f1, f2, f3)
+        ctx.save_for_backward(f1, f2, f3, roots, has)
+        return roots
+
+    @staticmethod
+    def backward(ctx, g):
+        f1, f2, f3, roots, has = ctx.saved_tensors
+        ts = torch.where(has, roots, torch.zeros_like(roots))
+        fp = 3.0 * f3[None] * ts * ts + 2.0 * f2[None] * ts + f1[None]
+        # |f'| < eps becomes sign(f') * eps, and eps where f' == 0 (double roots)
+        small = torch.abs(fp) < _EPS
+        fp_safe = torch.where(small, torch.sign(fp) * _EPS + (fp == 0).to(fp.dtype) * _EPS, fp)
+        gt = torch.where(has, -g / fp_safe, torch.zeros_like(g))
+        return (gt.sum(0), (gt * ts).sum(0), (gt * ts * ts).sum(0), (gt * ts * ts * ts).sum(0))
+
+
 def cubic_roots_T(f0, f1, f2, f3) -> torch.Tensor:
     """Real roots of f3 t^3 + f2 t^2 + f1 t + f0 = 0, shape (3, ...);
-    slots without a real root hold NO_ROOT (-1)."""
-    return _cubic_roots_raw(f0, f1, f2, f3)[0]
+    slots without a real root hold NO_ROOT (-1). Differentiable in the
+    coefficients by the implicit-differentiation rule (module docstring)."""
+    return _CubicRootsT.apply(f0, f1, f2, f3)

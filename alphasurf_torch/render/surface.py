@@ -14,6 +14,13 @@ the wrappers take for tensors that lie on the CPU:
   K4 ``composite``              per ray: transmittance, weights, colour,
                                  depths and the streaming ray losses
 
+Gradients: when a parameter of the grid requires grad, the plain path on the
+CPU is differentiated by autograd, detached where the JAX package stops
+gradients; on the card ``_PackedSurfaceFn`` runs K3 and K4 forward and K5
+(``csrc/backward.cu``) backward, for the cotangents of ``rgb`` and
+``ray_losses``. Clamps in the plain path are a maximum then a minimum, as
+``jnp.clip``, so an exact tie passes half the gradient there too.
+
 Only SDF grids, the SH basis and ``cache_size=None`` are carried by this
 slice; the rest raises ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -75,6 +82,16 @@ def trilerp_field_grad_T(vals8T: torch.Tensor, posT: torch.Tensor) -> torch.Tens
     return torch.stack([gx, gy, gz], dim=0)
 
 
+def _clip(x: torch.Tensor, lo: float | None = None, hi: float | None = None) -> torch.Tensor:
+    """``jnp.clip``: a maximum, then a minimum. Same values as
+    ``torch.clamp``, but an exact tie passes half the gradient, as in JAX."""
+    if lo is not None:
+        x = torch.maximum(x, x.new_full((), lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_full((), hi))
+    return x
+
+
 def _sum0(x: torch.Tensor) -> torch.Tensor:
     """Sum over axis 0 in index order (the order the kernels add in)."""
     acc = x[0]
@@ -85,13 +102,14 @@ def _sum0(x: torch.Tensor) -> torch.Tensor:
 
 def pack_grid_data(grid: SparseGrid) -> torch.Tensor:
     """(density | surface | sh | pad) rows, one gatherable (cap, C8) array,
-    C8 the channel count padded to a multiple of 8."""
+    C8 the channel count padded to a multiple of 8. Differentiable in the
+    three parameters where they require grad."""
     parts = [grid.density_data, grid.surface_data, grid.sh_data]
     c = 1 + grid.surface_data.shape[1] + grid.sh_data.shape[1]
     pad = (-c) % 8
     if pad:
         parts.append(grid.sh_data.new_zeros((grid.capacity, pad)))
-    return torch.cat([p.detach() for p in parts], dim=1).contiguous()
+    return torch.cat(parts, dim=1).contiguous()
 
 
 def _check_supported(grid: SparseGrid, opt: RenderOptions) -> None:
@@ -418,7 +436,7 @@ def _voxel_samples_T(grid: SparseGrid, opt: RenderOptions, oT, dT, shmT,
     in_cube = torch.all(frac >= 0, dim=0) & torch.all(frac <= 1, dim=0)
     geo_ok = lv_ok_s & (roots > 0) & in_cube & (t_real >= near_grid_t)
     vox_has_sample = torch.any(geo_ok, dim=0)
-    frac_safe = torch.clamp(torch.where(geo_ok[None], frac, torch.full_like(frac, 0.5)), 0.0, 1.0)
+    frac_safe = _clip(torch.where(geo_ok[None], frac, torch.full_like(frac, 0.5)), 0.0, 1.0)
     sgrad = trilerp_field_grad_T(surf8T[:, None, :], frac_safe)
     if opt.only_outward_intersect:
         geo_ok = geo_ok & (_sum0(sgrad * dT[:, None, :]) > 0)
@@ -427,8 +445,9 @@ def _voxel_samples_T(grid: SparseGrid, opt: RenderOptions, oT, dT, shmT,
 
     w8 = trilerp_weights_T(frac_safe)  # (8, S0, M)
     raw_a = _sum0(w8 * alpha8T[:, None, :])
+    w8_sh = trilerp_weights_T(frac_safe.detach()) if opt.no_surf_grad_from_sh else w8
     rgb_s = torch.stack(
-        [torch.clamp(_sum0(w8 * corner_rgbT[ch][:, None, :]) + 0.5, min=0.0) for ch in range(3)],
+        [_clip(_sum0(w8_sh * corner_rgbT[ch][:, None, :]) + 0.5, lo=0.0) for ch in range(3)],
         dim=0,
     )  # (3, S0, M)
     contrib = geo_ok & (raw_a > opt.sigma_thresh)
@@ -446,16 +465,16 @@ def _voxel_samples_T(grid: SparseGrid, opt: RenderOptions, oT, dT, shmT,
             take = take & vox_has_surf
         tf = 0.5 * (close_t + far_t)
         ffrac = oT + tf[None, :] * dT - lT.to(dtype)
-        ffrac = torch.clamp(torch.where(take[None], ffrac, torch.full_like(ffrac, 0.5)), 0.0, 1.0)
+        ffrac = _clip(torch.where(take[None], ffrac, torch.full_like(ffrac, 0.5)), 0.0, 1.0)
         fw8 = trilerp_weights_T(ffrac)
         fraw = _sum0(fw8 * alpha8T)
         frgb = torch.stack(
-            [torch.clamp(_sum0(fw8 * corner_rgbT[ch]) + 0.5, min=0.0) for ch in range(3)], dim=0
+            [_clip(_sum0(fw8 * corner_rgbT[ch]) + 0.5, lo=0.0) for ch in range(3)], dim=0
         )
         mu = _sum0(surf8T) / 8.0
         dev_ = surf8T - mu[None, :]
         var = _sum0(dev_ * dev_) / 8.0
-        std = torch.sqrt(torch.clamp(var, min=1e-9))
+        std = torch.sqrt(_clip(var, lo=1e-9))
         if not opt.fake_sample_normalize_surf:
             std = torch.ones_like(std)
         s_norm = _sum0(fw8 * (surf8T / std[None, :]))
@@ -500,7 +519,7 @@ def _accumulate_sample_losses_T(acc: dict, dT, smp: dict) -> dict:
     contrib = smp["contrib"]
     alpha_pre = smp["alpha"]
     zero = torch.zeros_like(alpha_pre)
-    in_dot = _sum0(smp["snorm_in"] * dT[:, None, :])
+    in_dot = _sum0(smp["snorm_in"].detach() * dT[:, None, :])  # normals detached
     in_pos = torch.clamp(in_dot, min=0.0)
     acc["l_inward"] = acc["l_inward"] + _sum0(
         torch.where(contrib, alpha_pre * (in_pos * in_pos), zero)
@@ -532,12 +551,16 @@ def voxel_samples(grid: SparseGrid, opt: RenderOptions, pool: Pool, origins, dir
     the entry's inward-norm, density-lap and lap-count sums."""
     if not origins.is_cuda:
         return _voxel_samples_plain(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed)
-    fss = 1.0 if grid.fake_sample_std is None else float(grid.fake_sample_std.reshape(-1)[0])
     return kernels.phase_b(
         pool.ray_id, pool.l, pool.close_t, pool.far_t, origins, dirs, sh_mult,
         grid.links, packed, grid.surface_data.shape[1], grid.level_set_data,
-        near_grid_t, fss, opt,
+        near_grid_t, _fss(grid), opt,
     )
+
+
+def _fss(grid: SparseGrid):
+    """The grid's fake_sample_std as the kernels read it (None: 1)."""
+    return None if grid.fake_sample_std is None else grid.fake_sample_std.detach()
 
 
 # ---------------------------------------------------------------------------
@@ -599,11 +622,11 @@ def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp) -> dict:
         contrib = contrib & alive[:, :, None].expand(B, E, S0).reshape(B, L)
 
     alpha_c = torch.where(contrib, alpha_trunc, zero)
-    one_m = torch.where(contrib, torch.clamp(1.0 - alpha_c, lo, hi), zero + 1.0)
+    one_m = torch.where(contrib, _clip(1.0 - alpha_c, lo, hi), zero + 1.0)
     log_att = torch.log(one_m)
     pre_att = _excl_cumsum(log_att)
     log_T = log_att.sum(dim=1)
-    weight = torch.where(contrib, torch.exp(torch.clamp(pre_att, max=0.0)) * (1.0 - one_m), zero)
+    weight = torch.where(contrib, torch.exp(_clip(pre_att, hi=0.0)) * (1.0 - one_m), zero)
 
     def dense_vec(x):  # (3, S0, M) -> (3, B, L)
         return torch.stack([dense(x[c]).reshape(B, L) for c in range(3)], 0)
@@ -637,14 +660,14 @@ def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp) -> dict:
     l_dist = (w_i * (t * _excl_cumsum(w_i) - _excl_cumsum(w_i * t))).sum(dim=1)
 
     def entropy(x):
-        return torch.where(x > 0, -x * torch.log(torch.clamp(x, min=1e-8)), zero).sum(dim=1)
+        return torch.where(x > 0, -x * torch.log(_clip(x, lo=1e-8)), zero).sum(dim=1)
 
     logsig = torch.where(
         contrib,
-        torch.log(torch.clamp(-torch.log(torch.clamp(1.0 - alpha_c, min=1e-8)), min=1e-8)),
+        torch.log(_clip(-torch.log(_clip(1.0 - alpha_c, lo=1e-8)), lo=1e-8)),
         zero,
     )
-    w_sg = torch.where(contrib, weight, zero)
+    w_sg = torch.where(contrib, weight, zero).detach()  # weights detached (surface.py:1941)
     loss_e = torch.zeros((3, B), dtype=dtype, device=dev).index_add_(1, ray, smp["loss_e"])
     zeros_b = torch.zeros(B, dtype=dtype, device=dev)
     losses = [
@@ -673,12 +696,79 @@ def composite(grid: SparseGrid, opt: RenderOptions, offsets: torch.Tensor, smp: 
     trunc_a = grid.truncated_vol_render_a
     if not offsets.is_cuda:
         return _composite_plain(opt, trunc_a, offsets, smp)
-    return kernels.composite(offsets, smp, float(trunc_a), opt)
+    return kernels.composite(offsets, smp, trunc_a, opt)
+
+
+# ---------------------------------------------------------------------------
+# K5: the backward on the card
+# ---------------------------------------------------------------------------
+
+class _Chunk(NamedTuple):
+    """What a chunk's forward and backward share besides the parameters."""
+
+    grid: SparseGrid
+    opt: RenderOptions
+    pool: Pool
+    origins: torch.Tensor
+    dirs: torch.Tensor
+    sh_mult: torch.Tensor
+    near_grid_t: float
+    packed: torch.Tensor
+
+
+class _PackedSurfaceFn(torch.autograd.Function):
+    """K3 and K4 forward; K5 backward into density, surface, SH and
+    fake_sample_std. Only ``rgb`` and ``ray_losses`` take a cotangent."""
+
+    @staticmethod
+    def forward(ctx, density, surface, sh, fss, chunk: _Chunk):
+        c = chunk
+        smp = voxel_samples(c.grid, c.opt, c.pool, c.origins, c.dirs, c.sh_mult, c.near_grid_t,
+                            c.packed)
+        comp = composite(c.grid, c.opt, c.pool.offsets, smp)
+        ctx.chunk, ctx.smp = chunk, smp
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(comp["depth_mode"], comp["depth_med"],
+                                    comp["n_intersections"])
+        return tuple(comp[k] for k in _FN_OUTPUTS)
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_ray_losses, *g_rest):
+        for name, g in zip(_FN_OUTPUTS[2:5], g_rest):
+            if g is not None and bool(torch.any(g != 0)):
+                raise NotImplementedError(
+                    f"a gradient through {name!r} of the packed renderer is not ported yet "
+                    "(ROADMAP §1 item 10); K5 carries rgb and ray_losses"
+                )
+        c, smp = ctx.chunk, ctx.smp
+        B = c.origins.shape[0]
+        f32 = dict(dtype=torch.float32, device=c.origins.device)
+        g_rgb = torch.zeros((B, 3), **f32) if g_rgb is None else g_rgb.contiguous()
+        g_rl = torch.zeros((12, B), **f32) if g_ray_losses is None else g_ray_losses.contiguous()
+        d_alpha, d_t, d_col = kernels.backward_ray(
+            c.pool.offsets, smp, c.grid.truncated_vol_render_a, c.opt, g_rgb, g_rl)
+        g_density, g_surface, g_sh, g_fss = kernels.backward_entry(
+            c.pool.ray_id, c.pool.l, c.pool.close_t, c.pool.far_t, c.origins, c.dirs, c.sh_mult,
+            c.grid.links, c.packed, c.grid.surface_data.shape[1], c.grid.level_set_data,
+            c.near_grid_t, _fss(c.grid), c.opt, smp["contrib"], d_alpha, d_t, d_col, g_rl)
+        need = ctx.needs_input_grad
+        return (g_density[:, None] if need[0] else None, g_surface if need[1] else None,
+                g_sh if need[2] else None, g_fss.reshape(1, 1) if need[3] else None, None)
+
+
+_FN_OUTPUTS = ("rgb", "ray_losses", "depth", "normal", "log_T", "depth_mode", "depth_med",
+               "n_intersections")
 
 
 # ---------------------------------------------------------------------------
 # The renderer
 # ---------------------------------------------------------------------------
+
+def _render_plain(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed) -> dict:
+    """K3 and K4's plain versions on one chunk; differentiable by autograd."""
+    smp = _voxel_samples_plain(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed)
+    return _composite_plain(opt, grid.truncated_vol_render_a, pool.offsets, smp)
+
 
 def volume_render_surface_packed(
     grid: SparseGrid,
@@ -696,7 +786,12 @@ def volume_render_surface_packed(
     exact, so ``pool_overflow`` is 0 and ``n_entries_used`` the true count;
     ``entries_per_ray`` is accepted for signature parity. ``occupancy``
     (the words of ``occupancy_words``) and ``packed`` (``pack_grid_data``)
-    may be passed in to share them across chunks."""
+    may be passed in to share them across chunks.
+
+    When a parameter of the grid requires grad, ``rgb`` and ``ray_losses``
+    carry gradients to density, surface, SH and fake_sample_std: on the card
+    through K5, on the CPU through autograd of the plain path (which then
+    packs the rows itself, so that they carry the gradient)."""
     if cache_size is not None:
         raise NotImplementedError("cache_size (the first-K sample cache) is not ported yet (ROADMAP §1 item 10)")
     if return_intersections:
@@ -714,10 +809,19 @@ def volume_render_surface_packed(
             torch.where(ray_ok, tmax, torch.full_like(tmax, -1.0)),
             words,
         )
-        if packed is None:
+    params = (grid.density_data, grid.surface_data, grid.sh_data, grid.fake_sample_std)
+    train = torch.is_grad_enabled() and any(p is not None and p.requires_grad for p in params)
+    autograd = train and not origins.is_cuda  # K5 differentiates on the card
+    if packed is None or autograd:
+        with torch.set_grad_enabled(autograd):
             packed = pack_grid_data(grid)
+    if train and origins.is_cuda:
+        chunk = _Chunk(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed)
+        comp = dict(zip(_FN_OUTPUTS, _PackedSurfaceFn.apply(*params, chunk)))
+    else:
         smp = voxel_samples(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed)
-        out = _finalize(composite(grid, opt, pool.offsets, smp))
+        comp = composite(grid, opt, pool.offsets, smp)
+    out = _finalize(comp)
     out["n_occupied"] = pool.n_occupied
     out["n_entries_used"] = pool.close_t.shape[0]
     out["pool_overflow"] = 0

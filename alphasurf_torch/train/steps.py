@@ -1,0 +1,283 @@
+"""The surface-stage train step, the counterpart of the JAX package's
+``train.steps.make_surface_step`` (steps.py:222-444; svox2's opt.py:786-1152).
+
+One step renders the batch through the packed renderer (K1-K4 forward, K5
+backward on the card), adds the streaming ray losses and the cell-sampled
+regularizers (K6), and applies masked RMSprop (K7) to density, SH, surface
+and fake_sample_std, in place. On the card it makes one host sync, the one
+that sizes K2's pool. Per-step scalars come in ``HParams`` as Python
+floats; a term whose weight is 0 is computed all the same, as the JAX step
+does, except ``l2_color_loss`` (a full pass over the SH rows for nothing).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..core.grid import SparseGrid
+from ..core.options import RenderOptions
+from ..core.rays import Rays
+from ..losses import reg
+from ..losses import render_losses as rl
+from ..optim.rmsprop import rmsprop_init, rmsprop_step
+from ..render.surface import volume_render_surface_packed
+
+
+class HParams(NamedTuple):
+    """Per-step scalars, the JAX package's ``HParams`` field for field."""
+
+    lr_sigma: float = 0.0
+    lr_alpha: float = 0.0
+    lr_surface: float = 0.0
+    lr_sh: float = 0.0
+    lr_fake_sample_std: float = 0.0
+    img_lambda_l1_ratio: float = 0.0
+    lambda_tv: float = 0.0
+    lambda_tv_sh: float = 0.0
+    lambda_tv_alpha: float = 0.0
+    lambda_tv_surface: float = 0.0
+    lambda_normal_l1: float = 0.0
+    lambda_normal_l2: float = 0.0
+    lambda_sparsify_alpha: float = 0.0
+    lambda_sparsify_surf: float = 0.0
+    lambda_l_dist: float = 0.0
+    lambda_l_dist_a: float = 0.0
+    lambda_l_entropy: float = 0.0
+    lambda_l_entropy_a: float = 0.0
+    lambda_conv_mode_samp: float = 0.0
+    lambda_samp_dist: float = 0.0
+    lambda_sparsity: float = 0.0
+    lambda_eikonal: float = 0.0
+    lambda_inward_norm: float = 0.0
+    lambda_density_lap: float = 0.0
+    lambda_udf_var: float = 0.0
+    lambda_fs_std_l1: float = 0.0
+    lambda_fs_std_l2: float = 0.0
+    surface_unfrozen: float = 1.0  # 0 during surface_init_freeze
+    force_apply: float = 0.0
+    lr_basis: float = 0.0
+    lr_background: float = 0.0
+    lambda_tv_background: float = 0.0
+    lambda_tv_background_density: float = 0.0
+    lambda_tv_basis: float = 0.0
+    lambda_l2_color: float = 0.0
+    lambda_norm_match: float = 0.0
+    lambda_viscosity: float = 0.0
+    lambda_sign_change: float = 0.0
+    lambda_tv_lumisphere: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    """The JAX package's ``StepConfig`` field for field. The port's pool is
+    exact, so ``entries_per_ray``, ``coarse_factor`` and ``supers_per_ray``
+    (the JAX pool's budget) are accepted and not needed; ``max_voxels``,
+    ``max_steps``, ``max_intersect_voxels`` and ``voxel_chunk`` belong to
+    renderers the port does not have yet."""
+
+    opt: RenderOptions
+    max_voxels: Optional[int] = None
+    max_steps: Optional[int] = None
+    cache_size: Optional[int] = 64
+    tv_sparsity: float = 0.01
+    tv_sh_sparsity: float = 0.01
+    tv_surface_sparsity: float = 0.01
+    norm_surface_sparsity: float = 0.01
+    sparsify_sparsity: float = 0.01
+    norm_con_check: bool = False
+    norm_ignore_empty: bool = False
+    sparsify_surf_decrease: bool = True
+    sparsify_surf_thresh: float = 0.15
+    surf_tv_alpha_weighted: bool = False
+    rms_beta: float = 0.95
+    bg_sparsity: float = 0.01
+    lumisphere_sparsity: float = 0.01
+    viscosity_eta: float = 1e-2
+    use_eikonal: bool = False
+    use_norm_match: bool = False
+    use_viscosity: bool = False
+    use_sign_change: bool = False
+    use_lumisphere_tv: bool = False
+    use_two_pass_losses: bool = False
+    renderer: str = "packed"
+    surf_grad_abs_max: Optional[float] = None
+    max_intersect_voxels: int = 64
+    voxel_chunk: int = 8
+    entries_per_ray: float = 8.0
+    coarse_factor: int = 8
+    supers_per_ray: float = 8.0
+    axis_name: Optional[str] = None
+
+
+# the sampled windows of one step, named as ``window_starts`` keys
+WINDOWS = ("tv", "tv_sh", "tv_surface", "normal", "sparsify")
+_PARAMS = (("density", "density_data"), ("sh", "sh_data"), ("surface", "surface_data"),
+           ("fake_sample_std", "fake_sample_std"))
+
+
+def init_rms(grid: SparseGrid) -> dict:
+    """Zero rms state of each trained group, keyed as the JAX ``init_rms``."""
+    return {k: rmsprop_init(getattr(grid, f)) for k, f in _PARAMS
+            if getattr(grid, f) is not None}
+
+
+def rms_to_numpy(rms: dict) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in rms.items()}
+
+
+def rms_from_numpy(arrays: dict, device="cuda", dtype=None) -> dict:
+    """An rms state from numpy arrays keyed as the JAX ``init_rms`` dict
+    (for a JAX state: ``{k: np.asarray(v.rms)}``)."""
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v), dtype=dtype, device=dev) for k, v in arrays.items()}
+
+
+@contextlib.contextmanager
+def _requires_grad(params):
+    flags = [p.requires_grad for p in params]
+    try:
+        for p in params:
+            p.requires_grad_(True)
+        yield
+    finally:
+        for p, f in zip(params, flags):
+            p.requires_grad_(f)
+
+
+def _check_config(cfg: StepConfig) -> None:
+    if cfg.renderer != "packed":
+        raise NotImplementedError(
+            f"renderer {cfg.renderer!r} is not ported; only 'packed' (ROADMAP §1 item 10)")
+    for flag in ("use_eikonal", "use_norm_match", "use_viscosity", "use_sign_change",
+                 "use_lumisphere_tv", "use_two_pass_losses"):
+        if getattr(cfg, flag):
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP §1 item 10)")
+    if cfg.axis_name is not None:
+        raise NotImplementedError("data-parallel steps (axis_name) are not ported yet "
+                                  "(ROADMAP §1 item 9)")
+
+
+def make_surface_step(cfg: StepConfig):
+    """The surface-stage train step, as the JAX package's (steps.py:222-444).
+
+    ``step(grid, rms, rays, rgb_gt, hp, generator, occ=None, row_coords=None,
+    window_starts=None) -> (grid, rms, stats)`` updates ``grid``'s
+    parameters and ``rms`` in place and returns them with ``stats`` (loss,
+    mse, pool_overflow: tensors). ``generator`` (a CPU ``torch.Generator``)
+    draws the regularizer windows; ``window_starts`` may fix any of them by
+    name (``WINDOWS``). ``occ`` are the occupancy words of
+    ``render.surface.occupancy_words``; ``row_coords`` (``reg.row_coords_of``)
+    switches the regularizers to present-cell windows, and to the full
+    lattice for a sparsity >= 0.5."""
+    _check_config(cfg)
+
+    def step(grid: SparseGrid, rms: dict, rays: Rays, rgb_gt: torch.Tensor, hp: HParams,
+             generator: torch.Generator, occ=None, row_coords=None, window_starts=None):
+        extra = set(rms) - {k for k, _ in _PARAMS}
+        if extra:
+            raise NotImplementedError(
+                f"rms groups {sorted(extra)} (learned bases, background) are not ported yet "
+                "(ROADMAP §1 item 10)")
+        starts = dict(window_starts or {})
+        if set(starts) - set(WINDOWS):
+            raise ValueError(f"unknown windows {sorted(set(starts) - set(WINDOWS))}; "
+                             f"known: {WINDOWS}")
+        if row_coords is not None:
+            reg_scale = reg.present_norm_scale(grid)
+
+            def sample(name, frac):
+                return reg.sample_present_cells(generator, grid, row_coords, frac,
+                                                starts.get(name))
+        else:
+            reg_scale = 1.0
+
+            def sample(name, frac):
+                return reg.sample_cells(generator, grid, frac, starts.get(name))
+
+        params = {k: getattr(grid, f) for k, f in _PARAMS if k in rms}
+        with _requires_grad(list(params.values())):
+            out = volume_render_surface_packed(grid, rays, cfg.opt, occupancy=occ)
+            resid = out["rgb"] - rgb_gt
+            if rays.masks is not None:
+                resid = resid * rays.masks[:, None]
+            mse = torch.mean(resid ** 2)
+            l1r = hp.img_lambda_l1_ratio
+            loss = (1.0 - l1r) * mse + l1r * torch.mean(torch.abs(resid))
+
+            ray_l = out["ray_losses"]
+            loss = loss + hp.lambda_l_dist * rl.l_dist_from_ray_losses(ray_l, alphas=False)
+            loss = loss + hp.lambda_l_dist_a * rl.l_dist_from_ray_losses(ray_l, alphas=True)
+            loss = loss + hp.lambda_l_entropy * rl.l_entropy_from_ray_losses(ray_l, alphas=False)
+            loss = loss + hp.lambda_l_entropy_a * rl.l_entropy_from_ray_losses(ray_l, alphas=True)
+            loss = loss + hp.lambda_sparsity * rl.l_sparsity_from_ray_losses(ray_l)
+            loss = loss + hp.lambda_inward_norm * rl.l_inward_norm_from_ray_losses(ray_l)
+            loss = loss + hp.lambda_density_lap * rl.density_lap_from_ray_losses(ray_l)
+            loss = loss + hp.lambda_udf_var * rl.udf_var_from_ray_losses(ray_l)
+
+            # cell-sampled regularizers (opt.py:939-1074)
+            cells = sample("tv", cfg.tv_sparsity)
+            loss = loss + reg_scale * hp.lambda_tv_alpha * reg.tv_loss(grid, grid.density_data,
+                                                                       cells)
+            cells = sample("tv_sh", cfg.tv_sh_sparsity)
+            loss = loss + reg_scale * hp.lambda_tv_sh * reg.tv_loss(grid, grid.sh_data, cells)
+            dense_ok = row_coords is not None
+            if dense_ok and cfg.tv_surface_sparsity >= 0.5:
+                loss = loss + hp.lambda_tv_surface * reg.surface_tv_loss_dense(
+                    grid, alpha_weighted=cfg.surf_tv_alpha_weighted)
+            else:
+                cells = sample("tv_surface", cfg.tv_surface_sparsity)
+                loss = loss + reg_scale * hp.lambda_tv_surface * reg.surface_tv_loss(
+                    grid, cells, alpha_weighted=cfg.surf_tv_alpha_weighted)
+            con, empty = cfg.norm_con_check, cfg.norm_ignore_empty
+            if dense_ok and cfg.norm_surface_sparsity >= 0.5:
+                loss = loss + hp.lambda_normal_l1 * reg.surface_normal_loss_dense(
+                    grid, con, empty, use_l1=True)
+                loss = loss + hp.lambda_normal_l2 * reg.surface_normal_loss_dense(
+                    grid, con, empty, use_l1=False)
+            else:
+                cells = sample("normal", cfg.norm_surface_sparsity)
+                loss = loss + reg_scale * hp.lambda_normal_l1 * reg.surface_normal_loss(
+                    grid, cells, con, empty, use_l1=True)
+                loss = loss + reg_scale * hp.lambda_normal_l2 * reg.surface_normal_loss(
+                    grid, cells, con, empty, use_l1=False)
+            cells = sample("sparsify", cfg.sparsify_sparsity)
+            loss = loss + reg_scale * reg.alpha_surf_sparsify_loss(
+                grid, cells, hp.lambda_sparsify_alpha, hp.lambda_sparsify_surf,
+                cfg.sparsify_surf_decrease, cfg.sparsify_surf_thresh)
+            if hp.lambda_l2_color != 0.0:
+                loss = loss + hp.lambda_l2_color * reg.l2_color_loss(grid)
+            if "fake_sample_std" in params:
+                # L1/L2 on fake_sample_std (svox2.py:6073-6075)
+                fss = grid.fake_sample_std
+                loss = loss + (hp.lambda_fs_std_l2 * torch.sum(fss ** 2)
+                               + hp.lambda_fs_std_l1 * torch.sum(torch.abs(fss)))
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        g = {k: torch.zeros_like(p) if gk is None else gk
+             for (k, p), gk in zip(params.items(), grads)}
+
+        # The JAX step keeps the old parameters when its pool overflowed
+        # (steps.py:408-437). The port's pool is sized exactly and never
+        # overflows, so this is a host-side check of a Python 0 and the
+        # update always applies.
+        overflow = out["pool_overflow"]
+        if overflow == 0 or hp.force_apply > 0:
+            beta = cfg.rms_beta
+            rmsprop_step(grid.density_data, rms["density"], g["density"], hp.lr_alpha, beta)
+            rmsprop_step(grid.sh_data, rms["sh"], g["sh"], hp.lr_sh, beta)
+            clip = None if cfg.surf_grad_abs_max is None else abs(cfg.surf_grad_abs_max)
+            rmsprop_step(grid.surface_data, rms["surface"], g["surface"], hp.lr_surface, beta,
+                         grad_abs_max=clip, frozen=not hp.surface_unfrozen > 0)
+            if "fake_sample_std" in params:
+                rmsprop_step(grid.fake_sample_std, rms["fake_sample_std"],
+                             g["fake_sample_std"], hp.lr_fake_sample_std, beta,
+                             minval=1e-8)  # opt.py:1141-1142
+        stats = {"loss": loss.detach(), "mse": mse.detach(),
+                 "pool_overflow": torch.zeros((), dtype=torch.int32, device=mse.device)}
+        return grid, rms, stats
+
+    return step

@@ -3,23 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels of the packed surface renderer from
-``alphasurf_torch/csrc`` (K1 occupancy, K2 phase A count + fill, K3 phase B,
-K4 compositor), then:
+Builds the port's CUDA kernels from ``alphasurf_torch/csrc`` (K1 occupancy,
+K2 phase A count + fill, K3 phase B, K4 compositor, K5 backward per ray and
+per entry, K6 regularizers TV / normal / sparsify, K7 RMSprop), then:
 
 1. prints the card, its power limit, nvcc's register/spill lines and the
    build seconds;
 2. holds every kernel against its plain PyTorch version on the card, at the
-   shapes of the main path (the 512^3 shell grid and one 16,384-ray chunk of
-   an 800x800 orbit frame; K1 also on a 128^3 grid), and times both with
-   CUDA events;
-3. writes a 512^3, basis_dim=9 shell-grid checkpoint (density and SH drawn
-   from a numpy seed) and serves two 800x800 frames of it through
-   ``alphasurf_torch.app.render_circle.main``, with every launch counter set
-   to 0 just before and read just after; checks the frames against the
-   plain path on their central rays;
-4. profiles one more frame with torch.profiler: device busy time, idle
-   share and device time by kernel;
+   shapes of the main paths (the 512^3 shell grid, one 16,384-ray chunk of
+   an 800x800 orbit frame; K1 also at 128^3), and times both with CUDA
+   events: K5's gradients against autograd of the plain renderer, K6 on
+   sampled windows of the 512^3 grid and in its every-cell mode at 128^3,
+   K7 on the 512^3 parameter arrays;
+3. serving: writes a 512^3, basis_dim=9 shell-grid checkpoint (density and
+   SH drawn from a numpy seed) and serves two 800x800 frames of it through
+   ``alphasurf_torch.app.render_circle.main``, with every launch counter
+   set to 0 just before and read just after; checks the frames against the
+   plain path on their central rays; profiles one more frame;
+4. training: one train step with the kernels against one step of the plain
+   versions (on a CPU copy) at 128^3; then
+   ``alphasurf_torch.app.bench_step.main`` at full width (512^3, batch
+   40960, 1 + 33 steps) with the counters set to 0 just before and read
+   just after; then one profiled train step;
 5. prints one JSON line with each kernel's numbers, then the ok line.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -36,8 +41,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 RESO = 512
+SMALL_RESO = 128  # K1's second grid, K6's every-cell mode, the step check
 WIDTH = HEIGHT = 800
 CHUNK = 16384
+STEP_BATCH = 4096  # rays of the kernel-against-plain train step
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -55,18 +62,47 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL, ATOL = 1e-4, 1e-5
 SELECT_FRACTION = 1e-3
 FLAG_FRACTION = 1e-5
+# K5 against autograd of the plain renderer, both float32 on the card: the
+# gradients are sums in other orders (atomics against autograd's scatter)
+# of products through float32 roots, so each parameter group agrees to
+# |g_k - g_p| <= GRAD_REL |g_p| in norm, and at most GRAD_ROW_FRACTION of
+# the rows either touches may differ elementwise by more than
+# GRAD_ATOL + GRAD_RTOL |g_p|.
+GRAD_REL, GRAD_ROW_FRACTION, GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4, 1e-3, 1e-6
+# K6: the same per-cell arithmetic in the same order; the loss is a float32
+# sum over cells in another order (rtol 1e-5), the row gradients sums of at
+# most 20 contributions in another order.
+REG_LOSS_RTOL, REG_REL = 1e-5, 1e-5
+# K7: elementwise, the same float32 operations in the same order
+RMS_RTOL = 1e-6
 
 # the JAX package: named for the "replaces" paths and the import check, and
 # never imported
 JAX_PACKAGE = "alphasurf_tpu"
 _JAX_SURFACE = f"{JAX_PACKAGE}/render/surface.py"
+_JAX_REG = f"{JAX_PACKAGE}/losses/reg.py"
 KERNELS = {  # name -> (source, the JAX routine it replaces)
     "occupancy": ("alphasurf_torch/csrc/occupancy.cu", f"{_JAX_SURFACE}:1149"),
     "phase_a_count": ("alphasurf_torch/csrc/phase_a.cu", f"{_JAX_SURFACE}:1652"),
     "phase_a_fill": ("alphasurf_torch/csrc/phase_a.cu", f"{_JAX_SURFACE}:1652"),
     "phase_b": ("alphasurf_torch/csrc/phase_b.cu", f"{_JAX_SURFACE}:469"),
     "composite": ("alphasurf_torch/csrc/composite.cu", f"{_JAX_SURFACE}:1804"),
+    # K5 replaces jax.grad of the packed renderer: K5a the compositor's
+    # backward, K5b the samples' backward with the root JVP of ops/cubic.py
+    "backward_ray": ("alphasurf_torch/csrc/backward.cu", f"{_JAX_SURFACE}:1804"),
+    "backward_entry": ("alphasurf_torch/csrc/backward.cu", f"{JAX_PACKAGE}/ops/cubic.py:230"),
+    "reg_tv": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:126"),
+    "reg_normal": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:202"),
+    "reg_sparsify": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:305"),
+    "rmsprop": ("alphasurf_torch/csrc/rmsprop.cu", f"{JAX_PACKAGE}/optim/rmsprop.py:26"),
 }
+SERVE_KERNELS = ("occupancy", "phase_a_count", "phase_a_fill", "phase_b", "composite")
+TRAIN_BATCH = 40960
+# the loss of the K5 check: the bench loss (mse against 0.5, bench.py's
+# l_entropy weight) plus small weights on every other ray loss that carries
+# a gradient, so that each branch of the backward runs
+K5_LAMBDAS = {"l_dist": 1e-4, "l_dist_a": 1e-4, "l_entropy": 1e-4, "l_entropy_a": 1e-4,
+              "sp_logsig": 1e-6, "sp_logsig_w": 1e-6, "l_inward": 1e-4, "lap_sum": 1e-5}
 
 
 def log(msg: str) -> None:
@@ -104,44 +140,24 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 def shell_grid(reso: int, device, seed: int = SEED):
     """bench.py's sparse sphere-shell SDF grid (reso^3, one level set,
-    basis_dim 9, fake_sample_std 0.1), built on the card; raw alpha in
-    [0.5, 3] and a smooth SH colour field drawn from a numpy seed."""
+    basis_dim 9, fake_sample_std 0.1), built on the card, with raw alpha in
+    [0.5, 3] and a smooth SH colour field drawn from a numpy seed; and its
+    row coords."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
-    from alphasurf_torch import defs
-    from alphasurf_torch.core.grid import SparseGrid
+    from alphasurf_torch.app.bench_step import build_bench_grid
 
-    idx = torch.arange(reso, dtype=torch.float32, device=device)
-    r = torch.sqrt((idx[:, None, None] - reso / 2) ** 2 + (idx[None, :, None] - reso / 2) ** 2
-                   + (idx[None, None, :] - reso / 2) ** 2)
-    sdf = (reso / 4.0 - r) / (reso / 4.0)
-    keep = (torch.abs(sdf) < 3.0 / (reso / 4.0)).float()[None, None]
-    for _ in range(2):  # 26-neighbourhood dilation, twice
-        keep = F.max_pool3d(keep, 3, 1, 1)
-    flat = keep.reshape(-1) > 0
-    del keep
-    links = torch.where(flat, torch.cumsum(flat.int(), 0, dtype=torch.int32) - 1,
-                        torch.full_like(flat, -1, dtype=torch.int32))
-    occ_idx = torch.nonzero(flat)[:, 0]
-    cap = occ_idx.numel()
-    surface = sdf.reshape(-1)[occ_idx][:, None].contiguous()
-    coords = torch.stack([occ_idx // (reso * reso), (occ_idx // reso) % reso, occ_idx % reso], -1)
-    coords = coords.float() / reso
+    grid, row_coords = build_bench_grid(reso, device)
+    coords = row_coords.float() / reso
     rng = np.random.default_rng(seed)
     freqs = torch.as_tensor(rng.normal(size=(3, 27)) * 2.0, dtype=torch.float32, device=device)
     phase = torch.as_tensor(rng.uniform(0, 2 * np.pi, 27), dtype=torch.float32, device=device)
-    sh = 0.35 * torch.sin(coords @ freqs * (2 * np.pi / 4) + phase)
-    density = torch.as_tensor(rng.uniform(0.5, 3.0, (cap, 1)), dtype=torch.float32, device=device)
-    f32 = dict(dtype=torch.float32, device=device)
-    return SparseGrid(
-        links=links.reshape(reso, reso, reso), density_data=density, sh_data=sh.contiguous(),
-        surface_data=surface, level_set_data=torch.zeros(1, **f32),
-        fake_sample_std=torch.full((1, 1), 0.1, **f32),
-        truncated_vol_render_a=torch.tensor(1.0, **f32), radius=torch.ones(3, **f32),
-        center=torch.zeros(3, **f32), basis_dim=9, surface_type=defs.SURFACE_TYPE_SDF,
-    )
+    with torch.no_grad():
+        grid.sh_data.copy_(0.35 * torch.sin(coords @ freqs * (2 * np.pi / 4) + phase))
+        grid.density_data.copy_(torch.as_tensor(rng.uniform(0.5, 3.0, (grid.capacity, 1)),
+                                                dtype=torch.float32, device=device))
+    return grid, row_coords
 
 
 def frame_camera(i: int, n_frames: int):
@@ -217,8 +233,8 @@ def check_kernels(device, card: str) -> dict:
     import torch
 
     from alphasurf_torch import kernels
+    from alphasurf_torch.app.bench_step import bench_options
     from alphasurf_torch.app.render_circle import circle_render_options
-    from alphasurf_torch.core.options import RenderOptions
     from alphasurf_torch.core.rays import Camera, Rays
     from alphasurf_torch.data.synthetic import pose_spherical
     from alphasurf_torch.render import surface as S
@@ -226,8 +242,8 @@ def check_kernels(device, card: str) -> dict:
     res = {}
     # K1 at 128^3, then at 512^3 (the main path's shape, timed)
     serve = circle_render_options()
-    for reso in (128, RESO):
-        g = shell_grid(reso, device)
+    for reso in (SMALL_RESO, RESO):
+        g, _ = shell_grid(reso, device)
         dens = g.density_data.detach()[:, 0].contiguous()
         surf = g.surface_data.detach()[:, 0].contiguous()
 
@@ -252,10 +268,8 @@ def check_kernels(device, card: str) -> dict:
 
     # one full chunk of frame 0 on the 512^3 grid; K3/K4 under the bench
     # options (fake samples, truncation) so that every branch runs
-    grid = shell_grid(RESO, device)
-    bench_opt = RenderOptions(sigma_thresh=-1e9, stop_thresh=1e-7, only_outward_intersect=True,
-                              surf_fake_sample=True, limited_fake_sample=True,
-                              truncated_vol_render=True)
+    grid, row_coords = shell_grid(RESO, device)
+    bench_opt = bench_options()
     rays_all = frame_camera(0, 2).gen_rays_device(device)
     s = (WIDTH * HEIGHT) // 2 - CHUNK // 2  # centre rows: the sphere is in view
 
@@ -295,7 +309,7 @@ def check_kernels(device, card: str) -> dict:
     # K3 on the (equal) pool
     pool = pool_p
     packed = S.pack_grid_data(grid)
-    fss = float(grid.fake_sample_std[0, 0])
+    fss = grid.fake_sample_std.detach()
 
     def k3():
         return kernels.phase_b(pool.ray_id, pool.l, pool.close_t, pool.far_t, origins, dirs,
@@ -335,7 +349,7 @@ def check_kernels(device, card: str) -> dict:
     # K4 on the same slots
     smp = {k: sp[k].contiguous() for k in ("t", "alpha", "contrib", "fake", "counted", "rgb",
                                            "snorm", "loss_e")}
-    trunc_a = float(grid.truncated_vol_render_a)
+    trunc_a = grid.truncated_vol_render_a
 
     def k4():
         return kernels.composite(pool.offsets, smp, trunc_a, bench_opt)
@@ -357,10 +371,281 @@ def check_kernels(device, card: str) -> dict:
                             plain_ms=time_ms(lambda: S._composite_plain(
                                 bench_opt, grid.truncated_vol_render_a, pool.offsets, sp), 3),
                             bound=bound_ms(nb4, S0 * M * 50))
+
+    res.update(check_backward(grid, bench_opt, rays, words, pool, packed, origins, dirs, sh_mult,
+                              ngt, sk))
+    res.update(check_reg(grid, row_coords, device))
+    res.update(check_rmsprop(grid))
+    del grid, row_coords, packed, pool, sk, sp, smp
+    torch.cuda.empty_cache()
     for name, r in res.items():
         log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) [{card}]")
     return res
+
+
+def grad_check(name: str, gk, gp) -> float:
+    """K5's tolerance (GRAD_*) on one parameter group; returns the max abs
+    error."""
+    import torch
+
+    gk, gp = gk.double().reshape(gk.shape[0], -1), gp.double().reshape(gp.shape[0], -1)
+    d = (gk - gp).abs()
+    rel = float((gk - gp).norm() / gp.norm().clamp(min=1e-30))
+    touched = (gk != 0).any(-1) | (gp != 0).any(-1)
+    bad = ((d > GRAD_ATOL + GRAD_RTOL * gp.abs()).any(-1) & touched)
+    frac = float(bad.sum()) / max(int(touched.sum()), 1)
+    big = gp.abs().amax(-1)
+    log(f"  {name}: |g| {float(gp.norm()):.4e}, max |g| plain {float(big.max()):.4e} kernel "
+        f"{float(gk.abs().max()):.4e}, rel err {rel:.3e}, {int(bad.sum())} of "
+        f"{int(touched.sum())} touched rows outside rtol {GRAD_RTOL}/atol {GRAD_ATOL}, "
+        f"max abs err {float(d.max()):.3e}")
+    if not (rel <= GRAD_REL and frac <= GRAD_ROW_FRACTION):
+        raise AssertionError(f"K5 {name} gradient differs from autograd of the plain path: "
+                             f"rel {rel}, row fraction {frac}")
+    return float(d.max())
+
+
+def check_backward(grid, opt, rays, words, pool, packed, origins, dirs, sh_mult, ngt, sk) -> dict:
+    """K5: the gradients of the bench loss on one chunk through the kernels
+    (the renderer's autograd Function: K3, K4, then K5a and K5b) against
+    autograd of the plain renderer, both on the card; then K5a and K5b
+    timed alone on the chunk's slots."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.render import surface as S
+
+    B = origins.shape[0]
+    lam = torch.tensor([K5_LAMBDAS.get(k, 0.0) for k in S._RAY_LOSS_KEYS], dtype=torch.float32,
+                       device=origins.device)
+
+    def loss_of(rgb, rl):
+        return torch.mean((rgb - 0.5) ** 2) + torch.sum(lam * rl.mean(dim=1))
+
+    names = ("density", "surface", "sh", "fake_sample_std")
+    params = [grid.density_data, grid.surface_data, grid.sh_data, grid.fake_sample_std]
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        out = S.volume_render_surface_packed(grid, rays, opt, occupancy=words, packed=packed)
+        rl_k = torch.stack([out["ray_losses"][k] for k in S._RAY_LOSS_KEYS])
+        g_kernel = torch.autograd.grad(loss_of(out["rgb"], rl_k), params)
+        comp = S._render_plain(grid, opt, pool, origins, dirs, sh_mult, ngt, S.pack_grid_data(grid))
+        loss_p = loss_of(comp["rgb"], comp["ray_losses"])
+        g_plain = torch.autograd.grad(loss_p, params, retain_graph=True)
+        plain_ms = time_ms(lambda: torch.autograd.grad(loss_p, params, retain_graph=True), 3)
+        del comp, loss_p
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    log(f"K5 backward: gradients of the bench loss over {B} rays, kernels against autograd of "
+        f"the plain path:")
+    err = max(grad_check(n, a, b) for n, a, b in zip(names, g_kernel, g_plain))
+    del g_kernel, g_plain
+
+    # K5a and K5b alone, on K3's slots of this chunk
+    comp_k = kernels.composite(pool.offsets, sk, grid.truncated_vol_render_a, opt)
+    g_rgb = (2.0 * (comp_k["rgb"] - 0.5) / (3 * B)).contiguous()
+    g_rl = (lam[:, None] / B).expand(12, B).contiguous()
+    fss = grid.fake_sample_std.detach()
+
+    def k5a():
+        return kernels.backward_ray(pool.offsets, sk, grid.truncated_vol_render_a, opt, g_rgb, g_rl)
+
+    d_alpha, d_t, d_col = k5a()
+
+    def k5b():
+        return kernels.backward_entry(pool.ray_id, pool.l, pool.close_t, pool.far_t, origins, dirs,
+                                      sh_mult, grid.links, packed, 1, grid.level_set_data, ngt,
+                                      fss, opt, sk["contrib"], d_alpha, d_t, d_col, g_rl)
+
+    M, S0 = pool.close_t.shape[0], sk["n_slots"]
+    pos = torch.unique(torch.stack([
+        ((torch.clamp(pool.l[:, 0].long() + dx, max=RESO - 1) * RESO
+          + torch.clamp(pool.l[:, 1].long() + dy, max=RESO - 1)) * RESO
+         + torch.clamp(pool.l[:, 2].long() + dz, max=RESO - 1))
+        for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]))
+    n_rows = int((grid.links.reshape(-1)[pos] >= 0).sum())
+    # K5a: slots read (t, alpha, flags, colour), cotangents written; K5b: the
+    # pool, its rays, the corner links and rows, the slot cotangents, and the
+    # full gradient arrays it returns
+    bytes_a = S0 * M * 46 + (B + 1) * 8 + B * 60
+    bytes_b = (M * 24 + B * 60 + pos.numel() * 4 + n_rows * packed.shape[1] * 4 + S0 * M * 21
+               + B * 8 + grid.capacity * 29 * 4)
+    ops_b = M * 2 * (48 * grid.basis_dim + 60 + grid.level_set_data.numel() * 550 + 200)
+    return {
+        "backward_ray": dict(max_abs_err=err, ms=time_ms(k5a, 20), plain_ms=plain_ms,
+                             bound=bound_ms(bytes_a, S0 * M * 100)),
+        "backward_entry": dict(max_abs_err=err, ms=time_ms(k5b, 20), plain_ms=plain_ms,
+                               bound=bound_ms(bytes_b, ops_b)),
+    }
+
+
+def reg_check(label: str, run_kernel, run_plain, grid, fields) -> tuple[float, float, float]:
+    """K6 against the plain version's autograd: (max abs err, kernel ms,
+    plain ms)."""
+    import torch
+
+    loss_k, *g_kernel = run_kernel()
+    params = [getattr(grid, f) for f in fields]
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        loss_p = run_plain()
+        g_plain = [torch.zeros_like(p) if g is None else g
+                   for p, g in zip(params, torch.autograd.grad(loss_p, params, allow_unused=True))]
+
+        def plain():
+            torch.autograd.grad(run_plain(), params, allow_unused=True)
+
+        plain_ms = time_ms(plain, 3)
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    lk, lp = float(loss_k), float(loss_p.detach())
+    errs = [abs(lk - lp)]
+    ok = abs(lk - lp) <= REG_LOSS_RTOL * abs(lp)
+    for gk, gp in zip(g_kernel, g_plain):
+        rel = float((gk - gp).double().norm() / gp.double().norm().clamp(min=1e-30))
+        errs.append(float((gk - gp).abs().max()))
+        ok = ok and rel <= REG_REL
+    log(f"  {label}: loss {lk:.7e} (plain {lp:.7e}), grad max abs err {max(errs[1:]):.3e}")
+    if not ok:
+        raise AssertionError(f"K6 {label} differs from its plain version")
+    return max(errs), time_ms(run_kernel, 20), plain_ms
+
+
+def check_reg(grid, row_coords, device) -> dict:
+    """K6 on windows of 0.01 of the 512^3 grid's rows (the main path's
+    sparsity), each against its plain version; the every-cell mode on a
+    128^3 shell grid."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.losses import reg as R
+
+    gen = torch.Generator().manual_seed(SEED)
+    L = grid.links
+    out = {}
+
+    def cells_stats(cells, offsets):
+        """Bytes a window needs: its cells, the links it reads, the rows they
+        name."""
+        x, y, z = R._cells_to_xyz(cells, grid.reso)
+        lk = torch.unique(torch.stack([R._link_at(L, x + a, y + b, z + c)
+                                       for a, b, c in offsets]))
+        return cells.numel() * 4 + lk.numel() * 4, int((lk >= 0).sum())
+
+    tv_offs = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1))
+    win_offs = tuple((a, b, c) for a in range(3) for b in range(3) for c in range(3))
+    log("K6 regularizers on windows of 0.01 of the rows:")
+    worst = {"reg_tv": 0.0, "reg_normal": 0.0, "reg_sparsify": 0.0}
+    cells = R.sample_present_cells(gen, grid, row_coords, 0.01)
+    n = cells.numel()
+    cb, nr = cells_stats(cells, tv_offs)
+    for label, field, c0, c1 in (("TV density", "density_data", 0, 1),
+                                 ("TV sh", "sh_data", 0, 27),
+                                 ("TV surface", "surface_data", 0, 1)):
+        data = getattr(grid, field)
+        e, ms, pms = reg_check(
+            label, lambda: kernels.reg_tv(L, cells, data.detach(), c0, c1, None, 1.0 / n),
+            lambda: R._tv_plain(grid, data, cells, c0, c1, None, 1.0 / n), grid, (field,))
+        worst["reg_tv"] = max(worst["reg_tv"], e)
+        if field == "surface_data":  # the main path's heaviest-weighted TV
+            out["reg_tv"] = dict(ms=ms, plain_ms=pms, bound=bound_ms(
+                cb + nr * 4 * 2 + grid.capacity * 4, n * 20))
+    cb, nr = cells_stats(cells, win_offs)
+    for use_l1 in (True, False):
+        e, ms, pms = reg_check(
+            f"normal {'L1' if use_l1 else 'L2'}",
+            lambda: kernels.reg_normal(L, cells, grid.surface_data.detach(), grid.level_set_data,
+                                       False, False, use_l1, 1.0 / n),
+            lambda: R._normal_plain(grid, cells, False, False, use_l1, 1.0 / n), grid,
+            ("surface_data",))
+        worst["reg_normal"] = max(worst["reg_normal"], e)
+        if use_l1:
+            out["reg_normal"] = dict(ms=ms, plain_ms=pms, bound=bound_ms(
+                cb + nr * 4 + grid.capacity * 4, n * 400))
+    cb, nr = cells_stats(cells, ((0, 0, 0),))
+    e, ms, pms = reg_check(
+        "sparsify",
+        lambda: kernels.reg_sparsify(L, cells, grid.density_data.detach(),
+                                     grid.surface_data.detach(), 1.0, 1.0, True, 0.15, 1.0 / n),
+        lambda: R._sparsify_plain(grid, cells, 1.0, 1.0, True, 0.15), grid,
+        ("density_data", "surface_data"))
+    worst["reg_sparsify"] = e
+    out["reg_sparsify"] = dict(ms=ms, plain_ms=pms, bound=bound_ms(
+        cb + nr * 8 + grid.capacity * 8, n * 30))
+
+    # every-cell mode (the dense variants of the recipe's sparsity 1)
+    g_small, _ = shell_grid(SMALL_RESO, device)
+    L_small = g_small.links
+    scale = 1.0 / L_small.numel()
+    log(f"K6 every-cell mode at {SMALL_RESO}^3:")
+    e, _, _ = reg_check(
+        "surface TV, every cell",
+        lambda: kernels.reg_tv(L_small, None, g_small.surface_data.detach(), 0, 1, None, scale),
+        lambda: R._tv_plain(g_small, g_small.surface_data, torch.arange(L_small.numel(), device=device),
+                            0, 1, None, scale), g_small, ("surface_data",))
+    worst["reg_tv"] = max(worst["reg_tv"], e)
+    e, _, _ = reg_check(
+        "normal L1, every interior cell",
+        lambda: kernels.reg_normal(L_small, None, g_small.surface_data.detach(), g_small.level_set_data,
+                                   False, False, True, scale),
+        lambda: R._normal_plain(g_small, R._interior_cells(g_small), False, False, True, scale), g_small,
+        ("surface_data",))
+    worst["reg_normal"] = max(worst["reg_normal"], e)
+    for k, v in out.items():
+        v["max_abs_err"] = worst[k]
+    del g_small
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_rmsprop(grid) -> dict:
+    """K7 on the 512^3 parameter arrays (density, SH, surface with the
+    clip, fake_sample_std with the floor) against its plain version:
+    elementwise to RMS_RTOL. Gradients are random, with 30% of rows zero."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.optim.rmsprop import _rmsprop_plain
+
+    gen = torch.Generator(device=grid.links.device).manual_seed(SEED)
+    groups = []
+    for param, lr, kw in ((grid.density_data, 1e-3, {}), (grid.sh_data, 1e-3, {}),
+                          (grid.surface_data, 1e-5, dict(grad_abs_max=1e-3)),
+                          (grid.fake_sample_std, 1e-4, dict(minval=1e-8))):
+        g = torch.randn(param.shape, generator=gen, device=param.device) * 1e-3
+        g[torch.rand(param.shape[0], generator=gen, device=param.device) < 0.3] = 0.0
+        rms = torch.rand(param.shape, generator=gen, device=param.device) * 1e-6
+        args = (lr, 0.95, 1e-8, kw.get("minval"), kw.get("grad_abs_max"), False)
+        groups.append((param.detach(), rms, g, args))
+    err = 0.0
+    for p0, r0, g, args in groups:
+        pk, rk, pp, rp = p0.clone(), r0.clone(), p0.clone(), r0.clone()
+        kernels.rmsprop(pk, rk, g, *args)
+        _rmsprop_plain(pp, rp, g, *args)
+        for a, b in ((pk, pp), (rk, rp)):
+            err = max(err, float((a - b).abs().max()))
+            if not torch.allclose(a, b, rtol=RMS_RTOL, atol=0.0):
+                raise AssertionError("K7 differs from its plain version")
+    n_el = sum(p0.numel() for p0, _, _, _ in groups)
+    bufs = [(p0.clone(), r0.clone(), g, args) for p0, r0, g, args in groups]
+
+    def k7():
+        for p, r, g, args in bufs:
+            kernels.rmsprop(p, r, g, *args)
+
+    def plain():
+        for p, r, g, args in bufs:
+            _rmsprop_plain(p, r, g, *args)
+
+    log(f"K7 RMSprop: {n_el} elements in 4 groups equal to the plain version (max abs err "
+        f"{err:.3e})")
+    return {"rmsprop": dict(max_abs_err=err, ms=time_ms(k7, 20), plain_ms=time_ms(plain, 3),
+                            bound=bound_ms(20 * n_el, 8 * n_el))}
 
 
 def plain_rgb(grid, opt, rays, words):
@@ -388,7 +673,7 @@ def serve(device, card: str, work: Path) -> dict:
 
     ckpt = work / "ckpt.npz"
     t0 = time.perf_counter()
-    save_grid(shell_grid(RESO, device), str(ckpt))
+    save_grid(shell_grid(RESO, device)[0], str(ckpt))
     torch.cuda.empty_cache()
     log(f"checkpoint {RESO}^3 basis_dim=9 written in {time.perf_counter() - t0:.1f} s")
 
@@ -408,6 +693,7 @@ def serve(device, card: str, work: Path) -> dict:
     log(f"served {n_frames} frames {WIDTH}x{HEIGHT}: ms per frame {[round(s * 1e3, 3) for s in secs]}, "
         f"{n_rays / sum(secs):.1f} rays/s, main() wall {wall:.2f} s incl. checkpoint load, "
         f"max_memory_allocated {peak / 2**30:.3f} GiB [{card}]")
+    launches = {k: launches[k] for k in SERVE_KERNELS}
     log("launches " + json.dumps(launches))
     if any(v == 0 for v in launches.values()):
         raise AssertionError(f"a kernel of the main path was not launched: {launches}")
@@ -437,31 +723,155 @@ def serve(device, card: str, work: Path) -> dict:
     return launches
 
 
-def profile_frame(grid, opt, device, card: str) -> None:
-    """Where one frame's time goes: torch.profiler over render_image of
-    frame 1 (warm), device time summed by kernel name."""
+def profile_device(fn, label: str, card: str) -> None:
+    """Where the time of fn() goes: torch.profiler over one warm call,
+    device time summed by kernel name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from alphasurf_torch.render.image import render_image
-
-    cam = frame_camera(1, 2)
-    render_image(grid, cam, opt, device=device)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render_image(grid, cam, opt, device=device)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"profile of one {WIDTH}x{HEIGHT} frame: wall {wall:.3f} ms under the profiler, device "
-        f"busy {busy:.3f} ms, idle share {1.0 - busy / wall:.3f} [{card}]")
-    for ms, n, key in rows[:12]:
+    log(f"profile of {label}: wall {wall:.3f} ms under the profiler, device busy {busy:.3f} ms, "
+        f"idle share {1.0 - busy / wall:.3f} [{card}]")
+    for ms, n, key in rows[:16]:
         log(f"  {ms:9.3f} ms {n:6d}x  {key[:100]}")
+
+
+def profile_frame(grid, opt, device, card: str) -> None:
+    """Phase 3's profile: render_image of frame 1 of the orbit."""
+    from alphasurf_torch.render.image import render_image
+
+    cam = frame_camera(1, 2)
+    profile_device(lambda: render_image(grid, cam, opt, device=device),
+                   f"one {WIDTH}x{HEIGHT} frame", card)
+
+
+def check_step(device) -> None:
+    """One train step through the kernels on the card against one step of
+    the plain versions on a CPU copy, at 128^3 with a 4,096-ray batch of
+    the bench camera and the same regularizer windows (rays whose float32
+    bounds differ between the two are left out). RMSprop's first step
+    moves a row by about lr / sqrt(1 - beta) whatever its gradient, so the
+    parameters agree to 1e-3 of that step on all but 1e-3 of the rows either
+    updates; the rms (0.05 g^2) agrees in norm to 1e-3."""
+    import torch
+
+    from alphasurf_torch.app.bench_step import bench_hparams, bench_options, bench_rays
+    from alphasurf_torch.core.grid import SparseGrid
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.render import surface as S
+    from alphasurf_torch.train.steps import WINDOWS, StepConfig, init_rms, make_surface_step
+
+    grid, rc = shell_grid(SMALL_RESO, device)
+    cpu = SparseGrid.from_numpy(grid.to_numpy(), device="cpu")
+    old = {f: getattr(cpu, f).detach().clone()
+           for f in ("density_data", "sh_data", "surface_data", "fake_sample_std")}
+    rays = bench_rays(WIDTH, device)
+    # float32 ray bounds accept a plane hit only within an absolute 1e-6 of
+    # the lattice (ROADMAP §3), so a ray whose prepared bounds round
+    # differently on the card and on the CPU may hit on one and miss on the
+    # other; the batch takes the central rays whose bounds agree exactly
+    opt = bench_options()
+    s = (WIDTH * HEIGHT) // 2 - STEP_BATCH
+    cand = Rays(rays.origins[s:s + 2 * STEP_BATCH], rays.dirs[s:s + 2 * STEP_BATCH])
+    prep_k = S._prep(grid, cand, opt)[:7]
+    prep_p = S._prep(cpu, Rays(cand.origins.cpu(), cand.dirs.cpu()), opt)[:7]
+    same = torch.ones(2 * STEP_BATCH, dtype=torch.bool)
+    for a, b in zip(prep_k, prep_p):
+        if torch.is_tensor(a):
+            same &= (a.cpu() == b).reshape(2 * STEP_BATCH, -1).all(-1)
+    keep = torch.nonzero(same)[:STEP_BATCH, 0]
+    nb = keep.numel()
+    log(f"train step check: {2 * STEP_BATCH - int(same.sum())} of {2 * STEP_BATCH} central rays "
+        f"have float32 bounds that differ between the card and the CPU; {nb} agreeing rays kept")
+    r_k = Rays(cand.origins[keep.to(device)].contiguous(), cand.dirs[keep.to(device)].contiguous())
+    r_p = Rays(r_k.origins.cpu(), r_k.dirs.cpu())
+    hp = bench_hparams()._replace(lr_fake_sample_std=1e-4)
+    beta = 0.95
+    step = make_surface_step(StepConfig(opt=opt, cache_size=None, rms_beta=beta))
+    K = max(1, int(0.01 * grid.capacity))
+    gen = torch.Generator().manual_seed(SEED)
+    starts = {w: int(torch.randint(0, grid.capacity - K + 1, (), generator=gen)) for w in WINDOWS}
+    rms_k, rms_p = init_rms(grid), init_rms(cpu)
+    _, _, st_k = step(grid, rms_k, r_k, torch.full((nb, 3), 0.5, device=device), hp,
+                      torch.Generator(), row_coords=rc, window_starts=starts)
+    _, _, st_p = step(cpu, rms_p, r_p, torch.full((nb, 3), 0.5), hp, torch.Generator(),
+                      row_coords=rc.cpu(), window_starts=starts)
+    lk, lp = float(st_k["loss"]), float(st_p["loss"])
+    if abs(lk - lp) > 1e-5 * abs(lp) or abs(float(st_k["mse"]) - float(st_p["mse"])) > 1e-5 * lp:
+        raise AssertionError(f"train step loss {lk} differs from the plain step's {lp}")
+    lrs = {"density_data": hp.lr_alpha, "sh_data": hp.lr_sh, "surface_data": hp.lr_surface,
+           "fake_sample_std": hp.lr_fake_sample_std}
+    msg = []
+    for (f, o), rk in zip(old.items(), ("density", "sh", "surface", "fake_sample_std")):
+        dk = getattr(grid, f).detach().cpu() - o
+        dp = getattr(cpu, f).detach() - o
+        unit = lrs[f] / (1.0 - beta) ** 0.5
+        moved = (dk != 0).any(-1) | (dp != 0).any(-1)
+        bad = ((dk - dp).abs() > 1e-3 * unit).any(-1) & moved
+        frac = float(bad.sum()) / max(int(moved.sum()), 1)
+        a, b = rms_k[rk].cpu().double(), rms_p[rk].double()
+        rel = float((a - b).norm() / b.norm().clamp(min=1e-30))
+        msg.append(f"{rk}: {int(moved.sum())} rows moved, {int(bad.sum())} off, rms rel {rel:.2e}")
+        if frac > 1e-3 or rel > 1e-3 or not moved.any():
+            raise AssertionError(f"train step {rk} differs from the plain step: {msg[-1]}")
+    log(f"train step at {SMALL_RESO}^3, {nb} rays: loss {lk:.7f} (plain {lp:.7f}); " + "; ".join(msg))
+    del grid, rc, cpu
+    torch.cuda.empty_cache()
+
+
+def train(device, card: str) -> dict:
+    """Phase 4: the training path at full width, through bench_step."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import bench_step
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.render.surface import occupancy_words
+    from alphasurf_torch.train.steps import StepConfig, init_rms, make_surface_step
+
+    check_step(device)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = bench_step.main(["--reso", str(RESO), "--batch", str(TRAIN_BATCH), "--steps", "33",
+                           "--width", str(WIDTH), "--device", str(device)])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train: {out['steps']} steps of {out['batch']} rays at {RESO}^3 (capacity "
+        f"{out['capacity']}): {out['rays_per_s_fwd_bwd']:.1f} rays/s, "
+        f"{out['seconds'] / out['steps'] * 1e3:.3f} ms per step, loss {out['first_loss']:.6f} -> "
+        f"{out['last_loss']:.6f}, {out['rows_moved']} rows moved, max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB [{card}]")
+    log("launches " + json.dumps(launches))
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"a kernel of the training path was not launched: {launches}")
+    if not (out["losses_finite"] and out["rows_moved"] > 0):
+        raise AssertionError(f"training did not run right: {out}")
+
+    # one more step under the profiler
+    grid, rc = bench_step.build_bench_grid(RESO, device)
+    opt = bench_step.bench_options()
+    rays = bench_step.bench_rays(WIDTH, device)
+    s = int(WIDTH * HEIGHT * 0.35)
+    r = Rays(rays.origins[s:s + TRAIN_BATCH], rays.dirs[s:s + TRAIN_BATCH])
+    step = make_surface_step(StepConfig(opt=opt, cache_size=None))
+    rms, hp, gen = init_rms(grid), bench_step.bench_hparams(), torch.Generator()
+    gt = torch.full((TRAIN_BATCH, 3), 0.5, device=device)
+    occ = occupancy_words(grid, opt)
+    profile_device(lambda: step(grid, rms, r, gt, hp, gen, occ=occ, row_coords=rc),
+                   f"one train step ({TRAIN_BATCH} rays, {RESO}^3)", card)
+    return launches
 
 
 def main() -> int:
@@ -498,8 +908,12 @@ def main() -> int:
     try:
         res = check_kernels(device, card)
         launches = serve(device, card, work)
+        train_launches = train(device, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # each kernel's launches on its main path: serving for K1-K4, training
+    # for K5-K7
+    launches.update({k: v for k, v in train_launches.items() if k not in SERVE_KERNELS})
 
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", JAX_PACKAGE)]
     if leaked:

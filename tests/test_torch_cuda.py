@@ -45,3 +45,74 @@ def test_kernels_match_plain_versions(cuda, kw):
     np.testing.assert_array_equal(got["n_occupied"].cpu().numpy(), ref["n_occupied"].numpy())
     np.testing.assert_array_equal(got["n_intersections"].cpu().numpy(),
                                   ref["n_intersections"].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", OPTION_SETS)
+def test_backward_matches_autograd_of_plain_path(cuda, kw):
+    """K5 (through the renderer's autograd Function) against autograd of the
+    plain renderer on the same card."""
+    a = _float32(np_grid(16, seed=3, prune=0.2))
+    opt = pt.RenderOptions(**{**BASE, **kw})
+    o, d = np_rays(64, seed=4)
+    rays = pt.Rays(torch.as_tensor(o, dtype=torch.float32, device=cuda),
+                   torch.as_tensor(d, dtype=torch.float32, device=cuda))
+    names = ("density_data", "surface_data", "sh_data", "fake_sample_std")
+
+    def grads(g, render):
+        params = [getattr(g, n).requires_grad_(True) for n in names]
+        out = render(g)
+        loss = (out["rgb"] ** 2).sum() + 0.1 * out["ray_losses"]["l_dist"].sum() \
+            + 0.1 * out["ray_losses"]["l_entropy_a"].sum() + 0.1 * out["ray_losses"]["lap_sum"].sum()
+        return [torch.zeros_like(p) if x is None else x
+                for p, x in zip(params, torch.autograd.grad(loss, params, allow_unused=True))]
+
+    g = SparseGrid.from_numpy(a, device=cuda)
+    kernels.reset_launches()
+    got = grads(g, lambda g: S.volume_render_surface_packed(g, rays, opt))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["backward_ray"] == 1 and kernels.LAUNCHES["backward_entry"] == 1
+
+    def plain(g):
+        origins, dirs, shm, tn, tx, ngt, ok, _ = S._prep(g, rays, opt)
+        words = S.occupancy_words(g, opt)
+        pool = S._compact_crossings_plain(g.reso, origins, dirs, torch.where(ok, tn, 0 * tn),
+                                          torch.where(ok, tx, 0 * tx - 1), words)
+        comp = S._render_plain(g, opt, pool, origins, dirs, shm, ngt, S.pack_grid_data(g))
+        return {"rgb": comp["rgb"], "ray_losses": dict(zip(S._RAY_LOSS_KEYS, comp["ray_losses"]))}
+
+    ref = grads(SparseGrid.from_numpy(a, device=cuda), plain)
+    for n, x, r in zip(names, got, ref):
+        np.testing.assert_allclose(x.cpu().numpy(), r.cpu().numpy(), rtol=1e-3, atol=1e-5, err_msg=n)
+
+
+@pytest.mark.cuda
+def test_regularizers_and_rmsprop_match_plain_versions(cuda):
+    from alphasurf_torch.losses import reg as R
+    from alphasurf_torch.optim.rmsprop import _rmsprop_plain
+
+    g = SparseGrid.from_numpy(_float32(np_grid(16, seed=3, prune=0.1)), device=cuda)
+    cells = R.sample_present_cells(None, g, R.row_coords_of(g), 0.3, start=5)
+    n = cells.numel()
+    lk, gk = kernels.reg_tv(g.links, cells, g.sh_data.detach(), 0, 27, None, 1.0 / n)
+    g.sh_data.requires_grad_(True)
+    lp = R._tv_plain(g, g.sh_data, cells, 0, 27, None, 1.0 / n)
+    (gp,) = torch.autograd.grad(lp, [g.sh_data])
+    g.sh_data.requires_grad_(False)
+    np.testing.assert_allclose(float(lk), float(lp.detach()), rtol=1e-5)
+    np.testing.assert_allclose(gk.cpu().numpy(), gp.cpu().numpy(), rtol=1e-4, atol=1e-7)
+    lk, gk = kernels.reg_normal(g.links, cells, g.surface_data.detach(), g.level_set_data,
+                                True, True, False, 1.0 / n)
+    g.surface_data.requires_grad_(True)
+    lp = R._normal_plain(g, cells, True, True, False, 1.0 / n)
+    (gp,) = torch.autograd.grad(lp, [g.surface_data])
+    g.surface_data.requires_grad_(False)
+    np.testing.assert_allclose(float(lk), float(lp.detach()), rtol=1e-5)
+    np.testing.assert_allclose(gk.cpu().numpy(), gp.cpu().numpy(), rtol=1e-4, atol=1e-7)
+    grad = torch.randn_like(g.sh_data) * 1e-2
+    p1, r1 = g.sh_data.detach().clone(), torch.zeros_like(grad)
+    p2, r2 = p1.clone(), r1.clone()
+    kernels.rmsprop(p1, r1, grad, 1e-2, 0.95, 1e-8, None, None, False)
+    _rmsprop_plain(p2, r2, grad, 1e-2, 0.95, 1e-8, None, None, False)
+    torch.testing.assert_close(p1, p2, rtol=1e-6, atol=0)
+    torch.testing.assert_close(r1, r2, rtol=1e-6, atol=0)

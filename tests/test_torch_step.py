@@ -1,0 +1,123 @@
+"""Three steps of the port's make_surface_step against the JAX package's, in
+float64 on the CPU, from the same grid, rms state and regularizer windows."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import alphasurf_tpu as at
+import alphasurf_torch as pt
+from alphasurf_tpu.losses import reg as j_reg
+from alphasurf_tpu.train import steps as J
+from alphasurf_torch.core.grid import SparseGrid
+from alphasurf_torch.losses import reg as t_reg
+from alphasurf_torch.train import steps as T
+from test_torch_util import jax_grid, np_grid, np_rays, t64
+
+OPT = dict(sigma_thresh=-1e9, stop_thresh=1e-7, only_outward_intersect=True,
+           surf_fake_sample=True, limited_fake_sample=True, truncated_vol_render=True)
+# bench.py's weights, plus small ones on the other terms so that each is
+# differentiated and fake_sample_std trains
+HP = dict(lr_alpha=1e-3, lr_surface=1e-5, lr_sh=1e-3, lr_fake_sample_std=1e-4,
+          lambda_tv_alpha=1e-5, lambda_tv_surface=1e-3, lambda_normal_l1=1e-6,
+          lambda_l_entropy=1e-4, lambda_tv_sh=1e-5, lambda_normal_l2=1e-5,
+          lambda_sparsify_alpha=1e-5, lambda_sparsify_surf=1e-5, lambda_l_dist=1e-4,
+          lambda_l_dist_a=1e-4, lambda_l_entropy_a=1e-4, lambda_sparsity=1e-6,
+          lambda_inward_norm=1e-4, lambda_density_lap=1e-4, lambda_fs_std_l1=1e-3,
+          lambda_fs_std_l2=1e-3, img_lambda_l1_ratio=0.1)
+B = 48
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step(surf_grad_abs_max):
+    cfg = J.StepConfig(opt=at.RenderOptions(**OPT), cache_size=None, renderer="packed",
+                       entries_per_ray=48, surf_grad_abs_max=surf_grad_abs_max)
+    return J.make_surface_step(cfg)
+
+
+def _jax_starts(key, cap, cfg):
+    """The window starts JAX's step draws from ``key`` (steps.py:229,
+    reg.py:97-99)."""
+    keys = jax.random.split(key, 9)
+    fracs = (cfg.tv_sparsity, cfg.tv_sh_sparsity, cfg.tv_surface_sparsity,
+             cfg.norm_surface_sparsity, cfg.sparsify_sparsity)
+    out = {}
+    for name, k, frac in zip(T.WINDOWS, keys, fracs):
+        K = max(1, min(cap, int(frac * cap)))
+        out[name] = int(jax.random.randint(k, (), 0, cap - K + 1, dtype=jnp.int32))
+    return out
+
+
+def _run(hp_kw, surf_grad_abs_max=None, n_steps=3):
+    a = np_grid(12, seed=3, prune=0.1)
+    o, d = np_rays(B, seed=4)
+    gt = np.random.default_rng(5).uniform(0, 1, (B, 3))
+    hp = {**HP, **hp_kw}
+
+    gj = jax_grid(a)
+    rms_j = J.init_rms(gj)
+    rc_j = j_reg.row_coords_of(gj)
+    step_j = _jax_step(surf_grad_abs_max)
+
+    cfg = T.StepConfig(opt=pt.RenderOptions(**OPT), cache_size=None,
+                       surf_grad_abs_max=surf_grad_abs_max)
+    g = SparseGrid.from_numpy(a, device="cpu")
+    rms = T.rms_from_numpy({k: np.asarray(v.rms) for k, v in rms_j.items()}, device="cpu")
+    rc = t_reg.row_coords_of(g)
+    step = T.make_surface_step(cfg)
+    rays = pt.Rays(t64(o), t64(d))
+    gen = torch.Generator().manual_seed(0)
+    for i in range(n_steps):
+        key = jax.random.PRNGKey(i)
+        gj, rms_j, sj = step_j(gj, rms_j, at.Rays(jnp.asarray(o), jnp.asarray(d)),
+                               jnp.asarray(gt), J.HParams(**hp), key, row_coords=rc_j)
+        g, rms, st = step(g, rms, rays, t64(gt), T.HParams(**hp), gen, row_coords=rc,
+                          window_starts=_jax_starts(key, g.capacity, cfg))
+        for k in ("loss", "mse"):
+            np.testing.assert_allclose(float(st[k]), float(sj[k]), rtol=1e-8, err_msg=f"{i} {k}")
+        assert int(sj["pool_overflow"]) == 0 and int(st["pool_overflow"]) == 0
+    for f in ("density_data", "sh_data", "surface_data", "fake_sample_std"):
+        np.testing.assert_allclose(getattr(g, f).detach().numpy(), np.asarray(getattr(gj, f)),
+                                   rtol=1e-8, atol=1e-12, err_msg=f)
+    got_rms = T.rms_to_numpy(rms)
+    for k, v in rms_j.items():
+        np.testing.assert_allclose(got_rms[k], np.asarray(v.rms), rtol=1e-8, atol=1e-20,
+                                   err_msg=f"rms {k}")
+    return a, g
+
+
+def test_three_steps_match_jax():
+    a, g = _run({})
+    for f in ("density_data", "sh_data", "surface_data", "fake_sample_std"):
+        assert np.abs(getattr(g, f).detach().numpy() - a[f]).max() > 0, f
+
+
+def test_surf_grad_abs_max_clips_like_jax():
+    a, g = _run({}, surf_grad_abs_max=1e-6)
+    assert np.abs(g.surface_data.detach().numpy() - a["surface_data"]).max() > 0
+
+
+def test_frozen_surface_stays_like_jax():
+    a, g = _run({"surface_unfrozen": 0.0}, n_steps=2)
+    np.testing.assert_array_equal(g.surface_data.detach().numpy(), a["surface_data"])
+
+
+def test_unported_options_raise():
+    opt = pt.RenderOptions(**OPT)
+    for kw in (dict(renderer="dense"), dict(use_eikonal=True), dict(axis_name="data")):
+        with pytest.raises(NotImplementedError):
+            T.make_surface_step(T.StepConfig(opt=opt, **kw))
+
+
+def test_bench_step_runs_on_the_cpu():
+    """The port's bench (app/bench_step.py) end to end at a tiny size."""
+    from alphasurf_torch.app import bench_step
+
+    out = bench_step.main(["--reso", "16", "--batch", "256", "--steps", "2", "--width", "64",
+                           "--device", "cpu"])
+    assert out["metric"] == "rays_per_s_fwd_bwd" and out["rays_per_s_fwd_bwd"] > 0
+    assert out["first_loss"] < 0.24 and out["losses_finite"] and out["rows_moved"] > 0
+    assert out["card"] == "cpu" and out["capacity"] > 0
