@@ -2,24 +2,29 @@
 
 A second package beside the JAX one, which stays the reference. Module
 names follow the JAX package so each counterpart is easy to find. The
-packed surface renderer runs through hand-written CUDA kernels for Hopper
-(``csrc/``, built at first use by ``kernels.py``); on CPU tensors every
+packed surface and cuvol renderers, their backward passes, the
+regularizers and the optimizer run through hand-written CUDA kernels for
+Hopper (``csrc/``, built at first use by ``kernels.py``); on CPU tensors every
 kernel's plain PyTorch version runs instead. Entry points default to
 ``device="cuda"`` and raise when no card is present.
 """
 from . import defs
-from .core.grid import SparseGrid
+from .core.grid import SparseGrid, create_grid
 from .core.options import RenderOptions
 from .core.rays import Camera, Rays
+from .render.cuvol import volume_render_cuvol, volume_render_cuvol_packed
 from .render.image import render_image
 from .render.surface import volume_render_surface_packed
 
 __all__ = [
     "defs",
     "SparseGrid",
+    "create_grid",
     "RenderOptions",
     "Camera",
     "Rays",
     "render_image",
+    "volume_render_cuvol",
+    "volume_render_cuvol_packed",
     "volume_render_surface_packed",
 ]

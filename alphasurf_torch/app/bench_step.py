@@ -1,18 +1,27 @@
-"""Throughput of the surface train step: rays per second through the fused
-forward, backward and RMSprop, under the protocol of the repository's
-``bench.py`` (BASELINE.md).
+"""Throughput of a train step: rays per second through the fused forward,
+backward and RMSprop, under the protocol of the repository's ``bench.py``
+(BASELINE.md).
 
-    python -m alphasurf_torch.app.bench_step [--reso 512] [--batch 40960]
+    python -m alphasurf_torch.app.bench_step [--stage surface|cuvol] [--reso R] [--batch 40960]
 
-The grid is bench.py's sphere shell: the analytic SDF of a sphere of radius
-reso/4, kept where |sdf| < 3 voxels and dilated twice over the 26
-neighbours, density 0.5, SH 0, fake_sample_std 0.1, rows in flat order,
-built on the device. Rays are the 800x800 camera at pose_spherical(30, 20,
-2.7) with fx = 1.1 W; batches of ``batch`` consecutive rays cycle over
-rows 35-65% of the image, where the sphere is, against a target of 0.5.
-The occupancy is refreshed every 16 steps. One warm-up step must render
-geometry (loss < 0.24; an empty batch scores 0.25); then ``steps`` timed
-steps. Prints one JSON line and returns it as a dict.
+``--stage surface`` (the default, reso 512) is the surface step on
+bench.py's sphere shell: the analytic SDF of a sphere of radius reso/4,
+kept where |sdf| < 3 voxels and dilated twice over the 26 neighbours,
+density 0.5, SH 0, fake_sample_std 0.1, rows in flat order, built on the
+device, under bench.py's render options and weights. ``--stage cuvol``
+(reso 256) is the Plenoxels warm-start step on the warm start's own
+starting grid, ``create_grid(reso, use_sphere_bound=True, init_sigma=0.1,
+basis_dim=9)``, under the Config defaults' render options and its
+learning rates and TV weights (lr_sigma 3e1, lr_sh 1e-2, lambda_tv 1e-5,
+lambda_tv_sh 1e-3).
+
+Both: rays of the 800x800 camera at pose_spherical(30, 20, 2.7) with
+fx = 1.1 W; batches of ``batch`` consecutive rays cycle over rows 35-65% of
+the image, where the sphere is, against a target of 0.5; regularizer
+windows over present rows. The occupancy is refreshed every 16 steps. One
+warm-up step must render geometry (loss < 0.24; an empty batch scores
+0.25); then ``steps`` timed steps. Prints one JSON line and returns it as a
+dict.
 """
 from __future__ import annotations
 
@@ -26,12 +35,17 @@ import torch.nn.functional as F
 
 from .. import defs
 from ..core.device import resolve_device
-from ..core.grid import SparseGrid
+from ..core.grid import SparseGrid, create_grid
 from ..core.options import RenderOptions
 from ..core.rays import Camera, Rays
 from ..data.synthetic import pose_spherical
+from ..losses.reg import row_coords_of
+from ..render.cuvol import density_occupancy_words
 from ..render.surface import occupancy_words
-from ..train.steps import HParams, StepConfig, init_rms, make_surface_step
+from ..train.steps import HParams, StepConfig, init_rms, make_cuvol_step, make_surface_step
+
+STAGES = ("surface", "cuvol")
+DEFAULT_RESO = {"surface": 512, "cuvol": 256}
 
 
 def bench_options() -> RenderOptions:
@@ -45,6 +59,26 @@ def bench_hparams() -> HParams:
     """bench.py's learning rates and loss weights."""
     return HParams(lr_alpha=1e-3, lr_surface=1e-5, lr_sh=1e-3, lambda_tv_alpha=1e-5,
                    lambda_tv_surface=1e-3, lambda_normal_l1=1e-6, lambda_l_entropy=1e-4)
+
+
+def cuvol_options() -> RenderOptions:
+    """The Config defaults' render options of the warm start
+    (``render_options_from(Config(), no_surface=True)``)."""
+    from .config import Config, render_options_from
+
+    return render_options_from(Config(), no_surface=True)
+
+
+def cuvol_hparams() -> HParams:
+    """The Config defaults' warm-start learning rates and TV weights
+    (config.py:87, 104, 139, 142)."""
+    return HParams(lr_sigma=3e1, lr_sh=1e-2, lambda_tv=1e-5, lambda_tv_sh=1e-3)
+
+
+def build_cuvol_grid(reso: int, device) -> tuple[SparseGrid, torch.Tensor]:
+    """The warm start's starting grid on ``device`` and its row coords."""
+    grid = create_grid(reso, use_sphere_bound=True, init_sigma=0.1, basis_dim=9, device=device)
+    return grid, row_coords_of(grid)
 
 
 def build_bench_grid(reso: int, device) -> tuple[SparseGrid, torch.Tensor]:
@@ -84,27 +118,39 @@ def bench_rays(width: int, device) -> Rays:
     return cam.gen_rays_device(device)
 
 
-def run(reso: int = 512, batch: int = 40960, steps: int = 33, width: int = 800,
-        device="cuda", seed: int = 0) -> dict:
+def run(reso: int | None = None, batch: int = 40960, steps: int = 33, width: int = 800,
+        device="cuda", seed: int = 0, stage: str = "surface") -> dict:
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, not {stage!r}")
+    reso = DEFAULT_RESO[stage] if reso is None else reso
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    grid, row_coords = build_bench_grid(reso, dev)
+    if stage == "surface":
+        grid, row_coords = build_bench_grid(reso, dev)
+        opt, hp = bench_options(), bench_hparams()
+        step = make_surface_step(StepConfig(opt=opt, cache_size=None, renderer="packed"))
+
+        def occupancy(g):
+            return occupancy_words(g, opt)
+    else:
+        grid, row_coords = build_cuvol_grid(reso, dev)
+        opt, hp = cuvol_options(), cuvol_hparams()
+        step = make_cuvol_step(StepConfig(opt=opt, renderer="packed"))
+        occupancy = density_occupancy_words
+    init = {"density": float(grid.density_data[0, 0]), "sh": 0.0}
     rays = bench_rays(width, dev)
-    opt = bench_options()
-    step = make_surface_step(StepConfig(opt=opt, cache_size=None, renderer="packed"))
     rms = init_rms(grid)
-    hp = bench_hparams()
     gen = torch.Generator().manual_seed(seed)
     gt = torch.full((batch, 3), 0.5, dtype=torch.float32, device=dev)
     n = rays.origins.shape[0]
     lo = int(n * 0.35)
     span = max(int(n * 0.30) - batch, 1)
-    state = {"occ": occupancy_words(grid, opt), "grid": grid, "rms": rms}
+    state = {"occ": occupancy(grid), "grid": grid, "rms": rms}
     setup = time.perf_counter() - t0
 
     def run_batch(i):
         if i > 0 and i % 16 == 0:
-            state["occ"] = occupancy_words(state["grid"], opt)
+            state["occ"] = occupancy(state["grid"])
         s = lo + (i * batch) % span
         r = Rays(rays.origins[s:s + batch], rays.dirs[s:s + batch])
         state["grid"], state["rms"], stats = step(state["grid"], state["rms"], r, gt, hp, gen,
@@ -124,10 +170,12 @@ def run(reso: int = 512, batch: int = 40960, steps: int = 33, width: int = 800,
     seconds = time.perf_counter() - t0
     losses = torch.stack(losses).tolist()
     g = state["grid"]
-    moved = int(((g.density_data != 0.5).any(dim=1) | (g.sh_data != 0).any(dim=1)).sum())
+    moved = int(((g.density_data != init["density"]).any(dim=1)
+                 | (g.sh_data != init["sh"]).any(dim=1)).sum())
     return {
         "metric": "rays_per_s_fwd_bwd",
         "rays_per_s_fwd_bwd": steps * batch / seconds,
+        "stage": stage,
         "batch": batch,
         "reso": reso,
         "capacity": grid.capacity,
@@ -144,14 +192,16 @@ def run(reso: int = 512, batch: int = 40960, steps: int = 33, width: int = 800,
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reso", type=int, default=512)
+    ap.add_argument("--stage", choices=STAGES, default="surface")
+    ap.add_argument("--reso", type=int, default=None,
+                    help="grid resolution (default 512 for surface, 256 for cuvol)")
     ap.add_argument("--batch", type=int, default=40960)
     ap.add_argument("--steps", type=int, default=33)
     ap.add_argument("--width", type=int, default=800, help="image width and height")
     ap.add_argument("--seed", type=int, default=0, help="seed of the regularizer windows")
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
-    out = run(a.reso, a.batch, a.steps, a.width, a.device, a.seed)
+    out = run(a.reso, a.batch, a.steps, a.width, a.device, a.seed, a.stage)
     print(json.dumps(out), flush=True)
     return out
 

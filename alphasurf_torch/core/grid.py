@@ -175,3 +175,64 @@ class SparseGrid(nn.Module):
         """Whether grid-space pts lie inside the vertex lattice. svox2.py:1443."""
         gsz = self.gsz
         return torch.all(pts <= gsz - 1.0 - atol, dim=-1) & torch.all(pts >= atol, dim=-1)
+
+
+def create_grid(
+    reso=128,
+    radius=1.0,
+    center=(0.0, 0.0, 0.0),
+    basis_dim: int = 9,
+    surface_type: int = defs.SURFACE_TYPE_NONE,
+    surface_init: str | None = None,
+    use_sphere_bound: bool = False,
+    trainable_fake_sample_std: bool = False,
+    init_sigma: float = 0.1,
+    init_rgb: float = 0.0,
+    dtype=torch.float32,
+    device="cuda",
+) -> SparseGrid:
+    """A dense grid on ``device``, all links present or, with
+    ``use_sphere_bound``, the vertices within the unit sphere's bound
+    (the JAX package's ``core.grid.create_grid``, svox2.py:580-990). The
+    mask is computed in float32 numpy, as the JAX package does, so both
+    keep the same vertices. Only ``SURFACE_TYPE_NONE`` grids: the surface
+    initialisers wait for ROADMAP §1 item 10."""
+    if surface_type != defs.SURFACE_TYPE_NONE:
+        raise NotImplementedError(
+            f"create_grid's surface initialisers (surface_type {surface_type}, surface_init "
+            f"{surface_init!r}) are not ported yet (ROADMAP §1 item 10)")
+    dev = resolve_device(device)
+    if isinstance(reso, int):
+        reso = (reso, reso, reso)
+    reso = tuple(int(r) for r in reso)
+    radius = np.broadcast_to(np.asarray(radius, dtype=np.float32), (3,)).copy()
+    center = np.broadcast_to(np.asarray(center, dtype=np.float32), (3,)).copy()
+    n3 = int(np.prod(reso))
+    if use_sphere_bound:
+        # svox2.py:653-679: keep the vertices within the unit sphere's bound
+        axes = [np.arange(r, dtype=np.float32) - 0.5 for r in reso]
+        pts = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3)
+        gsz = np.asarray(reso, dtype=np.float32)
+        pts = pts * (2.0 / gsz) + (1.0 / gsz - 1.0)
+        mask = np.linalg.norm(pts, axis=-1) <= 1.0 + (3**0.5) / gsz.max()
+        del pts
+        capacity = int(mask.sum())
+        links = np.full(n3, -1, dtype=np.int32)
+        links[mask] = np.arange(capacity, dtype=np.int32)
+    else:
+        capacity = n3
+        links = np.arange(n3, dtype=np.int32)
+    f = dict(dtype=dtype, device=dev)
+    return SparseGrid(
+        links=torch.as_tensor(links.reshape(reso), device=dev),
+        density_data=torch.full((capacity, 1), float(init_sigma), **f),
+        sh_data=torch.full((capacity, basis_dim * 3), float(init_rgb), **f),
+        surface_data=None,
+        level_set_data=None,
+        fake_sample_std=torch.ones((1, 1), **f) if trainable_fake_sample_std else None,
+        truncated_vol_render_a=torch.tensor(1.0, **f),
+        radius=torch.as_tensor(radius, **f),
+        center=torch.as_tensor(center, **f),
+        basis_dim=basis_dim,
+        surface_type=defs.SURFACE_TYPE_NONE,
+    )

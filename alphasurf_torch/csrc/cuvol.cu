@@ -1,0 +1,428 @@
+// K8 and K10: the Plenoxels ("cuvol") density renderer of the warm-start
+// stage.
+//
+// K8 replaces the JAX package's render/cuvol.py:volume_render_cuvol_packed
+// (79-288) and jax.grad of it. The pool comes from K2 (phase_a.cu) over the
+// density occupancy of K1d (occupancy.cu): ray r owns the entries
+// [offsets[r], offsets[r+1]), t-ascending. Each entry is an occupied voxel
+// segment [close_t, far_t) and holds at most S = ceil(sqrt(3)/step)+1
+// samples of the global lattice t = tmin + k*step (tmin the ray's cuvol
+// bound). A sample's sigma is relu(trilerp of the 8 corner densities), its
+// colour max(trilerp of the corner colours + 0.5, 0), its log attenuation
+// -ws * sigma, ws = step * delta_scale (1e9 for the last sample before
+// tmax with last_sample_opaque).
+//
+// - cuvol_forward, one thread per ray: walks the ray's entries in order,
+//   gathers each entry's 8 corner rows once (density and the SH row,
+//   contracted with the ray's basis as the row streams in, as K3 does) and
+//   composites its samples with a running prefix. It writes rgb, depth,
+//   log_T, optionally the first t where sigma > depth_sigma_thresh, and,
+//   for the backward, the prefix at each entry's start (entry_pre, one
+//   float per entry). The JAX version's chunk-wide cumsum minus a per-ray
+//   base cancels in float32 (ROADMAP §3); a running sum does not.
+// - cuvol_backward, one thread per ray: the cotangent of rgb only. It walks
+//   the entries backwards carrying the suffix sum of w_k (g . c_k) plus the
+//   background term, which is d loss / d log_att of every earlier sample
+//   minus its own weight's term, so no derivative is a difference of
+//   totals. Each entry's samples are recomputed from entry_pre with the
+//   forward's code in the forward's order, so their transmittances are the
+//   forward's bit for bit. Per entry it sums the 8 corners' density and
+//   colour cotangents over its samples in registers and issues one
+//   atomicAdd per corner channel (8 x (1 + 3 bd)), as K5b does.
+//
+// K10 replaces render/cuvol.py:volume_render_cuvol (297-429), the dense
+// fixed-step march of the eval images: one thread per ray steps
+// t = tmin + k*step while t <= tmax, for at most n_steps samples, with the
+// edge-clamped trilerp of ops/trilerp.py:voxel_of. Forward only.
+//
+// Bound: K8 forward and K10 by the random 8-row gathers (each entry or
+// sample reads 8 links and 8 rows of 1 + 3 bd floats; neighbouring rays
+// share corners through the caches); K8 backward also by its atomics into
+// the rows. Design: one thread per ray, no shared memory, nothing sorted;
+// splitting the per-entry work from the per-ray walk is later work.
+#include "common.cuh"
+
+struct CuvolParams {
+    const int64_t* offsets;  // (B+1,) pool range of each ray (K8)
+    int B;
+    const int* l;            // (M, 3) voxel of each entry (K8)
+    const float* close_t;
+    const float* far_t;
+    const float* origins;    // (B, 3) grid space
+    const float* dirs;       // (B, 3) unit grid-space directions
+    const float* sh_mult;    // (B, bd)
+    int bd;
+    const float* delta_scale;  // (B,)
+    const float* tmin;       // (B,) cuvol bounds
+    const float* tmax;
+    const int* links;
+    int X, Y, Z;
+    const float* density;    // (cap,)
+    const float* sh;         // (cap, 3 bd)
+    float step;
+    int S;                   // K8: samples per entry; K10: steps per ray
+    int lso;                 // last_sample_opaque
+    float bg;
+    int dst_on;
+    float dst;
+    float* rgb;              // (B, 3)
+    float* depth;
+    float* log_T;
+    float* t_sig;            // (B,) or null
+    float* entry_pre;        // (M,) or null
+    const float* g_rgb;      // (B, 3)
+    float* g_density;        // (cap,)
+    float* g_sh;             // (cap, 3 bd)
+};
+
+struct Ray {
+    float o[3], d[3];
+    float ws, tmin, tmax;
+    const float* shm;
+};
+
+HD Ray load_ray(const CuvolParams& p, int r) {
+    Ray ray;
+    for (int a = 0; a < 3; ++a) {
+        ray.o[a] = p.origins[3 * (int64_t)r + a];
+        ray.d[a] = p.dirs[3 * (int64_t)r + a];
+    }
+    ray.ws = p.step * p.delta_scale[r];
+    ray.tmin = p.tmin[r];
+    ray.tmax = p.tmax[r];
+    ray.shm = p.sh_mult + (int64_t)r * p.bd;
+    return ray;
+}
+
+// the 8 corners of voxel (x, y, z): links, densities and colours
+// (sum_b sh * basis), 0 where a link is absent
+struct CuvolCorners {
+    int link[8];
+    float sigma[8];
+    float rgb[8][3];
+};
+
+HD void gather_cuvol_corners(const CuvolParams& p, const float* shm, int x, int y, int z,
+                             CuvolCorners& cs) {
+    const int C = 3 * p.bd;
+    for (int c = 0; c < 8; ++c) {
+        const int cx = clampi(x + corner_dx(c), 0, p.X - 1);
+        const int cy = clampi(y + corner_dy(c), 0, p.Y - 1);
+        const int cz = clampi(z + corner_dz(c), 0, p.Z - 1);
+        const int link = p.links[((int64_t)cx * p.Y + cy) * p.Z + cz];
+        cs.link[c] = link;
+        if (link < 0) {
+            cs.sigma[c] = 0.0f;
+            for (int ch = 0; ch < 3; ++ch) cs.rgb[c][ch] = 0.0f;
+            continue;
+        }
+        cs.sigma[c] = p.density[link];
+        const float* row = p.sh + (int64_t)link * C;
+        for (int ch = 0; ch < 3; ++ch) {
+            float acc = row[ch * p.bd] * shm[0];
+            for (int b = 1; b < p.bd; ++b) acc = acc + row[ch * p.bd + b] * shm[b];
+            cs.rgb[c][ch] = acc;
+        }
+    }
+}
+
+// one sample at t inside voxel l, weights w8 at the clipped fraction
+struct Sample {
+    float w8[8];
+    float sigma;    // trilerp of the densities (before the relu)
+    float pre[3];   // trilerp of the colours + 0.5 (before the clip)
+    float ws;
+};
+
+HD void eval_sample(const Ray& ray, const CuvolCorners& cs, float fx, float fy, float fz,
+                    float ws, Sample& s) {
+    trilerp_weights(fx, fy, fz, s.w8);
+    s.sigma = corner_dot(s.w8, cs.sigma);
+    for (int ch = 0; ch < 3; ++ch) {
+        const float v[8] = {cs.rgb[0][ch], cs.rgb[1][ch], cs.rgb[2][ch], cs.rgb[3][ch],
+                            cs.rgb[4][ch], cs.rgb[5][ch], cs.rgb[6][ch], cs.rgb[7][ch]};
+        s.pre[ch] = corner_dot(s.w8, v) + 0.5f;
+    }
+    s.ws = ws;
+}
+
+// ---------------------------------------------------------------------------
+// K8: one pool entry's samples
+// ---------------------------------------------------------------------------
+
+struct Entry {
+    int l[3];
+    float close_t, far_t, k0;
+};
+
+HD Entry load_entry(const CuvolParams& p, const Ray& ray, int64_t e) {
+    Entry en;
+    for (int a = 0; a < 3; ++a) en.l[a] = p.l[3 * e + a];
+    en.close_t = p.close_t[e];
+    en.far_t = p.far_t[e];
+    en.k0 = ceilf((en.close_t - ray.tmin) / p.step - 1e-9f);
+    return en;
+}
+
+// slot s of an entry: false when its t lies outside [close_t, far_t)
+HD bool entry_slot(const CuvolParams& p, const Ray& ray, const Entry& en, const CuvolCorners& cs,
+                   int s, float& t, Sample& smp) {
+    t = ray.tmin + (en.k0 + (float)s) * p.step;
+    if (!(t < en.far_t && t >= en.close_t - 1e-9f)) return false;
+    float f[3];
+    for (int a = 0; a < 3; ++a) {
+        f[a] = ray.o[a] + t * ray.d[a] - (float)en.l[a];
+        f[a] = fminf(fmaxf(f[a], 0.0f), 1.0f);
+    }
+    const float ws = (p.lso && t + p.step > ray.tmax) ? 1e9f : ray.ws;
+    eval_sample(ray, cs, f[0], f[1], f[2], ws, smp);
+    return true;
+}
+
+HD float log_att_of(const Sample& s) { return -s.ws * fmaxf(s.sigma, 0.0f); }
+
+HD void cuvol_forward_ray(const CuvolParams& p, int r) {
+    const Ray ray = load_ray(p, r);
+    const int64_t e0 = p.offsets[r], e1 = p.offsets[r + 1];
+    float pre_att = 0.0f, depth = 0.0f, t_sig = INFINITY;
+    float rgb[3] = {0.0f, 0.0f, 0.0f};
+    for (int64_t e = e0; e < e1; ++e) {
+        if (p.entry_pre) p.entry_pre[e] = pre_att;
+        const Entry en = load_entry(p, ray, e);
+        CuvolCorners cs;
+        gather_cuvol_corners(p, ray.shm, en.l[0], en.l[1], en.l[2], cs);
+        for (int s = 0; s < p.S; ++s) {
+            float t;
+            Sample smp;
+            if (!entry_slot(p, ray, en, cs, s, t, smp)) continue;
+            const float la = log_att_of(smp);
+            const float w = expf(fminf(pre_att, 0.0f)) * (1.0f - expf(la));
+            for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] + w * fmaxf(smp.pre[ch], 0.0f);
+            depth = depth + w * t;
+            pre_att = pre_att + la;
+            if (p.dst_on && smp.sigma > p.dst) t_sig = fminf(t_sig, t);
+        }
+    }
+    const float T = expf(pre_att);
+    for (int ch = 0; ch < 3; ++ch) p.rgb[3 * (int64_t)r + ch] = rgb[ch] + T * p.bg;
+    p.depth[r] = depth;
+    p.log_T[r] = pre_att;
+    if (p.t_sig) p.t_sig[r] = finite(t_sig) ? t_sig : 0.0f;
+}
+
+HD void cuvol_backward_ray(const CuvolParams& p, int r) {
+    const Ray ray = load_ray(p, r);
+    const int64_t e0 = p.offsets[r], e1 = p.offsets[r + 1];
+    const float g[3] = {p.g_rgb[3 * (int64_t)r], p.g_rgb[3 * (int64_t)r + 1],
+                        p.g_rgb[3 * (int64_t)r + 2]};
+    // d rgb / d log_att of every sample includes the background's exp(log_T) * bg
+    float suffix = expf(p.log_T[r]) * p.bg * (g[0] + g[1] + g[2]);
+    const int C = 3 * p.bd;
+    for (int64_t e = e1 - 1; e >= e0; --e) {
+        const Entry en = load_entry(p, ray, e);
+        CuvolCorners cs;
+        gather_cuvol_corners(p, ray.shm, en.l[0], en.l[1], en.l[2], cs);
+        float gd[8], gc[8][3];
+        for (int c = 0; c < 8; ++c) {
+            gd[c] = 0.0f;
+            for (int ch = 0; ch < 3; ++ch) gc[c][ch] = 0.0f;
+        }
+        for (int s = p.S - 1; s >= 0; --s) {
+            float t;
+            Sample smp;
+            if (!entry_slot(p, ray, en, cs, s, t, smp)) continue;
+            // the prefix at slot s, summed in the forward's order
+            float pre = p.entry_pre[e];
+            for (int q = 0; q < s; ++q) {
+                float tq;
+                Sample sq;
+                const float la_q = entry_slot(p, ray, en, cs, q, tq, sq) ? log_att_of(sq) : 0.0f;
+                pre = pre + la_q;
+            }
+            const float la = log_att_of(smp);
+            const float T = expf(fminf(pre, 0.0f));
+            const float ea = expf(la);
+            const float w = T * (1.0f - ea);
+            float rgb[3], G = 0.0f;
+            for (int ch = 0; ch < 3; ++ch) {
+                rgb[ch] = fmaxf(smp.pre[ch], 0.0f);
+                G = G + g[ch] * rgb[ch];
+            }
+            const float d_la = -T * ea * G + suffix;
+            suffix = suffix + w * G;
+            const float d_sigma = smp.sigma > 0.0f ? -smp.ws * d_la : 0.0f;
+            float d_pre[3];
+            for (int ch = 0; ch < 3; ++ch) d_pre[ch] = w * g[ch] * clip_lo_grad(smp.pre[ch], 0.0f);
+            for (int c = 0; c < 8; ++c) {
+                gd[c] = gd[c] + smp.w8[c] * d_sigma;
+                for (int ch = 0; ch < 3; ++ch) gc[c][ch] = gc[c][ch] + smp.w8[c] * d_pre[ch];
+            }
+        }
+        for (int c = 0; c < 8; ++c) {
+            const int link = cs.link[c];
+            if (link < 0) continue;
+            if (gd[c] != 0.0f) atomic_add(p.g_density + link, gd[c]);
+            float* row = p.g_sh + (int64_t)link * C;
+            for (int ch = 0; ch < 3; ++ch) {
+                if (gc[c][ch] == 0.0f) continue;
+                for (int b = 0; b < p.bd; ++b)
+                    atomic_add(row + ch * p.bd + b, gc[c][ch] * ray.shm[b]);
+            }
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K10: the dense march
+// ---------------------------------------------------------------------------
+
+HD void cuvol_march_ray(const CuvolParams& p, int r) {
+    const Ray ray = load_ray(p, r);
+    const float hi[3] = {(float)p.X - 1.0f, (float)p.Y - 1.0f, (float)p.Z - 1.0f};
+    const int lmax[3] = {p.X - 2, p.Y - 2, p.Z - 2};
+    float log_T = 0.0f, depth = 0.0f, t_sig = INFINITY;
+    float rgb[3] = {0.0f, 0.0f, 0.0f};
+    for (int k = 0; k < p.S; ++k) {
+        const float t = ray.tmin + (float)k * p.step;
+        if (!(t <= ray.tmax)) break;  // t rises with k: no later sample is active
+        int l[3];
+        float f[3];
+        for (int a = 0; a < 3; ++a) {
+            const float pos = fminf(fmaxf(ray.o[a] + t * ray.d[a], 0.0f), hi[a]);
+            l[a] = clampi((int)pos, 0, lmax[a]);
+            f[a] = pos - (float)l[a];
+        }
+        CuvolCorners cs;
+        gather_cuvol_corners(p, ray.shm, l[0], l[1], l[2], cs);
+        const float ws = (p.lso && t + p.step > ray.tmax) ? 1e9f : ray.ws;
+        Sample smp;
+        eval_sample(ray, cs, f[0], f[1], f[2], ws, smp);
+        const float la = log_att_of(smp);
+        const float w = expf(log_T) * (1.0f - expf(la));
+        for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] + w * fmaxf(smp.pre[ch], 0.0f);
+        depth = depth + w * t;
+        log_T = log_T + la;
+        if (p.dst_on && smp.sigma > p.dst) t_sig = fminf(t_sig, t);
+    }
+    const float T = expf(log_T);
+    for (int ch = 0; ch < 3; ++ch) p.rgb[3 * (int64_t)r + ch] = rgb[ch] + T * p.bg;
+    p.depth[r] = depth;
+    p.log_T[r] = log_T;
+    if (p.t_sig) p.t_sig[r] = finite(t_sig) ? t_sig : 0.0f;
+}
+
+#ifdef __CUDACC__
+__global__ void cuvol_forward_kernel(CuvolParams p) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r < p.B) cuvol_forward_ray(p, r);
+}
+
+__global__ void cuvol_backward_kernel(CuvolParams p) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r < p.B) cuvol_backward_ray(p, r);
+}
+
+__global__ void cuvol_march_kernel(CuvolParams p) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r < p.B) cuvol_march_ray(p, r);
+}
+
+static CuvolParams make_params(const int64_t* offsets, int B, const int* l, const float* close_t,
+                               const float* far_t, const float* origins, const float* dirs,
+                               const float* sh_mult, int bd, const float* delta_scale,
+                               const float* tmin, const float* tmax, const int* links, int X,
+                               int Y, int Z, const float* density, const float* sh, float step,
+                               int S, int lso, float bg, int dst_on, float dst) {
+    CuvolParams p{};
+    p.offsets = offsets;
+    p.B = B;
+    p.l = l;
+    p.close_t = close_t;
+    p.far_t = far_t;
+    p.origins = origins;
+    p.dirs = dirs;
+    p.sh_mult = sh_mult;
+    p.bd = bd;
+    p.delta_scale = delta_scale;
+    p.tmin = tmin;
+    p.tmax = tmax;
+    p.links = links;
+    p.X = X;
+    p.Y = Y;
+    p.Z = Z;
+    p.density = density;
+    p.sh = sh;
+    p.step = step;
+    p.S = S;
+    p.lso = lso;
+    p.bg = bg;
+    p.dst_on = dst_on;
+    p.dst = dst;
+    return p;
+}
+
+static const int kBlock = 128;
+
+extern "C" cudaError_t cuvol_forward(const int64_t* offsets, int B, const int* l,
+                                     const float* close_t, const float* far_t,
+                                     const float* origins, const float* dirs, const float* sh_mult,
+                                     int bd, const float* delta_scale, const float* tmin,
+                                     const float* tmax, const int* links, int X, int Y, int Z,
+                                     const float* density, const float* sh, float step, int S,
+                                     int lso, float bg, int dst_on, float dst, float* rgb,
+                                     float* depth, float* log_T, float* t_sig, float* entry_pre,
+                                     void* stream) {
+    if (B <= 0) return cudaSuccess;
+    CuvolParams p = make_params(offsets, B, l, close_t, far_t, origins, dirs, sh_mult, bd,
+                                delta_scale, tmin, tmax, links, X, Y, Z, density, sh, step, S, lso,
+                                bg, dst_on, dst);
+    p.rgb = rgb;
+    p.depth = depth;
+    p.log_T = log_T;
+    p.t_sig = t_sig;
+    p.entry_pre = entry_pre;
+    cuvol_forward_kernel<<<(B + kBlock - 1) / kBlock, kBlock, 0, (cudaStream_t)stream>>>(p);
+    return cudaGetLastError();
+}
+
+extern "C" cudaError_t cuvol_backward(const int64_t* offsets, int B, const int* l,
+                                      const float* close_t, const float* far_t,
+                                      const float* origins, const float* dirs,
+                                      const float* sh_mult, int bd, const float* delta_scale,
+                                      const float* tmin, const float* tmax, const int* links,
+                                      int X, int Y, int Z, const float* density, const float* sh,
+                                      float step, int S, int lso, float bg, const float* log_T,
+                                      const float* entry_pre, const float* g_rgb,
+                                      float* g_density, float* g_sh, void* stream) {
+    if (B <= 0) return cudaSuccess;
+    CuvolParams p = make_params(offsets, B, l, close_t, far_t, origins, dirs, sh_mult, bd,
+                                delta_scale, tmin, tmax, links, X, Y, Z, density, sh, step, S, lso,
+                                bg, 0, 0.0f);
+    p.log_T = const_cast<float*>(log_T);
+    p.entry_pre = const_cast<float*>(entry_pre);
+    p.g_rgb = g_rgb;
+    p.g_density = g_density;
+    p.g_sh = g_sh;
+    cuvol_backward_kernel<<<(B + kBlock - 1) / kBlock, kBlock, 0, (cudaStream_t)stream>>>(p);
+    return cudaGetLastError();
+}
+
+extern "C" cudaError_t cuvol_march(int B, const float* origins, const float* dirs,
+                                   const float* sh_mult, int bd, const float* delta_scale,
+                                   const float* tmin, const float* tmax, const int* links, int X,
+                                   int Y, int Z, const float* density, const float* sh,
+                                   float step, int n_steps, int lso, float bg, int dst_on,
+                                   float dst, float* rgb, float* depth, float* log_T,
+                                   float* t_sig, void* stream) {
+    if (B <= 0) return cudaSuccess;
+    CuvolParams p = make_params(nullptr, B, nullptr, nullptr, nullptr, origins, dirs, sh_mult, bd,
+                                delta_scale, tmin, tmax, links, X, Y, Z, density, sh, step,
+                                n_steps, lso, bg, dst_on, dst);
+    p.rgb = rgb;
+    p.depth = depth;
+    p.log_T = log_T;
+    p.t_sig = t_sig;
+    cuvol_march_kernel<<<(B + kBlock - 1) / kBlock, kBlock, 0, (cudaStream_t)stream>>>(p);
+    return cudaGetLastError();
+}
+#endif

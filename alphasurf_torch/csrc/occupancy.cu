@@ -14,6 +14,13 @@
 // word in registers. The JAX version first scatters two dense (X, Y, Z)
 // float fields of density and surface; this kernel gathers the rows
 // through the links instead and never builds them.
+//
+// K1d, density_occupancy_words, replaces render/cuvol.py:density_occupancy
+// (30-62), the occupancy of the cuvol (density) renderer: a voxel is
+// occupied when some present corner has density > 0, since a sample's
+// sigma is the relu of a convex combination of the corners with absent
+// ones reading 0. The same layout, bound and design as K1, without the
+// surface rows and the hull test; its words feed K2 unchanged.
 #include "common.cuh"
 
 struct OccParams {
@@ -48,6 +55,17 @@ HD bool voxel_occupied(const OccParams& p, int x, int y, int z) {
     return false;
 }
 
+HD bool density_voxel_occupied(const int* links, const float* density, int Y, int Z, int x, int y,
+                               int z) {
+    for (int c = 0; c < 8; ++c) {
+        const int64_t idx =
+            ((int64_t)(x + corner_dx(c)) * Y + (y + corner_dy(c))) * Z + (z + corner_dz(c));
+        const int link = links[idx];
+        if (link >= 0 && density[link] > 0.0f) return true;
+    }
+    return false;
+}
+
 #ifdef __CUDACC__
 __global__ void occupancy_kernel(OccParams p, int W, int64_t n_words, unsigned* words) {
     const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -75,6 +93,33 @@ extern "C" cudaError_t occupancy_words(const int* links, const float* density,
     const int64_t grid = (n_words * 32 + block - 1) / block;
     occupancy_kernel<<<(unsigned)grid, block, 0, (cudaStream_t)stream>>>(
         p, W, n_words, reinterpret_cast<unsigned*>(words));
+    return cudaGetLastError();
+}
+
+__global__ void density_occupancy_kernel(const int* links, const float* density, int X, int Y,
+                                         int Z, int W, int64_t n_words, unsigned* words) {
+    const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (warp >= n_words) return;  // warp-uniform: blockDim is a multiple of 32
+    const int w = (int)(warp % W);
+    const int64_t xy = warp / W;
+    const int y = (int)(xy % (Y - 1));
+    const int x = (int)(xy / (Y - 1));
+    const int z = w * 32 + lane;
+    const bool occ = z < Z - 1 && density_voxel_occupied(links, density, Y, Z, x, y, z);
+    const unsigned bits = __ballot_sync(0xffffffffu, occ);
+    if (lane == 0) words[warp] = bits;
+}
+
+extern "C" cudaError_t density_occupancy_words(const int* links, const float* density, int X,
+                                               int Y, int Z, int* words, void* stream) {
+    const int W = (Z - 1 + 31) / 32;
+    const int64_t n_words = (int64_t)(X - 1) * (Y - 1) * W;
+    if (n_words <= 0) return cudaSuccess;
+    const int block = 256;
+    const int64_t grid = (n_words * 32 + block - 1) / block;
+    density_occupancy_kernel<<<(unsigned)grid, block, 0, (cudaStream_t)stream>>>(
+        links, density, X, Y, Z, W, n_words, reinterpret_cast<unsigned*>(words));
     return cudaGetLastError();
 }
 #endif

@@ -1,12 +1,17 @@
-"""Procedural synthetic scene, the counterpart of
-the JAX package's ``data.synthetic``: orbit poses and the known SDF grid."""
+"""Procedural synthetic dataset (no files needed), the counterpart of the
+JAX package's ``data.synthetic``: orbit poses, the known SDF grid and
+``SyntheticDataset``, whose ground truth the port's own renderer draws."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from .. import defs
+from ..core.device import resolve_device
 from ..core.grid import SparseGrid
+from ..core.options import RenderOptions
+from ..core.rays import Camera
+from .base import DatasetBase, Intrin
 
 
 def pose_spherical(azimuth_deg: float, elevation_deg: float, radius: float) -> np.ndarray:
@@ -65,3 +70,68 @@ def make_gt_grid(reso=32, seed=0, basis_dim=4, dtype=torch.float32, device="cuda
         device=device,
         dtype=dtype,
     )
+
+
+class SyntheticDataset(DatasetBase):
+    """Orbit-camera dataset rendered from ``make_gt_grid`` on ``device``
+    (the JAX package's synthetic.py:71-192), the same poses from the same
+    seed. The JAX package renders ``renderer="dense"`` through its dense
+    surface walk (ROADMAP §1 item 10) and ``"packed"`` through the packed
+    renderer; the port renders both through the packed renderer, which its
+    docstring (synthetic.py:110-113) says equals the dense walk while the
+    pool holds every crossing, as the port's exact pool always does. Each
+    value keeps its rays: host-made (``Camera.gen_rays``) for "dense",
+    device-made for "packed". ``dtype`` is the ground-truth grid's; the
+    images are stored as float32."""
+
+    def __init__(
+        self,
+        root: str = "",  # unused; registry compatibility
+        split: str = "train",
+        n_images: int | None = 20,
+        width: int = 64,
+        height: int = 64,
+        reso: int = 32,
+        seed: int = 0,
+        epoch_size=None,
+        permutation: bool = True,
+        renderer: str = "dense",
+        device="cuda",
+        dtype=torch.float32,
+        **kwargs,
+    ):
+        super().__init__()
+        from ..render.image import render_rays
+
+        if renderer not in ("dense", "packed"):
+            raise ValueError(f"renderer must be 'dense' or 'packed', not {renderer!r}")
+        dev = resolve_device(device)
+        n_images = 20 if n_images is None else n_images
+        self.permutation = permutation
+        self.epoch_size = epoch_size
+        self.split = split
+        self.gt_grid = make_gt_grid(reso=reso, seed=seed, dtype=dtype, device=dev)
+        opt = RenderOptions(sigma_thresh=-1e9, stop_thresh=-1.0, only_outward_intersect=True)
+        rng = np.random.default_rng(seed + (0 if split == "train" else 1))
+        focal = 1.2 * width
+        c2ws, imgs = [], []
+        for i in range(n_images):
+            az = 360.0 * i / n_images + rng.uniform(0, 10)
+            el = rng.uniform(-60, 60)
+            c2w = pose_spherical(az, el, 2.7)
+            cam = Camera.make(c2w, fx=focal, width=width, height=height)
+            rays = cam.gen_rays(dev) if renderer == "dense" else cam.gen_rays_device(dev)
+            rgb, _ = render_rays(self.gt_grid, rays, opt)
+            imgs.append(rgb.reshape(height, width, 3).cpu().numpy())
+            c2ws.append(c2w)
+        self.c2w = np.stack(c2ws)
+        self.gt = np.clip(np.stack(imgs), 0.0, 1.0).astype(np.float32)
+        self.n_images, self.h_full, self.w_full = n_images, height, width
+        self.intrins_full = Intrin(focal, focal, width * 0.5, height * 0.5)
+        self.scene_scale = 1.0
+        self.should_use_background = False
+        if split == "train":
+            self.gen_rays()
+        else:
+            self.h, self.w = height, width
+            self.intrins = self.intrins_full

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("occupancy", "phase_a", "phase_b", "composite", "backward", "reg", "rmsprop")
+SOURCES = ("occupancy", "phase_a", "phase_b", "composite", "backward", "reg", "rmsprop", "cuvol")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
@@ -45,6 +45,10 @@ LAUNCHES = {
     "reg_normal": 0,
     "reg_sparsify": 0,
     "rmsprop": 0,
+    "density_occupancy": 0,
+    "cuvol_forward": 0,
+    "cuvol_backward": 0,
+    "cuvol_march": 0,
 }
 
 _P = ctypes.c_void_p
@@ -68,15 +72,23 @@ _ARGTYPES = {
     "reg_normal": [_P, _I, _I, _I, _P, _L, _P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     "reg_sparsify": [_P, _I, _I, _I, _P, _L, _P, _P, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P],
     "rmsprop": [_P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _F, _I, _F, _I, _P],
+    "density_occupancy_words": [_P, _P, _I, _I, _I, _P, _P],
+    "cuvol_forward": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F,
+                      _I, _I, _F, _I, _F, _P, _P, _P, _P, _P, _P],
+    "cuvol_backward": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                       _F, _I, _I, _F, _P, _P, _P, _P, _P, _P],
+    "cuvol_march": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _I, _F, _I,
+                    _F, _P, _P, _P, _P, _P],
 }
 _FUNCS = {
-    "occupancy": ("occupancy_words",),
+    "occupancy": ("occupancy_words", "density_occupancy_words"),
     "phase_a": ("phase_a_count", "phase_a_fill"),
     "phase_b": ("phase_b",),
     "composite": ("composite",),
     "backward": ("backward_ray", "backward_entry"),
     "reg": ("reg_tv", "reg_normal", "reg_sparsify"),
     "rmsprop": ("rmsprop",),
+    "cuvol": ("cuvol_forward", "cuvol_backward", "cuvol_march"),
 }
 
 _libs: dict = {}
@@ -128,7 +140,8 @@ def build() -> dict:
         os.replace(tmp, out)
         BUILD_LOG[name] = {
             "seconds": time.perf_counter() - t0,
-            "ptxas": [ln for ln in text.splitlines() if "registers" in ln or "spill" in ln],
+            "ptxas": [ln for ln in text.splitlines()
+                      if "registers" in ln or "spill" in ln or "entry function" in ln],
         }
     for name in SOURCES:
         if name not in _libs:
@@ -525,3 +538,121 @@ def rmsprop(param, rms, grad, lr: float, beta: float, epsilon: float, minval, gr
             float(lr), float(beta), float(1.0 - beta), float(epsilon),
             int(grad_abs_max is not None), float(grad_abs_max or 0.0), int(minval is not None),
             float(minval or 0.0), int(frozen))
+
+
+# ---------------------------------------------------------------------------
+# K1d
+# ---------------------------------------------------------------------------
+
+def density_occupancy(links, density):
+    """K1d: (X-1, Y-1, ceil((Z-1)/32)) int32 occupancy words of the cuvol
+    renderer (a present corner with density > 0)."""
+    X, Y, Z = links.shape
+    _check("links", links, torch.int32)
+    _check("density", density, torch.float32, (density.shape[0],))
+    words = torch.empty((X - 1, Y - 1, (Z - 1 + 31) // 32), dtype=torch.int32, device=links.device)
+    if words.numel() == 0:
+        return words
+    _launch("occupancy", "density_occupancy_words", "density_occupancy", _ptr(links),
+            _ptr(density), X, Y, Z, _ptr(words))
+    return words
+
+
+# ---------------------------------------------------------------------------
+# K8 and K10
+# ---------------------------------------------------------------------------
+
+def _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links, density, sh):
+    B = origins.shape[0]
+    _check("origins", origins, torch.float32, (B, 3))
+    _check("dirs", dirs, torch.float32, (B, 3))
+    bd = sh_mult.shape[1]
+    _check("sh_mult", sh_mult, torch.float32, (B, bd))
+    for name, x in (("delta_scale", delta_scale), ("tmin", tmin), ("tmax", tmax)):
+        _check(name, x, torch.float32, (B,))
+    _check("links", links, torch.int32)
+    cap = density.shape[0]
+    _check("density", density, torch.float32, (cap,))
+    _check("sh", sh, torch.float32, (cap, 3 * bd))
+    X, Y, Z = links.shape
+    return B, bd, (_ptr(sh_mult), bd, _ptr(delta_scale), _ptr(tmin), _ptr(tmax), _ptr(links),
+                   X, Y, Z, _ptr(density), _ptr(sh))
+
+
+def _pool_entry_args(offsets, l, close_t, far_t, B: int):
+    M = close_t.shape[0]
+    _check("offsets", offsets, torch.int64, (B + 1,))
+    _check("l", l, torch.int32, (M, 3))
+    _check("close_t", close_t, torch.float32, (M,))
+    _check("far_t", far_t, torch.float32, (M,))
+    return M
+
+
+def _render_outputs(B: int, dev, depth_sigma_thresh) -> dict:
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {"rgb": torch.empty((B, 3), **f32), "depth": torch.empty(B, **f32),
+            "log_T": torch.empty(B, **f32),
+            "t_sig": None if depth_sigma_thresh is None else torch.empty(B, **f32)}
+
+
+def cuvol_forward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_scale, tmin, tmax,
+                  links, density, sh, step: float, n_slots: int, last_sample_opaque: bool,
+                  bg: float, depth_sigma_thresh=None, save_entry_pre: bool = False) -> dict:
+    """K8 forward over the pool (ray r's entries at [offsets[r], offsets[r+1])):
+    rgb (B, 3), depth, log_T and t_sig ((B,), or None without a
+    ``depth_sigma_thresh``), and entry_pre (M,), the prefix log-attenuation
+    at each entry's start, with ``save_entry_pre`` (else None)."""
+    B, bd, grid_args = _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links,
+                                   density, sh)
+    M = _pool_entry_args(offsets, l, close_t, far_t, B)
+    out = _render_outputs(B, origins.device, depth_sigma_thresh)
+    out["entry_pre"] = (torch.empty(M, dtype=torch.float32, device=origins.device)
+                        if save_entry_pre else None)
+    if B > 0:
+        dst_on = depth_sigma_thresh is not None
+        _launch("cuvol", "cuvol_forward", "cuvol_forward",
+                _ptr(offsets), B, _ptr(l), _ptr(close_t), _ptr(far_t), _ptr(origins), _ptr(dirs),
+                *grid_args, float(step), int(n_slots), int(last_sample_opaque), float(bg),
+                int(dst_on), float(depth_sigma_thresh) if dst_on else 0.0,
+                *(0 if out[k] is None else _ptr(out[k])
+                  for k in ("rgb", "depth", "log_T", "t_sig", "entry_pre")))
+    return out
+
+
+def cuvol_backward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_scale, tmin, tmax,
+                   links, density, sh, step: float, n_slots: int, last_sample_opaque: bool,
+                   bg: float, log_T, entry_pre, g_rgb):
+    """K8 backward: the gradients of density (cap,) and SH (cap, 3 bd) from
+    the cotangent of rgb (B, 3), given the forward's log_T and entry_pre."""
+    B, bd, grid_args = _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links,
+                                   density, sh)
+    M = _pool_entry_args(offsets, l, close_t, far_t, B)
+    _check("log_T", log_T, torch.float32, (B,))
+    _check("entry_pre", entry_pre, torch.float32, (M,))
+    _check("g_rgb", g_rgb, torch.float32, (B, 3))
+    g_density = torch.zeros_like(density)
+    g_sh = torch.zeros_like(sh)
+    if B > 0 and M > 0:
+        _launch("cuvol", "cuvol_backward", "cuvol_backward",
+                _ptr(offsets), B, _ptr(l), _ptr(close_t), _ptr(far_t), _ptr(origins), _ptr(dirs),
+                *grid_args, float(step), int(n_slots), int(last_sample_opaque), float(bg),
+                _ptr(log_T), _ptr(entry_pre), _ptr(g_rgb), _ptr(g_density), _ptr(g_sh))
+    return g_density, g_sh
+
+
+def cuvol_march(origins, dirs, sh_mult, delta_scale, tmin, tmax, links, density, sh,
+                step: float, n_steps: int, last_sample_opaque: bool, bg: float,
+                depth_sigma_thresh=None) -> dict:
+    """K10: the dense march of each ray, t = tmin + k step for k < n_steps
+    while t <= tmax: rgb (B, 3), depth, log_T and t_sig (or None)."""
+    B, bd, grid_args = _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links,
+                                   density, sh)
+    out = _render_outputs(B, origins.device, depth_sigma_thresh)
+    if B > 0:
+        dst_on = depth_sigma_thresh is not None
+        _launch("cuvol", "cuvol_march", "cuvol_march", B, _ptr(origins), _ptr(dirs), *grid_args,
+                float(step), int(n_steps), int(last_sample_opaque), float(bg), int(dst_on),
+                float(depth_sigma_thresh) if dst_on else 0.0,
+                *(0 if out[k] is None else _ptr(out[k])
+                  for k in ("rgb", "depth", "log_T", "t_sig")))
+    return out

@@ -1,13 +1,17 @@
-"""The surface-stage train step, the counterpart of the JAX package's
-``train.steps.make_surface_step`` (steps.py:222-444; svox2's opt.py:786-1152).
+"""The train steps, the counterparts of the JAX package's
+``train.steps.make_surface_step`` (steps.py:222-444; svox2's opt.py:786-1152)
+and ``make_cuvol_step`` (steps.py:447-536, the Plenoxels warm start).
 
-One step renders the batch through the packed renderer (K1-K4 forward, K5
-backward on the card), adds the streaming ray losses and the cell-sampled
-regularizers (K6), and applies masked RMSprop (K7) to density, SH, surface
-and fake_sample_std, in place. On the card it makes one host sync, the one
-that sizes K2's pool. Per-step scalars come in ``HParams`` as Python
-floats; a term whose weight is 0 is computed all the same, as the JAX step
-does, except ``l2_color_loss`` (a full pass over the SH rows for nothing).
+A surface step renders the batch through the packed renderer (K1-K4
+forward, K5 backward on the card), adds the streaming ray losses and the
+cell-sampled regularizers (K6), and applies masked RMSprop (K7) to density,
+SH, surface and fake_sample_std, in place. A cuvol step renders through the
+packed cuvol renderer (K8 forward and backward over K2's pool), adds the TV
+of density and SH (K6) and applies K7 to density and SH. On the card each
+makes one host sync, the one that sizes K2's pool. Per-step scalars come in
+``HParams`` as Python floats; a term whose weight is 0 is computed all the
+same, as the JAX step does, except ``l2_color_loss`` (a full pass over the
+SH rows for nothing).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from ..core.rays import Rays
 from ..losses import reg
 from ..losses import render_losses as rl
 from ..optim.rmsprop import rmsprop_init, rmsprop_step
+from ..render.cuvol import volume_render_cuvol_packed
 from ..render.surface import volume_render_surface_packed
 
 
@@ -116,6 +121,7 @@ class StepConfig:
 
 # the sampled windows of one step, named as ``window_starts`` keys
 WINDOWS = ("tv", "tv_sh", "tv_surface", "normal", "sparsify")
+CUVOL_WINDOWS = ("tv", "tv_sh")
 _PARAMS = (("density", "density_data"), ("sh", "sh_data"), ("surface", "surface_data"),
            ("fake_sample_std", "fake_sample_std"))
 
@@ -149,17 +155,50 @@ def _requires_grad(params):
             p.requires_grad_(f)
 
 
-def _check_config(cfg: StepConfig) -> None:
+def _check_config(cfg: StepConfig, flags=("use_eikonal", "use_norm_match", "use_viscosity",
+                                            "use_sign_change", "use_lumisphere_tv",
+                                            "use_two_pass_losses")) -> None:
+    """Raise on what the port's steps do not carry; ``flags`` are the
+    StepConfig switches the step would read."""
     if cfg.renderer != "packed":
         raise NotImplementedError(
             f"renderer {cfg.renderer!r} is not ported; only 'packed' (ROADMAP §1 item 10)")
-    for flag in ("use_eikonal", "use_norm_match", "use_viscosity", "use_sign_change",
-                 "use_lumisphere_tv", "use_two_pass_losses"):
+    for flag in flags:
         if getattr(cfg, flag):
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP §1 item 10)")
     if cfg.axis_name is not None:
         raise NotImplementedError("data-parallel steps (axis_name) are not ported yet "
                                   "(ROADMAP §1 item 9)")
+
+
+def _check_rms(rms: dict) -> None:
+    extra = set(rms) - {k for k, _ in _PARAMS}
+    if extra:
+        raise NotImplementedError(
+            f"rms groups {sorted(extra)} (learned bases, background) are not ported yet "
+            "(ROADMAP §1 item 10)")
+
+
+def _window_starts(window_starts, names) -> dict:
+    starts = dict(window_starts or {})
+    if set(starts) - set(names):
+        raise ValueError(f"unknown windows {sorted(set(starts) - set(names))}; known: {names}")
+    return starts
+
+
+def _sampler(generator, grid, row_coords, starts):
+    """(reg_scale, sample(name, frac)): present-cell windows with
+    ``row_coords``, lattice windows without (steps.py:237-243)."""
+    if row_coords is not None:
+        def sample(name, frac):
+            return reg.sample_present_cells(generator, grid, row_coords, frac, starts.get(name))
+
+        return reg.present_norm_scale(grid), sample
+
+    def sample(name, frac):
+        return reg.sample_cells(generator, grid, frac, starts.get(name))
+
+    return 1.0, sample
 
 
 def make_surface_step(cfg: StepConfig):
@@ -178,27 +217,9 @@ def make_surface_step(cfg: StepConfig):
 
     def step(grid: SparseGrid, rms: dict, rays: Rays, rgb_gt: torch.Tensor, hp: HParams,
              generator: torch.Generator, occ=None, row_coords=None, window_starts=None):
-        extra = set(rms) - {k for k, _ in _PARAMS}
-        if extra:
-            raise NotImplementedError(
-                f"rms groups {sorted(extra)} (learned bases, background) are not ported yet "
-                "(ROADMAP §1 item 10)")
-        starts = dict(window_starts or {})
-        if set(starts) - set(WINDOWS):
-            raise ValueError(f"unknown windows {sorted(set(starts) - set(WINDOWS))}; "
-                             f"known: {WINDOWS}")
-        if row_coords is not None:
-            reg_scale = reg.present_norm_scale(grid)
-
-            def sample(name, frac):
-                return reg.sample_present_cells(generator, grid, row_coords, frac,
-                                                starts.get(name))
-        else:
-            reg_scale = 1.0
-
-            def sample(name, frac):
-                return reg.sample_cells(generator, grid, frac, starts.get(name))
-
+        _check_rms(rms)
+        starts = _window_starts(window_starts, WINDOWS)
+        reg_scale, sample = _sampler(generator, grid, row_coords, starts)
         params = {k: getattr(grid, f) for k, f in _PARAMS if k in rms}
         with _requires_grad(list(params.values())):
             out = volume_render_surface_packed(grid, rays, cfg.opt, occupancy=occ)
@@ -276,6 +297,56 @@ def make_surface_step(cfg: StepConfig):
                 rmsprop_step(grid.fake_sample_std, rms["fake_sample_std"],
                              g["fake_sample_std"], hp.lr_fake_sample_std, beta,
                              minval=1e-8)  # opt.py:1141-1142
+        stats = {"loss": loss.detach(), "mse": mse.detach(),
+                 "pool_overflow": torch.zeros((), dtype=torch.int32, device=mse.device)}
+        return grid, rms, stats
+
+    return step
+
+
+def make_cuvol_step(cfg: StepConfig):
+    """The Plenoxels warm-start step, as the JAX package's (steps.py:447-536).
+
+    ``step(grid, rms, rays, rgb_gt, hp, generator, occ=None, row_coords=None,
+    window_starts=None) -> (grid, rms, stats)``, as ``make_surface_step``:
+    the mse of the packed cuvol render, plus ``reg_scale * lambda_tv`` times
+    the TV of density and ``reg_scale * lambda_tv_sh`` times the TV of SH
+    over windows ``"tv"`` and ``"tv_sh"`` (``CUVOL_WINDOWS``), then masked
+    RMSprop of density (``lr_sigma``) and SH (``lr_sh``) in place. ``occ``
+    are the words of ``render.cuvol.density_occupancy_words``; without
+    them the JAX step marches densely, whose backward is not ported."""
+    _check_config(cfg, flags=("use_lumisphere_tv",))  # the only switch it reads
+
+    def step(grid: SparseGrid, rms: dict, rays: Rays, rgb_gt: torch.Tensor, hp: HParams,
+             generator: torch.Generator, occ=None, row_coords=None, window_starts=None):
+        if occ is None:
+            raise NotImplementedError(
+                "a cuvol step without an occupancy trains through the dense march, whose "
+                "backward is not ported (ROADMAP §1 item 10); pass "
+                "occ=render.cuvol.density_occupancy_words(grid)")
+        _check_rms(rms)
+        starts = _window_starts(window_starts, CUVOL_WINDOWS)
+        reg_scale, sample = _sampler(generator, grid, row_coords, starts)
+        params = [grid.density_data, grid.sh_data]
+        with _requires_grad(params):
+            out = volume_render_cuvol_packed(grid, rays, cfg.opt, occupancy=occ)
+            mse = torch.mean((out["rgb"] - rgb_gt) ** 2)
+            loss = mse
+            cells = sample("tv", cfg.tv_sparsity)
+            loss = loss + reg_scale * hp.lambda_tv * reg.tv_loss(grid, grid.density_data, cells)
+            cells = sample("tv_sh", cfg.tv_sh_sparsity)
+            loss = loss + reg_scale * hp.lambda_tv_sh * reg.tv_loss(grid, grid.sh_data, cells)
+            if hp.lambda_l2_color != 0.0:
+                loss = loss + hp.lambda_l2_color * reg.l2_color_loss(grid)
+            g_density, g_sh = torch.autograd.grad(loss, params)
+
+        # the JAX step keeps the old parameters when its pool overflowed
+        # (steps.py:520-530); the port's pool never overflows (see
+        # make_surface_step)
+        overflow = out["pool_overflow"]
+        if overflow == 0 or hp.force_apply > 0:
+            rmsprop_step(grid.density_data, rms["density"], g_density, hp.lr_sigma, cfg.rms_beta)
+            rmsprop_step(grid.sh_data, rms["sh"], g_sh, hp.lr_sh, cfg.rms_beta)
         stats = {"loss": loss.detach(), "mse": mse.detach(),
                  "pool_overflow": torch.zeros((), dtype=torch.int32, device=mse.device)}
         return grid, rms, stats

@@ -1,0 +1,453 @@
+"""The training loop on the host: the counterpart of the JAX package's
+``train.trainer.Trainer`` (svox2's opt/opt.py).
+
+The stages are the JAX package's: the Plenoxels warm start on a density
+grid (``make_cuvol_step``), then the surface stage (``make_surface_step``),
+with schedules evaluated on the host and fed to the steps as Python floats,
+periodic eval and checkpoints. This slice runs the warm start from a fresh
+grid and the surface stage from a resumed surface checkpoint; the stage
+transitions (``maybe_init_surface``, ``maybe_upsample``) raise when a run
+reaches them (ROADMAP §1 item 7), and so do multi-device runs (item 9).
+
+What the JAX Trainer needs and the port does not: its pool budget and the
+machinery around it (``_pow2``, ``_size_pool_from_grid``, ``_grow_pool``,
+the overflow half of ``_flush_pend``, ``n_forced_steps``). The port's pool
+is sized exactly each step and never overflows. Left out: TensorBoard
+logging (the log lines carry the same scalars), LPIPS (its weights are not
+in the repository) and the in-training point extraction ``_eval_points``
+(ROADMAP §1 item 8; it adds nothing for density grids).
+
+The batch stream is the JAX Trainer's host mode: each epoch's order is
+``np.random.default_rng(cfg.seed)``'s permutation, and each batch is
+gathered by index from the ray table on the device. The regularizer windows
+come from a CPU ``torch.Generator`` seeded with ``cfg.seed``. A step waits
+on the device once, for K2's pool size; the mse is read back only every
+``print_every`` steps.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import time
+from os import path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import defs
+from ..app.config import Config, render_options_from
+from ..core.device import resolve_device
+from ..core.grid import create_grid
+from ..core.rays import Camera, Rays
+from ..losses.reg import row_coords_of
+from ..optim.schedules import expon_lr_func, linear_lr_func, make_decay_func
+from ..render.cuvol import density_occupancy_words
+from ..render.image import render_image
+from ..render.surface import occupancy_words
+from ..utils.io import load_grid, save_grid
+from ..utils.metrics import compute_ssim
+from .steps import HParams, StepConfig, init_rms, make_cuvol_step, make_surface_step
+
+
+class Trainer:
+    def __init__(self, cfg: Config, dset, dset_test=None, device="cuda", dtype=torch.float32):
+        self.cfg = cfg
+        self.dset = dset
+        self.dset_test = dset_test
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.rng = np.random.default_rng(cfg.seed)
+        self.generator = torch.Generator().manual_seed(cfg.seed)
+        self.gstep = 0
+        n_dev = int(getattr(cfg, "n_devices", 1) or 0)
+        if n_dev == 0:  # all visible devices
+            n_dev = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        if n_dev > 1 or int(getattr(cfg, "mesh_model", 1)) > 1:
+            raise NotImplementedError(
+                f"multi-device training (n_devices={cfg.n_devices}, mesh_model="
+                f"{cfg.mesh_model}) is not ported yet (ROADMAP §1 item 9)")
+        os.makedirs(cfg.train_dir, exist_ok=True)
+        self.log_lines = []
+        # the effective config, for reproducibility (opt.py:81-86)
+        with open(path.join(cfg.train_dir, "args.yaml"), "w") as f:
+            for k, v in sorted(dataclasses.asdict(cfg).items()):
+                f.write(f"{k}: {v!r}\n")
+        self._build_grid()
+        self._build_schedules()
+        self.rms = init_rms(self.grid)
+        self._step_fns = {}
+        self._occ = None  # occupancy words, refreshed every occ_refresh_every steps
+        self._occ_step = -1
+        self._occ_kind = None  # 'surface' | 'density'
+        self._row_coords = None  # per topology
+
+    # ---------------- grid construction ----------------
+    def _build_grid(self):
+        cfg = self.cfg
+        surface_type = defs.SURFACE_TYPE_STRS.get(cfg.surface_type, defs.SURFACE_TYPE_NONE)
+        reso0 = cfg.reso[0] if isinstance(cfg.reso[0], (list, tuple)) else cfg.reso
+        self.reso_id = 0
+        radius = [r * cfg.scene_radius_rescale for r in self.dset.scene_radius]
+
+        resume = path.join(cfg.train_dir, "ckpt.npz")
+        if cfg.load_ckpt and path.isfile(resume):
+            # resume an interrupted run (opt.py:116-123): grid and step
+            # counter; the rms state starts at zero, as svox2's does
+            self.grid, step_id = load_grid(resume, device=self.device, dtype=self.dtype)
+            self.gstep = int(step_id)
+            self.pretrained_density = False
+            self.target_surface_type = (self.grid.surface_type
+                                        if self.grid.surface_data is not None else surface_type)
+            self.surface_initialized = self.grid.surface_data is not None
+            for i, r in enumerate(cfg.reso):
+                rr = tuple(r) if isinstance(r, (list, tuple)) else (r,) * 3
+                if rr == tuple(self.grid.reso):
+                    self.reso_id = i
+            self.log(f"[resume] {resume} at step {self.gstep}")
+            return
+
+        if cfg.load_pretrain_density_sh:
+            # warm start from a Plenoxels checkpoint (opt.py:288-372)
+            ckpt = cfg.load_pretrain_density_sh
+            if path.isdir(ckpt):
+                ckpt = path.join(ckpt, "ckpt.npz")
+            self.grid, _ = load_grid(ckpt, device=self.device, dtype=self.dtype)
+            if cfg.density_load_rescale != 1.0:
+                with torch.no_grad():
+                    self.grid.density_data.mul_(cfg.density_load_rescale)
+            self.pretrained_density = True
+        else:
+            self.grid = create_grid(
+                reso0,
+                radius=radius,
+                center=self.dset.scene_center,
+                basis_dim=cfg.sh_dim,
+                surface_type=surface_type
+                if cfg.no_surface_init_iters == 0 and surface_type != defs.SURFACE_TYPE_NONE
+                else defs.SURFACE_TYPE_NONE,
+                use_sphere_bound=self.dset.use_sphere_bound and not cfg.nosphereinit,
+                # the foreground starts at 0 until lr_fg_begin_step (opt.py:148-150)
+                init_sigma=0.0 if cfg.lr_fg_begin_step > 0 else cfg.init_sigma,
+                dtype=self.dtype,
+                device=self.device,
+            )
+            self.pretrained_density = False
+        self.target_surface_type = surface_type
+        self.surface_initialized = self.grid.surface_data is not None
+
+    def _build_schedules(self):
+        cfg = self.cfg
+        self.lr_sigma_func = expon_lr_func(
+            cfg.lr_sigma, cfg.lr_sigma_final, cfg.lr_sigma_delay_steps,
+            cfg.lr_sigma_delay_mult, cfg.lr_sigma_decay_steps,
+        )
+        self.lr_alpha_func = expon_lr_func(
+            cfg.lr_alpha, cfg.lr_alpha_final, cfg.lr_alpha_delay_steps,
+            cfg.lr_alpha_delay_mult, cfg.lr_alpha_decay_steps, cfg.lr_alpha_fix_delay,
+        )
+        self.lr_surface_func = expon_lr_func(
+            cfg.lr_surface, cfg.lr_surface_final, cfg.lr_surface_delay_steps,
+            cfg.lr_surface_delay_mult, cfg.lr_surface_decay_steps, cfg.lr_surf_fix_delay,
+        )
+        self.lr_sh_func = expon_lr_func(
+            cfg.lr_sh, cfg.lr_sh_final, cfg.lr_sh_delay_steps,
+            cfg.lr_sh_delay_mult, cfg.lr_sh_decay_steps,
+        )
+        self.lr_sh_surf_func = expon_lr_func(
+            cfg.lr_sh_surf, cfg.lr_sh_surf_final, cfg.lr_sh_surf_delay_steps,
+            cfg.lr_sh_surf_delay_mult, cfg.lr_sh_surf_decay_steps, cfg.lr_sh_surf_fix_delay,
+        )
+        self.lr_fss_func = expon_lr_func(
+            cfg.lr_fake_sample_std, cfg.lr_fake_sample_std_final,
+            cfg.lr_fake_sample_std_delay_steps, cfg.lr_fake_sample_std_delay_mult,
+            cfg.lr_fake_sample_std_decay_steps,
+        )
+        self.fake_sample_std_func = make_decay_func(
+            cfg.fs_std_decay_type, cfg.fake_sample_std, cfg.fake_sample_std_final,
+            cfg.fake_sample_std_delay, max_steps=cfg.fake_sample_std_decay_steps,
+        )
+        self.trunc_vol_a_func = make_decay_func(
+            cfg.trunc_vol_a_decay_type, cfg.truncated_vol_render_a,
+            cfg.truncated_vol_render_a_final, cfg.truncated_vol_render_a_delay,
+            max_steps=cfg.truncated_vol_render_a_decay_steps,
+        )
+        # normal-loss lambda schedule (opt.py:241-247, 713-718)
+        if cfg.surf_normal_loss_lambda_type == "linear":
+            self.lambda_normal_l1_func = linear_lr_func(
+                cfg.lambda_normal_loss_l1, cfg.lambda_normal_loss_l1_final,
+                cfg.lambda_normal_loss_l1_delay_steps, cfg.lambda_normal_loss_l1_decay_steps,
+            )
+            self.lambda_normal_l2_func = linear_lr_func(
+                cfg.lambda_normal_loss_l2, cfg.lambda_normal_loss_l2_final,
+                cfg.lambda_normal_loss_l2_delay_steps, cfg.lambda_normal_loss_l2_decay_steps,
+            )
+        else:
+            self.lambda_normal_l1_func = lambda _: cfg.lambda_normal_loss_l1
+            self.lambda_normal_l2_func = lambda _: cfg.lambda_normal_loss_l2
+
+    # ---------------- per-stage steps ----------------
+    def _get_step(self, kind: str, no_surface: bool):
+        cfg = self.cfg
+        cache_key = (kind, self.grid.reso, self.grid.capacity,
+                     None if self.grid.level_set_data is None
+                     else self.grid.level_set_data.shape[0])
+        if cache_key in self._step_fns:
+            return self._step_fns[cache_key]
+        scfg = StepConfig(
+            opt=render_options_from(cfg, no_surface=no_surface),
+            tv_sparsity=cfg.tv_sparsity,
+            tv_sh_sparsity=cfg.tv_sh_sparsity,
+            tv_surface_sparsity=cfg.tv_surface_sparsity,
+            norm_surface_sparsity=cfg.norm_surface_sparsity,
+            sparsify_sparsity=cfg.alpha_surf_sparsify_sparsity,
+            norm_con_check=not cfg.no_surf_norm_con_check,
+            norm_ignore_empty=cfg.surf_norm_reg_ignore_empty,
+            sparsify_surf_decrease=cfg.sparsify_surf_decrease,
+            sparsify_surf_thresh=cfg.sparsify_surf_thresh,
+            surf_tv_alpha_weighted=cfg.surf_tv_alpha_dependency,
+            rms_beta=cfg.rms_beta,
+            surf_grad_abs_max=cfg.surf_grad_abs_max,
+            use_two_pass_losses=(cfg.lambda_conv_mode_samp > 0 or cfg.lambda_l_samp_dist > 0),
+            use_eikonal=cfg.lambda_surface_eikonal > 0,
+            renderer=cfg.surface_renderer,
+        )
+        fn = make_cuvol_step(scfg) if kind == "cuvol" else make_surface_step(scfg)
+        self._step_fns[cache_key] = fn
+        return fn
+
+    def _hparams(self, no_surface: bool) -> HParams:
+        cfg = self.cfg
+        g = self.gstep
+        lr_sh = (self.lr_sh_func(g) if (not self.surface_initialized or no_surface)
+                 else self.lr_sh_surf_func(g))
+        frozen = self.surface_initialized and (
+            g < cfg.surface_init_freeze + cfg.no_surface_init_iters)
+        # density optimization gated until lr_fg_begin_step (opt.py:1118)
+        fg_on = g >= cfg.lr_fg_begin_step
+        return HParams(
+            lr_sigma=self.lr_sigma_func(g) if fg_on else 0.0,
+            lr_alpha=self.lr_alpha_func(g) if fg_on else 0.0,
+            lr_surface=self.lr_surface_func(g),
+            lr_sh=lr_sh,
+            lr_fake_sample_std=self.lr_fss_func(g),
+            img_lambda_l1_ratio=cfg.img_lambda_l1_ratio,
+            lambda_tv=cfg.lambda_tv,
+            lambda_tv_sh=cfg.lambda_tv_sh,
+            lambda_tv_alpha=cfg.lambda_tv_alpha,
+            lambda_tv_surface=cfg.lambda_tv_surface,
+            lambda_normal_l1=self.lambda_normal_l1_func(g),
+            lambda_normal_l2=self.lambda_normal_l2_func(g),
+            lambda_sparsify_alpha=(cfg.lambda_sparsify_alpha if g > cfg.delay_sparsify_alpha
+                                   else 0.0),
+            lambda_sparsify_surf=cfg.lambda_sparsify_surf if g > cfg.delay_sparsify_surf else 0.0,
+            lambda_l_dist=cfg.lambda_l_dist,
+            lambda_l_dist_a=cfg.lambda_l_dist_a,
+            lambda_l_entropy=cfg.lambda_l_entropy if g < cfg.l_entropy_step else 0.0,
+            lambda_l_entropy_a=cfg.lambda_l_entropy_a if g < cfg.l_entropy_step else 0.0,
+            lambda_conv_mode_samp=cfg.lambda_conv_mode_samp if g < cfg.conv_mode_step else 0.0,
+            lambda_samp_dist=cfg.lambda_l_samp_dist,
+            lambda_sparsity=cfg.lambda_sparsity
+            if (not self.surface_initialized or no_surface) else cfg.lambda_inplace_alpha_sparsify,
+            lambda_eikonal=cfg.lambda_surface_eikonal,
+            lambda_inward_norm=cfg.lambda_inwards_norm_loss,
+            lambda_density_lap=cfg.lambda_no_surf_init_density_lap_loss
+            if not self.surface_initialized else 0.0,
+            lambda_udf_var=cfg.lambda_udf_var_loss,
+            lambda_fs_std_l1=cfg.lambda_fake_sample_std_l1,
+            lambda_fs_std_l2=cfg.lambda_fake_sample_std_l2,
+            surface_unfrozen=0.0 if frozen else 1.0,
+        )
+
+    # ---------------- stage transitions ----------------
+    def maybe_init_surface(self):
+        """Density -> surface conversion at no_surface_init_iters
+        (opt.py:747-780), or at once when warm-starting from a Plenoxels
+        checkpoint."""
+        if self.surface_initialized or self.target_surface_type == defs.SURFACE_TYPE_NONE:
+            return
+        raise NotImplementedError(
+            "the density -> surface conversion (init_surface_from_density) is not ported yet "
+            "(ROADMAP §1 item 7); resume a surface checkpoint to train the surface stage")
+
+    def maybe_upsample(self):
+        cfg = self.cfg
+        if self.reso_id + 1 >= len(cfg.reso):
+            return
+        if self.gstep > 0 and self.gstep % cfg.upsamp_every == 0:
+            raise NotImplementedError(
+                f"upsampling to {cfg.reso[self.reso_id + 1]} at step {self.gstep} is not ported "
+                "yet (ROADMAP §1 item 7); list one resolution in reso")
+
+    def _get_occ(self, no_surface: bool):
+        """The occupancy words, recomputed every occ_refresh_every steps or
+        on a change of kind or shape: K1d for density grids (and no_surface
+        renders), K1 for surface grids."""
+        cfg = self.cfg
+        kind = "density" if (no_surface or self.grid.surface_data is None) else "surface"
+        X, Y, Z = self.grid.reso
+        if (
+            self._occ is None
+            or kind != self._occ_kind
+            or self.gstep - self._occ_step >= max(1, cfg.occ_refresh_every)
+            or tuple(self._occ.shape) != (X - 1, Y - 1, (Z - 1 + 31) // 32)
+        ):
+            if kind == "density":
+                self._occ = density_occupancy_words(self.grid)
+            else:
+                self._occ = occupancy_words(self.grid, render_options_from(cfg, no_surface))
+            self._occ_step = self.gstep
+            self._occ_kind = kind
+        return self._occ
+
+    def _get_row_coords(self):
+        if self._row_coords is None or self._row_coords.shape[0] != self.grid.capacity:
+            self._row_coords = row_coords_of(self.grid)
+        return self._row_coords
+
+    # ---------------- core loop ----------------
+    def log(self, msg):
+        print(msg, flush=True)
+        self.log_lines.append(msg)
+
+    def _set_grid_scalars(self):
+        """Scheduled grid scalars (opt.py:720-735): fake_sample_std,
+        truncated_vol_render_a, and the level sets whose truncated-vol
+        reweight has decayed to nothing."""
+        cfg = self.cfg
+        g = self.grid
+        fss = self.fake_sample_std_func(self.gstep)
+        with torch.no_grad():
+            if g.fake_sample_std is not None and not cfg.trainable_fake_sample_std:
+                g.fake_sample_std.fill_(fss)
+            elif g.fake_sample_std is None and cfg.surf_fake_sample and g.surface_data is not None:
+                g.fake_sample_std = torch.nn.Parameter(
+                    torch.full((1, 1), fss, dtype=g.dtype, device=self.device), requires_grad=False)
+            a_now = self.trunc_vol_a_func(self.gstep)
+            g.truncated_vol_render_a.fill_(a_now)
+            if (cfg.trunc_vol_render_lv_remove and cfg.truncated_vol_render
+                    and g.surface_data is not None and g.level_set_data.shape[0] > 1):
+                ids = np.arange(g.level_set_data.shape[0])
+                x = np.clip(a_now - ids, 0.0, 1.0)
+                keep = 0.5 * (1.0 - np.cos(np.pi * x)) > 1e-20
+                if keep.sum() < len(ids):
+                    n_rm = int(len(ids) - keep.sum())
+                    g.level_set_data = g.level_set_data[torch.as_tensor(keep, device=self.device)]
+                    g.density_data.add_(cfg.trunc_vol_lv_rm_density_add * n_rm)
+                    self.log(f"[stage] trunc_vol_render_lv_remove: {n_rm} level set(s) dropped "
+                             f"at step {self.gstep} (a={a_now:.3f})")
+
+    def train(self, n_iters: Optional[int] = None):
+        cfg = self.cfg
+        n_iters = n_iters or cfg.n_iters
+        dset = self.dset
+        if self.pretrained_density and not self.surface_initialized:
+            self.maybe_init_surface()
+        if dset.rays_dev is None or dset.rays_dev["origins"].device != self.device:
+            dset.to_device(self.device)
+        table = dset.rays_dev
+        epoch_rays = int(table["origins"].shape[0])
+        B = cfg.batch_size
+        perm = None
+        pend = []  # mse tensors of the steps since the last print
+        batch_begin = epoch_rays  # shuffle on the first step
+        stats_acc = {"mse": 0.0, "n": 0}
+        t_start = time.time()
+
+        def flush_pend():
+            nonlocal pend
+            for mse in pend:
+                stats_acc["mse"] += float(mse)
+                stats_acc["n"] += 1
+            pend = []
+
+        while self.gstep < n_iters:
+            if batch_begin + B > epoch_rays:
+                perm = torch.as_tensor(dset.shuffle_perm(self.rng), device=self.device)
+                batch_begin = 0
+            no_surface = (not self.surface_initialized) or (self.gstep < cfg.no_surface_init_iters)
+            if cfg.lr_fg_begin_step > 0 and self.gstep == cfg.lr_fg_begin_step:
+                # the foreground begins training now (opt.py:691-692)
+                with torch.no_grad():
+                    self.grid.density_data.fill_(cfg.init_sigma)
+            if self.gstep == cfg.no_surface_init_iters and cfg.no_surface_init_iters > 0:
+                self.maybe_init_surface()
+                no_surface = not self.surface_initialized
+
+            idx = perm[batch_begin:batch_begin + B]
+            batch_begin += B
+            if idx.shape[0] < B:  # an epoch_size shorter than the table
+                continue
+            self._set_grid_scalars()
+            kind = "cuvol" if (no_surface or self.grid.surface_data is None) else "surface"
+            step_fn = self._get_step(kind, no_surface)
+            hp = self._hparams(no_surface)
+            rays = Rays(table["origins"][idx], table["dirs"][idx],
+                        table["mask"][idx] if "mask" in table else None)
+            self.grid, self.rms, stats = step_fn(
+                self.grid, self.rms, rays, table["gt"][idx], hp, self.generator,
+                occ=self._get_occ(no_surface), row_coords=self._get_row_coords())
+            pend.append(stats["mse"])
+            self.gstep += 1
+
+            if self.gstep % cfg.print_every == 0:
+                flush_pend()
+                avg_mse = stats_acc["mse"] / max(stats_acc["n"], 1)
+                psnr = -10.0 * math.log10(max(avg_mse, 1e-12))
+                dt = time.time() - t_start
+                self.log(f"step {self.gstep} [{kind}] mse={avg_mse:.5f} psnr={psnr:.2f} "
+                         f"({self.gstep / dt:.1f} it/s)")
+                stats_acc = {"mse": 0.0, "n": 0}
+            if cfg.eval_every_iter and self.gstep % cfg.eval_every_iter == 0:
+                self.eval_step()
+            if cfg.save_every > 0 and self.gstep % cfg.save_every == 0:
+                self.save()
+            self.maybe_upsample()
+
+        flush_pend()
+        self.save()
+        return self.eval_step(final=True)
+
+    # ---------------- eval / io ----------------
+    def eval_step(self, final: bool = False):
+        """Test-view evaluation: PSNR and SSIM (opt.py:443-538). A final
+        eval writes the per-view breakdown to eval_views.txt and the mean
+        PSNR to test_psnr.txt."""
+        cfg = self.cfg
+        dset = self.dset_test or self.dset
+        n_views = (dset.n_images if final and cfg.final_render_eval
+                   else min(cfg.n_eval_test, dset.n_images))
+        if n_views == 0:
+            return None
+        opt = render_options_from(cfg, no_surface=self.grid.surface_data is None)
+        psnrs, ssims, lines = [], [], []
+        for i in np.linspace(0, dset.n_images - 1, n_views).astype(int):
+            cam = Camera.make(
+                dset.c2w[i],
+                fx=dset.intrins_full.fx, fy=dset.intrins_full.fy,
+                cx=dset.intrins_full.cx, cy=dset.intrins_full.cy,
+                width=dset.w_full, height=dset.h_full,
+            )
+            img = render_image(self.grid, cam, opt, device=self.device)
+            gt = np.asarray(dset.gt[i])
+            mse = float(np.mean((img - gt) ** 2))
+            p = -10.0 * math.log10(max(mse, 1e-12))
+            psnrs.append(p)
+            s = compute_ssim(img, gt)
+            ssims.append(s)
+            lines.append(f"{int(i)} {p:.4f} {s:.4f}")
+        mean_psnr = float(np.mean(psnrs))
+        mean_ssim = float(np.mean(ssims))
+        self.log(f"eval stats: step={self.gstep} psnr={mean_psnr:.3f} ssim={mean_ssim:.4f}")
+        if final:
+            with open(path.join(cfg.train_dir, "eval_views.txt"), "w") as f:
+                f.write("view psnr ssim\n" + "\n".join(lines) + "\n")
+            with open(path.join(cfg.train_dir, "test_psnr.txt"), "w") as f:
+                f.write(f"{mean_psnr}\n")
+        return mean_psnr
+
+    def save(self):
+        ckpt_path = path.join(self.cfg.train_dir, "ckpt.npz")
+        save_grid(self.grid, ckpt_path, step_id=self.gstep)
+        self.log(f"saved {ckpt_path}")

@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from ``alphasurf_torch/csrc`` (K1 occupancy,
 K2 phase A count + fill, K3 phase B, K4 compositor, K5 backward per ray and
-per entry, K6 regularizers TV / normal / sparsify, K7 RMSprop), then:
+per entry, K6 regularizers TV / normal / sparsify, K7 RMSprop, K1d density
+occupancy, K8 cuvol forward and backward, K10 dense cuvol march), then:
 
 1. prints the card, its power limit, nvcc's register/spill lines and the
    build seconds;
@@ -25,10 +26,23 @@ per entry, K6 regularizers TV / normal / sparsify, K7 RMSprop), then:
    ``alphasurf_torch.app.bench_step.main`` at full width (512^3, batch
    40960, 1 + 33 steps) with the counters set to 0 just before and read
    just after; then one profiled train step;
-5. prints one JSON line with each kernel's numbers, then the ok line.
+5. the Plenoxels warm start: K1d, K8 forward, K8 backward (against
+   autograd of the plain cuvol renderer) and K10 against their plain
+   versions on a 256^3 blobby density grid (basis_dim 9), one 16,384-ray
+   chunk of an 800x800 frame; one cuvol step with the kernels against the
+   plain step on a CPU copy at 128^3; ``alphasurf_torch.app.bench_step.main
+   --stage cuvol`` at 256^3, batch 40960; then the Trainer through
+   ``alphasurf_torch.app.train.main`` on the synthetic dataset (20 train and
+   2 test views at 800x800), 256^3, the Config defaults otherwise, 100
+   steps and a final eval whose PSNR must beat the untrained grid's, with
+   the counters set to 0 just before and read just after; then one
+   profiled cuvol step;
+6. prints one JSON line with each kernel's numbers, then the ok line.
 
-Exits non-zero, printing no result, without a CUDA device or without the
-``alphasurf_torch`` package beside it. Imports nothing of JAX.
+``--phases`` runs a subset (kernels, serve, train, warm); the default runs
+them all, as the checks above require. Exits non-zero, printing no result,
+without a CUDA device or without the ``alphasurf_torch`` package beside
+it. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -81,6 +95,7 @@ RMS_RTOL = 1e-6
 JAX_PACKAGE = "alphasurf_tpu"
 _JAX_SURFACE = f"{JAX_PACKAGE}/render/surface.py"
 _JAX_REG = f"{JAX_PACKAGE}/losses/reg.py"
+_JAX_CUVOL = f"{JAX_PACKAGE}/render/cuvol.py"
 KERNELS = {  # name -> (source, the JAX routine it replaces)
     "occupancy": ("alphasurf_torch/csrc/occupancy.cu", f"{_JAX_SURFACE}:1149"),
     "phase_a_count": ("alphasurf_torch/csrc/phase_a.cu", f"{_JAX_SURFACE}:1652"),
@@ -95,8 +110,22 @@ KERNELS = {  # name -> (source, the JAX routine it replaces)
     "reg_normal": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:202"),
     "reg_sparsify": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:305"),
     "rmsprop": ("alphasurf_torch/csrc/rmsprop.cu", f"{JAX_PACKAGE}/optim/rmsprop.py:26"),
+    "density_occupancy": ("alphasurf_torch/csrc/occupancy.cu", f"{_JAX_CUVOL}:30"),
+    # K8: the packed cuvol renderer and jax.grad of it
+    "cuvol_forward": ("alphasurf_torch/csrc/cuvol.cu", f"{_JAX_CUVOL}:79"),
+    "cuvol_backward": ("alphasurf_torch/csrc/cuvol.cu", f"{_JAX_CUVOL}:79"),
+    "cuvol_march": ("alphasurf_torch/csrc/cuvol.cu", f"{_JAX_CUVOL}:297"),
 }
 SERVE_KERNELS = ("occupancy", "phase_a_count", "phase_a_fill", "phase_b", "composite")
+TRAIN_KERNELS = SERVE_KERNELS + ("backward_ray", "backward_entry", "reg_tv", "reg_normal",
+                                 "reg_sparsify", "rmsprop")
+WARM_STEP_KERNELS = ("density_occupancy", "phase_a_count", "phase_a_fill", "cuvol_forward",
+                     "cuvol_backward", "reg_tv", "rmsprop")
+WARM_KERNELS = WARM_STEP_KERNELS + ("cuvol_march",)
+NEW_KERNELS = ("density_occupancy", "cuvol_forward", "cuvol_backward", "cuvol_march")
+PHASES = ("kernels", "serve", "train", "warm")
+CUVOL_RESO = 256  # the warm start's grid (the Config's first reso)
+WARM_STEPS = 100  # Trainer steps of the warm-start run
 TRAIN_BATCH = 40960
 # the loss of the K5 check: the bench loss (mse against 0.5, bench.py's
 # l_entropy weight) plus small weights on every other ray loss that carries
@@ -384,9 +413,9 @@ def check_kernels(device, card: str) -> dict:
     return res
 
 
-def grad_check(name: str, gk, gp) -> float:
-    """K5's tolerance (GRAD_*) on one parameter group; returns the max abs
-    error."""
+def grad_check(name: str, gk, gp, kernel: str = "K5") -> float:
+    """The backward kernels' tolerance (GRAD_*) on one parameter group;
+    returns the max abs error."""
     import torch
 
     gk, gp = gk.double().reshape(gk.shape[0], -1), gp.double().reshape(gp.shape[0], -1)
@@ -401,7 +430,7 @@ def grad_check(name: str, gk, gp) -> float:
         f"{int(touched.sum())} touched rows outside rtol {GRAD_RTOL}/atol {GRAD_ATOL}, "
         f"max abs err {float(d.max()):.3e}")
     if not (rel <= GRAD_REL and frac <= GRAD_ROW_FRACTION):
-        raise AssertionError(f"K5 {name} gradient differs from autograd of the plain path: "
+        raise AssertionError(f"{kernel} {name} gradient differs from autograd of the plain path: "
                              f"rel {rel}, row fraction {frac}")
     return float(d.max())
 
@@ -853,6 +882,7 @@ def train(device, card: str) -> dict:
         f"{out['seconds'] / out['steps'] * 1e3:.3f} ms per step, loss {out['first_loss']:.6f} -> "
         f"{out['last_loss']:.6f}, {out['rows_moved']} rows moved, max_memory_allocated "
         f"{peak / 2**30:.3f} GiB [{card}]")
+    launches = {k: launches[k] for k in TRAIN_KERNELS}
     log("launches " + json.dumps(launches))
     if any(v == 0 for v in launches.values()):
         raise AssertionError(f"a kernel of the training path was not launched: {launches}")
@@ -874,7 +904,410 @@ def train(device, card: str) -> dict:
     return launches
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# the Plenoxels warm start
+# ---------------------------------------------------------------------------
+
+def blobby_cuvol_grid(reso: int, device, seed: int = SEED):
+    """The warm start's sphere-bounded grid (basis_dim 9) on the card,
+    holding a blobby shell of density: a shell around radius reso/4 whose
+    radius, thickness and height wobble smoothly (a numpy seed draws the
+    wobble), negative away from it, so that K1d keeps the shell; and a
+    smooth SH colour field. Returns the grid and its row coords."""
+    import numpy as np
+    import torch
+
+    from alphasurf_torch.core.grid import create_grid
+    from alphasurf_torch.losses.reg import row_coords_of
+
+    grid = create_grid(reso, use_sphere_bound=True, init_sigma=0.0, basis_dim=9, device=device)
+    rc = row_coords_of(grid)
+    p = rc.float() / reso
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=device)
+    freqs = torch.as_tensor(rng.normal(size=(3, 30)) * 2.0, **f32)
+    phase = torch.as_tensor(rng.uniform(0, 2 * np.pi, 30), **f32)
+    wave = torch.sin(p @ freqs * (2 * np.pi / 2) + phase)  # (cap, 30)
+    r = torch.linalg.norm(rc.float() - reso / 2.0, dim=-1)
+    radius = reso / 4.0 * (1.0 + 0.15 * wave[:, 0])
+    half = reso / 64.0 * (1.0 + 0.5 * wave[:, 1])
+    with torch.no_grad():
+        grid.density_data.copy_((4.0 * (1.0 - (r - radius).abs() / half)
+                                 * (1.0 + 0.5 * wave[:, 2]))[:, None])
+        grid.sh_data.copy_(0.35 * wave[:, 3:])
+    return grid, rc
+
+
+def cuvol_chunk(grid, opt, rays, words):
+    """What a chunk of the packed cuvol renderer prepares: the rays'
+    (origins, dirs, sh_mult, delta_scale, tmin, tmax) and K2's pool."""
+    from alphasurf_torch.render import cuvol as C
+
+    ray_t = tuple(x.contiguous() for x in C._prep(grid, rays, opt))
+    return ray_t, C.cuvol_pool(grid, ray_t[0], ray_t[1], ray_t[4], ray_t[5], words)
+
+
+def corner_rows(grid, voxels) -> tuple[int, int]:
+    """(corner links, present rows) of the 8 corners of flat voxel ids."""
+    import torch
+
+    X, Y, Z = grid.reso
+    x, y, z = voxels // (Y * Z), (voxels // Z) % Y, voxels % Z
+    pos = torch.unique(torch.stack([
+        (torch.clamp(x + dx, max=X - 1) * Y + torch.clamp(y + dy, max=Y - 1)) * Z
+        + torch.clamp(z + dz, max=Z - 1) for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]))
+    return pos.numel(), int((grid.links.reshape(-1)[pos] >= 0).sum())
+
+
+def march_samples(grid, ray_t, step: float, n_steps: int) -> tuple:
+    """The dense march's samples (t = tmin + k step <= tmax, k < n_steps)
+    and the flat ids of the voxels they read, as K10 clamps them."""
+    import torch
+
+    from alphasurf_torch.ops.trilerp import voxel_of
+
+    origins, dirs, _, _, tmin, tmax = ray_t
+    n = 0
+    seen = []
+    for k0 in range(0, n_steps, 16):
+        t = tmin[:, None] + torch.arange(k0, k0 + 16, device=tmin.device)[None, :] * step
+        act = t <= tmax[:, None]
+        if not bool(act.any()):
+            break
+        n += int(act.sum())
+        l, _ = voxel_of(origins[:, None, :] + t[..., None] * dirs[:, None, :], grid.reso)
+        l = l[act].long()
+        X, Y, Z = grid.reso
+        seen.append(torch.unique((l[:, 0] * Y + l[:, 1]) * Z + l[:, 2]))
+    return n, torch.unique(torch.cat(seen))
+
+
+def check_cuvol_kernels(device, card: str) -> dict:
+    """Phase 5a: K1d, K8 forward and backward and K10 against their plain
+    versions on the 256^3 blobby grid, one 16,384-ray chunk of an 800x800
+    frame, under the Config defaults' render options; each timed."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app.bench_step import cuvol_options
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.render import cuvol as C
+    from alphasurf_torch.render import surface as S
+
+    res = {}
+    grid, _ = blobby_cuvol_grid(CUVOL_RESO, device)
+    dens = grid.density_data.detach()[:, 0].contiguous()
+    sh = grid.sh_data.detach()
+
+    def k1d():
+        return kernels.density_occupancy(grid.links, dens)
+
+    def k1d_plain():
+        return S.pack_occupancy_bits(C._density_occupancy_plain(grid))
+
+    words = k1d()
+    if not torch.equal(words, k1d_plain()):
+        raise AssertionError("K1d density occupancy words differ from the plain version")
+    n_occ = int(S.unpack_occupancy_bits(words, CUVOL_RESO - 1).sum())
+    log(f"K1d density occupancy {CUVOL_RESO}^3 (capacity {grid.capacity}): words equal, "
+        f"{n_occ} occupied voxels")
+    res["density_occupancy"] = dict(
+        max_abs_err=0.0, ms=time_ms(k1d, 20), plain_ms=time_ms(k1d_plain, 3),
+        bound=bound_ms(grid.links.numel() * 4 + grid.capacity * 4 + words.numel() * 4,
+                       (CUVOL_RESO - 1) ** 3 * 8))
+
+    opt = cuvol_options()
+    rays_all = frame_camera(0, 2).gen_rays_device(device)
+    s = (WIDTH * HEIGHT) // 2 - CHUNK // 2
+    rays = Rays(rays_all.origins[s:s + CHUNK].contiguous(), rays_all.dirs[s:s + CHUNK].contiguous())
+    ray_t, pool = cuvol_chunk(grid, opt, rays, words)
+    chunk = C._CuvolChunk(grid, opt, pool, ray_t, None)
+    B, M = CHUNK, pool.close_t.shape[0]
+
+    # K8 forward
+    fk = C._k8_forward(chunk, dens, sh, False)
+    smp = C._entry_samples_plain(grid, opt, pool, *ray_t)
+    fp = C._composite_cuvol_plain(pool.offsets, *smp, opt.background_brightness, None)
+    errs = [allclose_err(fk["rgb"], fp["rgb"]), allclose_err(fk["depth"], fp["depth"]),
+            allclose_err(fk["log_T"], fp["log_transmit"])]
+    if max(e[1] for e in errs) > 0:
+        raise AssertionError(f"K8 forward differs from the plain version: {errs}")
+    n_active = int(smp[1].sum())
+    n_links, n_rows = corner_rows(grid, ((pool.l[:, 0].long() * CUVOL_RESO + pool.l[:, 1].long())
+                                         * CUVOL_RESO + pool.l[:, 2].long()))
+    log(f"K8 forward: {B} rays, pool of {M} entries, {n_active} samples, max abs err "
+        f"{max(e[0] for e in errs):.3e}; rgb mean {float(fk['rgb'].mean()):.4f}, log_T min "
+        f"{float(fk['log_T'].min()):.3f}")
+    in_bytes = M * 20 + (B + 1) * 8 + B * 72 + n_links * 4 + n_rows * 28 * 4
+    entry_ops = M * 8 * 3 * 9 * 2
+    res["cuvol_forward"] = dict(
+        max_abs_err=max(e[0] for e in errs),
+        ms=time_ms(lambda: C._k8_forward(chunk, dens, sh, True), 20),
+        plain_ms=time_ms(lambda: C._composite_cuvol_plain(
+            pool.offsets, *C._entry_samples_plain(grid, opt, pool, *ray_t),
+            opt.background_brightness, None), 3),
+        bound=bound_ms(in_bytes + B * 20 + M * 4, entry_ops + n_active * 120))
+    del smp, fp
+
+    # K8 backward through the renderer's autograd Function against autograd
+    # of the plain renderer, the loss of the step (mse against 0.5)
+    params = [grid.density_data, grid.sh_data]
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        out = C.volume_render_cuvol_packed(grid, rays, opt, occupancy=words)
+        g_kernel = torch.autograd.grad(torch.mean((out["rgb"] - 0.5) ** 2), params)
+        smp = C._entry_samples_plain(grid, opt, pool, *ray_t)
+        fp = C._composite_cuvol_plain(pool.offsets, *smp, opt.background_brightness, None)
+        loss_p = torch.mean((fp["rgb"] - 0.5) ** 2)
+        g_plain = torch.autograd.grad(loss_p, params, retain_graph=True)
+        plain_ms = time_ms(lambda: torch.autograd.grad(loss_p, params, retain_graph=True), 3)
+        del smp, fp, loss_p
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    log(f"K8 backward: gradients of the mse against 0.5 over {B} rays, kernels against autograd "
+        f"of the plain path:")
+    err = max(grad_check(n, a, b, "K8") for n, a, b in zip(("density", "sh"), g_kernel, g_plain))
+    del g_kernel, g_plain
+    fk = C._k8_forward(chunk, dens, sh, True)
+    g_rgb = (2.0 * (fk["rgb"] - 0.5) / (3 * B)).contiguous()
+
+    def k8b():
+        return kernels.cuvol_backward(*C._k8_args(chunk, dens, sh), fk["log_T"], fk["entry_pre"],
+                                      g_rgb)
+
+    res["cuvol_backward"] = dict(
+        max_abs_err=err, ms=time_ms(k8b, 20), plain_ms=plain_ms,
+        bound=bound_ms(in_bytes + B * 16 + M * 4 + grid.capacity * 28 * 4,
+                       2 * entry_ops + n_active * 250))
+    torch.cuda.empty_cache()
+
+    # K10 on the same chunk
+    n_steps = (C.max_steps_for(grid, opt) + 15) // 16 * 16
+
+    def k10():
+        return kernels.cuvol_march(*ray_t, grid.links, dens, sh, opt.step_size, n_steps,
+                                   opt.last_sample_opaque, opt.background_brightness, None)
+
+    def k10_plain():
+        return C._march_plain(grid, opt, *ray_t, n_steps, 16, None)
+
+    mk, mp = k10(), k10_plain()
+    rgb_p = mp["rgb"] + torch.exp(mp["log_T"])[:, None] * opt.background_brightness
+    errs = [allclose_err(mk["rgb"], rgb_p), allclose_err(mk["depth"], mp["depth"]),
+            allclose_err(mk["log_T"], mp["log_T"])]
+    if max(e[1] for e in errs) > 0:
+        raise AssertionError(f"K10 differs from its plain version: {errs}")
+    n_samp, voxels = march_samples(grid, ray_t, opt.step_size, n_steps)
+    n_links, n_rows = corner_rows(grid, voxels)
+    log(f"K10 dense march: {B} rays, {n_samp} samples (at most {n_steps} a ray), max abs err "
+        f"{max(e[0] for e in errs):.3e}")
+    res["cuvol_march"] = dict(
+        max_abs_err=max(e[0] for e in errs), ms=time_ms(k10, 10), plain_ms=time_ms(k10_plain, 2),
+        bound=bound_ms(B * 72 + n_links * 4 + n_rows * 28 * 4 + B * 20, n_samp * 490))
+    del grid, dens, sh, pool, chunk, fk, mk, mp
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) [{card}]")
+    return res
+
+
+def check_cuvol_step(device) -> None:
+    """One cuvol step through the kernels on the card against one step of
+    the plain versions on a CPU copy, at 128^3 (the blobby grid) with a
+    4,096-ray batch of the bench camera whose float32 bounds agree between
+    the two, and the same windows; tolerances as in check_step."""
+    import torch
+
+    from alphasurf_torch.app.bench_step import bench_rays, cuvol_hparams, cuvol_options
+    from alphasurf_torch.core.grid import SparseGrid
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.ops import dda
+    from alphasurf_torch.render import cuvol as C
+    from alphasurf_torch.train.steps import CUVOL_WINDOWS, StepConfig, init_rms, make_cuvol_step
+
+    grid, rc = blobby_cuvol_grid(SMALL_RESO, device)
+    cpu = SparseGrid.from_numpy(grid.to_numpy(), device="cpu")
+    old = {f: getattr(cpu, f).detach().clone() for f in ("density_data", "sh_data")}
+    opt = cuvol_options()
+    rays = bench_rays(WIDTH, device)
+    s = (WIDTH * HEIGHT) // 2 - STEP_BATCH
+    cand = Rays(rays.origins[s:s + 2 * STEP_BATCH], rays.dirs[s:s + 2 * STEP_BATCH])
+
+    def bounds(g, r):
+        t = C._prep(g, r, opt)
+        return (*t, *dda.ray_bounds(g, t[0], t[1]))
+
+    same = torch.ones(2 * STEP_BATCH, dtype=torch.bool)
+    for a, b in zip(bounds(grid, cand), bounds(cpu, Rays(cand.origins.cpu(), cand.dirs.cpu()))):
+        same &= (a.cpu() == b).reshape(2 * STEP_BATCH, -1).all(-1)
+    keep = torch.nonzero(same)[:STEP_BATCH, 0]
+    nb = keep.numel()
+    log(f"cuvol step check: {2 * STEP_BATCH - int(same.sum())} of {2 * STEP_BATCH} central rays "
+        f"have float32 bounds that differ between the card and the CPU; {nb} agreeing rays kept")
+    r_k = Rays(cand.origins[keep.to(device)].contiguous(), cand.dirs[keep.to(device)].contiguous())
+    r_p = Rays(r_k.origins.cpu(), r_k.dirs.cpu())
+    hp = cuvol_hparams()
+    beta = 0.95
+    step = make_cuvol_step(StepConfig(opt=opt, rms_beta=beta))
+    K = max(1, int(0.01 * grid.capacity))
+    gen = torch.Generator().manual_seed(SEED)
+    starts = {w: int(torch.randint(0, grid.capacity - K + 1, (), generator=gen))
+              for w in CUVOL_WINDOWS}
+    rms_k, rms_p = init_rms(grid), init_rms(cpu)
+    _, _, st_k = step(grid, rms_k, r_k, torch.full((nb, 3), 0.5, device=device), hp,
+                      torch.Generator(), occ=C.density_occupancy_words(grid), row_coords=rc,
+                      window_starts=starts)
+    _, _, st_p = step(cpu, rms_p, r_p, torch.full((nb, 3), 0.5), hp, torch.Generator(),
+                      occ=C.density_occupancy_words(cpu), row_coords=rc.cpu(),
+                      window_starts=starts)
+    lk, lp = float(st_k["loss"]), float(st_p["loss"])
+    if abs(lk - lp) > 1e-5 * abs(lp) or abs(float(st_k["mse"]) - float(st_p["mse"])) > 1e-5 * lp:
+        raise AssertionError(f"cuvol step loss {lk} differs from the plain step's {lp}")
+    msg = []
+    for (f, o), rk, lr in zip(old.items(), ("density", "sh"), (hp.lr_sigma, hp.lr_sh)):
+        dk = getattr(grid, f).detach().cpu() - o
+        dp = getattr(cpu, f).detach() - o
+        unit = lr / (1.0 - beta) ** 0.5
+        moved = (dk != 0).any(-1) | (dp != 0).any(-1)
+        bad = ((dk - dp).abs() > 1e-3 * unit).any(-1) & moved
+        frac = float(bad.sum()) / max(int(moved.sum()), 1)
+        a, b = rms_k[rk].cpu().double(), rms_p[rk].double()
+        rel = float((a - b).norm() / b.norm().clamp(min=1e-30))
+        msg.append(f"{rk}: {int(moved.sum())} rows moved, {int(bad.sum())} off, rms rel {rel:.2e}")
+        if frac > 1e-3 or rel > 1e-3 or not moved.any():
+            raise AssertionError(f"cuvol step {rk} differs from the plain step: {msg[-1]}")
+    log(f"cuvol step at {SMALL_RESO}^3, {nb} rays: loss {lk:.7f} (plain {lp:.7f}); "
+        + "; ".join(msg))
+    del grid, rc, cpu
+    torch.cuda.empty_cache()
+
+
+def warm_config() -> str:
+    """The warm-start run's config file: the synthetic dataset (20 train
+    and 2 test views, GT from make_gt_grid(SMALL_RESO)), one CUVOL_RESO^3
+    stage without a surface, the Config defaults otherwise."""
+    return (f"dataset_type = synthetic\nreso = [[{CUVOL_RESO}, {CUVOL_RESO}, {CUVOL_RESO}]]\n"
+            f"surface_type = none\nn_train_images = 20\ndataset_width = {WIDTH}\n"
+            f"dataset_height = {HEIGHT}\ndataset_reso = {SMALL_RESO}\n"
+            f"dataset_renderer = packed\ndataset_test_images = 2\n")
+
+
+def eval_untrained(device, dset_test) -> float:
+    """The Trainer's eval PSNR of the grid it starts from."""
+    import numpy as np
+
+    from alphasurf_torch.app.config import Config, render_options_from
+    from alphasurf_torch.core.grid import create_grid
+    from alphasurf_torch.core.rays import Camera
+    from alphasurf_torch.render.image import render_image
+
+    cfg = Config()
+    grid = create_grid(CUVOL_RESO, radius=dset_test.scene_radius, center=dset_test.scene_center,
+                       basis_dim=cfg.sh_dim, use_sphere_bound=True, init_sigma=cfg.init_sigma,
+                       device=device)
+    opt = render_options_from(cfg, no_surface=True)
+    psnrs = []
+    for i in np.linspace(0, dset_test.n_images - 1, min(cfg.n_eval_test, dset_test.n_images)):
+        i = int(i)
+        cam = Camera.make(dset_test.c2w[i], fx=dset_test.intrins_full.fx, width=WIDTH,
+                          height=HEIGHT)
+        img = render_image(grid, cam, opt, device=device)
+        psnrs.append(-10.0 * np.log10(max(float(np.mean((img - dset_test.gt[i]) ** 2)), 1e-12)))
+    return float(np.mean(psnrs))
+
+
+def warm(device, card: str, work: Path) -> tuple[dict, dict]:
+    """Phase 5: the warm start. The kernel checks, the cuvol step check,
+    bench_step --stage cuvol at full width, the Trainer through
+    app/train.main, and one profiled cuvol step. Returns the kernels'
+    numbers and the Trainer run's launches."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import bench_step
+    from alphasurf_torch.app import train as train_app
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.data import SyntheticDataset
+    from alphasurf_torch.render.cuvol import density_occupancy_words
+    from alphasurf_torch.train.steps import StepConfig, init_rms, make_cuvol_step
+
+    res = check_cuvol_kernels(device, card)
+    check_cuvol_step(device)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = bench_step.main(["--stage", "cuvol", "--reso", str(CUVOL_RESO), "--batch",
+                           str(TRAIN_BATCH), "--steps", "33", "--width", str(WIDTH), "--device",
+                           str(device)])
+    torch.cuda.synchronize()
+    bench_launches = {k: kernels.LAUNCHES[k] for k in WARM_STEP_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"warm-start bench: {out['steps']} steps of {out['batch']} rays at {CUVOL_RESO}^3 "
+        f"(capacity {out['capacity']}): {out['rays_per_s_fwd_bwd']:.1f} rays/s, "
+        f"{out['seconds'] / out['steps'] * 1e3:.3f} ms per step, loss {out['first_loss']:.6f} -> "
+        f"{out['last_loss']:.6f}, {out['rows_moved']} rows moved, max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB [{card}]")
+    log("launches " + json.dumps(bench_launches))
+    if any(v == 0 for v in bench_launches.values()):
+        raise AssertionError(f"a kernel of the warm-start step was not launched: {bench_launches}")
+    if not (out["losses_finite"] and out["rows_moved"] > 0):
+        raise AssertionError(f"the warm-start bench did not run right: {out}")
+
+    cfg_path = work / "warm.yaml"
+    cfg_path.write_text(warm_config())
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    psnr = train_app.main(["", "-t", str(work / "warm"), "-c", str(cfg_path), "--n_iters",
+                           str(WARM_STEPS), "--device", str(device)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in WARM_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    log("launches " + json.dumps(launches))
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"a kernel of the warm start was not launched: {launches}")
+    dset_test = SyntheticDataset(split="test", n_images=2, width=WIDTH, height=HEIGHT,
+                                 reso=SMALL_RESO, renderer="packed", device=device)
+    psnr0 = eval_untrained(device, dset_test)
+    log(f"warm start through app/train.main: {WARM_STEPS} steps at {CUVOL_RESO}^3 and a final "
+        f"eval in {wall:.2f} s (data set-up included), eval PSNR {psnr:.4f} against the untrained "
+        f"grid's {psnr0:.4f}, max_memory_allocated {peak / 2**30:.3f} GiB [{card}]")
+    if not psnr > psnr0:
+        raise AssertionError(f"the warm start did not train: PSNR {psnr} <= untrained {psnr0}")
+
+    # one more cuvol step under the profiler, on the bench's grid and batch
+    grid, rc = bench_step.build_cuvol_grid(CUVOL_RESO, device)
+    opt = bench_step.cuvol_options()
+    rays = bench_step.bench_rays(WIDTH, device)
+    s = int(WIDTH * HEIGHT * 0.35)
+    r = Rays(rays.origins[s:s + TRAIN_BATCH], rays.dirs[s:s + TRAIN_BATCH])
+    step = make_cuvol_step(StepConfig(opt=opt))
+    rms, hp, gen = init_rms(grid), bench_step.cuvol_hparams(), torch.Generator()
+    gt = torch.full((TRAIN_BATCH, 3), 0.5, device=device)
+    occ = density_occupancy_words(grid)
+    pool = cuvol_chunk(grid, opt, r, occ)[1]
+    log(f"the profiled cuvol step's pool: {pool.close_t.shape[0]} entries for {TRAIN_BATCH} rays")
+    del pool
+    profile_device(lambda: step(grid, rms, r, gt, hp, gen, occ=occ, row_coords=rc),
+                   f"one cuvol step ({TRAIN_BATCH} rays, {CUVOL_RESO}^3)", card)
+    del grid, rc, rms
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one card.")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)} (default: all)")
+    phases = ap.parse_args(argv).phases.split(",")
+    if set(phases) - set(PHASES):
+        ap.error(f"unknown phases {sorted(set(phases) - set(PHASES))}")
     try:
         import torch
     except ImportError:
@@ -905,21 +1338,30 @@ def main() -> int:
 
     work = HERE / "build" / "smoke"
     work.mkdir(parents=True, exist_ok=True)
+    res, launches = {}, {}
     try:
-        res = check_kernels(device, card)
-        launches = serve(device, card, work)
-        train_launches = train(device, card)
+        if "kernels" in phases:
+            res.update(check_kernels(device, card))
+        if "serve" in phases:
+            launches.update(serve(device, card, work))
+        if "train" in phases:
+            train_launches = train(device, card)
+            # serving is the main path of K1-K4, training that of K5-K7
+            launches.update({k: v for k, v in train_launches.items() if k not in launches})
+        if "warm" in phases:
+            warm_res, warm_launches = warm(device, card, work)
+            res.update(warm_res)
+            launches.update({k: warm_launches[k] for k in NEW_KERNELS})
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    # each kernel's launches on its main path: serving for K1-K4, training
-    # for K5-K7
-    launches.update({k: v for k, v in train_launches.items() if k not in SERVE_KERNELS})
 
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", JAX_PACKAGE)]
     if leaked:
         raise AssertionError(f"the port imported JAX modules: {leaked[:5]}")
     entries = []
     for name, (source, replaces) in KERNELS.items():
+        if name not in res or name not in launches:
+            continue  # a phase that was not run
         r = res[name]
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -36,7 +36,8 @@ def test_kernels_match_plain_versions(cuda, kw):
     kernels.reset_launches()
     got = S.volume_render_surface_packed(g, rays, opt)
     torch.cuda.synchronize()
-    assert all(v > 0 for v in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("occupancy", "phase_a_count", "phase_a_fill",
+                                                 "phase_b", "composite")), kernels.LAUNCHES
     ref = S.volume_render_surface_packed(SparseGrid.from_numpy(a, device="cpu"),
                                          pt.Rays(rays.origins.cpu(), rays.dirs.cpu()), opt)
     for k in ("rgb", "depth", "normal", "log_transmit", "depth_mode", "depth_med"):
@@ -116,3 +117,80 @@ def test_regularizers_and_rmsprop_match_plain_versions(cuda):
     _rmsprop_plain(p2, r2, grad, 1e-2, 0.95, 1e-8, None, None, False)
     torch.testing.assert_close(p1, p2, rtol=1e-6, atol=0)
     torch.testing.assert_close(r1, r2, rtol=1e-6, atol=0)
+
+
+def _cuvol_grid(device, reso=16, seed=0):
+    """A sphere-bounded float32 warm-start grid with a blobby density
+    (negative in places) and random SH of basis 9."""
+    from alphasurf_torch.core.grid import create_grid
+
+    g = create_grid(reso, use_sphere_bound=True, basis_dim=9, init_sigma=0.0, device="cpu")
+    rng = np.random.default_rng(seed)
+    links = g.links.numpy().reshape(-1)
+    coords = np.stack(np.meshgrid(*[np.arange(reso)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    r = np.linalg.norm(coords - reso / 2.0, axis=-1)
+    dens = np.maximum(0.0, 3.0 - np.abs(r - reso / 4.0)) * 2.0 + rng.standard_normal(r.shape) * 0.5
+    a = g.to_numpy()
+    a["density_data"] = dens[links >= 0, None].astype(np.float32)
+    a["sh_data"] = (rng.standard_normal((g.capacity, 27)) * 0.3).astype(np.float32)
+    return a, SparseGrid.from_numpy(a, device=device)
+
+
+CUVOL_SETS = [dict(), dict(last_sample_opaque=True), dict(use_spheric_clip=True, near_clip=0.1),
+              dict(step_size=0.3)]
+
+
+@pytest.mark.cuda
+def test_density_occupancy_kernel_matches_plain_version(cuda):
+    from alphasurf_torch.render import cuvol as C
+
+    a, g = _cuvol_grid(cuda)
+    kernels.reset_launches()
+    words = C.density_occupancy_words(g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["density_occupancy"] == 1
+    ref = C.density_occupancy_words(SparseGrid.from_numpy(a, device="cpu"))
+    assert torch.equal(words.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", CUVOL_SETS)
+def test_cuvol_kernels_match_plain_versions(cuda, kw):
+    """K8 forward and backward (through the renderer's autograd Function)
+    and K10 against the plain renderers on the CPU, float32."""
+    from alphasurf_torch.render import cuvol as C
+
+    a, g = _cuvol_grid(cuda)
+    opt = pt.RenderOptions(**kw)
+    o, d = np_rays(64, seed=4)
+    rays = pt.Rays(torch.as_tensor(o, dtype=torch.float32, device=cuda),
+                   torch.as_tensor(d, dtype=torch.float32, device=cuda))
+    rays_cpu = pt.Rays(rays.origins.cpu(), rays.dirs.cpu())
+    cot = torch.randn(64, 3, generator=torch.Generator().manual_seed(1))
+
+    def grads(g, r):
+        params = [g.density_data.requires_grad_(True), g.sh_data.requires_grad_(True)]
+        out = C.volume_render_cuvol_packed(g, r, opt, depth_sigma_thresh=0.7)
+        gr = torch.autograd.grad((out["rgb"] * cot.to(out["rgb"].device)).sum(), params)
+        return out, [x.cpu() for x in gr]
+
+    kernels.reset_launches()
+    got, g_got = grads(g, rays)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cuvol_forward"] == 1 and kernels.LAUNCHES["cuvol_backward"] == 1
+    ref, g_ref = grads(SparseGrid.from_numpy(a, device="cpu"), rays_cpu)
+    for k in ("rgb", "depth", "log_transmit", "depth_sigma_thresh"):
+        np.testing.assert_allclose(got[k].detach().cpu().numpy(), ref[k].detach().numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+    for name, x, r in zip(("density", "sh"), g_got, g_ref):
+        np.testing.assert_allclose(x.numpy(), r.numpy(), rtol=1e-3, atol=1e-5, err_msg=name)
+    g.density_data.requires_grad_(False)
+    g.sh_data.requires_grad_(False)
+    got = C.volume_render_cuvol(g, rays, opt, depth_sigma_thresh=0.7)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cuvol_march"] == 1
+    ref = C.volume_render_cuvol(SparseGrid.from_numpy(a, device="cpu"), rays_cpu, opt,
+                                depth_sigma_thresh=0.7)
+    for k in ("rgb", "depth", "log_transmit", "depth_sigma_thresh"):
+        np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
