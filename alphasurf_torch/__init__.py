@@ -3,8 +3,9 @@
 A second package beside the JAX one, which stays the reference. Module
 names follow the JAX package so each counterpart is easy to find. The
 packed surface and cuvol renderers, their backward passes, the
-regularizers and the optimizer run through hand-written CUDA kernels for
-Hopper (``csrc/``, built at first use by ``kernels.py``); on CPU tensors every
+regularizers, the optimizer and the stage transitions (``core.topology``,
+``core.weight_render``) run through hand-written CUDA kernels for Hopper
+(``csrc/``, built at first use by ``kernels.py``); on CPU tensors every
 kernel's plain PyTorch version runs instead. Entry points default to
 ``device="cuda"`` and raise when no card is present.
 """

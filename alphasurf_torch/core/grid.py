@@ -133,6 +133,20 @@ class SparseGrid(nn.Module):
             "basis_type": self.basis_type,
         }
 
+    def replace(self, **fields) -> "SparseGrid":
+        """A new grid with ``fields`` replaced (the JAX package's
+        ``grid.replace``); the other tensors are shared, detached and
+        contiguous."""
+        keys = ("links", "density_data", "sh_data", "surface_data", "level_set_data",
+                "fake_sample_std", "truncated_vol_render_a", "radius", "center")
+        args = {}
+        for k in keys:
+            v = fields[k] if k in fields else getattr(self, k)
+            args[k] = None if v is None else v.detach().contiguous()
+        return SparseGrid(**args, basis_dim=self.basis_dim,
+                          surface_type=fields.get("surface_type", self.surface_type),
+                          basis_type=self.basis_type)
+
     # ---- static geometry ----
     @property
     def reso(self) -> tuple:

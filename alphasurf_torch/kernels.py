@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("occupancy", "phase_a", "phase_b", "composite", "backward", "reg", "rmsprop", "cuvol")
+SOURCES = ("occupancy", "phase_a", "phase_b", "composite", "backward", "reg", "rmsprop", "cuvol",
+           "topology", "sweep")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
@@ -49,6 +50,13 @@ LAUNCHES = {
     "cuvol_forward": 0,
     "cuvol_backward": 0,
     "cuvol_march": 0,
+    "keep_mask": 0,
+    "prune_mask": 0,
+    "lv_band": 0,
+    "resample_dense": 0,
+    "resample_rows": 0,
+    "weight_march": 0,
+    "visibility": 0,
 }
 
 _P = ctypes.c_void_p
@@ -79,6 +87,15 @@ _ARGTYPES = {
                        _F, _I, _I, _F, _P, _P, _P, _P, _P, _P],
     "cuvol_march": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _I, _F, _I,
                     _F, _P, _P, _P, _P, _P],
+    "topo_window_or": [_P, _F, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "topo_prune_valid": [_P, _P, _P, _F, _I, _I, _I, _P, _P],
+    "topo_straddle": [_P, _I, _I, _I, _P, _I, _P, _P],
+    "topo_resample_dense": [_P, _I, _I, _P, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _P, _P],
+    "topo_resample_rows": [_P, _I, _I, _P, _I, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _P, _P, _P],
+    "weight_march": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _F, _I, _P, _P],
+    "visibility": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P],
 }
 _FUNCS = {
     "occupancy": ("occupancy_words", "density_occupancy_words"),
@@ -89,6 +106,9 @@ _FUNCS = {
     "reg": ("reg_tv", "reg_normal", "reg_sparsify"),
     "rmsprop": ("rmsprop",),
     "cuvol": ("cuvol_forward", "cuvol_backward", "cuvol_march"),
+    "topology": ("topo_window_or", "topo_prune_valid", "topo_straddle", "topo_resample_dense",
+                 "topo_resample_rows"),
+    "sweep": ("weight_march", "visibility"),
 }
 
 _libs: dict = {}
@@ -656,3 +676,177 @@ def cuvol_march(origins, dirs, sh_mult, delta_scale, tmin, tmax, links, density,
                 *(0 if out[k] is None else _ptr(out[k])
                   for k in ("rgb", "depth", "log_T", "t_sig")))
     return out
+
+
+# ---------------------------------------------------------------------------
+# K9a and K9b: keep masks and lattice resample of the stage transitions
+# ---------------------------------------------------------------------------
+
+def _window_or(counter: str, crit, thresh: float, src, n_in: int, axis: int, a: int, b: int,
+               dims) -> torch.Tensor:
+    """One 1-D pass of K9a: out (dims, uint8) = OR of the input over
+    [i + a, i + b] along ``axis`` (input dims = dims with n_in on axis); the
+    input is ``crit >= thresh`` when ``crit`` is given, else ``src``."""
+    dev = (crit if crit is not None else src).device
+    out = torch.empty(tuple(dims), dtype=torch.uint8, device=dev)
+    if out.numel() > 0:
+        _launch("topology", "topo_window_or", counter, 0 if crit is None else _ptr(crit),
+                float(thresh), 0 if src is None else _ptr(src), int(n_in), int(axis), int(a),
+                int(b), *(int(d) for d in dims), _ptr(out))
+    return out
+
+
+def _dilate_passes(counter: str, crit, thresh: float, src, n: int) -> torch.Tensor:
+    """Threshold (from ``crit``) or copy ``src``, then the (2n+1)^3 box
+    maximum as three 1-D passes."""
+    dims = tuple((crit if crit is not None else src).shape)
+    if n <= 0:
+        return _window_or(counter, crit, thresh, src, dims[0], 0, 0, 0, dims)
+    m = _window_or(counter, crit, thresh, src, dims[0], 0, -n, n, dims)
+    m = _window_or(counter, None, 0.0, m, dims[1], 1, -n, n, dims)
+    return _window_or(counter, None, 0.0, m, dims[2], 2, -n, n, dims)
+
+
+def keep_mask(crit, thresh: float, dilate: int) -> torch.Tensor:
+    """K9a: (X, Y, Z) bool, ``crit >= thresh`` dilated by a (2 dilate + 1)^3
+    Chebyshev window (zero outside the lattice)."""
+    _check("crit", crit, torch.float32)
+    if crit.dim() != 3:
+        raise ValueError(f"crit: expected (X, Y, Z), got shape {tuple(crit.shape)}")
+    return _dilate_passes("keep_mask", crit, thresh, None, int(dilate)).view(torch.bool)
+
+
+def prune_mask(links, density, surface, thresh: float, dilate: int) -> torch.Tensor:
+    """K9a, the prune rule: (X, Y, Z) bool, present density > thresh and,
+    with ``surface`` (cap,), a sign change (or a zero) among the 27
+    neighbours (zero outside the lattice and at empty links), dilated by a
+    (2 dilate + 1)^3 window."""
+    X, Y, Z = links.shape
+    _check("links", links, torch.int32)
+    cap = density.shape[0]
+    _check("density", density, torch.float32, (cap,))
+    if surface is not None:
+        _check("surface", surface, torch.float32, (cap,))
+    valid = torch.empty((X, Y, Z), dtype=torch.uint8, device=links.device)
+    if valid.numel() == 0:
+        return valid.view(torch.bool)
+    _launch("topology", "topo_prune_valid", "prune_mask", _ptr(links), _ptr(density),
+            0 if surface is None else _ptr(surface), float(thresh), X, Y, Z, _ptr(valid))
+    if int(dilate) <= 0:
+        return valid.view(torch.bool)
+    return _dilate_passes("keep_mask", None, 0.0, valid, int(dilate)).view(torch.bool)
+
+
+def lv_band(surface, level_sets) -> torch.Tensor:
+    """K9a, the level-set band: (X, Y, Z) bool, the 8 corners of every voxel
+    of the dense ``surface`` (X, Y, Z) whose corner range [min, max] holds a
+    level set."""
+    _check("surface", surface, torch.float32)
+    _check("level_sets", level_sets, torch.float32)
+    X, Y, Z = surface.shape
+    vox = torch.empty((max(X - 1, 0), max(Y - 1, 0), max(Z - 1, 0)), dtype=torch.uint8,
+                      device=surface.device)
+    if vox.numel() > 0:
+        _launch("topology", "topo_straddle", "lv_band", _ptr(surface), X, Y, Z, _ptr(level_sets),
+                level_sets.numel(), _ptr(vox))
+    m = _window_or("lv_band", None, 0.0, vox, X - 1, 0, -1, 0, (X, Y - 1, Z - 1))
+    m = _window_or("lv_band", None, 0.0, m, Y - 1, 1, -1, 0, (X, Y, Z - 1))
+    return _window_or("lv_band", None, 0.0, m, Z - 1, 2, -1, 0, (X, Y, Z)).view(torch.bool)
+
+
+def _table_args(tables, new_reso) -> list:
+    """Pointers of the per-axis (l int32, f, g float32) tables, x then y
+    then z, after checking each against its new lattice size."""
+    args = []
+    for ax, (l, f, g) in enumerate(tables):
+        n = int(new_reso[ax])
+        _check(f"l[{ax}]", l, torch.int32, (n,))
+        _check(f"f[{ax}]", f, torch.float32, (n,))
+        _check(f"g[{ax}]", g, torch.float32, (n,))
+        args += [_ptr(l), _ptr(f), _ptr(g)]
+    return args
+
+
+def resample_dense(links, col, fill: float, tables, new_reso) -> torch.Tensor:
+    """K9b, every new vertex of one channel: (Xn, Yn, Zn) float32, the
+    separable trilerp of ``col`` (cap,) through ``links`` with ``fill`` at
+    empty corners, at the cells and weights of ``tables``."""
+    _check("links", links, torch.int32)
+    _check("col", col, torch.float32, (col.shape[0],))
+    targs = _table_args(tables, new_reso)
+    Xn, Yn, Zn = (int(r) for r in new_reso)
+    out = torch.empty((Xn, Yn, Zn), dtype=torch.float32, device=links.device)
+    if out.numel() > 0:
+        _, Y, Z = links.shape
+        _launch("topology", "topo_resample_dense", "resample_dense", _ptr(links), Y, Z, _ptr(col),
+                float(fill), *targs, Xn, Yn, Zn, _ptr(out))
+    return out
+
+
+def resample_rows(links, rows, fills, kept, tables, new_reso, want_touched: bool):
+    """K9b, all channels of the kept new vertices: (N, C) float32 rows at
+    the flat new-lattice ids ``kept`` (N,) int64, channel c filled with
+    ``fills[c]`` at empty corners; and (N,) bool, whether a corner of the
+    old cell was empty (with ``want_touched``, else None)."""
+    _check("links", links, torch.int32)
+    cap, C = rows.shape
+    _check("rows", rows, torch.float32)
+    _check("fills", fills, torch.float32, (C,))
+    N = kept.shape[0]
+    _check("kept", kept, torch.int64, (N,))
+    targs = _table_args(tables, new_reso)
+    out = torch.empty((N, C), dtype=torch.float32, device=links.device)
+    touched = torch.empty(N, dtype=torch.uint8, device=links.device) if want_touched else None
+    if N > 0:
+        _, Y, Z = links.shape
+        _launch("topology", "topo_resample_rows", "resample_rows", _ptr(links), Y, Z, _ptr(rows),
+                C, _ptr(fills), _ptr(kept), N, *targs, int(new_reso[1]), int(new_reso[2]),
+                _ptr(out), 0 if touched is None else _ptr(touched))
+    return out, None if touched is None else touched.view(torch.bool)
+
+
+# ---------------------------------------------------------------------------
+# K9c and K9d: the camera sweeps of the stage transitions
+# ---------------------------------------------------------------------------
+
+def _sweep_rays(origins, dirs, t0, t1) -> int:
+    B = origins.shape[0]
+    _check("origins", origins, torch.float32, (B, 3))
+    _check("dirs", dirs, torch.float32, (B, 3))
+    _check("t0", t0, torch.float32, (B,))
+    _check("t1", t1, torch.float32, (B,))
+    return B
+
+
+def weight_march(origins, dirs, world_step, tmin, tmax, vol, step: float, stop_thresh: float,
+                 n_steps: int, wt_bits) -> None:
+    """K9c: march each ray through the dense ``vol`` (X, Y, Z) float32 and
+    raise ``wt_bits`` (X*Y*Z,) int32, the bits of non-negative float32
+    weights, to the largest weight of any sample in a voxel, at its 8
+    corners; in place."""
+    B = _sweep_rays(origins, dirs, tmin, tmax)
+    _check("world_step", world_step, torch.float32, (B,))
+    _check("vol", vol, torch.float32)
+    _check("wt_bits", wt_bits, torch.int32, (vol.numel(),))
+    if B > 0:
+        X, Y, Z = vol.shape
+        _launch("sweep", "weight_march", "weight_march", _ptr(origins), _ptr(dirs),
+                _ptr(world_step), _ptr(tmin), _ptr(tmax), B, _ptr(vol), X, Y, Z, float(step),
+                float(stop_thresh), int(n_steps), _ptr(wt_bits))
+
+
+def visibility(origins, dirs, tnear, tmax, links, surface, level_sets, counts) -> None:
+    """K9d: add 1 to ``counts`` (cap,) int32 at each present corner of every
+    voxel each ray walks before, and including, the first voxel with a
+    surface hit; in place."""
+    B = _sweep_rays(origins, dirs, tnear, tmax)
+    _check("links", links, torch.int32)
+    cap = surface.shape[0]
+    _check("surface", surface, torch.float32, (cap,))
+    _check("level_sets", level_sets, torch.float32)
+    _check("counts", counts, torch.int32, (cap,))
+    if B > 0:
+        X, Y, Z = links.shape
+        _launch("sweep", "visibility", "visibility", _ptr(origins), _ptr(dirs), _ptr(tnear),
+                _ptr(tmax), B, _ptr(links), X, Y, Z, _ptr(surface), _ptr(level_sets),
+                level_sets.numel(), _ptr(counts))

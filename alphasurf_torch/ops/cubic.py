@@ -66,6 +66,13 @@ def _where(c, a, b):
     return torch.where(c, a, b)
 
 
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` rounded as a true division on every device: PyTorch's CUDA
+    division by a Python scalar multiplies by the scalar's reciprocal,
+    which rounds otherwise than the kernels' division (samples.cuh)."""
+    return x / torch.full_like(x, c)
+
+
 def _cubic_roots_raw(f0, f1, f2, f3):
     """Closed-form real roots with two clamped Newton steps; the root axis
     is LEADING: returns (roots (3, ...), has (3, ...)), NO_ROOT where a slot
@@ -94,8 +101,8 @@ def _cubic_roots_raw(f0, f1, f2, f3):
     b = f2 / cf3
     c = f1 / cf3
     d = f0 / cf3
-    Q = (b * b - 3.0 * c) / 9.0
-    R = (2.0 * (b * b * b) - 9.0 * b * c + 27.0 * d) / 54.0
+    Q = _div(b * b - 3.0 * c, 9.0)
+    R = _div(2.0 * (b * b * b) - 9.0 * b * c + 27.0 * d, 54.0)
 
     three_real = is3 & (R * R < Q * Q * Q)
     Qs = _where(three_real, Q, 1.0)
@@ -103,15 +110,15 @@ def _cubic_roots_raw(f0, f1, f2, f3):
     arg = torch.clamp(R / (sqrtQ * sqrtQ * sqrtQ), -1.0 + _EPS, 1.0 - _EPS)
     theta = torch.arccos(arg)
     pi = math.pi
-    t_c0 = -2.0 * sqrtQ * torch.cos(theta / 3.0) - b / 3.0
-    t_c1 = -2.0 * sqrtQ * torch.cos((theta - 2.0 * pi) / 3.0) - b / 3.0
-    t_c2 = -2.0 * sqrtQ * torch.cos((theta + 2.0 * pi) / 3.0) - b / 3.0
+    t_c0 = -2.0 * sqrtQ * torch.cos(_div(theta, 3.0)) - _div(b, 3.0)
+    t_c1 = -2.0 * sqrtQ * torch.cos(_div(theta - 2.0 * pi, 3.0)) - _div(b, 3.0)
+    t_c2 = -2.0 * sqrtQ * torch.cos(_div(theta + 2.0 * pi, 3.0)) - _div(b, 3.0)
 
     one_real = is3 & ~three_real
     disc = _where(one_real, R * R - Q * Q * Q, 1.0)
     A = -torch.sign(R) * torch.pow(torch.abs(R) + torch.sqrt(torch.clamp(disc, min=1e-8)), 1.0 / 3.0)
     Bv = _where(A == 0.0, 0.0, Q / _where(A == 0.0, 1.0, A))
-    t_s = A + Bv - b / 3.0
+    t_s = A + Bv - _div(b, 3.0)
 
     zero = torch.zeros_like(f0)
     r0 = torch.where(

@@ -4,10 +4,17 @@
 The stages are the JAX package's: the Plenoxels warm start on a density
 grid (``make_cuvol_step``), then the surface stage (``make_surface_step``),
 with schedules evaluated on the host and fed to the steps as Python floats,
-periodic eval and checkpoints. This slice runs the warm start from a fresh
-grid and the surface stage from a resumed surface checkpoint; the stage
-transitions (``maybe_init_surface``, ``maybe_upsample``) raise when a run
-reaches them (ROADMAP §1 item 7), and so do multi-device runs (item 9).
+periodic eval and checkpoints. The stage transitions are the JAX
+package's too (``core.topology``, on the K9 kernels): ``maybe_upsample``
+at the end of a step whose count is a multiple of ``upsamp_every``
+(a density resample before the surface exists, a surface upsample after),
+and ``maybe_init_surface`` at the top of step ``no_surface_init_iters``;
+when the two meet, the density grid is resampled first. Each transition
+is logged with its capacity, its wall seconds and the voxels the
+occupancy (K1d or K1) finds occupied before it and at its first refresh
+after it, kept in ``transitions`` and written to ``transitions.json`` in
+the train dir.
+Multi-device runs raise (ROADMAP §1 item 9).
 
 What the JAX Trainer needs and the port does not: its pool budget and the
 machinery around it (``_pow2``, ``_size_pool_from_grid``, ``_grow_pool``,
@@ -27,6 +34,7 @@ on the device once, for K2's pool size; the mse is read back only every
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import os
 import time
@@ -38,6 +46,7 @@ import torch
 
 from .. import defs
 from ..app.config import Config, render_options_from
+from ..core import topology
 from ..core.device import resolve_device
 from ..core.grid import create_grid
 from ..core.rays import Camera, Rays
@@ -82,6 +91,7 @@ class Trainer:
         self._occ_step = -1
         self._occ_kind = None  # 'surface' | 'density'
         self._row_coords = None  # per topology
+        self.transitions = []  # one dict per stage transition
 
     # ---------------- grid construction ----------------
     def _build_grid(self):
@@ -261,24 +271,115 @@ class Trainer:
         )
 
     # ---------------- stage transitions ----------------
+    def _resample_cameras(self):
+        """Every training camera at full resolution, for the weight and
+        visibility sweeps (opt.py:193-202)."""
+        dset = self.dset
+        return [
+            Camera.make(dset.c2w[i], fx=dset.intrins_full.fx, fy=dset.intrins_full.fy,
+                        cx=dset.intrins_full.cx, cy=dset.intrins_full.cy,
+                        width=dset.w_full, height=dset.h_full)
+            for i in range(dset.n_images)
+        ]
+
+    @staticmethod
+    def _n_occupied(words) -> Optional[int]:
+        """Occupied voxels in K1/K1d words (their padding bits are 0)."""
+        if words is None:
+            return None
+        bits = (words[..., None] >> torch.arange(32, dtype=torch.int32, device=words.device)) & 1
+        return int(bits.sum())
+
+    def _write_transitions(self):
+        with open(path.join(self.cfg.train_dir, "transitions.json"), "w") as f:
+            json.dump(self.transitions, f, indent=1)
+
+    def _new_topology(self, kind: str, t0: float, occupied_before: Optional[int]):
+        """After a transition: fresh rms state, occupancy and row coords;
+        the transition logged with its capacity and wall seconds (its
+        occupancy after is filled in at the next refresh, ``_get_occ``)."""
+        self.rms = init_rms(self.grid)
+        self._occ = None
+        self._row_coords = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        rec = dict(kind=kind, step=self.gstep, reso=list(self.grid.reso),
+                   capacity=self.grid.capacity, seconds=time.perf_counter() - t0,
+                   occupied_before=occupied_before, occupied_after=None)
+        self.transitions.append(rec)
+        self._write_transitions()
+        self.log(f"[stage] {kind} at step {self.gstep}: reso {rec['reso']}, capacity "
+                 f"{rec['capacity']}, {rec['seconds']:.3f} s")
+
     def maybe_init_surface(self):
-        """Density -> surface conversion at no_surface_init_iters
+        """Density -> SDF conversion at no_surface_init_iters
         (opt.py:747-780), or at once when warm-starting from a Plenoxels
         checkpoint."""
+        cfg = self.cfg
         if self.surface_initialized or self.target_surface_type == defs.SURFACE_TYPE_NONE:
             return
-        raise NotImplementedError(
-            "the density -> surface conversion (init_surface_from_density) is not ported yet "
-            "(ROADMAP §1 item 7); resume a surface checkpoint to train the surface stage")
+        self.log(f"[stage] init_surface_from_density at step {self.gstep}")
+        t0 = time.perf_counter()
+        occ_before = self._n_occupied(self._occ)
+        need_cams = cfg.surf_init_type == "weight" or cfg.visibility_pruning_scale > 0
+        rays = getattr(self.dset, "rays_init", None)
+        self.grid = topology.init_surface_from_density(
+            self.grid,
+            density_lvs=cfg.surf_init_density_lvs,
+            alpha_rescale=cfg.surf_init_alpha_rescale,
+            prune_threshold=min(cfg.surf_init_density_lvs) / 2,
+            dilate=cfg.surf_init_dilate,
+            zero_lv_density=cfg.zero_lv_density,
+            init_type=cfg.surf_init_type,
+            weight_init_cams=self._resample_cameras() if need_cams else None,
+            visibility_pruning_scale=cfg.visibility_pruning_scale,
+            # DTU-style mask pruning (opt.py:345-352)
+            mask_pruning_rays=rays if getattr(rays, "mask", None) is not None else None,
+        )
+        self.grid = self.grid.replace(surface_type=self.target_surface_type)
+        self.surface_initialized = True
+        self._new_topology("init_surface_from_density", t0, occ_before)
 
     def maybe_upsample(self):
+        """At the end of every upsamp_every-th step, resample onto the next
+        reso (opt.py:1228-1272): TV early-off or decay first, the weight
+        threshold over the training cameras (thresh_type 'weight')."""
         cfg = self.cfg
         if self.reso_id + 1 >= len(cfg.reso):
             return
-        if self.gstep > 0 and self.gstep % cfg.upsamp_every == 0:
-            raise NotImplementedError(
-                f"upsampling to {cfg.reso[self.reso_id + 1]} at step {self.gstep} is not ported "
-                "yet (ROADMAP §1 item 7); list one resolution in reso")
+        if not (self.gstep > 0 and self.gstep % cfg.upsamp_every == 0):
+            return
+        self.reso_id += 1
+        new_reso = cfg.reso[self.reso_id]
+        self.log(f"[stage] upsample -> {new_reso} at step {self.gstep}")
+        t0 = time.perf_counter()
+        occ_before = self._n_occupied(self._occ)
+        # TV early-off or decay at the first upsample (opt.py:1235-1243)
+        if cfg.tv_early_only > 0:
+            cfg.lambda_tv = 0.0
+            cfg.lambda_tv_alpha = 0.0
+            cfg.lambda_tv_sh = 0.0
+        elif cfg.tv_decay != 1.0:
+            cfg.lambda_tv *= cfg.tv_decay
+            cfg.lambda_tv_alpha *= cfg.tv_decay
+            cfg.lambda_tv_sh *= cfg.tv_decay
+        z_reso = new_reso if isinstance(new_reso, int) else new_reso[2]
+        cams = self._resample_cameras() if cfg.thresh_type == "weight" else None
+        if self.grid.surface_data is not None:
+            self.grid = topology.resample_surface(
+                self.grid, new_reso, alpha_thresh=cfg.alpha_upsample_thresh,
+                weight_thresh=cfg.weight_thresh / z_reso, dilate=2, cameras=cams,
+                max_elements=cfg.max_grid_elements, non_expanding=cfg.surf_non_expand,
+                sigmoid_alpha=cfg.surf_alpha_sigmoid_act, keep_lv_band=cfg.upsample_keep_lv_band)
+        else:
+            self.grid = topology.resample(
+                self.grid, new_reso, sigma_thresh=cfg.density_thresh,
+                weight_thresh=cfg.weight_thresh / z_reso, dilate=2, cameras=cams,
+                max_elements=cfg.max_grid_elements)
+        if cfg.upsample_density_add:
+            self.grid = self.grid.replace(
+                density_data=self.grid.density_data + cfg.upsample_density_add)
+        self._new_topology("upsample", t0, occ_before)
 
     def _get_occ(self, no_surface: bool):
         """The occupancy words, recomputed every occ_refresh_every steps or
@@ -299,6 +400,12 @@ class Trainer:
                 self._occ = occupancy_words(self.grid, render_options_from(cfg, no_surface))
             self._occ_step = self.gstep
             self._occ_kind = kind
+            if self.transitions and self.transitions[-1]["occupied_after"] is None:
+                rec = self.transitions[-1]
+                rec["occupied_after"] = self._n_occupied(self._occ)
+                self._write_transitions()
+                self.log(f"[stage] occupied voxels around the {rec['kind']} at step "
+                         f"{rec['step']}: {rec['occupied_before']} -> {rec['occupied_after']}")
         return self._occ
 
     def _get_row_coords(self):

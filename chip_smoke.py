@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from ``alphasurf_torch/csrc`` (K1 occupancy,
 K2 phase A count + fill, K3 phase B, K4 compositor, K5 backward per ray and
 per entry, K6 regularizers TV / normal / sparsify, K7 RMSprop, K1d density
-occupancy, K8 cuvol forward and backward, K10 dense cuvol march), then:
+occupancy, K8 cuvol forward and backward, K10 dense cuvol march, K9a keep
+masks, K9b lattice resample, K9c weight march, K9d visibility walk), then:
 
 1. prints the card, its power limit, nvcc's register/spill lines and the
    build seconds;
@@ -37,10 +38,22 @@ occupancy, K8 cuvol forward and backward, K10 dense cuvol march), then:
    steps and a final eval whose PSNR must beat the untrained grid's, with
    the counters set to 0 just before and read just after; then one
    profiled cuvol step;
-6. prints one JSON line with each kernel's numbers, then the ok line.
+6. the stage transitions: K9a-K9d against their plain versions at the
+   slice's shapes (a 256^3 -> 256^3 weight-threshold resample of the
+   blobby grid with one 800x800 camera, init_surface_from_density on it
+   with two cameras, a 256^3 -> 512^3 resample_surface with the level-set
+   band and max_elements 6,000,000), each timed; then the three stages of
+   tools/recipe_run.py (256^3 cuvol, 256^3 surface, 512^3 surface, with
+   the weight threshold and visibility pruning on) through
+   ``alphasurf_torch.app.train.main``, with the counters set to 0 just
+   before and read just after: every kernel K1-K10 launched, every stage's
+   mse finite, every transition logged with capacity and seconds, no loss
+   of occupied voxels at the 512^3 upsample, a final eval PSNR above the
+   untrained grid's;
+7. prints one JSON line with each kernel's numbers, then the ok line.
 
-``--phases`` runs a subset (kernels, serve, train, warm); the default runs
-them all, as the checks above require. Exits non-zero, printing no result,
+``--phases`` runs a subset (kernels, serve, train, warm, stages); the
+default runs them all, as the checks above require. Exits non-zero, printing no result,
 without a CUDA device or without the ``alphasurf_torch`` package beside
 it. Imports nothing of JAX.
 """
@@ -96,6 +109,7 @@ JAX_PACKAGE = "alphasurf_tpu"
 _JAX_SURFACE = f"{JAX_PACKAGE}/render/surface.py"
 _JAX_REG = f"{JAX_PACKAGE}/losses/reg.py"
 _JAX_CUVOL = f"{JAX_PACKAGE}/render/cuvol.py"
+_JAX_TOPO = f"{JAX_PACKAGE}/core/topology_device.py"
 KERNELS = {  # name -> (source, the JAX routine it replaces)
     "occupancy": ("alphasurf_torch/csrc/occupancy.cu", f"{_JAX_SURFACE}:1149"),
     "phase_a_count": ("alphasurf_torch/csrc/phase_a.cu", f"{_JAX_SURFACE}:1652"),
@@ -115,6 +129,14 @@ KERNELS = {  # name -> (source, the JAX routine it replaces)
     "cuvol_forward": ("alphasurf_torch/csrc/cuvol.cu", f"{_JAX_CUVOL}:79"),
     "cuvol_backward": ("alphasurf_torch/csrc/cuvol.cu", f"{_JAX_CUVOL}:79"),
     "cuvol_march": ("alphasurf_torch/csrc/cuvol.cu", f"{_JAX_CUVOL}:297"),
+    # K9a-K9d: the stage transitions (core/topology_device.py, core/weight_render.py)
+    "keep_mask": ("alphasurf_torch/csrc/topology.cu", f"{_JAX_TOPO}:110"),
+    "prune_mask": ("alphasurf_torch/csrc/topology.cu", f"{_JAX_TOPO}:223"),
+    "lv_band": ("alphasurf_torch/csrc/topology.cu", f"{_JAX_TOPO}:122"),
+    "resample_dense": ("alphasurf_torch/csrc/topology.cu", f"{_JAX_TOPO}:104"),
+    "resample_rows": ("alphasurf_torch/csrc/topology.cu", f"{_JAX_TOPO}:167"),
+    "weight_march": ("alphasurf_torch/csrc/sweep.cu", f"{JAX_PACKAGE}/core/weight_render.py:97"),
+    "visibility": ("alphasurf_torch/csrc/sweep.cu", f"{JAX_PACKAGE}/core/weight_render.py:270"),
 }
 SERVE_KERNELS = ("occupancy", "phase_a_count", "phase_a_fill", "phase_b", "composite")
 TRAIN_KERNELS = SERVE_KERNELS + ("backward_ray", "backward_entry", "reg_tv", "reg_normal",
@@ -122,8 +144,10 @@ TRAIN_KERNELS = SERVE_KERNELS + ("backward_ray", "backward_entry", "reg_tv", "re
 WARM_STEP_KERNELS = ("density_occupancy", "phase_a_count", "phase_a_fill", "cuvol_forward",
                      "cuvol_backward", "reg_tv", "rmsprop")
 WARM_KERNELS = WARM_STEP_KERNELS + ("cuvol_march",)
-NEW_KERNELS = ("density_occupancy", "cuvol_forward", "cuvol_backward", "cuvol_march")
-PHASES = ("kernels", "serve", "train", "warm")
+WARM_NEW_KERNELS = ("density_occupancy", "cuvol_forward", "cuvol_backward", "cuvol_march")
+STAGE_KERNELS = ("keep_mask", "prune_mask", "lv_band", "resample_dense", "resample_rows",
+                 "weight_march", "visibility")
+PHASES = ("kernels", "serve", "train", "warm", "stages")
 CUVOL_RESO = 256  # the warm start's grid (the Config's first reso)
 WARM_STEPS = 100  # Trainer steps of the warm-start run
 TRAIN_BATCH = 40960
@@ -1299,6 +1323,413 @@ def warm(device, card: str, work: Path) -> tuple[dict, dict]:
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# the stage transitions
+# ---------------------------------------------------------------------------
+
+STAGE_STEPS = (100, 100, 50)  # warm start, surface at 256^3, surface at 512^3
+UPSAMPLE_RESO = 512
+MAX_ELEMENTS = 6_000_000  # the recipe's max_grid_elements (recipe_run.py:114)
+SURF_LVS = (2.0, 6.0)  # the recipe's density level sets (recipe_run.py:105)
+# K9 against its plain version, both float32 on the card. Masks, links,
+# capacities and K9d's counts are integer results of the same float
+# comparisons: equal. K9b computes the same lerps in the same order, built
+# with --fmad=false, so its rows are expected equal; RS_RTOL/RS_ATOL leave
+# float32 rounding room all the same. K9c runs the same march, but a
+# sample's weight T (1 - exp(-sigma step)) cancels in its second factor, so
+# one ulp of exp near 1 is up to ~1e-4 of the weight: WT_RTOL/WT_ATOL, and
+# the keep mask at the threshold must be equal.
+RS_RTOL, RS_ATOL = 1e-6, 1e-7
+WT_RTOL, WT_ATOL = 1e-4, 1e-7
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds) by CUDA events around one call."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_equal(label: str, got, ref) -> None:
+    import torch
+
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{label} differs from its plain version")
+
+
+def check_close(label: str, got, ref, rtol: float, atol: float) -> float:
+    err, frac = allclose_err(got, ref, rtol, atol)
+    if frac > 0:
+        raise AssertionError(f"{label} differs from its plain version: max abs err {err}, "
+                             f"{frac} of the values outside rtol {rtol} / atol {atol}")
+    return err
+
+
+def check_stage_kernels(device, card: str) -> dict:
+    """Phase 6a: K9a-K9d against their plain versions at the slice's shapes,
+    from the warm phase's 256^3 blobby density grid: a 256^3 -> 256^3
+    resample with the weight threshold (K9b every vertex, K9c with one
+    800x800 camera, K9a, K9b kept rows), init_surface_from_density on it
+    (K9a's prune rule, K9d with two 800x800 cameras), then a 256^3 -> 512^3
+    resample_surface with keep_lv_band and max_elements 6,000,000 (K9b, K9a
+    and its level-set band, K9b kept rows). Each kernel timed by CUDA
+    events at its largest shape here, the plain version once; then the
+    upsample with the weight threshold over 20 cameras under the
+    profiler."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app.config import Config
+    from alphasurf_torch.core import topology as T
+    from alphasurf_torch.core import weight_render as W
+    from alphasurf_torch.ops import dda
+
+    res = {}
+    f32 = dict(dtype=torch.float32, device=device)
+    grid, _ = blobby_cuvol_grid(CUVOL_RESO, device)
+    R = CUVOL_RESO
+    new = (R, R, R)
+    n3 = R ** 3
+    tables = T.resample_tables(grid.reso, new, True, device)
+
+    # K9b, every vertex: the density on the new voxel-centre lattice
+    dens = grid.density_data.detach()[:, 0].contiguous()
+    dk = kernels.resample_dense(grid.links, dens, 0.0, tables, new)
+    dp, _ = timed_once(lambda: T._resample_dense_plain(T._dense_of(grid.links, dens, 0.0), tables))
+    err = check_close(f"K9b every vertex {R}^3", dk, dp, RS_RTOL, RS_ATOL)
+    log(f"K9b resample {R}^3 -> {R}^3, every vertex: max abs err {err:.3e}")
+    del dp
+
+    # K9c, one 800x800 camera, the Config's weight threshold
+    cam = frame_camera(0, 2)
+    w_thresh = Config().weight_thresh / R
+    wk = W.grid_weight_render(dk, [cam], grid.offset, grid.scaling)
+    gsz = np.asarray(new, np.float32)
+    sc = torch.as_tensor(grid.scaling.cpu().numpy() * gsz, **f32)
+    off = torch.as_tensor(grid.offset.cpu().numpy() * gsz - 0.5, **f32)
+    rays = cam.gen_rays(device=device)
+    prep = [x.contiguous() for x in W._march_prep(rays.origins, rays.dirs, sc, off,
+                                                  torch.as_tensor(gsz, **f32), 0.5)]
+    n_steps = int(math.ceil(math.sqrt(3 * (R - 1) ** 2) / 0.5)) + 2
+    wp = torch.zeros(n3, **f32)
+    n_samp, wp_ms = timed_once(lambda: W._weight_march_plain(dk, wp, *prep, 0.5, 0.2, n_steps))
+    wp = wp.reshape(new)
+    err_w = check_close("K9c weights", wk, wp, WT_RTOL, WT_ATOL)
+    check_equal("K9c keep mask at the weight threshold", wk >= w_thresh, wp >= w_thresh)
+    bits = torch.zeros(n3, dtype=torch.int32, device=device)
+    B = rays.origins.shape[0]
+    res["weight_march"] = dict(
+        max_abs_err=err_w, plain_ms=wp_ms,
+        ms=time_ms(lambda: kernels.weight_march(*prep, dk, 0.5, 0.2, n_steps, bits), 3),
+        bound=bound_ms(n3 * 4 + B * 9 * 4 + n3 * 4, n_samp * 40))
+    log(f"K9c weight march {R}^3, one {WIDTH}x{HEIGHT} camera: {n_samp} samples, max abs err "
+        f"{err_w:.3e}, {int((wk >= w_thresh).sum())} vertices at >= {w_thresh:.3e} in both")
+    del wp, bits
+
+    # K9a at the threshold bounded to max_elements, dilated by 2; K9b rows
+    thresh = T._kth_largest_thresh(wk.reshape(-1), MAX_ELEMENTS, w_thresh)
+    mk = kernels.keep_mask(wk, thresh, 2)
+    check_equal(f"K9a keep mask {R}^3", mk, T._dilate_plain(wk >= thresh, 2))
+    links_new, kept = T._links_pass(mk)
+    rows = torch.cat([grid.density_data.detach(), grid.sh_data.detach()], dim=1).contiguous()
+    vk, _ = kernels.resample_rows(grid.links, rows, torch.zeros(rows.shape[1], **f32), kept,
+                                  tables, new, False)
+    vp, _ = T._resample_rows_plain(grid.links, rows, [0.0] * rows.shape[1], kept, tables, new,
+                                   False)
+    err = check_close(f"K9b kept rows {R}^3", vk, vp, RS_RTOL, RS_ATOL)
+    api = T.resample(grid, new, weight_thresh=w_thresh, cameras=[cam], max_elements=MAX_ELEMENTS)
+    check_equal("resample's links", api.links, links_new)
+    log(f"K9a keep mask {R}^3 (threshold {thresh:.4e}, dilate 2): equal, {kept.numel()} kept; "
+        f"K9b kept rows ({rows.shape[1]} channels) max abs err {err:.3e}; resample's links equal")
+    del wk, mk, vp, dk
+    grid_r = api
+    del grid, api, rows, vk
+    torch.cuda.empty_cache()
+
+    # init_surface_from_density: K9a's prune rule, then K9d
+    dens_r = grid_r.density_data.detach()[:, 0].contiguous()
+    prune_t = min(SURF_LVS) / 2
+    pk = kernels.prune_mask(grid_r.links, dens_r, None, prune_t, 2)
+    pp, pp_ms = timed_once(lambda: T._dilate_plain(
+        T._prune_valid_plain(grid_r.links, dens_r, None, prune_t), 2))
+    check_equal("K9a prune mask", pk, pp)
+    res["prune_mask"] = dict(
+        max_abs_err=0.0, plain_ms=pp_ms,
+        ms=time_ms(lambda: kernels.prune_mask(grid_r.links, dens_r, None, prune_t, 2), 10),
+        bound=bound_ms(n3 * 4 + grid_r.capacity * 4 + n3, n3 * 20))
+    log(f"K9a prune mask {R}^3: equal, {int(pk.sum())} kept")
+    del pk, pp
+    init_kw = dict(density_lvs=list(SURF_LVS), alpha_rescale=0.005, prune_threshold=prune_t,
+                   dilate=2)
+    gs = T.init_surface_from_density(grid_r, **init_kw)
+    cams = [frame_camera(0, 2), frame_camera(1, 2)]
+    ck = W.sparse_grid_visibility_render_surf(gs, cams)
+    surf = gs.surface_data.detach()[:, 0].contiguous()
+    lvs = gs.level_set_data.float().contiguous()
+    sweeps = []
+    for c in cams:
+        r = c.gen_rays(device=device)
+        o, d, _, _ = dda.preprocess_rays(gs, r.origins, r.dirs)
+        tn, tx = dda.ray_bounds(gs, o, d)
+        ok = torch.isfinite(tn) & torch.isfinite(tx) & (tn <= tx)
+        sweeps.append((o.contiguous(), d.contiguous(),
+                       torch.where(ok, tn, torch.zeros_like(tn)).contiguous(),
+                       torch.where(ok, tx, torch.full_like(tx, -1.0)).contiguous()))
+    counts = torch.zeros(gs.capacity, dtype=torch.int32, device=device)
+
+    def vis_plain():
+        work = [0, 0]
+        for o, d, tn, tx in sweeps:
+            for s in range(0, o.shape[0], 8192):
+                e = s + 8192
+                n_seg, n_cub = W._visibility_chunk_plain(gs.links, surf, gs.level_set_data,
+                                                         counts, o[s:e], d[s:e], tn[s:e], tx[s:e])
+                work[0] += n_seg
+                work[1] += n_cub
+        return work
+
+    (n_seg, n_cub), vp_ms = timed_once(vis_plain)
+    check_equal("K9d visibility counts", ck, counts.float())
+    scratch = torch.zeros_like(counts)
+
+    def k9d():
+        for sw in sweeps:
+            kernels.visibility(*sw, gs.links, surf, lvs, scratch)
+
+    B2 = sum(sw[0].shape[0] for sw in sweeps)
+    res["visibility"] = dict(
+        max_abs_err=0.0, plain_ms=vp_ms, ms=time_ms(k9d, 3),
+        bound=bound_ms(n3 * 4 + gs.capacity * 8 + B2 * 8 * 4, n_seg * 30 + n_cub * 600))
+    log(f"K9d visibility {R}^3 (capacity {gs.capacity}), two {WIDTH}x{HEIGHT} cameras: counts "
+        f"equal, {n_seg} voxels walked, {n_cub} cubics, max count {int(ck.max())}")
+    gs = T.init_surface_from_density(grid_r, weight_init_cams=cams, visibility_pruning_scale=0.01,
+                                     **init_kw)
+    del grid_r, counts, scratch, sweeps, ck
+    torch.cuda.empty_cache()
+
+    # resample_surface 256^3 -> 512^3, alpha threshold, keep_lv_band, max_elements
+    U = UPSAMPLE_RESO
+    new2 = (U, U, U)
+    u3 = U ** 3
+    tables2 = T.resample_tables(gs.reso, new2, False, device)
+    dens_s = gs.density_data.detach()[:, 0].contiguous()
+    d2 = kernels.resample_dense(gs.links, dens_s, 0.0, tables2, new2)
+    d2p, d2p_ms = timed_once(lambda: T._resample_dense_plain(T._dense_of(gs.links, dens_s, 0.0),
+                                                               tables2))
+    err_d = check_close(f"K9b every vertex {U}^3", d2, d2p, RS_RTOL, RS_ATOL)
+    res["resample_dense"] = dict(
+        max_abs_err=err_d, plain_ms=d2p_ms,
+        ms=time_ms(lambda: kernels.resample_dense(gs.links, dens_s, 0.0, tables2, new2), 10),
+        bound=bound_ms(n3 * 4 + gs.capacity * 4 + u3 * 4, u3 * 21))
+    del d2p
+    thresh2 = T._kth_largest_thresh(d2.reshape(-1), MAX_ELEMENTS, 1e-8)
+    m2 = kernels.keep_mask(d2, thresh2, 2)
+    m2p, m2p_ms = timed_once(lambda: T._dilate_plain(d2 >= thresh2, 2))
+    check_equal(f"K9a keep mask {U}^3", m2, m2p)
+    res["keep_mask"] = dict(max_abs_err=0.0, plain_ms=m2p_ms,
+                            ms=time_ms(lambda: kernels.keep_mask(d2, thresh2, 2), 10),
+                            bound=bound_ms(u3 * 4 + u3, u3 * 16))
+    del m2p
+    surf_s = gs.surface_data.detach()[:, 0].contiguous()
+    s2 = kernels.resample_dense(gs.links, surf_s, -1.0, tables2, new2)
+    err_s = check_close(f"K9b surface {U}^3", s2, T._resample_dense_plain(
+        T._dense_of(gs.links, surf_s, -1.0), tables2), RS_RTOL, RS_ATOL)
+    lvs_s = gs.level_set_data.float().contiguous()
+    bk = kernels.lv_band(s2, lvs_s)
+    bp, bp_ms = timed_once(lambda: T._lv_band_plain(s2, lvs_s))
+    check_equal(f"K9a level-set band {U}^3", bk, bp)
+    res["lv_band"] = dict(max_abs_err=0.0, plain_ms=bp_ms,
+                          ms=time_ms(lambda: kernels.lv_band(s2, lvs_s), 10),
+                          bound=bound_ms(u3 * 4 + u3, u3 * 20 * lvs_s.numel()))
+    full = m2 | bk
+    log(f"K9a {U}^3: keep mask (threshold {thresh2:.4e} for {MAX_ELEMENTS} elements) "
+        f"{int(m2.sum())} and level-set band {int(bk.sum())} equal, {int(full.sum())} kept; "
+        f"K9b density, surface max abs err {err_d:.3e}, {err_s:.3e}")
+    del bp, bk, m2, s2, d2
+    links2, kept2 = T._links_pass(full)
+    rows2 = torch.cat([gs.density_data.detach(), gs.sh_data.detach(), gs.surface_data.detach()],
+                      dim=1).contiguous()
+    C = rows2.shape[1]
+    fills = [0.0] + [0.0] * (C - 2) + [-1.0]
+    fills_t = torch.as_tensor(fills, **f32)
+    rk, _ = kernels.resample_rows(gs.links, rows2, fills_t, kept2, tables2, new2, False)
+    (rp, _), rp_ms = timed_once(lambda: T._resample_rows_plain(gs.links, rows2, fills, kept2,
+                                                                tables2, new2, False))
+    err_r = check_close(f"K9b kept rows {U}^3", rk, rp, RS_RTOL, RS_ATOL)
+    N = kept2.numel()
+    res["resample_rows"] = dict(
+        max_abs_err=err_r, plain_ms=rp_ms,
+        ms=time_ms(lambda: kernels.resample_rows(gs.links, rows2, fills_t, kept2, tables2, new2,
+                                                 False), 5),
+        bound=bound_ms(n3 * 4 + gs.capacity * C * 4 + N * 8 + N * C * 4, N * C * 21))
+    del rp, rk
+    api = T.resample_surface(gs, new2, alpha_thresh=1e-8, max_elements=MAX_ELEMENTS,
+                             keep_lv_band=True)
+    check_equal("resample_surface's links", api.links, links2)
+    log(f"K9b kept rows {U}^3: {N} rows x {C} channels, max abs err {err_r:.3e}; "
+        f"resample_surface's links equal (capacity {api.capacity})")
+    del api, full, links2, kept2, rows2
+    torch.cuda.empty_cache()
+    # where the time of the Trainer's 512^3 upsample goes: the weight
+    # threshold over 20 cameras, as thresh_type "weight" runs it
+    cams20 = [frame_camera(i, 20) for i in range(20)]
+    profile_device(lambda: T.resample_surface(
+        gs, new2, weight_thresh=Config().weight_thresh / U, cameras=cams20,
+        max_elements=MAX_ELEMENTS, keep_lv_band=True),
+        f"the {R}^3 -> {U}^3 upsample with 20 {WIDTH}x{HEIGHT} cameras", card)
+    del gs
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) [{card}]")
+    return res
+
+
+def stages_config() -> str:
+    """The three-stage run's config file: tools/recipe_run.py's
+    configuration (reso 256^3, 256^3, 512^3; its thresholds, level sets,
+    alpha rescale, max_grid_elements and surface-stage schedules, with the
+    stage lengths of STAGE_STEPS), with the reference's camera sweeps on
+    (thresh_type "weight", visibility_pruning_scale 0.01). The density
+    and colour schedules are the Config's, as the warm phase runs them: the
+    recipe's undelayed lr_sigma of 30 needs its 600 steps, and its
+    surface-stage lr_alpha, which ramps up from 1e-4 over the first 1,200
+    surface steps, leaves the initial raw alpha (0.005 x density, 0.01-0.03
+    at the level sets) nearly transparent for longer than this run. The synthetic dataset of
+    the warm phase; an eval at the end of each stage."""
+    n0, n1, n2 = STAGE_STEPS
+    total, ns = n0 + n1 + n2, n1 + n2
+    R, U = CUVOL_RESO, UPSAMPLE_RESO
+    keys = {
+        "dataset_type": "synthetic", "n_train_images": 20, "dataset_width": WIDTH,
+        "dataset_height": HEIGHT, "dataset_reso": SMALL_RESO, "dataset_renderer": "packed",
+        "dataset_test_images": 2,
+        "reso": f"[[{R}, {R}, {R}], [{R}, {R}, {R}], [{U}, {U}, {U}]]", "surface_type": "sdf",
+        "batch_size": 8192, "n_iters": total, "no_surface_init_iters": n0, "upsamp_every": n0,
+        "density_thresh": "1.0", "surf_init_density_lvs": f"[{SURF_LVS[0]}, {SURF_LVS[1]}]",
+        "surf_init_alpha_rescale": "0.005", "visibility_pruning_scale": "0.01",
+        "thresh_type": "weight", "alpha_upsample_thresh": "1.0e-8",
+        "max_grid_elements": MAX_ELEMENTS, "init_sigma": "0.1",
+        "lr_surface": "1.0e-5", "lr_surface_final": "1.0e-5",
+        "lr_surface_delay_steps": n0 + ns // 2, "lr_surface_delay_mult": "1.0e-2",
+        "lr_surface_decay_steps": n0 + ns,
+        "lambda_tv_alpha": "1.0e-5", "lambda_tv_surface": "1.0e-3",
+        "tv_surface_sparsity": "1.0", "norm_surface_sparsity": "1.0",
+        "surf_normal_loss_lambda_type": "const", "lambda_normal_loss": "1.0e-6",
+        "surf_norm_reg_l1": "True", "no_surf_norm_con_check": "True",
+        "lambda_sparsify_alpha": "1.0e-9", "lambda_sparsify_surf": "0.0",
+        "sparsify_surf_decrease": "True", "sparsify_surf_thresh": "0.15",
+        "alpha_surf_sparsify_sparsity": "0.05", "delay_sparsify_surf": n0 + ns // 2,
+        "lambda_l_entropy": "1.0e-4", "lambda_conv_mode_samp": "0.0",
+        "only_outward_intersect": "True", "surf_fake_sample": "False",
+        "limited_fake_sample": "True", "truncated_vol_render": "True",
+        "trunc_vol_render_lv_remove": "True", "trunc_vol_weight_min": "1.0e-10",
+        "fs_std_decay_type": "linear", "fake_sample_std": "0.1",
+        "fake_sample_std_final": "1.0e-6", "fake_sample_std_decay_steps": n0 + ns,
+        "fake_sample_std_delay": n0, "trunc_vol_a_decay_type": "linear",
+        "truncated_vol_render_a": "5.0", "truncated_vol_render_a_final": "1.0",
+        "truncated_vol_render_a_decay_steps": n0 + ns // 2, "truncated_vol_render_a_delay": n0,
+        "sigma_thresh": "-10000.0", "stop_thresh": "-10000.0", "eval_every_iter": n0,
+        "print_every": max(1, min(STAGE_STEPS) // 2), "save_every": -1, "n_eval_test": 2, "final_render_eval": "False",
+        "tune_mode": "True",
+    }
+    return "".join(f"{k} = {v}\n" for k, v in keys.items())
+
+
+class _Tee:
+    """A stdout that also keeps what was written."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def stages(device, card: str, work: Path) -> tuple[dict, dict]:
+    """Phase 6: the K9 kernel checks, then the three stages through
+    app/train.main with the counters set to 0 just before and read just
+    after. Returns the kernels' numbers and the run's launches."""
+    import contextlib
+    import math
+    import re
+
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import train as train_app
+    from alphasurf_torch.data import SyntheticDataset
+
+    res = check_stage_kernels(device, card)
+    cfg_path = work / "stages.yaml"
+    cfg_path.write_text(stages_config())
+    train_dir = work / "stages"
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        psnr = train_app.main(["", "-t", str(train_dir), "-c", str(cfg_path), "--device",
+                               str(device)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log("launches " + json.dumps(launches))
+    missing = [k for k in KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels of the three-stage run were not launched: {missing}")
+
+    # every stage trained with a finite mse
+    n0, n1, n2 = STAGE_STEPS
+    mses = {}
+    for m in re.finditer(r"^step (\d+) \[(\w+)\] mse=(\S+)", "".join(tee.parts), re.M):
+        step, mse = int(m.group(1)), float(m.group(3))
+        stage = 0 if step <= n0 else (1 if step <= n0 + n1 else 2)
+        mses.setdefault(stage, []).append(mse)
+    if sorted(mses) != [0, 1, 2] or not all(math.isfinite(v) for vs in mses.values() for v in vs):
+        raise AssertionError(f"a stage has no finite mse: {mses}")
+    # every transition logged with its capacity and seconds; no collapse
+    tr = json.loads((train_dir / "transitions.json").read_text())
+    kinds = [(t["kind"], t["reso"][0], t["step"]) for t in tr]
+    if kinds != [("upsample", CUVOL_RESO, n0), ("init_surface_from_density", CUVOL_RESO, n0),
+                 ("upsample", UPSAMPLE_RESO, n0 + n1)]:
+        raise AssertionError(f"unexpected transitions: {kinds}")
+    for t in tr:
+        log(f"transition {t['kind']} at step {t['step']} -> {t['reso'][0]}^3: capacity "
+            f"{t['capacity']}, {t['seconds']:.3f} s, occupied voxels {t['occupied_before']} -> "
+            f"{t['occupied_after']} [{card}]")
+        if not (t["capacity"] > 0 and t["seconds"] > 0):
+            raise AssertionError(f"transition without capacity or time: {t}")
+    up = tr[-1]
+    if up["occupied_after"] is None or up["occupied_after"] < up["occupied_before"]:
+        raise AssertionError(f"the {UPSAMPLE_RESO}^3 upsample lost occupied voxels: {up}")
+    dset_test = SyntheticDataset(split="test", n_images=2, width=WIDTH, height=HEIGHT,
+                                 reso=SMALL_RESO, renderer="packed", device=device)
+    psnr0 = eval_untrained(device, dset_test)
+    log(f"three stages through app/train.main: {STAGE_STEPS} steps at {CUVOL_RESO}^3 (cuvol), "
+        f"{CUVOL_RESO}^3 and {UPSAMPLE_RESO}^3 (surface), batch 8192, in {wall:.2f} s (data set-up "
+        f"and 3 evals included); last mse of each stage {[v[-1] for _, v in sorted(mses.items())]}; "
+        f"final eval PSNR {psnr:.4f} against the untrained grid's {psnr0:.4f}; "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB [{card}]")
+    if not psnr > psnr0:
+        raise AssertionError(f"the three stages did not train: PSNR {psnr} <= untrained {psnr0}")
+    return res, launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1351,7 +1782,11 @@ def main(argv=None) -> int:
         if "warm" in phases:
             warm_res, warm_launches = warm(device, card, work)
             res.update(warm_res)
-            launches.update({k: warm_launches[k] for k in NEW_KERNELS})
+            launches.update({k: warm_launches[k] for k in WARM_NEW_KERNELS})
+        if "stages" in phases:
+            stage_res, stage_launches = stages(device, card, work)
+            res.update(stage_res)
+            launches.update({k: stage_launches[k] for k in STAGE_KERNELS})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -194,3 +194,90 @@ def test_cuvol_kernels_match_plain_versions(cuda, kw):
     for k in ("rgb", "depth", "log_transmit", "depth_sigma_thresh"):
         np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), rtol=1e-4, atol=1e-5,
                                    err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# K9a-K9d: the stage transitions
+# ---------------------------------------------------------------------------
+
+def _topology_grid(cuda, surface=True):
+    from test_torch_topology import rand_grid
+
+    a = _float32(rand_grid(5, surface=surface))
+    return a, SparseGrid.from_numpy(a, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(alpha_thresh=0.8, dilate=2, max_elements=500),
+                                dict(alpha_thresh=0.2, dilate=1, non_expanding=True),
+                                dict(alpha_thresh=0.5, dilate=0, keep_lv_band=True)])
+def test_resample_surface_kernels_match_plain_versions(cuda, kw):
+    """K9a (mask, band) and K9b (every vertex, kept rows, touched flags)
+    through resample_surface on the card against the plain path on the
+    CPU: links equal, rows to float32 rounding of the same lerps."""
+    from alphasurf_torch.core import topology as T
+
+    a, g = _topology_grid(cuda)
+    kernels.reset_launches()
+    got = T.resample_surface(g, (14, 13, 16), **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["keep_mask"] > 0 and kernels.LAUNCHES["resample_dense"] > 0
+    assert kernels.LAUNCHES["resample_rows"] == 1
+    assert (kernels.LAUNCHES["lv_band"] > 0) == bool(kw.get("keep_lv_band"))
+    ref = T.resample_surface(SparseGrid.from_numpy(a, device="cpu"), (14, 13, 16), **kw)
+    assert torch.equal(got.links.cpu(), ref.links)
+    for f in ("density_data", "sh_data", "surface_data"):
+        np.testing.assert_allclose(getattr(got, f).cpu().numpy(), getattr(ref, f).numpy(),
+                                   rtol=1e-6, atol=1e-6, err_msg=f)
+
+
+@pytest.mark.cuda
+def test_prune_and_weight_march_match_plain_versions(cuda):
+    """K9a's prune rule through prune_grid, and K9c through resample with
+    cameras, on the card against the CPU."""
+    from alphasurf_torch.core import topology as T
+    from alphasurf_torch.core import weight_render as W
+    from test_torch_topology import orbit_cameras
+
+    a, g = _topology_grid(cuda)
+    cpu = SparseGrid.from_numpy(a, device="cpu")
+    kernels.reset_launches()
+    got = T.prune_grid(g, 1.0, 1, prune_surf=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["prune_mask"] == 1
+    assert torch.equal(got.links.cpu(), T.prune_grid(cpu, 1.0, 1, prune_surf=True).links)
+    _, cams = orbit_cameras(32)
+    vol = torch.rand((12, 13, 11), generator=torch.Generator().manual_seed(2)) * 20.0
+    off, sc = torch.full((3,), 0.5), torch.full((3,), 0.5)
+    wk = W.grid_weight_render(vol.to(cuda), cams, off, sc)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["weight_march"] == len(cams)
+    wp = W.grid_weight_render(vol, cams, off, sc)
+    np.testing.assert_allclose(wk.cpu().numpy(), wp.numpy(), rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_visibility_kernel_matches_plain_version(cuda):
+    """K9d against its plain version, both on the card: equal counts."""
+    from alphasurf_torch.core import weight_render as W
+    from alphasurf_torch.data.synthetic import make_gt_grid
+    from alphasurf_torch.ops import dda
+    from test_torch_topology import orbit_cameras
+
+    g = make_gt_grid(16, device=cuda)
+    _, cams = orbit_cameras(64)
+    kernels.reset_launches()
+    got = W.sparse_grid_visibility_render_surf(g, cams)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["visibility"] == len(cams)
+    counts = torch.zeros(g.capacity, dtype=torch.int32, device=cuda)
+    for cam in cams:
+        r = cam.gen_rays(device=cuda)
+        o, d, _, _ = dda.preprocess_rays(g, r.origins, r.dirs)
+        tn, tx = dda.ray_bounds(g, o, d)
+        ok = torch.isfinite(tn) & torch.isfinite(tx) & (tn <= tx)
+        W._visibility_chunk_plain(g.links, g.surface_data[:, 0].detach(), g.level_set_data,
+                                  counts, o, d, torch.where(ok, tn, torch.zeros_like(tn)),
+                                  torch.where(ok, tx, torch.full_like(tx, -1.0)))
+    assert torch.equal(got, counts.float())
+    assert got.max() > 0

@@ -3,6 +3,7 @@ config parsing, render options, the synthetic dataset, a short cuvol
 warm-start run, its checkpoint and the training CLI, on the CPU."""
 import dataclasses
 import functools
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -293,20 +294,90 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
     assert tr2.gstep == 3
 
 
+# the three stages at a tiny size: warm start at 8^3, density resample
+# 8^3 -> 8^3 and init_surface_from_density at step 4, surface stage, upsample
+# to 12^3 at step 8, surface stage; the Config's weight threshold and
+# visibility pruning; the TV weights 0 (the packages draw their windows
+# differently)
+STAGES = dict(RUN, reso=[[8, 8, 8], [8, 8, 8], [12, 12, 12]], surface_type="sdf", n_iters=12,
+              no_surface_init_iters=4, upsamp_every=4, lambda_tv_alpha=0.0, print_every=4,
+              eval_every_iter=0, thresh_type="weight", visibility_pruning_scale=0.01)
+
+
+def test_three_stage_trainer_run_matches_jax(tmp_path, monkeypatch):
+    """Both Trainers through every transition, float64 grids, the JAX
+    Trainer in host mode. The JAX package runs its transitions on the host
+    below 128^3 and on the device above; the port has the device path's
+    semantics, so the JAX Trainer takes its device path here too (dispatch
+    size 1; tests/test_torch_topology.py holds the port against both).
+    The JAX sweeps pad each camera's 256 rays with copies of its last ray,
+    which misses the grid for these four cameras, so they add nothing.
+    Tolerance rtol 1e-8 on every step's mse and the final rows; the
+    capacity after each transition is equal. Both packages render the eval
+    images in float32 and take their mse in float32, so a last-bit
+    difference in any pixel moves the eval PSNR by up to ~1e-7 of itself:
+    rtol 1e-6 there."""
+    from alphasurf_tpu.core import topology as JTopo
+
+    jd, jd_test = _datasets()
+    monkeypatch.setattr(JT, "create_grid", functools.partial(jax_create_grid, dtype=jnp.float64))
+    monkeypatch.setattr(JTopo, "_DEVICE_DISPATCH_SIZE", 1)
+    for cls in (JT.Trainer, TT.Trainer):
+        _record_mse(monkeypatch, cls)
+        monkeypatch.setattr(cls, "mse_trace", None, raising=False)
+
+    cj = JCfg.apply_dict(JCfg.Config(), dict(STAGES, train_dir=str(tmp_path / "jax")))
+    tj = JT.Trainer(cj, jd, jd_test)
+    tj.mse_trace = []
+    psnr_j = tj.train()
+
+    ct = TCfg.apply_dict(TCfg.Config(), dict(STAGES, train_dir=str(tmp_path / "port")))
+    tt = TT.Trainer(ct, _port_copy(jd), _port_copy(jd_test), device="cpu", dtype=torch.float64)
+    tt.mse_trace = []
+    psnr_t = tt.train()
+
+    assert len(tt.mse_trace) == len(tj.mse_trace) == 12
+    np.testing.assert_allclose(tt.mse_trace, tj.mse_trace, rtol=1e-8)
+    caps_j = [int(ln.split()[-1]) for ln in tj.log_lines if ln.startswith("[stage] new capacity")]
+    assert [r["kind"] for r in tt.transitions] == ["upsample", "init_surface_from_density",
+                                                   "upsample"]
+    assert [r["capacity"] for r in tt.transitions if r["kind"] == "upsample"] == caps_j
+    assert tt.transitions[1]["capacity"] < tt.transitions[0]["capacity"]  # pruned
+    assert json.loads((tmp_path / "port" / "transitions.json").read_text()) == tt.transitions
+    up = tt.transitions[2]
+    assert up["seconds"] > 0 and up["occupied_after"] >= up["occupied_before"] > 0
+    assert tt.grid.reso == (12, 12, 12) and tt.grid.capacity == tj.grid.capacity
+    np.testing.assert_array_equal(tt.grid.links.numpy(), np.asarray(tj.grid.links))
+    for f in ("density_data", "sh_data", "surface_data"):
+        got = getattr(tt.grid, f).detach().numpy()
+        np.testing.assert_allclose(got, np.asarray(getattr(tj.grid, f)), rtol=1e-8, atol=1e-12,
+                                   err_msg=f)
+    np.testing.assert_array_equal(tt.grid.level_set_data.numpy(), np.asarray(tj.grid.level_set_data))
+    np.testing.assert_allclose(psnr_t, psnr_j, rtol=1e-6)
+    # the first upsample turned TV off (tv_early_only)
+    assert ct.lambda_tv == ct.lambda_tv_sh == ct.lambda_tv_alpha == 0.0
+
+
 def test_unported_stages_raise(tmp_path):
+    """What the port's Trainer does not carry yet raises: multi-device runs,
+    surf_init_type="weight" (K9e) and mask pruning (K9f), the latter two at
+    the density -> surface transition."""
     jd, jd_test = _datasets()
     for kw, item in ((dict(n_devices=2), "item 9"), (dict(mesh_model=2), "item 9")):
         cfg = TCfg.apply_dict(TCfg.Config(), dict(RUN, train_dir=str(tmp_path), **kw))
         with pytest.raises(NotImplementedError, match=item):
             TT.Trainer(cfg, _port_copy(jd), device="cpu")
     cfg = TCfg.apply_dict(TCfg.Config(), dict(RUN, train_dir=str(tmp_path), surface_type="sdf",
+                                              no_surface_init_iters=1, n_iters=3,
+                                              surf_init_type="weight"))
+    with pytest.raises(NotImplementedError, match="K9e"):
+        TT.Trainer(cfg, _port_copy(jd), device="cpu").train()
+    masked = _port_copy(jd)
+    masked.rays_init.mask = np.ones(len(masked.rays_init), bool)
+    cfg = TCfg.apply_dict(TCfg.Config(), dict(RUN, train_dir=str(tmp_path), surface_type="sdf",
                                               no_surface_init_iters=1, n_iters=3))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TT.Trainer(cfg, _port_copy(jd), device="cpu").train()
-    cfg = TCfg.apply_dict(TCfg.Config(), dict(RUN, train_dir=str(tmp_path),
-                                              reso=[[16, 16, 16], [20, 20, 20]], upsamp_every=1))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TT.Trainer(cfg, _port_copy(jd), device="cpu").train()
+    with pytest.raises(NotImplementedError, match="K9f"):
+        TT.Trainer(cfg, masked, device="cpu").train()
 
 
 def test_train_cli_runs_on_the_cpu(tmp_path):
