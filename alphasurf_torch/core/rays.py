@@ -60,9 +60,10 @@ class Camera:
         dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
         dirs = (c2w[None, None, :3, :3] @ dirs[..., None])[..., 0]
         dirs = dirs.reshape(-1, 3).astype(np.float32)
-        origins = np.broadcast_to(
-            c2w[None, :3, 3], (self.height * self.width, 3)
-        ).astype(np.float32)
+        # C order: astype keeps the broadcast view's column-major layout,
+        # and the kernels take contiguous rays only
+        origins = np.ascontiguousarray(
+            np.broadcast_to(c2w[None, :3, 3], (self.height * self.width, 3)), dtype=np.float32)
         return Rays(torch.as_tensor(origins, device=dev), torch.as_tensor(dirs, device=dev))
 
     def gen_rays_device(self, device="cuda") -> Rays:

@@ -19,7 +19,7 @@ plain PyTorch versions here, which the wrappers take for tensors on the CPU:
 Around them, as the JAX package does outside any device routine of its
 own, plain PyTorch: the links cumsum and the kept ids, the prune row
 gather, the metric-rescale reduction and the top-k threshold. The camera
-sweeps (K9c, K9d) are in ``core.weight_render``.
+sweeps (K9c, K9d, K9e) are in ``core.weight_render``.
 
 Interpolation weights come from per-axis tables computed on the host in
 float64 and rounded to float32, as ``_interp_matrix`` does (positions
@@ -364,12 +364,10 @@ def init_surface_from_density(
     ``alpha_rescale`` of density and, with cameras, visibility pruning: the
     surface of each vertex seen fewer than ``visibility_pruning_scale``
     times the most-seen one's count becomes (vis - thresh) / thresh *
-    min(surface), computed in float32. ``init_type="weight"`` and
-    ``mask_pruning_rays`` raise (ROADMAP §1 item 7: K9e, K9f)."""
-    if init_type == "weight":
-        raise NotImplementedError(
-            "init_surface_from_density(init_type='weight') needs the max-transmittance sweep "
-            "sparse_grid_weight_render (K9e), which is not ported yet (ROADMAP §1 item 7)")
+    min(surface), computed in float32. ``init_type="weight"`` scales the
+    density by each vertex's largest camera transmittance (K9e) before the
+    shift, in float32. ``mask_pruning_rays`` raises (ROADMAP §1 item 7:
+    K9f)."""
     if mask_pruning_rays is not None:
         raise NotImplementedError(
             "mask pruning needs the mask sweep sparse_grid_mask_render (K9f), which is not "
@@ -381,6 +379,14 @@ def init_surface_from_density(
     level_sets = torch.as_tensor(np.asarray(density_lvs, np.float32) - zero_lv_density,
                                  device=dev)
     surface = grid.density_data.detach().float() - zero_lv_density
+    if init_type == "weight":
+        # svox2.py:3122-3148: density times the vertex's max transmittance
+        if not weight_init_cams:
+            raise ValueError("init_type='weight' requires cameras")
+        from .weight_render import sparse_grid_weight_render
+
+        wt = sparse_grid_weight_render(grid, weight_init_cams)
+        surface = grid.density_data.detach().float() * wt[:, None] - zero_lv_density
     grid = grid.replace(surface_data=surface.to(dt), level_set_data=level_sets,
                  surface_type=defs.SURFACE_TYPE_SDF
                  if grid.surface_type == defs.SURFACE_TYPE_NONE else grid.surface_type)

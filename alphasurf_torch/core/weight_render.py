@@ -2,7 +2,7 @@
 package's ``core.weight_render`` (svox2's misc_kernel.cu grid weight render
 and visibility render).
 
-Two hand-written CUDA kernels on the card (``csrc/sweep.cu``), one thread
+Three hand-written CUDA kernels on the card (``csrc/sweep.cu``), one thread
 per camera ray, and their plain PyTorch versions here, which the wrappers
 take for tensors on the CPU:
 
@@ -13,18 +13,25 @@ take for tensors on the CPU:
                                  per ray, +1 at each present corner of every
                                  voxel walked up to and including the first
                                  one with a surface hit
+  K9e ``sparse_grid_weight_render``
+                                 K9c's march through the sparse grid; each
+                                 present corner keeps the largest
+                                 transmittance before a sample
+                                 (surf_init_type="weight")
 
-The weight march runs in float32 whatever the grid's dtype, as the JAX
-package casts rays and volume; the ray set-up is computed once here for the
-kernel and its plain version alike. The visibility walk runs in the grid's
-dtype on the CPU, as the JAX package's does, and in float32 on the card.
+The marches run in float32 whatever the grid's dtype, as the JAX package
+casts rays and volume; the ray set-up is computed once here for the kernel
+and its plain version alike. (The JAX package's transmittance march takes
+the grid's density as it is and fails on a float64 grid, its scan carry
+being float32; the port reads the density in float32.) The visibility walk
+runs in the grid's dtype on the CPU, as the JAX package's does, and in
+float32 on the card.
 
 The JAX package pads its last ray chunk with copies of the last ray; the
-maximum of the weight march does not see them, but its visibility counts
-do. The port walks each ray once.
+maxima of the marches do not see them, but its visibility counts do. The
+port walks each ray once.
 
-``sparse_grid_weight_render`` (K9e, surf_init_type="weight") and
-``sparse_grid_mask_render`` (K9f, mask pruning) are not ported yet.
+``sparse_grid_mask_render`` (K9f, mask pruning) is not ported yet.
 """
 from __future__ import annotations
 
@@ -61,16 +68,22 @@ def _march_prep(origins, dirs, scaling, offset, size, step_size: float):
     return o, d, world_step, tmin, tmax
 
 
-def _weight_march_plain(vol, wt, o, d, world_step, tmin, tmax, step_size: float,
-                        stop_thresh: float, n_steps: int) -> int:
-    """Plain version of K9c (``_dense_weight_chunk``): the march of every
-    ray as JAX's scan, with the scatter-max into ``wt`` (X*Y*Z,) float32.
-    Returns the number of samples taken (active steps)."""
-    X, Y, Z = vol.shape
-    size = torch.tensor([X, Y, Z], dtype=torch.float32, device=vol.device)
-    vol_flat = vol.reshape(-1)
-    offs = torch.as_tensor(((CORNER_OFFSETS[:, 0] * Y + CORNER_OFFSETS[:, 1]) * Z
-                            + CORNER_OFFSETS[:, 2]).astype(np.int64), device=vol.device)
+def _corner_offsets(Y: int, Z: int, device) -> torch.Tensor:
+    """Flat offsets of a voxel's 8 corners in an (X, Y, Z) lattice."""
+    return torch.as_tensor(((CORNER_OFFSETS[:, 0] * Y + CORNER_OFFSETS[:, 1]) * Z
+                            + CORNER_OFFSETS[:, 2]).astype(np.int64), device=device)
+
+
+def _march_plain(o, d, world_step, tmin, tmax, size, step_size: float, stop_thresh: float,
+                 n_steps: int, corner_values, scatter) -> int:
+    """The fixed-step march of every ray as the JAX package's scans run it
+    (``_dense_weight_chunk``, ``_sparse_transmit_chunk``): t = tmin + k step
+    for k < n_steps while t <= tmax and the transmittance is >=
+    stop_thresh; sigma the trilinear sum, in corner order, of
+    ``corner_values(l)`` (B, 8) at the sample's voxel l and fraction (JAX's
+    ``_voxel_and_frac``); a hit where sigma > 1e-8; then
+    ``scatter(l, hit, log_T, log_att)`` and log_T += log_att. Returns the
+    number of samples taken (active steps)."""
     log_T = torch.zeros_like(tmin)
     n_samples = 0
     for k in range(n_steps):
@@ -83,20 +96,42 @@ def _weight_march_plain(vol, wt, o, d, world_step, tmin, tmax, step_size: float,
         pos = torch.minimum(torch.maximum(o + t[:, None] * d, torch.zeros_like(o)), size - 1.0)
         l = torch.minimum(pos.to(torch.int32), (size - 2).to(torch.int32)).long()
         fr = pos - l
-        base = (l[:, 0] * Y + l[:, 1]) * Z + l[:, 2]
+        v8 = corner_values(l)
         sigma = None
         for c, (dx, dy, dz) in enumerate(CORNER_OFFSETS.tolist()):
             w = ((fr[:, 0] if dx else 1 - fr[:, 0]) * (fr[:, 1] if dy else 1 - fr[:, 1])) * (
                 fr[:, 2] if dz else 1 - fr[:, 2])
-            v = w * vol_flat[base + offs[c]]
+            v = w * v8[:, c]
             sigma = v if sigma is None else sigma + v
         hit = active & (sigma > 1e-8)
         log_att = torch.where(hit, -world_step * sigma, torch.zeros_like(sigma))
-        w = torch.where(hit, torch.exp(log_T) * (1.0 - torch.exp(log_att)), torch.zeros_like(sigma))
-        idx = base[:, None] + offs[None, :]
-        wt.scatter_reduce_(0, idx.reshape(-1), w[:, None].expand(-1, 8).reshape(-1), "amax")
+        scatter(l, hit, log_T, log_att)
         log_T = log_T + log_att
     return n_samples
+
+
+def _weight_march_plain(vol, wt, o, d, world_step, tmin, tmax, step_size: float,
+                        stop_thresh: float, n_steps: int) -> int:
+    """Plain version of K9c (``_dense_weight_chunk``): the march, with the
+    scatter-max of each hit sample's weight T (1 - exp(log_att)) into
+    ``wt`` (X*Y*Z,) float32 at its voxel's 8 corners. Returns the number of
+    samples taken."""
+    X, Y, Z = vol.shape
+    vol_flat = vol.reshape(-1)
+    offs = _corner_offsets(Y, Z, vol.device)
+
+    def corners(l):
+        return ((l[:, 0] * Y + l[:, 1]) * Z + l[:, 2])[:, None] + offs
+
+    def scatter(l, hit, log_T, log_att):
+        w = torch.where(hit, torch.exp(log_T) * (1.0 - torch.exp(log_att)),
+                        torch.zeros_like(log_att))
+        wt.scatter_reduce_(0, corners(l).reshape(-1), w[:, None].expand(-1, 8).reshape(-1),
+                           "amax")
+
+    size = torch.tensor([X, Y, Z], dtype=torch.float32, device=vol.device)
+    return _march_plain(o, d, world_step, tmin, tmax, size, step_size, stop_thresh, n_steps,
+                        lambda l: vol_flat[corners(l)], scatter)
 
 
 def grid_weight_render(vol, cameras, world_offset, world_scaling, step_size: float = 0.5,
@@ -138,10 +173,70 @@ def grid_weight_render(vol, cameras, world_offset, world_scaling, step_size: flo
     return wt.reshape(reso)
 
 
-def sparse_grid_weight_render(grid: SparseGrid, cameras, step_size=0.5, stop_thresh=0.0,
-                              chunk=65536):
-    """Per-vertex max transmittance (surf_init_type="weight", K9e)."""
-    raise NotImplementedError(f"sparse_grid_weight_render (K9e) {_NOT_PORTED}")
+def _transmit_march_plain(links, dens, out, o, d, world_step, tmin, tmax, step_size: float,
+                          stop_thresh: float, n_steps: int) -> int:
+    """Plain version of K9e (``_sparse_transmit_chunk``): the march through
+    the sparse grid, raw density at present corners and 0 at empty ones,
+    with the scatter-max of the transmittance before each hit sample into
+    ``out`` (cap + 1,) float32 at the present corner links (empty ones into
+    the last slot). Returns the number of samples taken."""
+    X, Y, Z = links.shape
+    cap = out.shape[0] - 1
+    links_flat = links.reshape(-1)
+    offs = _corner_offsets(Y, Z, links.device)
+
+    def corner_links(l):
+        return links_flat[((l[:, 0] * Y + l[:, 1]) * Z + l[:, 2])[:, None] + offs]
+
+    def values(l):
+        lk = corner_links(l)
+        return torch.where(lk >= 0, dens[lk.clamp(min=0).long()], torch.zeros((), device=lk.device))
+
+    def scatter(l, hit, log_T, log_att):
+        lk = corner_links(l).long()
+        T = torch.where(hit, torch.exp(log_T), torch.zeros_like(log_T))
+        idx = torch.where(lk >= 0, lk, torch.full_like(lk, cap))
+        out.scatter_reduce_(0, idx.reshape(-1), T[:, None].expand(-1, 8).reshape(-1), "amax")
+
+    size = torch.tensor([X, Y, Z], dtype=torch.float32, device=links.device)
+    return _march_plain(o, d, world_step, tmin, tmax, size, step_size, stop_thresh, n_steps,
+                        values, scatter)
+
+
+def sparse_grid_weight_render(grid: SparseGrid, cameras, step_size: float = 0.5,
+                              stop_thresh: float = 0.0, chunk: int = 65536) -> torch.Tensor:
+    """K9e: the largest transmittance before any sample of the rays of
+    ``cameras`` at each vertex of the grid (surf_init_type="weight",
+    svox2.py:3122-3146). Returns (capacity,) float32. The kernel on the
+    card (one launch per camera), the plain version on the CPU (rays in
+    chunks of ``chunk``)."""
+    dev = grid.links.device
+    reso = grid.reso
+    gsz = np.asarray(reso, np.float32)
+    f32 = dict(dtype=torch.float32, device=dev)
+    scaling = torch.as_tensor(np.asarray(grid.scaling.detach().cpu()) * gsz, **f32)
+    offset = torch.as_tensor(np.asarray(grid.offset.detach().cpu()) * gsz, **f32)
+    size = torch.as_tensor(gsz, **f32)
+    diag = math.sqrt(sum((r - 1) ** 2 for r in reso))
+    n_steps = int(math.ceil(diag / step_size)) + 2
+    dens = grid.density_data.detach()[:, 0].to(torch.float32).contiguous()
+    if grid.links.is_cuda:
+        bits = torch.zeros(grid.capacity, dtype=torch.int32, device=dev)
+        for cam in cameras:
+            rays = cam.gen_rays(device=dev)
+            o, d, ws, tmin, tmax = (x.contiguous() for x in _march_prep(
+                rays.origins, rays.dirs, scaling, offset, size, step_size))
+            kernels.transmit_march(o, d, ws, tmin, tmax, grid.links, dens, step_size, stop_thresh,
+                                   n_steps, bits)
+        return bits.view(torch.float32)
+    out = torch.zeros(grid.capacity + 1, **f32)
+    for cam in cameras:
+        rays = cam.gen_rays(device=dev)
+        for s in range(0, rays.origins.shape[0], chunk):
+            prep = _march_prep(rays.origins[s:s + chunk], rays.dirs[s:s + chunk], scaling, offset,
+                               size, step_size)
+            _transmit_march_plain(grid.links, dens, out, *prep, step_size, stop_thresh, n_steps)
+    return out[:grid.capacity]
 
 
 def sparse_grid_mask_render(grid: SparseGrid, origins_w, dirs_w, near_clip=0.0, chunk=16384):

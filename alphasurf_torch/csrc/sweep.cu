@@ -1,5 +1,5 @@
-// K9c weight march and K9d surface visibility walk: the camera sweeps of
-// the stage transitions.
+// K9c weight march, K9d surface visibility walk and K9e transmittance
+// march: the camera sweeps of the stage transitions.
 //
 // K9c replaces the JAX package's core/weight_render.py:_dense_weight_chunk
 // (97) / grid_weight_render (129), svox2's misc_kernel.cu grid weight
@@ -36,6 +36,17 @@
 // cubic is samples.cuh's (Vieta with two Newton steps, ops/cubic.py).
 // Counts are int32 atomics, exact. Bound: operations, about 30 for each
 // plane crossed plus about 600 for each cubic solved; one thread per ray.
+//
+// K9e replaces core/weight_render.py:_sparse_transmit_chunk (160) /
+// sparse_grid_weight_render (207), svox2's misc_kernel.cu sparse grid
+// weight render (surf_init_type "weight"): K9c's march, from t = 0 on the
+// slab [-0.5, size - 0.5] of the sparse grid's own lattice, reading the raw
+// density of the 8 corner links (0 where a link is empty, no relu) summed
+// in JAX's corner order; at every sample with sigma > 1e-8 each present
+// corner keeps the largest transmittance before the sample, an atomicMax
+// on its bits (T >= 0). JAX pads its last ray chunk with copies of the last
+// ray, which a maximum does not see, so the result is JAX's. Bound: as
+// K9c, latency on the gathers of one thread per ray.
 #include <cstring>
 
 #include "samples.cuh"
@@ -77,9 +88,10 @@ struct SweepRays {
     const float* t1;  // tmax
 };
 
-HD float march_sigma(const float* vol, const int size[3], const float o[3], const float d[3],
-                     float t, int l[3]) {
-    float fr[3];
+// the voxel l and fraction fr of the sample o + t d, clipped to the lattice
+// (the JAX package's _voxel_and_frac)
+HD void sample_voxel(const float o[3], const float d[3], float t, const int size[3], int l[3],
+                     float fr[3]) {
     for (int a = 0; a < 3; ++a) {
         float p = o[a] + t * d[a];
         p = fminf(fmaxf(p, 0.0f), (float)size[a] - 1.0f);
@@ -87,14 +99,26 @@ HD float march_sigma(const float* vol, const int size[3], const float o[3], cons
         l[a] = li < size[a] - 2 ? li : size[a] - 2;
         fr[a] = p - (float)l[a];
     }
+}
+
+// the trilinear weight of corner c at fraction fr, in JAX's product order
+HD float corner_weight(int c, const float fr[3]) {
+    return ((corner_dx(c) ? fr[0] : 1.0f - fr[0]) * (corner_dy(c) ? fr[1] : 1.0f - fr[1])) *
+           (corner_dz(c) ? fr[2] : 1.0f - fr[2]);
+}
+
+// the trilinear density of the dense volume at the sample, summed in corner
+// order; l is its voxel
+HD float march_sigma(const float* vol, const int size[3], const float o[3], const float d[3],
+                     float t, int l[3]) {
+    float fr[3];
+    sample_voxel(o, d, t, size, l, fr);
     const int64_t base = ((int64_t)l[0] * size[1] + l[1]) * size[2] + l[2];
     float acc = 0.0f;
     for (int c = 0; c < 8; ++c) {
-        const int dx = corner_dx(c), dy = corner_dy(c), dz = corner_dz(c);
-        const float w = ((dx ? fr[0] : 1.0f - fr[0]) * (dy ? fr[1] : 1.0f - fr[1])) *
-                        (dz ? fr[2] : 1.0f - fr[2]);
-        const float v = vol[base + ((int64_t)dx * size[1] + dy) * size[2] + dz];
-        acc = c == 0 ? w * v : acc + w * v;
+        const float v = vol[base + ((int64_t)corner_dx(c) * size[1] + corner_dy(c)) * size[2] +
+                            corner_dz(c)];
+        acc = c == 0 ? corner_weight(c, fr) * v : acc + corner_weight(c, fr) * v;
     }
     return acc;
 }
@@ -255,7 +279,65 @@ HD void weight_march_ray(const SweepRays& R, const float* ws, int r, const float
     }
 }
 
+// K9e's march of ray r through the sparse grid, raising out (the bits of the
+// transmittances, one per row) at the present corners of every hit sample
+HD void transmit_march_ray(const SweepRays& R, const float* ws, int r, const int* links,
+                           const float* dens, const int size[3], float step, float stop_thresh,
+                           int n_steps, int* out) {
+    float o[3], d[3];
+    for (int a = 0; a < 3; ++a) {
+        o[a] = R.o[3 * (int64_t)r + a];
+        d[a] = R.d[3 * (int64_t)r + a];
+    }
+    const float tmin = R.t0[r], tmax = R.t1[r], world_step = ws[r];
+    float log_T = 0.0f;
+    for (int k = 0; k < n_steps; ++k) {
+        const float t = tmin + (float)k * step;
+        if (!(t <= tmax)) break;
+        const float T = expf(log_T);
+        if (!(T >= stop_thresh)) break;
+        int l[3];
+        float fr[3];
+        sample_voxel(o, d, t, size, l, fr);
+        int lk[8];
+        float acc = 0.0f;
+        for (int c = 0; c < 8; ++c) {
+            lk[c] = links[((int64_t)(l[0] + corner_dx(c)) * size[1] + l[1] + corner_dy(c)) *
+                              size[2] +
+                          l[2] + corner_dz(c)];
+            const float v = corner_weight(c, fr) * (lk[c] >= 0 ? dens[lk[c]] : 0.0f);
+            acc = c == 0 ? v : acc + v;
+        }
+        if (!(acc > 1e-8f)) continue;
+        const int bits = float_bits(T);
+        for (int c = 0; c < 8; ++c)
+            if (lk[c] >= 0) atomic_max_int(out + lk[c], bits);
+        log_T = log_T - world_step * acc;
+    }
+}
+
 #ifdef __CUDACC__
+__global__ void transmit_march_kernel(SweepRays R, const float* ws, int B, const int* links,
+                                      const float* dens, int X, int Y, int Z, float step,
+                                      float stop_thresh, int n_steps, int* out) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= B) return;
+    const int size[3] = {X, Y, Z};
+    transmit_march_ray(R, ws, r, links, dens, size, step, stop_thresh, n_steps, out);
+}
+
+extern "C" cudaError_t transmit_march(const float* o, const float* d, const float* ws,
+                                      const float* tmin, const float* tmax, int B,
+                                      const int* links, const float* dens, int X, int Y, int Z,
+                                      float step, float stop_thresh, int n_steps, int* out,
+                                      void* stream) {
+    if (B <= 0) return cudaSuccess;
+    const int block = 128;
+    transmit_march_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
+        SweepRays{o, d, tmin, tmax}, ws, B, links, dens, X, Y, Z, step, stop_thresh, n_steps, out);
+    return cudaGetLastError();
+}
+
 __global__ void weight_march_kernel(SweepRays R, const float* ws, int B, const float* vol, int X,
                                     int Y, int Z, float step, float stop_thresh, int n_steps,
                                     int* wt) {

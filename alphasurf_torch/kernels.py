@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("occupancy", "phase_a", "phase_b", "composite", "backward", "reg", "rmsprop", "cuvol",
-           "topology", "sweep")
+           "topology", "sweep", "extract")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
@@ -57,6 +57,8 @@ LAUNCHES = {
     "resample_rows": 0,
     "weight_march": 0,
     "visibility": 0,
+    "transmit_march": 0,
+    "iso_points": 0,
 }
 
 _P = ctypes.c_void_p
@@ -96,6 +98,8 @@ _ARGTYPES = {
                            _I, _I, _P, _P, _P],
     "weight_march": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _F, _F, _I, _P, _P],
     "visibility": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _I, _P, _P],
+    "transmit_march": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P],
+    "iso_points": [_P, _I, _P, _I, _I, _I, _P, _P, _F, _F, _I, _P, _P],
 }
 _FUNCS = {
     "occupancy": ("occupancy_words", "density_occupancy_words"),
@@ -108,7 +112,8 @@ _FUNCS = {
     "cuvol": ("cuvol_forward", "cuvol_backward", "cuvol_march"),
     "topology": ("topo_window_or", "topo_prune_valid", "topo_straddle", "topo_resample_dense",
                  "topo_resample_rows"),
-    "sweep": ("weight_march", "visibility"),
+    "sweep": ("weight_march", "visibility", "transmit_march"),
+    "extract": ("iso_points",),
 }
 
 _libs: dict = {}
@@ -806,7 +811,7 @@ def resample_rows(links, rows, fills, kept, tables, new_reso, want_touched: bool
 
 
 # ---------------------------------------------------------------------------
-# K9c and K9d: the camera sweeps of the stage transitions
+# K9c, K9d and K9e: the camera sweeps of the stage transitions
 # ---------------------------------------------------------------------------
 
 def _sweep_rays(origins, dirs, t0, t1) -> int:
@@ -850,3 +855,46 @@ def visibility(origins, dirs, tnear, tmax, links, surface, level_sets, counts) -
         _launch("sweep", "visibility", "visibility", _ptr(origins), _ptr(dirs), _ptr(tnear),
                 _ptr(tmax), B, _ptr(links), X, Y, Z, _ptr(surface), _ptr(level_sets),
                 level_sets.numel(), _ptr(counts))
+
+
+def transmit_march(origins, dirs, world_step, tmin, tmax, links, density, step: float,
+                   stop_thresh: float, n_steps: int, out_bits) -> None:
+    """K9e: march each ray through the sparse grid (``links`` (X, Y, Z),
+    raw ``density`` (cap,) float32) and raise ``out_bits`` (cap,) int32,
+    the bits of non-negative float32 transmittances, to the largest
+    transmittance before any hit sample at each present corner; in place."""
+    B = _sweep_rays(origins, dirs, tmin, tmax)
+    _check("world_step", world_step, torch.float32, (B,))
+    _check("links", links, torch.int32)
+    cap = density.shape[0]
+    _check("density", density, torch.float32, (cap,))
+    _check("out_bits", out_bits, torch.int32, (cap,))
+    if B > 0:
+        X, Y, Z = links.shape
+        _launch("sweep", "transmit_march", "transmit_march", _ptr(origins), _ptr(dirs),
+                _ptr(world_step), _ptr(tmin), _ptr(tmax), B, _ptr(links), _ptr(density), X, Y, Z,
+                float(step), float(stop_thresh), int(n_steps), _ptr(out_bits))
+
+
+# ---------------------------------------------------------------------------
+# K9g: iso points of the extraction
+# ---------------------------------------------------------------------------
+
+def iso_points(cells, links, field, density, lv: float, density_thresh: float, n_sample: int):
+    """K9g: (N, 3 n^2, 3) float32 grid-space points of the cells (flat
+    link-lattice ids (N,) int64) on rays along each axis, NaN where a ray
+    has none; ``field`` (cap,) is the surface (or the density) and ``lv``
+    its level."""
+    N = cells.shape[0]
+    _check("cells", cells, torch.int64, (N,))
+    _check("links", links, torch.int32)
+    cap = density.shape[0]
+    _check("field", field, torch.float32, (cap,))
+    _check("density", density, torch.float32, (cap,))
+    n = int(n_sample)
+    out = torch.empty((N, 3 * n * n, 3), dtype=torch.float32, device=cells.device)
+    if out.numel() > 0:
+        X, Y, Z = links.shape
+        _launch("extract", "iso_points", "iso_points", _ptr(cells), N, _ptr(links), X, Y, Z,
+                _ptr(field), _ptr(density), float(lv), float(density_thresh), n, _ptr(out))
+    return out

@@ -20,9 +20,11 @@ What the JAX Trainer needs and the port does not: its pool budget and the
 machinery around it (``_pow2``, ``_size_pool_from_grid``, ``_grow_pool``,
 the overflow half of ``_flush_pend``, ``n_forced_steps``). The port's pool
 is sized exactly each step and never overflows. Left out: TensorBoard
-logging (the log lines carry the same scalars), LPIPS (its weights are not
-in the repository) and the in-training point extraction ``_eval_points``
-(ROADMAP §1 item 8; it adds nothing for density grids).
+logging (the log lines carry the same scalars) and LPIPS (its weights are
+not in the repository). With ``log_pts`` each eval of a surface grid
+extracts its iso points (``_eval_points``, on K9g) and, with ``eval_cf``,
+adds their Chamfer distance to ``{data_dir}/shape.npy`` to the
+``eval stats:`` line.
 
 The batch stream is the JAX Trainer's host mode: each epoch's order is
 ``np.random.default_rng(cfg.seed)``'s permutation, and each batch is
@@ -546,13 +548,52 @@ class Trainer:
             lines.append(f"{int(i)} {p:.4f} {s:.4f}")
         mean_psnr = float(np.mean(psnrs))
         mean_ssim = float(np.mean(ssims))
-        self.log(f"eval stats: step={self.gstep} psnr={mean_psnr:.3f} ssim={mean_ssim:.4f}")
+        self.log(f"eval stats: step={self.gstep} psnr={mean_psnr:.3f} ssim={mean_ssim:.4f}"
+                 f"{self._eval_points()}")
         if final:
             with open(path.join(cfg.train_dir, "eval_views.txt"), "w") as f:
                 f.write("view psnr ssim\n" + "\n".join(lines) + "\n")
             with open(path.join(cfg.train_dir, "test_psnr.txt"), "w") as f:
                 f.write(f"{mean_psnr}\n")
         return mean_psnr
+
+    def _eval_points(self) -> str:
+        """In-training point extraction and Chamfer (opt.py:596-657), with
+        ``log_pts``, for surface grids: the iso points of each level set
+        (world units over a scene scale of 2/3); with ``eval_cf`` and a
+        ``{data_dir}/shape.npy``, downsampled to 0.001 and held against it.
+        Writes ``coarse_pts_eval/{step}/`` (cf.txt and vis_d2s.ply, or
+        pts.ply) under the train dir and returns the `` cf_*`` tail of the
+        ``eval stats:`` line."""
+        cfg = self.cfg
+        if not cfg.log_pts or self.grid.surface_data is None:
+            return ""
+        from ..geometry.chamfer import chamfer, downsample_points
+        from ..geometry.dtu_eval import write_ply_points
+        from ..geometry.extract import extract_iso_points
+
+        pred = [extract_iso_points(self.grid, n_sample=cfg.surf_eval_n_sample,
+                                   density_thresh=cfg.surf_eval_intersect_th,
+                                   surf_lv_set=float(lv), to_world=True, scene_scale=2.0 / 3.0)
+                for lv in self.grid.level_set_data.detach().cpu().numpy()]
+        pred = [p for p in pred if p.size]
+        pred = np.concatenate(pred, axis=0) if pred else np.zeros((0, 3), np.float32)
+        out_dir = path.join(cfg.train_dir, "coarse_pts_eval", str(self.gstep))
+        os.makedirs(out_dir, exist_ok=True)
+        gt_path = path.join(cfg.data_dir, "shape.npy")
+        if cfg.eval_cf and pred.size and path.isfile(gt_path):
+            pred = downsample_points(pred, 0.001)  # opt.py:606-615
+            cf = chamfer(pred, np.load(gt_path).astype(np.float32).reshape(-1, 3))
+            with open(path.join(out_dir, "cf.txt"), "w") as f:
+                f.write(f"Mean d2s: {cf['d2s']}\n")
+                f.write(f"Mean s2d: {cf['s2d']}\n")
+                f.write(f"Over all: {cf['overall']}\n")
+            write_ply_points(path.join(out_dir, "vis_d2s.ply"), pred)
+            return (f" cf_d2s={cf['d2s']:.5f} cf_s2d={cf['s2d']:.5f}"
+                    f" cf_mean={cf['overall']:.5f}")
+        if pred.size:
+            write_ply_points(path.join(out_dir, "pts.ply"), pred)
+        return ""
 
     def save(self):
         ckpt_path = path.join(self.cfg.train_dir, "ckpt.npz")

@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``alphasurf_torch/csrc`` (K1 occupancy,
 K2 phase A count + fill, K3 phase B, K4 compositor, K5 backward per ray and
 per entry, K6 regularizers TV / normal / sparsify, K7 RMSprop, K1d density
 occupancy, K8 cuvol forward and backward, K10 dense cuvol march, K9a keep
-masks, K9b lattice resample, K9c weight march, K9d visibility walk), then:
+masks, K9b lattice resample, K9c weight march, K9d visibility walk, K9e
+transmittance march, K9g iso points), then:
 
 1. prints the card, its power limit, nvcc's register/spill lines and the
    build seconds;
@@ -49,11 +50,25 @@ masks, K9b lattice resample, K9c weight march, K9d visibility walk), then:
    before and read just after: every kernel K1-K10 launched, every stage's
    mse finite, every transition logged with capacity and seconds, no loss
    of occupied voxels at the 512^3 upsample, a final eval PSNR above the
-   untrained grid's;
-7. prints one JSON line with each kernel's numbers, then the ok line.
+   untrained grid's, and a finite Chamfer (the in-training extraction,
+   log_pts and eval_cf) on every surface-stage eval, printed beside the
+   GT grid's own;
+7. extraction and evaluation: K9g against its plain version on every
+   occupied cell of the 512^3 shell checkpoint (the points on the shell's
+   sphere to 0.1 voxel), K9e against its plain version on the 256^3
+   blobby grid with two 800x800 cameras (and the weight init on both
+   maxima), each timed; ``app/extract_points.main`` and
+   ``app/eval_cf.main`` on the shell (Chamfer below 0.01); then
+   ``app/pipeline.run_pipeline`` at 256^3 (20 train and 2 test views at
+   800x800, 100 + 100 steps, the weight init of the surface stage at the
+   recipe's surface learning rate) with
+   the counters set to 0 just before and read just after: every kernel
+   of its path launched, a PSNR above the untrained grid's, points and a
+   finite Chamfer;
+8. prints one JSON line with each kernel's numbers, then the ok line.
 
-``--phases`` runs a subset (kernels, serve, train, warm, stages); the
-default runs them all, as the checks above require. Exits non-zero, printing no result,
+``--phases`` runs a subset (kernels, serve, train, warm, stages,
+extract); the default runs them all, as the checks above require. Exits non-zero, printing no result,
 without a CUDA device or without the ``alphasurf_torch`` package beside
 it. Imports nothing of JAX.
 """
@@ -137,6 +152,10 @@ KERNELS = {  # name -> (source, the JAX routine it replaces)
     "resample_rows": ("alphasurf_torch/csrc/topology.cu", f"{_JAX_TOPO}:167"),
     "weight_march": ("alphasurf_torch/csrc/sweep.cu", f"{JAX_PACKAGE}/core/weight_render.py:97"),
     "visibility": ("alphasurf_torch/csrc/sweep.cu", f"{JAX_PACKAGE}/core/weight_render.py:270"),
+    # K9e (surf_init_type "weight") and K9g: extraction and evaluation
+    "transmit_march": ("alphasurf_torch/csrc/sweep.cu",
+                       f"{JAX_PACKAGE}/core/weight_render.py:160"),
+    "iso_points": ("alphasurf_torch/csrc/extract.cu", f"{JAX_PACKAGE}/geometry/extract.py:46"),
 }
 SERVE_KERNELS = ("occupancy", "phase_a_count", "phase_a_fill", "phase_b", "composite")
 TRAIN_KERNELS = SERVE_KERNELS + ("backward_ray", "backward_entry", "reg_tv", "reg_normal",
@@ -147,7 +166,15 @@ WARM_KERNELS = WARM_STEP_KERNELS + ("cuvol_march",)
 WARM_NEW_KERNELS = ("density_occupancy", "cuvol_forward", "cuvol_backward", "cuvol_march")
 STAGE_KERNELS = ("keep_mask", "prune_mask", "lv_band", "resample_dense", "resample_rows",
                  "weight_march", "visibility")
-PHASES = ("kernels", "serve", "train", "warm", "stages")
+EXTRACT_KERNELS = ("transmit_march", "iso_points")
+# the three-stage run initialises its surface from the density: every kernel
+# but K9e
+STAGE_RUN_KERNELS = tuple(k for k in KERNELS if k != "transmit_march")
+# the pipeline: the Plenoxels stage and its eval, the weight init with
+# visibility pruning, the surface stage, the extraction
+PIPELINE_KERNELS = TRAIN_KERNELS + WARM_NEW_KERNELS + (
+    "prune_mask", "keep_mask", "visibility", "transmit_march", "iso_points")
+PHASES = ("kernels", "serve", "train", "warm", "stages", "extract")
 CUVOL_RESO = 256  # the warm start's grid (the Config's first reso)
 WARM_STEPS = 100  # Trainer steps of the warm-start run
 TRAIN_BATCH = 40960
@@ -1605,7 +1632,9 @@ def stages_config() -> str:
     surface-stage lr_alpha, which ramps up from 1e-4 over the first 1,200
     surface steps, leaves the initial raw alpha (0.005 x density, 0.01-0.03
     at the level sets) nearly transparent for longer than this run. The synthetic dataset of
-    the warm phase; an eval at the end of each stage."""
+    the warm phase; an eval at the end of each stage, with the recipe's
+    in-training extraction and Chamfer (log_pts, eval_cf, 3 samples, raw
+    density threshold 0.1) against the data dir's shape.npy."""
     n0, n1, n2 = STAGE_STEPS
     total, ns = n0 + n1 + n2, n1 + n2
     R, U = CUVOL_RESO, UPSAMPLE_RESO
@@ -1639,8 +1668,10 @@ def stages_config() -> str:
         "truncated_vol_render_a": "5.0", "truncated_vol_render_a_final": "1.0",
         "truncated_vol_render_a_decay_steps": n0 + ns // 2, "truncated_vol_render_a_delay": n0,
         "sigma_thresh": "-10000.0", "stop_thresh": "-10000.0", "eval_every_iter": n0,
-        "print_every": max(1, min(STAGE_STEPS) // 2), "save_every": -1, "n_eval_test": 2, "final_render_eval": "False",
-        "tune_mode": "True",
+        "print_every": max(1, min(STAGE_STEPS) // 2), "save_every": -1, "n_eval_test": 2,
+        "final_render_eval": "False", "tune_mode": "True",
+        "log_pts": "True", "eval_cf": "True", "surf_eval_n_sample": 3,
+        "surf_eval_intersect_th": "0.1",
     }
     return "".join(f"{k} = {v}\n" for k, v in keys.items())
 
@@ -1657,6 +1688,35 @@ class _Tee:
 
     def flush(self):
         self.stream.flush()
+
+
+def recipe_shape(data_dir: Path) -> Path:
+    """tools/recipe_run.py's Chamfer GT in ``data_dir``: 20,000 points of
+    the synthetic sphere in the extractor's frame (radius 0.5 world units
+    over its scene scale 2/3)."""
+    import numpy as np
+
+    from alphasurf_torch.app.pipeline import synthetic_gt_points
+
+    data_dir.mkdir(parents=True, exist_ok=True)
+    path = data_dir / "shape.npy"
+    np.save(path, synthetic_gt_points(CUVOL_RESO) / (2.0 / 3.0))
+    return path
+
+
+def chamfer_floor(device, shape: Path) -> dict:
+    """The in-training extraction's Chamfer of the GT grid itself
+    (make_gt_grid(SMALL_RESO), the synthetic dataset's), as _eval_points
+    takes it: the floor of the three-stage run's cf_mean."""
+    import numpy as np
+
+    from alphasurf_torch.data.synthetic import make_gt_grid
+    from alphasurf_torch.geometry.chamfer import chamfer, downsample_points
+    from alphasurf_torch.geometry.extract import extract_iso_points
+
+    pts = extract_iso_points(make_gt_grid(SMALL_RESO, device=device), n_sample=3,
+                             density_thresh=0.1, scene_scale=2.0 / 3.0)
+    return chamfer(downsample_points(pts, 0.001), np.load(shape))
 
 
 def stages(device, card: str, work: Path) -> tuple[dict, dict]:
@@ -1677,19 +1737,20 @@ def stages(device, card: str, work: Path) -> tuple[dict, dict]:
     cfg_path = work / "stages.yaml"
     cfg_path.write_text(stages_config())
     train_dir = work / "stages"
+    shape = recipe_shape(work / "stages_data")
     torch.cuda.reset_peak_memory_stats()
     tee = _Tee(sys.stdout)
     kernels.reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
-        psnr = train_app.main(["", "-t", str(train_dir), "-c", str(cfg_path), "--device",
-                               str(device)])
+        psnr = train_app.main([str(shape.parent), "-t", str(train_dir), "-c", str(cfg_path),
+                               "--device", str(device)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     log("launches " + json.dumps(launches))
-    missing = [k for k in KERNELS if launches[k] == 0]
+    missing = [k for k in STAGE_RUN_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels of the three-stage run were not launched: {missing}")
 
@@ -1727,6 +1788,295 @@ def stages(device, card: str, work: Path) -> tuple[dict, dict]:
         f"max_memory_allocated {peak / 2**30:.3f} GiB [{card}]")
     if not psnr > psnr0:
         raise AssertionError(f"the three stages did not train: PSNR {psnr} <= untrained {psnr0}")
+    # every surface-stage eval carries a finite Chamfer
+    cfs = {}
+    for m in re.finditer(r"^eval stats: step=(\d+) .*", "".join(tee.parts), re.M):
+        step = int(m.group(1))
+        cf = re.search(r" cf_mean=(\S+)", m.group(0))
+        cfs[step] = float(cf.group(1)) if cf else None
+    surf_evals = {k: v for k, v in cfs.items() if k > n0}
+    if len(surf_evals) < 2 or not all(v is not None and math.isfinite(v)
+                                      for v in surf_evals.values()):
+        raise AssertionError(f"a surface-stage eval has no finite cf_mean: {cfs}")
+    floor = chamfer_floor(device, shape)
+    log(f"three stages: cf_mean at the evals {cfs} (world units over the scene scale 2/3); "
+        f"the GT grid make_gt_grid({SMALL_RESO})'s own extraction against the same points: "
+        f"cf_mean {floor['overall']:.5f} (d2s {floor['d2s']:.5f}, s2d {floor['s2d']:.5f})")
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
+# extraction and evaluation
+# ---------------------------------------------------------------------------
+
+ISO_N = 5  # extract_points' samples along a cell face
+ISO_BATCH = 65536  # cells a K9g launch, the JAX package's batch
+INTERSECT_TH = 0.1  # train_eval.sh --intersect_th, an alpha
+GT_POINTS = 20000  # points of synthetic_gt_points
+PIPELINE_STEPS = (100, 100)  # Plenoxels, surface
+PIPELINE_BATCH = 8192
+# the surface stage's overrides: the weight init, so that K9e runs, and the
+# recipe's 256^3 surface learning rate (tools/recipe_run.py:126): the JAX
+# pipeline's 1e-2 (to 1e-3) is set for its 32^3 default, and moves the
+# metric-rescaled SDF by more than a 256^3 voxel a step
+PIPELINE_SURFACE = {"surf_init_type": "weight", "lr_surface": 1e-5, "lr_surface_final": 1e-5}
+# K9g against its plain version: the same float32 operations in the same
+# order, built with --fmad=false, so the points are expected equal; a root
+# within rounding of a face or of the density threshold may land on either
+# side, so at most FLAG_FRACTION of the rays may differ (in presence or by
+# more than ISO_ATOL grid units).
+ISO_ATOL = 1e-6
+
+
+def shell_checkpoint(device, work: Path) -> Path:
+    """The serving phase's 512^3 shell checkpoint (written here when that
+    phase did not run)."""
+    import torch
+
+    from alphasurf_torch.utils.io import save_grid
+
+    ckpt = work / "ckpt.npz"
+    if not ckpt.exists():
+        save_grid(shell_grid(RESO, device)[0], str(ckpt))
+        torch.cuda.empty_cache()
+    return ckpt
+
+
+def check_iso_points(device, card: str, ckpt: Path) -> dict:
+    """Phase 7a: K9g against its plain version on every occupied cell of the
+    512^3 shell checkpoint, extract_points' n and threshold, batch by
+    batch; both timed over the whole extraction. The points in world units
+    lie on the shell's analytic sphere (radius 0.5) to 0.1 voxel."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.core.grid import CORNER_OFFSETS
+    from alphasurf_torch.geometry import extract as E
+    from alphasurf_torch.utils.io import load_grid
+
+    grid, _ = load_grid(str(ckpt), device=device)
+    th = -math.log(1.0 - INTERSECT_TH)
+    cells = E.occupied_cells(grid)
+    N = cells.numel()
+    field = grid.surface_data.detach()[:, 0].contiguous()
+    dens = grid.density_data.detach()[:, 0].contiguous()
+    batches = [cells[s:s + ISO_BATCH] for s in range(0, N, ISO_BATCH)]
+    n_rays = N * 3 * ISO_N ** 2
+    n_diff = n_k = n_p = 0
+    err = 0.0
+    for b in batches:
+        pk = kernels.iso_points(b, grid.links, field, dens, 0.0, th, ISO_N)
+        pp = E._extract_cell_points(grid, b, ISO_N, th, 0.0)
+        nan_k, nan_p = torch.isnan(pk).any(-1), torch.isnan(pp).any(-1)
+        both = ~nan_k & ~nan_p
+        d = (pk - pp).abs().amax(-1)
+        n_diff += int(((nan_k != nan_p) | (both & (d > ISO_ATOL))).sum())
+        n_k += int((~nan_k).sum())
+        n_p += int((~nan_p).sum())
+        if bool(both.any()):
+            err = max(err, float(d[both].max()))
+    if n_diff > FLAG_FRACTION * n_rays:
+        raise AssertionError(f"K9g differs from its plain version on {n_diff} of {n_rays} rays")
+    log(f"K9g iso points {RESO}^3 shell, {N} occupied cells in {len(batches)} launches, n = "
+        f"{ISO_N}: {n_k} points (plain {n_p}) of {n_rays} rays, {n_diff} rays differ, max abs err "
+        f"{err:.3e} grid units")
+
+    def k9g():
+        for b in batches:
+            kernels.iso_points(b, grid.links, field, dens, 0.0, th, ISO_N)
+
+    def plain():
+        for b in batches:
+            E._extract_cell_points(grid, b, ISO_N, th, 0.0)
+
+    _, plain_ms = timed_once(plain)
+    # the bytes K9g must move: the cell ids, the links of the cells' distinct
+    # corners and their surface and density rows (every corner of an
+    # occupied cell is present, each link its own row), the points
+    X, Y, Z = grid.links.shape
+    corner = torch.zeros(X * Y * Z, dtype=torch.bool, device=device)
+    for dx, dy, dz in CORNER_OFFSETS.tolist():
+        corner[cells + (dx * Y + dy) * Z + dz] = True
+    n_corners = int(corner.sum())
+    del corner
+    res = {"iso_points": dict(
+        max_abs_err=err, ms=time_ms(k9g, 3), plain_ms=plain_ms,
+        bound=bound_ms(N * 8 + n_corners * (4 + 8) + n_rays * 12, n_rays * 200))}
+    log(f"K9g reads {N} cell ids and the links and rows of {n_corners} distinct corners, "
+        f"writes {n_rays * 12} bytes of points")
+    pts = E.extract_iso_points(grid, n_sample=ISO_N, density_thresh=th)
+    dev = np.abs(np.linalg.norm(pts.astype(np.float64), axis=-1) - 0.5)
+    tol = 0.1 * 2.0 / RESO
+    log(f"K9g points in world units: {len(pts)}, largest distance from the sphere of radius 0.5 "
+        f"{dev.max():.3e} (0.1 voxel = {tol:.3e})")
+    if len(pts) != n_k or not dev.max() <= tol:
+        raise AssertionError(f"the shell's points are not on its sphere: {len(pts)} points, "
+                             f"largest distance {dev.max()}")
+    profile_device(lambda: E.extract_iso_points(grid, n_sample=ISO_N, density_thresh=th),
+                   f"the extraction of the {RESO}^3 shell", card)
+    del grid, cells, field, dens, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_transmit(device, card: str) -> dict:
+    """Phase 7b: K9e against its plain version on the 256^3 blobby density
+    grid with two 800x800 cameras, equal maxima; init_surface_from_density
+    with the weight init against the same init with the plain maxima;
+    both marches timed."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.core import topology as T
+    from alphasurf_torch.core import weight_render as W
+
+    f32 = dict(dtype=torch.float32, device=device)
+    grid, _ = blobby_cuvol_grid(CUVOL_RESO, device)
+    R = CUVOL_RESO
+    cams = [frame_camera(0, 2), frame_camera(1, 2)]
+    wk = W.sparse_grid_weight_render(grid, cams)
+    gsz = np.asarray(grid.reso, np.float32)
+    sc = torch.as_tensor(grid.scaling.cpu().numpy() * gsz, **f32)
+    off = torch.as_tensor(grid.offset.cpu().numpy() * gsz, **f32)
+    n_steps = int(math.ceil(math.sqrt(3 * (R - 1) ** 2) / 0.5)) + 2
+    preps = []
+    for c in cams:
+        r = c.gen_rays(device=device)
+        preps.append([x.contiguous() for x in W._march_prep(r.origins, r.dirs, sc, off,
+                                                            torch.as_tensor(gsz, **f32), 0.5)])
+    dens = grid.density_data.detach()[:, 0].contiguous()
+    out = torch.zeros(grid.capacity + 1, **f32)
+    n_samp, wp_ms = timed_once(lambda: sum(
+        W._transmit_march_plain(grid.links, dens, out, *p, 0.5, 0.0, n_steps) for p in preps))
+    wp = out[:grid.capacity]
+    check_equal("K9e maxima", wk, wp)
+    bits = torch.zeros(grid.capacity, dtype=torch.int32, device=device)
+
+    def k9e():
+        for p in preps:
+            kernels.transmit_march(*p, grid.links, dens, 0.5, 0.0, n_steps, bits)
+
+    B = preps[0][0].shape[0]
+    res = {"transmit_march": dict(
+        max_abs_err=0.0, ms=time_ms(k9e, 3) / len(cams), plain_ms=wp_ms / len(cams),
+        bound=bound_ms(R ** 3 * 4 + grid.capacity * 8 + B * 9 * 4, n_samp / len(cams) * 40))}
+    log(f"K9e transmittance march {R}^3 (capacity {grid.capacity}), two {WIDTH}x{HEIGHT} cameras: "
+        f"{n_samp} samples, maxima equal, {int((wp > 0).sum())} vertices reached, "
+        f"{n_steps} steps at most")
+    # the weight init, with the kernel's maxima and with the plain ones
+    kw = dict(density_lvs=list(SURF_LVS), alpha_rescale=0.005, prune_threshold=min(SURF_LVS) / 2,
+              dilate=2, init_type="weight", weight_init_cams=cams)
+    gk = T.init_surface_from_density(grid, **kw)
+    sweep = W.sparse_grid_weight_render
+    W.sparse_grid_weight_render = lambda g, c: wp.clone()
+    try:
+        gp = T.init_surface_from_density(grid, **kw)
+    finally:
+        W.sparse_grid_weight_render = sweep
+    check_equal("the weight init's links", gk.links, gp.links)
+    for f in ("density_data", "surface_data", "sh_data", "level_set_data"):
+        check_equal(f"the weight init's {f}", getattr(gk, f), getattr(gp, f))
+    log(f"init_surface_from_density(init_type='weight'): capacity {gk.capacity}, equal to the "
+        f"init on the plain maxima")
+    del grid, gk, gp, wk, wp, out, bits, preps
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_apps(device, card: str, ckpt: Path, work: Path) -> None:
+    """Phase 7c: the shell checkpoint through app/extract_points.main
+    (train_eval.sh's threshold and downsample) and app/eval_cf.main
+    against GT_POINTS points of its sphere: Chamfer below 0.01 world units
+    (their mean spacing is about 0.006)."""
+    import numpy as np
+
+    from alphasurf_torch.app import eval_cf, extract_points
+    from alphasurf_torch.app.pipeline import synthetic_gt_points
+
+    gt = work / "shell_gt.npy"
+    np.save(gt, synthetic_gt_points(RESO, n=GT_POINTS))
+    out = work / "shell_pts.npy"
+    t0 = time.perf_counter()
+    pts = extract_points.main([str(ckpt), "--out", str(out), "--intersect_th", str(INTERSECT_TH),
+                               "--downsample", "0.001", "--device", str(device)])
+    t1 = time.perf_counter()
+    cf = eval_cf.main([str(out), str(gt)])
+    t2 = time.perf_counter()
+    log(f"extract_points on the {RESO}^3 shell: {len(pts)} points after the 0.001 downsample in "
+        f"{t1 - t0:.2f} s (checkpoint load included); eval_cf against {GT_POINTS} points in "
+        f"{t2 - t1:.2f} s: {json.dumps(cf)} [{card}]")
+    if not (len(pts) > 0 and cf["overall"] < 0.01):
+        raise AssertionError(f"the shell's Chamfer is not below 0.01: {cf}")
+
+
+def pipeline_run(device, card: str, work: Path) -> dict:
+    """Phase 7d: app/pipeline.run_pipeline at full width (CUVOL_RESO^3, 20
+    train and 2 test views at 800x800, PIPELINE_STEPS, the surface stage
+    with PIPELINE_SURFACE, train_eval.sh's Chamfer downsample 0.001), with
+    the counters set to 0 just before and read just after. Returns the
+    run's launches."""
+    import math
+
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import pipeline
+    from alphasurf_torch.data import SyntheticDataset
+
+    out_dir = work / "pipeline"
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = pipeline.run_pipeline(
+        str(out_dir), reso=CUVOL_RESO, n_train_images=20, image_size=WIDTH,
+        n_iters_plenoxels=PIPELINE_STEPS[0], n_iters_surface=PIPELINE_STEPS[1],
+        batch_size=PIPELINE_BATCH, n_eval_images=2, overrides_surface=PIPELINE_SURFACE,
+        eval_downsample=0.001, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log("launches " + json.dumps(launches))
+    missing = [k for k in PIPELINE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels of the pipeline were not launched: {missing}")
+    st = res["stages"]
+    for name, r in st.items():
+        log(f"pipeline stage {name}: " + json.dumps(r) + f" [{card}]")
+    init = json.loads((out_dir / "surface" / "transitions.json").read_text())
+    log(f"pipeline surface init: {json.dumps(init)} [{card}]")
+    dset_test = SyntheticDataset(split="test", n_images=2, width=WIDTH, height=HEIGHT,
+                                 reso=CUVOL_RESO, device=device)
+    psnr0 = eval_untrained(device, dset_test)
+    s = res["summary"]
+    log(f"pipeline at {CUVOL_RESO}^3, {PIPELINE_STEPS} steps of {PIPELINE_BATCH} rays: PSNR "
+        f"{s['psnr']:.4f} against the untrained grid's {psnr0:.4f}, {st['extract']['n_points']} "
+        f"points, Chamfer {s['chamfer']:.5f}, {wall:.2f} s in all (data set-up included), "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB [{card}]")
+    if not (s["psnr"] > psnr0 and st["extract"]["n_points"] > 0 and math.isfinite(s["chamfer"])
+            and (out_dir / "pipeline_results.json").is_file()):
+        raise AssertionError(f"the pipeline did not run right: {s}, untrained PSNR {psnr0}")
+    return launches
+
+
+def extract(device, card: str, work: Path) -> tuple[dict, dict]:
+    """Phase 7: K9g and K9e against their plain versions, the apps on the
+    shell checkpoint, then the pipeline. Returns the kernels' numbers and
+    the pipeline's launches."""
+    ckpt = shell_checkpoint(device, work)
+    res = check_iso_points(device, card, ckpt)
+    res.update(check_transmit(device, card))
+    check_apps(device, card, ckpt, work)
+    launches = pipeline_run(device, card, work)
+    for name, r in res.items():
+        log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) [{card}]")
     return res, launches
 
 
@@ -1787,6 +2137,10 @@ def main(argv=None) -> int:
             stage_res, stage_launches = stages(device, card, work)
             res.update(stage_res)
             launches.update({k: stage_launches[k] for k in STAGE_KERNELS})
+        if "extract" in phases:
+            extract_res, extract_launches = extract(device, card, work)
+            res.update(extract_res)
+            launches.update({k: extract_launches[k] for k in EXTRACT_KERNELS})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -281,3 +281,51 @@ def test_visibility_kernel_matches_plain_version(cuda):
                                   torch.where(ok, tx, torch.full_like(tx, -1.0)))
     assert torch.equal(got, counts.float())
     assert got.max() > 0
+
+
+# ---------------------------------------------------------------------------
+# K9e and K9g: the weight init's transmittance march and the iso points
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_transmit_march_matches_plain_version(cuda):
+    """K9e through sparse_grid_weight_render on the card against the plain
+    march on the same card: equal maxima (the same float32 operations and
+    the device's expf)."""
+    from alphasurf_torch.core import weight_render as W
+    from test_torch_topology import orbit_cameras
+    from test_torch_weight_render import transmit_grid
+
+    a = transmit_grid()
+    g = SparseGrid.from_numpy(a, device=cuda)
+    _, cams = orbit_cameras(32, 4)
+    kernels.reset_launches()
+    got = W.sparse_grid_weight_render(g, cams)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["transmit_march"] == len(cams)
+    ref = W.sparse_grid_weight_render(SparseGrid.from_numpy(a, device="cpu"), cams)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), rtol=2e-6, atol=0)
+    assert float(ref.max()) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,surface", [(3, True), (5, True), (3, False)])
+def test_iso_points_match_plain_version(cuda, n, surface):
+    """K9g through extract_iso_points on the card against its plain version
+    on the same card, float32: equal points in the same order."""
+    from alphasurf_torch.geometry import extract as E
+
+    a = _float32(np_grid(16, seed=1, prune=0.15))
+    if not surface:
+        a["surface_data"] = a["level_set_data"] = None
+    g = SparseGrid.from_numpy(a, device=cuda)
+    cells = E.occupied_cells(g)
+    kernels.reset_launches()
+    got = E.extract_iso_points(g, n_sample=n, density_thresh=0.5, batch=300, to_world=False)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["iso_points"] == (cells.numel() + 299) // 300
+    ref = np.concatenate([E._extract_cell_points(g, cells[s:s + 300], n, 0.5, 0.0).cpu().numpy()
+                          .reshape(-1, 3) for s in range(0, cells.numel(), 300)])
+    ref = ref[~np.isnan(ref).any(-1)]
+    np.testing.assert_array_equal(got, ref)
+    assert len(got) > 100

@@ -113,6 +113,13 @@ def test_camera_rays_match_jax():
     np.testing.assert_allclose(td.dirs.numpy(), np.asarray(jd.dirs), rtol=0, atol=1e-6)
 
 
+def test_host_rays_are_contiguous():
+    """The kernels take contiguous rays only; the host-made origins were a
+    broadcast copied in column-major order."""
+    rays = pt.Camera.make(np.eye(4), fx=30.0, width=24, height=20).gen_rays(device="cpu")
+    assert rays.origins.is_contiguous() and rays.dirs.is_contiguous()
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     """No file of the port names JAX or the JAX package; chip_smoke.py names
     the JAX package once, as data (its kernels' "replaces" paths and its

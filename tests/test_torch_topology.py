@@ -204,12 +204,67 @@ def test_init_surface_from_density_matches_jax(monkeypatch, vis_scale):
         assert (port.surface_data != plain.surface_data).any()
 
 
-def test_unported_init_options_raise():
-    _, gt = both(density_grid())
-    with pytest.raises(NotImplementedError, match="K9e"):
-        T.init_surface_from_density(gt, init_type="weight", weight_init_cams=[object()])
+def _weight_init_kw():
+    return dict(density_lvs=[2.0, 6.0], alpha_rescale=0.005, prune_threshold=1.0, dilate=2,
+                init_type="weight")
+
+
+def _float32_sweep(sweep):
+    """The JAX package's transmittance march on the grid's density in
+    float32: on a float64 grid its float32 scan carry fails, and float32
+    is what the port's march reads."""
+    def run(grid, cams, **kw):
+        return sweep(grid.replace(density_data=grid.density_data.astype(jnp.float32)), cams, **kw)
+
+    return run
+
+
+def test_unported_init_options_raise(monkeypatch):
+    """Mask pruning (K9f) raises. The weight init (K9e), ported, equals the
+    JAX host path's with the JAX march run in float32: the maxima of the
+    two float32 marches differ in the last bit (test_torch_weight_render),
+    so the links agree exactly and the rows to 2e-6 relative, or 1e-6
+    absolute where the surface, density x weight minus the zero level,
+    cancels."""
+    from alphasurf_tpu.core import weight_render as JW
+
+    gj, gt = both(density_grid())
     with pytest.raises(NotImplementedError, match="K9f"):
         T.init_surface_from_density(gt, mask_pruning_rays=object())
+    with pytest.raises(ValueError, match="requires cameras"):
+        T.init_surface_from_density(gt, init_type="weight")
+    monkeypatch.setattr(JW, "sparse_grid_weight_render", _float32_sweep(
+        JW.sparse_grid_weight_render))
+    cj, ct = orbit_cameras(32, 4)
+    port = T.init_surface_from_density(gt, weight_init_cams=ct, **_weight_init_kw())
+    assert_grids(port, JT.init_surface_from_density(gj, weight_init_cams=cj, **_weight_init_kw()),
+                 rtol=2e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("vis_scale", [0.0, 0.01])
+def test_init_surface_weight_matches_jax(monkeypatch, vis_scale):
+    """init_surface_from_density(init_type="weight") against the JAX device
+    path (dispatch size 1), float64, rtol 1e-8, with the JAX package's march
+    handed the port's maxima (their float32 rounding is held against JAX's
+    in test_torch_weight_render); the host path to atol 2e-5. The weight
+    init moves the surface: it differs from the density init's."""
+    from alphasurf_tpu.core import weight_render as JW
+    from alphasurf_torch.core import weight_render as W
+
+    gj, gt = both(density_grid())
+    cj, ct = orbit_cameras(32, 4)
+    kw = dict(_weight_init_kw(), visibility_pruning_scale=vis_scale)
+    wt = W.sparse_grid_weight_render(gt, ct)
+    assert 0 < float(wt.max()) <= 1.0
+    monkeypatch.setattr(JW, "sparse_grid_weight_render", lambda grid, cams: jnp.asarray(wt.numpy()))
+    port = T.init_surface_from_density(gt, weight_init_cams=ct, **kw)
+    host = JT.init_surface_from_density(gj, weight_init_cams=cj, **kw)
+    monkeypatch.setattr(JT, "_DEVICE_DISPATCH_SIZE", 1)
+    check_both(port, JT.init_surface_from_density(gj, weight_init_cams=cj, **kw), host)
+    dens_init = T.init_surface_from_density(gt, weight_init_cams=ct,
+                                            **dict(kw, init_type="density"))
+    assert (dens_init.links == port.links).all()
+    assert (dens_init.surface_data != port.surface_data).any()
 
 
 @pytest.mark.parametrize("size,k,thresh", [

@@ -358,26 +358,62 @@ def test_three_stage_trainer_run_matches_jax(tmp_path, monkeypatch):
     assert ct.lambda_tv == ct.lambda_tv_sh == ct.lambda_tv_alpha == 0.0
 
 
-def test_unported_stages_raise(tmp_path):
-    """What the port's Trainer does not carry yet raises: multi-device runs,
-    surf_init_type="weight" (K9e) and mask pruning (K9f), the latter two at
-    the density -> surface transition."""
+def test_unported_stages_raise(tmp_path, monkeypatch):
+    """What the port's Trainer does not carry yet raises: multi-device runs
+    and mask pruning (K9f) at the density -> surface transition. The
+    surf_init_type="weight" transition (K9e), ported, runs as the JAX
+    Trainer's: float64 grids, host mode, the JAX transitions on their
+    device path, through the three stages of
+    test_three_stage_trainer_run_matches_jax with the weight init, rtol
+    1e-8. The JAX Trainer's transmittance march is the port's here: the
+    two marches' float32 maxima differ in the last bit
+    (test_torch_weight_render holds them against each other), and where
+    the surface, density x weight minus the zero level, cancels, one bit
+    of a weight moves it by its own size."""
+    from alphasurf_tpu.core import topology as JTopo
+    from alphasurf_tpu.core import weight_render as JW
+    from alphasurf_torch.core import weight_render as W
+
+    def port_sweep(grid, cams):
+        g = pt.SparseGrid.from_numpy(jax_to_np(grid), device="cpu")
+        tc = [pt.Camera.make(np.asarray(c.c2w), fx=float(c.fx), fy=float(c.fy), cx=float(c.cx),
+                             cy=float(c.cy), width=c.width, height=c.height) for c in cams]
+        return jnp.asarray(W.sparse_grid_weight_render(g, tc).numpy())
+
     jd, jd_test = _datasets()
     for kw, item in ((dict(n_devices=2), "item 9"), (dict(mesh_model=2), "item 9")):
         cfg = TCfg.apply_dict(TCfg.Config(), dict(RUN, train_dir=str(tmp_path), **kw))
         with pytest.raises(NotImplementedError, match=item):
             TT.Trainer(cfg, _port_copy(jd), device="cpu")
-    cfg = TCfg.apply_dict(TCfg.Config(), dict(RUN, train_dir=str(tmp_path), surface_type="sdf",
-                                              no_surface_init_iters=1, n_iters=3,
-                                              surf_init_type="weight"))
-    with pytest.raises(NotImplementedError, match="K9e"):
-        TT.Trainer(cfg, _port_copy(jd), device="cpu").train()
     masked = _port_copy(jd)
     masked.rays_init.mask = np.ones(len(masked.rays_init), bool)
     cfg = TCfg.apply_dict(TCfg.Config(), dict(RUN, train_dir=str(tmp_path), surface_type="sdf",
                                               no_surface_init_iters=1, n_iters=3))
     with pytest.raises(NotImplementedError, match="K9f"):
         TT.Trainer(cfg, masked, device="cpu").train()
+    weight = dict(STAGES, surf_init_type="weight")
+    monkeypatch.setattr(JT, "create_grid", functools.partial(jax_create_grid, dtype=jnp.float64))
+    monkeypatch.setattr(JTopo, "_DEVICE_DISPATCH_SIZE", 1)
+    monkeypatch.setattr(JW, "sparse_grid_weight_render", port_sweep)
+    for cls in (JT.Trainer, TT.Trainer):
+        _record_mse(monkeypatch, cls)
+        monkeypatch.setattr(cls, "mse_trace", None, raising=False)
+    tj = JT.Trainer(JCfg.apply_dict(JCfg.Config(), dict(weight, train_dir=str(tmp_path / "j"))),
+                    jd, jd_test)
+    tj.mse_trace = []
+    psnr_j = tj.train()
+    tt = TT.Trainer(TCfg.apply_dict(TCfg.Config(), dict(weight, train_dir=str(tmp_path / "t"))),
+                    _port_copy(jd), _port_copy(jd_test), device="cpu", dtype=torch.float64)
+    tt.mse_trace = []
+    psnr_t = tt.train()
+    assert [r["kind"] for r in tt.transitions] == ["upsample", "init_surface_from_density",
+                                                   "upsample"]
+    assert tt.grid.capacity == tj.grid.capacity and tt.grid.surface_data is not None
+    assert len(tt.mse_trace) == len(tj.mse_trace) == 12
+    np.testing.assert_allclose(tt.mse_trace, tj.mse_trace, rtol=1e-8)
+    np.testing.assert_allclose(tt.grid.surface_data.detach().numpy(),
+                               np.asarray(tj.grid.surface_data), rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(psnr_t, psnr_j, rtol=1e-6)
 
 
 def test_train_cli_runs_on_the_cpu(tmp_path):

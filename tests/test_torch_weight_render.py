@@ -1,5 +1,6 @@
 """The port's camera sweeps (``alphasurf_torch.core.weight_render``: K9c weight
-march, K9d visibility walk) against the JAX package's, on the CPU.
+march, K9d visibility walk, K9e transmittance march) against the JAX
+package's, on the CPU.
 
 The weight march runs in float32 in both packages whatever the grid's
 dtype, on equal ray set-ups, so weights agree to float32 rounding: XLA's
@@ -10,7 +11,10 @@ one ulp of exp near 1 (6e-8) is up to 3e-5 relative at sigma step ~ 2e-3
 Visibility counts are integers and equal exactly; the cameras have 128 x
 128 rays, one chunk of the JAX sweep, which then pads none (the JAX package
 pads its last chunk with copies of the last ray, which the port does not
-do).
+do). The transmittance march is float32 in both packages too (the JAX
+package's fails on a float64 grid: its scan carry is float32), and its
+maxima are products of float32 exps that differ in the last bit between
+XLA and PyTorch: rtol 2e-6.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +27,7 @@ from alphasurf_tpu.render.surface import all_crossings as jax_all_crossings
 from alphasurf_torch.core import weight_render as W
 from alphasurf_torch.core.grid import SparseGrid
 from test_torch_topology import both, orbit_cameras
-from test_torch_util import jax_to_np, np_rays
+from test_torch_util import jax_grid, jax_to_np, np_rays
 
 
 def density_volume(reso, seed):
@@ -102,9 +106,48 @@ def test_visibility_render_matches_jax(dtype, n_lv):
     assert ref.max() > 0 and (ref < 0.05 * ref.max()).any()  # occluded vertices
 
 
+def transmit_grid():
+    """make_gt_grid(16) in float32 with 10% of its links dropped and a raw
+    density N(1, 2) (negative in places, read without a relu)."""
+    a = jax_to_np(jax_make_gt_grid(16))
+    rng = np.random.default_rng(3)
+    links = a["links"].reshape(-1)
+    keep = rng.random(links.size) >= 0.1
+    new = np.full(links.size, -1, np.int32)
+    new[keep] = np.arange(keep.sum(), dtype=np.int32)
+    a["links"] = new.reshape(16, 16, 16)
+    for k in ("sh_data", "surface_data"):
+        a[k] = a[k][keep]
+    a["density_data"] = (rng.standard_normal((int(keep.sum()), 1)) * 2.0 + 1.0).astype(np.float32)
+    return a
+
+
+@pytest.mark.parametrize("stop", [0.0, 0.3])
+def test_sparse_grid_weight_render_matches_jax(stop):
+    """Four 32x32 cameras, float32 grids; one 65,536-ray chunk of the JAX
+    sweep, padded with copies of its last ray (a maximum does not see
+    them)."""
+    a = transmit_grid()
+    gj = jax_grid(a, jnp.float32)
+    gt = SparseGrid.from_numpy(a, device="cpu")
+    cj, ct = orbit_cameras(32, 4)
+    ref = np.asarray(JW.sparse_grid_weight_render(gj, cj, stop_thresh=stop))
+    got = W.sparse_grid_weight_render(gt, ct, stop_thresh=stop).numpy()
+    assert got.dtype == np.float32 and got.shape == (gt.capacity,)
+    np.testing.assert_allclose(got, ref, rtol=2e-6, atol=0)
+    np.testing.assert_array_equal(got > 0, ref > 0)
+    assert 0.1 < (ref > 0).mean() < 1 and ref.max() == 1.0
+    # a float64 grid's march reads its density in float32
+    g64 = SparseGrid.from_numpy(a, device="cpu", dtype=torch.float64)
+    np.testing.assert_array_equal(W.sparse_grid_weight_render(g64, ct, stop_thresh=stop).numpy(),
+                                  got)
+
+
 def test_unported_sweeps_raise():
-    _, gt = both(jax_to_np(jax_make_gt_grid(8)))
-    with pytest.raises(NotImplementedError, match="K9e"):
-        W.sparse_grid_weight_render(gt, [])
+    """K9f raises; K9e, ported, gives JAX's all-zero maxima without
+    cameras."""
+    gj, gt = both(jax_to_np(jax_make_gt_grid(8)))
+    np.testing.assert_array_equal(W.sparse_grid_weight_render(gt, []).numpy(),
+                                  np.asarray(JW.sparse_grid_weight_render(gj, [])))
     with pytest.raises(NotImplementedError, match="K9f"):
         W.sparse_grid_mask_render(gt, None, None)
