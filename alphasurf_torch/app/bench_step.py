@@ -3,12 +3,15 @@ backward and RMSprop, under the protocol of the repository's ``bench.py``
 (BASELINE.md).
 
     python -m alphasurf_torch.app.bench_step [--stage surface|cuvol] [--reso R] [--batch 40960]
+        [--renderer packed|compact|dense]
 
 ``--stage surface`` (the default, reso 512) is the surface step on
 bench.py's sphere shell: the analytic SDF of a sphere of radius reso/4,
 kept where |sdf| < 3 voxels and dilated twice over the 26 neighbours,
 density 0.5, SH 0, fake_sample_std 0.1, rows in flat order, built on the
-device, under bench.py's render options and weights. ``--stage cuvol``
+device, under bench.py's render options and weights, through the renderer
+``--renderer`` names (bench.py's ``argv[2]``; compact at its default K of
+64 and voxel chunk of 8, dense at its full walk). ``--stage cuvol``
 (reso 256) is the Plenoxels warm-start step on the warm start's own
 starting grid, ``create_grid(reso, use_sphere_bound=True, init_sigma=0.1,
 basis_dim=9)``, under the Config defaults' render options and its
@@ -119,7 +122,7 @@ def bench_rays(width: int, device) -> Rays:
 
 
 def run(reso: int | None = None, batch: int = 40960, steps: int = 33, width: int = 800,
-        device="cuda", seed: int = 0, stage: str = "surface") -> dict:
+        device="cuda", seed: int = 0, stage: str = "surface", renderer: str = "packed") -> dict:
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, not {stage!r}")
     reso = DEFAULT_RESO[stage] if reso is None else reso
@@ -128,7 +131,7 @@ def run(reso: int | None = None, batch: int = 40960, steps: int = 33, width: int
     if stage == "surface":
         grid, row_coords = build_bench_grid(reso, dev)
         opt, hp = bench_options(), bench_hparams()
-        step = make_surface_step(StepConfig(opt=opt, cache_size=None, renderer="packed"))
+        step = make_surface_step(StepConfig(opt=opt, cache_size=None, renderer=renderer))
 
         def occupancy(g):
             return occupancy_words(g, opt)
@@ -176,6 +179,7 @@ def run(reso: int | None = None, batch: int = 40960, steps: int = 33, width: int
         "metric": "rays_per_s_fwd_bwd",
         "rays_per_s_fwd_bwd": steps * batch / seconds,
         "stage": stage,
+        "renderer": renderer if stage == "surface" else "packed",
         "batch": batch,
         "reso": reso,
         "capacity": grid.capacity,
@@ -199,9 +203,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", type=int, default=33)
     ap.add_argument("--width", type=int, default=800, help="image width and height")
     ap.add_argument("--seed", type=int, default=0, help="seed of the regularizer windows")
+    ap.add_argument("--renderer", choices=("packed", "compact", "dense"), default="packed",
+                    help="the surface step's renderer (bench.py's argv[2])")
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
-    out = run(a.reso, a.batch, a.steps, a.width, a.device, a.seed, a.stage)
+    if a.stage == "cuvol" and a.renderer != "packed":
+        ap.error("--renderer applies to the surface stage; the cuvol step trains packed")
+    out = run(a.reso, a.batch, a.steps, a.width, a.device, a.seed, a.stage, a.renderer)
     print(json.dumps(out), flush=True)
     return out
 

@@ -33,7 +33,7 @@ CORNER_OFFSETS = np.array(
 )
 
 # fields of the JAX package's ``core.grid.SparseGrid`` that this slice does not
-# carry (ROADMAP §1 item 4: background model and learned bases)
+# carry (ROADMAP §1 item 2: background model and learned bases)
 _UNSUPPORTED_FIELDS = ("background_links", "background_data", "basis_data", "basis_mlp")
 
 
@@ -85,7 +85,7 @@ class SparseGrid(nn.Module):
         for k in _UNSUPPORTED_FIELDS:
             if arrays.get(k) is not None:
                 raise NotImplementedError(
-                    f"grid field {k!r} is not ported yet (ROADMAP §1 item 4)"
+                    f"grid field {k!r} is not ported yet (ROADMAP §1 item 2)"
                 )
         if dtype is None:
             f64 = np.asarray(arrays["density_data"]).dtype == np.float64
@@ -210,11 +210,11 @@ def create_grid(
     (the JAX package's ``core.grid.create_grid``, svox2.py:580-990). The
     mask is computed in float32 numpy, as the JAX package does, so both
     keep the same vertices. Only ``SURFACE_TYPE_NONE`` grids: the surface
-    initialisers wait for ROADMAP §1 item 4."""
+    initialisers wait for ROADMAP §1 item 5."""
     if surface_type != defs.SURFACE_TYPE_NONE:
         raise NotImplementedError(
             f"create_grid's surface initialisers (surface_type {surface_type}, surface_init "
-            f"{surface_init!r}) are not ported yet (ROADMAP §1 item 4)")
+            f"{surface_init!r}) are not ported yet (ROADMAP §1 item 5)")
     dev = resolve_device(device)
     if isinstance(reso, int):
         reso = (reso, reso, reso)

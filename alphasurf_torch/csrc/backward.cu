@@ -33,6 +33,16 @@
 // atomicAdd; the fake_sample_std gradient is summed over the warp first,
 // since every entry of the pool adds to that one address.
 //
+// K11d, the gradient through the first-K sample cache (K11c): the
+// cotangents of the cached ts, alphas and weights, (B, cache_K) each, join
+// K5a's per-slot cotangents. Pass 2 of backward_ray recounts a slot's cache
+// column from the ray's number of contributing slots (K4 filled columns in
+// walk order), adds the weight's cotangent to the slot's weight cotangent
+// (then the suffix rule carries it to every earlier alpha), the alpha's to
+// the truncated alpha's, and the t's to d_t, which K5b takes through the
+// cubic root's JVP. backward_entry skips the inward/lap terms of entries
+// outside K4's count window (win). Bound: bytes, 12 more a cached sample.
+//
 // Bound: K5a by bytes (each slot's t, alpha, colour and flags read, its
 // cotangents written: about 40 bytes a slot), K5b by the random 8-row
 // gathers and the atomics into the rows (each entry reads 8 rows of 32
@@ -69,6 +79,10 @@ struct BackRayParams {
     float* d_alpha;      // (S0, M), cotangent of the pre-truncation alpha
     float* d_t;          // (S0, M)
     float* d_col;        // (3, S0, M), cotangent of the clipped colour
+    int cache_K;
+    const float* g_cts;     // (B, cache_K) or null
+    const float* g_calpha;
+    const float* g_cw;
 };
 
 // d/dx of -x log(max(x, 1e-8)) for x > 0
@@ -101,7 +115,7 @@ HD void backward_ray_thread(const BackRayParams& p, int r) {
                         p.g_rgb[3 * (int64_t)r + 2]};
 
     // pass 1: forward, as K4
-    int cnt = 0;
+    int cnt = 0, n_contrib = 0;
     float entry_pre = 0.0f, P = 0.0f;
     float Aw = 0.0f, Sw = 0.0f, Aa = 0.0f, Sa = 0.0f;
     for (int64_t e = e0; e < e1; ++e) {
@@ -125,6 +139,7 @@ HD void backward_ray_thread(const BackRayParams& p, int r) {
                 p.d_alpha[i] = -1.0f;  // not contributing
                 continue;
             }
+            ++n_contrib;
             const float om = one_minus(at);
             const float T = expf(fminf(P, 0.0f));
             P = P + logf(om);
@@ -176,6 +191,13 @@ HD void backward_ray_thread(const BackRayParams& p, int r) {
                 if (a > 0.0f) abar = abar + g_enta * entropy_grad(a);
                 dt = dt - g_ld * wi * Aw - g_lda * a * Aa;
             }
+            const int kc = --n_contrib;  // the slot's cache column
+            if (p.g_cts && kc < p.cache_K) {
+                const int64_t ck = (int64_t)r * p.cache_K + kc;
+                Wbar = Wbar + p.g_cw[ck];
+                abar = abar + p.g_calpha[ck];
+                dt = dt + p.g_cts[ck];
+            }
             const float d_om = -T * Wbar + Sigma / om;
             const float d_at = abar - d_om * clip_grad(1.0f - at, 1e-7f, 1.0f - 1e-7f);
             const float rw = p.truncated ? trunc_rw(cnt - (p.fake[i] ? 1 : 0), ta, p.trunc_wmin) : 1.0f;
@@ -222,6 +244,7 @@ struct BackEntryParams {
     const float* d_t;
     const float* d_col;
     const float* g_rl;
+    const bool* win;   // (M,) K4's count window, or null: every entry
     float* g_density;  // (cap,)
     float* g_surface;  // (cap, n_surf_c)
     float* g_sh;       // (cap, 3 bd)
@@ -276,7 +299,9 @@ HD float backward_entry_thread(const BackEntryParams& p, int64_t m) {
     cubic_coeffs(cs.surf8, u, d, f);
 
     const int64_t SM = (int64_t)p.S0 * p.M;
-    const float g_in = p.g_rl[7 * p.B + r], g_lap = p.g_rl[8 * p.B + r];
+    const bool in_win = !p.win || p.win[m];
+    const float g_in = in_win ? p.g_rl[7 * p.B + r] : 0.0f;
+    const float g_lap = in_win ? p.g_rl[8 * p.B + r] : 0.0f;
     float dA8[8], dS8[8], dC[3][8];
     for (int c = 0; c < 8; ++c) {
         dA8[c] = dS8[c] = 0.0f;
@@ -419,11 +444,12 @@ extern "C" cudaError_t backward_ray(const int64_t* offsets, int B, long long M, 
                                     int truncated, const float* trunc_a, float trunc_wmin,
                                     int stop_on, float log_stop, float bg, int fake_l_dist,
                                     const float* g_rgb, const float* g_rl, float* d_alpha,
-                                    float* d_t, float* d_col, void* stream) {
+                                    float* d_t, float* d_col, int cache_K, const float* g_cts,
+                                    const float* g_calpha, const float* g_cw, void* stream) {
     if (B <= 0) return cudaSuccess;
     const BackRayParams p{offsets, B, M, S0, t, alpha, contrib, fake, counted, rgb, truncated,
                           trunc_a, trunc_wmin, stop_on, log_stop, bg, fake_l_dist, g_rgb, g_rl,
-                          d_alpha, d_t, d_col};
+                          d_alpha, d_t, d_col, cache_K, g_cts, g_calpha, g_cw};
     const int block = 128;
     backward_ray_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(p);
     return cudaGetLastError();
@@ -439,15 +465,16 @@ extern "C" cudaError_t backward_entry(const int* ray_id, const int* l, const flo
                                       int fake_sample, int limited_fake, int normalize_surf,
                                       int act_sigmoid, int no_sh_surf_grad, const bool* contrib,
                                       const float* d_alpha, const float* d_t, const float* d_col,
-                                      const float* g_rl, float* g_density, float* g_surface,
-                                      float* g_sh, float* g_fss, void* stream) {
+                                      const float* g_rl, const bool* win, float* g_density,
+                                      float* g_surface, float* g_sh, float* g_fss,
+                                      void* stream) {
     if (M <= 0) return cudaSuccess;
     const BackEntryParams p{ray_id, l, close_t, far_t, M, B, origins, dirs, sh_mult, bd, links,
                             X, Y, Z, packed, cap, C8, n_surf_c, level_sets, n_lv, S0,
                             near_grid_t, sigma_thresh, fs_std, min_vox_len, only_outward,
                             fake_sample, limited_fake, normalize_surf, act_sigmoid,
-                            no_sh_surf_grad, contrib, d_alpha, d_t, d_col, g_rl, g_density,
-                            g_surface, g_sh, g_fss};
+                            no_sh_surf_grad, contrib, d_alpha, d_t, d_col, g_rl, win,
+                            g_density, g_surface, g_sh, g_fss};
     const int block = 128;
     backward_entry_kernel<<<(unsigned)((M + block - 1) / block), block, 0, (cudaStream_t)stream>>>(p);
     return cudaGetLastError();

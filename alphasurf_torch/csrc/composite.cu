@@ -19,6 +19,18 @@
 // of every pool entry, entry-major, for that cloud: o + t d of the entry's
 // ray, then JAX's grid2world; bound: bytes, one thread per slot.
 //
+// K11c, the first-K sample cache (render/surface.py:104-118, 951-970,
+// 1955-1975) and its median depth (1032-1051): with cache_K > 0 the walk
+// writes each ray's first cache_K contributing samples, in (entry, slot)
+// order after the stop_thresh kill, as (t, truncated alpha, weight, fake)
+// rows of (B, cache_K) zeros, their count, and the t where the running
+// cached weight first reaches half the cached total. Two rules of the JAX
+// walks come with it for the dense and compact renderers: window > 0
+// counts n_intersections and the inward/lap sums only over passes of
+// `window` entries that start alive (win, per entry, tells K5b), and
+// mode_first puts the mode depth at the first max-weight sample. Bound:
+// bytes; the cache adds 13 bytes a cached sample.
+//
 // Bound: bytes. Each slot is read once (t, alpha, rgb, snorm, flags, about
 // 40 bytes) and its weight written once; per ray ~100 bytes out. Design:
 // one thread per ray walks its pool range [offsets[r], offsets[r+1]).
@@ -61,6 +73,16 @@ struct CompositeParams {
     float sig_thresh;
     float* depth_sig;  // (B,), written when sig_on
     bool* live;        // (S0, M) or null
+    int window;        // K11c: the count window of the JAX walks (0: every entry)
+    int mode_first;
+    int cache_K;       // 0: no cache
+    float* c_ts;       // (B, cache_K)
+    float* c_alpha;
+    float* c_w;
+    bool* c_fake;
+    int* n_cached;     // (B,)
+    float* cache_med;  // (B,)
+    bool* win;         // (M,) or null
 };
 
 HD float alpha_trunc(const CompositeParams& p, int64_t i, int cnt, float ta) {
@@ -81,6 +103,9 @@ HD void composite_ray(const CompositeParams& p, int r) {
     float sp_logsig = 0.0f, sp_logsig_w = 0.0f, sp_w = 0.0f;
     float inward = 0.0f, lap = 0.0f, lap_cnt = 0.0f;
     float t_sig = INFINITY;
+    int cnt_win = 0, ncache = 0;
+    bool chunk_live = true;
+    const int64_t cbase = (int64_t)r * p.cache_K;
 
     for (int64_t e = e0; e < e1; ++e) {
         bool alive = true;
@@ -98,12 +123,16 @@ HD void composite_ray(const CompositeParams& p, int r) {
             entry_pre = entry_pre + la;
         }
         if (!alive && e_dead == e1) e_dead = e;
+        if (p.window > 0 && (e - e0) % p.window == 0) chunk_live = e == e0 || alive;
+        const bool in_win = p.window <= 0 || chunk_live;
+        if (p.win) p.win[e] = in_win;
 
         float w_best = -1.0f, t_best = 0.0f;
         for (int s = 0; s < p.S0; ++s) {
             const int64_t i = (int64_t)s * p.M + e;
             const float at = alpha_trunc(p, i, cnt, ta);
             cnt += p.counted[i];
+            if (in_win) cnt_win += p.counted[i];
             const bool c = p.contrib[i] && alive;
             const float ac = c ? at : 0.0f;
             const float om = c ? one_minus(ac) : 1.0f;
@@ -123,6 +152,17 @@ HD void composite_ray(const CompositeParams& p, int r) {
                 w_best = w;
                 t_best = t;
             }
+            if (p.mode_first && w > wmax) {  // the ray's first max-weight sample
+                wmax = w;
+                t_mode = t;
+            }
+            if (c && ncache < p.cache_K) {
+                p.c_ts[cbase + ncache] = t;
+                p.c_alpha[cbase + ncache] = ac;
+                p.c_w[cbase + ncache] = w;
+                p.c_fake[cbase + ncache] = p.fake[i];
+                ++ncache;
+            }
             const bool inc = c && (p.fake_l_dist || !p.fake[i]);
             const float ai = inc ? ac : 0.0f;
             const float wi = inc ? w : 0.0f;
@@ -141,15 +181,40 @@ HD void composite_ray(const CompositeParams& p, int r) {
                 sp_w = sp_w + w;
             }
         }
-        if (w_best > wmax) {
+        if (p.mode_first) {
+        } else if (w_best > wmax) {
             wmax = w_best;
             t_mode = t_best;
         } else if (w_best == wmax && w_best > 0.0f) {
             t_mode = fmaxf(t_mode, t_best);
         }
-        inward = inward + p.loss_e[e];
-        lap = lap + p.loss_e[p.M + e];
-        lap_cnt = lap_cnt + p.loss_e[2 * p.M + e];
+        if (in_win) {
+            inward = inward + p.loss_e[e];
+            lap = lap + p.loss_e[p.M + e];
+            lap_cnt = lap_cnt + p.loss_e[2 * p.M + e];
+        }
+    }
+
+    if (p.cache_K > 0) {
+        float tot = 0.0f;
+        for (int k = 0; k < ncache; ++k) tot = tot + p.c_w[cbase + k];
+        const float thr = fmaxf(0.5f * tot, 1e-12f);
+        float cum = 0.0f, med = 0.0f;
+        for (int k = 0; k < ncache; ++k) {
+            cum = cum + p.c_w[cbase + k];
+            if (cum >= thr) {
+                med = p.c_ts[cbase + k];
+                break;
+            }
+        }
+        p.cache_med[r] = tot > 0.0f ? med : 0.0f;
+        p.n_cached[r] = ncache;
+        for (int k = ncache; k < p.cache_K; ++k) {
+            p.c_ts[cbase + k] = 0.0f;
+            p.c_alpha[cbase + k] = 0.0f;
+            p.c_w[cbase + k] = 0.0f;
+            p.c_fake[cbase + k] = false;
+        }
     }
 
     float t_med = INFINITY;
@@ -174,7 +239,7 @@ HD void composite_ray(const CompositeParams& p, int r) {
     p.log_T[r] = pre_att;
     p.depth_mode[r] = finite(t_mode) ? t_mode : 0.0f;
     p.depth_med[r] = finite(t_med) ? t_med : 0.0f;
-    p.n_int[r] = cnt;
+    p.n_int[r] = cnt_win;
     if (p.sig_on) p.depth_sig[r] = finite(t_sig) ? t_sig : 0.0f;
     const float losses[12] = {l_dist, l_dist_a, ent, ent_a, sp_logsig, sp_logsig_w, sp_w,
                               inward, lap, lap_cnt, 0.0f, 0.0f};
@@ -195,12 +260,17 @@ extern "C" cudaError_t composite(const int64_t* offsets, int B, long long M, int
                                  float bg, int fake_l_dist, float* out_rgb, float* depth,
                                  float* normal, float* log_T, float* depth_mode, float* depth_med,
                                  int* n_int, float* losses, float* weight, int sig_on,
-                                 float sig_thresh, float* depth_sig, bool* live, void* stream) {
+                                 float sig_thresh, float* depth_sig, bool* live, int window,
+                                 int mode_first, int cache_K, float* c_ts, float* c_alpha,
+                                 float* c_w, bool* c_fake, int* n_cached, float* cache_med,
+                                 bool* win, void* stream) {
     if (B <= 0) return cudaSuccess;
     const CompositeParams p{offsets, B, M, S0, t, alpha, contrib, fake, counted, rgb, snorm,
                             loss_e, truncated, trunc_a, trunc_wmin, stop_on, log_stop, bg,
                             fake_l_dist, out_rgb, depth, normal, log_T, depth_mode, depth_med,
-                            n_int, losses, weight, sig_on, sig_thresh, depth_sig, live};
+                            n_int, losses, weight, sig_on, sig_thresh, depth_sig, live, window,
+                            mode_first, cache_K, c_ts, c_alpha, c_w, c_fake, n_cached, cache_med,
+                            win};
     const int block = 128;
     composite_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(p);
     return cudaGetLastError();

@@ -22,6 +22,26 @@
 // and the pool out. One thread per ray; the supervoxel prefilter of the
 // JAX version is left out (it changes no voxel of the set).
 //
+// K11b, compact_fill: the first K entries of each ray, the JAX package's
+// compact_crossings (render/surface.py:1284) over all_crossings (1237). The
+// count pass is K2's (its n_valid is JAX's uncapped n_occupied); the scan
+// runs over min(n_valid, K), and the fill walks as K2's and stops at the
+// ray's end offset. Bound and design as K2's; the walk ends after K entries.
+//
+// K11a, dense_walk_count / dense_walk_fill: the occupied voxels of the JAX
+// package's dense DDA walk (render/surface.py:1092 volume_render_surface,
+// with ops/dda.py:85 next_crossing, :113 voxel_between, :125
+// voxel_plane_ts). One thread walks one ray through JAX's float32 steps in
+// JAX's order: pos = o + t d per axis, floor/ceil with the on-plane band
+// 2e-6 (1 + |pos|), the least positive step over the axes, the midpoint
+// voxel, t < tmax - 1e-9 to take a step and next_t < tmax + 1e-6 to go on,
+// at most max_voxels steps. An in-bounds voxel whose K1 bit is set becomes
+// an entry (ray, l, the slab's close_t and far_t), in walk order; a stalled
+// walk may list a voxel twice, as JAX's walk composites it twice. Count,
+// exclusive scan and fill, as K2. Bound: operations, ~40 float operations a
+// step for up to 3 (reso - 1) + 2 steps a ray; the pool is a few entries a
+// ray. K3 and K4 then run on the pool unchanged.
+//
 // Exactness: _cross_coord compares a plane's crossing time t_q with the
 // candidate's t, both computed as (p - o) / d, and o + t * d must round as
 // in the plain version. Built with --fmad=false, so nothing is contracted
@@ -108,9 +128,11 @@ HD void visit(const PhaseAParams& p, const float o[3], const float d[3], float t
 HD float plane_t(int q, float o, float d) { return ((float)q - o) / d; }
 
 // Walk ray r's candidates in t order. Returns the occupied-candidate count;
-// pos advances by the number of entries (written at pos when WRITE).
-template <bool WRITE>
-HD int walk_ray(const PhaseAParams& p, int r, int64_t& pos, const PoolOut& out) {
+// pos advances by the number of entries (written at pos when WRITE). With
+// CAPPED the walk stops once pos reaches end.
+template <bool WRITE, bool CAPPED = false>
+HD int walk_ray(const PhaseAParams& p, int r, int64_t& pos, const PoolOut& out,
+                int64_t end = 0) {
     float o[3], d[3];
     for (int a = 0; a < 3; ++a) {
         o[a] = p.origins[3 * (int64_t)r + a];
@@ -156,7 +178,7 @@ HD int walk_ray(const PhaseAParams& p, int r, int64_t& pos, const PoolOut& out) 
         live[a] = true;
     }
 
-    while (true) {
+    while (!(CAPPED && pos >= end)) {
         int a = -1;
         for (int k = 0; k < 3; ++k)
             if (live[k] && (a < 0 || tq[k] < tq[a])) a = k;
@@ -182,7 +204,111 @@ HD int walk_ray(const PhaseAParams& p, int r, int64_t& pos, const PoolOut& out) 
     return n_occ;
 }
 
+// ---------------------------------------------------------------------------
+// K11a: the dense walk
+// ---------------------------------------------------------------------------
+
+// ops/dda.py:next_crossing for one ray: t of the next axis-plane crossing
+HD float next_crossing(const float o[3], const float d[3], float t) {
+    float best = INFINITY;
+    for (int a = 0; a < 3; ++a) {
+        const float pos = o[a] + t * d[a];
+        const float tol = 2e-6f * (1.0f + fabsf(pos));
+        const float fl = floorf(pos), ce = ceilf(pos);
+        const float up = fabsf(ce - pos) <= tol ? ce + 1.0f : ce;
+        const float dn = fabsf(fl - pos) <= tol ? fl - 1.0f : fl;
+        const float step = ((d[a] >= 0.0f ? up : dn) - pos) / safe_dir(d[a]);
+        if (!(step <= 0.0f) && d[a] != 0.0f && finite(step)) best = fminf(best, step);
+    }
+    return t + best;
+}
+
+// ops/dda.py:voxel_plane_ts: entry and exit t of voxel l's slab
+HD void slab_ts(const float o[3], const float d[3], const int l[3], float& ct, float& ft) {
+    ct = -INFINITY;
+    ft = INFINITY;
+    for (int a = 0; a < 3; ++a) {
+        const float lf = (float)l[a];
+        const bool neg = d[a] < 0.0f;
+        float c = (lf + (neg ? 1.0f : 0.0f) - o[a]) / safe_dir(d[a]);
+        float f = (lf + (neg ? 0.0f : 1.0f) - o[a]) / safe_dir(d[a]);
+        if (!finite(c)) c = -INFINITY;
+        if (!finite(f)) f = INFINITY;
+        ct = fmaxf(ct, c);
+        ft = fminf(ft, f);
+    }
+}
+
+// Walk ray r as the JAX dense walk does; returns the number of entries,
+// written from pos when WRITE.
+template <bool WRITE>
+HD int dense_walk_ray(const PhaseAParams& p, const bool* ray_ok, int max_voxels, int r,
+                      int64_t pos, const PoolOut& out) {
+    float o[3], d[3];
+    for (int a = 0; a < 3; ++a) {
+        o[a] = p.origins[3 * (int64_t)r + a];
+        d[a] = p.dirs[3 * (int64_t)r + a];
+    }
+    const float tx = p.tmax[r];
+    float t = p.tnear[r];  // 0 where the ray misses
+    bool alive = ray_ok[r];
+    int n = 0;
+    for (int step = 0; step < max_voxels && alive; ++step) {
+        const float nt = next_crossing(o, d, t);
+        const bool has_next = finite(nt);
+        const bool seg_ok = has_next && t < tx - 1e-9f;
+        const float nts = has_next ? nt : t + 1.0f;
+        if (seg_ok) {
+            const float tm = 0.5f * (t + nts);
+            int l[3];
+            bool in_bounds = true;
+            for (int a = 0; a < 3; ++a) {
+                const float f = floorf(o[a] + tm * d[a]);
+                in_bounds = in_bounds && f >= 0.0f && f <= (float)(p.reso[a] - 2);
+                l[a] = in_bounds ? (int)f : 0;
+            }
+            if (in_bounds && occ_bit(p, l)) {
+                if (WRITE) {
+                    const int64_t k = pos + n;
+                    float ct, ft;
+                    slab_ts(o, d, l, ct, ft);
+                    out.ray_id[k] = r;
+                    for (int a = 0; a < 3; ++a) out.l[3 * k + a] = l[a];
+                    out.close_t[k] = ct;
+                    out.far_t[k] = ft;
+                }
+                ++n;
+            }
+        }
+        alive = nts < tx + 1e-6f && has_next;
+        if (seg_ok) t = nts;
+    }
+    return n;
+}
+
 #ifdef __CUDACC__
+__global__ void dense_walk_count_kernel(PhaseAParams p, const bool* ray_ok, int max_voxels,
+                                        int B, int* n) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= B) return;
+    const PoolOut none{nullptr, nullptr, nullptr, nullptr};
+    n[r] = dense_walk_ray<false>(p, ray_ok, max_voxels, r, 0, none);
+}
+
+__global__ void dense_walk_fill_kernel(PhaseAParams p, const bool* ray_ok, int max_voxels, int B,
+                                       const int64_t* offsets, PoolOut out) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= B) return;
+    dense_walk_ray<true>(p, ray_ok, max_voxels, r, offsets[r], out);
+}
+
+__global__ void compact_fill_kernel(PhaseAParams p, int B, const int64_t* offsets, PoolOut out) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= B) return;
+    int64_t pos = offsets[r];
+    walk_ray<true, true>(p, r, pos, out, offsets[r + 1]);
+}
+
 __global__ void phase_a_count_kernel(PhaseAParams p, int B, int* n_occupied, int* n_valid) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= B) return;
@@ -223,6 +349,42 @@ extern "C" cudaError_t phase_a_fill(const float* origins, const float* dirs, con
     const int block = 128;
     phase_a_fill_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
         make_params(origins, dirs, tnear, tmax, words, X, Y, Z), B, offsets,
+        PoolOut{ray_id, l, close_t, far_t});
+    return cudaGetLastError();
+}
+
+extern "C" cudaError_t compact_fill(const float* origins, const float* dirs, const float* tnear,
+                                    const float* tmax, const int* words, int B, int X, int Y,
+                                    int Z, const int64_t* offsets, int* ray_id, int* l,
+                                    float* close_t, float* far_t, void* stream) {
+    if (B <= 0) return cudaSuccess;
+    const int block = 128;
+    compact_fill_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
+        make_params(origins, dirs, tnear, tmax, words, X, Y, Z), B, offsets,
+        PoolOut{ray_id, l, close_t, far_t});
+    return cudaGetLastError();
+}
+
+extern "C" cudaError_t dense_walk_count(const float* origins, const float* dirs, const float* t0,
+                                        const float* tmax, const bool* ray_ok, const int* words,
+                                        int B, int X, int Y, int Z, int max_voxels, int* n,
+                                        void* stream) {
+    if (B <= 0) return cudaSuccess;
+    const int block = 128;
+    dense_walk_count_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
+        make_params(origins, dirs, t0, tmax, words, X, Y, Z), ray_ok, max_voxels, B, n);
+    return cudaGetLastError();
+}
+
+extern "C" cudaError_t dense_walk_fill(const float* origins, const float* dirs, const float* t0,
+                                       const float* tmax, const bool* ray_ok, const int* words,
+                                       int B, int X, int Y, int Z, int max_voxels,
+                                       const int64_t* offsets, int* ray_id, int* l,
+                                       float* close_t, float* far_t, void* stream) {
+    if (B <= 0) return cudaSuccess;
+    const int block = 128;
+    dense_walk_fill_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
+        make_params(origins, dirs, t0, tmax, words, X, Y, Z), ray_ok, max_voxels, B, offsets,
         PoolOut{ray_id, l, close_t, far_t});
     return cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 """Dataset registry, the counterpart of the JAX package's ``data``
 (svox2's opt/util/dataset.py:8-33): the procedural synthetic dataset and
 the DTU loader; ``auto`` recognises DTU scenes. The other file loaders
-(NeRF, LLFF, NSVF, CO3D) wait for ROADMAP §1 items 1 and 4."""
+(NeRF, LLFF, NSVF, CO3D) wait for ROADMAP §1 items 1, 2 and 5."""
 from os import path
 
 from .base import DatasetBase, Intrin, RayBatch
@@ -12,7 +12,7 @@ from .synthetic import SyntheticDataset
 def _unported(name: str):
     def make(*args, **kwargs):
         raise NotImplementedError(
-            f"the {name!r} dataset loader is not ported yet (ROADMAP §1 items 1 and 4)")
+            f"the {name!r} dataset loader is not ported yet (ROADMAP §1 items 1, 2 and 5)")
 
     return make
 
@@ -25,7 +25,7 @@ def auto_dataset(root: str, *args, **kwargs):
         return DTUDataset(root, *args, **kwargs)
     raise NotImplementedError(
         f"{root!r} is not a DTU scene, and the other file loaders are not ported yet "
-        "(ROADMAP §1 items 1 and 4)")
+        "(ROADMAP §1 items 1, 2 and 5)")
 
 
 datasets = {

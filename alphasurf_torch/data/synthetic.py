@@ -75,14 +75,11 @@ def make_gt_grid(reso=32, seed=0, basis_dim=4, dtype=torch.float32, device="cuda
 class SyntheticDataset(DatasetBase):
     """Orbit-camera dataset rendered from ``make_gt_grid`` on ``device``
     (the JAX package's synthetic.py:71-192), the same poses from the same
-    seed. The JAX package renders ``renderer="dense"`` through its dense
-    surface walk (ROADMAP §1 item 2) and ``"packed"`` through the packed
-    renderer; the port renders both through the packed renderer, which its
-    docstring (synthetic.py:110-113) says equals the dense walk while the
-    pool holds every crossing, as the port's exact pool always does. Each
-    value keeps its rays: host-made (``Camera.gen_rays``) for "dense",
-    device-made for "packed". ``dtype`` is the ground-truth grid's; the
-    images are stored as float32."""
+    seed. As the JAX package does, ``renderer="dense"`` renders the ground
+    truth through the dense surface walk (on the card through K11a) on
+    host-made rays (``Camera.gen_rays``), and ``"packed"`` through the
+    packed renderer on device-made rays. ``dtype`` is the ground-truth
+    grid's; the images are stored as float32."""
 
     def __init__(
         self,
@@ -121,7 +118,7 @@ class SyntheticDataset(DatasetBase):
             c2w = pose_spherical(az, el, 2.7)
             cam = Camera.make(c2w, fx=focal, width=width, height=height)
             rays = cam.gen_rays(dev) if renderer == "dense" else cam.gen_rays_device(dev)
-            rgb, _ = render_rays(self.gt_grid, rays, opt)
+            rgb = render_rays(self.gt_grid, rays, opt, renderer=renderer)[0]
             imgs.append(rgb.reshape(height, width, 3).cpu().numpy())
             c2ws.append(c2w)
         self.c2w = np.stack(c2ws)

@@ -62,6 +62,11 @@ LAUNCHES = {
     "transmit_march": 0,
     "mask_march": 0,
     "iso_points": 0,
+    "dense_walk_count": 0,
+    "dense_walk_fill": 0,
+    "compact_fill": 0,
+    "composite_cache": 0,
+    "backward_cache": 0,
 }
 
 _P = ctypes.c_void_p
@@ -72,16 +77,20 @@ _ARGTYPES = {
     "occupancy_words": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P],
     "phase_a_count": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "phase_a_fill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "compact_fill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "dense_walk_count": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "dense_walk_fill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "phase_b": [_P, _P, _P, _P, _L, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _I,
                 _I, _F, _F, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "composite": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _I,
-                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P],
+                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _I, _I, _I, _P, _P, _P,
+                  _P, _P, _P, _P, _P],
     "intersect_points": [_P, _P, _P, _P, _I, _L, _F, _F, _F, _F, _F, _F, _P, _P],
     "backward_ray": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _I, _P, _P,
-                     _P, _P, _P, _P],
+                     _P, _P, _P, _I, _P, _P, _P, _P],
     "backward_entry": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P,
                        _I, _I, _F, _F, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P],
     "reg_tv": [_P, _I, _I, _I, _P, _L, _P, _I, _I, _I, _P, _F, _P, _P, _P],
     "reg_normal": [_P, _I, _I, _I, _P, _L, _P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     "reg_sparsify": [_P, _I, _I, _I, _P, _L, _P, _P, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P],
@@ -108,7 +117,8 @@ _ARGTYPES = {
 }
 _FUNCS = {
     "occupancy": ("occupancy_words", "density_occupancy_words"),
-    "phase_a": ("phase_a_count", "phase_a_fill"),
+    "phase_a": ("phase_a_count", "phase_a_fill", "compact_fill", "dense_walk_count",
+                "dense_walk_fill"),
     "phase_b": ("phase_b",),
     "composite": ("composite", "intersect_points"),
     "backward": ("backward_ray", "backward_entry"),
@@ -264,15 +274,61 @@ def phase_a_fill(origins, dirs, tnear, tmax, words, reso, offsets, M: int):
     ray r's entries at [offsets[r], offsets[r+1])."""
     B, args = _phase_a_inputs(origins, dirs, tnear, tmax, words, reso)
     _check("offsets", offsets, torch.int64, (B + 1,))
-    dev = origins.device
-    ray_id = torch.empty(M, dtype=torch.int32, device=dev)
-    l = torch.empty((M, 3), dtype=torch.int32, device=dev)
-    close_t = torch.empty(M, dtype=torch.float32, device=dev)
-    far_t = torch.empty(M, dtype=torch.float32, device=dev)
+    pool = _empty_pool(M, origins.device)
     if M > 0:  # an empty pool launches nothing
         _launch("phase_a", "phase_a_fill", "phase_a_fill", *args, _ptr(offsets),
-                _ptr(ray_id), _ptr(l), _ptr(close_t), _ptr(far_t))
-    return ray_id, l, close_t, far_t
+                *(_ptr(x) for x in pool))
+    return pool
+
+
+def _empty_pool(M: int, dev):
+    """Uninitialised pool arrays (ray_id, l, close_t, far_t) of M entries."""
+    return (torch.empty(M, dtype=torch.int32, device=dev),
+            torch.empty((M, 3), dtype=torch.int32, device=dev),
+            torch.empty(M, dtype=torch.float32, device=dev),
+            torch.empty(M, dtype=torch.float32, device=dev))
+
+
+def compact_fill(origins, dirs, tnear, tmax, words, reso, offsets, M: int):
+    """K11b: K2's fill capped at each ray's end offset: with offsets from
+    the scan of min(n_valid, K), each ray's first K entries."""
+    B, args = _phase_a_inputs(origins, dirs, tnear, tmax, words, reso)
+    _check("offsets", offsets, torch.int64, (B + 1,))
+    pool = _empty_pool(M, origins.device)
+    if M > 0:
+        _launch("phase_a", "compact_fill", "compact_fill", *args, _ptr(offsets),
+                *(_ptr(x) for x in pool))
+    return pool
+
+
+def _dense_inputs(origins, dirs, t0, tmax, ray_ok, words, reso, max_voxels: int):
+    B, args = _phase_a_inputs(origins, dirs, t0, tmax, words, reso)
+    _check("ray_ok", ray_ok, torch.bool, (B,))
+    p_o, p_d, p_t0, p_tx, p_w, _, X, Y, Z = args
+    return B, (p_o, p_d, p_t0, p_tx, _ptr(ray_ok), p_w, B, X, Y, Z, int(max_voxels))
+
+
+def dense_walk_count(origins, dirs, t0, tmax, ray_ok, words, reso, max_voxels: int):
+    """K11a count pass: per ray (B,) int32 the occupied voxels of its dense
+    walk from t0 (tnear where ray_ok, else 0)."""
+    B, args = _dense_inputs(origins, dirs, t0, tmax, ray_ok, words, reso, max_voxels)
+    n = torch.empty(B, dtype=torch.int32, device=origins.device)
+    if B > 0:
+        _launch("phase_a", "dense_walk_count", "dense_walk_count", *args, _ptr(n))
+    return n
+
+
+def dense_walk_fill(origins, dirs, t0, tmax, ray_ok, words, reso, max_voxels: int, offsets,
+                    M: int):
+    """K11a fill pass: the pool (ray_id, l, close_t, far_t: the voxel's slab)
+    with ray r's walk-ordered entries at [offsets[r], offsets[r+1])."""
+    B, args = _dense_inputs(origins, dirs, t0, tmax, ray_ok, words, reso, max_voxels)
+    _check("offsets", offsets, torch.int64, (B + 1,))
+    pool = _empty_pool(M, origins.device)
+    if M > 0:
+        _launch("phase_a", "dense_walk_fill", "dense_walk_fill", *args, _ptr(offsets),
+                *(_ptr(x) for x in pool))
+    return pool
 
 
 # ---------------------------------------------------------------------------
@@ -376,12 +432,17 @@ def _composite_opts(opt) -> tuple:
 
 
 def composite(offsets, smp: dict, trunc_a, opt, sig_thresh: float | None = None,
-              want_live: bool = False) -> dict:
+              want_live: bool = False, window: int = 0, mode_first: bool = False,
+              cache_size: int | None = None) -> dict:
     """K4: per-ray compositing (see render.surface.composite); ``trunc_a``
     is the grid's truncated_vol_render_a on the card. ``sig_thresh`` adds
     ``depth_sigma_thresh`` (B,) (a launch in that mode also counts as
     ``composite_sigma_thresh``), ``want_live`` the (S0, M) contribution
-    flags after the stop_thresh kill."""
+    flags after the stop_thresh kill. K11c: ``cache_size`` adds the first-K
+    ``cache`` (ts, alphas, weights (B, K) float32, fake_mask (B, K) bool,
+    n_cached (B,) int32) and its median ``cache_med`` (a launch in that
+    mode also counts as ``composite_cache``); ``window`` > 0 adds ``win``
+    (M,), the entries inside the count window."""
     B = offsets.shape[0] - 1
     S0, M = smp["t"].shape
     _check("offsets", offsets, torch.int64, (B + 1,))
@@ -405,6 +466,18 @@ def composite(offsets, smp: dict, trunc_a, opt, sig_thresh: float | None = None,
         out["depth_sigma_thresh"] = torch.empty(B, dtype=f32, device=dev)
     if want_live:
         out["live"] = torch.empty((S0, M), dtype=torch.bool, device=dev)
+    K = 0 if cache_size is None else int(cache_size)
+    cache = None
+    if cache_size is not None:
+        cache = {"ts": torch.empty((B, K), dtype=f32, device=dev),
+                 "alphas": torch.empty((B, K), dtype=f32, device=dev),
+                 "weights": torch.empty((B, K), dtype=f32, device=dev),
+                 "fake_mask": torch.empty((B, K), dtype=torch.bool, device=dev),
+                 "n_cached": torch.empty(B, dtype=torch.int32, device=dev)}
+        out["cache"] = cache
+        out["cache_med"] = torch.empty(B, dtype=f32, device=dev)
+    if window > 0:
+        out["win"] = torch.empty(M, dtype=torch.bool, device=dev)
     if B > 0:
         stop_on, log_stop, bg, fake_l_dist = _composite_opts(opt)
         _launch("composite", "composite", "composite",
@@ -417,9 +490,15 @@ def composite(offsets, smp: dict, trunc_a, opt, sig_thresh: float | None = None,
                                          "weight")),
                 int(sig_on), float(sig_thresh) if sig_on else 0.0,
                 _ptr(out["depth_sigma_thresh"]) if sig_on else None,
-                _ptr(out["live"]) if want_live else None)
+                _ptr(out["live"]) if want_live else None, int(window), int(mode_first), K,
+                *((_ptr(cache[k]) for k in ("ts", "alphas", "weights", "fake_mask", "n_cached"))
+                  if cache is not None else (None,) * 5),
+                _ptr(out["cache_med"]) if cache is not None else None,
+                _ptr(out["win"]) if window > 0 else None)
         if sig_on:
             LAUNCHES["composite_sigma_thresh"] += 1
+        if cache is not None:
+            LAUNCHES["composite_cache"] += 1
     return out
 
 
@@ -445,10 +524,12 @@ def intersect_points(ray_id, t, origins, dirs, rscaling, roffset):
 # K5
 # ---------------------------------------------------------------------------
 
-def backward_ray(offsets, smp: dict, trunc_a, opt, g_rgb, g_ray_losses):
+def backward_ray(offsets, smp: dict, trunc_a, opt, g_rgb, g_ray_losses, g_cache=None):
     """K5a: per-slot cotangents (d_alpha of the pre-truncation alpha (S0, M),
     d_t (S0, M), d_col of the clipped colour (3, S0, M)) from the cotangents
-    of rgb (B, 3) and ray_losses (12, B)."""
+    of rgb (B, 3) and ray_losses (12, B). K11d: ``g_cache``, the cotangents
+    (ts, alphas, weights) of K11c's cache, (B, K) each, join them (a launch
+    with them also counts as ``backward_cache``)."""
     B = offsets.shape[0] - 1
     S0, M = smp["t"].shape
     _check("offsets", offsets, torch.int64, (B + 1,))
@@ -460,22 +541,31 @@ def backward_ray(offsets, smp: dict, trunc_a, opt, g_rgb, g_ray_losses):
     d_alpha = torch.empty((S0, M), dtype=torch.float32, device=dev)
     d_t = torch.empty((S0, M), dtype=torch.float32, device=dev)
     d_col = torch.empty((3, S0, M), dtype=torch.float32, device=dev)
+    K = 0
+    if g_cache is not None:
+        K = g_cache[0].shape[1]
+        for name, g in zip(("g_cache_ts", "g_cache_alphas", "g_cache_weights"), g_cache):
+            _check(name, g, torch.float32, (B, K))
     if B > 0 and M > 0:
         stop_on, log_stop, bg, fake_l_dist = _composite_opts(opt)
         _launch("backward", "backward_ray", "backward_ray",
                 _ptr(offsets), B, M, S0, *(_ptr(smp[k]) for k in _SLOT_KEYS),
                 int(opt.truncated_vol_render), ta, float(opt.trunc_vol_weight_min),
                 stop_on, log_stop, bg, fake_l_dist, _ptr(g_rgb), _ptr(g_ray_losses),
-                _ptr(d_alpha), _ptr(d_t), _ptr(d_col))
+                _ptr(d_alpha), _ptr(d_t), _ptr(d_col), K,
+                *((_ptr(g) for g in g_cache) if g_cache is not None else (None,) * 3))
+        if g_cache is not None:
+            LAUNCHES["backward_cache"] += 1
     return d_alpha, d_t, d_col
 
 
 def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed,
                    n_surf_c: int, level_sets, near_grid_t: float, fs_std, opt, contrib, d_alpha,
-                   d_t, d_col, g_ray_losses):
+                   d_t, d_col, g_ray_losses, win=None):
     """K5b: gradients of the density (cap,), surface (cap, n_surf_c) and SH
     (cap, 3 bd) rows and of fake_sample_std (1,) from K5a's slot cotangents
-    and the inward-norm and density-lap rows of the ray-loss cotangents."""
+    and the inward-norm and density-lap rows of the ray-loss cotangents,
+    the latter for the entries ``win`` (K4's count window; None: all)."""
     M, B, bd, cap, C8 = _pool_args(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links,
                                    packed, n_surf_c, level_sets)
     fss = _scalar_ptr("fs_std", fs_std)
@@ -485,6 +575,8 @@ def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, pac
     _check("d_t", d_t, torch.float32, (S0, M))
     _check("d_col", d_col, torch.float32, (3, S0, M))
     _check("g_ray_losses", g_ray_losses, torch.float32, (12, B))
+    if win is not None:
+        _check("win", win, torch.bool, (M,))
     dev = close_t.device
     g_density = torch.zeros(cap, dtype=torch.float32, device=dev)
     g_surface = torch.zeros((cap, n_surf_c), dtype=torch.float32, device=dev)
@@ -501,7 +593,8 @@ def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, pac
                 int(opt.surf_fake_sample), int(opt.limited_fake_sample),
                 int(opt.fake_sample_normalize_surf), int(opt.alpha_activation_type == 0),
                 int(opt.no_surf_grad_from_sh), _ptr(contrib), _ptr(d_alpha), _ptr(d_t),
-                _ptr(d_col), _ptr(g_ray_losses), _ptr(g_density), _ptr(g_surface), _ptr(g_sh),
+                _ptr(d_col), _ptr(g_ray_losses), _ptr(win) if win is not None else None,
+                _ptr(g_density), _ptr(g_surface), _ptr(g_sh),
                 _ptr(g_fss) if fs_std is not None else 0)
     return g_density, g_surface, g_sh, g_fss
 

@@ -75,3 +75,41 @@ def voxel_plane_ts(origins: torch.Tensor, dirs: torch.Tensor, l: torch.Tensor):
     ct = torch.where(torch.isfinite(ct), ct, torch.full_like(ct, -float("inf")))
     ft = torch.where(torch.isfinite(ft), ft, torch.full_like(ft, float("inf")))
     return torch.amax(ct, dim=-1), torch.amin(ft, dim=-1)
+
+
+_EPS_INT = 1e-6
+
+
+def next_crossing(origins: torch.Tensor, dirs: torch.Tensor, t: torch.Tensor,
+                  atol: float = _EPS_INT) -> torch.Tensor:
+    """t of the next axis-plane crossing after ``t`` (svox2.py:1451-1505,
+    without the in-grid check: callers compare against tmax). The on-plane
+    band scales with |position|, as the JAX package's: float32 roundoff of
+    o + t*d is relative, and an absolute band lets the walk stall at a plane
+    until its step budget runs out. Each operation is the JAX package's, in
+    its order, so that the float32 walk visits the same voxels."""
+    pos = origins + t[..., None] * dirs
+    tol = atol * 2.0 * (1.0 + torch.abs(pos))
+    fl = torch.floor(pos)
+    on_plane = torch.abs(fl - pos) <= tol
+    ce = torch.ceil(pos)
+    on_plane_c = torch.abs(ce - pos) <= tol
+    next_up = torch.where(on_plane_c, ce + 1.0, ce)
+    next_dn = torch.where(on_plane, fl - 1.0, fl)
+    next_plane = torch.where(dirs >= 0, next_up, next_dn)
+    steps = (next_plane - pos) / _safe(dirs)
+    bad = (steps <= 0) | (dirs == 0) | ~torch.isfinite(steps)
+    steps = torch.where(bad, torch.full_like(steps, float("inf")), steps)
+    return t + torch.amin(steps, dim=-1)
+
+
+def voxel_between(origins: torch.Tensor, dirs: torch.Tensor, t0: torch.Tensor,
+                  t1: torch.Tensor, reso):
+    """Voxel holding the midpoint of the segment [t0, t1] (find_mid_voxel,
+    svox2.py:1507-1513), and whether it lies inside the lattice."""
+    tm = 0.5 * (t0 + t1)
+    pos = origins + tm[..., None] * dirs
+    l = torch.floor(pos).to(torch.int32)
+    hi = torch.tensor([r - 2 for r in reso], dtype=torch.int32, device=l.device)
+    in_bounds = torch.all(l >= 0, dim=-1) & torch.all(l <= hi, dim=-1)
+    return l, in_bounds

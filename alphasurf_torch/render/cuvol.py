@@ -26,7 +26,7 @@ Gradients: when density or SH requires grad, the plain path on the CPU is
 differentiated by autograd (the pool is a constant of the parameters, as
 the JAX package's stop_gradient makes it); on the card ``_PackedCuvolFn``
 runs K8's forward and backward for the cotangent of ``rgb``. The port's
-grids carry no background model (ROADMAP §1 item 4), so none is added.
+grids carry no background model (ROADMAP §1 item 2), so none is added.
 """
 from __future__ import annotations
 
@@ -276,7 +276,7 @@ class _PackedCuvolFn(torch.autograd.Function):
             if g is not None and bool(torch.any(g != 0)):
                 raise NotImplementedError(
                     f"a gradient through {name!r} of the cuvol renderer is not ported yet "
-                    "(ROADMAP §2 item 3); K8 carries rgb")
+                    "(ROADMAP §2 item 4); K8 carries rgb")
         c = ctx.chunk
         log_T, entry_pre = ctx.saved_tensors
         grid = c.grid
@@ -309,7 +309,7 @@ def _check_grid(grid: SparseGrid) -> None:
     if grid.capacity != grid.density_data.shape[0]:
         raise NotImplementedError(
             "density rows that are not one per vertex row (UDF_ALPHA) are not ported "
-            "(ROADMAP §1 item 4)")
+            "(ROADMAP §1 item 5)")
 
 
 def volume_render_cuvol_packed(
@@ -409,7 +409,7 @@ def volume_render_cuvol(
     exceeds it) when asked. Each ray takes the samples t = tmin + k*step,
     k < ceil(max_steps / step_chunk) * step_chunk, while t <= tmax, as the
     JAX version's scan does. Forward only: on the card it is K10, and a
-    gradient through it is not ported (ROADMAP §2 item 3)."""
+    gradient through it is not ported (ROADMAP §2 item 4)."""
     _check_grid(grid)
     if max_steps is None:
         max_steps = max_steps_for(grid, opt)
@@ -420,7 +420,7 @@ def volume_render_cuvol(
     if origins.is_cuda:
         if torch.is_grad_enabled() and any(p.requires_grad for p in params):
             raise NotImplementedError(
-                "the gradient of the dense cuvol march is not ported (ROADMAP §2 item 3); "
+                "the gradient of the dense cuvol march is not ported (ROADMAP §2 item 4); "
                 "train through volume_render_cuvol_packed")
         m = kernels.cuvol_march(
             *(x.contiguous() for x in (origins, dirs, sh_mult, delta_scale, tmin, tmax)),

@@ -1,5 +1,6 @@
-"""Packed surface renderer, the counterpart of the packed path of
-the JAX package's ``render.surface`` (svox2's ``trace_ray_surf_trav`` forward).
+"""Surface renderers, the counterparts of the JAX package's
+``render.surface`` (svox2's ``trace_ray_surf_trav`` forward): the packed
+renderer, the dense DDA walk and the K-slot compact renderer.
 
 One chunk of rays renders in four steps, each a hand-written CUDA kernel on
 the card (``alphasurf_torch/csrc``) and a plain PyTorch version here, which
@@ -8,24 +9,32 @@ the wrappers take for tensors that lie on the CPU:
   K1 ``occupancy_words``        which voxels can contribute, bit-packed on z
   K2 ``compact_crossings_packed`` every occupied (ray, voxel) crossing,
                                  ray-major and t-ascending, sized exactly
-                                 (per-ray count, exclusive scan, per-ray fill)
+                                 (per-ray count, exclusive scan, per-ray fill);
+                                 K11a ``dense_walk`` lists the occupied voxels
+                                 of the dense walk instead, K11b
+                                 ``compact_crossings`` the first K crossings
   K3 ``voxel_samples``          per pool entry: cubic roots, fake sample,
                                  alpha, SH colour, normal, inward/lap terms
   K4 ``composite``              per ray: transmittance, weights, colour,
-                                 depths and the streaming ray losses
+                                 depths, the streaming ray losses and (K11c)
+                                 the first-K sample cache
+
+The three renderers differ only in the pool and in three compositor rules
+(``_Mode``), so all share K3, K4 and the backward.
 
 Gradients: when a parameter of the grid requires grad, the plain path on the
 CPU is differentiated by autograd, detached where the JAX package stops
-gradients; on the card ``_PackedSurfaceFn`` runs K3 and K4 forward and K5
-(``csrc/backward.cu``) backward, for the cotangents of ``rgb`` and
-``ray_losses``. Clamps in the plain path are a maximum then a minimum, as
-``jnp.clip``, so an exact tie passes half the gradient there too.
+gradients; on the card ``_SurfaceFn`` runs K3 and K4 forward and K5
+(``csrc/backward.cu``) backward, for the cotangents of ``rgb``,
+``ray_losses`` and the cache's ts, alphas and weights (K11d). Clamps in the
+plain path are a maximum then a minimum, as ``jnp.clip``, so an exact tie
+passes half the gradient there too.
 
 Two output options of K3/K4 serve the extractors: ``depth_sigma_thresh``
 (K4's walk keeps a per-ray minimum) and ``return_intersections`` (K4 writes
 each slot's weight and contribution flag; ``intersect_points`` the world
-points). Only SDF grids, the SH basis and ``cache_size=None`` are carried;
-the rest raises ``NotImplementedError`` naming its ROADMAP item.
+points). Only SDF grids and the SH basis are carried; the rest raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -124,7 +133,7 @@ def _check_supported(grid: SparseGrid, opt: RenderOptions) -> None:
     if grid.surface_type != defs.SURFACE_TYPE_SDF:
         raise NotImplementedError(
             f"surface_type {grid.surface_type} is not ported yet; only SDF "
-            "(ROADMAP §1 item 4)"
+            "(ROADMAP §1 item 5)"
         )
 
 
@@ -377,6 +386,116 @@ def compact_crossings_packed(grid: SparseGrid, origins, dirs, tnear, tmax,
 
 
 # ---------------------------------------------------------------------------
+# K11a: the dense walk's voxel list; K11b: the first K occupied crossings
+# ---------------------------------------------------------------------------
+
+def max_voxels_for(grid: SparseGrid) -> int:
+    """Bound on the dense walk's DDA steps: a ray crosses at most ~sum(reso)
+    planes (surface.py:60-62)."""
+    return int(sum(r - 1 for r in grid.reso)) + 2
+
+
+def _pool_from_lists(B: int, rr, l, close_t, far_t, n_occupied, dev) -> Pool:
+    offsets = torch.zeros(B + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(torch.bincount(rr.long(), minlength=B), dim=0)
+    return Pool(rr.to(torch.int32), l.contiguous(), close_t, far_t, offsets, n_occupied)
+
+
+def _dense_walk_plain(reso, origins, dirs, tnear, tmax, ray_ok, words, max_voxels: int):
+    """Plain version of K11a: the JAX package's dense DDA walk
+    (surface.py:1092-1143) step by step in the rays' own dtype: from tnear,
+    ``next_crossing`` gives each step's end, the midpoint voxel is the
+    step's voxel, and the walk ends past tmax (``t < tmax - 1e-9`` to take
+    a step, ``next_t < tmax + 1e-6`` to go on). Of the voxels walked, the
+    in-bounds ones that K1's words mark occupied are kept (the others
+    contribute nothing), with their slabs' entry and exit t
+    (``voxel_plane_ts``). Returns the pool and each entry's step index."""
+    B = origins.shape[0]
+    dev = origins.device
+    t = torch.where(ray_ok, tnear, torch.zeros_like(tnear))
+    alive = ray_ok.clone()
+    hi = torch.tensor([r - 2 for r in reso], dtype=torch.int32, device=dev)
+    rows, ls, steps = [], [], []
+    for step in range(max_voxels):
+        if not bool(alive.any()):
+            break
+        next_t = dda.next_crossing(origins, dirs, t)
+        has_next = torch.isfinite(next_t)
+        seg_ok = alive & has_next & (t < tmax - 1e-9)
+        next_safe = torch.where(has_next, next_t, t + 1.0)
+        l, in_bounds = dda.voxel_between(
+            origins, dirs, torch.where(seg_ok, t, torch.zeros_like(t)),
+            torch.where(seg_ok, next_safe, torch.ones_like(t)), reso)
+        lc = torch.minimum(torch.clamp(l, min=0), hi)
+        keep = seg_ok & in_bounds & _occ_bit_lookup(words, lc[:, 0], lc[:, 1], lc[:, 2])
+        idx = keep.nonzero()[:, 0]
+        rows.append(idx)
+        ls.append(l[idx])
+        steps.append(torch.full_like(idx, step))
+        alive = alive & (next_safe < tmax + 1e-6) & has_next
+        t = torch.where(seg_ok, next_safe, t)
+    if rows:
+        rr, l, st = torch.cat(rows), torch.cat(ls), torch.cat(steps)
+    else:
+        rr = st = torch.zeros(0, dtype=torch.int64, device=dev)
+        l = torch.zeros((0, 3), dtype=torch.int32, device=dev)
+    order = torch.sort(rr, stable=True).indices  # ray-major, walk order within a ray
+    rr, l, st = rr[order], l[order], st[order]
+    close_t, far_t = dda.voxel_plane_ts(origins[rr], dirs[rr], l)
+    n_occ = torch.bincount(rr, minlength=B).to(torch.int32)
+    return _pool_from_lists(B, rr, l, close_t, far_t, n_occ, dev), st
+
+
+def dense_walk(grid: SparseGrid, origins, dirs, tnear, tmax, ray_ok, words: torch.Tensor,
+               max_voxels: int) -> Pool:
+    """K11a: the occupied voxels of the dense walk, a pool as K2's (entries
+    ray-major in walk order; close_t and far_t the voxel's slab). K3 and K4
+    then run on it as on K2's. ``n_occupied`` counts each ray's entries."""
+    if not origins.is_cuda:
+        return _dense_walk_plain(grid.reso, origins, dirs, tnear, tmax, ray_ok, words,
+                                 max_voxels)[0]
+    t0 = torch.where(ray_ok, tnear, torch.zeros_like(tnear))
+    n = kernels.dense_walk_count(origins, dirs, t0, tmax, ray_ok, words, grid.reso, max_voxels)
+    offsets = torch.zeros(origins.shape[0] + 1, dtype=torch.int64, device=origins.device)
+    torch.cumsum(n, dim=0, out=offsets[1:])
+    M = int(offsets[-1])  # the host sync that sizes the pool, as K2's
+    ray_id, l, close_t, far_t = kernels.dense_walk_fill(
+        origins, dirs, t0, tmax, ray_ok, words, grid.reso, max_voxels, offsets, M)
+    return Pool(ray_id, l, close_t, far_t, offsets, n)
+
+
+def _cap_pool(pool: Pool, K: int) -> Pool:
+    """The first K entries of each ray of an exact pool."""
+    pos = torch.arange(pool.close_t.shape[0], device=pool.offsets.device) - torch.repeat_interleave(
+        pool.offsets[:-1], pool.offsets[1:] - pool.offsets[:-1])
+    keep = pos < K
+    rr = pool.ray_id[keep]
+    B = pool.offsets.shape[0] - 1
+    n_valid = (pool.offsets[1:] - pool.offsets[:-1]).to(torch.int32)
+    return _pool_from_lists(B, rr, pool.l[keep], pool.close_t[keep], pool.far_t[keep], n_valid,
+                            pool.offsets.device)
+
+
+def compact_crossings(grid: SparseGrid, origins, dirs, tnear, tmax, words: torch.Tensor,
+                      K: int) -> Pool:
+    """K11b: the first K occupied crossings of each ray, in t order, the
+    JAX package's ``compact_crossings`` (surface.py:1284-1334) over K2's
+    exact candidates. ``n_occupied`` is the uncapped count of occupied,
+    non-degenerate crossings (JAX's ``sum(occ_seg)``), which callers
+    compare with K to detect overflow."""
+    if not origins.is_cuda:
+        return _cap_pool(_compact_crossings_plain(grid.reso, origins, dirs, tnear, tmax, words),
+                         K)
+    _, n_valid = kernels.phase_a_count(origins, dirs, tnear, tmax, words, grid.reso)
+    offsets = torch.zeros(origins.shape[0] + 1, dtype=torch.int64, device=origins.device)
+    torch.cumsum(torch.clamp(n_valid, max=K), dim=0, out=offsets[1:])
+    M = int(offsets[-1])
+    ray_id, l, close_t, far_t = kernels.compact_fill(
+        origins, dirs, tnear, tmax, words, grid.reso, offsets, M)
+    return Pool(ray_id, l, close_t, far_t, offsets, n_valid)
+
+
+# ---------------------------------------------------------------------------
 # K3: phase B, per-entry samples
 # ---------------------------------------------------------------------------
 
@@ -578,12 +697,70 @@ def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(inc[:, :1]), inc[:, :-1]], dim=1)
 
 
-def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None) -> dict:
+def _count_window(alive: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, E) bool: which entries count toward ``n_intersections`` and the
+    inward/lap sums under stop_thresh. The JAX package's walks process
+    ``window`` entries a pass (1 for the dense walk, ``voxel_chunk`` for the
+    compact renderer) and count every sample of a pass that starts alive,
+    even past the entry that kills the ray; the packed compositor
+    (``window`` 0) counts every entry. ``alive`` is the entry kill."""
+    B, E = alive.shape
+    if window <= 0:
+        return torch.ones_like(alive)
+    start = (torch.arange(E, device=alive.device) // window) * window
+    return alive[:, start] | (start == 0)[None, :]
+
+
+def _cache_plain(K: int, contrib, t, alpha_c, weight, fake) -> dict:
+    """The first-K sample cache of the JAX package (surface.py:104-118,
+    951-970, 1955-1975): per ray the first K contributing samples in
+    (entry, slot) order, written into zeros by a scatter-add."""
+    B = t.shape[0]
+    ci = contrib.to(torch.int64)
+    idx = _excl_cumsum(ci)
+    ok = contrib & (idx < K)
+    rows = torch.arange(B, device=t.device)[:, None].expand_as(idx)
+    flat = torch.where(ok, rows * K + idx, torch.full_like(idx, B * K)).reshape(-1)
+
+    def scat(vals):
+        buf = vals.new_zeros(B * K + 1)
+        buf = buf.index_add(0, flat, torch.where(ok, vals, torch.zeros_like(vals)).reshape(-1))
+        return buf[:-1].reshape(B, K)
+
+    zero = torch.zeros_like(t)
+    return {
+        "ts": scat(t),
+        "alphas": scat(alpha_c),
+        "weights": scat(weight),
+        "fake_mask": scat(torch.where(fake, zero + 1.0, zero)).detach() > 0,
+        "n_cached": torch.clamp(ci.sum(dim=1), max=K).to(torch.int32),
+    }
+
+
+def cache_depth_med(cache: dict) -> torch.Tensor:
+    """Median depth from the first-K cache (surface.py:1032-1051): t where
+    the running cached weight first reaches half the cached total; 0 where
+    none does."""
+    cw = cache["weights"].detach()
+    cum = torch.cumsum(cw, dim=1)
+    target = 0.5 * cum[:, -1:]
+    crossed = cum >= torch.clamp(target, min=1e-12)
+    idx = torch.argmax(crossed.to(torch.int8), dim=1)
+    has = torch.any(crossed, dim=1) & (cum[:, -1] > 0)
+    t = torch.gather(cache["ts"].detach(), 1, idx[:, None])[:, 0]
+    return torch.where(has, t, torch.zeros_like(t))
+
+
+def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None,
+                     window: int = 0, mode_first: bool = False, cache_size=None) -> dict:
     """Plain version of K4, the compositor of the JAX package
     ``volume_render_surface_packed`` (surface.py:1804-1953). The pool is
     laid out per ray, (B, E*S0) in (entry, slot) order, so every per-ray
     prefix is a segmented scan: no global cumsum minus a per-ray base, which
-    cancels badly in float32."""
+    cancels badly in float32. ``window`` (``_count_window``), ``mode_first``
+    (the mode depth at the first max-weight sample, the rule of the JAX
+    walks' ``_voxel_pass``) and ``cache_size`` (K11c, the first-K cache) give
+    the dense and compact renderers' semantics."""
     B = offsets.shape[0] - 1
     S0, M = smp["t"].shape
     dev = offsets.device
@@ -608,7 +785,6 @@ def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None)
     zero = torch.zeros_like(t)
 
     exc_cnt = _excl_cumsum(counted)
-    cnt = counted.sum(dim=1).to(torch.int32)
     if opt.truncated_vol_render:
         ids = exc_cnt - fake.to(exc_cnt.dtype)
         alpha_trunc = alpha * trunc_vol_render_rw(ids, trunc_a, opt.trunc_vol_weight_min)
@@ -616,6 +792,7 @@ def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None)
         alpha_trunc = alpha
 
     lo, hi = 1e-7, 1.0 - 1e-7
+    win = torch.ones((B, E), dtype=torch.bool, device=dev)
     if opt.stop_thresh > 0:
         # voxel-entry transmittance kill: a whole entry goes once the
         # transmittance at its entry is below stop_thresh
@@ -624,6 +801,8 @@ def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None)
         la_e = torch.log(one_m0).reshape(B, E, S0).sum(dim=2)
         alive = _excl_cumsum(la_e) > math.log(opt.stop_thresh)  # (B, E)
         contrib = contrib & alive[:, :, None].expand(B, E, S0).reshape(B, L)
+        win = _count_window(alive, window)
+    cnt = (counted * win[:, :, None].expand(B, E, S0).reshape(B, L)).sum(dim=1).to(torch.int32)
 
     alpha_c = torch.where(contrib, alpha_trunc, zero)
     one_m = torch.where(contrib, _clip(1.0 - alpha_c, lo, hi), zero + 1.0)
@@ -639,15 +818,21 @@ def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None)
     depth = (weight * t).sum(dim=1)
     normal = (weight[None] * dense_vec(smp["snorm"])).sum(dim=2).T
 
-    # mode depth: largest t among the entries whose (first) max-weight slot
-    # holds the ray's max weight
     w3 = weight.reshape(B, E, S0)
-    w_best, arg = torch.max(w3, dim=2)  # first max-weight slot of each entry
-    t_best = torch.gather(t3, 2, arg[..., None])[..., 0]
-    wmax = torch.clamp(w_best.amax(dim=1), min=0.0)
-    is_best = (w_best >= wmax[:, None]) & (w_best > 0)
-    t_mode = torch.where(is_best, t_best, torch.full_like(t_best, -math.inf)).amax(dim=1)
-    t_mode = torch.where(torch.isfinite(t_mode), t_mode, torch.zeros_like(t_mode))
+    if mode_first:
+        # the first sample holding the ray's max weight, if that is > 0
+        wmax, arg = torch.max(weight, dim=1)
+        t_at = torch.gather(t, 1, arg[:, None])[:, 0]
+        t_mode = torch.where(wmax > 0, t_at, torch.zeros_like(t_at))
+    else:
+        # largest t among the entries whose (first) max-weight slot holds
+        # the ray's max weight
+        w_best, arg = torch.max(w3, dim=2)  # first max-weight slot of each entry
+        t_best = torch.gather(t3, 2, arg[..., None])[..., 0]
+        wmax = torch.clamp(w_best.amax(dim=1), min=0.0)
+        is_best = (w_best >= wmax[:, None]) & (w_best > 0)
+        t_mode = torch.where(is_best, t_best, torch.full_like(t_best, -math.inf)).amax(dim=1)
+        t_mode = torch.where(torch.isfinite(t_mode), t_mode, torch.zeros_like(t_mode))
 
     # median depth: the smallest t where the running weight reaches half
     preW = _excl_cumsum(weight)
@@ -664,6 +849,10 @@ def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None)
         t_sig = torch.where(st_hit, t, zero + math.inf).amin(dim=1)
         out["depth_sigma_thresh"] = torch.where(torch.isfinite(t_sig), t_sig,
                                                 torch.zeros_like(t_sig))
+    if cache_size is not None:
+        cache = _cache_plain(cache_size, contrib, t, alpha_c, weight, fake)
+        out["cache"] = cache
+        out["cache_med"] = cache_depth_med(cache)
 
     # streaming losses
     inc = contrib if opt.fake_sample_l_dist else contrib & ~fake
@@ -681,16 +870,26 @@ def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None)
         zero,
     )
     w_sg = torch.where(contrib, weight, zero).detach()  # weights detached (surface.py:1941)
-    loss_e = torch.zeros((3, B), dtype=dtype, device=dev).index_add_(1, ray, smp["loss_e"])
+    win_e = win[ray, pos]
+    loss_e_in = torch.where(win_e[None, :], smp["loss_e"], torch.zeros_like(smp["loss_e"]))
+    loss_e = torch.zeros((3, B), dtype=dtype, device=dev).index_add_(1, ray, loss_e_in)
     zeros_b = torch.zeros(B, dtype=dtype, device=dev)
     losses = [
         l_dist, l_dist_a, entropy(w_i), entropy(a_i),
         logsig.sum(dim=1), (logsig * w_sg).sum(dim=1), w_sg.sum(dim=1),
         loss_e[0], loss_e[1], loss_e[2], zeros_b, zeros_b,
     ]
+    c3 = contrib.reshape(B, E, S0)
+    samples = {
+        "ts": torch.where(contrib, t, zero).reshape(B, E, S0)[ray, pos].T,
+        "alphas": alpha_c.reshape(B, E, S0)[ray, pos].T,
+        "weights": w3[ray, pos].T,
+        "fake_mask": (fake & contrib).reshape(B, E, S0)[ray, pos].T,
+        "valid": c3[ray, pos].T,
+    }
     return {
         **out,
-        "live": contrib.reshape(B, E, S0)[ray, pos].T,
+        "live": c3[ray, pos].T,
         "rgb": rgb_acc + torch.exp(log_T)[:, None] * opt.background_brightness,
         "depth": depth,
         "normal": normal,
@@ -700,22 +899,41 @@ def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None)
         "n_intersections": cnt,
         "ray_losses": torch.stack(losses, 0),
         "weight": w3[ray, pos].T,
+        "samples": samples,
     }
 
 
+RENDERERS = ("packed", "compact", "dense")  # the JAX package's renderer names
+
+
+class _Mode(NamedTuple):
+    """The compositor's rules for one renderer: the stop_thresh counting
+    window (``_count_window``), first-max mode depth, and the cache size."""
+
+    window: int = 0
+    mode_first: bool = False
+    cache_size: int | None = None
+
+
+PACKED = _Mode()
+
+
 def composite(grid: SparseGrid, opt: RenderOptions, offsets: torch.Tensor, smp: dict,
-              sig_thresh: float | None = None, want_live: bool = False) -> dict:
+              sig_thresh: float | None = None, want_live: bool = False,
+              mode: _Mode = PACKED) -> dict:
     """K4: per-ray compositing of the (S0, M) slot arrays in (entry, slot)
     order. Returns rgb (with the background), depth, normal, log_T,
     depth_mode, depth_med, n_intersections, ray_losses (12, B) in
     ``_RAY_LOSS_KEYS`` order and the (S0, M) sample weights; with
     ``sig_thresh`` the sigma-thresh depth ``depth_sigma_thresh`` (B,), with
     ``want_live`` (always on the CPU) the (S0, M) flags ``live`` of the
-    samples that contribute after the stop_thresh kill."""
+    samples that contribute after the stop_thresh kill; with
+    ``mode.cache_size`` (K11c) the first-K ``cache`` and its median
+    ``cache_med``."""
     trunc_a = grid.truncated_vol_render_a
     if not offsets.is_cuda:
-        return _composite_plain(opt, trunc_a, offsets, smp, sig_thresh)
-    return kernels.composite(offsets, smp, trunc_a, opt, sig_thresh, want_live)
+        return _composite_plain(opt, trunc_a, offsets, smp, sig_thresh, *mode)
+    return kernels.composite(offsets, smp, trunc_a, opt, sig_thresh, want_live, *mode)
 
 
 def _intersections(grid: SparseGrid, pool: Pool, origins, dirs, smp: dict, comp: dict) -> dict:
@@ -758,43 +976,64 @@ class _Chunk(NamedTuple):
     sh_mult: torch.Tensor
     near_grid_t: float
     packed: torch.Tensor
+    mode: _Mode
 
 
-class _PackedSurfaceFn(torch.autograd.Function):
+_CACHE_DIFF = ("ts", "alphas", "weights")
+_CACHE_KEYS = _CACHE_DIFF + ("fake_mask", "n_cached", "cache_med")
+
+
+class _SurfaceFn(torch.autograd.Function):
     """K3 and K4 forward; K5 backward into density, surface, SH and
-    fake_sample_std. Only ``rgb`` and ``ray_losses`` take a cotangent."""
+    fake_sample_std. ``rgb``, ``ray_losses`` and the cache's ts, alphas and
+    weights (K11d) take a cotangent."""
 
     @staticmethod
     def forward(ctx, density, surface, sh, fss, chunk: _Chunk):
         c = chunk
         smp = voxel_samples(c.grid, c.opt, c.pool, c.origins, c.dirs, c.sh_mult, c.near_grid_t,
                             c.packed)
-        comp = composite(c.grid, c.opt, c.pool.offsets, smp)
-        ctx.chunk, ctx.smp = chunk, smp
+        comp = composite(c.grid, c.opt, c.pool.offsets, smp, mode=c.mode)
+        ctx.chunk, ctx.smp, ctx.win = chunk, smp, comp.get("win")
         ctx.set_materialize_grads(False)
+        cache = comp.get("cache")
+        if cache is None:  # no cache: empty stand-ins, one tensor each
+            B = comp["depth"].shape[0]
+            cache = {k: comp["depth"].new_zeros((B, 0)) for k in _CACHE_KEYS}
+        else:
+            cache = dict(cache, cache_med=comp["cache_med"])
         ctx.mark_non_differentiable(comp["depth_mode"], comp["depth_med"],
-                                    comp["n_intersections"])
-        return tuple(comp[k] for k in _FN_OUTPUTS)
+                                    comp["n_intersections"],
+                                    *(cache[k] for k in _CACHE_KEYS[3:]))
+        return tuple(comp[k] for k in _FN_OUTPUTS) + tuple(cache[k] for k in _CACHE_KEYS)
 
     @staticmethod
     def backward(ctx, g_rgb, g_ray_losses, *g_rest):
-        for name, g in zip(_FN_OUTPUTS[2:5], g_rest):
+        n = len(_FN_OUTPUTS) - 2
+        g_out, g_cache = g_rest[:n], g_rest[n:n + len(_CACHE_DIFF)]
+        for name, g in zip(_FN_OUTPUTS[2:5], g_out):
             if g is not None and bool(torch.any(g != 0)):
                 raise NotImplementedError(
                     f"a gradient through {name!r} of the packed renderer is not ported yet "
-                    "(ROADMAP §2 item 3); K5 carries rgb and ray_losses"
+                    "(ROADMAP §2 item 4); K5 carries rgb, ray_losses and the cache"
                 )
         c, smp = ctx.chunk, ctx.smp
         B = c.origins.shape[0]
         f32 = dict(dtype=torch.float32, device=c.origins.device)
         g_rgb = torch.zeros((B, 3), **f32) if g_rgb is None else g_rgb.contiguous()
         g_rl = torch.zeros((12, B), **f32) if g_ray_losses is None else g_ray_losses.contiguous()
+        K = c.mode.cache_size
+        g_c = None
+        if K is not None and any(g is not None for g in g_cache):
+            g_c = tuple(torch.zeros((B, K), **f32) if g is None else g.contiguous()
+                        for g in g_cache)
         d_alpha, d_t, d_col = kernels.backward_ray(
-            c.pool.offsets, smp, c.grid.truncated_vol_render_a, c.opt, g_rgb, g_rl)
+            c.pool.offsets, smp, c.grid.truncated_vol_render_a, c.opt, g_rgb, g_rl, g_c)
         g_density, g_surface, g_sh, g_fss = kernels.backward_entry(
             c.pool.ray_id, c.pool.l, c.pool.close_t, c.pool.far_t, c.origins, c.dirs, c.sh_mult,
             c.grid.links, c.packed, c.grid.surface_data.shape[1], c.grid.level_set_data,
-            c.near_grid_t, _fss(c.grid), c.opt, smp["contrib"], d_alpha, d_t, d_col, g_rl)
+            c.near_grid_t, _fss(c.grid), c.opt, smp["contrib"], d_alpha, d_t, d_col, g_rl,
+            ctx.win)
         need = ctx.needs_input_grad
         return (g_density[:, None] if need[0] else None, g_surface if need[1] else None,
                 g_sh if need[2] else None, g_fss.reshape(1, 1) if need[3] else None, None)
@@ -805,13 +1044,160 @@ _FN_OUTPUTS = ("rgb", "ray_losses", "depth", "normal", "log_T", "depth_mode", "d
 
 
 # ---------------------------------------------------------------------------
-# The renderer
+# The renderers
 # ---------------------------------------------------------------------------
 
-def _render_plain(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed) -> dict:
-    """K3 and K4's plain versions on one chunk; differentiable by autograd."""
+def _render_plain(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed,
+                  mode: _Mode = PACKED) -> dict:
+    """K3 and K4's plain versions on one pool; differentiable by autograd."""
     smp = _voxel_samples_plain(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed)
-    return _composite_plain(opt, grid.truncated_vol_render_a, pool.offsets, smp)
+    return _composite_plain(opt, grid.truncated_vol_render_a, pool.offsets, smp, None, *mode)
+
+
+def _finalize(comp: dict, mode: _Mode, cache_med_depth: bool) -> dict:
+    """Output dict of a renderer from the compositor's per-ray values (the
+    background is already added by the compositor). ``cache_med_depth``:
+    ``depth_med`` is the cache's median (the dense and compact renderers,
+    which have none without a cache); otherwise the cache-free median (the
+    packed renderer, surface.py:1996)."""
+    log_T = comp["log_T"]
+    out = {
+        "rgb": comp["rgb"],
+        "depth": comp["depth"],
+        "depth_mode": comp["depth_mode"],
+        "normal": comp["normal"],
+        "alpha": 1.0 - torch.exp(log_T),
+        "log_transmit": log_T,
+        "n_intersections": comp["n_intersections"],
+        "ray_losses": dict(zip(_RAY_LOSS_KEYS, comp["ray_losses"])),
+    }
+    if mode.cache_size is not None:
+        out["cache"] = comp["cache"]
+    if not cache_med_depth:
+        out["depth_med"] = comp["depth_med"]
+    elif mode.cache_size is not None:
+        out["depth_med"] = comp["cache_med"]
+    return out
+
+
+def _render_pool(grid, opt, prep, pool, mode: _Mode, packed, sig_thresh=None,
+                 want_live: bool = False):
+    """K3 and K4 (K5 under a gradient on the card, autograd of the plain
+    versions on the CPU) on a pool. Returns (comp, smp); smp is None when
+    K5 carries the gradient."""
+    origins, dirs, sh_mult, near_grid_t = prep
+    params = (grid.density_data, grid.surface_data, grid.sh_data, grid.fake_sample_std)
+    train = torch.is_grad_enabled() and any(p is not None and p.requires_grad for p in params)
+    autograd = train and not origins.is_cuda  # K5 differentiates on the card
+    if packed is None or autograd:
+        with torch.set_grad_enabled(autograd):
+            packed = pack_grid_data(grid)
+    if train and origins.is_cuda:
+        if sig_thresh is not None or want_live:
+            raise NotImplementedError(
+                "return_intersections and depth_sigma_thresh are outputs of the forward "
+                "render; K5 does not carry them (ROADMAP §2 item 4)")
+        chunk = _Chunk(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed, mode)
+        res = _SurfaceFn.apply(*params, chunk)
+        comp = dict(zip(_FN_OUTPUTS, res))
+        if mode.cache_size is not None:
+            cache = dict(zip(_CACHE_KEYS, res[len(_FN_OUTPUTS):]))
+            comp["cache_med"] = cache.pop("cache_med")
+            comp["cache"] = cache
+        return comp, None
+    smp = voxel_samples(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed)
+    return composite(grid, opt, pool.offsets, smp, sig_thresh, want_live, mode), smp
+
+
+def _begin(grid, rays, opt, occupancy):
+    """Ray setup shared by the renderers: (origins, dirs, sh_mult, tnear,
+    tmax, near_grid_t, ray_ok) and the occupancy words."""
+    _check_supported(grid, opt)
+    with torch.no_grad():
+        origins, dirs, sh_mult, tnear, tmax, near_grid_t, ray_ok, _ = _prep(grid, rays, opt)
+        words = occupancy_words(grid, opt) if occupancy is None else occupancy
+    return origins, dirs, sh_mult, tnear, tmax, near_grid_t, ray_ok, words
+
+
+def _phase_a_bounds(tnear, tmax, ray_ok):
+    return (torch.where(ray_ok, tnear, torch.zeros_like(tnear)),
+            torch.where(ray_ok, tmax, torch.full_like(tmax, -1.0)))
+
+
+def _samples(comp: dict, pool: Pool, slot: torch.Tensor, n_slots: int, B: int) -> dict:
+    """The JAX walks' ``return_samples``: (B, n_slots * S0) arrays laid out
+    as their scans lay out slots, entry e's S0 slots at ``slot[e] * S0``;
+    slots of voxels the pool holds no entry for are zero."""
+    out = {}
+    for k, v in comp["samples"].items():  # (S0, M)
+        S0, M = v.shape
+        buf = v.new_zeros((B, n_slots, S0))
+        buf[pool.ray_id.long(), slot] = v.T
+        out[k] = buf.reshape(B, n_slots * S0)
+    return out
+
+
+def volume_render_surface(grid: SparseGrid, rays: Rays, opt: RenderOptions,
+                          max_voxels: int | None = None, return_samples: bool = False,
+                          cache_size: int | None = None, occupancy: torch.Tensor | None = None,
+                          packed: torch.Tensor | None = None) -> dict:
+    """The dense DDA walk (surface.py:1092-1143): K11a lists the occupied
+    voxels of each ray's ``max_voxels``-step walk, then K3 and K4 run on
+    them with the walk's rules (the stop_thresh kill and count per voxel,
+    the first max-weight sample's depth). The same keys as the JAX
+    package's, with its ``cache`` and cached ``depth_med`` when
+    ``cache_size`` is set; ``return_samples`` (the plain path only) adds the
+    per-slot ``samples``. ``occupancy`` and ``packed`` may be shared across
+    chunks, as for the packed renderer."""
+    if max_voxels is None:
+        max_voxels = max_voxels_for(grid)
+    origins, dirs, sh_mult, tnear, tmax, ngt, ray_ok, words = _begin(grid, rays, opt, occupancy)
+    with torch.no_grad():
+        if return_samples:
+            if origins.is_cuda:
+                raise NotImplementedError("return_samples runs on the plain path only; pass "
+                                          "CPU rays")
+            pool, step = _dense_walk_plain(grid.reso, origins, dirs, tnear, tmax, ray_ok,
+                                           words, max_voxels)
+        else:
+            pool = dense_walk(grid, origins, dirs, tnear, tmax, ray_ok, words, max_voxels)
+    mode = _Mode(1, True, cache_size)
+    comp, _ = _render_pool(grid, opt, (origins, dirs, sh_mult, ngt), pool, mode, packed)
+    out = _finalize(comp, mode, cache_med_depth=True)
+    if return_samples:
+        out["samples"] = _samples(comp, pool, step, max_voxels, origins.shape[0])
+    return out
+
+
+def volume_render_surface_compact(grid: SparseGrid, rays: Rays, opt: RenderOptions,
+                                  max_intersect_voxels: int = 64,
+                                  cache_size: int | None = None, return_samples: bool = False,
+                                  unroll: int = 1, voxel_chunk: int = 8,
+                                  occupancy: torch.Tensor | None = None,
+                                  packed: torch.Tensor | None = None) -> dict:
+    """The K-slot renderer (surface.py:2018-2093): the first
+    ``max_intersect_voxels`` occupied crossings of each ray (K11b), then K3
+    and K4 with the JAX renderer's rules: under stop_thresh it counts every
+    sample of a ``voxel_chunk``-voxel pass that starts alive. Equal to the
+    dense walk while no ray has more than K occupied crossings;
+    ``n_occupied`` is each ray's uncapped count. ``unroll`` is a scheduling
+    knob of the JAX scan, accepted for signature parity."""
+    origins, dirs, sh_mult, tnear, tmax, ngt, ray_ok, words = _begin(grid, rays, opt, occupancy)
+    K = max_intersect_voxels
+    with torch.no_grad():
+        pool = compact_crossings(grid, origins, dirs, *_phase_a_bounds(tnear, tmax, ray_ok),
+                                 words, K)
+    if return_samples and origins.is_cuda:
+        raise NotImplementedError("return_samples runs on the plain path only; pass CPU rays")
+    V = max(1, min(voxel_chunk, K))
+    mode = _Mode(V, True, cache_size)
+    comp, _ = _render_pool(grid, opt, (origins, dirs, sh_mult, ngt), pool, mode, packed)
+    out = _finalize(comp, mode, cache_med_depth=True)
+    out["n_occupied"] = pool.n_occupied
+    if return_samples:
+        pos = torch.arange(pool.close_t.shape[0]) - pool.offsets[pool.ray_id.long()]
+        out["samples"] = _samples(comp, pool, pos, -(-K // V) * V, origins.shape[0])
+    return out
 
 
 def volume_render_surface_packed(
@@ -826,7 +1212,8 @@ def volume_render_surface_packed(
     packed: torch.Tensor | None = None,
 ) -> dict:
     """Render rays through K1-K4; the same keys as the JAX package's
-    ``volume_render_surface_packed`` with ``cache_size=None``, and its
+    ``volume_render_surface_packed``, with its first-K ``cache``
+    (``cache_size``; ``depth_med`` stays the cache-free median, as JAX's),
     ``depth_sigma_thresh`` and ``intersections`` (whose arrays cover the
     exact pool, M entries by S0 slots, where JAX's cover its padded pool). The pool is
     exact, so ``pool_overflow`` is 0 and ``n_entries_used`` the true count;
@@ -834,42 +1221,19 @@ def volume_render_surface_packed(
     (the words of ``occupancy_words``) and ``packed`` (``pack_grid_data``)
     may be passed in to share them across chunks.
 
-    When a parameter of the grid requires grad, ``rgb`` and ``ray_losses``
-    carry gradients to density, surface, SH and fake_sample_std: on the card
-    through K5, on the CPU through autograd of the plain path (which then
-    packs the rows itself, so that they carry the gradient)."""
-    if cache_size is not None:
-        raise NotImplementedError(
-            "cache_size (the first-K sample cache) is not ported yet (ROADMAP §1 item 2)")
-    _check_supported(grid, opt)
+    When a parameter of the grid requires grad, ``rgb``, ``ray_losses`` and
+    the cache's ts, alphas and weights carry gradients to density, surface,
+    SH and fake_sample_std: on the card through K5, on the CPU through
+    autograd of the plain path (which then packs the rows itself, so that
+    they carry the gradient)."""
+    origins, dirs, sh_mult, tnear, tmax, ngt, ray_ok, words = _begin(grid, rays, opt, occupancy)
     with torch.no_grad():
-        (origins, dirs, sh_mult, tnear, tmax, near_grid_t, ray_ok,
-         _delta_scale) = _prep(grid, rays, opt)
-        words = occupancy_words(grid, opt) if occupancy is None else occupancy
-        pool = compact_crossings_packed(
-            grid, origins, dirs,
-            torch.where(ray_ok, tnear, torch.zeros_like(tnear)),
-            torch.where(ray_ok, tmax, torch.full_like(tmax, -1.0)),
-            words,
-        )
-    params = (grid.density_data, grid.surface_data, grid.sh_data, grid.fake_sample_std)
-    train = torch.is_grad_enabled() and any(p is not None and p.requires_grad for p in params)
-    autograd = train and not origins.is_cuda  # K5 differentiates on the card
-    if packed is None or autograd:
-        with torch.set_grad_enabled(autograd):
-            packed = pack_grid_data(grid)
-    extra = return_intersections or depth_sigma_thresh is not None
-    if train and origins.is_cuda:
-        if extra:
-            raise NotImplementedError(
-                "return_intersections and depth_sigma_thresh are outputs of the forward "
-                "render; K5 does not carry them (ROADMAP §2 item 3)")
-        chunk = _Chunk(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed)
-        comp = dict(zip(_FN_OUTPUTS, _PackedSurfaceFn.apply(*params, chunk)))
-    else:
-        smp = voxel_samples(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed)
-        comp = composite(grid, opt, pool.offsets, smp, depth_sigma_thresh, return_intersections)
-    out = _finalize(comp)
+        pool = compact_crossings_packed(grid, origins, dirs,
+                                        *_phase_a_bounds(tnear, tmax, ray_ok), words)
+    mode = _Mode(cache_size=cache_size)
+    comp, smp = _render_pool(grid, opt, (origins, dirs, sh_mult, ngt), pool, mode, packed,
+                             depth_sigma_thresh, return_intersections)
+    out = _finalize(comp, mode, cache_med_depth=False)
     out["n_occupied"] = pool.n_occupied
     out["n_entries_used"] = pool.close_t.shape[0]
     out["pool_overflow"] = 0

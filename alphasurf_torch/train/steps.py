@@ -2,10 +2,12 @@
 ``train.steps.make_surface_step`` (steps.py:222-444; svox2's opt.py:786-1152)
 and ``make_cuvol_step`` (steps.py:447-536, the Plenoxels warm start).
 
-A surface step renders the batch through the packed renderer (K1-K4
-forward, K5 backward on the card), adds the streaming ray losses and the
-cell-sampled regularizers (K6), and applies masked RMSprop (K7) to density,
-SH, surface and fake_sample_std, in place. A cuvol step renders through the
+A surface step renders the batch through the renderer ``StepConfig.renderer``
+names (packed, compact or dense: K1-K4 and K11a/K11b forward, K5 backward on
+the card), adds the streaming ray losses, the two-pass losses on the first-K
+sample cache (``use_two_pass_losses``, K11c/K11d) and the cell-sampled
+regularizers (K6), and applies masked RMSprop (K7) to density, SH, surface
+and fake_sample_std, in place. A cuvol step renders through the
 packed cuvol renderer (K8 forward and backward over K2's pool), adds the TV
 of density and SH (K6) and applies K7 to density and SH. On the card each
 makes one host sync, the one that sizes K2's pool. Per-step scalars come in
@@ -30,7 +32,10 @@ from ..losses import reg
 from ..losses import render_losses as rl
 from ..optim.rmsprop import rmsprop_init, rmsprop_step
 from ..render.cuvol import volume_render_cuvol_packed
-from ..render.surface import volume_render_surface_packed
+from ..render.surface import (
+    RENDERERS, volume_render_surface, volume_render_surface_compact,
+    volume_render_surface_packed,
+)
 
 
 class HParams(NamedTuple):
@@ -81,9 +86,10 @@ class HParams(NamedTuple):
 class StepConfig:
     """The JAX package's ``StepConfig`` field for field. The port's pool is
     exact, so ``entries_per_ray``, ``coarse_factor`` and ``supers_per_ray``
-    (the JAX pool's budget) are accepted and not needed; ``max_voxels``,
-    ``max_steps``, ``max_intersect_voxels`` and ``voxel_chunk`` belong to
-    renderers the port does not have yet."""
+    (the JAX pool's budget) are accepted and not needed. ``max_voxels``
+    reaches the dense walk, ``max_intersect_voxels`` and ``voxel_chunk`` the
+    compact renderer; ``max_steps`` belongs to the dense cuvol march, whose
+    gradient is not ported."""
 
     opt: RenderOptions
     max_voxels: Optional[int] = None
@@ -156,21 +162,18 @@ def _requires_grad(params):
 
 
 def _check_config(cfg: StepConfig, flags=("use_eikonal", "use_norm_match", "use_viscosity",
-                                            "use_sign_change", "use_lumisphere_tv",
-                                            "use_two_pass_losses")) -> None:
+                                            "use_sign_change", "use_lumisphere_tv")) -> None:
     """Raise on what the port's steps do not carry; ``flags`` are the
     StepConfig switches the step would read."""
-    if cfg.renderer != "packed":
-        raise NotImplementedError(
-            f"renderer {cfg.renderer!r} is not ported; only 'packed' (ROADMAP §1 item 2)")
+    if cfg.renderer not in RENDERERS:
+        raise ValueError(f"renderer {cfg.renderer!r}; one of {RENDERERS}")
     for flag in flags:
         if getattr(cfg, flag):
             raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP §1 item 2: the two-pass losses; §2 item 2: "
-                "the extended regularizers)")
+                f"{flag} is not ported yet (ROADMAP §2 item 1: the extended regularizers)")
     if cfg.axis_name is not None:
         raise NotImplementedError("data-parallel steps (axis_name) are not ported yet "
-                                  "(ROADMAP §1 item 3)")
+                                  "(ROADMAP §1 item 4)")
 
 
 def _check_rms(rms: dict) -> None:
@@ -178,7 +181,7 @@ def _check_rms(rms: dict) -> None:
     if extra:
         raise NotImplementedError(
             f"rms groups {sorted(extra)} (learned bases, background) are not ported yet "
-            "(ROADMAP §1 item 4)")
+            "(ROADMAP §1 item 2)")
 
 
 def _window_starts(window_starts, names) -> dict:
@@ -223,8 +226,20 @@ def make_surface_step(cfg: StepConfig):
         starts = _window_starts(window_starts, WINDOWS)
         reg_scale, sample = _sampler(generator, grid, row_coords, starts)
         params = {k: getattr(grid, f) for k, f in _PARAMS if k in rms}
+        cache = cfg.cache_size if cfg.use_two_pass_losses else None
         with _requires_grad(list(params.values())):
-            out = volume_render_surface_packed(grid, rays, cfg.opt, occupancy=occ)
+            if cfg.renderer == "packed":
+                out = volume_render_surface_packed(grid, rays, cfg.opt, cache_size=cache,
+                                                   occupancy=occ)
+            elif cfg.renderer == "compact":
+                out = volume_render_surface_compact(
+                    grid, rays, cfg.opt, max_intersect_voxels=cfg.max_intersect_voxels,
+                    cache_size=cache, voxel_chunk=cfg.voxel_chunk, occupancy=occ)
+            else:
+                # the JAX dense step walks every voxel, stale occupancy or
+                # not: K11a keeps the voxels of words made fresh this step
+                out = volume_render_surface(grid, rays, cfg.opt, max_voxels=cfg.max_voxels,
+                                            cache_size=cache)
             resid = out["rgb"] - rgb_gt
             if rays.masks is not None:
                 resid = resid * rays.masks[:, None]
@@ -241,6 +256,10 @@ def make_surface_step(cfg: StepConfig):
             loss = loss + hp.lambda_inward_norm * rl.l_inward_norm_from_ray_losses(ray_l)
             loss = loss + hp.lambda_density_lap * rl.density_lap_from_ray_losses(ray_l)
             loss = loss + hp.lambda_udf_var * rl.udf_var_from_ray_losses(ray_l)
+            if cache is not None:
+                loss = loss + hp.lambda_conv_mode_samp * rl.l_conv_mode_samp_from_cache(
+                    out["cache"])
+                loss = loss + hp.lambda_samp_dist * rl.l_samp_dist_from_cache(out["cache"])
 
             # cell-sampled regularizers (opt.py:939-1074)
             cells = sample("tv", cfg.tv_sparsity)
@@ -285,9 +304,10 @@ def make_surface_step(cfg: StepConfig):
 
         # The JAX step keeps the old parameters when its pool overflowed
         # (steps.py:408-437). The port's pool is sized exactly and never
-        # overflows, so this is a host-side check of a Python 0 and the
-        # update always applies.
-        overflow = out["pool_overflow"]
+        # overflows (the compact and dense renderers have no pool budget:
+        # JAX reports 0 for them), so this is a host-side check of a Python
+        # 0 and the update always applies.
+        overflow = out.get("pool_overflow", 0)
         if overflow == 0 or hp.force_apply > 0:
             beta = cfg.rms_beta
             rmsprop_step(grid.density_data, rms["density"], g["density"], hp.lr_alpha, beta)
@@ -316,15 +336,20 @@ def make_cuvol_step(cfg: StepConfig):
     over windows ``"tv"`` and ``"tv_sh"`` (``CUVOL_WINDOWS``), then masked
     RMSprop of density (``lr_sigma``) and SH (``lr_sh``) in place. ``occ``
     are the words of ``render.cuvol.density_occupancy_words``; without
-    them the JAX step marches densely, whose backward is not ported."""
+    them, or with a renderer other than "packed", the JAX step marches
+    densely, whose backward is not ported."""
     _check_config(cfg, flags=("use_lumisphere_tv",))  # the only switch it reads
+    if cfg.renderer != "packed":
+        raise NotImplementedError(
+            f"a cuvol step with renderer {cfg.renderer!r} trains through the dense march, whose "
+            "backward is not ported (ROADMAP §2 item 4); use renderer='packed'")
 
     def step(grid: SparseGrid, rms: dict, rays: Rays, rgb_gt: torch.Tensor, hp: HParams,
              generator: torch.Generator, occ=None, row_coords=None, window_starts=None):
         if occ is None:
             raise NotImplementedError(
                 "a cuvol step without an occupancy trains through the dense march, whose "
-                "backward is not ported (ROADMAP §2 item 3); pass "
+                "backward is not ported (ROADMAP §2 item 4); pass "
                 "occ=render.cuvol.density_occupancy_words(grid)")
         _check_rms(rms)
         starts = _window_starts(window_starts, CUVOL_WINDOWS)

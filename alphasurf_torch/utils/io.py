@@ -11,7 +11,7 @@ from .. import defs
 from ..core.device import resolve_device
 from ..core.grid import SparseGrid
 
-# checkpoint keys of fields this slice does not carry (ROADMAP §1 item 4)
+# checkpoint keys of fields this slice does not carry (ROADMAP §1 item 2)
 _UNSUPPORTED_KEYS = ("background_data", "basis_data")
 
 
@@ -40,9 +40,9 @@ def load_grid(path: str, device="cuda", dtype=torch.float32) -> tuple[SparseGrid
     z = np.load(path, allow_pickle=True)
     for k in _UNSUPPORTED_KEYS:
         if k in z.files and z[k].size:
-            raise NotImplementedError(f"checkpoint field {k!r} is not ported yet (ROADMAP §1 item 4)")
+            raise NotImplementedError(f"checkpoint field {k!r} is not ported yet (ROADMAP §1 item 2)")
     if any(k.startswith("basis_mlp.") for k in z.files):
-        raise NotImplementedError("the learned MLP basis is not ported yet (ROADMAP §1 item 4)")
+        raise NotImplementedError("the learned MLP basis is not ported yet (ROADMAP §1 item 2)")
     sh_data = z["sh_data"].astype(np.float32)
     density_data = z["density_data"].astype(np.float32)
     links = z["links"]

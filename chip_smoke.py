@@ -9,7 +9,8 @@ per entry, K6 regularizers TV / normal / sparsify, K7 RMSprop, K1d density
 occupancy, K8 cuvol forward and backward, K10 dense cuvol march, K9a keep
 masks, K9b lattice resample, K9c weight march, K9d visibility walk, K9e
 transmittance march, K9f mask sweep, K9g iso points, K4's sigma-thresh
-depth and intersect_points), then:
+depth and intersect_points, K11a dense walk count + fill, K11b capped
+fill, K11c the first-K cache in K4, K11d its gradient in K5), then:
 
 1. prints the card, its power limit, nvcc's register/spill lines and the
    build seconds;
@@ -79,10 +80,21 @@ depth and intersect_points), then:
    on two views, and app/eval_dtu on each extractor's points: every kernel
    of the path launched, a PSNR above the untrained grid's, a finite DTU
    Chamfer for each extractor; the mask sweep profiled;
-9. prints one JSON line with each kernel's numbers, then the ok line.
+9. the compact and dense renderers: K11a-K11d against their plain
+   versions on a 16,384-ray chunk of the 512^3 shell (the pools bit for
+   bit, K11d through the compact renderer's gradient with both cache
+   losses), each timed; then, each with the counters set to 0 just before
+   and read just after, two 800x800 frames through render_image with the
+   packed, compact and dense renderers (compact equal to packed where no
+   ray has more than K crossings, dense within DENSE_ATOL), bench_step
+   --renderer compact and dense at full width with a profiled step each,
+   and app/train.main with the two-pass losses on the compact renderer
+   (two_pass_config: cache losses finite and non-zero on every surface
+   step, a PSNR above the untrained grid's, a finite Chamfer);
+10. prints one JSON line with each kernel's numbers, then the ok line.
 
 ``--phases`` runs a subset (kernels, serve, train, warm, stages,
-extract, dtu); the default runs them all, as the checks above require. Exits non-zero, printing no result,
+extract, dtu, renderers); the default runs them all, as the checks above require. Exits non-zero, printing no result,
 without a CUDA device or without the ``alphasurf_torch`` package beside
 it. Imports nothing of JAX.
 """
@@ -174,6 +186,13 @@ KERNELS = {  # name -> (source, the JAX routine it replaces)
     "mask_march": ("alphasurf_torch/csrc/sweep.cu", f"{JAX_PACKAGE}/core/weight_render.py:231"),
     "composite_sigma_thresh": ("alphasurf_torch/csrc/composite.cu", f"{_JAX_SURFACE}:1902"),
     "intersect_points": ("alphasurf_torch/csrc/composite.cu", f"{_JAX_SURFACE}:1999"),
+    # K11: the dense walk's voxel list (K11a), the first K occupied
+    # crossings (K11b), the first-K sample cache (K11c) and its gradient (K11d)
+    "dense_walk_count": ("alphasurf_torch/csrc/phase_a.cu", f"{_JAX_SURFACE}:1092"),
+    "dense_walk_fill": ("alphasurf_torch/csrc/phase_a.cu", f"{_JAX_SURFACE}:1092"),
+    "compact_fill": ("alphasurf_torch/csrc/phase_a.cu", f"{_JAX_SURFACE}:1284"),
+    "composite_cache": ("alphasurf_torch/csrc/composite.cu", f"{_JAX_SURFACE}:951"),
+    "backward_cache": ("alphasurf_torch/csrc/backward.cu", f"{_JAX_SURFACE}:1955"),
 }
 SERVE_KERNELS = ("occupancy", "phase_a_count", "phase_a_fill", "phase_b", "composite")
 TRAIN_KERNELS = SERVE_KERNELS + ("backward_ray", "backward_entry", "reg_tv", "reg_normal",
@@ -186,17 +205,21 @@ STAGE_KERNELS = ("keep_mask", "prune_mask", "lv_band", "resample_dense", "resamp
                  "weight_march", "visibility")
 EXTRACT_KERNELS = ("transmit_march", "iso_points")
 DTU_KERNELS = ("mask_march", "composite_sigma_thresh", "intersect_points")
+RENDERER_KERNELS = ("dense_walk_count", "dense_walk_fill", "compact_fill", "composite_cache",
+                    "backward_cache")
 # the three-stage run initialises its surface from the density: every kernel
-# but K9e and the DTU path's
-STAGE_RUN_KERNELS = tuple(k for k in KERNELS if k not in ("transmit_march",) + DTU_KERNELS)
+# but K9e, the DTU path's and the compact and dense renderers'
+STAGE_RUN_KERNELS = tuple(k for k in KERNELS
+                          if k not in ("transmit_march",) + DTU_KERNELS + RENDERER_KERNELS)
 # the pipeline: the Plenoxels stage and its eval, the weight init with
 # visibility pruning, the surface stage, the extraction
 PIPELINE_KERNELS = TRAIN_KERNELS + WARM_NEW_KERNELS + (
-    "prune_mask", "keep_mask", "visibility", "transmit_march", "iso_points")
+    "prune_mask", "keep_mask", "visibility", "transmit_march", "iso_points",
+    "dense_walk_count", "dense_walk_fill")  # K11a renders the dataset's ground truth
 # the DTU path: the three stages with mask pruning at the surface init,
-# the extractors: every kernel but K9e
-DTU_PATH_KERNELS = tuple(k for k in KERNELS if k != "transmit_march")
-PHASES = ("kernels", "serve", "train", "warm", "stages", "extract", "dtu")
+# the extractors: every kernel but K9e and the compact and dense renderers'
+DTU_PATH_KERNELS = tuple(k for k in KERNELS if k not in ("transmit_march",) + RENDERER_KERNELS)
+PHASES = ("kernels", "serve", "train", "warm", "stages", "extract", "dtu", "renderers")
 CUVOL_RESO = 256  # the warm start's grid (the Config's first reso)
 WARM_STEPS = 100  # Trainer steps of the warm-start run
 TRAIN_BATCH = 40960
@@ -1021,6 +1044,7 @@ def train(device, card: str) -> dict:
     log("launches " + json.dumps(launches))
     if any(v == 0 for v in launches.values()):
         raise AssertionError(f"a kernel of the training path was not launched: {launches}")
+    TRAIN_RAYS_PER_S["packed"] = out["rays_per_s_fwd_bwd"]
     if not (out["losses_finite"] and out["rows_moved"] > 0):
         raise AssertionError(f"training did not run right: {out}")
 
@@ -2133,6 +2157,9 @@ def pipeline_run(device, card: str, work: Path) -> dict:
         log(f"pipeline stage {name}: " + json.dumps(r) + f" [{card}]")
     init = json.loads((out_dir / "surface" / "transitions.json").read_text())
     log(f"pipeline surface init: {json.dumps(init)} [{card}]")
+    # the dataset's default ground truth, as the pipeline renders it: the
+    # dense walk (K11a) on host-made rays, which renders them as the packed
+    # renderer does, so the numbers stay comparable with earlier runs
     dset_test = SyntheticDataset(split="test", n_images=2, width=WIDTH, height=HEIGHT,
                                  reso=CUVOL_RESO, device=device)
     psnr0 = eval_untrained(device, dset_test)
@@ -2337,7 +2364,8 @@ def dtu_config(data_dir: Path) -> str:
         k, v = line.split(" = ", 1)
         if not (k.startswith("dataset_") or k in ("log_pts", "eval_cf")):
             keys[k] = v
-    keys.update({"dataset_type": "dtu", "data_dir": str(data_dir)})
+    keys.update({"dataset_type": "dtu", "data_dir": str(data_dir),
+                 "save_every": STAGE_STEPS[0] + STAGE_STEPS[1]})
     return "".join(f"{k} = {v}\n" for k, v in keys.items())
 
 
@@ -2453,6 +2481,7 @@ def dtu(device, card: str, work: Path) -> tuple[dict, dict]:
     from alphasurf_torch.app import train as train_app
     from alphasurf_torch.core import weight_render as W
     from alphasurf_torch.data import DTUDataset
+    from alphasurf_torch.train.trainer import Trainer
 
     res = check_mask_kernel(device, card)
     scene = work / "dtu_scan"
@@ -2495,17 +2524,30 @@ def dtu(device, card: str, work: Path) -> tuple[dict, dict]:
     cfg_path = work / "dtu.yaml"
     cfg_path.write_text(dtu_config(scene))
     train_dir = work / "dtu_train"
+    # the save at the end of the 256^3 surface stage (dtu_config's
+    # save_every) is kept beside the final one: the iso points and the
+    # mesh are extracted from it
+    ckpt_256 = work / f"ckpt_{CUVOL_RESO}.npz"
+    save = Trainer.save
+
+    def keep_stage_ckpt(self):
+        save(self)
+        if self.gstep == STAGE_STEPS[0] + STAGE_STEPS[1]:
+            shutil.copyfile(train_dir / "ckpt.npz", ckpt_256)
+
     torch.cuda.reset_peak_memory_stats()
     tee = _Tee(sys.stdout)
     kernels.reset_launches()
     t0 = time.perf_counter()
     W.sparse_grid_mask_render = timed_mask_render
+    Trainer.save = keep_stage_ckpt
     try:
         with contextlib.redirect_stdout(tee):
             psnr = train_app.main([str(scene), "-t", str(train_dir), "-c", str(cfg_path),
                                    "--device", str(device)])
     finally:
         W.sparse_grid_mask_render = mask_render
+        Trainer.save = save
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0 - sum(plain_s)
     peak = torch.cuda.max_memory_allocated()
@@ -2550,7 +2592,7 @@ def dtu(device, card: str, work: Path) -> tuple[dict, dict]:
     mm = MM_PER_UNIT
     outs = {}
     t0 = time.perf_counter()
-    extract_points.main([str(ckpt), "--out", str(work / "pts_iso.npy"), "--n_sample",
+    extract_points.main([str(ckpt_256), "--out", str(work / "pts_iso.npy"), "--n_sample",
                          str(ISO_N), "--intersect_th", str(INTERSECT_TH), "--mesh",
                          str(work / "mesh.obj"), "--device", str(device)])
     outs["iso"] = (work / "pts_iso.npy", time.perf_counter() - t0)
@@ -2559,9 +2601,10 @@ def dtu(device, card: str, work: Path) -> tuple[dict, dict]:
     n_f = sum(1 for ln in lines if ln.startswith("f "))
     n_nan = sum(1 for ln in lines if ln.startswith("v ") and "nan" in ln)
     del lines
-    log(f"extract_points with --mesh: {n_v} mesh vertices ({n_nan} NaN: a tetrahedron whose one "
-        f"outside corner is an empty vertex, as in the JAX package), {n_f} triangles; points and "
-        f"mesh in {outs['iso'][1]:.2f} s [{card}]")
+    log(f"extract_points with --mesh on the {CUVOL_RESO}^3 surface stage's checkpoint: {n_v} "
+        f"mesh vertices ({n_nan} NaN: a tetrahedron whose one outside corner is an empty vertex, "
+        f"as in the JAX package), {n_f} triangles; points and mesh in {outs['iso'][1]:.2f} s "
+        f"[{card}]")
     if not n_f > 0:
         raise AssertionError("the mesh has no triangles")
     t0 = time.perf_counter()
@@ -2603,6 +2646,408 @@ def dtu(device, card: str, work: Path) -> tuple[dict, dict]:
                    f"the mask sweep of {len(masked[0])} masked rays ({grid.reso[0]}^3)", card)
     del grid, masked
     torch.cuda.empty_cache()
+    for name, r in res.items():
+        log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) [{card}]")
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
+# the compact and dense renderers, the first-K cache and the two-pass losses
+# ---------------------------------------------------------------------------
+
+CACHE_K = 64  # StepConfig.cache_size, the JAX package's default
+COMPACT_K = 64  # StepConfig.max_intersect_voxels and render_image's default
+# the dense frame against the packed one: the float32 dense walk and the
+# exact pool list the same occupied voxels save where a walk's float32
+# step lands within rounding of a voxel corner, so at most this share of
+# pixels may differ by more than DENSE_ATOL
+DENSE_ATOL, DENSE_PIXEL_FRACTION = 1e-4, 1e-3
+# the two-pass run's cache-loss weights: small enough that the terms stay
+# near a tenth of the image mse (l_conv_mode_samp sums |t - t_mode| over
+# the batch's cached samples, in voxels; l_samp_dist is a per-ray mean), so
+# that the PSNR check still tests the image fit, and large enough that
+# K11d's cotangents reach the rows in every step
+TWO_PASS = {"lambda_conv_mode_samp": "1.0e-7", "lambda_l_samp_dist": "1.0e-4"}
+TRAIN_RAYS_PER_S = {}  # the train phase's packed bench, for the renderers phase
+
+
+def _pool_key(pool):
+    return sorted_pool(pool.ray_id, pool.l, pool.close_t, pool.far_t)
+
+
+def check_renderer_kernels(device, card: str) -> dict:
+    """K11a-K11d against their plain versions on a 16,384-ray chunk of
+    frame 0 of the 512^3 serving shell, each timed: the dense walk's pool
+    and the K-slot pool bit for bit (K11b also at K = 2, which truncates),
+    the cache and its median (K11c), and the gradient of the bench loss
+    plus both cache losses through the compact renderer (K5 with K11d)
+    against autograd of the plain renderer under GRAD_*."""
+    import numpy as np
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app.bench_step import bench_options
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.losses import render_losses as RL
+    from alphasurf_torch.render import surface as S
+
+    res = {}
+    grid, _ = shell_grid(RESO, device)
+    opt = bench_options()
+    rays_all = frame_camera(0, 2).gen_rays_device(device)
+    s = (WIDTH * HEIGHT) // 2 - CHUNK // 2
+    rays = Rays(rays_all.origins[s:s + CHUNK].contiguous(), rays_all.dirs[s:s + CHUNK].contiguous())
+    origins, dirs, sh_mult, tnear, tmax, ngt, ok, words = S._begin(grid, rays, opt, None)
+    B = origins.shape[0]
+    mv = S.max_voxels_for(grid)
+    t0 = torch.where(ok, tnear, torch.zeros_like(tnear))
+
+    # K11a: the dense walk
+    n = kernels.dense_walk_count(origins, dirs, t0, tmax, ok, words, grid.reso, mv)
+    offsets = torch.zeros(B + 1, dtype=torch.int64, device=device)
+    torch.cumsum(n, 0, out=offsets[1:])
+    M = int(offsets[-1])
+    pool_k = S.Pool(*kernels.dense_walk_fill(origins, dirs, t0, tmax, ok, words, grid.reso, mv,
+                                             offsets, M), offsets, n)
+    pool_p, steps = S._dense_walk_plain(grid.reso, origins, dirs, tnear, tmax, ok, words, mv)
+    if not (all(np.array_equal(a, b) for a, b in zip(_pool_key(pool_k), _pool_key(pool_p)))
+            and torch.equal(offsets, pool_p.offsets)):
+        raise AssertionError("K11a's dense-walk pool differs from the plain version")
+    walked = int(steps.max()) + 1 if steps.numel() else 0
+    # steps walked: each plane crossed in (tnear, tmax) ends one, ~40 operations
+    n_cand = B
+    for ax in range(3):
+        p0 = origins[:, ax] + t0 * dirs[:, ax]
+        p1 = origins[:, ax] + torch.maximum(tmax, t0) * dirs[:, ax]
+        lo = torch.clamp(torch.floor(torch.minimum(p0, p1)) + 1, min=1)
+        hi = torch.clamp(torch.ceil(torch.maximum(p0, p1)) - 1, max=RESO - 2)
+        n_cand += int(torch.clamp(hi - lo + 1, min=0)[ok].sum())
+    log(f"K11a dense walk: {M} entries for {B} rays equal to the plain version (the longest "
+        f"entry at step {walked} of {mv}; {n_cand} steps walked)")
+    ray_bytes = B * (8 * 4 + 1) + words.numel() * 4
+    plain_w = time_ms(lambda: S._dense_walk_plain(grid.reso, origins, dirs, tnear, tmax, ok,
+                                                  words, mv), 1)
+    res["dense_walk_count"] = dict(
+        max_abs_err=0.0, plain_ms=plain_w, bound=bound_ms(ray_bytes + B * 4, n_cand * 40),
+        ms=time_ms(lambda: kernels.dense_walk_count(origins, dirs, t0, tmax, ok, words, grid.reso,
+                                                    mv), 20))
+    res["dense_walk_fill"] = dict(
+        max_abs_err=0.0, plain_ms=plain_w,
+        bound=bound_ms(ray_bytes + (B + 1) * 8 + M * 24, n_cand * 40),
+        ms=time_ms(lambda: kernels.dense_walk_fill(origins, dirs, t0, tmax, ok, words, grid.reso,
+                                                   mv, offsets, M), 20))
+
+    # K11b: the first K occupied crossings, at the serving K and at K = 2
+    tn, tx = S._phase_a_bounds(tnear, tmax, ok)
+    full = S._compact_crossings_plain(grid.reso, origins, dirs, tn, tx, words)
+    for K in (2, COMPACT_K):
+        pk, pp = S.compact_crossings(grid, origins, dirs, tn, tx, words, K), S._cap_pool(full, K)
+        if not (all(np.array_equal(a, b) for a, b in zip(_pool_key(pk), _pool_key(pp)))
+                and torch.equal(pk.offsets, pp.offsets)
+                and torch.equal(pk.n_occupied, pp.n_occupied)):
+            raise AssertionError(f"K11b's K = {K} pool differs from the plain version")
+        log(f"K11b compact pool, K = {K}: {pk.close_t.shape[0]} entries equal to the plain "
+            f"version; {int((pk.n_occupied > K).sum())} rays over K (max n_occupied "
+            f"{int(pk.n_occupied.max())})")
+    cap_off = torch.zeros(B + 1, dtype=torch.int64, device=device)
+    torch.cumsum(torch.clamp(pk.n_occupied, max=COMPACT_K), 0, out=cap_off[1:])
+    Mc = int(cap_off[-1])
+    res["compact_fill"] = dict(
+        max_abs_err=0.0, plain_ms=time_ms(lambda: S._cap_pool(S._compact_crossings_plain(
+            grid.reso, origins, dirs, tn, tx, words), COMPACT_K), 3),
+        bound=bound_ms(ray_bytes + (B + 1) * 8 + Mc * 24, n_cand * 30),
+        ms=time_ms(lambda: kernels.compact_fill(origins, dirs, tn, tx, words, grid.reso, cap_off,
+                                                Mc), 20))
+
+    # K11c: the cache, on the dense walk's samples with the walk's rules
+    packed = S.pack_grid_data(grid)
+    sp = S._voxel_samples_plain(grid, opt, pool_p, origins, dirs, sh_mult, ngt, packed)
+    smp = {k: sp[k].contiguous() for k in ("t", "alpha", "contrib", "fake", "counted", "rgb",
+                                           "snorm", "loss_e")}
+    mode = S._Mode(1, True, CACHE_K)
+    trunc_a = grid.truncated_vol_render_a
+
+    def k11c():
+        return kernels.composite(pool_p.offsets, smp, trunc_a, opt, None, False, *mode)
+
+    ck = k11c()
+    cp = S._composite_plain(opt, trunc_a, pool_p.offsets, sp, None, *mode)
+    for k in ("n_intersections",):
+        if not torch.equal(ck[k], cp[k]):
+            raise AssertionError(f"K11c {k} differs from the plain version")
+    if not (torch.equal(ck["cache"]["n_cached"], cp["cache"]["n_cached"])
+            and torch.equal(ck["cache"]["fake_mask"], cp["cache"]["fake_mask"])):
+        raise AssertionError("K11c's cache counts or fake flags differ from the plain version")
+    errs = [allclose_err(ck[k], cp[k]) for k in ("rgb", "normal", "log_T")]
+    errs += [allclose_err(ck["cache"][k], cp["cache"][k], atol=1e-4)
+             for k in ("ts", "alphas", "weights")]
+    sel = [allclose_err(ck[k], cp[k], atol=1e-3) for k in ("depth_mode", "cache_med")]
+    if max(e[1] for e in errs) > 0 or max(e[1] for e in sel) > SELECT_FRACTION:
+        raise AssertionError(f"K11c differs from the plain version: {errs} {sel}")
+    n_cached = int(ck["cache"]["n_cached"].sum())
+    log(f"K11c cache: {n_cached} cached samples of {B} rays (max {int(ck['cache']['n_cached'].max())}"
+        f" a ray), max abs err {max(e[0] for e in errs):.3e}; mode/median rays off "
+        f"{[round(e[1] * B) for e in sel]}")
+    S0 = sp["n_slots"]
+    nb4 = S0 * M * 42 + 3 * M * 4 + (B + 1) * 8 + B * 92
+    res["composite_cache"] = dict(
+        max_abs_err=max(e[0] for e in errs), ms=time_ms(k11c, 50),
+        plain_ms=time_ms(lambda: S._composite_plain(opt, trunc_a, pool_p.offsets, sp, None,
+                                                    *mode), 3),
+        bound=bound_ms(nb4 + B * CACHE_K * 13 + B * 8, S0 * M * 50))
+
+    # K11d: the gradient through the cache, via the compact renderer
+    def loss_of(out):
+        c = out["cache"]
+        return (torch.mean((out["rgb"] - 0.5) ** 2) + 1e-4 * out["ray_losses"]["l_entropy"].mean()
+                + 1e-3 * RL.l_conv_mode_samp_from_cache(c) / B + 1e-2 * RL.l_samp_dist_from_cache(c)
+                + 1e-2 * torch.mean(c["weights"] * c["alphas"]))
+
+    names = ("density", "surface", "sh", "fake_sample_std")
+    params = [grid.density_data, grid.surface_data, grid.sh_data, grid.fake_sample_std]
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        out = S.volume_render_surface_compact(grid, rays, opt, cache_size=CACHE_K,
+                                              occupancy=words, packed=packed)
+        g_kernel = torch.autograd.grad(loss_of(out), params)
+        pool_c = S._cap_pool(full, COMPACT_K)
+        comp = S._render_plain(grid, opt, pool_c, origins, dirs, sh_mult, ngt,
+                               S.pack_grid_data(grid), S._Mode(8, True, CACHE_K))
+        loss_p = loss_of({"rgb": comp["rgb"], "cache": comp["cache"],
+                          "ray_losses": dict(zip(S._RAY_LOSS_KEYS, comp["ray_losses"]))})
+        g_plain = torch.autograd.grad(loss_p, params, retain_graph=True)
+        plain_ms = time_ms(lambda: torch.autograd.grad(loss_p, params, retain_graph=True), 3)
+        del comp, loss_p
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    log(f"K11d: gradients of the bench loss and both cache losses over {B} rays through the "
+        f"compact renderer, kernels against autograd of the plain path:")
+    err = max(grad_check(n, a, b, "K11d") for n, a, b in zip(names, g_kernel, g_plain))
+    del g_kernel, g_plain
+    rng = np.random.default_rng(SEED)
+    g_c = tuple(torch.as_tensor(rng.standard_normal((B, CACHE_K)) * 1e-3, dtype=torch.float32,
+                                device=device) for _ in range(3))
+    g_rgb = torch.zeros((B, 3), dtype=torch.float32, device=device)
+    g_rl = torch.zeros((12, B), dtype=torch.float32, device=device)
+    bytes_a = S0 * M * 46 + (B + 1) * 8 + B * 60 + B * CACHE_K * 12
+    res["backward_cache"] = dict(
+        max_abs_err=err, plain_ms=plain_ms, bound=bound_ms(bytes_a, S0 * M * 100),
+        ms=time_ms(lambda: kernels.backward_ray(pool_p.offsets, smp, trunc_a, opt, g_rgb, g_rl,
+                                                g_c), 20))
+    del grid, packed, sp, smp, pool_p, pool_k, full
+    torch.cuda.empty_cache()
+    return res
+
+
+def two_pass_config() -> str:
+    """The two-pass run: stages_config cut to its 256^3 warm start and
+    256^3 surface stage (STAGE_STEPS[:2] steps of 8192), the surface stage
+    on the compact renderer with the two-pass losses (TWO_PASS; the Trainer
+    turns use_two_pass_losses on with the cache of 64), the ground truth
+    rendered by the dense walk (SyntheticDataset's default, K11a).
+    truncated_vol_render_a decays to 2, not the recipe's 1: at 1 every
+    intersection after a ray's first is weighted 1e-10, below the conv-mode
+    loss's alpha floor of 1e-8, and that loss is 0 on every ray."""
+    n0, n1 = STAGE_STEPS[:2]
+    keys = dict(line.split(" = ", 1) for line in stages_config().splitlines())
+    keys.update({"reso": f"[[{CUVOL_RESO}, {CUVOL_RESO}, {CUVOL_RESO}], [{CUVOL_RESO}, "
+                         f"{CUVOL_RESO}, {CUVOL_RESO}]]",
+                 "n_iters": n0 + n1, "dataset_renderer": "dense", "surface_renderer": "compact",
+                 "truncated_vol_render_a_final": "2.0", **TWO_PASS})
+    return "".join(f"{k} = {v}\n" for k, v in keys.items())
+
+
+def renderers(device, card: str, work: Path) -> tuple[dict, dict]:
+    """Phase 9: K11a-K11d against their plain versions; then, each with
+    the counters set to 0 just before and read just after: two 800x800
+    orbit frames of the 512^3 shell through render_image with the packed,
+    compact and dense renderers (the compact frames equal to the packed
+    ones wherever a ray has at most K occupied crossings, the dense ones
+    within DENSE_ATOL on all but DENSE_PIXEL_FRACTION of the pixels);
+    app/bench_step --renderer compact and dense at bench.py's protocol,
+    each with a profiled step; and app/train.main at two_pass_config with
+    the cache losses finite and non-zero on every surface step, a final
+    PSNR above the untrained grid's and a finite Chamfer. Returns the
+    kernels' numbers and the launches summed over those runs."""
+    import contextlib
+    import math
+    import re
+
+    import numpy as np
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import bench_step
+    from alphasurf_torch.app import train as train_app
+    from alphasurf_torch.app.render_circle import circle_render_options
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.data import SyntheticDataset
+    from alphasurf_torch.render import surface as S
+    from alphasurf_torch.render.image import render_image
+    from alphasurf_torch.train import steps as steps_mod
+
+    res = check_renderer_kernels(device, card)
+    launches = dict.fromkeys(RENDERER_KERNELS, 0)
+
+    def count(label):
+        got = {k: kernels.LAUNCHES[k] for k in RENDERER_KERNELS}
+        for k, v in got.items():
+            launches[k] += v
+        log(f"launches of {label}: " + json.dumps(got))
+        return got
+
+    # serving: two orbit frames through each renderer
+    grid, _ = shell_grid(RESO, device)
+    opt = circle_render_options()
+    words = S.occupancy_words(grid, opt)
+    frames, times = {}, {}
+    for renderer in ("packed", "compact", "dense"):
+        kernels.reset_launches()
+        imgs, secs, over = [], [], 0
+        for i in range(2):
+            stats = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs.append(render_image(grid, frame_camera(i, 2), opt, renderer=renderer,
+                                     max_intersect_voxels=COMPACT_K, device=device, stats=stats))
+            secs.append(time.perf_counter() - t0)
+            over += int(stats["overflow"])
+        got = count(f"two {renderer} frames")
+        if renderer == "compact" and got["compact_fill"] == 0:
+            raise AssertionError("the compact frames did not launch K11b")
+        if renderer == "dense" and 0 in (got["dense_walk_count"], got["dense_walk_fill"]):
+            raise AssertionError("the dense frames did not launch K11a")
+        for img in imgs:
+            if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all() or img.std() < 0.05:
+                raise AssertionError(f"a {renderer} frame is not a finite, non-flat image")
+        frames[renderer], times[renderer] = imgs, secs
+        log(f"serving, {renderer}: two {WIDTH}x{HEIGHT} frames in ms "
+            f"{[round(x * 1e3, 3) for x in secs]}, {2 * WIDTH * HEIGHT / sum(secs):.1f} rays/s"
+            + (f", {over} occupied crossings over K = {COMPACT_K}" if renderer == "compact" else "")
+            + f" [{card}]")
+    for i in range(2):
+        rays = frame_camera(i, 2).gen_rays_device(device)
+        o, d, _, tnear, tmax, _, ok, _ = S._begin(grid, rays, opt, words)
+        tn, tx = S._phase_a_bounds(tnear, tmax, ok)
+        n_occ = torch.cat([kernels.phase_a_count(o[c:c + CHUNK].contiguous(),
+                                                 d[c:c + CHUNK].contiguous(),
+                                                 tn[c:c + CHUNK].contiguous(),
+                                                 tx[c:c + CHUNK].contiguous(), words,
+                                                 grid.reso)[1]
+                           for c in range(0, o.shape[0], CHUNK)]).cpu().numpy()
+        within = (n_occ <= COMPACT_K).reshape(HEIGHT, WIDTH)
+        pk, cp, dn = frames["packed"][i], frames["compact"][i], frames["dense"][i]
+        err_c = float(np.abs(cp - pk)[within].max())
+        if err_c > 1e-6:
+            raise AssertionError(f"compact frame {i} differs from the packed one by {err_c} where "
+                                 f"n_occupied <= {COMPACT_K}")
+        diff = np.abs(dn - pk).max(-1)
+        n_bad = int((diff > DENSE_ATOL).sum())
+        log(f"frame {i}: compact equals packed to {err_c:.2e} on the {int(within.sum())} rays "
+            f"with n_occupied <= {COMPACT_K} (of {within.size}); dense against packed: "
+            f"{int((diff > 1e-6).sum())} pixels differ by > 1e-6, {n_bad} by > {DENSE_ATOL}, "
+            f"max {float(diff.max()):.3e}")
+        if n_bad > DENSE_PIXEL_FRACTION * diff.size:
+            raise AssertionError(f"dense frame {i}: {n_bad} pixels differ from the packed frame")
+    del grid, words, frames
+    torch.cuda.empty_cache()
+
+    # training at bench.py's protocol through the compact and dense steps
+    for renderer in ("compact", "dense"):
+        kernels.reset_launches()
+        out = bench_step.main(["--reso", str(RESO), "--batch", str(TRAIN_BATCH), "--steps", "33",
+                               "--width", str(WIDTH), "--renderer", renderer, "--device",
+                               str(device)])
+        torch.cuda.synchronize()
+        got = count(f"bench_step --renderer {renderer}")
+        if not (out["losses_finite"] and out["rows_moved"] > 0):
+            raise AssertionError(f"the {renderer} bench did not run right: {out}")
+        packed_rps = TRAIN_RAYS_PER_S.get("packed")
+        log(f"train, {renderer}: {out['rays_per_s_fwd_bwd']:.1f} rays/s, "
+            f"{out['seconds'] / out['steps'] * 1e3:.3f} ms per step at {RESO}^3, batch "
+            f"{TRAIN_BATCH} (packed, train phase: "
+            f"{'not run' if packed_rps is None else f'{packed_rps:.1f} rays/s'}), loss "
+            f"{out['first_loss']:.6f} -> {out['last_loss']:.6f} [{card}]")
+        if renderer == "dense" and got["dense_walk_fill"] == 0:
+            raise AssertionError("the dense steps did not launch K11a")
+        if renderer == "compact" and got["compact_fill"] == 0:
+            raise AssertionError("the compact steps did not launch K11b")
+        g, rc = bench_step.build_bench_grid(RESO, device)
+        bopt = bench_step.bench_options()
+        rays = bench_step.bench_rays(WIDTH, device)
+        s = int(WIDTH * HEIGHT * 0.35)
+        r = Rays(rays.origins[s:s + TRAIN_BATCH], rays.dirs[s:s + TRAIN_BATCH])
+        step = steps_mod.make_surface_step(steps_mod.StepConfig(opt=bopt, cache_size=None,
+                                                                renderer=renderer))
+        rms, hp, gen = steps_mod.init_rms(g), bench_step.bench_hparams(), torch.Generator()
+        gt = torch.full((TRAIN_BATCH, 3), 0.5, device=device)
+        occ = S.occupancy_words(g, bopt)
+        profile_device(lambda: step(g, rms, r, gt, hp, gen, occ=occ, row_coords=rc),
+                       f"one {renderer} train step ({TRAIN_BATCH} rays, {RESO}^3)", card)
+        del g, rc, rms, occ
+        torch.cuda.empty_cache()
+
+    # the Trainer with the two-pass losses on the compact renderer
+    terms = []
+    wrapped = {}
+    for name in ("l_conv_mode_samp_from_cache", "l_samp_dist_from_cache"):
+        fn = getattr(steps_mod.rl, name)
+        wrapped[name] = fn
+
+        def record(cache, fn=fn, name=name):
+            v = fn(cache)
+            terms.append((name, v.detach()))
+            return v
+
+        setattr(steps_mod.rl, name, record)
+    shape = recipe_shape(work / "two_pass_data")
+    cfg_path = work / "two_pass.yaml"
+    cfg_path.write_text(two_pass_config())
+    tee = _Tee(sys.stdout)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            psnr = train_app.main([str(shape.parent), "-t", str(work / "two_pass"), "-c",
+                                   str(cfg_path), "--device", str(device)])
+    finally:
+        for name, fn in wrapped.items():
+            setattr(steps_mod.rl, name, fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = count("the two-pass Trainer run")
+    if 0 in (got["dense_walk_fill"], got["compact_fill"], got["composite_cache"],
+             got["backward_cache"]):
+        raise AssertionError(f"the two-pass run missed a kernel of its path: {got}")
+    n0, n1 = STAGE_STEPS[:2]
+    vals = {name: torch.stack([v for k, v in terms if k == name]).float().cpu()
+            for name in wrapped}
+    for name, v in vals.items():
+        if v.numel() != n1 or not bool(torch.isfinite(v).all()) or bool((v == 0).any()):
+            raise AssertionError(f"{name}: {v.numel()} surface steps, not all finite and non-zero: "
+                                 f"{v.tolist()[:8]}")
+    dset_test = SyntheticDataset(split="test", n_images=2, width=WIDTH, height=HEIGHT,
+                                 reso=SMALL_RESO, device=device)
+    psnr0 = eval_untrained(device, dset_test)
+    cfs = [float(m.group(1)) for m in re.finditer(r"^eval stats: step=\d+ .* cf_mean=(\S+)",
+                                                  "".join(tee.parts), re.M)]
+    log(f"two-pass run through app/train.main: {n0} + {n1} steps of 8192 at {CUVOL_RESO}^3 "
+        f"(the surface stage compact, K {COMPACT_K}, cache {CACHE_K}, "
+        f"{', '.join(f'{k} {v}' for k, v in TWO_PASS.items())}), ground truth by the dense walk, "
+        f"in {wall:.2f} s; cache terms per surface step: conv_mode "
+        f"{float(vals['l_conv_mode_samp_from_cache'].min()):.4e}.."
+        f"{float(vals['l_conv_mode_samp_from_cache'].max()):.4e}, samp_dist "
+        f"{float(vals['l_samp_dist_from_cache'].min()):.4e}.."
+        f"{float(vals['l_samp_dist_from_cache'].max()):.4e}; final eval PSNR {psnr:.4f} against "
+        f"the untrained grid's {psnr0:.4f}; cf_mean at the evals {cfs} [{card}]")
+    if not psnr > psnr0:
+        raise AssertionError(f"the two-pass run did not train: PSNR {psnr} <= {psnr0}")
+    if not cfs or not all(math.isfinite(c) for c in cfs):
+        raise AssertionError(f"the two-pass run has no finite Chamfer: {cfs}")
     for name, r in res.items():
         log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) [{card}]")
@@ -2674,6 +3119,10 @@ def main(argv=None) -> int:
             dtu_res, dtu_launches = dtu(device, card, work)
             res.update(dtu_res)
             launches.update({k: dtu_launches[k] for k in DTU_KERNELS})
+        if "renderers" in phases:
+            rend_res, rend_launches = renderers(device, card, work)
+            res.update(rend_res)
+            launches.update(rend_launches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

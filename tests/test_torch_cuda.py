@@ -397,3 +397,87 @@ def test_mesh_on_the_card_equals_the_cpu(cuda, tmp_path):
         E.extract_mesh(SparseGrid.from_numpy(a, device=dev), str(tmp_path / name),
                        density_thresh=0.5)
     assert (tmp_path / "g.obj").read_bytes() == (tmp_path / "c.obj").read_bytes()
+
+
+# ---------------------------------------------------------------------------
+# K11a-K11d: the dense walk, the K-slot pool, the first-K cache and its
+# gradient
+# ---------------------------------------------------------------------------
+
+def _k11_inputs(cuda, kw):
+    from test_torch_util import dense_grid
+
+    a = _float32(dense_grid(16))
+    opt = pt.RenderOptions(**{**BASE, **kw})
+    o, d = np_rays(64, seed=4)
+    rays = pt.Rays(torch.as_tensor(o, dtype=torch.float32, device=cuda),
+                   torch.as_tensor(d, dtype=torch.float32, device=cuda))
+    return a, opt, rays
+
+
+K11_RENDERERS = {
+    "dense": lambda g, r, o, **kw: S.volume_render_surface(g, r, o, **kw),
+    "compact": lambda g, r, o, **kw: S.volume_render_surface_compact(g, r, o,
+                                                                     max_intersect_voxels=3,
+                                                                     voxel_chunk=2, **kw),
+    "packed": lambda g, r, o, **kw: S.volume_render_surface_packed(g, r, o, **kw),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("renderer", sorted(K11_RENDERERS))
+@pytest.mark.parametrize("kw", [OPTION_SETS[4], dict(stop_thresh=0.3)])
+def test_k11_renderers_match_plain_versions(cuda, renderer, kw):
+    """K11a (dense) and K11b (compact) pools equal to their plain versions
+    bit for bit; the renders with K11c's cache within float32 rounding."""
+    a, opt, rays = _k11_inputs(cuda, kw)
+    render = K11_RENDERERS[renderer]
+    kernels.reset_launches()
+    got = render(SparseGrid.from_numpy(a, device=cuda), rays, opt, cache_size=8)
+    torch.cuda.synchronize()
+    pool_kernels = {"dense": ("dense_walk_count", "dense_walk_fill"), "compact": ("compact_fill",),
+                    "packed": ("phase_a_fill",)}[renderer]
+    assert all(kernels.LAUNCHES[k] > 0 for k in pool_kernels + ("composite_cache",))
+    ref = render(SparseGrid.from_numpy(a, device="cpu"),
+                 pt.Rays(rays.origins.cpu(), rays.dirs.cpu()), opt, cache_size=8)
+    for k in ("rgb", "depth", "normal", "log_transmit", "depth_mode"):
+        np.testing.assert_allclose(got[k].cpu().numpy(), ref[k].numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    for k in ("ts", "alphas", "weights"):
+        np.testing.assert_allclose(got["cache"][k].cpu().numpy(), ref["cache"][k].numpy(),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+    for k in ("n_cached", "fake_mask"):
+        np.testing.assert_array_equal(got["cache"][k].cpu().numpy(), ref["cache"][k].numpy())
+    np.testing.assert_array_equal(got["n_intersections"].cpu().numpy(),
+                                  ref["n_intersections"].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("renderer", sorted(K11_RENDERERS))
+def test_k11_cache_gradients_match_autograd_of_plain_path(cuda, renderer):
+    """K11d: rgb, ray-loss and both cache-loss gradients through K5 against
+    autograd of the plain renderer on the CPU."""
+    from alphasurf_torch.losses import render_losses as RL
+
+    a, opt, rays = _k11_inputs(cuda, OPTION_SETS[4])
+    render = K11_RENDERERS[renderer]
+    names = ("density_data", "surface_data", "sh_data", "fake_sample_std")
+
+    def grads(g, r):
+        params = [getattr(g, n).requires_grad_(True) for n in names]
+        out = render(g, r, opt, cache_size=8)
+        loss = (out["rgb"] ** 2).sum() + 0.1 * out["ray_losses"]["l_dist"].sum() \
+            + RL.l_conv_mode_samp_from_cache(out["cache"]) \
+            + RL.l_samp_dist_from_cache(out["cache"]) + (out["cache"]["weights"] ** 2).sum()
+        return [torch.zeros_like(p) if x is None else x
+                for p, x in zip(params, torch.autograd.grad(loss, params, allow_unused=True))]
+
+    kernels.reset_launches()
+    got = grads(SparseGrid.from_numpy(a, device=cuda), rays)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["backward_cache"] == 1
+    ref = grads(SparseGrid.from_numpy(a, device="cpu"),
+                pt.Rays(rays.origins.cpu(), rays.dirs.cpu()))
+    for n, x, r in zip(names, got, ref):
+        x, r = x.cpu().double(), r.double()
+        assert float((x - r).norm()) <= 1e-3 * float(r.norm()) + 1e-6, n

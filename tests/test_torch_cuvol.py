@@ -96,7 +96,7 @@ def test_create_grid_matches_jax(kw):
 
 
 def test_create_grid_surface_initialisers_raise():
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         create_grid(8, surface_type=pt.defs.SURFACE_TYPE_SDF, device="cpu")
 
 

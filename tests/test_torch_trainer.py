@@ -143,9 +143,8 @@ def test_synthetic_dataset_matches_jax_packed_float32():
 
 
 def test_synthetic_dataset_float64_matches_jax_dense_walk():
-    """The port renders the GT of ``renderer="dense"`` through its packed
-    renderer; in float64 that equals the JAX package's dense surface walk
-    (its default), which in float32 loses corner crossings (ROADMAP §3)."""
+    """The port renders the GT of ``renderer="dense"`` through its dense
+    walk, as the JAX package does (its default); float64."""
     from alphasurf_tpu.data.synthetic import make_gt_grid, pose_spherical
     from alphasurf_tpu.render.surface import volume_render_surface
 
@@ -162,6 +161,28 @@ def test_synthetic_dataset_float64_matches_jax_dense_walk():
         ref = np.clip(np.asarray(volume_render_surface(gj, cam.gen_rays(), opt)["rgb"]), 0, 1)
         np.testing.assert_allclose(td.gt[i].reshape(-1, 3), ref, rtol=0, atol=1e-6)
         assert ref.std() > 0.05
+
+
+def test_synthetic_dataset_dense_matches_jax_float32():
+    """float32, both through their dense walks on host-made rays (the
+    float32 walks visit the same voxels, tests/test_torch_dense.py). Pixels
+    whose float32 and float64 ray bounds disagree (ROADMAP §3) are left
+    out, as in the packed test: at most 8 of these 512."""
+    from alphasurf_torch.ops import dda
+
+    jd = JaxSynthetic(renderer="dense", **DS)
+    td = SyntheticDataset(renderer="dense", device="cpu", **DS)
+    np.testing.assert_array_equal(td.c2w, jd.c2w)
+    g32 = td.gt_grid
+    g64 = pt.SparseGrid.from_numpy(g32.to_numpy(), device="cpu", dtype=torch.float64)
+    o, d = torch.as_tensor(td.rays_init.origins), torch.as_tensor(td.rays_init.dirs)
+    b32 = dda.ray_bounds(g32, *dda.preprocess_rays(g32, o, d)[:2])
+    b64 = dda.ray_bounds(g64, *dda.preprocess_rays(g64, o.double(), d.double())[:2])
+    fragile = (b32[1] > b32[0]).numpy() != (b64[1] > b64[0]).numpy()
+    assert fragile.sum() <= 8
+    got, ref = td.rays_init.gt[~fragile], jd.rays_init.gt[~fragile]
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5)
+    assert got.std() > 0.05
 
 
 def _port_copy(jd):
@@ -182,7 +203,7 @@ def test_dataset_registry_rays_and_shuffle():
     from alphasurf_torch.data import datasets
 
     assert datasets["synthetic"] is SyntheticDataset
-    with pytest.raises(NotImplementedError, match="items 1 and 4"):
+    with pytest.raises(NotImplementedError, match="items 1, 2 and 5"):
         datasets["nerf"]("data/lego")
     jd = JaxSynthetic(renderer="packed", **DS)
     td = _port_copy(jd)
@@ -382,7 +403,7 @@ def test_unported_stages_raise(tmp_path, monkeypatch):
         return jnp.asarray(W.sparse_grid_weight_render(g, tc).numpy())
 
     jd, jd_test = _datasets()
-    for kw, item in ((dict(n_devices=2), "item 3"), (dict(mesh_model=2), "item 3")):
+    for kw, item in ((dict(n_devices=2), "item 4"), (dict(mesh_model=2), "item 4")):
         cfg = TCfg.apply_dict(TCfg.Config(), dict(RUN, train_dir=str(tmp_path), **kw))
         with pytest.raises(NotImplementedError, match=item):
             TT.Trainer(cfg, _port_copy(jd), device="cpu")
@@ -434,3 +455,18 @@ def test_train_cli_runs_on_the_cpu(tmp_path):
     assert np.isfinite(psnr)
     assert (tmp_path / "ckpt" / "ckpt.npz").exists()
     assert float((tmp_path / "ckpt" / "test_psnr.txt").read_text()) == pytest.approx(psnr)
+
+
+def test_recipe_run_runs_on_the_cpu(tmp_path):
+    """app/recipe_run (tools/recipe_run.py's three stages) at a tiny size:
+    the stages run, and the result line carries the final eval's PSNR and
+    SSIM and the wall time."""
+    from alphasurf_torch.app import recipe_run
+
+    out = recipe_run.main([str(tmp_path), "--width", "16", "--n_images", "2", "--gt_reso", "16",
+                           "--reso", "8", "8", "8", "--steps", "2", "2", "2", "--batch", "128",
+                           "--seed", "1", "--device", "cpu"])
+    assert np.isfinite(out["psnr"]) and 0 < out["ssim"] <= 1 and out["wall_s"] > 0
+    assert out["stages"] == [2, 2, 2] and out["reso"] == [8, 8, 8] and out["seed"] == 1
+    assert json.loads((tmp_path / "result.json").read_text()) == out
+    assert (tmp_path / "ckpt" / "ckpt.npz").exists()

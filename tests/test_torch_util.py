@@ -158,3 +158,46 @@ def test_make_gt_grid_matches_jax():
             assert got[k] is None, k
         else:
             np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(v), err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# renderer outputs
+# ---------------------------------------------------------------------------
+
+# a grid and option set where stop_thresh kills rays mid-walk, so that the
+# renderers' counting rules under the kill (the dense walk per voxel, the
+# compact renderer per voxel_chunk pass, the packed one over every entry)
+# give different n_intersections
+STOP_SETS = [
+    dict(stop_thresh=0.3),
+    dict(stop_thresh=0.05, surf_fake_sample=True, limited_fake_sample=False,
+         surf_fake_sample_min_vox_len=0.0, truncated_vol_render=True),
+]
+
+
+def dense_grid(reso=12, seed=3):
+    """np_grid with denser alpha and three level sets: rays die mid-walk."""
+    a = np_grid(reso, seed=seed, prune=0.2)
+    a["density_data"] = a["density_data"] + 2.0
+    a["level_set_data"] = np.array([-0.3, 0.0, 0.3])
+    return a
+
+
+def assert_outputs_match(got: dict, ref: dict, rtol=1e-8, atol=1e-10, skip=()):
+    """Every key of the JAX output (nested ray_losses, cache, samples)
+    against the port's: integer and bool arrays equal, floats to rtol."""
+    assert set(ref) - set(skip) <= set(got), set(ref) - set(got)
+    for k, v in ref.items():
+        if k in skip:
+            continue
+        if isinstance(v, dict):
+            assert set(v) == set(got[k]), (k, set(v) ^ set(got[k]))
+            assert_outputs_match(got[k], v, rtol, atol)
+            continue
+        a = np.asarray(v)
+        b = got[k]
+        b = b.detach().cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
+        if a.dtype.kind in "biu":
+            np.testing.assert_array_equal(b, a, err_msg=k)
+        else:
+            np.testing.assert_allclose(b, a, rtol=rtol, atol=atol, err_msg=k)
