@@ -3,13 +3,16 @@ JAX package's ``app.pipeline``. It chains five stages:
 
   1. Plenoxels (cuvol) training                       (opt.py, configs/plenoxels)
   2. αSurf surface training warm-started from (1)     (opt.py --load_pretrain_density_sh)
-  3. test-view renders and PSNR                       (the Trainer's final eval)
+  3. test-view renders, PSNR and SSIM                 (render_imgs.py)
   4. iso-surface point extraction                     (app/extract_points.py, K9g)
   5. Chamfer evaluation against GT points             (app/eval_cf.py)
 
-It runs on the procedural synthetic dataset, whose GT points are the
-analytic sphere of ``make_gt_grid``. Other datasets take the render stage
-through ``render_imgs``, which waits for ROADMAP §1 item 1.
+On the procedural synthetic dataset the test views go through the
+Trainer's eval and the GT points are the analytic sphere of
+``make_gt_grid``. Any other registered dataset (``nerf``, ``dtu``) is
+loaded from ``data_dir`` whole, its test views go through
+``app/render_imgs.py``, and the Chamfer stage runs only when
+``gt_points_path`` is given, as in the JAX package.
 
 Usage: python -m alphasurf_torch.app.pipeline --out_dir DIR [--reso 32]
            [--n_iters_plenoxels N] [--n_iters_surface N] ... [--device cuda]
@@ -114,22 +117,24 @@ def run_pipeline(
 ) -> dict:
     """Run the five stages on ``device``; returns the result dict (PSNR,
     Chamfer, seconds and rays/s per stage) and writes it to
-    out_dir/pipeline_results.json."""
-    from ..app import eval_cf, extract_points
+    out_dir/pipeline_results.json. ``n_train_images``, ``image_size`` and
+    ``n_eval_images`` size the synthetic dataset only."""
+    from ..app import eval_cf, extract_points, render_imgs
     from ..core.device import resolve_device
+    from ..data import datasets
     from ..train.trainer import Trainer
 
-    if dataset_type != "synthetic":
-        raise NotImplementedError(
-            f"the pipeline on the {dataset_type!r} dataset needs the file loaders and "
-            "render_imgs, which are not ported yet (ROADMAP §1 item 1)")
     device = resolve_device(device)
     reso_surface = reso_surface or reso
     t_all = time.time()
     results = {"stages": {}}
 
-    dset_train, dset_test = synthetic_datasets(data_dir, reso, n_train_images, n_eval_images,
-                                               image_size, device)
+    if dataset_type == "synthetic":
+        dset_train, dset_test = synthetic_datasets(data_dir, reso, n_train_images,
+                                                   n_eval_images, image_size, device)
+    else:
+        dset_train, dset_test = (datasets[dataset_type](data_dir, split=split, device=device)
+                                 for split in ("train", "test"))
 
     # ---- stage 1: Plenoxels warm start (train_eval.sh:28) ----
     plen_dir = path.join(out_dir, "plenoxels")
@@ -158,10 +163,15 @@ def run_pipeline(
         "capacity": int(tr2.grid.capacity),
     }
 
-    # ---- stage 3: test renders and PSNR (train_eval.sh:46-48), through
-    # the Trainer's eval, as the JAX pipeline does for the synthetic data ----
+    # ---- stage 3: test renders and PSNR (train_eval.sh:46-48): the
+    # synthetic data through the Trainer's eval, as the JAX pipeline does ----
     t0 = time.time()
-    psnr_test = tr2.eval_step(final=True)
+    if dataset_type == "synthetic":
+        psnr_test = tr2.eval_step(final=True)
+    else:
+        psnr_test = render_imgs.main([path.join(surf_dir, "ckpt.npz"), data_dir,
+                                      "--dataset_type", dataset_type, "--no_imsave",
+                                      "--device", str(device)])
     results["stages"]["render"] = {"psnr": psnr_test, "seconds": time.time() - t0}
 
     # ---- stage 4: point extraction (train_eval.sh:60-61) ----
@@ -174,19 +184,20 @@ def run_pipeline(
     results["stages"]["extract"] = {"n_points": int(len(pts)), "seconds": time.time() - t0}
 
     # ---- stage 5: Chamfer (train_eval.sh:63) ----
-    if gt_points_path is None:
+    if gt_points_path is None and dataset_type == "synthetic":
         gt_points_path = path.join(out_dir, "gt_pts.npy")
         np.save(gt_points_path, synthetic_gt_points(reso))
-    t0 = time.time()
-    argv = [path.join(out_dir, "pts.npy"), gt_points_path]
-    if eval_downsample > 0:
-        argv += ["--downsample", str(eval_downsample)]
-    results["stages"]["chamfer"] = dict(eval_cf.main(argv), seconds=time.time() - t0)
+    if gt_points_path:
+        t0 = time.time()
+        argv = [path.join(out_dir, "pts.npy"), gt_points_path]
+        if eval_downsample > 0:
+            argv += ["--downsample", str(eval_downsample)]
+        results["stages"]["chamfer"] = dict(eval_cf.main(argv), seconds=time.time() - t0)
 
     results["total_seconds"] = time.time() - t_all
     results["summary"] = {
         "psnr": psnr_test,
-        "chamfer": results["stages"]["chamfer"]["overall"],
+        "chamfer": results["stages"].get("chamfer", {}).get("overall"),
         "rays_per_s_train": results["stages"]["surface"]["rays_per_s"],
     }
     with open(path.join(out_dir, "pipeline_results.json"), "w") as f:

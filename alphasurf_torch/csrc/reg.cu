@@ -1,12 +1,16 @@
-// K6: the cell regularizers, loss and row gradients in one pass.
+// K6 and K12a-K12d: the cell regularizers, loss and row gradients in one
+// pass.
 //
 // Replaces the JAX package's losses/reg.py: tv_loss (126-155) and
 // surface_tv_loss (158-183) in reg_tv, surface_normal_loss (202-302) in
-// reg_normal, alpha_surf_sparsify_loss (305-330) in reg_sparsify, each with
-// its jax.grad, as svox2's loss_kernel.cu computed loss and gradient
-// together. With a cell list the cells are a sampled window (flat lattice
-// ids, reg.py:sample_present_cells or sample_cells); without one, every
-// lattice cell is a thread, which is the dense variants
+// reg_normal, alpha_surf_sparsify_loss (305-330) in reg_sparsify, and the
+// extended surface terms surface_norm_match_loss (569),
+// surface_viscosity_loss (599), surface_sign_change_loss (630) and
+// surface_eikonal_loss (791) in reg_ext, each with its jax.grad, as svox2's
+// loss_kernel.cu computed loss and gradient together. With a cell list the
+// cells are a sampled window (flat lattice ids, reg.py:sample_present_cells
+// or sample_cells); without one (K6 only), every lattice cell is a thread,
+// which is the dense variants
 // surface_tv_loss_dense (384) and surface_normal_loss_dense (428): the
 // latter covers the cells whose 3x3x3 window lies inside the lattice, as
 // its slab formulation does. The caller's ``scale`` is 1/n for a window of
@@ -19,8 +23,9 @@
 // in double: a float32 sum over millions of cells (every-cell mode) drifts.
 //
 // Bound: bytes, and at the main path's window (0.01 of 2.47M rows) the
-// launch itself: each cell reads 4 (TV) or 27 (normal) links and as many
-// rows and adds as many gradients. Design: one thread per cell, flat ids
+// launch itself: each cell reads 4 (TV, norm match, sign change), 7
+// (viscosity), 8 (eikonal) or 27 (normal) links and as many rows and adds
+// as many gradients. Design: one thread per cell, flat ids
 // decoded in the thread, zero gradients not added.
 #include "common.cuh"
 
@@ -314,6 +319,216 @@ HD float sparsify_cell(const SparsifyParams& p, int64_t n) {
     return (p.scale_alpha * log_sig + p.scale_surf * (w * s * p.surf_sign)) * p.scale;
 }
 
+// ---------------------------------------------------------------------------
+// K12a-K12d: the extended surface regularizers (reg.py:569-809), each over
+// a window of cells, each thread a cell: its loss and the analytic gradient
+// of the rows it reads. The caller's ``scale`` is 1/n.
+// ---------------------------------------------------------------------------
+
+struct ExtParams {
+    const int* links;
+    int X, Y, Z;
+    const int* cells;  // (n,) flat ids
+    int64_t n;
+    int cap;
+    const float* surf;  // (cap, n_surf_c), channel 0
+    int n_surf_c;
+    const float* density;  // (cap,): K12a's second field
+    const float* h;  // (1,) grid spacing on the device: K12b
+    float eta;  // K12b
+    float target;  // K12d
+    float scale;
+    double* loss;  // (1,), float64
+    float* g_surface;  // (cap, n_surf_c)
+    float* g_density;  // (cap,): K12a
+};
+
+HD float surf_at(const ExtParams& p, int l) { return p.surf[(int64_t)l * p.n_surf_c]; }
+
+HD void add_surf(const ExtParams& p, int l, float g) {
+    if (g != 0.0f) atomic_add(p.g_surface + (int64_t)l * p.n_surf_c, g);
+}
+
+// K12a. The forward differences of one field to the +x/+y/+z neighbours
+// (0 where a neighbour is absent) and their safe unit vector: below
+// sq = 1e-16 the denominator is the constant 1e-8 and carries no gradient
+// (reg.py:587-590).
+struct SafeUnit {
+    float g[3], N[3], sq, q, m;
+};
+
+HD void safe_unit(const float g[3], SafeUnit& u) {
+    for (int k = 0; k < 3; ++k) u.g[k] = g[k];
+    u.sq = (g[0] * g[0] + g[1] * g[1]) + g[2] * g[2];
+    u.q = sqrtf(u.sq > 1e-16f ? u.sq : 1e-16f);
+    u.m = fmaxf(u.q, 1e-8f);
+    for (int k = 0; k < 3; ++k) u.N[k] = g[k] / u.m;
+}
+
+HD void safe_unit_vjp(const SafeUnit& u, const float gN[3], float gg[3]) {
+    const float vg = (u.g[0] * gN[0] + u.g[1] * gN[1]) + u.g[2] * gN[2];
+    const float through = (u.sq > 1e-16f ? 1.0f : 0.0f) * clip_lo_grad(u.q, 1e-8f);
+    const float c = through * vg / (u.q * u.m * u.m);
+    for (int k = 0; k < 3; ++k) gg[k] = gN[k] / u.m - u.g[k] * c;
+}
+
+HD float norm_match_cell(const ExtParams& p, int64_t n) {
+    int64_t x, y, z;
+    decode_cell(p.cells[n], p.Y, p.Z, x, y, z);
+    const int l0 = link_at(p.links, p.X, p.Y, p.Z, x, y, z);
+    if (l0 < 0) return 0.0f;
+    const int ln[3] = {link_at(p.links, p.X, p.Y, p.Z, x + 1, y, z),
+                       link_at(p.links, p.X, p.Y, p.Z, x, y + 1, z),
+                       link_at(p.links, p.X, p.Y, p.Z, x, y, z + 1)};
+    float gs[3], ga[3];
+    const float s0 = surf_at(p, l0), a0 = p.density[l0];
+    for (int k = 0; k < 3; ++k) {
+        gs[k] = ln[k] >= 0 ? surf_at(p, ln[k]) - s0 : 0.0f;
+        ga[k] = ln[k] >= 0 ? p.density[ln[k]] - a0 : 0.0f;
+    }
+    SafeUnit us, ua;
+    safe_unit(gs, us);
+    safe_unit(ga, ua);
+    float d[3], gNs[3], gNa[3];
+    for (int k = 0; k < 3; ++k) {
+        d[k] = us.N[k] - ua.N[k];
+        gNs[k] = p.scale * 2.0f * d[k];
+        gNa[k] = -gNs[k];
+    }
+    const float cell_loss = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2];
+    float dgs[3], dga[3];
+    safe_unit_vjp(us, gNs, dgs);
+    safe_unit_vjp(ua, gNa, dga);
+    float c0s = 0.0f, c0a = 0.0f;
+    for (int k = 0; k < 3; ++k) {
+        if (ln[k] < 0) continue;
+        add_surf(p, ln[k], dgs[k]);
+        if (dga[k] != 0.0f) atomic_add(p.g_density + ln[k], dga[k]);
+        c0s = c0s - dgs[k];
+        c0a = c0a - dga[k];
+    }
+    add_surf(p, l0, c0s);
+    if (c0a != 0.0f) atomic_add(p.g_density + l0, c0a);
+    return cell_loss * p.scale;
+}
+
+// K12b. Over the cells whose 6 neighbours are present; sign(s0) carries no
+// gradient, and sqrt(max(g2, 1e-8)) is constant below the clamp.
+HD float viscosity_cell(const ExtParams& p, int64_t n) {
+    int64_t x, y, z;
+    decode_cell(p.cells[n], p.Y, p.Z, x, y, z);
+    const int l[7] = {link_at(p.links, p.X, p.Y, p.Z, x, y, z),
+                      link_at(p.links, p.X, p.Y, p.Z, x + 1, y, z),
+                      link_at(p.links, p.X, p.Y, p.Z, x - 1, y, z),
+                      link_at(p.links, p.X, p.Y, p.Z, x, y + 1, z),
+                      link_at(p.links, p.X, p.Y, p.Z, x, y - 1, z),
+                      link_at(p.links, p.X, p.Y, p.Z, x, y, z + 1),
+                      link_at(p.links, p.X, p.Y, p.Z, x, y, z - 1)};
+    for (int k = 0; k < 7; ++k)
+        if (l[k] < 0) return 0.0f;
+    float s[7];
+    for (int k = 0; k < 7; ++k) s[k] = surf_at(p, l[k]);
+    const float h = p.h[0], h2 = 2.0f * h, hh = h * h;
+    float dc[3];
+    for (int a = 0; a < 3; ++a) dc[a] = (s[1 + 2 * a] - s[2 + 2 * a]) / h2;
+    const float g2 = (dc[0] * dc[0] + dc[1] * dc[1]) + dc[2] * dc[2];
+    const float gnorm = sqrtf(fmaxf(g2, 1e-8f));
+    const float lap = (s[1] + s[2] + s[3] + s[4] + s[5] + s[6] - 6.0f * s[0]) / hh;
+    const float sgn = s[0] > 0.0f ? 1.0f : (s[0] < 0.0f ? -1.0f : 0.0f);
+    const float r = (gnorm - 1.0f) * sgn - p.eta * lap;
+    // d loss / d r, then through gnorm (d gnorm / d g2 below the clamp is 0,
+    // halved at its tie) and the laplacian
+    const float gr = p.scale * 2.0f * r;
+    const float gg2 = gr * sgn * clip_lo_grad(g2, 1e-8f) / (2.0f * gnorm);
+    const float glap = -gr * p.eta / hh;
+    for (int a = 0; a < 3; ++a) {
+        const float gd = gg2 * 2.0f * dc[a] / h2;
+        add_surf(p, l[1 + 2 * a], gd + glap);
+        add_surf(p, l[2 + 2 * a], glap - gd);
+    }
+    add_surf(p, l[0], -6.0f * glap);
+    return r * r * p.scale;
+}
+
+// K12c. Every link reads row lnk mod cap, so -1 reads the last row; the
+// gradient of that row is returned in ``last`` for the caller to reduce.
+HD int64_t clip64(int64_t v, int64_t hi) { return v < 0 ? 0 : (v > hi ? hi : v); }
+
+// the row of the link at clipped coordinates, mod cap
+HD int wrap_row_at(const ExtParams& p, int64_t x, int64_t y, int64_t z) {
+    const int l = p.links[(clip64(x, p.X - 1) * p.Y + clip64(y, p.Y - 1)) * p.Z +
+                          clip64(z, p.Z - 1)];
+    return l < 0 ? l % p.cap + p.cap : l % p.cap;
+}
+
+HD float sign_change_cell(const ExtParams& p, int64_t n, float& last) {
+    last = 0.0f;
+    int64_t x, y, z;
+    decode_cell(p.cells[n], p.Y, p.Z, x, y, z);
+    const int r0 = wrap_row_at(p, x, y, z);
+    const float s0 = surf_at(p, r0);
+    const int rn[3] = {wrap_row_at(p, x + 1, y, z), wrap_row_at(p, x, y + 1, z),
+                       wrap_row_at(p, x, y, z + 1)};
+    const bool inb[3] = {x + 1 < p.X, y + 1 < p.Y, z + 1 < p.Z};
+    const float rs[3] = {(float)p.X / 256.0f, (float)p.Y / 256.0f, (float)p.Z / 256.0f};
+    float total = 0.0f, count = 0.0f;
+    bool hit[3];
+    for (int a = 0; a < 3; ++a) {
+        const float sn = inb[a] ? surf_at(p, rn[a]) : s0;
+        hit[a] = inb[a] && s0 * sn < 0.0f;
+        if (hit[a]) {
+            total = total + (s0 + sn) * rs[a];
+            count = count + 1.0f;
+        }
+    }
+    if (count == 0.0f) return 0.0f;
+    const float c = p.scale / count;
+    float g0 = 0.0f;
+    for (int a = 0; a < 3; ++a) {
+        if (!hit[a]) continue;
+        const float g = c * rs[a];
+        g0 = g0 + g;
+        if (rn[a] == p.cap - 1)
+            last = last + g;
+        else
+            add_surf(p, rn[a], g);
+    }
+    if (r0 == p.cap - 1)
+        last = last + g0;
+    else
+        add_surf(p, r0, g0);
+    return total / count * p.scale;
+}
+
+// K12d. Over the cells whose 8 corners are present: g the mean of the 4
+// edge differences along each axis.
+HD float eikonal_cell(const ExtParams& p, int64_t n) {
+    int64_t x, y, z;
+    decode_cell(p.cells[n], p.Y, p.Z, x, y, z);
+    int l[8];
+    float s[8];
+    for (int c = 0; c < 8; ++c) {
+        l[c] = link_at(p.links, p.X, p.Y, p.Z, x + corner_dx(c), y + corner_dy(c),
+                       z + corner_dz(c));
+        if (l[c] < 0) return 0.0f;
+        s[c] = surf_at(p, l[c]);
+    }
+    // corners in reference order (z fastest): c = 4 dx + 2 dy + dz
+    const float dx = ((s[4] - s[0]) + (s[5] - s[1]) + (s[6] - s[2]) + (s[7] - s[3])) / 4.0f;
+    const float dy = ((s[2] - s[0]) + (s[3] - s[1]) + (s[6] - s[4]) + (s[7] - s[5])) / 4.0f;
+    const float dz = ((s[1] - s[0]) + (s[3] - s[2]) + (s[5] - s[4]) + (s[7] - s[6])) / 4.0f;
+    const float gnorm = sqrtf(dx * dx + dy * dy + dz * dz + 1e-12f);
+    const float e = gnorm - p.target;
+    const float c = p.scale * 2.0f * e / gnorm / 4.0f;
+    const float gx = c * dx, gy = c * dy, gz = c * dz;
+    for (int k = 0; k < 8; ++k) {
+        const float g = (corner_dx(k) ? gx : -gx) + (corner_dy(k) ? gy : -gy) +
+                        (corner_dz(k) ? gz : -gz);
+        add_surf(p, l[k], g);
+    }
+    return e * e * p.scale;
+}
+
 #ifdef __CUDACC__
 constexpr int REG_BLOCK = 256;
 
@@ -330,6 +545,37 @@ __global__ void reg_normal_kernel(NormalParams p) {
 __global__ void reg_sparsify_kernel(SparsifyParams p) {
     const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     block_sum_atomic(n < p.n ? sparsify_cell(p, n) : 0.0f, p.loss);
+}
+
+__global__ void reg_norm_match_kernel(ExtParams p) {
+    const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    block_sum_atomic(n < p.n ? norm_match_cell(p, n) : 0.0f, p.loss);
+}
+
+__global__ void reg_viscosity_kernel(ExtParams p) {
+    const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    block_sum_atomic(n < p.n ? viscosity_cell(p, n) : 0.0f, p.loss);
+}
+
+// the gradient of row cap - 1, which every empty cell and neighbour reads,
+// is summed over the block and added by one atomic
+__global__ void reg_sign_change_kernel(ExtParams p) {
+    __shared__ float last_sum;
+    if (threadIdx.x == 0) last_sum = 0.0f;
+    __syncthreads();
+    const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    float last = 0.0f;
+    const float loss = n < p.n ? sign_change_cell(p, n, last) : 0.0f;
+    last = warp_sum(last);
+    if ((threadIdx.x & 31) == 0 && last != 0.0f) atomicAdd(&last_sum, last);
+    block_sum_atomic(loss, p.loss);  // its __syncthreads orders last_sum's adds
+    if (threadIdx.x == 0 && last_sum != 0.0f)
+        atomicAdd(p.g_surface + (int64_t)(p.cap - 1) * p.n_surf_c, last_sum);
+}
+
+__global__ void reg_eikonal_kernel(ExtParams p) {
+    const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    block_sum_atomic(n < p.n ? eikonal_cell(p, n) : 0.0f, p.loss);
 }
 
 static unsigned n_blocks(int64_t n) { return (unsigned)((n + REG_BLOCK - 1) / REG_BLOCK); }
@@ -364,6 +610,25 @@ extern "C" cudaError_t reg_sparsify(const int* links, int X, int Y, int Z, const
     const SparsifyParams p{links, X, Y, Z, cells, n, density, surf, n_surf_c, scale_alpha,
                            scale_surf, surf_sign, surf_thresh, scale, loss, g_density, g_surface};
     reg_sparsify_kernel<<<n_blocks(n), REG_BLOCK, 0, (cudaStream_t)stream>>>(p);
+    return cudaGetLastError();
+}
+// K12a-K12d: ``kind`` 0 norm match, 1 viscosity, 2 sign change, 3 eikonal
+extern "C" cudaError_t reg_ext(int kind, const int* links, int X, int Y, int Z, const int* cells,
+                               long long n, int cap, const float* surf, int n_surf_c,
+                               const float* density, const float* h, float eta, float target,
+                               float scale, double* loss, float* g_surface, float* g_density,
+                               void* stream) {
+    if (n <= 0) return cudaSuccess;
+    const ExtParams p{links, X, Y, Z, cells, n, cap, surf, n_surf_c, density, h, eta, target,
+                      scale, loss, g_surface, g_density};
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (kind) {
+        case 0: reg_norm_match_kernel<<<n_blocks(n), REG_BLOCK, 0, s>>>(p); break;
+        case 1: reg_viscosity_kernel<<<n_blocks(n), REG_BLOCK, 0, s>>>(p); break;
+        case 2: reg_sign_change_kernel<<<n_blocks(n), REG_BLOCK, 0, s>>>(p); break;
+        case 3: reg_eikonal_kernel<<<n_blocks(n), REG_BLOCK, 0, s>>>(p); break;
+        default: return cudaErrorInvalidValue;
+    }
     return cudaGetLastError();
 }
 #endif

@@ -67,6 +67,10 @@ LAUNCHES = {
     "compact_fill": 0,
     "composite_cache": 0,
     "backward_cache": 0,
+    "reg_norm_match": 0,
+    "reg_viscosity": 0,
+    "reg_sign_change": 0,
+    "reg_eikonal": 0,
 }
 
 _P = ctypes.c_void_p
@@ -94,6 +98,7 @@ _ARGTYPES = {
     "reg_tv": [_P, _I, _I, _I, _P, _L, _P, _I, _I, _I, _P, _F, _P, _P, _P],
     "reg_normal": [_P, _I, _I, _I, _P, _L, _P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     "reg_sparsify": [_P, _I, _I, _I, _P, _L, _P, _P, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P],
+    "reg_ext": [_I, _P, _I, _I, _I, _P, _L, _I, _P, _I, _P, _P, _F, _F, _F, _P, _P, _P, _P],
     "rmsprop": [_P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _F, _I, _F, _I, _P],
     "density_occupancy_words": [_P, _P, _I, _I, _I, _P, _P],
     "cuvol_forward": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F,
@@ -122,7 +127,7 @@ _FUNCS = {
     "phase_b": ("phase_b",),
     "composite": ("composite", "intersect_points"),
     "backward": ("backward_ray", "backward_entry"),
-    "reg": ("reg_tv", "reg_normal", "reg_sparsify"),
+    "reg": ("reg_tv", "reg_normal", "reg_sparsify", "reg_ext"),
     "rmsprop": ("rmsprop",),
     "cuvol": ("cuvol_forward", "cuvol_backward", "cuvol_march"),
     "topology": ("topo_window_or", "topo_prune_valid", "topo_straddle", "topo_resample_dense",
@@ -669,6 +674,67 @@ def reg_sparsify(links, cells, density, surface, scale_alpha: float, scale_surf:
                 1.0 if surf_decrease else -1.0, float(surf_thresh), float(scale), _ptr(loss),
                 _ptr(g_density), _ptr(g_surface))
     return loss.float(), g_density, g_surface
+
+
+# ---------------------------------------------------------------------------
+# K12a-K12d
+# ---------------------------------------------------------------------------
+
+_EXT_KINDS = {"reg_norm_match": 0, "reg_viscosity": 1, "reg_sign_change": 2, "reg_eikonal": 3}
+
+
+def _reg_ext(name: str, links, cells, surface, scale: float, density=None, h=None,
+             eta: float = 0.0, target: float = 0.0):
+    """One K12 launch over ``cells`` (flat ids, int32): the loss (1,),
+    summed in float64 and returned as float32, the gradient of ``surface``
+    (cap, n_surf_c) and, with ``density`` (cap, 1), its gradient."""
+    cap = surface.shape[0]
+    _check("surface", surface, torch.float32)
+    _check("links", links, torch.int32)
+    _check("cells", cells, torch.int32)
+    if density is not None:
+        _check("density", density, torch.float32, (cap, 1))
+    if h is not None:
+        _check("h", h, torch.float32, (1,))
+    n = cells.numel()
+    loss = torch.zeros(1, dtype=torch.float64, device=surface.device)
+    g_surface = torch.zeros_like(surface)
+    g_density = None if density is None else torch.zeros_like(density)
+    X, Y, Z = links.shape
+    if n > 0:
+        _launch("reg", "reg_ext", name, _EXT_KINDS[name], _ptr(links), X, Y, Z, _ptr(cells), n,
+                cap, _ptr(surface), surface.shape[1], 0 if density is None else _ptr(density),
+                0 if h is None else _ptr(h), float(eta), float(target), float(scale), _ptr(loss),
+                _ptr(g_surface), 0 if g_density is None else _ptr(g_density))
+    return loss.float(), g_surface, g_density
+
+
+def reg_norm_match(links, cells, density, surface, scale: float):
+    """K12a, the unit forward differences of surface channel 0 against raw
+    alpha's. Returns the loss (1,) and the gradients of density (cap, 1)
+    and surface (cap, n_surf_c)."""
+    loss, g_surface, g_density = _reg_ext("reg_norm_match", links, cells, surface, scale,
+                                          density=density)
+    return loss, g_density, g_surface
+
+
+def reg_viscosity(links, cells, surface, h, eta: float, scale: float):
+    """K12b, the viscosity eikonal term, with the grid spacing ``h`` a (1,)
+    float32 tensor on the card. Returns the loss (1,) and the gradient of
+    surface (cap, n_surf_c)."""
+    return _reg_ext("reg_viscosity", links, cells, surface, scale, h=h, eta=eta)[:2]
+
+
+def reg_sign_change(links, cells, surface, scale: float):
+    """K12c, the sign-change term; a -1 link reads and trains row cap - 1.
+    Returns the loss (1,) and the gradient of surface (cap, n_surf_c)."""
+    return _reg_ext("reg_sign_change", links, cells, surface, scale)[:2]
+
+
+def reg_eikonal(links, cells, surface, target: float, scale: float):
+    """K12d, (|g| - target)^2 over the cells whose 8 corners are present.
+    Returns the loss (1,) and the gradient of surface (cap, n_surf_c)."""
+    return _reg_ext("reg_eikonal", links, cells, surface, scale, target=target)[:2]
 
 
 # ---------------------------------------------------------------------------

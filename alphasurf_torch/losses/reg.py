@@ -1,10 +1,11 @@
 """Cell-sampled regularizers, the counterpart of the JAX package's
 ``losses.reg`` (svox2's loss_kernel.cu and its Python twins).
 
-The regularizers of the surface train step run on the card through K6
-(``csrc/reg.cu``): one pass computes the loss and the gradient of the rows,
-as svox2's kernels did, and an autograd Function hands back the saved
-gradient times the loss's cotangent. On the CPU each has a plain PyTorch
+The regularizers of the surface train step run on the card through K6 and,
+for the extended surface terms, K12a-K12d (``csrc/reg.cu``): one pass
+computes the loss and the gradient of the rows, as svox2's kernels did, and
+an autograd Function hands back the saved gradient times the loss's
+cotangent. On the CPU each has a plain PyTorch
 version, differentiated by autograd. Cells are flat lattice ids (int32);
 the dense variants are the same kernels with every lattice cell a thread.
 
@@ -76,11 +77,11 @@ def sample_present_cells(generator: torch.Generator, grid: SparseGrid, row_coord
 
 
 # ---------------------------------------------------------------------------
-# K6 through autograd
+# K6 and K12 through autograd
 # ---------------------------------------------------------------------------
 
 class _KernelLoss(torch.autograd.Function):
-    """Loss and row gradients from one K6 launch; the backward scales the
+    """Loss and row gradients from one K6 or K12 launch; the backward scales the
     saved gradients by the loss's cotangent."""
 
     @staticmethod
@@ -319,6 +320,145 @@ def alpha_surf_sparsify_loss(grid: SparseGrid, cells: torch.Tensor, scale_alpha:
                                      grid.surface_data.detach(), scale_alpha, scale_surf,
                                      surf_decrease, surf_thresh, 1.0 / cells.numel()),
         grid.density_data, grid.surface_data)
+
+
+def _norm_match_plain(grid, cells, scale):
+    """Plain version of K12a: the sum over the cells, times ``scale``."""
+    x, y, z = _cells_to_xyz(cells, grid.reso)
+    L = grid.links
+    l0, lx, ly, lz = _link_at(L, x, y, z), _link_at(L, x + 1, y, z), _link_at(L, x, y + 1, z), \
+        _link_at(L, x, y, z + 1)
+
+    def unit_diffs(data):
+        v0 = _fetch(data, l0)[..., 0]
+        zero = torch.zeros_like(v0)
+        g = torch.stack([torch.where(k >= 0, _fetch(data, k)[..., 0] - v0, zero)
+                         for k in (lx, ly, lz)], dim=-1)
+        # below the clamp the denominator is a constant (reg.py:587-590)
+        sq = (g[..., 0:1] * g[..., 0:1] + g[..., 1:2] * g[..., 1:2]) + g[..., 2:3] * g[..., 2:3]
+        nrm = torch.sqrt(torch.where(sq > 1e-16, sq, torch.full_like(sq, 1e-16)))
+        return g / torch.maximum(nrm, nrm.new_full((), 1e-8))
+
+    d = unit_diffs(grid.surface_data) - unit_diffs(grid.density_data)
+    per_cell = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+    return torch.sum(torch.where(l0 >= 0, per_cell, torch.zeros_like(per_cell))) * scale
+
+
+def _viscosity_plain(grid, cells, eta, h, scale):
+    """Plain version of K12b: the sum over the cells, times ``scale``."""
+    x, y, z = _cells_to_xyz(cells, grid.reso)
+    L = grid.links
+    lk = [_link_at(L, x, y, z), _link_at(L, x + 1, y, z), _link_at(L, x - 1, y, z),
+          _link_at(L, x, y + 1, z), _link_at(L, x, y - 1, z), _link_at(L, x, y, z + 1),
+          _link_at(L, x, y, z - 1)]
+    ok = torch.stack([k >= 0 for k in lk]).all(0)
+    s0, spx, smx, spy, smy, spz, smz = (_fetch(grid.surface_data, k)[..., 0] for k in lk)
+    h2 = 2 * h
+    g2 = ((spx - smx) / h2) ** 2 + ((spy - smy) / h2) ** 2 + ((spz - smz) / h2) ** 2
+    gnorm = torch.sqrt(torch.maximum(g2, g2.new_full((), 1e-8)))
+    lap = (spx + smx + spy + smy + spz + smz - 6.0 * s0) / (h * h)
+    vis = ((gnorm - 1.0) * torch.sign(s0) - eta * lap) ** 2
+    return torch.sum(torch.where(ok, vis, torch.zeros_like(vis))) * scale
+
+
+def _sign_change_plain(grid, cells, scale):
+    """Plain version of K12c: the sum over the cells, times ``scale``. A -1
+    link reads row cap - 1 (``lnk % cap``, svox2's Python indexing)."""
+    x, y, z = _cells_to_xyz(cells, grid.reso)
+    X, Y, Z = grid.reso
+    surf = grid.surface_data[:, 0]
+    cap = surf.shape[0]
+    flat_links = grid.links.reshape(-1)
+
+    def fetch_wrap(xs, ys, zs):
+        flat = (xs.clamp(0, X - 1) * Y + ys.clamp(0, Y - 1)) * Z + zs.clamp(0, Z - 1)
+        return surf[torch.remainder(flat_links[flat].long(), cap)]
+
+    s0 = fetch_wrap(x, y, z)
+    total = torch.zeros_like(s0)
+    count = torch.zeros_like(s0)
+    for (xs, ys, zs), inb, r in (((x + 1, y, z), x + 1 < X, X), ((x, y + 1, z), y + 1 < Y, Y),
+                                 ((x, y, z + 1), z + 1 < Z, Z)):
+        sn = torch.where(inb, fetch_wrap(xs, ys, zs), s0)
+        hit = (s0 * sn < 0.0) & inb
+        total = total + torch.where(hit, (s0 + sn) * (r / 256.0), torch.zeros_like(s0))
+        count = count + hit.to(s0.dtype)
+    per_cell = torch.where(count > 0, total / torch.clamp(count, min=1.0), torch.zeros_like(s0))
+    return torch.sum(per_cell) * scale
+
+
+def _eikonal_plain(grid, cells, target, scale):
+    """Plain version of K12d: the sum over the cells, times ``scale``."""
+    x, y, z = _cells_to_xyz(cells, grid.reso)
+    offs = torch.arange(2, device=x.device)
+    ox, oy, oz = torch.meshgrid(offs, offs, offs, indexing="ij")
+    links = _link_at(grid.links, x[:, None, None, None] + ox, y[:, None, None, None] + oy,
+                     z[:, None, None, None] + oz)  # (n, 2, 2, 2)
+    surf = _fetch(grid.surface_data, links)[..., 0]
+    ok = torch.all(links.reshape(links.shape[0], -1) >= 0, -1)
+    dx = torch.mean(surf[:, 1] - surf[:, 0], dim=(-1, -2))
+    dy = torch.mean(surf[:, :, 1] - surf[:, :, 0], dim=(-1, -2))
+    dz = torch.mean(surf[:, :, :, 1] - surf[:, :, :, 0], dim=(-1, -2))
+    gnorm = torch.sqrt(dx * dx + dy * dy + dz * dz + 1e-12)
+    per_cell = (gnorm - target) ** 2
+    return torch.sum(torch.where(ok, per_cell, torch.zeros_like(per_cell))) * scale
+
+
+def surface_norm_match_loss(grid: SparseGrid, cells: torch.Tensor) -> torch.Tensor:
+    """K12a: the unit forward-difference gradient of the surface field
+    against that of raw alpha, squared, over cells.shape[0] (reg.py:569;
+    svox2.py:5474-5521). An absent neighbour gives a zero difference;
+    empty centres count in the mean with 0."""
+    scale = 1.0 / cells.numel()
+    if not grid.links.is_cuda:
+        return _norm_match_plain(grid, cells, scale)
+    return _KernelLoss.apply(
+        lambda: kernels.reg_norm_match(grid.links, cells, grid.density_data.detach(),
+                                       grid.surface_data.detach(), scale),
+        grid.density_data, grid.surface_data)
+
+
+def surface_viscosity_loss(grid: SparseGrid, cells: torch.Tensor, eta: float = 1e-2,
+                           h=1.0) -> torch.Tensor:
+    """K12b: ((|central difference| - 1) sign(s0) - eta laplacian)^2 over
+    the cells whose 6-neighbourhood is present, over cells.shape[0]
+    (reg.py:599; svox2.py:5525-5594). ``h`` is the grid spacing: a float or
+    a 0-d tensor on the grid's device (the step's, read there without a
+    host sync)."""
+    scale = 1.0 / cells.numel()
+    if not grid.links.is_cuda:
+        return _viscosity_plain(grid, cells, eta, h, scale)
+    h = torch.as_tensor(h, dtype=torch.float32, device=grid.links.device).reshape(1)
+    return _KernelLoss.apply(
+        lambda: kernels.reg_viscosity(grid.links, cells, grid.surface_data.detach(), h, eta,
+                                      scale), grid.surface_data)
+
+
+def surface_sign_change_loss(grid: SparseGrid, cells: torch.Tensor) -> torch.Tensor:
+    """K12c: over the +x/+y/+z neighbours whose surface value changes sign
+    against the cell's, (s0 + sn) reso/256, averaged over those axes; mean
+    over the cells (reg.py:630; svox2.py:5597-5651). A -1 link reads and
+    trains row cap - 1, as svox2's twin does; an out-of-range neighbour
+    counts as no sign change."""
+    scale = 1.0 / cells.numel()
+    if not grid.links.is_cuda:
+        return _sign_change_plain(grid, cells, scale)
+    return _KernelLoss.apply(
+        lambda: kernels.reg_sign_change(grid.links, cells, grid.surface_data.detach(), scale),
+        grid.surface_data)
+
+
+def surface_eikonal_loss(grid: SparseGrid, cells: torch.Tensor,
+                         target: float = 1.0) -> torch.Tensor:
+    """K12d: (|g| - target)^2 over the cells whose 8 corners are present,
+    g the mean of the 4 edge differences per axis; mean over the cells
+    (reg.py:791; svox2.py:5352)."""
+    scale = 1.0 / cells.numel()
+    if not grid.links.is_cuda:
+        return _eikonal_plain(grid, cells, target, scale)
+    return _KernelLoss.apply(
+        lambda: kernels.reg_eikonal(grid.links, cells, grid.surface_data.detach(), target,
+                                    scale), grid.surface_data)
 
 
 def l2_color_loss(grid: SparseGrid) -> torch.Tensor:

@@ -5,9 +5,11 @@ and ``make_cuvol_step`` (steps.py:447-536, the Plenoxels warm start).
 A surface step renders the batch through the renderer ``StepConfig.renderer``
 names (packed, compact or dense: K1-K4 and K11a/K11b forward, K5 backward on
 the card), adds the streaming ray losses, the two-pass losses on the first-K
-sample cache (``use_two_pass_losses``, K11c/K11d) and the cell-sampled
-regularizers (K6), and applies masked RMSprop (K7) to density, SH, surface
-and fake_sample_std, in place. A cuvol step renders through the
+sample cache (``use_two_pass_losses``, K11c/K11d), the cell-sampled
+regularizers (K6) and the extended surface regularizers its flags turn on
+(``use_eikonal``, ``use_norm_match``, ``use_viscosity``,
+``use_sign_change``: K12a-K12d), and applies masked RMSprop (K7) to
+density, SH, surface and fake_sample_std, in place. A cuvol step renders through the
 packed cuvol renderer (K8 forward and backward over K2's pool), adds the TV
 of density and SH (K6) and applies K7 to density and SH. On the card each
 makes one host sync, the one that sizes K2's pool. Per-step scalars come in
@@ -125,8 +127,12 @@ class StepConfig:
     axis_name: Optional[str] = None
 
 
-# the sampled windows of one step, named as ``window_starts`` keys
-WINDOWS = ("tv", "tv_sh", "tv_surface", "normal", "sparsify")
+# the sampled windows of one step, named as ``window_starts`` keys; "normal"
+# is also the window of the extended terms K12a, K12b and K12d, and
+# "sign_change" that of K12c (JAX's k_ext, steps.py:348)
+WINDOWS = ("tv", "tv_sh", "tv_surface", "normal", "sparsify", "sign_change")
+# the StepConfig switches of the extended surface regularizers
+EXT_FLAGS = ("use_eikonal", "use_norm_match", "use_viscosity", "use_sign_change")
 CUVOL_WINDOWS = ("tv", "tv_sh")
 _PARAMS = (("density", "density_data"), ("sh", "sh_data"), ("surface", "surface_data"),
            ("fake_sample_std", "fake_sample_std"))
@@ -161,16 +167,14 @@ def _requires_grad(params):
             p.requires_grad_(f)
 
 
-def _check_config(cfg: StepConfig, flags=("use_eikonal", "use_norm_match", "use_viscosity",
-                                            "use_sign_change", "use_lumisphere_tv")) -> None:
-    """Raise on what the port's steps do not carry; ``flags`` are the
-    StepConfig switches the step would read."""
+def _check_config(cfg: StepConfig) -> None:
+    """Raise on what the port's steps do not carry."""
     if cfg.renderer not in RENDERERS:
         raise ValueError(f"renderer {cfg.renderer!r}; one of {RENDERERS}")
-    for flag in flags:
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP §2 item 1: the extended regularizers)")
+    if cfg.use_lumisphere_tv:
+        raise NotImplementedError(
+            "use_lumisphere_tv is not ported yet (ROADMAP §1 item 2: the lumisphere TV goes "
+            "with the learned basis and the background)")
     if cfg.axis_name is not None:
         raise NotImplementedError("data-parallel steps (axis_name) are not ported yet "
                                   "(ROADMAP §1 item 4)")
@@ -217,7 +221,15 @@ def make_surface_step(cfg: StepConfig):
     name (``WINDOWS``). ``occ`` are the occupancy words of
     ``render.surface.occupancy_words``; ``row_coords`` (``reg.row_coords_of``)
     switches the regularizers to present-cell windows, and to the full
-    lattice for a sparsity >= 0.5."""
+    lattice for a sparsity >= 0.5.
+
+    The extended terms (``EXT_FLAGS``) take the "normal" window, as JAX's
+    take its ``cells_n``, and K12c its own "sign_change" window, drawn after
+    "sparsify". In the dense branch (``row_coords`` given and
+    ``norm_surface_sparsity`` >= 0.5) the normal losses need no window, and
+    the step draws "normal" there only when one of the four flags is on, so
+    that a run with the flags off keeps the window sequence of its
+    generator."""
     _check_config(cfg)
 
     def step(grid: SparseGrid, rms: dict, rays: Rays, rgb_gt: torch.Tensor, hp: HParams,
@@ -225,6 +237,7 @@ def make_surface_step(cfg: StepConfig):
         _check_rms(rms)
         starts = _window_starts(window_starts, WINDOWS)
         reg_scale, sample = _sampler(generator, grid, row_coords, starts)
+        ext = any(getattr(cfg, f) for f in EXT_FLAGS)
         params = {k: getattr(grid, f) for k, f in _PARAMS if k in rms}
         cache = cfg.cache_size if cfg.use_two_pass_losses else None
         with _requires_grad(list(params.values())):
@@ -276,21 +289,39 @@ def make_surface_step(cfg: StepConfig):
                 loss = loss + reg_scale * hp.lambda_tv_surface * reg.surface_tv_loss(
                     grid, cells, alpha_weighted=cfg.surf_tv_alpha_weighted)
             con, empty = cfg.norm_con_check, cfg.norm_ignore_empty
+            cells_n = None
             if dense_ok and cfg.norm_surface_sparsity >= 0.5:
                 loss = loss + hp.lambda_normal_l1 * reg.surface_normal_loss_dense(
                     grid, con, empty, use_l1=True)
                 loss = loss + hp.lambda_normal_l2 * reg.surface_normal_loss_dense(
                     grid, con, empty, use_l1=False)
+                if ext:
+                    cells_n = sample("normal", cfg.norm_surface_sparsity)
             else:
-                cells = sample("normal", cfg.norm_surface_sparsity)
+                cells_n = sample("normal", cfg.norm_surface_sparsity)
                 loss = loss + reg_scale * hp.lambda_normal_l1 * reg.surface_normal_loss(
-                    grid, cells, con, empty, use_l1=True)
+                    grid, cells_n, con, empty, use_l1=True)
                 loss = loss + reg_scale * hp.lambda_normal_l2 * reg.surface_normal_loss(
-                    grid, cells, con, empty, use_l1=False)
+                    grid, cells_n, con, empty, use_l1=False)
             cells = sample("sparsify", cfg.sparsify_sparsity)
             loss = loss + reg_scale * reg.alpha_surf_sparsify_loss(
                 grid, cells, hp.lambda_sparsify_alpha, hp.lambda_sparsify_surf,
                 cfg.sparsify_surf_decrease, cfg.sparsify_surf_thresh)
+            # the extended surface regularizers (steps.py:334-349)
+            if cfg.use_eikonal:
+                loss = loss + reg_scale * hp.lambda_eikonal * reg.surface_eikonal_loss(
+                    grid, cells_n)
+            if cfg.use_norm_match:
+                loss = loss + reg_scale * hp.lambda_norm_match * reg.surface_norm_match_loss(
+                    grid, cells_n)
+            if cfg.use_viscosity:
+                h = 2.0 * torch.mean(grid.radius) / torch.mean(grid.gsz)
+                loss = loss + reg_scale * hp.lambda_viscosity * reg.surface_viscosity_loss(
+                    grid, cells_n, eta=cfg.viscosity_eta, h=h)
+            if cfg.use_sign_change:
+                cells = sample("sign_change", cfg.norm_surface_sparsity)
+                loss = loss + reg_scale * hp.lambda_sign_change * reg.surface_sign_change_loss(
+                    grid, cells)
             if hp.lambda_l2_color != 0.0:
                 loss = loss + hp.lambda_l2_color * reg.l2_color_loss(grid)
             if "fake_sample_std" in params:
@@ -338,7 +369,7 @@ def make_cuvol_step(cfg: StepConfig):
     are the words of ``render.cuvol.density_occupancy_words``; without
     them, or with a renderer other than "packed", the JAX step marches
     densely, whose backward is not ported."""
-    _check_config(cfg, flags=("use_lumisphere_tv",))  # the only switch it reads
+    _check_config(cfg)
     if cfg.renderer != "packed":
         raise NotImplementedError(
             f"a cuvol step with renderer {cfg.renderer!r} trains through the dense march, whose "

@@ -23,8 +23,8 @@ What the JAX Trainer needs and the port does not: its pool budget and the
 machinery around it (``_pow2``, ``_size_pool_from_grid``, ``_grow_pool``,
 the overflow half of ``_flush_pend``, ``n_forced_steps``). The port's pool
 is sized exactly each step and never overflows. Left out: TensorBoard
-logging (the log lines carry the same scalars) and LPIPS (its weights are
-not in the repository). With ``log_pts`` each eval of a surface grid
+logging (the log lines carry the same scalars). A final eval adds LPIPS
+when ``utils.lpips.make_lpips`` finds its weights. With ``log_pts`` each eval of a surface grid
 extracts its iso points (``_eval_points``, on K9g) and, with ``eval_cf``,
 adds their Chamfer distance to ``{data_dir}/shape.npy`` to the
 ``eval stats:`` line.
@@ -62,6 +62,7 @@ from ..render.cuvol import density_occupancy_words
 from ..render.image import render_image
 from ..render.surface import occupancy_words
 from ..utils.io import load_grid, save_grid
+from ..utils.lpips import make_lpips
 from ..utils.metrics import compute_ssim
 from .steps import HParams, StepConfig, init_rms, make_cuvol_step, make_surface_step
 
@@ -524,9 +525,10 @@ class Trainer:
 
     # ---------------- eval / io ----------------
     def eval_step(self, final: bool = False):
-        """Test-view evaluation: PSNR and SSIM (opt.py:443-538). A final
-        eval writes the per-view breakdown to eval_views.txt and the mean
-        PSNR to test_psnr.txt."""
+        """Test-view evaluation: PSNR and SSIM, and in a final eval LPIPS
+        when its weights exist (opt.py:443-538). A final eval writes the
+        per-view breakdown to eval_views.txt and the mean PSNR to
+        test_psnr.txt."""
         cfg = self.cfg
         dset = self.dset_test or self.dset
         n_views = (dset.n_images if final and cfg.final_render_eval
@@ -534,7 +536,8 @@ class Trainer:
         if n_views == 0:
             return None
         opt = render_options_from(cfg, no_surface=self.grid.surface_data is None)
-        psnrs, ssims, lines = [], [], []
+        lpips_fn = make_lpips(device=self.device) if final else None
+        psnrs, ssims, lpipss, lines = [], [], [], []
         for i in np.linspace(0, dset.n_images - 1, n_views).astype(int):
             cam = camera_of(dset, int(i))
             img = render_image(self.grid, cam, opt, device=self.device)
@@ -544,11 +547,14 @@ class Trainer:
             psnrs.append(p)
             s = compute_ssim(img, gt)
             ssims.append(s)
+            if lpips_fn is not None:
+                lpipss.append(lpips_fn(img, gt))
             lines.append(f"{int(i)} {p:.4f} {s:.4f}")
         mean_psnr = float(np.mean(psnrs))
         mean_ssim = float(np.mean(ssims))
+        extra = f" lpips={np.mean(lpipss):.4f}" if lpipss else ""
         self.log(f"eval stats: step={self.gstep} psnr={mean_psnr:.3f} ssim={mean_ssim:.4f}"
-                 f"{self._eval_points()}")
+                 f"{extra}{self._eval_points()}")
         if final:
             with open(path.join(cfg.train_dir, "eval_views.txt"), "w") as f:
                 f.write("view psnr ssim\n" + "\n".join(lines) + "\n")

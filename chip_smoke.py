@@ -10,7 +10,8 @@ occupancy, K8 cuvol forward and backward, K10 dense cuvol march, K9a keep
 masks, K9b lattice resample, K9c weight march, K9d visibility walk, K9e
 transmittance march, K9f mask sweep, K9g iso points, K4's sigma-thresh
 depth and intersect_points, K11a dense walk count + fill, K11b capped
-fill, K11c the first-K cache in K4, K11d its gradient in K5), then:
+fill, K11c the first-K cache in K4, K11d its gradient in K5, K12a-K12d the
+extended surface regularizers), then:
 
 1. prints the card, its power limit, nvcc's register/spill lines and the
    build seconds;
@@ -91,10 +92,24 @@ fill, K11c the first-K cache in K4, K11d its gradient in K5), then:
    and app/train.main with the two-pass losses on the compact renderer
    (two_pass_config: cache losses finite and non-zero on every surface
    step, a PSNR above the untrained grid's, a finite Chamfer);
-10. prints one JSON line with each kernel's numbers, then the ok line.
+10. the Blender (NeRF-synthetic) path and the extended surface
+   regularizers: K12a-K12d against their plain versions on the 512^3
+   shell (bench_step's 0.01 window, timed, and every present row); one
+   train step with all four on against the plain step at 128^3 and
+   bench_step's protocol with them at full width, with a profiled step;
+   a Blender-layout scene written by the script (make_gt_grid(256)
+   through the dense walk, 100 train and 8 test RGBA views at 800x800,
+   nerf_synthetic's camera angle); then, with the counters set to 0 just
+   before and read just after, app/pipeline.run_pipeline with
+   dataset_type nerf on it at 256^3 (K12d through the Trainer's
+   lambda_surface_eikonal; a test PSNR from render_imgs above the
+   untrained grid's, a finite Chamfer against the scene's GT points);
+   app/eval_imgs and app/debug_render on its checkpoint;
+11. prints one JSON line with each kernel's numbers, then the ok line.
 
 ``--phases`` runs a subset (kernels, serve, train, warm, stages,
-extract, dtu, renderers); the default runs them all, as the checks above require. Exits non-zero, printing no result,
+extract, dtu, renderers, blender); the default runs them all, as the
+checks above require. Exits non-zero, printing no result,
 without a CUDA device or without the ``alphasurf_torch`` package beside
 it. Imports nothing of JAX.
 """
@@ -193,6 +208,11 @@ KERNELS = {  # name -> (source, the JAX routine it replaces)
     "compact_fill": ("alphasurf_torch/csrc/phase_a.cu", f"{_JAX_SURFACE}:1284"),
     "composite_cache": ("alphasurf_torch/csrc/composite.cu", f"{_JAX_SURFACE}:951"),
     "backward_cache": ("alphasurf_torch/csrc/backward.cu", f"{_JAX_SURFACE}:1955"),
+    # K12a-K12d: the extended surface regularizers
+    "reg_norm_match": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:569"),
+    "reg_viscosity": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:599"),
+    "reg_sign_change": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:630"),
+    "reg_eikonal": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:791"),
 }
 SERVE_KERNELS = ("occupancy", "phase_a_count", "phase_a_fill", "phase_b", "composite")
 TRAIN_KERNELS = SERVE_KERNELS + ("backward_ray", "backward_entry", "reg_tv", "reg_normal",
@@ -207,10 +227,11 @@ EXTRACT_KERNELS = ("transmit_march", "iso_points")
 DTU_KERNELS = ("mask_march", "composite_sigma_thresh", "intersect_points")
 RENDERER_KERNELS = ("dense_walk_count", "dense_walk_fill", "compact_fill", "composite_cache",
                     "backward_cache")
+EXTENDED_KERNELS = ("reg_norm_match", "reg_viscosity", "reg_sign_change", "reg_eikonal")
 # the three-stage run initialises its surface from the density: every kernel
-# but K9e, the DTU path's and the compact and dense renderers'
-STAGE_RUN_KERNELS = tuple(k for k in KERNELS
-                          if k not in ("transmit_march",) + DTU_KERNELS + RENDERER_KERNELS)
+# but K9e, the DTU path's, the compact and dense renderers' and K12's
+STAGE_RUN_KERNELS = tuple(k for k in KERNELS if k not in ("transmit_march",) + DTU_KERNELS
+                          + RENDERER_KERNELS + EXTENDED_KERNELS)
 # the pipeline: the Plenoxels stage and its eval, the weight init with
 # visibility pruning, the surface stage, the extraction
 PIPELINE_KERNELS = TRAIN_KERNELS + WARM_NEW_KERNELS + (
@@ -218,8 +239,9 @@ PIPELINE_KERNELS = TRAIN_KERNELS + WARM_NEW_KERNELS + (
     "dense_walk_count", "dense_walk_fill")  # K11a renders the dataset's ground truth
 # the DTU path: the three stages with mask pruning at the surface init,
 # the extractors: every kernel but K9e and the compact and dense renderers'
-DTU_PATH_KERNELS = tuple(k for k in KERNELS if k not in ("transmit_march",) + RENDERER_KERNELS)
-PHASES = ("kernels", "serve", "train", "warm", "stages", "extract", "dtu", "renderers")
+DTU_PATH_KERNELS = tuple(k for k in KERNELS
+                         if k not in ("transmit_march",) + RENDERER_KERNELS + EXTENDED_KERNELS)
+PHASES = ("kernels", "serve", "train", "warm", "stages", "extract", "dtu", "renderers", "blender")
 CUVOL_RESO = 256  # the warm start's grid (the Config's first reso)
 WARM_STEPS = 100  # Trainer steps of the warm-start run
 TRAIN_BATCH = 40960
@@ -669,6 +691,19 @@ def check_backward(grid, opt, rays, words, pool, packed, origins, dirs, sh_mult,
     }
 
 
+def window_stats(grid, cells, offsets) -> tuple[int, int]:
+    """Bytes a window of cells needs for its cell ids and for each distinct
+    link it reads at ``offsets``, and the number of rows those links name."""
+    import torch
+
+    from alphasurf_torch.losses import reg as R
+
+    x, y, z = R._cells_to_xyz(cells, grid.reso)
+    lk = torch.unique(torch.stack([R._link_at(grid.links, x + a, y + b, z + c)
+                                   for a, b, c in offsets]))
+    return cells.numel() * 4 + lk.numel() * 4, int((lk >= 0).sum())
+
+
 def reg_check(label: str, run_kernel, run_plain, grid, fields) -> tuple[float, float, float]:
     """K6 against the plain version's autograd: (max abs err, kernel ms,
     plain ms)."""
@@ -716,21 +751,13 @@ def check_reg(grid, row_coords, device) -> dict:
     L = grid.links
     out = {}
 
-    def cells_stats(cells, offsets):
-        """Bytes a window needs: its cells, the links it reads, the rows they
-        name."""
-        x, y, z = R._cells_to_xyz(cells, grid.reso)
-        lk = torch.unique(torch.stack([R._link_at(L, x + a, y + b, z + c)
-                                       for a, b, c in offsets]))
-        return cells.numel() * 4 + lk.numel() * 4, int((lk >= 0).sum())
-
     tv_offs = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1))
     win_offs = tuple((a, b, c) for a in range(3) for b in range(3) for c in range(3))
     log("K6 regularizers on windows of 0.01 of the rows:")
     worst = {"reg_tv": 0.0, "reg_normal": 0.0, "reg_sparsify": 0.0}
     cells = R.sample_present_cells(gen, grid, row_coords, 0.01)
     n = cells.numel()
-    cb, nr = cells_stats(cells, tv_offs)
+    cb, nr = window_stats(grid, cells, tv_offs)
     for label, field, c0, c1 in (("TV density", "density_data", 0, 1),
                                  ("TV sh", "sh_data", 0, 27),
                                  ("TV surface", "surface_data", 0, 1)):
@@ -742,7 +769,7 @@ def check_reg(grid, row_coords, device) -> dict:
         if field == "surface_data":  # the main path's heaviest-weighted TV
             out["reg_tv"] = dict(ms=ms, plain_ms=pms, bound=bound_ms(
                 cb + nr * 4 * 2 + grid.capacity * 4, n * 20))
-    cb, nr = cells_stats(cells, win_offs)
+    cb, nr = window_stats(grid, cells, win_offs)
     for use_l1 in (True, False):
         e, ms, pms = reg_check(
             f"normal {'L1' if use_l1 else 'L2'}",
@@ -754,7 +781,7 @@ def check_reg(grid, row_coords, device) -> dict:
         if use_l1:
             out["reg_normal"] = dict(ms=ms, plain_ms=pms, bound=bound_ms(
                 cb + nr * 4 + grid.capacity * 4, n * 400))
-    cb, nr = cells_stats(cells, ((0, 0, 0),))
+    cb, nr = window_stats(grid, cells, ((0, 0, 0),))
     e, ms, pms = reg_check(
         "sparsify",
         lambda: kernels.reg_sparsify(L, cells, grid.density_data.detach(),
@@ -910,9 +937,10 @@ def serve(device, card: str, work: Path) -> dict:
     return launches
 
 
-def profile_device(fn, label: str, card: str) -> None:
+def profile_device(fn, label: str, card: str) -> tuple[float, float, list]:
     """Where the time of fn() goes: torch.profiler over one warm call,
-    device time summed by kernel name."""
+    device time summed by kernel name. Returns the wall and device-busy
+    ms and the (ms, count, name) rows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -932,6 +960,7 @@ def profile_device(fn, label: str, card: str) -> None:
         f"idle share {1.0 - busy / wall:.3f} [{card}]")
     for ms, n, key in rows[:16]:
         log(f"  {ms:9.3f} ms {n:6d}x  {key[:100]}")
+    return wall, busy, rows
 
 
 def profile_frame(grid, opt, device, card: str) -> None:
@@ -943,11 +972,12 @@ def profile_frame(grid, opt, device, card: str) -> None:
                    f"one {WIDTH}x{HEIGHT} frame", card)
 
 
-def check_step(device) -> None:
+def check_step(device, flags=(), hp_extra=None) -> None:
     """One train step through the kernels on the card against one step of
     the plain versions on a CPU copy, at 128^3 with a 4,096-ray batch of
     the bench camera and the same regularizer windows (rays whose float32
-    bounds differ between the two are left out). RMSprop's first step
+    bounds differ between the two are left out); ``flags`` turn on
+    StepConfig switches, ``hp_extra`` adds HParams. RMSprop's first step
     moves a row by about lr / sqrt(1 - beta) whatever its gradient, so the
     parameters agree to 1e-3 of that step on all but 1e-3 of the rows either
     updates; the rms (0.05 g^2) agrees in norm to 1e-3."""
@@ -983,9 +1013,10 @@ def check_step(device) -> None:
         f"have float32 bounds that differ between the card and the CPU; {nb} agreeing rays kept")
     r_k = Rays(cand.origins[keep.to(device)].contiguous(), cand.dirs[keep.to(device)].contiguous())
     r_p = Rays(r_k.origins.cpu(), r_k.dirs.cpu())
-    hp = bench_hparams()._replace(lr_fake_sample_std=1e-4)
+    hp = bench_hparams()._replace(lr_fake_sample_std=1e-4, **(hp_extra or {}))
     beta = 0.95
-    step = make_surface_step(StepConfig(opt=opt, cache_size=None, rms_beta=beta))
+    step = make_surface_step(StepConfig(opt=opt, cache_size=None, rms_beta=beta,
+                                        **dict.fromkeys(flags, True)))
     K = max(1, int(0.01 * grid.capacity))
     gen = torch.Generator().manual_seed(SEED)
     starts = {w: int(torch.randint(0, grid.capacity - K + 1, (), generator=gen)) for w in WINDOWS}
@@ -1012,7 +1043,8 @@ def check_step(device) -> None:
         msg.append(f"{rk}: {int(moved.sum())} rows moved, {int(bad.sum())} off, rms rel {rel:.2e}")
         if frac > 1e-3 or rel > 1e-3 or not moved.any():
             raise AssertionError(f"train step {rk} differs from the plain step: {msg[-1]}")
-    log(f"train step at {SMALL_RESO}^3, {nb} rays: loss {lk:.7f} (plain {lp:.7f}); " + "; ".join(msg))
+    log(f"train step at {SMALL_RESO}^3, {nb} rays{' with ' + ', '.join(flags) if flags else ''}: "
+        f"loss {lk:.7f} (plain {lp:.7f}); " + "; ".join(msg))
     del grid, rc, cpu
     torch.cuda.empty_cache()
 
@@ -3054,6 +3086,438 @@ def renderers(device, card: str, work: Path) -> tuple[dict, dict]:
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# the Blender (NeRF-synthetic) path and the extended surface regularizers
+# ---------------------------------------------------------------------------
+
+# the bench protocol's weights of the four terms (a speed measurement)
+EXT_HP = {"lambda_norm_match": 1e-4, "lambda_viscosity": 1e-4, "lambda_sign_change": 1e-4,
+          "lambda_eikonal": 1e-4}
+VISCOSITY_ETA = 1e-2  # StepConfig.viscosity_eta's default
+CAMERA_ANGLE_X = 0.6911112  # nerf_synthetic's
+BLENDER_TRAIN, BLENDER_TEST = 100, 8  # nerf_synthetic: 100 train, 200 test views
+SCENE_SCALE = 2.0 / 3.0  # the NeRF loader's default
+# the eikonal weight of the pipeline's surface stage: near a tenth of the
+# stage's test mse, as two_pass_config chose its weights (at 3e-3 the
+# weighted term was 0.053 of it on the H100)
+BLENDER_EIKONAL = 6e-3
+BLENDER_SURFACE = {**PIPELINE_SURFACE, "lambda_surface_eikonal": BLENDER_EIKONAL}
+# the pipeline on a NeRF scene: PIPELINE_KERNELS but K11a (the scene is
+# rendered before the run), plus K12d
+BLENDER_KERNELS = tuple(k for k in PIPELINE_KERNELS
+                        if k not in ("dense_walk_count", "dense_walk_fill")) + ("reg_eikonal",)
+
+
+def ext_bytes(grid, cells, offsets, fields: int) -> float:
+    """Bytes one K12 launch needs: those of window_stats, each row the links
+    name in ``fields`` fields and the gradient outputs (capacity rows in
+    each field)."""
+    cb, nr = window_stats(grid, cells, offsets)
+    return cb + (nr + grid.capacity) * 4 * fields
+
+
+def check_ext_reg(grid, row_coords, device) -> dict:
+    """K12a-K12d against their plain versions (autograd) on the 512^3
+    shell: on a window of 0.01 of the rows (bench_step's sparsity) and on
+    every present row (the recipe's norm_surface_sparsity 1.0). The loss
+    to REG_LOSS_RTOL, each gradient to GRAD_*; timed on the window."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.losses import reg as R
+
+    L = grid.links
+    h = (2.0 * torch.mean(grid.radius) / torch.mean(grid.gsz)).reshape(1)
+    fwd = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1))
+    six = fwd + ((-1, 0, 0), (0, -1, 0), (0, 0, -1))
+    corners = tuple((a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1))
+    out = {}
+    gen = torch.Generator().manual_seed(SEED)
+    for label, frac in (("window of 0.01 of the rows", 0.01), ("every present row", 1.0)):
+        cells = R.sample_present_cells(gen, grid, row_coords, frac)
+        n = cells.numel()
+        log(f"K12 on the {RESO}^3 shell, {label} ({n} cells):")
+        runs = {
+            "reg_norm_match": (
+                lambda: kernels.reg_norm_match(L, cells, grid.density_data.detach(),
+                                               grid.surface_data.detach(), 1.0 / n),
+                lambda: R._norm_match_plain(grid, cells, 1.0 / n),
+                ("density_data", "surface_data"), fwd, 2, 90),
+            "reg_viscosity": (
+                lambda: kernels.reg_viscosity(L, cells, grid.surface_data.detach(), h,
+                                              VISCOSITY_ETA, 1.0 / n),
+                lambda: R._viscosity_plain(grid, cells, VISCOSITY_ETA, h[0], 1.0 / n),
+                ("surface_data",), six, 1, 60),
+            "reg_sign_change": (
+                lambda: kernels.reg_sign_change(L, cells, grid.surface_data.detach(), 1.0 / n),
+                lambda: R._sign_change_plain(grid, cells, 1.0 / n), ("surface_data",), fwd, 1,
+                25),
+            "reg_eikonal": (
+                lambda: kernels.reg_eikonal(L, cells, grid.surface_data.detach(), 1.0, 1.0 / n),
+                lambda: R._eikonal_plain(grid, cells, 1.0, 1.0 / n), ("surface_data",),
+                corners, 1, 60),
+        }
+        for name, (run_k, run_p, fields, offs, n_fields, ops) in runs.items():
+            loss_k, *g_k = run_k()
+            params = [getattr(grid, f) for f in fields]
+            for p in params:
+                p.requires_grad_(True)
+            try:
+                loss_p = run_p()
+                g_p = torch.autograd.grad(loss_p, params)
+
+                def plain():
+                    torch.autograd.grad(run_p(), params)
+
+                plain_ms = time_ms(plain, 3) if frac < 1.0 else None
+            finally:
+                for p in params:
+                    p.requires_grad_(False)
+            lk, lp = float(loss_k), float(loss_p.detach())
+            log(f"  {name}: loss {lk:.7e} (plain {lp:.7e})")
+            if not abs(lk - lp) <= REG_LOSS_RTOL * abs(lp):
+                raise AssertionError(f"{name} loss differs from its plain version: {lk} {lp}")
+            err = abs(lk - lp)
+            for f, gk, gp in zip(fields, g_k, g_p):
+                err = max(err, grad_check(f"{name} {f}", gk, gp, kernel=name))
+            if frac < 1.0:
+                out[name] = dict(max_abs_err=err, ms=time_ms(run_k, 20), plain_ms=plain_ms,
+                                 bound=bound_ms(ext_bytes(grid, cells, offs, n_fields), n * ops))
+            else:
+                out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+                log(f"  {name} over every present row: kernel {time_ms(run_k, 5):.4f} ms")
+        del cells
+        torch.cuda.empty_cache()
+    return out
+
+
+def ext_step_bench(device, card: str) -> dict:
+    """bench_step's protocol (512^3 shell, batch 40960 of one 800x800
+    camera, 1 + 33 steps) through make_surface_step with the four extended
+    flags on, which bench_step has no switch for; the counters set to 0
+    just before and read just after. Then one profiled step and the four
+    kernels' share of its device time."""
+    import math
+
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import bench_step
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.render.surface import occupancy_words
+    from alphasurf_torch.train.steps import EXT_FLAGS, StepConfig, init_rms, make_surface_step
+
+    grid, rc = bench_step.build_bench_grid(RESO, device)
+    opt = bench_step.bench_options()
+    hp = bench_step.bench_hparams()._replace(**EXT_HP)
+    step = make_surface_step(StepConfig(opt=opt, cache_size=None, **dict.fromkeys(EXT_FLAGS, True)))
+    rays = bench_step.bench_rays(WIDTH, device)
+    rms, gen = init_rms(grid), torch.Generator().manual_seed(SEED)
+    gt = torch.full((TRAIN_BATCH, 3), 0.5, device=device)
+    n = rays.origins.shape[0]
+    lo, span = int(n * 0.35), max(int(n * 0.30) - TRAIN_BATCH, 1)
+    occ = occupancy_words(grid, opt)
+
+    def batch(i):
+        s = lo + (i * TRAIN_BATCH) % span
+        return Rays(rays.origins[s:s + TRAIN_BATCH], rays.dirs[s:s + TRAIN_BATCH])
+
+    kernels.reset_launches()
+    losses = [step(grid, rms, batch(0), gt, hp, gen, occ=occ, row_coords=rc)[2]["loss"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(33):
+        if i > 0 and i % 16 == 0:
+            occ = occupancy_words(grid, opt)
+        losses.append(step(grid, rms, batch(i), gt, hp, gen, occ=occ, row_coords=rc)[2]["loss"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in TRAIN_KERNELS + EXTENDED_KERNELS}
+    losses = torch.stack(losses).tolist()
+    log(f"train with the four extended regularizers: 33 steps of {TRAIN_BATCH} rays at {RESO}^3: "
+        f"{33 * TRAIN_BATCH / secs:.1f} rays/s, {secs / 33 * 1e3:.3f} ms per step, loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f} [{card}]")
+    log("launches " + json.dumps(launches))
+    if any(v == 0 for v in launches.values()) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"the extended step did not run right: {launches}, {losses[:4]}")
+    r = batch(3)
+    _, busy, rows = profile_device(lambda: step(grid, rms, r, gt, hp, gen, occ=occ, row_coords=rc),
+                                   f"one train step with the four extended regularizers "
+                                   f"({TRAIN_BATCH} rays, {RESO}^3)", card)
+    ext_ms = sum(ms for ms, _, key in rows
+                 if any(f"{k}_kernel" in key for k in EXTENDED_KERNELS))
+    log(f"K12a-K12d: {ext_ms:.4f} ms of the step's {busy:.3f} ms device time "
+        f"({ext_ms / busy:.4f}) [{card}]")
+    del grid, rc, rms, occ
+    torch.cuda.empty_cache()
+    return launches
+
+
+def blender_poses(n: int, split: str, seed: int = SEED):
+    """OpenGL camera-to-world poses (Blender's) looking at the origin from
+    radius 2.7 / SCENE_SCALE, where the NeRF loader's scale puts them at the
+    synthetic dataset's 2.7: train views drawn uniformly over the upper
+    hemisphere's band up to 72 degrees, test views a circle at 30 degrees
+    (nerf_synthetic's test path)."""
+    import numpy as np
+
+    from alphasurf_torch.data.synthetic import pose_spherical
+
+    rng = np.random.default_rng(seed + (0 if split == "train" else 1))
+    gl = np.diag([1.0, -1.0, -1.0, 1.0])
+    out = []
+    for i in range(n):
+        if split == "train":
+            az, el = rng.uniform(0, 360), np.degrees(np.arcsin(rng.uniform(0.05, 0.95)))
+        else:
+            az, el = 360.0 * i / n, 30.0
+        out.append(pose_spherical(az, el, 2.7 / SCENE_SCALE).astype(np.float64) @ gl)
+    return out
+
+
+def write_blender_scene(device, root: Path) -> dict:
+    """A NeRF-synthetic scene of make_gt_grid(CUVOL_RESO): BLENDER_TRAIN
+    train and BLENDER_TEST test views (cut from nerf_synthetic's 200 for
+    the time limit) at 800x800 as 8-bit RGBA PNGs, rendered by the dense
+    walk (K11a) on host-made rays, as the synthetic dataset renders its
+    ground truth; the alpha is 1 - T (the render with a black background
+    against a white one), so the loader's white compositing gives back the
+    render. As in write_dtu_scene, the rays whose float32 bounds lose
+    their exit (ROADMAP §3) go through the plain path on a float64 copy of
+    the grid. Cameras: camera_angle_x CAMERA_ANGLE_X, blender_poses. Also
+    the GT points shape.npy: synthetic_gt_points(CUVOL_RESO)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from alphasurf_torch.app.pipeline import synthetic_gt_points
+    from alphasurf_torch.core.options import RenderOptions
+    from alphasurf_torch.core.rays import Camera, Rays
+    from alphasurf_torch.data.synthetic import make_gt_grid
+    from alphasurf_torch.render import surface as S
+    from alphasurf_torch.render.image import render_rays
+    from alphasurf_torch.utils.png import write_png
+
+    t0 = time.perf_counter()
+    grid = make_gt_grid(CUVOL_RESO, device=device)
+    grid64 = make_gt_grid(CUVOL_RESO, dtype=torch.float64, device=device)
+
+    white = RenderOptions(sigma_thresh=-1e9, stop_thresh=-1.0, only_outward_intersect=True)
+    black = dataclasses.replace(white, background_brightness=0.0)
+    with torch.no_grad():
+        words64 = S._occupancy_words_plain(grid64, black)
+        packed64 = S.pack_grid_data(grid64)
+    focal = float(0.5 * WIDTH / np.tan(0.5 * CAMERA_ANGLE_X))
+    t_render, redo_n = 0.0, {}
+    for split, n in (("train", BLENDER_TRAIN), ("test", BLENDER_TEST)):
+        (root / split).mkdir(parents=True, exist_ok=True)
+        frames = []
+        for i, pose in enumerate(blender_poses(n, split)):
+            # the loader's float32 camera: the flip back to OpenCV, then the scale
+            c2w = np.asarray(pose, dtype=np.float32) @ np.diag(
+                np.array([1, -1, -1, 1], dtype=np.float32))
+            c2w[:3, 3] *= SCENE_SCALE
+            rays = Camera.make(c2w, fx=focal, width=WIDTH, height=HEIGHT).gen_rays(device)
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                on_white = render_rays(grid, rays, white, renderer="dense")[0]
+                on_black = render_rays(grid, rays, black, renderer="dense")[0]
+                alpha = (1.0 - (on_white - on_black)[:, :1]).clamp(0.0, 1.0)
+                redo = torch.nonzero(_exit_lost(grid, grid64, rays))[:, 0]
+                redo_n[split] = redo_n.get(split, 0) + redo.numel()
+                for s0 in range(0, redo.numel(), CHUNK):
+                    idx = redo[s0:s0 + CHUNK]
+                    r64 = Rays(rays.origins[idx].double(), rays.dirs[idx].double())
+                    origins, dirs, sh_mult, tn, tx, ngt = chunk_inputs(grid64, black, r64)
+                    pool = S._compact_crossings_plain(grid64.reso, origins, dirs, tn, tx, words64)
+                    smp = S._voxel_samples_plain(grid64, black, pool, origins, dirs, sh_mult, ngt,
+                                                 packed64)
+                    comp = S._composite_plain(black, grid64.truncated_vol_render_a, pool.offsets,
+                                              smp)
+                    on_black[idx] = comp["rgb"].float()
+                    alpha[idx] = (1.0 - torch.exp(comp["log_T"]))[:, None].float().clamp(0, 1)
+            torch.cuda.synchronize()
+            t_render += time.perf_counter() - t1
+            rgb = torch.where(alpha > 0, on_black / alpha.clamp(min=1e-12),
+                              torch.ones_like(on_black))
+            rgba = torch.cat([rgb.clamp(0.0, 1.0), alpha], -1).reshape(HEIGHT, WIDTH, 4)
+            write_png(root / split / f"r_{i}.png",
+                      np.round(rgba.cpu().numpy() * 255.0).astype(np.uint8), level=1)
+            frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": pose.tolist()})
+        (root / f"transforms_{split}.json").write_text(
+            json.dumps({"camera_angle_x": CAMERA_ANGLE_X, "frames": frames}, indent=1))
+    gt_points = root / "shape.npy"
+    np.save(gt_points, synthetic_gt_points(CUVOL_RESO))
+    del grid, grid64, words64, packed64
+    torch.cuda.empty_cache()
+    return {"seconds": time.perf_counter() - t0, "render_seconds": t_render,
+            "gt_points": gt_points, "redo": redo_n}
+
+
+def hold_eikonal(grid, cells, target, v) -> float:
+    """One K12d launch of a run (``v``, its loss, on the run's grid and
+    window) against _eikonal_plain: the loss to REG_LOSS_RTOL and the
+    gradient, read back through the launch's own autograd node (no second
+    launch), to GRAD_*. Returns the max abs error."""
+    import torch
+
+    from alphasurf_torch.losses import reg as R
+
+    (gk,) = torch.autograd.grad(v, grid.surface_data, retain_graph=True)
+    plain = grid.replace(surface_data=grid.surface_data.clone())
+    plain.surface_data.requires_grad_(True)
+    loss_p = R._eikonal_plain(plain, cells, target, 1.0 / cells.numel())
+    (gp,) = torch.autograd.grad(loss_p, plain.surface_data)
+    lk, lp = float(v), float(loss_p)
+    log(f"K12d on the pipeline's first surface step ({cells.numel()} cells of "
+        f"{grid.reso[0]}^3): loss {lk:.7e} (plain {lp:.7e})")
+    if not abs(lk - lp) <= REG_LOSS_RTOL * abs(lp):
+        raise AssertionError(f"reg_eikonal loss differs from its plain version: {lk} {lp}")
+    return max(abs(lk - lp), grad_check("reg_eikonal surface_data", gk, gp, kernel="reg_eikonal"))
+
+
+def blender(device, card: str, work: Path) -> tuple[dict, dict]:
+    """Phase 10: K12a-K12d against their plain versions; one train step with
+    the four extended flags against the plain step at 128^3 and the bench
+    protocol with them at full width; a Blender-layout scene; then, with the
+    counters set to 0 just before and read just after,
+    app/pipeline.run_pipeline with dataset_type "nerf" at CUVOL_RESO^3 (the
+    extraction cell's 100 + 100 steps of 8192, the weight init at the
+    recipe's surface rate, lambda_surface_eikonal BLENDER_EIKONAL): every
+    kernel of its path launched (K12d through the Trainer), a test PSNR
+    above the untrained grid's, a finite Chamfer against the scene's GT
+    points, the run's first K12d launch held against its plain version
+    (hold_eikonal); then app/eval_imgs (2 views, and --render_depth) and
+    app/debug_render (the image and one --pixel) on its checkpoint. Returns
+    the kernels' numbers and the launches: K12a-K12c from the extended
+    bench, the rest from the pipeline."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import debug_render, eval_imgs, pipeline
+    from alphasurf_torch.data import NeRFDataset
+    from alphasurf_torch.data.base import camera_of
+    from alphasurf_torch.losses import reg as R
+    from alphasurf_torch.train.steps import EXT_FLAGS
+    from alphasurf_torch.utils.io import load_grid
+    from alphasurf_torch.utils.png import read_png
+
+    grid, rc = shell_grid(RESO, device)
+    res = check_ext_reg(grid, rc, device)
+    del grid, rc
+    torch.cuda.empty_cache()
+    check_step(device, EXT_FLAGS, EXT_HP)
+    bench_launches = ext_step_bench(device, card)
+
+    scene = work / "blender"
+    info = write_blender_scene(device, scene)
+    log(f"Blender scene of make_gt_grid({CUVOL_RESO}): {BLENDER_TRAIN} + {BLENDER_TEST} RGBA "
+        f"views at {WIDTH}x{HEIGHT} in {info['seconds']:.2f} s (rendering "
+        f"{info['render_seconds']:.2f} s); rays whose float32 bounds lose their exit, rendered "
+        f"in float64: train {info['redo']['train']} of {BLENDER_TRAIN * WIDTH * HEIGHT}, "
+        f"test {info['redo']['test']} of {BLENDER_TEST * WIDTH * HEIGHT} [{card}]")
+
+    terms, held = [], []
+    eikonal = R.surface_eikonal_loss
+
+    def record(grid, cells, target=1.0):
+        v = eikonal(grid, cells, target)
+        if not held:
+            held.append(hold_eikonal(grid, cells, target, v))
+        terms.append(v.detach() * R.present_norm_scale(grid))  # the step's reg_scale
+        return v
+
+    out_dir = work / "blender_run"
+    R.surface_eikonal_loss = record
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = pipeline.run_pipeline(
+            str(out_dir), data_dir=str(scene), dataset_type="nerf", reso=CUVOL_RESO,
+            n_iters_plenoxels=PIPELINE_STEPS[0], n_iters_surface=PIPELINE_STEPS[1],
+            batch_size=PIPELINE_BATCH, gt_points_path=str(info["gt_points"]),
+            overrides_surface=BLENDER_SURFACE, eval_downsample=0.001, device=device)
+    finally:
+        R.surface_eikonal_loss = eikonal
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log("launches " + json.dumps(launches))
+    res["reg_eikonal"]["max_abs_err"] = max(res["reg_eikonal"]["max_abs_err"], held[0])
+    missing = [k for k in BLENDER_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels of the Blender path were not launched: {missing}")
+    st = out["stages"]
+    for name, r in st.items():
+        log(f"blender stage {name}: " + json.dumps(r) + f" [{card}]")
+    eik = torch.stack(terms).float().cpu()
+    if eik.numel() != PIPELINE_STEPS[1] or not bool(torch.isfinite(eik).all()):
+        raise AssertionError(f"the eikonal term ran {eik.numel()} times: {eik.tolist()[:8]}")
+    # the test mse after the surface stage, against which the weighted
+    # term is set
+    mse = 10.0 ** (-st["surface"]["psnr"] / 10.0)
+    dset_test = NeRFDataset(str(scene), "test")
+    psnr0 = eval_untrained(device, dset_test)
+    s = out["summary"]
+    log(f"pipeline on the Blender scene at {CUVOL_RESO}^3, {PIPELINE_STEPS} steps of "
+        f"{PIPELINE_BATCH} rays, lambda_surface_eikonal {BLENDER_EIKONAL}: test PSNR "
+        f"{s['psnr']:.4f} (render_imgs, {dset_test.n_images} views) against the untrained grid's "
+        f"{psnr0:.4f}, {st['extract']['n_points']} points, Chamfer {s['chamfer']:.5f}; the "
+        f"eikonal term (times reg_scale) per surface step "
+        f"{float(eik.min()):.4e}..{float(eik.max()):.4e}, weighted "
+        f"{BLENDER_EIKONAL * float(eik.mean()) / mse:.3f} of the stage's test mse {mse:.5f}; "
+        f"{wall:.2f} s in all (data loading included), "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB [{card}]")
+    if not (s["psnr"] > psnr0 and st["extract"]["n_points"] > 0 and math.isfinite(s["chamfer"])):
+        raise AssertionError(f"the Blender pipeline did not run right: {s}, untrained {psnr0}")
+
+    # the image apps on the pipeline's checkpoint
+    ckpt = str(out_dir / "surface" / "ckpt.npz")
+    view = min(3, dset_test.n_images - 1)  # debug_render's --img_id, as the app clamps it
+    t0 = time.perf_counter()
+    psnrs, _ = eval_imgs.main([ckpt, str(scene), "--dataset_type", "nerf", "-N", "2",
+                               "--device", str(device)])
+    psnrs_d, _ = eval_imgs.main([ckpt, str(scene), "--dataset_type", "nerf", "-N", "2",
+                                 "--render_depth", "--device", str(device)])
+    png = debug_render.main([str(out_dir / "surface"), str(scene), "--dataset_type", "nerf",
+                             "--img_id", str(view), "--device", str(device)])
+    # probe the centre pixel and the pixel nearest it that the image draws
+    # and whose probe ray keeps its float32 exit: the probes take host-made
+    # rays, the image device-made ones (as in the JAX app), and a ray that
+    # loses its exit (ROADMAP §3) draws the background
+    grid, _ = load_grid(ckpt, device=device)
+    grid64 = grid.replace(radius=grid.radius.double(), center=grid.center.double())
+    lost = _exit_lost(grid, grid64, camera_of(dset_test, view).gen_rays(device))
+    del grid, grid64
+    torch.cuda.empty_cache()
+    drawn = (read_png(png) < 250).any(-1) & ~lost.reshape(HEIGHT, WIDTH).cpu().numpy()
+    ys, xs = np.nonzero(drawn)
+    k = int(np.argmin((ys - HEIGHT // 2) ** 2 + (xs - WIDTH // 2) ** 2))
+    probes = debug_render.main([str(out_dir / "surface"), str(scene), "--dataset_type", "nerf",
+                                "--img_id", str(view), "--pixel", f"{WIDTH // 2},{HEIGHT // 2}",
+                                "--pixel", f"{xs[k]},{ys[k]}", "--device", str(device)])
+    files = [out_dir / "surface" / f for f in ("psnr.txt", "ssim.txt", "test_renders/0000.png",
+                                               "test_renders/0001.png")] + [Path(png)]
+    log(f"apps on the Blender checkpoint in {time.perf_counter() - t0:.2f} s: eval_imgs PSNR "
+        f"{[round(p, 4) for p in psnrs]} (depth run {[round(p, 4) for p in psnrs_d]}), "
+        f"debug_render {Path(png).name}, pixels {probes} [{card}]")
+    if not (len(psnrs) == 2 and np.isfinite(psnrs).all() and np.isfinite(psnrs_d).all()
+            and all(f.is_file() for f in files)
+            and all(np.isfinite(p["rgb"]).all() for p in probes) and probes[1]["alpha"] > 0):
+        raise AssertionError(f"the image apps did not run right: {psnrs}, {psnrs_d}, {probes}")
+    for name, r in res.items():
+        log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) [{card}]")
+    launches.update({k: bench_launches[k] for k in EXTENDED_KERNELS if k != "reg_eikonal"})
+    return res, launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3123,6 +3587,10 @@ def main(argv=None) -> int:
             rend_res, rend_launches = renderers(device, card, work)
             res.update(rend_res)
             launches.update(rend_launches)
+        if "blender" in phases:
+            blend_res, blend_launches = blender(device, card, work)
+            res.update(blend_res)
+            launches.update({k: blend_launches[k] for k in EXTENDED_KERNELS})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

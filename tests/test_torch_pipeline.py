@@ -110,8 +110,9 @@ def test_pipeline_runs_end_to_end_on_the_cpu(tmp_path):
     cf = j_eval_cf.main([str(tmp_path / "j_pts.npy"), str(tmp_path / "gt_pts.npy")])
     np.testing.assert_allclose(s["chamfer"], cf["overall"], rtol=1e-6)
     np.testing.assert_allclose(res["stages"]["chamfer"]["d2s"], cf["d2s"], rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        pipeline.run_pipeline(str(tmp_path / "nerf"), dataset_type="nerf", device="cpu")
+    # a loader that is not ported raises before any stage runs
+    with pytest.raises(NotImplementedError, match="items 2 and 5"):
+        pipeline.run_pipeline(str(tmp_path / "llff"), dataset_type="llff", device="cpu")
 
 
 def test_lr_probe_records_each_surface_step(tmp_path):

@@ -44,20 +44,27 @@ RENDER_CFGS = {
 TWO_PASS_HP = dict(lambda_conv_mode_samp=1e-3, lambda_samp_dist=1e-3)
 
 
+# the extended surface regularizers (K12a-K12d): flag -> its weight
+EXT_HP = {"use_eikonal": dict(lambda_eikonal=1e-3), "use_norm_match": dict(lambda_norm_match=1e-3),
+          "use_viscosity": dict(lambda_viscosity=1e-3),
+          "use_sign_change": dict(lambda_sign_change=1e-2)}
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_step(surf_grad_abs_max, render="packed"):
+def _jax_step(surf_grad_abs_max, render="packed", ext=()):
     cfg = J.StepConfig(opt=at.RenderOptions(**OPT), entries_per_ray=48,
                        surf_grad_abs_max=surf_grad_abs_max, **{"cache_size": None,
-                                                               **RENDER_CFGS[render]})
+                                                               **RENDER_CFGS[render]},
+                       **dict.fromkeys(ext, True))
     return J.make_surface_step(cfg)
 
 
 def _jax_starts(key, cap, cfg):
     """The window starts JAX's step draws from ``key`` (steps.py:229,
-    reg.py:97-99)."""
+    reg.py:97-99); its k_ext (steps.py:348) is the "sign_change" window."""
     keys = jax.random.split(key, 9)
     fracs = (cfg.tv_sparsity, cfg.tv_sh_sparsity, cfg.tv_surface_sparsity,
-             cfg.norm_surface_sparsity, cfg.sparsify_sparsity)
+             cfg.norm_surface_sparsity, cfg.sparsify_sparsity, cfg.norm_surface_sparsity)
     out = {}
     for name, k, frac in zip(T.WINDOWS, keys, fracs):
         K = max(1, min(cap, int(frac * cap)))
@@ -65,7 +72,7 @@ def _jax_starts(key, cap, cfg):
     return out
 
 
-def _run(hp_kw, surf_grad_abs_max=None, n_steps=3, render="packed"):
+def _run(hp_kw, surf_grad_abs_max=None, n_steps=3, render="packed", ext=()):
     a = np_grid(12, seed=3, prune=0.1)
     o, d = np_rays(B, seed=4)
     gt = np.random.default_rng(5).uniform(0, 1, (B, 3))
@@ -74,10 +81,10 @@ def _run(hp_kw, surf_grad_abs_max=None, n_steps=3, render="packed"):
     gj = jax_grid(a)
     rms_j = J.init_rms(gj)
     rc_j = j_reg.row_coords_of(gj)
-    step_j = _jax_step(surf_grad_abs_max, render)
+    step_j = _jax_step(surf_grad_abs_max, render, ext)
 
     cfg = T.StepConfig(opt=pt.RenderOptions(**OPT), surf_grad_abs_max=surf_grad_abs_max,
-                       **{"cache_size": None, **RENDER_CFGS[render]})
+                       **{"cache_size": None, **RENDER_CFGS[render]}, **dict.fromkeys(ext, True))
     g = SparseGrid.from_numpy(a, device="cpu")
     rms = T.rms_from_numpy({k: np.asarray(v.rms) for k, v in rms_j.items()}, device="cpu")
     rc = t_reg.row_coords_of(g)
@@ -130,12 +137,70 @@ def test_renderer_steps_match_jax(render):
     assert np.abs(g.surface_data.detach().numpy() - a["surface_data"]).max() > 0
 
 
+@pytest.mark.parametrize("flag", sorted(EXT_HP))
+def test_extended_regularizer_steps_match_jax(flag):
+    """Three steps with one extended surface regularizer on (K12a-K12d
+    through their plain versions) against JAX's step, its k_ext window
+    for the sign change: loss, mse, rows and rms state to rtol 1e-8; the
+    term is not 0 on the grid's rows."""
+    _, g = _run(EXT_HP[flag], ext=(flag,))
+    cells = t_reg.sample_present_cells(None, g, t_reg.row_coords_of(g), 1.0, start=0)
+    term = {"use_eikonal": t_reg.surface_eikonal_loss,
+            "use_norm_match": t_reg.surface_norm_match_loss,
+            "use_viscosity": t_reg.surface_viscosity_loss,
+            "use_sign_change": t_reg.surface_sign_change_loss}[flag]
+    assert float(term(g, cells)) != 0.0
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("flags", [(), ("use_eikonal",), tuple(sorted(EXT_HP))])
+def test_window_draws_keep_their_sequence(dense, flags, monkeypatch):
+    """The windows a step draws from its generator, in order: with the
+    extended flags off, those of the steps before them (the dense branch
+    draws no "normal" window); with one on, the "normal" window in the
+    dense branch too, and "sign_change" after "sparsify" with
+    use_sign_change."""
+    a = np_grid(8, seed=3, prune=0.1)
+    g = SparseGrid.from_numpy(a, device="cpu")
+    rc = t_reg.row_coords_of(g)
+    fracs = dict(tv=0.01, tv_sh=0.02, tv_surface=1.0 if dense else 0.03,
+                 normal=1.0 if dense else 0.04, sparsify=0.05)
+    cfg = T.StepConfig(opt=pt.RenderOptions(**OPT), cache_size=None, tv_sparsity=fracs["tv"],
+                       tv_sh_sparsity=fracs["tv_sh"], tv_surface_sparsity=fracs["tv_surface"],
+                       norm_surface_sparsity=fracs["normal"], sparsify_sparsity=fracs["sparsify"],
+                       **dict.fromkeys(flags, True))
+    drawn = []
+    orig = t_reg._window_start
+
+    def record(generator, n_starts, start):
+        drawn.append(n_starts)
+        return orig(generator, n_starts, start)
+
+    monkeypatch.setattr(t_reg, "_window_start", record)
+    o, d = np_rays(8, seed=4)
+    T.make_surface_step(cfg)(g, T.init_rms(g), pt.Rays(t64(o), t64(d)), t64(np.zeros((8, 3))),
+                             T.HParams(**HP), torch.Generator().manual_seed(0), row_coords=rc)
+    cap = g.capacity
+
+    def n_starts(name):
+        return cap - max(1, min(cap, int(fracs[name] * cap))) + 1
+
+    names = ["tv", "tv_sh"] + ([] if dense else ["tv_surface", "normal"])
+    if dense and flags:
+        names.append("normal")
+    names.append("sparsify")
+    if "use_sign_change" in flags:
+        names.append("normal")  # the sign-change window takes norm_surface_sparsity
+    assert drawn == [n_starts(k) for k in names]
+
+
 def test_unported_options_raise():
-    """The extended regularizers and data-parallel steps still raise,
-    naming their ROADMAP item; so does a cuvol step that would train
-    through the dense march."""
+    """The lumisphere TV and data-parallel steps still raise, naming their
+    ROADMAP item; so does a cuvol step that would train through the dense
+    march."""
     opt = pt.RenderOptions(**OPT)
-    for kw, item in ((dict(use_norm_match=True), "§2 item 1"), (dict(use_eikonal=True), "§2 item 1"),
+    for kw, item in ((dict(use_lumisphere_tv=True), "§1 item 2"),
+                     (dict(use_lumisphere_tv=True, use_eikonal=True), "§1 item 2"),
                      (dict(axis_name="data"), "§1 item 4")):
         with pytest.raises(NotImplementedError, match=item):
             T.make_surface_step(T.StepConfig(opt=opt, **kw))
