@@ -32,9 +32,9 @@ CORNER_OFFSETS = np.array(
     dtype=np.int32,
 )
 
-# fields of the JAX package's ``core.grid.SparseGrid`` that this slice does not
-# carry (ROADMAP §1 item 2: background model and learned bases)
-_UNSUPPORTED_FIELDS = ("background_links", "background_data", "basis_data", "basis_mlp")
+# fields of the JAX package's ``core.grid.SparseGrid`` that the port does not
+# carry yet (ROADMAP §1 item 2b: the learned basis)
+_UNSUPPORTED_FIELDS = ("basis_data", "basis_mlp")
 
 
 def _param(x):
@@ -45,7 +45,9 @@ class SparseGrid(nn.Module):
     """links (X, Y, Z) int32; density_data (cap, 1); sh_data
     (cap, 3*basis_dim); surface_data (cap, 1) or None; level_set_data
     (n_lv,) or None; fake_sample_std (1, 1) or None;
-    truncated_vol_render_a (); radius/center (3,)."""
+    truncated_vol_render_a (); radius/center (3,); the MSI background
+    (svox2.py:731-755): background_links (2R, R) int32 and background_data
+    (n, nlayers, 4) rgba rows, both or neither."""
 
     def __init__(
         self,
@@ -61,8 +63,12 @@ class SparseGrid(nn.Module):
         basis_dim: int = 9,
         surface_type: int = defs.SURFACE_TYPE_NONE,
         basis_type: int = defs.BASIS_TYPE_SH,
+        background_links: torch.Tensor | None = None,
+        background_data: torch.Tensor | None = None,
     ):
         super().__init__()
+        if (background_links is None) != (background_data is None):
+            raise ValueError("background_links and background_data come together")
         self.register_buffer("links", links)
         self.density_data = _param(density_data)
         self.sh_data = _param(sh_data)
@@ -72,6 +78,8 @@ class SparseGrid(nn.Module):
         self.register_buffer("truncated_vol_render_a", truncated_vol_render_a)
         self.register_buffer("radius", radius)
         self.register_buffer("center", center)
+        self.register_buffer("background_links", background_links)
+        self.background_data = _param(background_data)
         self.basis_dim = int(basis_dim)
         self.surface_type = int(surface_type)
         self.basis_type = int(basis_type)
@@ -85,7 +93,7 @@ class SparseGrid(nn.Module):
         for k in _UNSUPPORTED_FIELDS:
             if arrays.get(k) is not None:
                 raise NotImplementedError(
-                    f"grid field {k!r} is not ported yet (ROADMAP §1 item 2)"
+                    f"grid field {k!r} is not ported yet (ROADMAP §1 item 2b: the learned basis)"
                 )
         if dtype is None:
             f64 = np.asarray(arrays["density_data"]).dtype == np.float64
@@ -110,6 +118,9 @@ class SparseGrid(nn.Module):
             basis_dim=int(arrays.get("basis_dim", 9)),
             surface_type=int(arrays.get("surface_type", defs.SURFACE_TYPE_NONE)),
             basis_type=int(arrays.get("basis_type", defs.BASIS_TYPE_SH)),
+            background_links=None if arrays.get("background_links") is None else torch.tensor(
+                np.asarray(arrays["background_links"], np.int32), device=dev),
+            background_data=t("background_data"),
         )
 
     def to_numpy(self) -> dict:
@@ -131,6 +142,8 @@ class SparseGrid(nn.Module):
             "basis_dim": self.basis_dim,
             "surface_type": self.surface_type,
             "basis_type": self.basis_type,
+            "background_links": a(self.background_links),
+            "background_data": a(self.background_data),
         }
 
     def replace(self, **fields) -> "SparseGrid":
@@ -138,7 +151,8 @@ class SparseGrid(nn.Module):
         ``grid.replace``); the other tensors are shared, detached and
         contiguous."""
         keys = ("links", "density_data", "sh_data", "surface_data", "level_set_data",
-                "fake_sample_std", "truncated_vol_render_a", "radius", "center")
+                "fake_sample_std", "truncated_vol_render_a", "radius", "center",
+                "background_links", "background_data")
         args = {}
         for k in keys:
             v = fields[k] if k in fields else getattr(self, k)
@@ -146,6 +160,18 @@ class SparseGrid(nn.Module):
         return SparseGrid(**args, basis_dim=self.basis_dim,
                           surface_type=fields.get("surface_type", self.surface_type),
                           basis_type=self.basis_type)
+
+    @property
+    def use_background(self) -> bool:
+        return self.background_data is not None
+
+    @property
+    def background_nlayers(self) -> int:
+        return 0 if self.background_data is None else self.background_data.shape[1]
+
+    @property
+    def background_reso(self) -> int:
+        return 0 if self.background_links is None else self.background_links.shape[1]
 
     # ---- static geometry ----
     @property

@@ -39,10 +39,10 @@ SH_C4 = (
 
 def eval_basis(grid, viewdirs: torch.Tensor) -> torch.Tensor:
     """Per-ray basis. Only the SH basis is ported; the learned 3D-texture
-    and MLP bases wait for ROADMAP §1 item 2."""
+    and MLP bases wait for ROADMAP §1 item 2b."""
     if grid.basis_type != defs.BASIS_TYPE_SH:
         raise NotImplementedError(
-            f"basis_type {grid.basis_type} is not ported yet (ROADMAP §1 item 2)"
+            f"basis_type {grid.basis_type} is not ported yet (ROADMAP §1 item 2b)"
         )
     return eval_sh_bases(grid.basis_dim, viewdirs)
 

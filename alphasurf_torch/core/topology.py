@@ -526,3 +526,39 @@ def upsample(grid: SparseGrid, new_reso, alpha_upsample_thresh: float = -1e9, di
     return resample(grid, new_reso, sigma_thresh=alpha_upsample_thresh,
                     weight_thresh=weight_thresh, dilate=dilate, cameras=cameras,
                     max_elements=max_elements)
+
+
+def sparsify_background(grid: SparseGrid, sigma_thresh: float = 1.0,
+                        dilate: int = 1) -> SparseGrid:
+    """Drop the MSI background's links whose density is below
+    ``sigma_thresh`` in every layer after a ``dilate``-fold 6-neighbour
+    dilation over (v, u, layer) (svox2.py:4422-4444): the JAX package's
+    host numpy (topology.py:513-546), links renumbered in flat order."""
+    if grid.background_data is None:
+        return grid
+    links = grid.background_links.cpu().numpy().copy()
+    data = grid.background_data.detach()
+    H, W = links.shape
+    n_layers = data.shape[1]
+    flat = links.reshape(-1)
+    nonempty = flat >= 0
+    sigma_mask = np.zeros((H * W, n_layers), bool)
+    sigma_mask[nonempty] = (data[torch.as_tensor(flat[nonempty], device=data.device).long(), :, -1]
+                            >= sigma_thresh).cpu().numpy()
+    sigma_mask = sigma_mask.reshape(H, W, n_layers)
+    for _ in range(int(dilate)):
+        m = sigma_mask
+        grown = m.copy()
+        grown[1:] |= m[:-1]
+        grown[:-1] |= m[1:]
+        grown[:, 1:] |= m[:, :-1]
+        grown[:, :-1] |= m[:, 1:]
+        grown[..., 1:] |= m[..., :-1]
+        grown[..., :-1] |= m[..., 1:]
+        sigma_mask = grown
+    keep = sigma_mask.any(-1) & nonempty.reshape(H, W)
+    old_rows = torch.as_tensor(links[keep], device=data.device).long()
+    new_links = np.full((H, W), -1, np.int32)
+    new_links[keep] = np.arange(keep.sum(), dtype=np.int32)
+    return grid.replace(background_links=torch.as_tensor(new_links, device=data.device),
+                        background_data=data[old_rows])

@@ -73,6 +73,7 @@ struct BackRayParams {
     int stop_on;
     float log_stop;
     float bg;
+    const float* bg_rgb;  // (B, 3) per-ray background colour (K13), or null: bg
     int fake_l_dist;
     const float* g_rgb;  // (B, 3)
     const float* g_rl;   // (12, B)
@@ -160,7 +161,9 @@ HD void backward_ray_thread(const BackRayParams& p, int r) {
     }
 
     // pass 2: backward; A*, S* now sum the slots after the current one
-    float Sigma = p.bg * (G[0] + G[1] + G[2]) * expf(P);
+    const float* bgc = p.bg_rgb ? p.bg_rgb + 3 * (int64_t)r : nullptr;
+    float Sigma = (bgc ? G[0] * bgc[0] + G[1] * bgc[1] + G[2] * bgc[2]
+                       : p.bg * (G[0] + G[1] + G[2])) * expf(P);
     Aw = Sw = Aa = Sa = 0.0f;
     for (int64_t e = e1 - 1; e >= e0; --e) {
         for (int s = p.S0 - 1; s >= 0; --s) {
@@ -442,13 +445,15 @@ extern "C" cudaError_t backward_ray(const int64_t* offsets, int B, long long M, 
                                     const float* t, const float* alpha, const bool* contrib,
                                     const bool* fake, const int* counted, const float* rgb,
                                     int truncated, const float* trunc_a, float trunc_wmin,
-                                    int stop_on, float log_stop, float bg, int fake_l_dist,
+                                    int stop_on, float log_stop, float bg,
+                                    const float* bg_rgb, int fake_l_dist,
                                     const float* g_rgb, const float* g_rl, float* d_alpha,
                                     float* d_t, float* d_col, int cache_K, const float* g_cts,
                                     const float* g_calpha, const float* g_cw, void* stream) {
     if (B <= 0) return cudaSuccess;
     const BackRayParams p{offsets, B, M, S0, t, alpha, contrib, fake, counted, rgb, truncated,
-                          trunc_a, trunc_wmin, stop_on, log_stop, bg, fake_l_dist, g_rgb, g_rl,
+                          trunc_a, trunc_wmin, stop_on, log_stop, bg, bg_rgb, fake_l_dist,
+                          g_rgb, g_rl,
                           d_alpha, d_t, d_col, cache_K, g_cts, g_calpha, g_cw};
     const int block = 128;
     backward_ray_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(p);

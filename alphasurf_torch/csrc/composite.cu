@@ -59,6 +59,7 @@ struct CompositeParams {
     int stop_on;
     float log_stop;
     float bg;
+    const float* bg_rgb;  // (B, 3) per-ray background colour (K13), or null: bg
     int fake_l_dist;
     float* out_rgb;
     float* depth;
@@ -232,7 +233,8 @@ HD void composite_ray(const CompositeParams& p, int r) {
 
     const float T = expf(pre_att);
     for (int k = 0; k < 3; ++k) {
-        p.out_rgb[3 * (int64_t)r + k] = rgb[k] + T * p.bg;
+        const float bg = p.bg_rgb ? p.bg_rgb[3 * (int64_t)r + k] : p.bg;
+        p.out_rgb[3 * (int64_t)r + k] = rgb[k] + T * bg;
         p.normal[3 * (int64_t)r + k] = nrm[k];
     }
     p.depth[r] = depth;
@@ -257,7 +259,8 @@ extern "C" cudaError_t composite(const int64_t* offsets, int B, long long M, int
                                  const bool* fake, const int* counted, const float* rgb,
                                  const float* snorm, const float* loss_e, int truncated,
                                  const float* trunc_a, float trunc_wmin, int stop_on, float log_stop,
-                                 float bg, int fake_l_dist, float* out_rgb, float* depth,
+                                 float bg, const float* bg_rgb, int fake_l_dist,
+                                 float* out_rgb, float* depth,
                                  float* normal, float* log_T, float* depth_mode, float* depth_med,
                                  int* n_int, float* losses, float* weight, int sig_on,
                                  float sig_thresh, float* depth_sig, bool* live, int window,
@@ -267,7 +270,7 @@ extern "C" cudaError_t composite(const int64_t* offsets, int B, long long M, int
     if (B <= 0) return cudaSuccess;
     const CompositeParams p{offsets, B, M, S0, t, alpha, contrib, fake, counted, rgb, snorm,
                             loss_e, truncated, trunc_a, trunc_wmin, stop_on, log_stop, bg,
-                            fake_l_dist, out_rgb, depth, normal, log_T, depth_mode, depth_med,
+                            bg_rgb, fake_l_dist, out_rgb, depth, normal, log_T, depth_mode, depth_med,
                             n_int, losses, weight, sig_on, sig_thresh, depth_sig, live, window,
                             mode_first, cache_K, c_ts, c_alpha, c_w, c_fake, n_cached, cache_med,
                             win};

@@ -63,6 +63,7 @@ struct CuvolParams {
     int S;                   // K8: samples per entry; K10: steps per ray
     int lso;                 // last_sample_opaque
     float bg;
+    const float* bg_rgb;     // (B, 3) per-ray background colour (K13), or null: bg
     int dst_on;
     float dst;
     float* rgb;              // (B, 3)
@@ -74,6 +75,11 @@ struct CuvolParams {
     float* g_density;        // (cap,)
     float* g_sh;             // (cap, 3 bd)
 };
+
+// the background colour of ray r, channel ch
+HD float bg_of(const CuvolParams& p, int r, int ch) {
+    return p.bg_rgb ? p.bg_rgb[3 * (int64_t)r + ch] : p.bg;
+}
 
 struct Ray {
     float o[3], d[3];
@@ -204,7 +210,7 @@ HD void cuvol_forward_ray(const CuvolParams& p, int r) {
         }
     }
     const float T = expf(pre_att);
-    for (int ch = 0; ch < 3; ++ch) p.rgb[3 * (int64_t)r + ch] = rgb[ch] + T * p.bg;
+    for (int ch = 0; ch < 3; ++ch) p.rgb[3 * (int64_t)r + ch] = rgb[ch] + T * bg_of(p, r, ch);
     p.depth[r] = depth;
     p.log_T[r] = pre_att;
     if (p.t_sig) p.t_sig[r] = finite(t_sig) ? t_sig : 0.0f;
@@ -216,7 +222,10 @@ HD void cuvol_backward_ray(const CuvolParams& p, int r) {
     const float g[3] = {p.g_rgb[3 * (int64_t)r], p.g_rgb[3 * (int64_t)r + 1],
                         p.g_rgb[3 * (int64_t)r + 2]};
     // d rgb / d log_att of every sample includes the background's exp(log_T) * bg
-    float suffix = expf(p.log_T[r]) * p.bg * (g[0] + g[1] + g[2]);
+    const float gbg = p.bg_rgb ? g[0] * bg_of(p, r, 0) + g[1] * bg_of(p, r, 1) +
+                                     g[2] * bg_of(p, r, 2)
+                               : p.bg * (g[0] + g[1] + g[2]);
+    float suffix = expf(p.log_T[r]) * gbg;
     const int C = 3 * p.bd;
     for (int64_t e = e1 - 1; e >= e0; --e) {
         const Entry en = load_entry(p, ray, e);
@@ -305,7 +314,7 @@ HD void cuvol_march_ray(const CuvolParams& p, int r) {
         if (p.dst_on && smp.sigma > p.dst) t_sig = fminf(t_sig, t);
     }
     const float T = expf(log_T);
-    for (int ch = 0; ch < 3; ++ch) p.rgb[3 * (int64_t)r + ch] = rgb[ch] + T * p.bg;
+    for (int ch = 0; ch < 3; ++ch) p.rgb[3 * (int64_t)r + ch] = rgb[ch] + T * bg_of(p, r, ch);
     p.depth[r] = depth;
     p.log_T[r] = log_T;
     if (p.t_sig) p.t_sig[r] = finite(t_sig) ? t_sig : 0.0f;
@@ -332,7 +341,8 @@ static CuvolParams make_params(const int64_t* offsets, int B, const int* l, cons
                                const float* sh_mult, int bd, const float* delta_scale,
                                const float* tmin, const float* tmax, const int* links, int X,
                                int Y, int Z, const float* density, const float* sh, float step,
-                               int S, int lso, float bg, int dst_on, float dst) {
+                               int S, int lso, float bg, const float* bg_rgb, int dst_on,
+                               float dst) {
     CuvolParams p{};
     p.offsets = offsets;
     p.B = B;
@@ -356,6 +366,7 @@ static CuvolParams make_params(const int64_t* offsets, int B, const int* l, cons
     p.S = S;
     p.lso = lso;
     p.bg = bg;
+    p.bg_rgb = bg_rgb;
     p.dst_on = dst_on;
     p.dst = dst;
     return p;
@@ -369,13 +380,14 @@ extern "C" cudaError_t cuvol_forward(const int64_t* offsets, int B, const int* l
                                      int bd, const float* delta_scale, const float* tmin,
                                      const float* tmax, const int* links, int X, int Y, int Z,
                                      const float* density, const float* sh, float step, int S,
-                                     int lso, float bg, int dst_on, float dst, float* rgb,
+                                     int lso, float bg, const float* bg_rgb, int dst_on,
+                                     float dst, float* rgb,
                                      float* depth, float* log_T, float* t_sig, float* entry_pre,
                                      void* stream) {
     if (B <= 0) return cudaSuccess;
     CuvolParams p = make_params(offsets, B, l, close_t, far_t, origins, dirs, sh_mult, bd,
                                 delta_scale, tmin, tmax, links, X, Y, Z, density, sh, step, S, lso,
-                                bg, dst_on, dst);
+                                bg, bg_rgb, dst_on, dst);
     p.rgb = rgb;
     p.depth = depth;
     p.log_T = log_T;
@@ -391,13 +403,14 @@ extern "C" cudaError_t cuvol_backward(const int64_t* offsets, int B, const int* 
                                       const float* sh_mult, int bd, const float* delta_scale,
                                       const float* tmin, const float* tmax, const int* links,
                                       int X, int Y, int Z, const float* density, const float* sh,
-                                      float step, int S, int lso, float bg, const float* log_T,
+                                      float step, int S, int lso, float bg,
+                                      const float* bg_rgb, const float* log_T,
                                       const float* entry_pre, const float* g_rgb,
                                       float* g_density, float* g_sh, void* stream) {
     if (B <= 0) return cudaSuccess;
     CuvolParams p = make_params(offsets, B, l, close_t, far_t, origins, dirs, sh_mult, bd,
                                 delta_scale, tmin, tmax, links, X, Y, Z, density, sh, step, S, lso,
-                                bg, 0, 0.0f);
+                                bg, bg_rgb, 0, 0.0f);
     p.log_T = const_cast<float*>(log_T);
     p.entry_pre = const_cast<float*>(entry_pre);
     p.g_rgb = g_rgb;
@@ -411,13 +424,14 @@ extern "C" cudaError_t cuvol_march(int B, const float* origins, const float* dir
                                    const float* sh_mult, int bd, const float* delta_scale,
                                    const float* tmin, const float* tmax, const int* links, int X,
                                    int Y, int Z, const float* density, const float* sh,
-                                   float step, int n_steps, int lso, float bg, int dst_on,
-                                   float dst, float* rgb, float* depth, float* log_T,
+                                   float step, int n_steps, int lso, float bg,
+                                   const float* bg_rgb, int dst_on, float dst, float* rgb,
+                                   float* depth, float* log_T,
                                    float* t_sig, void* stream) {
     if (B <= 0) return cudaSuccess;
     CuvolParams p = make_params(nullptr, B, nullptr, nullptr, nullptr, origins, dirs, sh_mult, bd,
                                 delta_scale, tmin, tmax, links, X, Y, Z, density, sh, step,
-                                n_steps, lso, bg, dst_on, dst);
+                                n_steps, lso, bg, bg_rgb, dst_on, dst);
     p.rgb = rgb;
     p.depth = depth;
     p.log_T = log_T;

@@ -1,4 +1,4 @@
-// K6 and K12a-K12d: the cell regularizers, loss and row gradients in one
+// K6 and K12a-K12f: the cell regularizers, loss and row gradients in one
 // pass.
 //
 // Replaces the JAX package's losses/reg.py: tv_loss (126-155) and
@@ -6,7 +6,8 @@
 // reg_normal, alpha_surf_sparsify_loss (305-330) in reg_sparsify, and the
 // extended surface terms surface_norm_match_loss (569),
 // surface_viscosity_loss (599), surface_sign_change_loss (630) and
-// surface_eikonal_loss (791) in reg_ext, each with its jax.grad, as svox2's
+// surface_eikonal_loss (791) and lumisphere_tv_loss (734) in reg_ext, and
+// background_tv_loss (673) in reg_background_tv, each with its jax.grad, as svox2's
 // loss_kernel.cu computed loss and gradient together. With a cell list the
 // cells are a sampled window (flat lattice ids, reg.py:sample_present_cells
 // or sample_cells); without one (K6 only), every lattice cell is a thread,
@@ -341,6 +342,11 @@ struct ExtParams {
     double* loss;  // (1,), float64
     float* g_surface;  // (cap, n_surf_c)
     float* g_density;  // (cap,): K12a
+    const float* sh;  // (cap, 3 bd): K12e
+    int bd;
+    const float* mult;  // (2, bd): K12e's SH basis along d and along its twin
+    float dir_factor;  // K12e
+    float* g_sh;  // (cap, 3 bd): K12e
 };
 
 HD float surf_at(const ExtParams& p, int l) { return p.surf[(int64_t)l * p.n_surf_c]; }
@@ -529,6 +535,128 @@ HD float eikonal_cell(const ExtParams& p, int64_t n) {
     return e * e * p.scale;
 }
 
+// K12e. The cell's SH colour along d against its +x/+y/+z neighbours'
+// (both links present) and against its own colour along d's twin, each
+// sqrt(1e-5 + |difference|^2).
+HD void sh_color(const ExtParams& p, int l, const float* mult, float c[3]) {
+    const float* row = p.sh + (int64_t)l * 3 * p.bd;
+    for (int ch = 0; ch < 3; ++ch) {
+        float acc = row[ch * p.bd] * mult[0];
+        for (int b = 1; b < p.bd; ++b) acc = acc + row[ch * p.bd + b] * mult[b];
+        c[ch] = acc;
+    }
+}
+
+HD void add_sh(const ExtParams& p, int l, const float g[3], const float* mult) {
+    float* row = p.g_sh + (int64_t)l * 3 * p.bd;
+    for (int ch = 0; ch < 3; ++ch) {
+        if (g[ch] == 0.0f) continue;
+        for (int b = 0; b < p.bd; ++b) atomic_add(row + ch * p.bd + b, g[ch] * mult[b]);
+    }
+}
+
+// the term sqrt(1e-5 + |a - c0|^2) and its gradient ga (= -gradient of c0),
+// times s
+HD float color_tv(const float a[3], const float c0[3], float s, float ga[3]) {
+    float d[3], sq = 1e-5f;
+    for (int ch = 0; ch < 3; ++ch) {
+        d[ch] = a[ch] - c0[ch];
+        sq = sq + d[ch] * d[ch];
+    }
+    const float f = sqrtf(sq);
+    for (int ch = 0; ch < 3; ++ch) ga[ch] = s * d[ch] / f;
+    return f;
+}
+
+HD float lumisphere_cell(const ExtParams& p, int64_t n) {
+    int64_t x, y, z;
+    decode_cell(p.cells[n], p.Y, p.Z, x, y, z);
+    const int l0 = link_at(p.links, p.X, p.Y, p.Z, x, y, z);
+    if (l0 < 0) return 0.0f;
+    const float* m0 = p.mult;
+    float c0[3], g0[3] = {0.0f, 0.0f, 0.0f};
+    sh_color(p, l0, m0, c0);
+    const int ln[3] = {link_at(p.links, p.X, p.Y, p.Z, x + 1, y, z),
+                       link_at(p.links, p.X, p.Y, p.Z, x, y + 1, z),
+                       link_at(p.links, p.X, p.Y, p.Z, x, y, z + 1)};
+    float loss = 0.0f;
+    for (int a = 0; a < 3; ++a) {
+        if (ln[a] < 0) continue;
+        float cn[3], ga[3];
+        sh_color(p, ln[a], m0, cn);
+        loss = loss + color_tv(cn, c0, p.scale, ga);
+        add_sh(p, ln[a], ga, m0);
+        for (int ch = 0; ch < 3; ++ch) g0[ch] = g0[ch] - ga[ch];
+    }
+    if (p.dir_factor > 0.0f) {
+        const float* m1 = p.mult + p.bd;
+        float cu[3], gu[3];
+        sh_color(p, l0, m1, cu);
+        loss = loss + p.dir_factor * color_tv(cu, c0, p.scale * p.dir_factor, gu);
+        add_sh(p, l0, gu, m1);
+        for (int ch = 0; ch < 3; ++ch) g0[ch] = g0[ch] - gu[ch];
+    }
+    add_sh(p, l0, g0, m0);
+    return loss * p.scale;
+}
+
+// ---------------------------------------------------------------------------
+// K12f: the TV of the MSI background (reg.py:673, msi_tv_grad_sparse), over
+// sampled flat (u, v, layer) cells of the (2R, R) links x nlayers lattice:
+// each channel's difference to the +u (wrapping), +v (clamped) and +layer
+// (clamped) neighbours, 0 where a neighbour's link is -1; colour channels
+// scaled by ``scaling``, density by ``scaling_density``; a cell whose link
+// is -1 adds nothing. Bound: bytes (4 rows of 16 bytes a cell read, as many
+// gradients added).
+// ---------------------------------------------------------------------------
+
+struct BgTVParams {
+    const int* links;  // (W, H) = (2R, R)
+    int W, H;
+    const float* data;  // (n_rows, nlayers, 4)
+    int nlayers;
+    const int* cells;  // (n,)
+    int64_t n;
+    float scaling, scaling_density, scale;
+    double* loss;
+    float* g_data;
+};
+
+HD const float* bg_row(const BgTVParams& p, int l, int layer) {
+    return p.data + ((int64_t)l * p.nlayers + layer) * 4;
+}
+
+HD float bg_tv_cell(const BgTVParams& p, int64_t n) {
+    const int64_t c = p.cells[n];
+    const int layer = (int)(c % p.nlayers);
+    const int64_t uv = c / p.nlayers;
+    const int64_t v = uv % p.H, u = (uv / p.H) % p.W;
+    const int l0 = p.links[u * p.H + v];
+    if (l0 < 0) return 0.0f;
+    const int lu = p.links[((u + 1) % p.W) * p.H + v];
+    const int lv = p.links[u * p.H + (v + 1 < p.H ? v + 1 : p.H - 1)];
+    const int layer_n = layer + 1 < p.nlayers ? layer + 1 : p.nlayers - 1;
+    const float* v0 = bg_row(p, l0, layer);
+    const float* vl = bg_row(p, l0, layer_n);
+    float tv[4];
+    for (int ch = 0; ch < 4; ++ch) {
+        const float du = lu >= 0 ? bg_row(p, lu, layer)[ch] - v0[ch] : 0.0f;
+        const float dv = lv >= 0 ? bg_row(p, lv, layer)[ch] - v0[ch] : 0.0f;
+        const float dl = vl[ch] - v0[ch];
+        tv[ch] = sqrtf(1e-5f + du * du + dv * dv + dl * dl);
+        const float gs = p.scale * (ch < 3 ? p.scaling : p.scaling_density) / tv[ch];
+        const float gu = gs * du, gv = gs * dv, gl = gs * dl;
+        if (gu != 0.0f) atomic_add(p.g_data + ((int64_t)lu * p.nlayers + layer) * 4 + ch, gu);
+        if (gv != 0.0f) atomic_add(p.g_data + ((int64_t)lv * p.nlayers + layer) * 4 + ch, gv);
+        if (gl != 0.0f) {
+            atomic_add(p.g_data + ((int64_t)l0 * p.nlayers + layer_n) * 4 + ch, gl);
+        }
+        const float g0 = -(gu + gv + gl);
+        if (g0 != 0.0f) atomic_add(p.g_data + ((int64_t)l0 * p.nlayers + layer) * 4 + ch, g0);
+    }
+    return (p.scaling * (tv[0] + tv[1] + tv[2]) + p.scaling_density * tv[3]) * p.scale;
+}
+
 #ifdef __CUDACC__
 constexpr int REG_BLOCK = 256;
 
@@ -578,6 +706,16 @@ __global__ void reg_eikonal_kernel(ExtParams p) {
     block_sum_atomic(n < p.n ? eikonal_cell(p, n) : 0.0f, p.loss);
 }
 
+__global__ void reg_lumisphere_kernel(ExtParams p) {
+    const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    block_sum_atomic(n < p.n ? lumisphere_cell(p, n) : 0.0f, p.loss);
+}
+
+__global__ void reg_background_tv_kernel(BgTVParams p) {
+    const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    block_sum_atomic(n < p.n ? bg_tv_cell(p, n) : 0.0f, p.loss);
+}
+
 static unsigned n_blocks(int64_t n) { return (unsigned)((n + REG_BLOCK - 1) / REG_BLOCK); }
 
 extern "C" cudaError_t reg_tv(const int* links, int X, int Y, int Z, const int* cells, long long n,
@@ -612,23 +750,38 @@ extern "C" cudaError_t reg_sparsify(const int* links, int X, int Y, int Z, const
     reg_sparsify_kernel<<<n_blocks(n), REG_BLOCK, 0, (cudaStream_t)stream>>>(p);
     return cudaGetLastError();
 }
-// K12a-K12d: ``kind`` 0 norm match, 1 viscosity, 2 sign change, 3 eikonal
+// K12a-K12e: ``kind`` 0 norm match, 1 viscosity, 2 sign change, 3 eikonal,
+// 4 lumisphere TV (which reads sh, mult and dir_factor and writes g_sh)
 extern "C" cudaError_t reg_ext(int kind, const int* links, int X, int Y, int Z, const int* cells,
                                long long n, int cap, const float* surf, int n_surf_c,
                                const float* density, const float* h, float eta, float target,
                                float scale, double* loss, float* g_surface, float* g_density,
-                               void* stream) {
+                               const float* sh, int bd, const float* mult, float dir_factor,
+                               float* g_sh, void* stream) {
     if (n <= 0) return cudaSuccess;
     const ExtParams p{links, X, Y, Z, cells, n, cap, surf, n_surf_c, density, h, eta, target,
-                      scale, loss, g_surface, g_density};
+                      scale, loss, g_surface, g_density, sh, bd, mult, dir_factor, g_sh};
     const cudaStream_t s = (cudaStream_t)stream;
     switch (kind) {
         case 0: reg_norm_match_kernel<<<n_blocks(n), REG_BLOCK, 0, s>>>(p); break;
         case 1: reg_viscosity_kernel<<<n_blocks(n), REG_BLOCK, 0, s>>>(p); break;
         case 2: reg_sign_change_kernel<<<n_blocks(n), REG_BLOCK, 0, s>>>(p); break;
         case 3: reg_eikonal_kernel<<<n_blocks(n), REG_BLOCK, 0, s>>>(p); break;
+        case 4: reg_lumisphere_kernel<<<n_blocks(n), REG_BLOCK, 0, s>>>(p); break;
         default: return cudaErrorInvalidValue;
     }
+    return cudaGetLastError();
+}
+
+// K12f
+extern "C" cudaError_t reg_background_tv(const int* links, int W, int H, const float* data,
+                                         int nlayers, const int* cells, long long n,
+                                         float scaling, float scaling_density, float scale,
+                                         double* loss, float* g_data, void* stream) {
+    if (n <= 0) return cudaSuccess;
+    const BgTVParams p{links, W, H, data, nlayers, cells, n, scaling, scaling_density, scale,
+                       loss, g_data};
+    reg_background_tv_kernel<<<n_blocks(n), REG_BLOCK, 0, (cudaStream_t)stream>>>(p);
     return cudaGetLastError();
 }
 #endif

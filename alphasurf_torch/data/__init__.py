@@ -1,20 +1,22 @@
 """Dataset registry, the counterpart of the JAX package's ``data``
 (svox2's opt/util/dataset.py:8-33): the procedural synthetic dataset, the
-NeRF-synthetic (Blender) loader and the DTU loader. ``auto`` tells a scene
-by its files in the JAX package's order; the LLFF, NSVF and CO3D loaders
-wait for ROADMAP §1 items 2 and 5."""
+NeRF-synthetic (Blender), DTU and NSVF loaders. ``auto`` tells a scene by
+its files in the JAX package's order, NSVF last; the LLFF and CO3D loaders
+wait for ROADMAP §1 item 5 (CO3D first for a JPEG decoder of the port's
+own)."""
 from os import path
 
 from .base import DatasetBase, Intrin, RayBatch
 from .dtu import DTUDataset
 from .nerf import NeRFDataset
+from .nsvf import NSVFDataset
 from .synthetic import SyntheticDataset
 
 
-def _unported(name: str):
+def _unported(name: str, why: str = ""):
     def make(*args, **kwargs):
         raise NotImplementedError(
-            f"the {name!r} dataset loader is not ported yet (ROADMAP §1 items 2 and 5)")
+            f"the {name!r} dataset loader is not ported yet (ROADMAP §1 item 5{why})")
 
     return make
 
@@ -30,7 +32,7 @@ def auto_dataset(root: str, *args, **kwargs):
     if path.isfile(path.join(root, "cameras_sphere.npz")) or path.isfile(
             path.join(root, "cameras_large.npz")):
         return DTUDataset(root, *args, **kwargs)
-    return datasets["nsvf"](root, *args, **kwargs)
+    return NSVFDataset(root, *args, **kwargs)
 
 
 datasets = {
@@ -38,8 +40,10 @@ datasets = {
     "nerf": NeRFDataset,
     "synthetic": SyntheticDataset,
     "dtu": DTUDataset,
-    **{k: _unported(k) for k in ("llff", "nsvf", "co3d")},
+    "nsvf": NSVFDataset,
+    "llff": _unported("llff"),
+    "co3d": _unported("co3d", ": it reads JPEG frames, and the port has no JPEG decoder yet"),
 }
 
-__all__ = ["DatasetBase", "DTUDataset", "Intrin", "NeRFDataset", "RayBatch", "SyntheticDataset",
-           "auto_dataset", "datasets"]
+__all__ = ["DatasetBase", "DTUDataset", "Intrin", "NeRFDataset", "NSVFDataset", "RayBatch",
+           "SyntheticDataset", "auto_dataset", "datasets"]

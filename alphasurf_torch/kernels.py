@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("occupancy", "phase_a", "phase_b", "composite", "backward", "reg", "rmsprop", "cuvol",
-           "topology", "sweep", "extract")
+           "topology", "sweep", "extract", "background")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
@@ -71,6 +71,10 @@ LAUNCHES = {
     "reg_viscosity": 0,
     "reg_sign_change": 0,
     "reg_eikonal": 0,
+    "reg_lumisphere": 0,
+    "reg_background_tv": 0,
+    "background_forward": 0,
+    "background_backward": 0,
 }
 
 _P = ctypes.c_void_p
@@ -86,27 +90,29 @@ _ARGTYPES = {
     "dense_walk_fill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "phase_b": [_P, _P, _P, _P, _L, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _I,
                 _I, _F, _F, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "composite": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _I,
-                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _I, _I, _I, _P, _P, _P,
-                  _P, _P, _P, _P, _P],
+    "composite": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _P, _I,
+                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                  _P, _P, _P, _P],
     "intersect_points": [_P, _P, _P, _P, _I, _L, _F, _F, _F, _F, _F, _F, _P, _P],
-    "backward_ray": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _I, _P, _P,
-                     _P, _P, _P, _I, _P, _P, _P, _P],
+    "backward_ray": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _P, _I, _P,
+                     _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "backward_entry": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P,
                        _I, _I, _F, _F, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P],
     "reg_tv": [_P, _I, _I, _I, _P, _L, _P, _I, _I, _I, _P, _F, _P, _P, _P],
     "reg_normal": [_P, _I, _I, _I, _P, _L, _P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     "reg_sparsify": [_P, _I, _I, _I, _P, _L, _P, _P, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P],
-    "reg_ext": [_I, _P, _I, _I, _I, _P, _L, _I, _P, _I, _P, _P, _F, _F, _F, _P, _P, _P, _P],
+    "reg_ext": [_I, _P, _I, _I, _I, _P, _L, _I, _P, _I, _P, _P, _F, _F, _F, _P, _P, _P, _P, _I,
+                _P, _F, _P, _P],
+    "reg_background_tv": [_P, _I, _I, _P, _I, _P, _L, _F, _F, _F, _P, _P, _P],
     "rmsprop": [_P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _F, _I, _F, _I, _P],
     "density_occupancy_words": [_P, _P, _I, _I, _I, _P, _P],
     "cuvol_forward": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F,
-                      _I, _I, _F, _I, _F, _P, _P, _P, _P, _P, _P],
-    "cuvol_backward": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                       _F, _I, _I, _F, _P, _P, _P, _P, _P, _P],
-    "cuvol_march": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _I, _F, _I,
-                    _F, _P, _P, _P, _P, _P],
+                      _I, _I, _F, _P, _I, _F, _P, _P, _P, _P, _P, _P],
+    "cuvol_backward": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F,
+                       _I, _I, _F, _P, _P, _P, _P, _P, _P, _P],
+    "cuvol_march": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _I, _F, _P,
+                    _I, _F, _P, _P, _P, _P, _P],
     "topo_window_or": [_P, _F, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "topo_prune_valid": [_P, _P, _P, _F, _I, _I, _I, _P, _P],
     "topo_straddle": [_P, _I, _I, _I, _P, _I, _P, _P],
@@ -119,6 +125,9 @@ _ARGTYPES = {
     "transmit_march": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P],
     "mask_march": [_P, _P, _P, _P, _L, _P, _I, _I, _I, _P, _P],
     "iso_points": [_P, _I, _P, _I, _I, _I, _P, _P, _F, _F, _I, _P, _P],
+    "background_forward": [_P, _P, _P, _I, _F, _F, _F, _P, _I, _P, _I, _I, _I, _F, _P, _P, _P],
+    "background_backward": [_P, _P, _P, _I, _F, _F, _F, _P, _I, _P, _I, _I, _I, _F, _P, _P, _P,
+                            _P, _P],
 }
 _FUNCS = {
     "occupancy": ("occupancy_words", "density_occupancy_words"),
@@ -127,13 +136,14 @@ _FUNCS = {
     "phase_b": ("phase_b",),
     "composite": ("composite", "intersect_points"),
     "backward": ("backward_ray", "backward_entry"),
-    "reg": ("reg_tv", "reg_normal", "reg_sparsify", "reg_ext"),
+    "reg": ("reg_tv", "reg_normal", "reg_sparsify", "reg_ext", "reg_background_tv"),
     "rmsprop": ("rmsprop",),
     "cuvol": ("cuvol_forward", "cuvol_backward", "cuvol_march"),
     "topology": ("topo_window_or", "topo_prune_valid", "topo_straddle", "topo_resample_dense",
                  "topo_resample_rows"),
     "sweep": ("weight_march", "visibility", "transmit_march", "mask_march"),
     "extract": ("iso_points",),
+    "background": ("background_forward", "background_backward"),
 }
 
 _libs: dict = {}
@@ -436,9 +446,18 @@ def _composite_opts(opt) -> tuple:
             float(opt.background_brightness), int(opt.fake_sample_l_dist))
 
 
+def _bg_rgb_ptr(bg_rgb, B: int):
+    """The per-ray background colour (K13's ``c_bg``, (B, 3)) or None: the
+    kernel then takes the scalar ``background_brightness``."""
+    if bg_rgb is None:
+        return None
+    _check("bg_rgb", bg_rgb, torch.float32, (B, 3))
+    return _ptr(bg_rgb)
+
+
 def composite(offsets, smp: dict, trunc_a, opt, sig_thresh: float | None = None,
               want_live: bool = False, window: int = 0, mode_first: bool = False,
-              cache_size: int | None = None) -> dict:
+              cache_size: int | None = None, bg_rgb=None) -> dict:
     """K4: per-ray compositing (see render.surface.composite); ``trunc_a``
     is the grid's truncated_vol_render_a on the card. ``sig_thresh`` adds
     ``depth_sigma_thresh`` (B,) (a launch in that mode also counts as
@@ -447,7 +466,8 @@ def composite(offsets, smp: dict, trunc_a, opt, sig_thresh: float | None = None,
     ``cache`` (ts, alphas, weights (B, K) float32, fake_mask (B, K) bool,
     n_cached (B,) int32) and its median ``cache_med`` (a launch in that
     mode also counts as ``composite_cache``); ``window`` > 0 adds ``win``
-    (M,), the entries inside the count window."""
+    (M,), the entries inside the count window. ``bg_rgb`` (B, 3), K13's
+    per-ray background colour, takes the place of the brightness."""
     B = offsets.shape[0] - 1
     S0, M = smp["t"].shape
     _check("offsets", offsets, torch.int64, (B + 1,))
@@ -483,13 +503,14 @@ def composite(offsets, smp: dict, trunc_a, opt, sig_thresh: float | None = None,
         out["cache_med"] = torch.empty(B, dtype=f32, device=dev)
     if window > 0:
         out["win"] = torch.empty(M, dtype=torch.bool, device=dev)
+    bgp = _bg_rgb_ptr(bg_rgb, B)
     if B > 0:
         stop_on, log_stop, bg, fake_l_dist = _composite_opts(opt)
         _launch("composite", "composite", "composite",
                 _ptr(offsets), B, M, S0,
                 *(_ptr(smp[k]) for k in _SLOT_KEYS + ("snorm", "loss_e")),
                 int(opt.truncated_vol_render), ta, float(opt.trunc_vol_weight_min),
-                stop_on, log_stop, bg, fake_l_dist,
+                stop_on, log_stop, bg, bgp, fake_l_dist,
                 *(_ptr(out[k]) for k in ("rgb", "depth", "normal", "log_T", "depth_mode",
                                          "depth_med", "n_intersections", "ray_losses",
                                          "weight")),
@@ -529,12 +550,14 @@ def intersect_points(ray_id, t, origins, dirs, rscaling, roffset):
 # K5
 # ---------------------------------------------------------------------------
 
-def backward_ray(offsets, smp: dict, trunc_a, opt, g_rgb, g_ray_losses, g_cache=None):
+def backward_ray(offsets, smp: dict, trunc_a, opt, g_rgb, g_ray_losses, g_cache=None,
+                 bg_rgb=None):
     """K5a: per-slot cotangents (d_alpha of the pre-truncation alpha (S0, M),
     d_t (S0, M), d_col of the clipped colour (3, S0, M)) from the cotangents
     of rgb (B, 3) and ray_losses (12, B). K11d: ``g_cache``, the cotangents
     (ts, alphas, weights) of K11c's cache, (B, K) each, join them (a launch
-    with them also counts as ``backward_cache``)."""
+    with them also counts as ``backward_cache``). ``bg_rgb``: K13's per-ray
+    background colour, as in ``composite``."""
     B = offsets.shape[0] - 1
     S0, M = smp["t"].shape
     _check("offsets", offsets, torch.int64, (B + 1,))
@@ -551,12 +574,13 @@ def backward_ray(offsets, smp: dict, trunc_a, opt, g_rgb, g_ray_losses, g_cache=
         K = g_cache[0].shape[1]
         for name, g in zip(("g_cache_ts", "g_cache_alphas", "g_cache_weights"), g_cache):
             _check(name, g, torch.float32, (B, K))
+    bgp = _bg_rgb_ptr(bg_rgb, B)
     if B > 0 and M > 0:
         stop_on, log_stop, bg, fake_l_dist = _composite_opts(opt)
         _launch("backward", "backward_ray", "backward_ray",
                 _ptr(offsets), B, M, S0, *(_ptr(smp[k]) for k in _SLOT_KEYS),
                 int(opt.truncated_vol_render), ta, float(opt.trunc_vol_weight_min),
-                stop_on, log_stop, bg, fake_l_dist, _ptr(g_rgb), _ptr(g_ray_losses),
+                stop_on, log_stop, bg, bgp, fake_l_dist, _ptr(g_rgb), _ptr(g_ray_losses),
                 _ptr(d_alpha), _ptr(d_t), _ptr(d_col), K,
                 *((_ptr(g) for g in g_cache) if g_cache is not None else (None,) * 3))
         if g_cache is not None:
@@ -680,7 +704,8 @@ def reg_sparsify(links, cells, density, surface, scale_alpha: float, scale_surf:
 # K12a-K12d
 # ---------------------------------------------------------------------------
 
-_EXT_KINDS = {"reg_norm_match": 0, "reg_viscosity": 1, "reg_sign_change": 2, "reg_eikonal": 3}
+_EXT_KINDS = {"reg_norm_match": 0, "reg_viscosity": 1, "reg_sign_change": 2, "reg_eikonal": 3,
+              "reg_lumisphere": 4}
 
 
 def _reg_ext(name: str, links, cells, surface, scale: float, density=None, h=None,
@@ -705,7 +730,8 @@ def _reg_ext(name: str, links, cells, surface, scale: float, density=None, h=Non
         _launch("reg", "reg_ext", name, _EXT_KINDS[name], _ptr(links), X, Y, Z, _ptr(cells), n,
                 cap, _ptr(surface), surface.shape[1], 0 if density is None else _ptr(density),
                 0 if h is None else _ptr(h), float(eta), float(target), float(scale), _ptr(loss),
-                _ptr(g_surface), 0 if g_density is None else _ptr(g_density))
+                _ptr(g_surface), 0 if g_density is None else _ptr(g_density), None, 0, None,
+                0.0, None)
     return loss.float(), g_surface, g_density
 
 
@@ -735,6 +761,47 @@ def reg_eikonal(links, cells, surface, target: float, scale: float):
     """K12d, (|g| - target)^2 over the cells whose 8 corners are present.
     Returns the loss (1,) and the gradient of surface (cap, n_surf_c)."""
     return _reg_ext("reg_eikonal", links, cells, surface, scale, target=target)[:2]
+
+
+def reg_lumisphere(links, cells, sh, mult, dir_factor: float, scale: float):
+    """K12e, the lumisphere TV of the SH colours (cap, 3 bd) along the
+    direction whose basis is mult[0] and its twin's mult[1] ((2, bd) on the
+    card). Returns the loss (1,) and the gradient of sh."""
+    cap, C = sh.shape
+    bd = C // 3
+    _check("sh", sh, torch.float32)
+    _check("mult", mult, torch.float32, (2, bd))
+    _check("links", links, torch.int32)
+    _check("cells", cells, torch.int32)
+    n = cells.numel()
+    loss = torch.zeros(1, dtype=torch.float64, device=sh.device)
+    g_sh = torch.zeros_like(sh)
+    X, Y, Z = links.shape
+    if n > 0:
+        _launch("reg", "reg_ext", "reg_lumisphere", _EXT_KINDS["reg_lumisphere"], _ptr(links),
+                X, Y, Z, _ptr(cells), n, cap, None, 0, None, None, 0.0, 0.0, float(scale),
+                _ptr(loss), None, None, _ptr(sh), bd, _ptr(mult), float(dir_factor),
+                _ptr(g_sh))
+    return loss.float(), g_sh
+
+
+def reg_background_tv(links, cells, data, scaling: float, scaling_density: float,
+                      scale: float):
+    """K12f, the TV of the MSI background rows (n, nlayers, 4) at the flat
+    (u, v, layer) ``cells`` (int32) of the (2R, R) ``links``. Returns the
+    loss (1,) and the gradient of the rows."""
+    _check("background_links", links, torch.int32)
+    _check("background_data", data, torch.float32)
+    _check("cells", cells, torch.int32)
+    n = cells.numel()
+    loss = torch.zeros(1, dtype=torch.float64, device=data.device)
+    g_data = torch.zeros_like(data)
+    W, H = links.shape
+    if n > 0:
+        _launch("reg", "reg_background_tv", "reg_background_tv", _ptr(links), W, H, _ptr(data),
+                data.shape[1], _ptr(cells), n, float(scaling), float(scaling_density),
+                float(scale), _ptr(loss), _ptr(g_data))
+    return loss.float(), g_data
 
 
 # ---------------------------------------------------------------------------
@@ -818,22 +885,25 @@ def _render_outputs(B: int, dev, depth_sigma_thresh) -> dict:
 
 def cuvol_forward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_scale, tmin, tmax,
                   links, density, sh, step: float, n_slots: int, last_sample_opaque: bool,
-                  bg: float, depth_sigma_thresh=None, save_entry_pre: bool = False) -> dict:
+                  bg: float, depth_sigma_thresh=None, save_entry_pre: bool = False,
+                  bg_rgb=None) -> dict:
     """K8 forward over the pool (ray r's entries at [offsets[r], offsets[r+1])):
     rgb (B, 3), depth, log_T and t_sig ((B,), or None without a
     ``depth_sigma_thresh``), and entry_pre (M,), the prefix log-attenuation
-    at each entry's start, with ``save_entry_pre`` (else None)."""
+    at each entry's start, with ``save_entry_pre`` (else None). ``bg_rgb``
+    (B, 3), K13's per-ray background colour, takes the place of ``bg``."""
     B, bd, grid_args = _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links,
                                    density, sh)
     M = _pool_entry_args(offsets, l, close_t, far_t, B)
     out = _render_outputs(B, origins.device, depth_sigma_thresh)
     out["entry_pre"] = (torch.empty(M, dtype=torch.float32, device=origins.device)
                         if save_entry_pre else None)
+    bgp = _bg_rgb_ptr(bg_rgb, B)
     if B > 0:
         dst_on = depth_sigma_thresh is not None
         _launch("cuvol", "cuvol_forward", "cuvol_forward",
                 _ptr(offsets), B, _ptr(l), _ptr(close_t), _ptr(far_t), _ptr(origins), _ptr(dirs),
-                *grid_args, float(step), int(n_slots), int(last_sample_opaque), float(bg),
+                *grid_args, float(step), int(n_slots), int(last_sample_opaque), float(bg), bgp,
                 int(dst_on), float(depth_sigma_thresh) if dst_on else 0.0,
                 *(0 if out[k] is None else _ptr(out[k])
                   for k in ("rgb", "depth", "log_T", "t_sig", "entry_pre")))
@@ -842,9 +912,10 @@ def cuvol_forward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_scal
 
 def cuvol_backward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_scale, tmin, tmax,
                    links, density, sh, step: float, n_slots: int, last_sample_opaque: bool,
-                   bg: float, log_T, entry_pre, g_rgb):
+                   bg: float, log_T, entry_pre, g_rgb, bg_rgb=None):
     """K8 backward: the gradients of density (cap,) and SH (cap, 3 bd) from
-    the cotangent of rgb (B, 3), given the forward's log_T and entry_pre."""
+    the cotangent of rgb (B, 3), given the forward's log_T and entry_pre
+    (and the forward's ``bg_rgb``)."""
     B, bd, grid_args = _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links,
                                    density, sh)
     M = _pool_entry_args(offsets, l, close_t, far_t, B)
@@ -853,26 +924,30 @@ def cuvol_backward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_sca
     _check("g_rgb", g_rgb, torch.float32, (B, 3))
     g_density = torch.zeros_like(density)
     g_sh = torch.zeros_like(sh)
+    bgp = _bg_rgb_ptr(bg_rgb, B)
     if B > 0 and M > 0:
         _launch("cuvol", "cuvol_backward", "cuvol_backward",
                 _ptr(offsets), B, _ptr(l), _ptr(close_t), _ptr(far_t), _ptr(origins), _ptr(dirs),
-                *grid_args, float(step), int(n_slots), int(last_sample_opaque), float(bg),
+                *grid_args, float(step), int(n_slots), int(last_sample_opaque), float(bg), bgp,
                 _ptr(log_T), _ptr(entry_pre), _ptr(g_rgb), _ptr(g_density), _ptr(g_sh))
     return g_density, g_sh
 
 
 def cuvol_march(origins, dirs, sh_mult, delta_scale, tmin, tmax, links, density, sh,
                 step: float, n_steps: int, last_sample_opaque: bool, bg: float,
-                depth_sigma_thresh=None) -> dict:
+                depth_sigma_thresh=None, bg_rgb=None) -> dict:
     """K10: the dense march of each ray, t = tmin + k step for k < n_steps
-    while t <= tmax: rgb (B, 3), depth, log_T and t_sig (or None)."""
+    while t <= tmax: rgb (B, 3), depth, log_T and t_sig (or None).
+    ``bg_rgb`` (B, 3), K13's per-ray background colour, takes the place of
+    ``bg``."""
     B, bd, grid_args = _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links,
                                    density, sh)
     out = _render_outputs(B, origins.device, depth_sigma_thresh)
+    bgp = _bg_rgb_ptr(bg_rgb, B)
     if B > 0:
         dst_on = depth_sigma_thresh is not None
         _launch("cuvol", "cuvol_march", "cuvol_march", B, _ptr(origins), _ptr(dirs), *grid_args,
-                float(step), int(n_steps), int(last_sample_opaque), float(bg), int(dst_on),
+                float(step), int(n_steps), int(last_sample_opaque), float(bg), bgp, int(dst_on),
                 float(depth_sigma_thresh) if dst_on else 0.0,
                 *(0 if out[k] is None else _ptr(out[k])
                   for k in ("rgb", "depth", "log_T", "t_sig")))
@@ -1106,3 +1181,53 @@ def iso_points(cells, links, field, density, lv: float, density_thresh: float, n
         _launch("extract", "iso_points", "iso_points", _ptr(cells), N, _ptr(links), X, Y, Z,
                 _ptr(field), _ptr(density), float(lv), float(density_thresh), n, _ptr(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# K13
+# ---------------------------------------------------------------------------
+
+def _background_args(origins, dirs, delta_scale, reso, links, data) -> tuple:
+    B = origins.shape[0]
+    _check("origins", origins, torch.float32, (B, 3))
+    _check("dirs", dirs, torch.float32, (B, 3))
+    _check("delta_scale", delta_scale, torch.float32, (B,))
+    _check("background_links", links, torch.int32)
+    R = links.shape[1]
+    _check("background_links", links, torch.int32, (2 * R, R))
+    _check("background_data", data, torch.float32)
+    if data.dim() != 3 or data.shape[2] != 4:
+        raise ValueError(f"background_data: expected (n, nlayers, 4), got {tuple(data.shape)}")
+    return B, (_ptr(origins), _ptr(dirs), _ptr(delta_scale), B, *(float(r) for r in reso),
+               _ptr(links), R, _ptr(data), data.shape[0], data.shape[1])
+
+
+def background_forward(origins, dirs, delta_scale, reso, links, n_steps: int,
+                       brightness: float, data):
+    """K13 forward: each ray's background colour c_bg (B, 3), the brightness
+    term included, and log_T_bg (B,), rendered from log_T = 0 over
+    ``n_steps`` spheres; rays in grid coordinates (unit dirs) of a grid of
+    ``reso``, with their grid->world step scale."""
+    B, args = _background_args(origins, dirs, delta_scale, reso, links, data)
+    c_bg = torch.empty((B, 3), dtype=torch.float32, device=origins.device)
+    log_T = torch.empty(B, dtype=torch.float32, device=origins.device)
+    if B > 0:
+        _launch("background", "background_forward", "background_forward", *args, int(n_steps),
+                float(brightness), _ptr(c_bg), _ptr(log_T))
+    return c_bg, log_T
+
+
+def background_backward(origins, dirs, delta_scale, reso, links, n_steps: int,
+                        brightness: float, data, log_T, g_c, g_lt):
+    """K13 backward: the gradient of background_data (n, nlayers, 4) from the
+    cotangents of c_bg (B, 3) and log_T_bg (B,), given the forward's
+    log_T_bg."""
+    B, args = _background_args(origins, dirs, delta_scale, reso, links, data)
+    _check("log_T", log_T, torch.float32, (B,))
+    _check("g_c", g_c, torch.float32, (B, 3))
+    _check("g_lt", g_lt, torch.float32, (B,))
+    g_data = torch.zeros_like(data)
+    if B > 0:
+        _launch("background", "background_backward", "background_backward", *args, int(n_steps),
+                float(brightness), _ptr(log_T), _ptr(g_c), _ptr(g_lt), _ptr(g_data))
+    return g_data

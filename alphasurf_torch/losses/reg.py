@@ -464,3 +464,140 @@ def surface_eikonal_loss(grid: SparseGrid, cells: torch.Tensor,
 def l2_color_loss(grid: SparseGrid) -> torch.Tensor:
     """0.5 * mean row-sum of sh^2 (reg.py:666; inplace_l2_color_grad)."""
     return 0.5 * torch.sum(grid.sh_data ** 2) / grid.sh_data.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# K12e, K12f: the SH colours' lumisphere TV and the background's TV
+# ---------------------------------------------------------------------------
+
+def _lumisphere_plain(grid, cells, sh_mult, sh_mult_u, dir_factor, scale):
+    """Plain version of K12e: the sum over the cells, times ``scale``."""
+    x, y, z = _cells_to_xyz(cells, grid.reso)
+    L = grid.links
+    bd = grid.basis_dim
+    l0 = _link_at(L, x, y, z)
+
+    def color(lnk, mult):
+        return torch.sum(_fetch(grid.sh_data, lnk).reshape(-1, 3, bd) * mult, -1)  # (n, 3)
+
+    c0 = color(l0, sh_mult)
+    loss = torch.zeros(cells.shape[0], dtype=grid.sh_data.dtype, device=L.device)
+    for ln in (_link_at(L, x + 1, y, z), _link_at(L, x, y + 1, z), _link_at(L, x, y, z + 1)):
+        cn = color(ln, sh_mult)
+        ok = ((l0 >= 0) & (ln >= 0)).to(c0.dtype)
+        loss = loss + ok * torch.sqrt(1e-5 + torch.sum((cn - c0) ** 2, -1))
+    if dir_factor > 0.0:
+        c0_u = color(l0, sh_mult_u)
+        ok0 = (l0 >= 0).to(c0.dtype)
+        loss = loss + dir_factor * ok0 * torch.sqrt(1e-5 + torch.sum((c0_u - c0) ** 2, -1))
+    return torch.sum(loss) * scale
+
+
+def lumisphere_directions(generator: torch.Generator, dir_perturb_radians: float = 0.05):
+    """A random unit direction and its twin turned by ``dir_perturb_radians``
+    about a random axis (Rodrigues' formula), both (3,) float64 on the CPU,
+    drawn from ``generator`` as the JAX package draws them from its key
+    (reg.py:748-762)."""
+    d = torch.randn(3, generator=generator, dtype=torch.float64)
+    d = d / torch.linalg.norm(d)
+    axis = torch.randn(3, generator=generator, dtype=torch.float64)
+    axis = axis / torch.linalg.norm(axis) * dir_perturb_radians
+    th = torch.linalg.norm(axis)
+    k = axis / torch.clamp(th, min=1e-12)
+    d_p = (d * torch.cos(th) + torch.linalg.cross(k, d) * torch.sin(th)
+           + k * torch.dot(k, d) * (1 - torch.cos(th)))
+    return d, d_p
+
+
+def lumisphere_tv_at(grid: SparseGrid, cells: torch.Tensor, d, d_p,
+                     dir_factor: float = 1.0) -> torch.Tensor:
+    """K12e at the directions ``d`` and its perturbed twin ``d_p`` ((3,)
+    each): the SH colour of each cell along ``d`` against its +x/+y/+z
+    neighbours', plus ``dir_factor`` times the colour along ``d`` against
+    that along ``d_p``, each sqrt(1e-5 + |difference|^2); mean over the
+    cells (reg.py:734; lumisphere_tv_grad_sparse, svox2.py:5822-5895). A
+    neighbour term needs both links present, the angular term the cell's."""
+    from ..core.sh import eval_sh_bases
+
+    dt, dev = grid.sh_data.dtype, grid.links.device
+    mult = eval_sh_bases(grid.basis_dim, torch.stack([torch.as_tensor(d), torch.as_tensor(d_p)])
+                         .to(dtype=dt, device=dev))  # (2, bd)
+    scale = 1.0 / cells.numel()
+    if not grid.links.is_cuda:
+        return _lumisphere_plain(grid, cells, mult[0], mult[1], dir_factor, scale)
+    return _KernelLoss.apply(
+        lambda: kernels.reg_lumisphere(grid.links, cells, grid.sh_data.detach(),
+                                       mult.contiguous(), dir_factor, scale),
+        grid.sh_data)
+
+
+def lumisphere_tv_loss(grid: SparseGrid, cells: torch.Tensor, generator: torch.Generator,
+                       dir_factor: float = 1.0, dir_perturb_radians: float = 0.05):
+    """K12e along a direction drawn from ``generator`` (reg.py:734):
+    ``lumisphere_tv_at`` of ``lumisphere_directions``."""
+    d, d_p = lumisphere_directions(generator, dir_perturb_radians)
+    return lumisphere_tv_at(grid, cells, d, d_p, dir_factor)
+
+
+def sample_background_cells(generator: torch.Generator, grid: SparseGrid,
+                            sparse_frac: float) -> torch.Tensor:
+    """max(1, int(sparse_frac * n)) flat (u, v, layer) cell ids of the
+    background's n = links.size * nlayers cells, drawn with replacement, as
+    the JAX step draws them (steps.py:181-184)."""
+    n = grid.background_links.numel() * grid.background_nlayers
+    count = max(1, int(sparse_frac * n))
+    return torch.randint(0, n, (count,), generator=generator, dtype=torch.int64).to(
+        device=grid.background_links.device, dtype=torch.int32)
+
+
+def _background_tv_plain(grid, cells_bg, scaling, scaling_density, scale):
+    """Plain version of K12f: the sum over the cells, times ``scale``."""
+    links = grid.background_links  # (2R, R)
+    data = grid.background_data  # (n, nlayers, 4)
+    W, H = links.shape
+    nlayers = data.shape[1]
+    c = cells_bg.long()
+    layer = c % nlayers
+    uv = c // nlayers
+    v = uv % H
+    u = (uv // H) % W
+    flat = links.reshape(-1)
+    l0 = flat[u * H + v]
+    lu = flat[((u + 1) % W) * H + v]
+    lv_ = flat[u * H + torch.clamp(v + 1, max=H - 1)]
+
+    def fetch(lnk, lay):
+        safe = torch.clamp(lnk, 0, data.shape[0] - 1).long()
+        return data[safe, lay] * (lnk >= 0)[:, None].to(data.dtype)
+
+    v0 = fetch(l0, layer)
+    zero = torch.zeros_like(v0)
+    du = torch.where((lu >= 0)[:, None], fetch(lu, layer) - v0, zero)
+    dv = torch.where((lv_ >= 0)[:, None], fetch(lv_, layer) - v0, zero)
+    dl = fetch(l0, torch.clamp(layer + 1, max=nlayers - 1)) - v0
+    tv = torch.sqrt(1e-5 + du ** 2 + dv ** 2 + dl ** 2)  # (n, 4)
+    per_cell = scaling * tv[:, :3].sum(-1) + scaling_density * tv[:, 3]
+    return torch.sum(per_cell * (l0 >= 0).to(tv.dtype)) * scale
+
+
+def background_tv_loss(grid: SparseGrid, cells_bg: torch.Tensor, scaling: float,
+                       scaling_density: float | None = None) -> torch.Tensor:
+    """K12f: the TV of the MSI background at the flat (u, v, layer) cells
+    ``cells_bg`` (int32), each channel sqrt(1e-5 + du^2 + dv^2 + dl^2) to
+    the +u (wrapping), +v and +layer (both clamped) neighbours, an absent
+    neighbour's difference 0; the colour channels scaled by ``scaling``,
+    density by ``scaling_density`` (default ``scaling``); mean over the
+    cells, a cell with link -1 counting 0 (reg.py:673; msi_tv_grad_sparse,
+    svox2.py:5930-5957). 0 without a background."""
+    if grid.background_data is None:
+        return 0.0
+    if scaling_density is None:
+        scaling_density = scaling
+    scale = 1.0 / cells_bg.numel()
+    if not grid.background_links.is_cuda:
+        return _background_tv_plain(grid, cells_bg, scaling, scaling_density, scale)
+    return _KernelLoss.apply(
+        lambda: kernels.reg_background_tv(grid.background_links, cells_bg,
+                                          grid.background_data.detach(), scaling,
+                                          scaling_density, scale),
+        grid.background_data)

@@ -25,8 +25,12 @@ trilerp: the two agree only where the boundary voxels are empty.
 Gradients: when density or SH requires grad, the plain path on the CPU is
 differentiated by autograd (the pool is a constant of the parameters, as
 the JAX package's stop_gradient makes it); on the card ``_PackedCuvolFn``
-runs K8's forward and backward for the cotangent of ``rgb``. The port's
-grids carry no background model (ROADMAP §1 item 2), so none is added.
+runs K8's forward and backward for the cotangent of ``rgb``.
+
+A grid with an MSI background composites it behind the density in both
+renderers: K13 (``render.background``) gives each ray its background colour,
+which K8 and K10 take where they took the brightness; K8's backward carries
+the colour's cotangent to K13's backward kernel.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from ..core.rays import Rays
 from ..core.sh import eval_basis
 from ..ops import dda
 from ..ops.trilerp import trilerp_weights_T, voxel_of
+from .background import background_color
 from .surface import (Pool, _clip, _excl_cumsum, _sum0, compact_crossings_packed,
                       pack_occupancy_bits, unpack_occupancy_bits)
 
@@ -193,12 +198,13 @@ def _entry_samples_plain(grid: SparseGrid, opt: RenderOptions, pool: Pool, origi
     return t, active, sigma, rgb, log_att
 
 
-def _composite_cuvol_plain(offsets, t, active, sigma, rgb, log_att, bg: float,
+def _composite_cuvol_plain(offsets, t, active, sigma, rgb, log_att, bg,
                            depth_sigma_thresh) -> dict:
     """Per-ray compositing of the slots in (entry, slot) order
     (cuvol.py:242-287), laid out per ray (B, E*S) so that every prefix is a
     per-ray scan, not the JAX version's chunk-wide cumsum minus a per-ray
-    base (which cancels in float32)."""
+    base (which cancels in float32). ``bg``: the brightness, or the (B, 3)
+    background colour of ``background_color``."""
     B = offsets.shape[0] - 1
     S, M = t.shape
     dev = t.device
@@ -241,6 +247,7 @@ class _CuvolChunk(NamedTuple):
     pool: Pool
     rays: tuple  # (origins, dirs, sh_mult, delta_scale, tmin, tmax), float32
     depth_sigma_thresh: float | None
+    bg_rgb: torch.Tensor | None = None  # (B, 3), K13's background colour (detached)
 
 
 def _k8_args(c: _CuvolChunk, density, sh) -> tuple:
@@ -251,16 +258,19 @@ def _k8_args(c: _CuvolChunk, density, sh) -> tuple:
 
 
 def _k8_forward(c: _CuvolChunk, density, sh, save_entry_pre: bool) -> dict:
-    return kernels.cuvol_forward(*_k8_args(c, density, sh), c.depth_sigma_thresh, save_entry_pre)
+    return kernels.cuvol_forward(*_k8_args(c, density, sh), c.depth_sigma_thresh, save_entry_pre,
+                                 bg_rgb=c.bg_rgb)
 
 
 class _PackedCuvolFn(torch.autograd.Function):
     """K8 forward and backward on the card. ``rgb`` carries the gradient
-    to density and SH; ``depth`` and ``log_T`` take no cotangent, and
-    ``t_sig`` (the depth_sigma_thresh output) none by construction."""
+    to density and SH, and to the background colour ``bg_rgb`` (the
+    chunk's, an input here so that its cotangent reaches K13's backward);
+    ``depth`` and ``log_T`` take no cotangent, and ``t_sig`` (the
+    depth_sigma_thresh output) none by construction."""
 
     @staticmethod
-    def forward(ctx, density, sh, chunk: _CuvolChunk):
+    def forward(ctx, density, sh, bg_rgb, chunk: _CuvolChunk):
         d, s = density.detach()[:, 0], sh.detach()
         out = _k8_forward(chunk, d, s, save_entry_pre=True)
         ctx.chunk = chunk
@@ -285,9 +295,10 @@ class _PackedCuvolFn(torch.autograd.Function):
                  else g_rgb.contiguous())
         g_density, g_sh = kernels.cuvol_backward(
             *_k8_args(c, grid.density_data.detach()[:, 0], grid.sh_data.detach()), log_T,
-            entry_pre, g_rgb)
+            entry_pre, g_rgb, bg_rgb=c.bg_rgb)
         need = ctx.needs_input_grad
-        return (g_density[:, None] if need[0] else None, g_sh if need[1] else None, None)
+        g_bg = g_rgb * torch.exp(log_T)[:, None] if need[2] else None
+        return (g_density[:, None] if need[0] else None, g_sh if need[1] else None, g_bg, None)
 
 
 def cuvol_pool(grid: SparseGrid, origins, dirs, tmin_cu, tmax_cu, words) -> Pool:
@@ -330,12 +341,16 @@ def volume_render_cuvol_packed(
         origins, dirs, sh_mult, delta_scale, tmin_cu, tmax_cu = _prep(grid, rays, opt)
         words = density_occupancy_words(grid) if occupancy is None else occupancy
         pool = cuvol_pool(grid, origins, dirs, tmin_cu, tmax_cu, words)
+    bg = background_color(grid, opt, origins, dirs, delta_scale)
     if origins.is_cuda:
+        bg_rgb = None if bg is None else bg[0]
         chunk = _CuvolChunk(grid, opt, pool, tuple(x.contiguous() for x in (
-            origins, dirs, sh_mult, delta_scale, tmin_cu, tmax_cu)), depth_sigma_thresh)
+            origins, dirs, sh_mult, delta_scale, tmin_cu, tmax_cu)), depth_sigma_thresh,
+            None if bg_rgb is None else bg_rgb.detach().contiguous())
         params = (grid.density_data, grid.sh_data)
-        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-            rgb, depth, log_T, t_sig = _PackedCuvolFn.apply(*params, chunk)
+        if torch.is_grad_enabled() and (any(p.requires_grad for p in params) or (
+                bg_rgb is not None and bg_rgb.requires_grad)):
+            rgb, depth, log_T, t_sig = _PackedCuvolFn.apply(*params, bg_rgb, chunk)
         else:
             k = _k8_forward(chunk, grid.density_data.detach()[:, 0], grid.sh_data.detach(), False)
             rgb, depth, log_T, t_sig = k["rgb"], k["depth"], k["log_T"], k["t_sig"]
@@ -345,8 +360,11 @@ def volume_render_cuvol_packed(
     else:
         smp = _entry_samples_plain(grid, opt, pool, origins, dirs, sh_mult, delta_scale, tmin_cu,
                                    tmax_cu)
-        out = _composite_cuvol_plain(pool.offsets, *smp, opt.background_brightness,
+        out = _composite_cuvol_plain(pool.offsets, *smp,
+                                     opt.background_brightness if bg is None else bg[0],
                                      depth_sigma_thresh)
+    if bg is not None:
+        out["log_transmit"] = out["log_transmit"] + bg[1]
     out["n_occupied"] = pool.n_occupied
     out["pool_overflow"] = 0
     return out
@@ -414,24 +432,29 @@ def volume_render_cuvol(
     if max_steps is None:
         max_steps = max_steps_for(grid, opt)
     n_steps = (max_steps + step_chunk - 1) // step_chunk * step_chunk
-    params = (grid.density_data, grid.sh_data)
+    params = (grid.density_data, grid.sh_data, grid.background_data)
     with torch.no_grad():
         origins, dirs, sh_mult, delta_scale, tmin, tmax = _prep(grid, rays, opt)
+    if origins.is_cuda and torch.is_grad_enabled() and any(
+            p is not None and p.requires_grad for p in params):
+        raise NotImplementedError(
+            "the gradient of the dense cuvol march is not ported (ROADMAP §2 item 4); "
+            "train through volume_render_cuvol_packed")
+    bg = background_color(grid, opt, origins, dirs, delta_scale)
     if origins.is_cuda:
-        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-            raise NotImplementedError(
-                "the gradient of the dense cuvol march is not ported (ROADMAP §2 item 4); "
-                "train through volume_render_cuvol_packed")
         m = kernels.cuvol_march(
             *(x.contiguous() for x in (origins, dirs, sh_mult, delta_scale, tmin, tmax)),
             grid.links, grid.density_data.detach()[:, 0], grid.sh_data.detach(), opt.step_size,
-            n_steps, opt.last_sample_opaque, opt.background_brightness, depth_sigma_thresh)
+            n_steps, opt.last_sample_opaque, opt.background_brightness, depth_sigma_thresh,
+            bg_rgb=None if bg is None else bg[0])
         rgb = m["rgb"]
     else:
         m = _march_plain(grid, opt, origins, dirs, sh_mult, delta_scale, tmin, tmax, n_steps,
                          step_chunk, depth_sigma_thresh)
-        rgb = m["rgb"] + torch.exp(m["log_T"])[:, None] * opt.background_brightness
-    out = {"rgb": rgb, "log_transmit": m["log_T"], "depth": m["depth"]}
+        rgb = m["rgb"] + torch.exp(m["log_T"])[:, None] * (
+            opt.background_brightness if bg is None else bg[0])
+    log_T = m["log_T"] if bg is None else m["log_T"] + bg[1]
+    out = {"rgb": rgb, "log_transmit": log_T, "depth": m["depth"]}
     if depth_sigma_thresh is not None:
         t_sig = m["t_sig"]
         out["depth_sigma_thresh"] = torch.where(torch.isfinite(t_sig), t_sig,

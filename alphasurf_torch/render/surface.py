@@ -30,6 +30,11 @@ gradients; on the card ``_SurfaceFn`` runs K3 and K4 forward and K5
 plain path are a maximum then a minimum, as ``jnp.clip``, so an exact tie
 passes half the gradient there too.
 
+A grid with an MSI background composites it behind the foreground in every
+renderer: K13 (``render.background``) gives each ray its background colour,
+which K4 takes where it took the brightness, and K5 backward carries the
+colour's cotangent to K13's backward kernel.
+
 Two output options of K3/K4 serve the extractors: ``depth_sigma_thresh``
 (K4's walk keeps a per-ray minimum) and ``return_intersections`` (K4 writes
 each slot's weight and contribution flag; ``intersect_points`` the world
@@ -52,6 +57,7 @@ from ..core.sh import eval_basis
 from ..ops import dda
 from ..ops.cubic import cubic_coeffs_T, cubic_roots_T
 from ..ops.trilerp import trilerp_weights_T
+from .background import background_color
 
 _SNAP_TOL = 1e-5  # grid units; > f32 roundoff of o + t*d at t ~ grid diag
 _RAY_LOSS_KEYS = (
@@ -153,23 +159,6 @@ def _prep(grid: SparseGrid, rays: Rays, opt: RenderOptions):
         near_grid_t = float(opt.near_clip * torch.mean(grid.scaling * grid.gsz))
     ray_ok = torch.isfinite(tnear) & torch.isfinite(tmax) & (tnear <= tmax)
     return origins, dirs, sh_mult, tnear, tmax, near_grid_t, ray_ok, delta_scale
-
-
-def _finalize(comp: dict) -> dict:
-    """Output dict of the packed renderer from the compositor's per-ray
-    values (the background is already added by the compositor)."""
-    log_T = comp["log_T"]
-    return {
-        "rgb": comp["rgb"],
-        "depth": comp["depth"],
-        "depth_mode": comp["depth_mode"],
-        "depth_med": comp["depth_med"],
-        "normal": comp["normal"],
-        "alpha": 1.0 - torch.exp(log_T),
-        "log_transmit": log_T,
-        "n_intersections": comp["n_intersections"],
-        "ray_losses": dict(zip(_RAY_LOSS_KEYS, comp["ray_losses"])),
-    }
 
 
 # ---------------------------------------------------------------------------
@@ -752,7 +741,8 @@ def cache_depth_med(cache: dict) -> torch.Tensor:
 
 
 def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None,
-                     window: int = 0, mode_first: bool = False, cache_size=None) -> dict:
+                     window: int = 0, mode_first: bool = False, cache_size=None,
+                     bg_rgb=None) -> dict:
     """Plain version of K4, the compositor of the JAX package
     ``volume_render_surface_packed`` (surface.py:1804-1953). The pool is
     laid out per ray, (B, E*S0) in (entry, slot) order, so every per-ray
@@ -760,7 +750,9 @@ def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None,
     cancels badly in float32. ``window`` (``_count_window``), ``mode_first``
     (the mode depth at the first max-weight sample, the rule of the JAX
     walks' ``_voxel_pass``) and ``cache_size`` (K11c, the first-K cache) give
-    the dense and compact renderers' semantics."""
+    the dense and compact renderers' semantics. ``bg_rgb`` (B, 3), the
+    background colour of ``render.background.background_color``, takes the
+    place of the brightness."""
     B = offsets.shape[0] - 1
     S0, M = smp["t"].shape
     dev = offsets.device
@@ -890,7 +882,8 @@ def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None,
     return {
         **out,
         "live": c3[ray, pos].T,
-        "rgb": rgb_acc + torch.exp(log_T)[:, None] * opt.background_brightness,
+        "rgb": rgb_acc + torch.exp(log_T)[:, None] * (
+            opt.background_brightness if bg_rgb is None else bg_rgb),
         "depth": depth,
         "normal": normal,
         "log_T": log_T,
@@ -920,7 +913,7 @@ PACKED = _Mode()
 
 def composite(grid: SparseGrid, opt: RenderOptions, offsets: torch.Tensor, smp: dict,
               sig_thresh: float | None = None, want_live: bool = False,
-              mode: _Mode = PACKED) -> dict:
+              mode: _Mode = PACKED, bg_rgb=None) -> dict:
     """K4: per-ray compositing of the (S0, M) slot arrays in (entry, slot)
     order. Returns rgb (with the background), depth, normal, log_T,
     depth_mode, depth_med, n_intersections, ray_losses (12, B) in
@@ -929,11 +922,13 @@ def composite(grid: SparseGrid, opt: RenderOptions, offsets: torch.Tensor, smp: 
     ``want_live`` (always on the CPU) the (S0, M) flags ``live`` of the
     samples that contribute after the stop_thresh kill; with
     ``mode.cache_size`` (K11c) the first-K ``cache`` and its median
-    ``cache_med``."""
+    ``cache_med``. ``bg_rgb`` (B, 3), K13's per-ray background colour,
+    takes the place of the brightness."""
     trunc_a = grid.truncated_vol_render_a
     if not offsets.is_cuda:
-        return _composite_plain(opt, trunc_a, offsets, smp, sig_thresh, *mode)
-    return kernels.composite(offsets, smp, trunc_a, opt, sig_thresh, want_live, *mode)
+        return _composite_plain(opt, trunc_a, offsets, smp, sig_thresh, *mode, bg_rgb=bg_rgb)
+    return kernels.composite(offsets, smp, trunc_a, opt, sig_thresh, want_live, *mode,
+                             bg_rgb=bg_rgb)
 
 
 def _intersections(grid: SparseGrid, pool: Pool, origins, dirs, smp: dict, comp: dict) -> dict:
@@ -985,16 +980,19 @@ _CACHE_KEYS = _CACHE_DIFF + ("fake_mask", "n_cached", "cache_med")
 
 class _SurfaceFn(torch.autograd.Function):
     """K3 and K4 forward; K5 backward into density, surface, SH and
-    fake_sample_std. ``rgb``, ``ray_losses`` and the cache's ts, alphas and
-    weights (K11d) take a cotangent."""
+    fake_sample_std, and into the per-ray background colour ``bg_rgb``
+    (K13's, or None). ``rgb``, ``ray_losses`` and the cache's ts, alphas
+    and weights (K11d) take a cotangent."""
 
     @staticmethod
-    def forward(ctx, density, surface, sh, fss, chunk: _Chunk):
+    def forward(ctx, density, surface, sh, fss, bg_rgb, chunk: _Chunk):
         c = chunk
         smp = voxel_samples(c.grid, c.opt, c.pool, c.origins, c.dirs, c.sh_mult, c.near_grid_t,
                             c.packed)
-        comp = composite(c.grid, c.opt, c.pool.offsets, smp, mode=c.mode)
+        bg_rgb = None if bg_rgb is None else bg_rgb.detach().contiguous()
+        comp = composite(c.grid, c.opt, c.pool.offsets, smp, mode=c.mode, bg_rgb=bg_rgb)
         ctx.chunk, ctx.smp, ctx.win = chunk, smp, comp.get("win")
+        ctx.bg_rgb, ctx.log_T = bg_rgb, comp["log_T"]
         ctx.set_materialize_grads(False)
         cache = comp.get("cache")
         if cache is None:  # no cache: empty stand-ins, one tensor each
@@ -1028,15 +1026,17 @@ class _SurfaceFn(torch.autograd.Function):
             g_c = tuple(torch.zeros((B, K), **f32) if g is None else g.contiguous()
                         for g in g_cache)
         d_alpha, d_t, d_col = kernels.backward_ray(
-            c.pool.offsets, smp, c.grid.truncated_vol_render_a, c.opt, g_rgb, g_rl, g_c)
+            c.pool.offsets, smp, c.grid.truncated_vol_render_a, c.opt, g_rgb, g_rl, g_c,
+            bg_rgb=ctx.bg_rgb)
         g_density, g_surface, g_sh, g_fss = kernels.backward_entry(
             c.pool.ray_id, c.pool.l, c.pool.close_t, c.pool.far_t, c.origins, c.dirs, c.sh_mult,
             c.grid.links, c.packed, c.grid.surface_data.shape[1], c.grid.level_set_data,
             c.near_grid_t, _fss(c.grid), c.opt, smp["contrib"], d_alpha, d_t, d_col, g_rl,
             ctx.win)
         need = ctx.needs_input_grad
+        g_bg = g_rgb * torch.exp(ctx.log_T)[:, None] if need[4] else None
         return (g_density[:, None] if need[0] else None, g_surface if need[1] else None,
-                g_sh if need[2] else None, g_fss.reshape(1, 1) if need[3] else None, None)
+                g_sh if need[2] else None, g_fss.reshape(1, 1) if need[3] else None, g_bg, None)
 
 
 _FN_OUTPUTS = ("rgb", "ray_losses", "depth", "normal", "log_T", "depth_mode", "depth_med",
@@ -1048,18 +1048,21 @@ _FN_OUTPUTS = ("rgb", "ray_losses", "depth", "normal", "log_T", "depth_mode", "d
 # ---------------------------------------------------------------------------
 
 def _render_plain(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed,
-                  mode: _Mode = PACKED) -> dict:
+                  mode: _Mode = PACKED, bg_rgb=None) -> dict:
     """K3 and K4's plain versions on one pool; differentiable by autograd."""
     smp = _voxel_samples_plain(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed)
-    return _composite_plain(opt, grid.truncated_vol_render_a, pool.offsets, smp, None, *mode)
+    return _composite_plain(opt, grid.truncated_vol_render_a, pool.offsets, smp, None, *mode,
+                            bg_rgb=bg_rgb)
 
 
-def _finalize(comp: dict, mode: _Mode, cache_med_depth: bool) -> dict:
+def _finalize(comp: dict, mode: _Mode, cache_med_depth: bool, bg=None) -> dict:
     """Output dict of a renderer from the compositor's per-ray values (the
     background is already added by the compositor). ``cache_med_depth``:
     ``depth_med`` is the cache's median (the dense and compact renderers,
     which have none without a cache); otherwise the cache-free median (the
-    packed renderer, surface.py:1996)."""
+    packed renderer, surface.py:1996). With a background (``bg``, the pair of
+    ``background_color``), ``log_transmit`` includes its log_T_bg and
+    ``alpha`` stays the foreground's (surface.py:1012-1024)."""
     log_T = comp["log_T"]
     out = {
         "rgb": comp["rgb"],
@@ -1067,7 +1070,7 @@ def _finalize(comp: dict, mode: _Mode, cache_med_depth: bool) -> dict:
         "depth_mode": comp["depth_mode"],
         "normal": comp["normal"],
         "alpha": 1.0 - torch.exp(log_T),
-        "log_transmit": log_T,
+        "log_transmit": log_T if bg is None else log_T + bg[1],
         "n_intersections": comp["n_intersections"],
         "ray_losses": dict(zip(_RAY_LOSS_KEYS, comp["ray_losses"])),
     }
@@ -1081,11 +1084,13 @@ def _finalize(comp: dict, mode: _Mode, cache_med_depth: bool) -> dict:
 
 
 def _render_pool(grid, opt, prep, pool, mode: _Mode, packed, sig_thresh=None,
-                 want_live: bool = False):
+                 want_live: bool = False, bg=None):
     """K3 and K4 (K5 under a gradient on the card, autograd of the plain
-    versions on the CPU) on a pool. Returns (comp, smp); smp is None when
-    K5 carries the gradient."""
+    versions on the CPU) on a pool, composited over the background ``bg``
+    (``background_color``'s pair, or None: the brightness). Returns (comp,
+    smp); smp is None when K5 carries the gradient."""
     origins, dirs, sh_mult, near_grid_t = prep
+    bg_rgb = None if bg is None else bg[0]
     params = (grid.density_data, grid.surface_data, grid.sh_data, grid.fake_sample_std)
     train = torch.is_grad_enabled() and any(p is not None and p.requires_grad for p in params)
     autograd = train and not origins.is_cuda  # K5 differentiates on the card
@@ -1098,7 +1103,7 @@ def _render_pool(grid, opt, prep, pool, mode: _Mode, packed, sig_thresh=None,
                 "return_intersections and depth_sigma_thresh are outputs of the forward "
                 "render; K5 does not carry them (ROADMAP §2 item 4)")
         chunk = _Chunk(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed, mode)
-        res = _SurfaceFn.apply(*params, chunk)
+        res = _SurfaceFn.apply(*params, bg_rgb, chunk)
         comp = dict(zip(_FN_OUTPUTS, res))
         if mode.cache_size is not None:
             cache = dict(zip(_CACHE_KEYS, res[len(_FN_OUTPUTS):]))
@@ -1106,17 +1111,19 @@ def _render_pool(grid, opt, prep, pool, mode: _Mode, packed, sig_thresh=None,
             comp["cache"] = cache
         return comp, None
     smp = voxel_samples(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed)
-    return composite(grid, opt, pool.offsets, smp, sig_thresh, want_live, mode), smp
+    return composite(grid, opt, pool.offsets, smp, sig_thresh, want_live, mode, bg_rgb), smp
 
 
 def _begin(grid, rays, opt, occupancy):
     """Ray setup shared by the renderers: (origins, dirs, sh_mult, tnear,
-    tmax, near_grid_t, ray_ok) and the occupancy words."""
+    tmax, near_grid_t, ray_ok), the occupancy words and the background
+    (``background_color``'s pair, None without one: K13 on the card)."""
     _check_supported(grid, opt)
     with torch.no_grad():
-        origins, dirs, sh_mult, tnear, tmax, near_grid_t, ray_ok, _ = _prep(grid, rays, opt)
+        origins, dirs, sh_mult, tnear, tmax, near_grid_t, ray_ok, ds = _prep(grid, rays, opt)
         words = occupancy_words(grid, opt) if occupancy is None else occupancy
-    return origins, dirs, sh_mult, tnear, tmax, near_grid_t, ray_ok, words
+    bg = background_color(grid, opt, origins, dirs, ds)
+    return origins, dirs, sh_mult, tnear, tmax, near_grid_t, ray_ok, words, bg
 
 
 def _phase_a_bounds(tnear, tmax, ray_ok):
@@ -1151,7 +1158,8 @@ def volume_render_surface(grid: SparseGrid, rays: Rays, opt: RenderOptions,
     chunks, as for the packed renderer."""
     if max_voxels is None:
         max_voxels = max_voxels_for(grid)
-    origins, dirs, sh_mult, tnear, tmax, ngt, ray_ok, words = _begin(grid, rays, opt, occupancy)
+    origins, dirs, sh_mult, tnear, tmax, ngt, ray_ok, words, bg = _begin(grid, rays, opt,
+                                                                          occupancy)
     with torch.no_grad():
         if return_samples:
             if origins.is_cuda:
@@ -1162,8 +1170,8 @@ def volume_render_surface(grid: SparseGrid, rays: Rays, opt: RenderOptions,
         else:
             pool = dense_walk(grid, origins, dirs, tnear, tmax, ray_ok, words, max_voxels)
     mode = _Mode(1, True, cache_size)
-    comp, _ = _render_pool(grid, opt, (origins, dirs, sh_mult, ngt), pool, mode, packed)
-    out = _finalize(comp, mode, cache_med_depth=True)
+    comp, _ = _render_pool(grid, opt, (origins, dirs, sh_mult, ngt), pool, mode, packed, bg=bg)
+    out = _finalize(comp, mode, cache_med_depth=True, bg=bg)
     if return_samples:
         out["samples"] = _samples(comp, pool, step, max_voxels, origins.shape[0])
     return out
@@ -1182,7 +1190,8 @@ def volume_render_surface_compact(grid: SparseGrid, rays: Rays, opt: RenderOptio
     dense walk while no ray has more than K occupied crossings;
     ``n_occupied`` is each ray's uncapped count. ``unroll`` is a scheduling
     knob of the JAX scan, accepted for signature parity."""
-    origins, dirs, sh_mult, tnear, tmax, ngt, ray_ok, words = _begin(grid, rays, opt, occupancy)
+    origins, dirs, sh_mult, tnear, tmax, ngt, ray_ok, words, bg = _begin(grid, rays, opt,
+                                                                          occupancy)
     K = max_intersect_voxels
     with torch.no_grad():
         pool = compact_crossings(grid, origins, dirs, *_phase_a_bounds(tnear, tmax, ray_ok),
@@ -1191,8 +1200,8 @@ def volume_render_surface_compact(grid: SparseGrid, rays: Rays, opt: RenderOptio
         raise NotImplementedError("return_samples runs on the plain path only; pass CPU rays")
     V = max(1, min(voxel_chunk, K))
     mode = _Mode(V, True, cache_size)
-    comp, _ = _render_pool(grid, opt, (origins, dirs, sh_mult, ngt), pool, mode, packed)
-    out = _finalize(comp, mode, cache_med_depth=True)
+    comp, _ = _render_pool(grid, opt, (origins, dirs, sh_mult, ngt), pool, mode, packed, bg=bg)
+    out = _finalize(comp, mode, cache_med_depth=True, bg=bg)
     out["n_occupied"] = pool.n_occupied
     if return_samples:
         pos = torch.arange(pool.close_t.shape[0]) - pool.offsets[pool.ray_id.long()]
@@ -1226,14 +1235,15 @@ def volume_render_surface_packed(
     SH and fake_sample_std: on the card through K5, on the CPU through
     autograd of the plain path (which then packs the rows itself, so that
     they carry the gradient)."""
-    origins, dirs, sh_mult, tnear, tmax, ngt, ray_ok, words = _begin(grid, rays, opt, occupancy)
+    origins, dirs, sh_mult, tnear, tmax, ngt, ray_ok, words, bg = _begin(grid, rays, opt,
+                                                                          occupancy)
     with torch.no_grad():
         pool = compact_crossings_packed(grid, origins, dirs,
                                         *_phase_a_bounds(tnear, tmax, ray_ok), words)
     mode = _Mode(cache_size=cache_size)
     comp, smp = _render_pool(grid, opt, (origins, dirs, sh_mult, ngt), pool, mode, packed,
-                             depth_sigma_thresh, return_intersections)
-    out = _finalize(comp, mode, cache_med_depth=False)
+                             depth_sigma_thresh, return_intersections, bg)
+    out = _finalize(comp, mode, cache_med_depth=False, bg=bg)
     out["n_occupied"] = pool.n_occupied
     out["n_entries_used"] = pool.close_t.shape[0]
     out["pool_overflow"] = 0

@@ -11,11 +11,16 @@ regularizers (K6) and the extended surface regularizers its flags turn on
 ``use_sign_change``: K12a-K12d), and applies masked RMSprop (K7) to
 density, SH, surface and fake_sample_std, in place. A cuvol step renders through the
 packed cuvol renderer (K8 forward and backward over K2's pool), adds the TV
-of density and SH (K6) and applies K7 to density and SH. On the card each
-makes one host sync, the one that sizes K2's pool. Per-step scalars come in
-``HParams`` as Python floats; a term whose weight is 0 is computed all the
-same, as the JAX step does, except ``l2_color_loss`` (a full pass over the
-SH rows for nothing).
+of density and SH (K6) and applies K7 to density and SH. Both steps render
+a grid's MSI background through K13 and, when the rms state holds a
+"background" group, train it (the JAX package's aux group): the background
+TV (K12f) and, with ``use_lumisphere_tv``, the SH colours' lumisphere TV
+(K12e) join the loss, and K7 steps the background's (link, layer) rows. On
+the card each makes one host sync, the one that sizes K2's pool. Per-step
+scalars come in ``HParams`` as Python floats; a term whose weight is 0 is
+computed all the same, as the JAX step does, except ``l2_color_loss`` (a
+full pass over the SH rows for nothing) and the background TV with both of
+its weights 0 (a pass over the background's cells for nothing).
 """
 from __future__ import annotations
 
@@ -129,17 +134,19 @@ class StepConfig:
 
 # the sampled windows of one step, named as ``window_starts`` keys; "normal"
 # is also the window of the extended terms K12a, K12b and K12d, and
-# "sign_change" that of K12c (JAX's k_ext, steps.py:348)
-WINDOWS = ("tv", "tv_sh", "tv_surface", "normal", "sparsify", "sign_change")
+# "sign_change" that of K12c (JAX's k_ext, steps.py:348); "lumisphere" the
+# lattice window of K12e (drawn only with use_lumisphere_tv)
+WINDOWS = ("tv", "tv_sh", "tv_surface", "normal", "sparsify", "sign_change", "lumisphere")
 # the StepConfig switches of the extended surface regularizers
 EXT_FLAGS = ("use_eikonal", "use_norm_match", "use_viscosity", "use_sign_change")
-CUVOL_WINDOWS = ("tv", "tv_sh")
+CUVOL_WINDOWS = ("tv", "tv_sh", "lumisphere")
 _PARAMS = (("density", "density_data"), ("sh", "sh_data"), ("surface", "surface_data"),
-           ("fake_sample_std", "fake_sample_std"))
+           ("fake_sample_std", "fake_sample_std"), ("background", "background_data"))
 
 
 def init_rms(grid: SparseGrid) -> dict:
-    """Zero rms state of each trained group, keyed as the JAX ``init_rms``."""
+    """Zero rms state of each trained group, keyed as the JAX ``init_rms``
+    (the background's "background" included)."""
     return {k: rmsprop_init(getattr(grid, f)) for k, f in _PARAMS
             if getattr(grid, f) is not None}
 
@@ -171,10 +178,6 @@ def _check_config(cfg: StepConfig) -> None:
     """Raise on what the port's steps do not carry."""
     if cfg.renderer not in RENDERERS:
         raise ValueError(f"renderer {cfg.renderer!r}; one of {RENDERERS}")
-    if cfg.use_lumisphere_tv:
-        raise NotImplementedError(
-            "use_lumisphere_tv is not ported yet (ROADMAP §1 item 2: the lumisphere TV goes "
-            "with the learned basis and the background)")
     if cfg.axis_name is not None:
         raise NotImplementedError("data-parallel steps (axis_name) are not ported yet "
                                   "(ROADMAP §1 item 4)")
@@ -184,8 +187,41 @@ def _check_rms(rms: dict) -> None:
     extra = set(rms) - {k for k, _ in _PARAMS}
     if extra:
         raise NotImplementedError(
-            f"rms groups {sorted(extra)} (learned bases, background) are not ported yet "
-            "(ROADMAP §1 item 2)")
+            f"rms groups {sorted(extra)} (the learned basis) are not ported yet "
+            "(ROADMAP §1 item 2b)")
+
+
+def _trained(grid: SparseGrid, rms: dict) -> dict:
+    """The parameters a step trains: each group of ``rms`` whose grid field
+    exists (the background, like JAX's aux groups, only then)."""
+    return {k: getattr(grid, f) for k, f in _PARAMS if k in rms and getattr(grid, f) is not None}
+
+
+def _aux_reg_losses(grid: SparseGrid, hp: HParams, cfg: StepConfig, generator, starts):
+    """The regularizers both stages add (steps.py:177-194): the L2 of the
+    SH colours, the background TV (K12f) over ``bg_sparsity`` of its cells
+    drawn with replacement, and with ``use_lumisphere_tv`` the lumisphere TV
+    (K12e) over the "lumisphere" lattice window along a drawn direction."""
+    loss = 0.0
+    if hp.lambda_l2_color != 0.0:
+        loss = loss + hp.lambda_l2_color * reg.l2_color_loss(grid)
+    if grid.background_data is not None and (hp.lambda_tv_background != 0.0
+                                             or hp.lambda_tv_background_density != 0.0):
+        cells_bg = reg.sample_background_cells(generator, grid, cfg.bg_sparsity)
+        loss = loss + reg.background_tv_loss(grid, cells_bg, hp.lambda_tv_background,
+                                             hp.lambda_tv_background_density)
+    if cfg.use_lumisphere_tv:
+        cells = reg.sample_cells(generator, grid, cfg.lumisphere_sparsity, starts.get("lumisphere"))
+        loss = loss + hp.lambda_tv_lumisphere * reg.lumisphere_tv_loss(grid, cells, generator)
+    return loss
+
+
+def _step_background(grid: SparseGrid, rms: dict, g: dict, hp: HParams, beta: float) -> None:
+    """K7 on the background group, its (link, layer) rows of 4 channels
+    each (``_aux_optim``, steps.py:214-218)."""
+    if "background" in g:
+        rmsprop_step(grid.background_data.view(-1, 4), rms["background"].view(-1, 4),
+                     g["background"].reshape(-1, 4), hp.lr_background, beta)
 
 
 def _window_starts(window_starts, names) -> dict:
@@ -238,7 +274,7 @@ def make_surface_step(cfg: StepConfig):
         starts = _window_starts(window_starts, WINDOWS)
         reg_scale, sample = _sampler(generator, grid, row_coords, starts)
         ext = any(getattr(cfg, f) for f in EXT_FLAGS)
-        params = {k: getattr(grid, f) for k, f in _PARAMS if k in rms}
+        params = _trained(grid, rms)
         cache = cfg.cache_size if cfg.use_two_pass_losses else None
         with _requires_grad(list(params.values())):
             if cfg.renderer == "packed":
@@ -322,8 +358,7 @@ def make_surface_step(cfg: StepConfig):
                 cells = sample("sign_change", cfg.norm_surface_sparsity)
                 loss = loss + reg_scale * hp.lambda_sign_change * reg.surface_sign_change_loss(
                     grid, cells)
-            if hp.lambda_l2_color != 0.0:
-                loss = loss + hp.lambda_l2_color * reg.l2_color_loss(grid)
+            loss = loss + _aux_reg_losses(grid, hp, cfg, generator, starts)
             if "fake_sample_std" in params:
                 # L1/L2 on fake_sample_std (svox2.py:6073-6075)
                 fss = grid.fake_sample_std
@@ -350,6 +385,7 @@ def make_surface_step(cfg: StepConfig):
                 rmsprop_step(grid.fake_sample_std, rms["fake_sample_std"],
                              g["fake_sample_std"], hp.lr_fake_sample_std, beta,
                              minval=1e-8)  # opt.py:1141-1142
+            _step_background(grid, rms, g, hp, beta)
         stats = {"loss": loss.detach(), "mse": mse.detach(),
                  "pool_overflow": torch.zeros((), dtype=torch.int32, device=mse.device)}
         return grid, rms, stats
@@ -385,8 +421,9 @@ def make_cuvol_step(cfg: StepConfig):
         _check_rms(rms)
         starts = _window_starts(window_starts, CUVOL_WINDOWS)
         reg_scale, sample = _sampler(generator, grid, row_coords, starts)
-        params = [grid.density_data, grid.sh_data]
-        with _requires_grad(params):
+        params = {k: p for k, p in _trained(grid, rms).items()
+                  if k in ("density", "sh", "background")}
+        with _requires_grad(list(params.values())):
             out = volume_render_cuvol_packed(grid, rays, cfg.opt, occupancy=occ)
             mse = torch.mean((out["rgb"] - rgb_gt) ** 2)
             loss = mse
@@ -394,17 +431,20 @@ def make_cuvol_step(cfg: StepConfig):
             loss = loss + reg_scale * hp.lambda_tv * reg.tv_loss(grid, grid.density_data, cells)
             cells = sample("tv_sh", cfg.tv_sh_sparsity)
             loss = loss + reg_scale * hp.lambda_tv_sh * reg.tv_loss(grid, grid.sh_data, cells)
-            if hp.lambda_l2_color != 0.0:
-                loss = loss + hp.lambda_l2_color * reg.l2_color_loss(grid)
-            g_density, g_sh = torch.autograd.grad(loss, params)
+            loss = loss + _aux_reg_losses(grid, hp, cfg, generator, starts)
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        g = {k: torch.zeros_like(p) if gk is None else gk
+             for (k, p), gk in zip(params.items(), grads)}
 
         # the JAX step keeps the old parameters when its pool overflowed
         # (steps.py:520-530); the port's pool never overflows (see
         # make_surface_step)
         overflow = out["pool_overflow"]
         if overflow == 0 or hp.force_apply > 0:
-            rmsprop_step(grid.density_data, rms["density"], g_density, hp.lr_sigma, cfg.rms_beta)
-            rmsprop_step(grid.sh_data, rms["sh"], g_sh, hp.lr_sh, cfg.rms_beta)
+            rmsprop_step(grid.density_data, rms["density"], g["density"], hp.lr_sigma,
+                         cfg.rms_beta)
+            rmsprop_step(grid.sh_data, rms["sh"], g["sh"], hp.lr_sh, cfg.rms_beta)
+            _step_background(grid, rms, g, hp, cfg.rms_beta)
         stats = {"loss": loss.detach(), "mse": mse.detach(),
                  "pool_overflow": torch.zeros((), dtype=torch.int32, device=mse.device)}
         return grid, rms, stats

@@ -11,8 +11,8 @@ from .. import defs
 from ..core.device import resolve_device
 from ..core.grid import SparseGrid
 
-# checkpoint keys of fields this slice does not carry (ROADMAP §1 item 2)
-_UNSUPPORTED_KEYS = ("background_data", "basis_data")
+# checkpoint keys of fields the port does not carry yet (ROADMAP §1 item 2b)
+_UNSUPPORTED_KEYS = ("basis_data",)
 
 
 def save_grid(grid: SparseGrid, path: str, step_id: int = 0) -> None:
@@ -30,6 +30,9 @@ def save_grid(grid: SparseGrid, path: str, step_id: int = 0) -> None:
     for k in ("surface_data", "level_set_data", "fake_sample_std"):
         if a[k] is not None:
             data[k] = np.asarray(a[k], np.float32)
+    if a["background_data"] is not None:
+        data["background_links"] = np.asarray(a["background_links"])
+        data["background_data"] = np.asarray(a["background_data"], np.float32)
     np.savez(path, **data)
 
 
@@ -40,9 +43,9 @@ def load_grid(path: str, device="cuda", dtype=torch.float32) -> tuple[SparseGrid
     z = np.load(path, allow_pickle=True)
     for k in _UNSUPPORTED_KEYS:
         if k in z.files and z[k].size:
-            raise NotImplementedError(f"checkpoint field {k!r} is not ported yet (ROADMAP §1 item 2)")
+            raise NotImplementedError(f"checkpoint field {k!r} is not ported yet (ROADMAP §1 item 2b)")
     if any(k.startswith("basis_mlp.") for k in z.files):
-        raise NotImplementedError("the learned MLP basis is not ported yet (ROADMAP §1 item 2)")
+        raise NotImplementedError("the learned MLP basis is not ported yet (ROADMAP §1 item 2b)")
     sh_data = z["sh_data"].astype(np.float32)
     density_data = z["density_data"].astype(np.float32)
     links = z["links"]
@@ -81,5 +84,8 @@ def load_grid(path: str, device="cuda", dtype=torch.float32) -> tuple[SparseGrid
         "surface_type": surface_type,
         "basis_type": int(z["basis_type"]) if "basis_type" in z else defs.BASIS_TYPE_SH,
     }
+    if "background_data" in z:
+        arrays["background_links"] = z["background_links"].astype(np.int32)
+        arrays["background_data"] = z["background_data"].astype(np.float32)
     step_id = int(z["step_id"]) if "step_id" in z else 0
     return SparseGrid.from_numpy(arrays, device=dev, dtype=dtype), step_id

@@ -11,7 +11,8 @@ masks, K9b lattice resample, K9c weight march, K9d visibility walk, K9e
 transmittance march, K9f mask sweep, K9g iso points, K4's sigma-thresh
 depth and intersect_points, K11a dense walk count + fill, K11b capped
 fill, K11c the first-K cache in K4, K11d its gradient in K5, K12a-K12d the
-extended surface regularizers), then:
+extended surface regularizers, K12e the lumisphere TV, K12f the background
+TV, K13 the MSI background forward and backward), then:
 
 1. prints the card, its power limit, nvcc's register/spill lines and the
    build seconds;
@@ -105,10 +106,24 @@ extended surface regularizers), then:
    lambda_surface_eikonal; a test PSNR from render_imgs above the
    untrained grid's, a finite Chamfer against the scene's GT points);
    app/eval_imgs and app/debug_render on its checkpoint;
-11. prints one JSON line with each kernel's numbers, then the ok line.
+11. a Tanks-and-Temples-style capture with an MSI background: an
+   NSVF-layout scene written by the script (24 train and 4 test RGB views
+   at 1920x1080, cameras at radius 0.95 inside the 256^3 foreground grid
+   after the loader's normalisation, a sphere of 0.25 inside, a 64-layer
+   MSI at reso 1024, 2.15 GB, behind); K13 forward and backward, K12e and
+   K12f against their plain versions at the background's full size, K4,
+   K5a, K8 and K10 with per-ray colours; bench_step's protocol with the
+   background group (K13, K12e, K12f, K7 on its rows) and a profiled step;
+   then, with the counters set to 0 just before and read just after,
+   app/train.main on it with dataset_type nsvf (resumed from a checkpoint
+   holding the ground-truth MSI: the warm start, init_surface and the
+   surface stage, 100 + 100 steps) and app/render_imgs on the test split,
+   beside the same run without a background (the run with it must score
+   higher); one 1920x1080 frame through app/render_circle from each;
+12. prints one JSON line with each kernel's numbers, then the ok line.
 
 ``--phases`` runs a subset (kernels, serve, train, warm, stages,
-extract, dtu, renderers, blender); the default runs them all, as the
+extract, dtu, renderers, blender, tnt); the default runs them all, as the
 checks above require. Exits non-zero, printing no result,
 without a CUDA device or without the ``alphasurf_torch`` package beside
 it. Imports nothing of JAX.
@@ -152,6 +167,20 @@ FLAG_FRACTION = 1e-5
 # the rows either touches may differ elementwise by more than
 # GRAD_ATOL + GRAD_RTOL |g_p|.
 GRAD_REL, GRAD_ROW_FRACTION, GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4, 1e-3, 1e-6
+# K13's backward: a background row sums the contributions of up to 130 steps
+# of many rays, each through exp(log_T) with log_T down to -40, and its
+# gradients reach 1e2; the plain float32 version is itself 2.7e-5 of the
+# largest gradient away from a float64 reference (a 2,048-ray chunk at 64
+# layers, reso 128, on the CPU), and the kernel as far. So its elementwise
+# floor is BG_GRAD_ATOL_REL of the plain version's largest gradient.
+BG_GRAD_ATOL_REL = 1e-4
+# K12e and K12f over every cell: each row's gradient sums the terms of its
+# own cell and its 3 neighbours' (TV differences of a smooth field), which
+# cancel to ~1e-3 of themselves, so the float32 rounding of the terms is
+# ~1e-4 of the sum (2.3e-4 of the norm for K12e at 256^3 on the H100, with
+# no row outside GRAD_RTOL / GRAD_ATOL); on a window the terms of most rows
+# do not cancel and GRAD_REL holds
+DENSE_TV_GRAD_REL = 1e-3
 # K6: the same per-cell arithmetic in the same order; the loss is a float32
 # sum over cells in another order (rtol 1e-5), the row gradients sums of at
 # most 20 contributions in another order.
@@ -213,6 +242,12 @@ KERNELS = {  # name -> (source, the JAX routine it replaces)
     "reg_viscosity": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:599"),
     "reg_sign_change": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:630"),
     "reg_eikonal": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:791"),
+    "reg_lumisphere": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:734"),
+    "reg_background_tv": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:673"),
+    "background_forward": ("alphasurf_torch/csrc/background.cu",
+                           f"{JAX_PACKAGE}/render/background.py:32"),
+    "background_backward": ("alphasurf_torch/csrc/background.cu",
+                            f"{JAX_PACKAGE}/render/background.py:32"),
 }
 SERVE_KERNELS = ("occupancy", "phase_a_count", "phase_a_fill", "phase_b", "composite")
 TRAIN_KERNELS = SERVE_KERNELS + ("backward_ray", "backward_entry", "reg_tv", "reg_normal",
@@ -228,20 +263,24 @@ DTU_KERNELS = ("mask_march", "composite_sigma_thresh", "intersect_points")
 RENDERER_KERNELS = ("dense_walk_count", "dense_walk_fill", "compact_fill", "composite_cache",
                     "backward_cache")
 EXTENDED_KERNELS = ("reg_norm_match", "reg_viscosity", "reg_sign_change", "reg_eikonal")
+BACKGROUND_KERNELS = ("background_forward", "background_backward", "reg_lumisphere",
+                      "reg_background_tv")
 # the three-stage run initialises its surface from the density: every kernel
-# but K9e, the DTU path's, the compact and dense renderers' and K12's
+# but K9e, the DTU path's, the compact and dense renderers', K12's and K13's
 STAGE_RUN_KERNELS = tuple(k for k in KERNELS if k not in ("transmit_march",) + DTU_KERNELS
-                          + RENDERER_KERNELS + EXTENDED_KERNELS)
+                          + RENDERER_KERNELS + EXTENDED_KERNELS + BACKGROUND_KERNELS)
 # the pipeline: the Plenoxels stage and its eval, the weight init with
 # visibility pruning, the surface stage, the extraction
 PIPELINE_KERNELS = TRAIN_KERNELS + WARM_NEW_KERNELS + (
     "prune_mask", "keep_mask", "visibility", "transmit_march", "iso_points",
     "dense_walk_count", "dense_walk_fill")  # K11a renders the dataset's ground truth
 # the DTU path: the three stages with mask pruning at the surface init,
-# the extractors: every kernel but K9e and the compact and dense renderers'
-DTU_PATH_KERNELS = tuple(k for k in KERNELS
-                         if k not in ("transmit_march",) + RENDERER_KERNELS + EXTENDED_KERNELS)
-PHASES = ("kernels", "serve", "train", "warm", "stages", "extract", "dtu", "renderers", "blender")
+# the extractors: every kernel but K9e, the compact and dense renderers',
+# K12's and K13's
+DTU_PATH_KERNELS = tuple(k for k in KERNELS if k not in ("transmit_march",) + RENDERER_KERNELS
+                         + EXTENDED_KERNELS + BACKGROUND_KERNELS)
+PHASES = ("kernels", "serve", "train", "warm", "stages", "extract", "dtu", "renderers", "blender",
+          "tnt")
 CUVOL_RESO = 256  # the warm start's grid (the Config's first reso)
 WARM_STEPS = 100  # Trainer steps of the warm-start run
 TRAIN_BATCH = 40960
@@ -593,23 +632,25 @@ def check_composite_options(grid, opt, pool, origins, dirs, sp, smp, nb4: int) -
     return res
 
 
-def grad_check(name: str, gk, gp, kernel: str = "K5") -> float:
-    """The backward kernels' tolerance (GRAD_*) on one parameter group;
-    returns the max abs error."""
+def grad_check(name: str, gk, gp, kernel: str = "K5", atol: float = GRAD_ATOL,
+               rel_tol: float = GRAD_REL) -> float:
+    """The backward kernels' tolerance (GRAD_*, or the floor ``atol`` and
+    the norm tolerance ``rel_tol``) on one parameter group; returns the max
+    abs error."""
     import torch
 
     gk, gp = gk.double().reshape(gk.shape[0], -1), gp.double().reshape(gp.shape[0], -1)
     d = (gk - gp).abs()
     rel = float((gk - gp).norm() / gp.norm().clamp(min=1e-30))
     touched = (gk != 0).any(-1) | (gp != 0).any(-1)
-    bad = ((d > GRAD_ATOL + GRAD_RTOL * gp.abs()).any(-1) & touched)
+    bad = ((d > atol + GRAD_RTOL * gp.abs()).any(-1) & touched)
     frac = float(bad.sum()) / max(int(touched.sum()), 1)
     big = gp.abs().amax(-1)
     log(f"  {name}: |g| {float(gp.norm()):.4e}, max |g| plain {float(big.max()):.4e} kernel "
         f"{float(gk.abs().max()):.4e}, rel err {rel:.3e}, {int(bad.sum())} of "
-        f"{int(touched.sum())} touched rows outside rtol {GRAD_RTOL}/atol {GRAD_ATOL}, "
+        f"{int(touched.sum())} touched rows outside rtol {GRAD_RTOL}/atol {atol:.3e}, "
         f"max abs err {float(d.max()):.3e}")
-    if not (rel <= GRAD_REL and frac <= GRAD_ROW_FRACTION):
+    if not (rel <= rel_tol and frac <= GRAD_ROW_FRACTION):
         raise AssertionError(f"{kernel} {name} gradient differs from autograd of the plain path: "
                              f"rel {rel}, row fraction {frac}")
     return float(d.max())
@@ -2730,7 +2771,7 @@ def check_renderer_kernels(device, card: str) -> dict:
     rays_all = frame_camera(0, 2).gen_rays_device(device)
     s = (WIDTH * HEIGHT) // 2 - CHUNK // 2
     rays = Rays(rays_all.origins[s:s + CHUNK].contiguous(), rays_all.dirs[s:s + CHUNK].contiguous())
-    origins, dirs, sh_mult, tnear, tmax, ngt, ok, words = S._begin(grid, rays, opt, None)
+    origins, dirs, sh_mult, tnear, tmax, ngt, ok, words, _ = S._begin(grid, rays, opt, None)
     B = origins.shape[0]
     mv = S.max_voxels_for(grid)
     t0 = torch.where(ok, tnear, torch.zeros_like(tnear))
@@ -2962,7 +3003,7 @@ def renderers(device, card: str, work: Path) -> tuple[dict, dict]:
             + f" [{card}]")
     for i in range(2):
         rays = frame_camera(i, 2).gen_rays_device(device)
-        o, d, _, tnear, tmax, _, ok, _ = S._begin(grid, rays, opt, words)
+        o, d, _, tnear, tmax, _, ok, _, _ = S._begin(grid, rays, opt, words)
         tn, tx = S._phase_a_bounds(tnear, tmax, ok)
         n_occ = torch.cat([kernels.phase_a_count(o[c:c + CHUNK].contiguous(),
                                                  d[c:c + CHUNK].contiguous(),
@@ -3518,6 +3559,668 @@ def blender(device, card: str, work: Path) -> tuple[dict, dict]:
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# the Tanks-and-Temples-style capture: NSVF layout, an MSI background
+# ---------------------------------------------------------------------------
+
+TNT_W, TNT_H = 1920, 1080  # Tanks and Temples' image size
+TNT_FOCAL = 1165.0  # near the intrinsics of Tanks and Temples' 1920x1080 captures
+TNT_TRAIN, TNT_TEST = 24, 4  # cut from a capture's few hundred views for the time limit
+BG_LAYERS, BG_RESO = 64, 1024  # the Plenoxels Tanks-and-Temples background
+CAM_SCALE_FACTOR = 0.95  # the NSVF loader's: cameras at a median radius 0.95
+TNT_OBJECT_RADIUS = 0.25  # the object's sphere, in the normalised scene (cameras outside it)
+TNT_RAW_RADIUS, TNT_RAW_CENTER = 4.2, (0.6, -0.4, 1.3)  # the capture's own frame
+# the step at bench.py's protocol with the background group: lr_background
+# and the two background regularizers (K12e, K12f) on
+TNT_HP = {"lr_background": 1e-2, "lambda_tv_background": 1e-3,
+          "lambda_tv_background_density": 1e-3, "lambda_tv_lumisphere": 1e-3}
+# the Trainer's path on the capture: the warm start, the surface init (the
+# prune and keep masks) and the surface stage, each rendering and training
+# through K13, and the eval's dense march; a run resumed at step 0 from a
+# grid at the stage's reso takes no density resample before the init (both
+# packages set the stage from the checkpoint's reso)
+TNT_KERNELS = TRAIN_KERNELS + WARM_STEP_KERNELS + (
+    "cuvol_march", "keep_mask", "prune_mask", "background_forward", "background_backward")
+
+
+def tnt_poses(split: str, n: int, seed: int = SEED):
+    """OpenCV camera-to-world poses of the capture in its own frame: a ring
+    around TNT_RAW_CENTER at radius TNT_RAW_RADIUS, elevations -5..25
+    degrees, looking at the centre; the test views between the train ones."""
+    import numpy as np
+
+    from alphasurf_torch.data.synthetic import pose_spherical
+
+    rng = np.random.default_rng(seed + (0 if split == "train" else 1))
+    out = []
+    for i in range(n):
+        az = 360.0 * (i + (0.0 if split == "train" else 0.5)) / n + rng.uniform(-4, 4)
+        c2w = pose_spherical(az, rng.uniform(-5, 25), TNT_RAW_RADIUS).astype(np.float64)
+        c2w[:3, 3] += TNT_RAW_CENTER
+        out.append(c2w)
+    return out
+
+
+def tnt_background(device, seed: int = SEED):
+    """The ground-truth MSI: every one of the (2R, R) links present, rows in
+    flat order, (2R R, nlayers, 4) float32 on the card (2.15 GB at 64 x
+    1024): colours a few smooth waves of (u, v), periodic in u, different
+    in each layer; density 0.05-0.15 in every layer, so that the far
+    layers' spacing makes the spheres opaque."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 7)
+    nlayers, reso = BG_LAYERS, BG_RESO
+    W, H = 2 * reso, reso
+    links = torch.arange(W * H, dtype=torch.int32, device=device).reshape(W, H)
+    u = (torch.arange(W, device=device, dtype=torch.float32) / W)[:, None].expand(W, H)
+    v = (torch.arange(H, device=device, dtype=torch.float32) / H)[None, :].expand(W, H)
+    data = torch.empty((W * H, nlayers, 4), dtype=torch.float32, device=device)
+    ku = rng.integers(1, 6, (4, 3))
+    kv = rng.uniform(0.5, 4.0, (4, 3))
+    amp = rng.uniform(0.3, 0.8, (4, 3))
+    phase = rng.uniform(0, 2 * np.pi, (4, 3))
+    for layer in range(nlayers):
+        f = layer / nlayers
+        for c in range(3):
+            acc = torch.zeros((W, H), device=device)
+            for j in range(4):
+                acc += float(amp[j, c]) * torch.sin(2 * np.pi * (float(ku[j, c]) * u
+                                                                 + float(kv[j, c]) * v)
+                                                    + float(phase[j, c]) + 3.0 * f * (j + 1))
+            data[:, layer, c] = acc.reshape(-1)
+        data[:, layer, 3] = (0.1 + 0.05 * torch.sin(2 * np.pi * (2 * u + 3 * v) + 5.0 * f)
+                             ).reshape(-1)
+    return links, data
+
+
+def tnt_gt_grid(device, dtype=None):
+    """The scene's foreground: make_gt_grid(CUVOL_RESO) with its sphere
+    shrunk to radius TNT_OBJECT_RADIUS (the SDF shifted by the difference in
+    voxels), and the ground-truth MSI of tnt_background."""
+    import torch
+
+    from alphasurf_torch.data.synthetic import make_gt_grid
+
+    dtype = torch.float32 if dtype is None else dtype
+    g = make_gt_grid(CUVOL_RESO, basis_dim=9, dtype=dtype, device=device)
+    shift = (0.5 - TNT_OBJECT_RADIUS) * CUVOL_RESO / 2.0
+    links, data = tnt_background(device)
+    return g.replace(surface_data=g.surface_data.detach() - shift, background_links=links,
+                     background_data=data.to(dtype))
+
+
+def write_tnt_scene(device, root: Path) -> dict:
+    """An NSVF-layout capture (rgb/0_*.png and 2_*.png, pose/*.txt,
+    intrinsics.txt as a 4x4 matrix) of tnt_gt_grid: TNT_TRAIN + TNT_TEST RGB
+    views at TNT_W x TNT_H with TNT_FOCAL, poses in the capture's own frame
+    (tnt_poses). The images are rendered in the frame the loader normalises
+    to (similarity_from_cameras over every pose, CAM_SCALE_FACTOR): cameras
+    at radius 0.95 inside the unit foreground grid, the object's sphere of
+    TNT_OBJECT_RADIUS at the centre, the MSI behind it, through the packed
+    renderer and K13 on host-made rays; as in write_dtu_scene, the rays
+    whose float32 bounds lose their exit (ROADMAP §3) are re-rendered in
+    float64 through the plain path (the foreground; the background, which
+    does not depend on the bounds, from K13)."""
+    import numpy as np
+    import torch
+
+    from alphasurf_torch.core.options import RenderOptions
+    from alphasurf_torch.core.rays import Camera, Rays
+    from alphasurf_torch.data.nsvf import similarity_from_cameras
+    from alphasurf_torch.render import background as BG
+    from alphasurf_torch.render import surface as S
+    from alphasurf_torch.render.image import render_rays
+    from alphasurf_torch.utils.png import write_png
+
+    t0 = time.perf_counter()
+    (root / "rgb").mkdir(parents=True, exist_ok=True)
+    (root / "pose").mkdir(exist_ok=True)
+    K = np.eye(4)
+    K[0, 0] = K[1, 1] = TNT_FOCAL
+    K[0, 2], K[1, 2] = TNT_W / 2.0, TNT_H / 2.0
+    np.savetxt(root / "intrinsics.txt", K)
+    views = [(f"0_{i:04d}", p) for i, p in enumerate(tnt_poses("train", TNT_TRAIN))]
+    views += [(f"2_{i:04d}", p) for i, p in enumerate(tnt_poses("test", TNT_TEST))]
+    for name, pose in views:
+        np.savetxt(root / "pose" / f"{name}.txt", pose)
+    # the loader's normalisation, from the poses as it reads them back
+    raw = {name: np.loadtxt(root / "pose" / f"{name}.txt").reshape(4, 4) for name, _ in views}
+    T, sscale = similarity_from_cameras(np.stack([raw[k] for k in sorted(raw)]))
+    grid = tnt_gt_grid(device)
+    grid64 = grid.replace(background_links=None, background_data=None, **{
+        k: getattr(grid, k).double() for k in ("density_data", "sh_data", "surface_data",
+                                               "level_set_data", "truncated_vol_render_a",
+                                               "radius", "center")})
+    opt = RenderOptions(sigma_thresh=-1e9, stop_thresh=-1.0, only_outward_intersect=True)
+    with torch.no_grad():
+        words64 = S._occupancy_words_plain(grid64, opt)
+        packed64 = S.pack_grid_data(grid64)
+    t_render, redo_n, c2ws = 0.0, {}, {}
+    for name, _ in views:
+        c2w = T @ raw[name]
+        c2w[:3, 3] *= CAM_SCALE_FACTOR * sscale
+        c2w = c2w.astype(np.float32)
+        c2ws[name] = c2w
+        rays = Camera.make(c2w, fx=TNT_FOCAL, width=TNT_W, height=TNT_H).gen_rays(device)
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            rgb = render_rays(grid, rays, opt)[0]
+            redo = torch.nonzero(_exit_lost(grid, grid64, rays))[:, 0]
+            split = "train" if name.startswith("0_") else "test"
+            redo_n[split] = redo_n.get(split, 0) + redo.numel()
+            for s0 in range(0, redo.numel(), CHUNK):
+                idx = redo[s0:s0 + CHUNK]
+                r32 = Rays(rays.origins[idx], rays.dirs[idx])
+                r64 = Rays(r32.origins.double(), r32.dirs.double())
+                origins, dirs, sh_mult, tn, tx, ngt = chunk_inputs(grid64, opt, r64)
+                pool = S._compact_crossings_plain(grid64.reso, origins, dirs, tn, tx, words64)
+                smp = S._voxel_samples_plain(grid64, opt, pool, origins, dirs, sh_mult, ngt,
+                                             packed64)
+                # the background does not depend on the ray's bounds: K13's
+                c_bg = BG.background_color(grid, opt, *[S._prep(grid, r32, opt)[k]
+                                                        for k in (0, 1, 7)])[0]
+                comp = S._composite_plain(opt, grid64.truncated_vol_render_a, pool.offsets,
+                                          smp, bg_rgb=c_bg.double())
+                rgb[idx] = comp["rgb"].float()
+        torch.cuda.synchronize()
+        t_render += time.perf_counter() - t1
+        img = rgb.clamp(0.0, 1.0).reshape(TNT_H, TNT_W, 3)
+        write_png(root / "rgb" / f"{name}.png",
+                  np.round(img.cpu().numpy() * 255.0).astype(np.uint8), level=1)
+    del grid, grid64, words64, packed64
+    torch.cuda.empty_cache()
+    return {"seconds": time.perf_counter() - t0, "render_seconds": t_render, "redo": redo_n,
+            "c2w": c2ws}
+
+
+def tnt_config(data_dir: Path) -> str:
+    """The capture's run: stages_config cut to its 256^3 warm start and 256^3
+    surface stage (STAGE_STEPS[:2] steps of 8192) on the NSVF loader,
+    resumed from the checkpoint in the train dir (load_ckpt); the surface
+    init by the alpha threshold, without camera sweeps or visibility
+    pruning (tools/recipe_run.py's choice: the sweeps of 24 full-size views
+    are host work this cell does not measure); no in-training extraction
+    (the capture has no GT points); one eval view."""
+    n0, n1 = STAGE_STEPS[:2]
+    keys = dict(line.split(" = ", 1) for line in stages_config().splitlines())
+    for k in [k for k in keys if k.startswith("dataset_")] + ["n_train_images", "log_pts",
+                                                              "eval_cf", "surf_eval_n_sample",
+                                                              "surf_eval_intersect_th"]:
+        keys.pop(k, None)
+    keys.update({"dataset_type": "nsvf", "data_dir": str(data_dir),
+                 "reso": f"[[{CUVOL_RESO}, {CUVOL_RESO}, {CUVOL_RESO}], [{CUVOL_RESO}, "
+                         f"{CUVOL_RESO}, {CUVOL_RESO}]]",
+                 "n_iters": n0 + n1, "thresh_type": "alpha", "visibility_pruning_scale": "0.0",
+                 "load_ckpt": "True", "n_eval_test": 1})
+    return "".join(f"{k} = {v}\n" for k, v in keys.items())
+
+
+def bg_walk_rows(grid, opt, origins, dirs, delta_scale) -> tuple[int, int]:
+    """(active steps, distinct (link, layer) rows they read) of the
+    background's walk of these rays, from its plain version's corners."""
+    import torch
+
+    from alphasurf_torch.render import background as BG
+
+    with torch.no_grad():
+        _, geo, lnk, lay = BG.sphere_walk(grid, opt, origins, dirs, delta_scale)
+        active = torch.stack([g[2] for g in geo], 0)  # (n_steps, B)
+        use = active[:, None, :] & (lnk >= 0)
+        rows = torch.unique((lnk * grid.background_nlayers + lay)[use])
+    return int(active.sum()), int(rows.numel())
+
+
+def check_background_kernels(device, card: str, dset) -> dict:
+    """K13 forward and backward against their plain versions (the forward,
+    autograd of it) on a 16,384-ray chunk of a train view of the capture at
+    the full background size; K12e on 0.01 of the lattice and on every cell
+    of the capture's foreground (256^3, basis_dim 9), K12f on 0.01 of the
+    background's cells (drawn as the step draws them) and on every cell; and
+    K4, K5a, K8 and K10 with a per-ray background colour: equal to their
+    scalar path at a constant colour, and K4, K8 and K10 with K13's colour
+    to their plain versions. Returns the numbers of the four new kernels."""
+    import numpy as np
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.core.options import RenderOptions
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.core.sh import eval_sh_bases
+    from alphasurf_torch.losses import reg as R
+    from alphasurf_torch.render import background as BG
+    from alphasurf_torch.render import cuvol as C
+    from alphasurf_torch.render import surface as S
+
+    grid = tnt_gt_grid(device)
+    opt = RenderOptions(sigma_thresh=-1e9, stop_thresh=-1.0, only_outward_intersect=True,
+                        background_brightness=0.8)
+    n_view = TNT_W * TNT_H
+    s = n_view // 2 - CHUNK // 2 + TNT_W // 3
+    rays = Rays(torch.as_tensor(dset.rays_init.origins[s:s + CHUNK], device=device).contiguous(),
+                torch.as_tensor(dset.rays_init.dirs[s:s + CHUNK], device=device).contiguous())
+    origins, dirs, sh_mult, tnear, tmax, ngt, ray_ok, ds = S._prep(grid, rays, opt)
+    origins, dirs, ds = origins.contiguous(), dirs.contiguous(), ds.contiguous()
+    B = origins.shape[0]
+    data = grid.background_data
+    n_bg = data.shape[0]
+    args = BG._k13_args(grid, opt, origins, dirs, ds)
+    n_steps = args[5]
+    out = {}
+
+    # K13 forward
+    c_k, lt_k = kernels.background_forward(*args, data)
+    with torch.no_grad():
+        c_p, lt_p = BG._background_plain(grid, opt, origins, dirs, ds)
+    err_c, frac_c = allclose_err(c_k, c_p)
+    err_l, frac_l = allclose_err(lt_k, lt_p, rtol=1e-5, atol=1e-4)
+    log(f"K13 forward on {B} rays of a {TNT_W}x{TNT_H} view, {BG_LAYERS} layers at reso "
+        f"{BG_RESO} ({n_bg} links, {data.numel() * 4 / 1e9:.3f} GB), {n_steps} steps a ray: "
+        f"c_bg max abs err {err_c:.3e} (fraction outside {frac_c}), log_T_bg {err_l:.3e} "
+        f"({frac_l}); |log_T_bg| up to {float(lt_p.abs().max()):.3f}")
+    if frac_c > 0 or frac_l > 0:
+        raise AssertionError("K13 forward differs from its plain version")
+    # the bytes each needs: the rays (origins, dirs, step scale), the links
+    # and the distinct 16-byte rows its active steps read, each once, and
+    # its outputs (c_bg and log_T_bg; the backward reads them with their
+    # cotangents and adds to those rows); operations: about 160 flops an
+    # active step forward, 320 backward
+    n_active, touched = bg_walk_rows(grid, opt, origins, dirs, ds)
+    ray_bytes = B * 7 * 4
+    fwd_bound = bound_ms(ray_bytes + touched * (16 + 4) + B * 16, n_active * 160)
+    bwd_bound = bound_ms(ray_bytes + B * 32 + touched * (32 + 4), n_active * 320)
+    out["background_forward"] = dict(
+        max_abs_err=max(err_c, err_l), ms=time_ms(lambda: kernels.background_forward(*args, data),
+                                                  20),
+        plain_ms=time_ms(lambda: BG._background_plain(grid, opt, origins, dirs, ds), 3),
+        bound=fwd_bound)
+    log(f"  {n_active} active steps of {B * n_steps}")
+
+    # K13 backward against autograd of the plain version
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    g_c = torch.randn((B, 3), generator=gen, device=device)
+    g_lt = torch.randn(B, generator=gen, device=device) * 0.1
+    g_k = kernels.background_backward(*args, data, lt_k, g_c, g_lt)
+    plain = grid.replace(background_data=data)
+    plain.background_data.requires_grad_(True)
+
+    def plain_bwd():
+        c, lt = BG._background_plain(plain, opt, origins, dirs, ds)
+        return torch.autograd.grad((c * g_c).sum() + (lt * g_lt).sum(), plain.background_data)[0]
+
+    g_p = plain_bwd()
+    err = grad_check("K13 backward background_data", g_k.reshape(-1, 4), g_p.reshape(-1, 4),
+                     kernel="background_backward",
+                     atol=BG_GRAD_ATOL_REL * float(g_p.abs().max()))
+    out["background_backward"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: kernels.background_backward(*args, data, lt_k, g_c, g_lt), 10),
+        plain_ms=time_ms(plain_bwd, 2), bound=bwd_bound)
+    plain.background_data.requires_grad_(False)
+    del g_k, g_p, plain
+    torch.cuda.empty_cache()
+
+    # K4, K5a, K8 and K10 with a per-ray colour
+    const = torch.full((B, 3), opt.background_brightness, device=device)
+    words = S.occupancy_words(grid, opt)
+    tn, tx = S._phase_a_bounds(tnear, tmax, ray_ok)
+    pool = S.compact_crossings_packed(grid, origins, dirs, tn, tx, words)
+    packed = S.pack_grid_data(grid)
+    smp = S.voxel_samples(grid, opt, pool, origins, dirs, sh_mult, ngt, packed)
+    ta = grid.truncated_vol_render_a
+    k_scalar = kernels.composite(pool.offsets, smp, ta, opt)
+    k_const = kernels.composite(pool.offsets, smp, ta, opt, bg_rgb=const)
+    check_equal("K4 rgb with a constant per-ray colour", k_const["rgb"], k_scalar["rgb"])
+    k_bg = kernels.composite(pool.offsets, smp, ta, opt, bg_rgb=c_k)
+    p_bg = S._composite_plain(opt, ta, pool.offsets, smp, bg_rgb=c_k)
+    e4 = check_close("K4 rgb with K13's colour against its plain version", k_bg["rgb"],
+                     p_bg["rgb"], RTOL, ATOL)
+    g_rgb = torch.randn((B, 3), generator=gen, device=device)
+    g_rl = torch.zeros((12, B), device=device)
+    b_scalar = kernels.backward_ray(pool.offsets, smp, ta, opt, g_rgb, g_rl)
+    b_const = kernels.backward_ray(pool.offsets, smp, ta, opt, g_rgb, g_rl, bg_rgb=const)
+    # a constant colour c sums g . c as g0 c + g1 c + g2 c, the scalar path
+    # as c (g0 + g1 + g2): float32 rounding, the kernels' RTOL / ATOL
+    for name, a, b in zip(("d_alpha", "d_t", "d_col"), b_const, b_scalar):
+        check_close(f"K5a {name} with a constant per-ray colour", a, b, RTOL, ATOL)
+    cgrid = blobby_cuvol_grid(CUVOL_RESO, device)[0]
+    cgrid = cgrid.replace(background_links=grid.background_links, background_data=data)
+    copt = RenderOptions(background_brightness=0.8)
+    ray_t = tuple(x.contiguous() for x in C._prep(cgrid, rays, copt))
+    cwords = C.density_occupancy_words(cgrid)
+    cpool = C.cuvol_pool(cgrid, ray_t[0], ray_t[1], ray_t[4], ray_t[5], cwords)
+    k8a = (cpool.offsets, cpool.l, cpool.close_t, cpool.far_t, *ray_t, cgrid.links,
+           cgrid.density_data.detach()[:, 0], cgrid.sh_data.detach(), copt.step_size,
+           C.n_slots(copt), False, copt.background_brightness)
+    f_scalar = kernels.cuvol_forward(*k8a, save_entry_pre=True)
+    f_const = kernels.cuvol_forward(*k8a, save_entry_pre=True, bg_rgb=const)
+    check_equal("K8 rgb with a constant per-ray colour", f_const["rgb"], f_scalar["rgb"])
+    cb = kernels.background_forward(*BG._k13_args(cgrid, copt, ray_t[0], ray_t[1], ray_t[3]),
+                                    data)[0]
+    f_bg = kernels.cuvol_forward(*k8a, bg_rgb=cb)
+    smp8 = C._entry_samples_plain(cgrid, copt, cpool, *ray_t)
+    p8 = C._composite_cuvol_plain(cpool.offsets, *smp8, cb, None)
+    e8 = check_close("K8 rgb with K13's colour against its plain version", f_bg["rgb"],
+                     p8["rgb"], RTOL, ATOL)
+    gs = kernels.cuvol_backward(*k8a, f_scalar["log_T"], f_scalar["entry_pre"], g_rgb)
+    gc = kernels.cuvol_backward(*k8a, f_const["log_T"], f_const["entry_pre"], g_rgb, bg_rgb=const)
+    for name, a, b in zip(("density", "sh"), gc, gs):
+        check_close(f"K8 backward {name} with a constant per-ray colour", a, b, RTOL, ATOL)
+    n_march = (C.max_steps_for(cgrid, copt) + 15) // 16 * 16
+    m_scalar = kernels.cuvol_march(*ray_t, cgrid.links, cgrid.density_data.detach()[:, 0],
+                                   cgrid.sh_data.detach(), copt.step_size, n_march, False,
+                                   copt.background_brightness)
+    m_const = kernels.cuvol_march(*ray_t, cgrid.links, cgrid.density_data.detach()[:, 0],
+                                  cgrid.sh_data.detach(), copt.step_size, n_march, False,
+                                  copt.background_brightness, bg_rgb=const)
+    check_equal("K10 rgb with a constant per-ray colour", m_const["rgb"], m_scalar["rgb"])
+    with torch.no_grad():
+        m_bg = C.volume_render_cuvol(cgrid, rays, copt)
+        m_p = C._march_plain(cgrid, copt, *ray_t, n_march, 16, None)
+        rgb_p = m_p["rgb"] + torch.exp(m_p["log_T"])[:, None] * cb
+    e10 = check_close("K10 rgb with K13's colour against its plain version", m_bg["rgb"], rgb_p,
+                      RTOL, ATOL)
+    log(f"K4, K8, K10 with K13's colour: max abs err {e4:.3e}, {e8:.3e}, {e10:.3e}")
+    del cgrid, cwords, cpool, smp8, packed, smp, words
+    torch.cuda.empty_cache()
+
+    # K12e on the foreground's lattice, K12f on the background's cells
+    corners4 = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1))
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    d, d_p = R.lumisphere_directions(cpu_gen)
+    mult = eval_sh_bases(grid.basis_dim, torch.stack([d, d_p]).to(device).float()).contiguous()
+    for label, frac in (("a lattice window of 0.01", 0.01), ("every lattice cell", 1.0)):
+        cells = R.sample_cells(cpu_gen, grid, frac)
+        n = cells.numel()
+
+        def run_k():
+            return kernels.reg_lumisphere(grid.links, cells, grid.sh_data.detach(), mult, 1.0,
+                                          1.0 / n)
+
+        loss_k, gk = run_k()
+        grid.sh_data.requires_grad_(True)
+        try:
+            def plain():
+                loss = R._lumisphere_plain(grid, cells, mult[0], mult[1], 1.0, 1.0 / n)
+                return loss, torch.autograd.grad(loss, grid.sh_data)[0]
+
+            loss_p, gp = plain()
+            plain_ms = time_ms(plain, 2) if frac < 1.0 else None
+        finally:
+            grid.sh_data.requires_grad_(False)
+        lk, lp = float(loss_k), float(loss_p.detach())
+        log(f"K12e on {label} of {CUVOL_RESO}^3 ({n} cells): loss {lk:.7e} (plain {lp:.7e})")
+        if not abs(lk - lp) <= REG_LOSS_RTOL * abs(lp):
+            raise AssertionError(f"reg_lumisphere loss differs from its plain version: {lk} {lp}")
+        err = max(abs(lk - lp), grad_check(
+            "reg_lumisphere sh_data", gk, gp, kernel="reg_lumisphere",
+            rel_tol=GRAD_REL if frac < 1.0 else DENSE_TV_GRAD_REL))
+        if frac < 1.0:
+            out["reg_lumisphere"] = dict(
+                max_abs_err=err, ms=time_ms(run_k, 20), plain_ms=plain_ms,
+                bound=bound_ms(ext_bytes(grid, cells, corners4, 27), n * 500))
+        else:
+            out["reg_lumisphere"]["max_abs_err"] = max(out["reg_lumisphere"]["max_abs_err"], err)
+            log(f"  reg_lumisphere over every cell: kernel {time_ms(run_k, 3):.4f} ms")
+        del cells, gk, gp
+        torch.cuda.empty_cache()
+    n_bgc = grid.background_links.numel() * BG_LAYERS
+    for label, cells in (("0.01 of the cells", R.sample_background_cells(cpu_gen, grid, 0.01)),
+                         ("every cell", torch.arange(n_bgc, dtype=torch.int32, device=device))):
+        n = cells.numel()
+
+        def run_k():
+            return kernels.reg_background_tv(grid.background_links, cells, data, 0.3, 0.05,
+                                             1.0 / n)
+
+        loss_k, gk = run_k()
+        plain = grid.replace(background_data=data)
+        plain.background_data.requires_grad_(True)
+        step = 1 << 24  # the plain version's intermediates over every cell, in slices
+
+        def plain_tv():
+            loss, g = 0.0, None
+            for c0 in range(0, n, step):
+                part = R._background_tv_plain(plain, cells[c0:c0 + step], 0.3, 0.05, 1.0 / n)
+                gpart = torch.autograd.grad(part, plain.background_data)[0]
+                loss, g = loss + part.detach(), gpart if g is None else g + gpart
+            return loss, g
+
+        loss_p, gp = plain_tv()
+        plain_ms = time_ms(plain_tv, 2) if n < n_bgc else None
+        plain.background_data.requires_grad_(False)
+        lk, lp = float(loss_k), float(loss_p)
+        log(f"K12f on {label} of the background ({n} cells): loss {lk:.7e} (plain {lp:.7e})")
+        if not abs(lk - lp) <= REG_LOSS_RTOL * abs(lp):
+            raise AssertionError(f"reg_background_tv loss differs from its plain version: {lk} "
+                                 f"{lp}")
+        err = max(abs(lk - lp), grad_check(
+            "reg_background_tv background_data", gk.reshape(-1, 4), gp.reshape(-1, 4),
+            kernel="reg_background_tv", rel_tol=GRAD_REL if n < n_bgc else DENSE_TV_GRAD_REL))
+        if n < n_bgc:
+            uniq = int(torch.unique(cells).numel())
+            out["reg_background_tv"] = dict(
+                max_abs_err=err, ms=time_ms(run_k, 20), plain_ms=plain_ms,
+                # cell ids, 3 links and 4 rows of 16 bytes a distinct cell
+                # read, the gradient (every row) written
+                bound=bound_ms(n * 4 + uniq * (12 + 64) + data.numel() * 4, n * 120))
+        else:
+            out["reg_background_tv"]["max_abs_err"] = max(out["reg_background_tv"]["max_abs_err"],
+                                                          err)
+            log(f"  reg_background_tv over every cell: kernel {time_ms(run_k, 3):.4f} ms")
+        del cells, gk, gp, plain
+        torch.cuda.empty_cache()
+    del grid, data
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) [{card}]")
+    return out
+
+
+def tnt_step_bench(device, card: str) -> dict:
+    """bench_step's protocol (512^3 shell, batch 40960 of one 800x800
+    camera, 1 + 33 steps) through make_surface_step with the capture's MSI
+    as the grid's background and its rms group: K13 forward and backward,
+    K12e (use_lumisphere_tv) and K12f, and K7 on the background's rows
+    (TNT_HP); the counters set to 0 just before and read just after. Then
+    one profiled step."""
+    import math
+
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import bench_step
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.render.surface import occupancy_words
+    from alphasurf_torch.train.steps import StepConfig, init_rms, make_surface_step
+
+    grid, rc = bench_step.build_bench_grid(RESO, device)
+    links, data = tnt_background(device)
+    grid = grid.replace(background_links=links, background_data=data)
+    opt = bench_step.bench_options()
+    hp = bench_step.bench_hparams()._replace(**TNT_HP)
+    step = make_surface_step(StepConfig(opt=opt, cache_size=None, use_lumisphere_tv=True))
+    rays = bench_step.bench_rays(WIDTH, device)
+    rms, gen = init_rms(grid), torch.Generator().manual_seed(SEED)
+    gt = torch.full((TRAIN_BATCH, 3), 0.5, device=device)
+    n = rays.origins.shape[0]
+    lo, span = int(n * 0.35), max(int(n * 0.30) - TRAIN_BATCH, 1)
+    occ = occupancy_words(grid, opt)
+    bg0 = data.clone()
+
+    def batch(i):
+        s = lo + (i * TRAIN_BATCH) % span
+        return Rays(rays.origins[s:s + TRAIN_BATCH], rays.dirs[s:s + TRAIN_BATCH])
+
+    kernels.reset_launches()
+    losses = [step(grid, rms, batch(0), gt, hp, gen, occ=occ, row_coords=rc)[2]["loss"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(33):
+        if i > 0 and i % 16 == 0:
+            occ = occupancy_words(grid, opt)
+        losses.append(step(grid, rms, batch(i), gt, hp, gen, occ=occ, row_coords=rc)[2]["loss"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in TRAIN_KERNELS + BACKGROUND_KERNELS}
+    losses = torch.stack(losses).tolist()
+    moved = float((grid.background_data - bg0).abs().max())
+    log(f"train with the background group: 33 steps of {TRAIN_BATCH} rays at {RESO}^3 with the "
+        f"{BG_LAYERS} x {BG_RESO} MSI: {33 * TRAIN_BATCH / secs:.1f} rays/s, "
+        f"{secs / 33 * 1e3:.3f} ms per step, loss {losses[0]:.6f} -> {losses[-1]:.6f}, "
+        f"background rows moved by up to {moved:.3e} [{card}]")
+    log("launches " + json.dumps(launches))
+    if any(v == 0 for v in launches.values()) or not all(math.isfinite(x) for x in losses) \
+            or not moved > 0:
+        raise AssertionError(f"the background step did not run right: {launches}, {losses[:4]}")
+    r = batch(3)
+    _, busy, rows = profile_device(lambda: step(grid, rms, r, gt, hp, gen, occ=occ, row_coords=rc),
+                                   f"one train step with the background group ({TRAIN_BATCH} "
+                                   f"rays, {RESO}^3, {BG_LAYERS} x {BG_RESO} MSI)", card)
+    bg_ms = sum(ms for ms, _, key in rows if "background" in key or "lumisphere" in key)
+    log(f"K13, K12e, K12f: {bg_ms:.4f} ms of the step's {busy:.3f} ms device time "
+        f"({bg_ms / busy:.4f}) [{card}]")
+    del grid, rc, rms, occ, data, bg0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tnt_run(device, card: str, work: Path, scene: Path, with_bg: bool) -> dict:
+    """app/train.main on the capture (tnt_config), resumed from a checkpoint
+    of a CUVOL_RESO^3 grid at the Config's init holding the ground-truth MSI
+    (with_bg) or none (the brightness alone); then app/render_imgs on the
+    test split. The counters set to 0 just before the Trainer and read just
+    after render_imgs."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import render_imgs
+    from alphasurf_torch.app import train as train_app
+    from alphasurf_torch.app.config import Config
+    from alphasurf_torch.core.grid import create_grid
+    from alphasurf_torch.utils.io import save_grid
+
+    tag = "with" if with_bg else "without"
+    train_dir = work / f"tnt_{tag}"
+    train_dir.mkdir(parents=True, exist_ok=True)
+    cfg = Config()
+    grid = create_grid(CUVOL_RESO, basis_dim=cfg.sh_dim, use_sphere_bound=True,
+                       init_sigma=cfg.init_sigma, device=device)
+    if with_bg:
+        links, data = tnt_background(device)
+        grid = grid.replace(background_links=links, background_data=data)
+    t0 = time.perf_counter()
+    save_grid(grid, str(train_dir / "ckpt.npz"))
+    del grid
+    torch.cuda.empty_cache()
+    ckpt_s = time.perf_counter() - t0
+    cfg_file = work / f"tnt_{tag}.yaml"
+    cfg_file.write_text(tnt_config(scene))
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    train_app.main([str(scene), "-t", str(train_dir), "-c", str(cfg_file), "--device", str(device)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    psnr = render_imgs.main([str(train_dir / "ckpt.npz"), str(scene), "--dataset_type", "nsvf",
+                             "--no_imsave", "--device", str(device)])
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"tnt run {tag} the background: checkpoint written in {ckpt_s:.2f} s, train "
+        f"{train_s:.2f} s ({STAGE_STEPS[0]} + {STAGE_STEPS[1]} steps of 8192), render_imgs "
+        f"{render_s:.2f} s ({TNT_TEST} test views at {TNT_W}x{TNT_H}): test PSNR {psnr:.4f}, "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB [{card}]")
+    log("launches " + json.dumps(launches))
+    return {"psnr": psnr, "launches": launches, "ckpt": train_dir / "ckpt.npz",
+            "seconds": train_s + render_s}
+
+
+def tnt(device, card: str, work: Path) -> tuple[dict, dict]:
+    """Phase 11: the Tanks-and-Temples-style capture. An NSVF-layout scene
+    (write_tnt_scene: 24 + 4 views at 1920x1080, cameras at radius 0.95
+    inside the foreground grid, the 64 x 1024 MSI behind); K13, K12e and
+    K12f against their plain versions and K4, K5a, K8 and K10 with per-ray
+    colours (check_background_kernels); the step at bench.py's protocol
+    with the background group (tnt_step_bench); then the capture's run
+    (tnt_run) with the ground-truth background in the resumed checkpoint,
+    whose Trainer and render_imgs must launch every kernel of the path,
+    beside the same run without a background: the run with it must score
+    the higher test PSNR; then one 1920x1080 frame served through
+    app/render_circle from each run's checkpoint, with and without K13.
+    Returns the four new kernels' numbers and their launches: K13 from the
+    capture's run, K12e and K12f from the bench."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import render_circle
+    from alphasurf_torch.data import NSVFDataset
+
+    t_phase = time.perf_counter()
+    scene = work / "tnt"
+    info = write_tnt_scene(device, scene)
+    log(f"tnt scene: NSVF layout, {TNT_TRAIN} + {TNT_TEST} RGB views at {TNT_W}x{TNT_H}, "
+        f"make_gt_grid({CUVOL_RESO}) shrunk to a sphere of {TNT_OBJECT_RADIUS} and a "
+        f"{BG_LAYERS}-layer MSI at reso {BG_RESO} in {info['seconds']:.2f} s (rendering "
+        f"{info['render_seconds']:.2f} s); rays whose float32 bounds lose their exit, "
+        f"rendered in float64: train {info['redo'].get('train', 0)} of "
+        f"{TNT_TRAIN * TNT_W * TNT_H}, test {info['redo'].get('test', 0)} of "
+        f"{TNT_TEST * TNT_W * TNT_H} [{card}]")
+    t0 = time.perf_counter()
+    dset = NSVFDataset(str(scene), "train")
+    dset_test = NSVFDataset(str(scene), "test")
+    for i in range(TNT_TEST):
+        if not np.array_equal(dset_test.c2w[i], info["c2w"][f"2_{i:04d}"]):
+            raise AssertionError(f"the loader's test pose {i} is not the rendered one")
+    radii = np.linalg.norm(dset.c2w[:, :3, 3], axis=-1)
+    log(f"NSVF loader: {dset.n_images} train and {dset_test.n_images} test views in "
+        f"{time.perf_counter() - t0:.2f} s, scene_scale {dset.scene_scale:.6f}, camera radii "
+        f"{radii.min():.4f}..{radii.max():.4f} (median {np.median(radii):.4f})")
+    res = check_background_kernels(device, card, dset)
+    del dset, dset_test
+    bench_launches = tnt_step_bench(device, card)
+
+    runs = {flag: tnt_run(device, card, work, scene, flag) for flag in (True, False)}
+    launches = runs[True]["launches"]
+    missing = [k for k in TNT_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels of the capture's path were not launched: {missing}")
+    if runs[False]["launches"]["background_forward"] != 0:
+        raise AssertionError("the run without a background launched K13")
+    p_with, p_without = runs[True]["psnr"], runs[False]["psnr"]
+    log(f"tnt: test PSNR {p_with:.4f} with the background against {p_without:.4f} without "
+        f"(margin {p_with - p_without:+.4f} dB) [{card}]")
+    if not (math.isfinite(p_with) and p_with > p_without):
+        raise AssertionError(f"the run with the background did not score higher: {p_with} "
+                             f"{p_without}")
+
+    frames = {}
+    for flag, r in runs.items():
+        kernels.reset_launches()
+        out = render_circle.main([str(r["ckpt"]), "--n_frames", "1", "--width", str(TNT_W),
+                                  "--height", str(TNT_H), "--fx", str(TNT_FOCAL), "--radius",
+                                  "0.95", "--elevation", "-10", "--out_dir",
+                                  str(work / f"tnt_circle_{flag}"), "--device", str(device)])
+        torch.cuda.synchronize()
+        frames[flag] = (out["frame_seconds"][0], kernels.LAUNCHES["background_forward"])
+    log(f"serving one {TNT_W}x{TNT_H} frame through render_circle: {frames[True][0] * 1e3:.1f} "
+        f"ms with the background ({frames[True][1]} K13 launches), {frames[False][0] * 1e3:.1f} "
+        f"ms without ({frames[False][1]}) [{card}]")
+    if frames[True][1] == 0 or frames[False][1] != 0:
+        raise AssertionError(f"serving did not go through K13 as expected: {frames}")
+    launches = {k: launches[k] for k in ("background_forward", "background_backward")}
+    launches.update({k: bench_launches[k] for k in ("reg_lumisphere", "reg_background_tv")})
+    log(f"tnt phase in {time.perf_counter() - t_phase:.1f} s")
+    return res, launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3591,6 +4294,10 @@ def main(argv=None) -> int:
             blend_res, blend_launches = blender(device, card, work)
             res.update(blend_res)
             launches.update({k: blend_launches[k] for k in EXTENDED_KERNELS})
+        if "tnt" in phases:
+            tnt_res, tnt_launches = tnt(device, card, work)
+            res.update(tnt_res)
+            launches.update(tnt_launches)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -115,9 +115,13 @@ def test_three_cuvol_steps_match_jax(opt_kw, present):
 
 def test_cuvol_step_unported_options_raise():
     opt = pt.RenderOptions()
-    for kw in (dict(renderer="dense"), dict(axis_name="data"), dict(use_lumisphere_tv=True)):
+    for kw in (dict(renderer="dense"), dict(axis_name="data")):
         with pytest.raises(NotImplementedError):
             T.make_cuvol_step(T.StepConfig(opt=opt, **kw))
+    # the lumisphere TV is ported (K12e); the learned basis's group is not
+    assert callable(T.make_cuvol_step(T.StepConfig(opt=opt, use_lumisphere_tv=True)))
+    with pytest.raises(NotImplementedError, match="§1 item 2b"):
+        T._check_rms({"density": None, "sh": None, "basis_mlp": None})
     g = SparseGrid.from_numpy(jax_to_np(_grid(8)), device="cpu")
     o, d = np_rays(8, seed=4)
     step = T.make_cuvol_step(T.StepConfig(opt=opt))

@@ -195,9 +195,13 @@ def test_dtu_loader_matches_jax(tmp_path, kw):
     np.testing.assert_allclose(r.dirs, j.dirs, rtol=1e-6, atol=1e-6)
     assert r.mask.any() and not r.mask.all()
     assert isinstance(datasets["auto"](str(root), split="test"), DTUDataset)
-    # a directory of no known layout falls through to NSVF, as in JAX
-    with pytest.raises(NotImplementedError, match="'nsvf' dataset loader is not ported"):
-        datasets["auto"](str(tmp_path), split="test")
+    # a directory of no known layout falls through to the NSVF loader, which
+    # finds no image directory there, as JAX's does
+    from alphasurf_tpu.data import auto_dataset as jax_auto
+
+    for auto in (datasets["auto"], jax_auto):
+        with pytest.raises(AssertionError, match="none of \\['images', 'image', 'rgb'\\]"):
+            auto(str(tmp_path), split="test")
 
 
 def test_dtu_loader_scale_matches_jax(tmp_path):

@@ -85,7 +85,7 @@ def test_auto_tells_scenes_as_jax(tmp_path):
         datasets["auto"](str(only), split="test")  # the NeRF loader, as in JAX
     (tmp_path / "llff").mkdir()
     np.save(tmp_path / "llff" / "poses_bounds.npy", np.zeros((2, 17)))
-    with pytest.raises(NotImplementedError, match="'llff'.*ROADMAP §1 items 2 and 5"):
+    with pytest.raises(NotImplementedError, match="'llff'.*ROADMAP §1 item 5"):
         datasets["auto"](str(tmp_path / "llff"), split="test")
 
 

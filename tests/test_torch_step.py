@@ -195,15 +195,17 @@ def test_window_draws_keep_their_sequence(dense, flags, monkeypatch):
 
 
 def test_unported_options_raise():
-    """The lumisphere TV and data-parallel steps still raise, naming their
-    ROADMAP item; so does a cuvol step that would train through the dense
-    march."""
+    """Data-parallel steps and the learned basis's rms groups still raise,
+    naming their ROADMAP item; so does a cuvol step that would train through
+    the dense march. The lumisphere TV (K12e) no longer raises."""
     opt = pt.RenderOptions(**OPT)
-    for kw, item in ((dict(use_lumisphere_tv=True), "§1 item 2"),
-                     (dict(use_lumisphere_tv=True, use_eikonal=True), "§1 item 2"),
-                     (dict(axis_name="data"), "§1 item 4")):
-        with pytest.raises(NotImplementedError, match=item):
-            T.make_surface_step(T.StepConfig(opt=opt, **kw))
+    for kw in (dict(use_lumisphere_tv=True), dict(use_lumisphere_tv=True, use_eikonal=True)):
+        assert callable(T.make_surface_step(T.StepConfig(opt=opt, **kw)))
+    with pytest.raises(NotImplementedError, match="§1 item 4"):
+        T.make_surface_step(T.StepConfig(opt=opt, axis_name="data"))
+    for group in ("basis_data", "basis_mlp"):
+        with pytest.raises(NotImplementedError, match="§1 item 2b"):
+            T._check_rms({"density": None, "background": None, group: None})
     with pytest.raises(NotImplementedError, match="§2 item 4"):
         T.make_cuvol_step(T.StepConfig(opt=opt, renderer="dense"))
 

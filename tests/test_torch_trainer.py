@@ -203,7 +203,7 @@ def test_dataset_registry_rays_and_shuffle():
     from alphasurf_torch.data import datasets
 
     assert datasets["synthetic"] is SyntheticDataset
-    with pytest.raises(NotImplementedError, match="items 2 and 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
         datasets["llff"]("data/fern")
     jd = JaxSynthetic(renderer="packed", **DS)
     td = _port_copy(jd)
