@@ -3,7 +3,7 @@ backward and RMSprop, under the protocol of the repository's ``bench.py``
 (BASELINE.md).
 
     python -m alphasurf_torch.app.bench_step [--stage surface|cuvol] [--reso R] [--batch 40960]
-        [--renderer packed|compact|dense]
+        [--renderer packed|compact|dense] [--basis sh|texture|mlp]
 
 ``--stage surface`` (the default, reso 512) is the surface step on
 bench.py's sphere shell: the analytic SDF of a sphere of radius reso/4,
@@ -17,6 +17,13 @@ starting grid, ``create_grid(reso, use_sphere_bound=True, init_sigma=0.1,
 basis_dim=9)``, under the Config defaults' render options and its
 learning rates and TV weights (lr_sigma 3e1, lr_sh 1e-2, lambda_tv 1e-5,
 lambda_tv_sh 1e-3).
+
+``--basis texture`` gives either grid a learned 3D-texture basis
+(``reinit_learned_bases(32, 9, "sh")``), ``--basis mlp`` the learned MLP
+(``init_basis_mlp`` at its defaults: posenc degree 4, hidden 64, drawn
+from ``--seed``); both then train at lr_basis 1e-2 with lambda_tv_basis
+1e-2 (the JAX package's tests/test_steps_ext.py values), and the output
+counts the basis's moved rows (``basis_moved``).
 
 Both: rays of the 800x800 camera at pose_spherical(30, 20, 2.7) with
 fx = 1.1 W; batches of ``batch`` consecutive rays cycle over rows 35-65% of
@@ -40,6 +47,7 @@ from .. import defs
 from ..core.device import resolve_device
 from ..core.grid import SparseGrid, create_grid
 from ..core.options import RenderOptions
+from ..core.sh import init_basis_mlp, reinit_learned_bases
 from ..core.rays import Camera, Rays
 from ..data.synthetic import pose_spherical
 from ..losses.reg import row_coords_of
@@ -49,6 +57,9 @@ from ..train.steps import HParams, StepConfig, init_rms, make_cuvol_step, make_s
 
 STAGES = ("surface", "cuvol")
 DEFAULT_RESO = {"surface": 512, "cuvol": 256}
+BASES = ("sh", "texture", "mlp")
+BASIS_RESO = 32  # the learned texture's resolution
+BASIS_HP = dict(lr_basis=1e-2, lambda_tv_basis=1e-2)
 
 
 def bench_options() -> RenderOptions:
@@ -78,14 +89,31 @@ def cuvol_hparams() -> HParams:
     return HParams(lr_sigma=3e1, lr_sh=1e-2, lambda_tv=1e-5, lambda_tv_sh=1e-3)
 
 
-def build_cuvol_grid(reso: int, device) -> tuple[SparseGrid, torch.Tensor]:
+def with_basis(grid: SparseGrid, basis: str, seed: int = 0) -> SparseGrid:
+    """``grid`` with the learned basis ``basis`` ("sh": unchanged): the 3D
+    texture initialised with the SH basis at BASIS_RESO, or the MLP at
+    ``init_basis_mlp``'s defaults drawn from ``seed``."""
+    if basis not in BASES:
+        raise ValueError(f"basis must be one of {BASES}, not {basis!r}")
+    dev, bd = grid.links.device, grid.basis_dim
+    if basis == "texture":
+        return grid.replace(basis_type=defs.BASIS_TYPE_3D_TEXTURE,
+                            basis_data=reinit_learned_bases(BASIS_RESO, bd, "sh", device=dev))
+    if basis == "mlp":
+        mlp = init_basis_mlp(torch.Generator().manual_seed(seed), bd, device=dev)
+        return grid.replace(basis_type=defs.BASIS_TYPE_MLP, basis_mlp=mlp)
+    return grid
+
+
+def build_cuvol_grid(reso: int, device, basis: str = "sh") -> tuple[SparseGrid, torch.Tensor]:
     """The warm start's starting grid on ``device`` and its row coords."""
     grid = create_grid(reso, use_sphere_bound=True, init_sigma=0.1, basis_dim=9, device=device)
-    return grid, row_coords_of(grid)
+    return with_basis(grid, basis), row_coords_of(grid)
 
 
-def build_bench_grid(reso: int, device) -> tuple[SparseGrid, torch.Tensor]:
-    """bench.py's shell grid on ``device`` and its row coords (capacity, 3)."""
+def build_bench_grid(reso: int, device, basis: str = "sh") -> tuple[SparseGrid, torch.Tensor]:
+    """bench.py's shell grid on ``device`` and its row coords (capacity, 3),
+    with the learned basis ``basis`` (``with_basis``)."""
     dev = resolve_device(device)
     idx = torch.arange(reso, dtype=torch.float32, device=dev)
     r = torch.sqrt((idx[:, None, None] - reso / 2) ** 2 + (idx[None, :, None] - reso / 2) ** 2
@@ -112,7 +140,7 @@ def build_bench_grid(reso: int, device) -> tuple[SparseGrid, torch.Tensor]:
         truncated_vol_render_a=torch.tensor(1.0, **f32), radius=torch.ones(3, **f32),
         center=torch.zeros(3, **f32), basis_dim=9, surface_type=defs.SURFACE_TYPE_SDF,
     )
-    return grid, row_coords
+    return with_basis(grid, basis), row_coords
 
 
 def bench_rays(width: int, device) -> Rays:
@@ -121,26 +149,39 @@ def bench_rays(width: int, device) -> Rays:
     return cam.gen_rays_device(device)
 
 
+def _basis_rows(grid: SparseGrid):
+    """The learned basis's rows, flattened: None for SH."""
+    if grid.basis_data is not None:
+        return grid.basis_data.detach().reshape(-1, grid.basis_data.shape[-1]).clone()
+    if grid.basis_mlp is not None:
+        return torch.cat([v.detach().reshape(-1, 1) for v in grid.basis_mlp.tensors().values()])
+    return None
+
+
 def run(reso: int | None = None, batch: int = 40960, steps: int = 33, width: int = 800,
-        device="cuda", seed: int = 0, stage: str = "surface", renderer: str = "packed") -> dict:
+        device="cuda", seed: int = 0, stage: str = "surface", renderer: str = "packed",
+        basis: str = "sh") -> dict:
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, not {stage!r}")
     reso = DEFAULT_RESO[stage] if reso is None else reso
     dev = resolve_device(device)
     t0 = time.perf_counter()
     if stage == "surface":
-        grid, row_coords = build_bench_grid(reso, dev)
+        grid, row_coords = build_bench_grid(reso, dev, basis)
         opt, hp = bench_options(), bench_hparams()
         step = make_surface_step(StepConfig(opt=opt, cache_size=None, renderer=renderer))
 
         def occupancy(g):
             return occupancy_words(g, opt)
     else:
-        grid, row_coords = build_cuvol_grid(reso, dev)
+        grid, row_coords = build_cuvol_grid(reso, dev, basis)
         opt, hp = cuvol_options(), cuvol_hparams()
         step = make_cuvol_step(StepConfig(opt=opt, renderer="packed"))
         occupancy = density_occupancy_words
+    if basis != "sh":
+        hp = hp._replace(**BASIS_HP)
     init = {"density": float(grid.density_data[0, 0]), "sh": 0.0}
+    basis0 = _basis_rows(grid)
     rays = bench_rays(width, dev)
     rms = init_rms(grid)
     gen = torch.Generator().manual_seed(seed)
@@ -175,11 +216,13 @@ def run(reso: int | None = None, batch: int = 40960, steps: int = 33, width: int
     g = state["grid"]
     moved = int(((g.density_data != init["density"]).any(dim=1)
                  | (g.sh_data != init["sh"]).any(dim=1)).sum())
+    basis_moved = None if basis0 is None else int((_basis_rows(g) != basis0).any(dim=1).sum())
     return {
         "metric": "rays_per_s_fwd_bwd",
         "rays_per_s_fwd_bwd": steps * batch / seconds,
         "stage": stage,
         "renderer": renderer if stage == "surface" else "packed",
+        "basis": basis,
         "batch": batch,
         "reso": reso,
         "capacity": grid.capacity,
@@ -190,6 +233,7 @@ def run(reso: int | None = None, batch: int = 40960, steps: int = 33, width: int
         "last_loss": losses[-1],
         "losses_finite": all(math.isfinite(x) for x in losses),
         "rows_moved": moved,
+        "basis_moved": basis_moved,
         "card": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
     }
 
@@ -205,11 +249,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0, help="seed of the regularizer windows")
     ap.add_argument("--renderer", choices=("packed", "compact", "dense"), default="packed",
                     help="the surface step's renderer (bench.py's argv[2])")
+    ap.add_argument("--basis", choices=BASES, default="sh",
+                    help="the colour basis: SH, or a learned 3D texture or MLP")
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
     if a.stage == "cuvol" and a.renderer != "packed":
         ap.error("--renderer applies to the surface stage; the cuvol step trains packed")
-    out = run(a.reso, a.batch, a.steps, a.width, a.device, a.seed, a.stage, a.renderer)
+    out = run(a.reso, a.batch, a.steps, a.width, a.device, a.seed, a.stage, a.renderer, a.basis)
     print(json.dumps(out), flush=True)
     return out
 

@@ -16,6 +16,7 @@ from torch import nn
 
 from .. import defs
 from .device import resolve_device
+from .sh import BasisMLP
 
 # Corner offsets in reference order (z fastest): 000,001,010,011,100,101,110,111
 CORNER_OFFSETS = np.array(
@@ -32,13 +33,16 @@ CORNER_OFFSETS = np.array(
     dtype=np.int32,
 )
 
-# fields of the JAX package's ``core.grid.SparseGrid`` that the port does not
-# carry yet (ROADMAP §1 item 2b: the learned basis)
-_UNSUPPORTED_FIELDS = ("basis_data", "basis_mlp")
-
 
 def _param(x):
     return None if x is None else nn.Parameter(x, requires_grad=False)
+
+
+def _mlp(x, device=None, dtype=None):
+    """A ``BasisMLP`` from one, from a dict of its four arrays, or None."""
+    if x is None or isinstance(x, BasisMLP):
+        return x
+    return BasisMLP.from_dict(x, device=device, dtype=dtype)
 
 
 class SparseGrid(nn.Module):
@@ -47,7 +51,10 @@ class SparseGrid(nn.Module):
     (n_lv,) or None; fake_sample_std (1, 1) or None;
     truncated_vol_render_a (); radius/center (3,); the MSI background
     (svox2.py:731-755): background_links (2R, R) int32 and background_data
-    (n, nlayers, 4) rgba rows, both or neither."""
+    (n, nlayers, 4) rgba rows, both or neither; the learned bases
+    (svox2.py:963-976): basis_data (R, R, R, basis_dim) of a 3D-texture
+    grid and basis_mlp (a ``core.sh.BasisMLP``, or a dict of its ``w0``,
+    ``b0``, ``w1``, ``b1``) of an MLP grid, each None otherwise."""
 
     def __init__(
         self,
@@ -65,6 +72,8 @@ class SparseGrid(nn.Module):
         basis_type: int = defs.BASIS_TYPE_SH,
         background_links: torch.Tensor | None = None,
         background_data: torch.Tensor | None = None,
+        basis_data: torch.Tensor | None = None,
+        basis_mlp=None,
     ):
         super().__init__()
         if (background_links is None) != (background_data is None):
@@ -80,6 +89,8 @@ class SparseGrid(nn.Module):
         self.register_buffer("center", center)
         self.register_buffer("background_links", background_links)
         self.background_data = _param(background_data)
+        self.basis_data = _param(basis_data)
+        self.basis_mlp = _mlp(basis_mlp, device=links.device, dtype=sh_data.dtype)
         self.basis_dim = int(basis_dim)
         self.surface_type = int(surface_type)
         self.basis_type = int(basis_type)
@@ -90,11 +101,6 @@ class SparseGrid(nn.Module):
         """Build from numpy arrays keyed by the JAX field names. ``dtype``
         defaults to float64 for float64 ``density_data``, else float32."""
         dev = resolve_device(device)
-        for k in _UNSUPPORTED_FIELDS:
-            if arrays.get(k) is not None:
-                raise NotImplementedError(
-                    f"grid field {k!r} is not ported yet (ROADMAP §1 item 2b: the learned basis)"
-                )
         if dtype is None:
             f64 = np.asarray(arrays["density_data"]).dtype == np.float64
             dtype = torch.float64 if f64 else torch.float32
@@ -121,6 +127,8 @@ class SparseGrid(nn.Module):
             background_links=None if arrays.get("background_links") is None else torch.tensor(
                 np.asarray(arrays["background_links"], np.int32), device=dev),
             background_data=t("background_data"),
+            basis_data=t("basis_data"),
+            basis_mlp=_mlp(arrays.get("basis_mlp"), device=dev, dtype=dtype),
         )
 
     def to_numpy(self) -> dict:
@@ -144,6 +152,8 @@ class SparseGrid(nn.Module):
             "basis_type": self.basis_type,
             "background_links": a(self.background_links),
             "background_data": a(self.background_data),
+            "basis_data": a(self.basis_data),
+            "basis_mlp": None if self.basis_mlp is None else self.basis_mlp.to_numpy(),
         }
 
     def replace(self, **fields) -> "SparseGrid":
@@ -152,14 +162,18 @@ class SparseGrid(nn.Module):
         contiguous."""
         keys = ("links", "density_data", "sh_data", "surface_data", "level_set_data",
                 "fake_sample_std", "truncated_vol_render_a", "radius", "center",
-                "background_links", "background_data")
+                "background_links", "background_data", "basis_data")
         args = {}
         for k in keys:
             v = fields[k] if k in fields else getattr(self, k)
             args[k] = None if v is None else v.detach().contiguous()
-        return SparseGrid(**args, basis_dim=self.basis_dim,
+        mlp = _mlp(fields["basis_mlp"] if "basis_mlp" in fields else self.basis_mlp,
+                   device=self.links.device, dtype=self.sh_data.dtype)
+        if mlp is not None:
+            mlp = BasisMLP(*(v.detach().contiguous() for v in mlp.tensors().values()))
+        return SparseGrid(**args, basis_mlp=mlp, basis_dim=self.basis_dim,
                           surface_type=fields.get("surface_type", self.surface_type),
-                          basis_type=self.basis_type)
+                          basis_type=fields.get("basis_type", self.basis_type))
 
     @property
     def use_background(self) -> bool:
@@ -230,13 +244,20 @@ def create_grid(
     init_rgb: float = 0.0,
     dtype=torch.float32,
     device="cuda",
+    basis_type: int = defs.BASIS_TYPE_SH,
+    basis_data: torch.Tensor | None = None,
+    basis_mlp=None,
 ) -> SparseGrid:
     """A dense grid on ``device``, all links present or, with
     ``use_sphere_bound``, the vertices within the unit sphere's bound
     (the JAX package's ``core.grid.create_grid``, svox2.py:580-990). The
     mask is computed in float32 numpy, as the JAX package does, so both
     keep the same vertices. Only ``SURFACE_TYPE_NONE`` grids: the surface
-    initialisers wait for ROADMAP §1 item 5."""
+    initialisers wait for ROADMAP §1 item 5. ``basis_type`` with
+    ``basis_data`` (a 3D texture, ``core.sh.reinit_learned_bases``) or
+    ``basis_mlp`` (``core.sh.init_basis_mlp``) gives the grid a learned
+    basis, as the JAX package's ``grid.replace`` does after
+    ``create_grid``."""
     if surface_type != defs.SURFACE_TYPE_NONE:
         raise NotImplementedError(
             f"create_grid's surface initialisers (surface_type {surface_type}, surface_init "
@@ -275,4 +296,7 @@ def create_grid(
         center=torch.as_tensor(center, **f),
         basis_dim=basis_dim,
         surface_type=defs.SURFACE_TYPE_NONE,
+        basis_type=basis_type,
+        basis_data=None if basis_data is None else torch.as_tensor(basis_data, **f),
+        basis_mlp=basis_mlp,
     )

@@ -43,6 +43,18 @@
 // cubic root's JVP. backward_entry skips the inward/lap terms of entries
 // outside K4's count window (win). Bound: bytes, 12 more a cached sample.
 //
+// The learned bases (a 3D texture or an MLP of the view direction) train
+// through the per-ray basis sh_mult (B, bd): with a g_sh_mult output, K5b
+// also gives g_sh_mult[r, b] = sum_c sum_ch dC[ch][c] * row_c[ch bd + b],
+// the same colour cotangents dC that scatter into the SH rows, contracted
+// with the corner rows instead of the basis. A ray's pool entries are
+// contiguous, so each warp sums them per ray with a segmented shuffle
+// (lanes of one ray add their neighbours' values over offsets 1..16) and
+// the first lane of each ray in the warp issues bd atomics, where one per
+// entry would pile bd atomics a entry onto the same slots. The kernel is
+// templated on the output: without it (a null pointer) the code and the
+// other outputs are today's.
+//
 // Bound: K5a by bytes (each slot's t, alpha, colour and flags read, its
 // cotangents written: about 40 bytes a slot), K5b by the random 8-row
 // gathers and the atomics into the rows (each entry reads 8 rows of 32
@@ -252,7 +264,28 @@ struct BackEntryParams {
     float* g_surface;  // (cap, n_surf_c)
     float* g_sh;       // (cap, 3 bd)
     float* g_fss;      // (1,) or null
+    float* g_sh_mult;  // (B, bd) or null
 };
+
+// what the sh_mult gradient needs of one entry: its ray, the 8 corner rows
+// and the colour cotangent of each (corner, channel); ray -1: nothing
+struct ShMultGrad {
+    int ray;
+    int link[8];
+    float dC[3][8];
+};
+
+// the entry's part of g_sh_mult[ray, b]
+HD float sh_mult_grad(const BackEntryParams& p, const ShMultGrad& sg, int b) {
+    if (sg.ray < 0) return 0.0f;
+    const int sh_base = 1 + p.n_surf_c;
+    float acc = 0.0f;
+    for (int c = 0; c < 8; ++c) {
+        const float* row = p.packed + (int64_t)sg.link[c] * p.C8 + sh_base;
+        for (int ch = 0; ch < 3; ++ch) acc = acc + sg.dC[ch][c] * row[ch * p.bd + b];
+    }
+    return acc;
+}
 
 // vector-Jacobian product of trilerp_weights at (x, y, z)
 HD void trilerp_weights_vjp(const float fs[3], const float dw[8], float dfs[3]) {
@@ -276,8 +309,9 @@ HD float safe_fp(float fp) {
     return fp < 0.0f ? -1e-10f : 1e-10f;
 }
 
-// returns this entry's part of the fake_sample_std gradient
-HD float backward_entry_thread(const BackEntryParams& p, int64_t m) {
+// returns this entry's part of the fake_sample_std gradient; fills sg for
+// the sh_mult gradient (sg.ray stays -1 for an entry that adds nothing)
+HD float backward_entry_thread(const BackEntryParams& p, int64_t m, ShMultGrad& sg) {
     const int r = p.ray_id[m];
     const int l[3] = {p.l[3 * m], p.l[3 * m + 1], p.l[3 * m + 2]};
     const float close_t = p.close_t[m], far_t = p.far_t[m];
@@ -415,6 +449,11 @@ HD float backward_entry_thread(const BackEntryParams& p, int64_t m) {
     }
 
     const int nsh = 3 * p.bd;
+    sg.ray = r;
+    for (int c = 0; c < 8; ++c) {
+        sg.link[c] = cs.link[c];
+        for (int ch = 0; ch < 3; ++ch) sg.dC[ch][c] = dC[ch][c];
+    }
     for (int c = 0; c < 8; ++c) {
         const int64_t row = cs.link[c];  // present: vox_ok holds
         if (dA8[c] != 0.0f) atomic_add(p.g_density + row, dA8[c]);
@@ -434,11 +473,37 @@ __global__ void backward_ray_kernel(BackRayParams p) {
     if (r < p.B) backward_ray_thread(p, r);
 }
 
+// the sum of v over the lanes from this one to the last lane of the warp
+// that holds the same key (keys contiguous in the warp: the sum is exact at
+// each key's first lane)
+__device__ __forceinline__ float segment_sum(float v, int key) {
+    const int lane = threadIdx.x & 31;
+    for (int off = 1; off < 32; off <<= 1) {
+        const float ov = __shfl_down_sync(0xffffffffu, v, off);
+        const int ok = __shfl_down_sync(0xffffffffu, key, off);
+        if (lane + off < 32 && ok == key) v += ov;
+    }
+    return v;
+}
+
+template <bool kShMult>
 __global__ void backward_entry_kernel(BackEntryParams p) {
     const int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    float g = m < p.M ? backward_entry_thread(p, m) : 0.0f;
+    ShMultGrad sg;
+    sg.ray = -1;
+    float g = m < p.M ? backward_entry_thread(p, m, sg) : 0.0f;
     g = warp_sum(g);
     if ((threadIdx.x & 31) == 0 && g != 0.0f && p.g_fss) atomicAdd(p.g_fss, g);
+    if (kShMult) {
+        // every lane takes part in the shuffles, the tail's (m >= M) too
+        const int r = m < p.M ? p.ray_id[m] : -1;
+        const int r_prev = __shfl_up_sync(0xffffffffu, r, 1);
+        const bool first = (threadIdx.x & 31) == 0 || r_prev != r;
+        for (int b = 0; b < p.bd; ++b) {
+            const float v = segment_sum(sh_mult_grad(p, sg, b), r);
+            if (first && r >= 0 && v != 0.0f) atomicAdd(p.g_sh_mult + (int64_t)r * p.bd + b, v);
+        }
+    }
 }
 
 extern "C" cudaError_t backward_ray(const int64_t* offsets, int B, long long M, int S0,
@@ -472,16 +537,20 @@ extern "C" cudaError_t backward_entry(const int* ray_id, const int* l, const flo
                                       const float* d_alpha, const float* d_t, const float* d_col,
                                       const float* g_rl, const bool* win, float* g_density,
                                       float* g_surface, float* g_sh, float* g_fss,
-                                      void* stream) {
+                                      float* g_sh_mult, void* stream) {
     if (M <= 0) return cudaSuccess;
     const BackEntryParams p{ray_id, l, close_t, far_t, M, B, origins, dirs, sh_mult, bd, links,
                             X, Y, Z, packed, cap, C8, n_surf_c, level_sets, n_lv, S0,
                             near_grid_t, sigma_thresh, fs_std, min_vox_len, only_outward,
                             fake_sample, limited_fake, normalize_surf, act_sigmoid,
                             no_sh_surf_grad, contrib, d_alpha, d_t, d_col, g_rl, win,
-                            g_density, g_surface, g_sh, g_fss};
+                            g_density, g_surface, g_sh, g_fss, g_sh_mult};
     const int block = 128;
-    backward_entry_kernel<<<(unsigned)((M + block - 1) / block), block, 0, (cudaStream_t)stream>>>(p);
+    const unsigned grid = (unsigned)((M + block - 1) / block);
+    if (g_sh_mult)
+        backward_entry_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(p);
+    else
+        backward_entry_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(p);
     return cudaGetLastError();
 }
 #endif

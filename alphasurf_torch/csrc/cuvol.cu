@@ -28,7 +28,12 @@
 //   forward's code in the forward's order, so their transmittances are the
 //   forward's bit for bit. Per entry it sums the 8 corners' density and
 //   colour cotangents over its samples in registers and issues one
-//   atomicAdd per corner channel (8 x (1 + 3 bd)), as K5b does.
+//   atomicAdd per corner channel (8 x (1 + 3 bd)), as K5b does. With a
+//   g_sh_mult output (a learned basis in training) it also gives the
+//   gradient of the ray's basis, sum over its entries and corners of
+//   gc[c][ch] * row_c[ch bd + b]: the thread owns its ray, so the bd sums
+//   stay in registers and are written once, with no atomics. The kernel is
+//   templated on that output; without it the code is today's.
 //
 // K10 replaces render/cuvol.py:volume_render_cuvol (297-429), the dense
 // fixed-step march of the eval images: one thread per ray steps
@@ -74,7 +79,11 @@ struct CuvolParams {
     const float* g_rgb;      // (B, 3)
     float* g_density;        // (cap,)
     float* g_sh;             // (cap, 3 bd)
+    float* g_sh_mult;        // (B, bd) or null
 };
+
+// the widest basis whose per-ray gradient K8's backward keeps in registers
+constexpr int kMaxBasis = 32;
 
 // the background colour of ray r, channel ch
 HD float bg_of(const CuvolParams& p, int r, int ch) {
@@ -216,8 +225,12 @@ HD void cuvol_forward_ray(const CuvolParams& p, int r) {
     if (p.t_sig) p.t_sig[r] = finite(t_sig) ? t_sig : 0.0f;
 }
 
+template <bool kShMult>
 HD void cuvol_backward_ray(const CuvolParams& p, int r) {
     const Ray ray = load_ray(p, r);
+    float gshm[kMaxBasis];
+#pragma unroll
+    for (int b = 0; b < kMaxBasis; ++b) gshm[b] = 0.0f;
     const int64_t e0 = p.offsets[r], e1 = p.offsets[r + 1];
     const float g[3] = {p.g_rgb[3 * (int64_t)r], p.g_rgb[3 * (int64_t)r + 1],
                         p.g_rgb[3 * (int64_t)r + 2]};
@@ -272,12 +285,23 @@ HD void cuvol_backward_ray(const CuvolParams& p, int r) {
             if (link < 0) continue;
             if (gd[c] != 0.0f) atomic_add(p.g_density + link, gd[c]);
             float* row = p.g_sh + (int64_t)link * C;
+            const float* sh_row = p.sh + (int64_t)link * C;
             for (int ch = 0; ch < 3; ++ch) {
                 if (gc[c][ch] == 0.0f) continue;
                 for (int b = 0; b < p.bd; ++b)
                     atomic_add(row + ch * p.bd + b, gc[c][ch] * ray.shm[b]);
+                if (kShMult) {
+#pragma unroll
+                    for (int b = 0; b < kMaxBasis; ++b)
+                        if (b < p.bd) gshm[b] = gshm[b] + gc[c][ch] * sh_row[ch * p.bd + b];
+                }
             }
         }
+    }
+    if (kShMult) {
+#pragma unroll
+        for (int b = 0; b < kMaxBasis; ++b)
+            if (b < p.bd) p.g_sh_mult[(int64_t)r * p.bd + b] = gshm[b];
     }
 }
 
@@ -326,9 +350,10 @@ __global__ void cuvol_forward_kernel(CuvolParams p) {
     if (r < p.B) cuvol_forward_ray(p, r);
 }
 
+template <bool kShMult>
 __global__ void cuvol_backward_kernel(CuvolParams p) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r < p.B) cuvol_backward_ray(p, r);
+    if (r < p.B) cuvol_backward_ray<kShMult>(p, r);
 }
 
 __global__ void cuvol_march_kernel(CuvolParams p) {
@@ -406,8 +431,10 @@ extern "C" cudaError_t cuvol_backward(const int64_t* offsets, int B, const int* 
                                       float step, int S, int lso, float bg,
                                       const float* bg_rgb, const float* log_T,
                                       const float* entry_pre, const float* g_rgb,
-                                      float* g_density, float* g_sh, void* stream) {
+                                      float* g_density, float* g_sh, float* g_sh_mult,
+                                      void* stream) {
     if (B <= 0) return cudaSuccess;
+    if (g_sh_mult && bd > kMaxBasis) return cudaErrorInvalidValue;
     CuvolParams p = make_params(offsets, B, l, close_t, far_t, origins, dirs, sh_mult, bd,
                                 delta_scale, tmin, tmax, links, X, Y, Z, density, sh, step, S, lso,
                                 bg, bg_rgb, 0, 0.0f);
@@ -416,7 +443,12 @@ extern "C" cudaError_t cuvol_backward(const int64_t* offsets, int B, const int* 
     p.g_rgb = g_rgb;
     p.g_density = g_density;
     p.g_sh = g_sh;
-    cuvol_backward_kernel<<<(B + kBlock - 1) / kBlock, kBlock, 0, (cudaStream_t)stream>>>(p);
+    p.g_sh_mult = g_sh_mult;
+    const unsigned grid = (B + kBlock - 1) / kBlock;
+    if (g_sh_mult)
+        cuvol_backward_kernel<true><<<grid, kBlock, 0, (cudaStream_t)stream>>>(p);
+    else
+        cuvol_backward_kernel<false><<<grid, kBlock, 0, (cudaStream_t)stream>>>(p);
     return cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-// K6 and K12a-K12f: the cell regularizers, loss and row gradients in one
+// K6 and K12a-K12g: the cell regularizers, loss and row gradients in one
 // pass.
 //
 // Replaces the JAX package's losses/reg.py: tv_loss (126-155) and
@@ -7,7 +7,8 @@
 // extended surface terms surface_norm_match_loss (569),
 // surface_viscosity_loss (599), surface_sign_change_loss (630) and
 // surface_eikonal_loss (791) and lumisphere_tv_loss (734) in reg_ext, and
-// background_tv_loss (673) in reg_background_tv, each with its jax.grad, as svox2's
+// background_tv_loss (673) in reg_background_tv, and basis_tv_loss (717) in
+// reg_basis_tv, each with its jax.grad, as svox2's
 // loss_kernel.cu computed loss and gradient together. With a cell list the
 // cells are a sampled window (flat lattice ids, reg.py:sample_present_cells
 // or sample_cells); without one (K6 only), every lattice cell is a thread,
@@ -657,6 +658,48 @@ HD float bg_tv_cell(const BgTVParams& p, int64_t n) {
     return (p.scaling * (tv[0] + tv[1] + tv[2]) + p.scaling_density * tv[3]) * p.scale;
 }
 
+// ---------------------------------------------------------------------------
+// K12g: the TV of the learned 3D-texture basis (reg.py:717,
+// inplace_tv_basis_grad, svox2.py:5959-5970): the mean over the (R-1)^3
+// cells of the sum over channels of sqrt(1e-5 + dz^2 + dy^2 + dx^2), the
+// forward differences of each channel, dense. One thread a (cell,
+// channel); the gradient goes to the 4 touched values with atomics.
+// Bound: bytes (the (R, R, R, bd) float32 texture read and its gradient
+// written: 2.4 MB at R 32, bd 9, under a microsecond at 3.35 TB/s), so at
+// this size the launch sets its time.
+// ---------------------------------------------------------------------------
+
+struct BasisTVParams {
+    const float* data;  // (R, R, R, bd)
+    int R, bd;
+    int64_t n;  // (R-1)^3 bd
+    float scale;
+    double* loss;
+    float* grad;
+};
+
+HD float basis_tv_cell(const BasisTVParams& p, int64_t i) {
+    const int ch = (int)(i % p.bd);
+    const int64_t cell = i / p.bd;
+    const int64_t R1 = p.R - 1;
+    const int64_t z = cell % R1, y = (cell / R1) % R1, x = cell / (R1 * R1);
+    const int64_t sz = p.bd, sy = (int64_t)p.R * p.bd, sx = (int64_t)p.R * p.R * p.bd;
+    const int64_t k0 = x * sx + y * sy + z * sz + ch;
+    const float v0 = p.data[k0];
+    const float dz = p.data[k0 + sz] - v0;
+    const float dy = p.data[k0 + sy] - v0;
+    const float dx = p.data[k0 + sx] - v0;
+    const float tv = sqrtf(1e-5f + dz * dz + dy * dy + dx * dx);
+    const float gs = p.scale / tv;
+    const float gz = gs * dz, gy = gs * dy, gx = gs * dx;
+    if (gz != 0.0f) atomic_add(p.grad + k0 + sz, gz);
+    if (gy != 0.0f) atomic_add(p.grad + k0 + sy, gy);
+    if (gx != 0.0f) atomic_add(p.grad + k0 + sx, gx);
+    const float g0 = -(gz + gy + gx);
+    if (g0 != 0.0f) atomic_add(p.grad + k0, g0);
+    return tv * p.scale;
+}
+
 #ifdef __CUDACC__
 constexpr int REG_BLOCK = 256;
 
@@ -714,6 +757,11 @@ __global__ void reg_lumisphere_kernel(ExtParams p) {
 __global__ void reg_background_tv_kernel(BgTVParams p) {
     const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     block_sum_atomic(n < p.n ? bg_tv_cell(p, n) : 0.0f, p.loss);
+}
+
+__global__ void reg_basis_tv_kernel(BasisTVParams p) {
+    const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    block_sum_atomic(n < p.n ? basis_tv_cell(p, n) : 0.0f, p.loss);
 }
 
 static unsigned n_blocks(int64_t n) { return (unsigned)((n + REG_BLOCK - 1) / REG_BLOCK); }
@@ -782,6 +830,16 @@ extern "C" cudaError_t reg_background_tv(const int* links, int W, int H, const f
     const BgTVParams p{links, W, H, data, nlayers, cells, n, scaling, scaling_density, scale,
                        loss, g_data};
     reg_background_tv_kernel<<<n_blocks(n), REG_BLOCK, 0, (cudaStream_t)stream>>>(p);
+    return cudaGetLastError();
+}
+
+// K12g
+extern "C" cudaError_t reg_basis_tv(const float* data, int R, int bd, float scale, double* loss,
+                                    float* grad, void* stream) {
+    if (R < 2 || bd <= 0) return cudaSuccess;
+    const int64_t n = (int64_t)(R - 1) * (R - 1) * (R - 1) * bd;
+    const BasisTVParams p{data, R, bd, n, scale, loss, grad};
+    reg_basis_tv_kernel<<<n_blocks(n), REG_BLOCK, 0, (cudaStream_t)stream>>>(p);
     return cudaGetLastError();
 }
 #endif

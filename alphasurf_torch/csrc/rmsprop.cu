@@ -10,10 +10,13 @@
 // Bound: bytes. Each element's parameter, gradient and rms are read once,
 // the parameter and rms written once: 20 bytes an element, 1.4 GB for the
 // 2.47M-row grid of the main path. Design: rows of up to 4 channels take a
-// thread each; wider rows (the 27 SH channels) a warp each, one lane per
-// channel, so that loads are coalesced and the row mask is one
-// __any_sync. The update is written in place, where JAX returns new arrays
-// (and donates the old ones).
+// thread each; wider rows (the 27 SH channels, the learned basis MLP's 64)
+// a warp each, lane c on channels c, c + 32, ..., so that loads are
+// coalesced and the row mask is one __any_sync. The learned bases' groups
+// come as rows too: the texture's (R^3, bd) cells, each weight matrix's
+// rows, and a bias as one row, as JAX's mask any(grad != 0, axis=-1)
+// treats a 1-D array. The update is written in place, where JAX returns
+// new arrays (and donates the old ones).
 #include "common.cuh"
 
 struct RMSParams {
@@ -58,22 +61,21 @@ __global__ void rmsprop_row_kernel(RMSParams p) {
     if (r < p.rows) rmsprop_row(p, r);
 }
 
-// one warp per row, lane c on channel c (C <= 32)
+// one warp per row, lane c on channels c, c + 32, ...
 __global__ void rmsprop_warp_kernel(RMSParams p) {
     const int64_t r = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-    const int c = threadIdx.x & 31;
+    const int lane = threadIdx.x & 31;
     if (r >= p.rows) return;  // whole warps leave together
-    const bool mine = c < p.C;
-    const bool nz = mine && p.grad[r * p.C + c] != 0.0f;
+    bool nz = false;
+    for (int c = lane; c < p.C; c += 32) nz = nz || p.grad[r * p.C + c] != 0.0f;
     const bool any = __any_sync(0xffffffffu, nz);
-    if (mine) rmsprop_elem(p, r * p.C + c, any && !p.frozen);
+    for (int c = lane; c < p.C; c += 32) rmsprop_elem(p, r * p.C + c, any && !p.frozen);
 }
 
 extern "C" cudaError_t rmsprop(float* param, float* rms, const float* grad, long long rows, int C,
                                float lr, float beta, float one_m_beta, float eps, int has_clip,
                                float clip, int has_min, float minval, int frozen, void* stream) {
     if (rows <= 0) return cudaSuccess;
-    if (C > 32) return cudaErrorInvalidValue;
     const RMSParams p{param, rms, grad, rows, C, lr, beta, one_m_beta, eps, has_clip, clip,
                       has_min, minval, frozen};
     const int block = 256;

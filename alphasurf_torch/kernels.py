@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("occupancy", "phase_a", "phase_b", "composite", "backward", "reg", "rmsprop", "cuvol",
-           "topology", "sweep", "extract", "background")
+           "topology", "sweep", "extract", "background", "compat")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17", "-shared",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
@@ -44,6 +44,7 @@ LAUNCHES = {
     "intersect_points": 0,
     "backward_ray": 0,
     "backward_entry": 0,
+    "backward_entry_basis": 0,
     "reg_tv": 0,
     "reg_normal": 0,
     "reg_sparsify": 0,
@@ -51,6 +52,7 @@ LAUNCHES = {
     "density_occupancy": 0,
     "cuvol_forward": 0,
     "cuvol_backward": 0,
+    "cuvol_backward_basis": 0,
     "cuvol_march": 0,
     "keep_mask": 0,
     "prune_mask": 0,
@@ -73,8 +75,13 @@ LAUNCHES = {
     "reg_eikonal": 0,
     "reg_lumisphere": 0,
     "reg_background_tv": 0,
+    "reg_basis_tv": 0,
     "background_forward": 0,
     "background_backward": 0,
+    "compat_forward_nvol": 0,
+    "compat_forward_svox1": 0,
+    "compat_backward_nvol": 0,
+    "compat_backward_svox1": 0,
 }
 
 _P = ctypes.c_void_p
@@ -98,19 +105,20 @@ _ARGTYPES = {
                      _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "backward_entry": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P,
                        _I, _I, _F, _F, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P, _P],
     "reg_tv": [_P, _I, _I, _I, _P, _L, _P, _I, _I, _I, _P, _F, _P, _P, _P],
     "reg_normal": [_P, _I, _I, _I, _P, _L, _P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     "reg_sparsify": [_P, _I, _I, _I, _P, _L, _P, _P, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P],
     "reg_ext": [_I, _P, _I, _I, _I, _P, _L, _I, _P, _I, _P, _P, _F, _F, _F, _P, _P, _P, _P, _I,
                 _P, _F, _P, _P],
     "reg_background_tv": [_P, _I, _I, _P, _I, _P, _L, _F, _F, _F, _P, _P, _P],
+    "reg_basis_tv": [_P, _I, _I, _F, _P, _P, _P],
     "rmsprop": [_P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _F, _I, _F, _I, _P],
     "density_occupancy_words": [_P, _P, _I, _I, _I, _P, _P],
     "cuvol_forward": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F,
                       _I, _I, _F, _P, _I, _F, _P, _P, _P, _P, _P, _P],
     "cuvol_backward": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F,
-                       _I, _I, _F, _P, _P, _P, _P, _P, _P, _P],
+                       _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
     "cuvol_march": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _I, _F, _P,
                     _I, _F, _P, _P, _P, _P, _P],
     "topo_window_or": [_P, _F, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -128,6 +136,10 @@ _ARGTYPES = {
     "background_forward": [_P, _P, _P, _I, _F, _F, _F, _P, _I, _P, _I, _I, _I, _F, _P, _P, _P],
     "background_backward": [_P, _P, _P, _I, _F, _F, _F, _P, _I, _P, _I, _I, _I, _F, _P, _P, _P,
                             _P, _P],
+    "compat_forward": [_I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _F, _F,
+                       _P, _P, _P, _P],
+    "compat_backward": [_I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _F, _F,
+                        _P, _P, _P, _P, _P],
 }
 _FUNCS = {
     "occupancy": ("occupancy_words", "density_occupancy_words"),
@@ -136,7 +148,8 @@ _FUNCS = {
     "phase_b": ("phase_b",),
     "composite": ("composite", "intersect_points"),
     "backward": ("backward_ray", "backward_entry"),
-    "reg": ("reg_tv", "reg_normal", "reg_sparsify", "reg_ext", "reg_background_tv"),
+    "reg": ("reg_tv", "reg_normal", "reg_sparsify", "reg_ext", "reg_background_tv",
+            "reg_basis_tv"),
     "rmsprop": ("rmsprop",),
     "cuvol": ("cuvol_forward", "cuvol_backward", "cuvol_march"),
     "topology": ("topo_window_or", "topo_prune_valid", "topo_straddle", "topo_resample_dense",
@@ -144,6 +157,7 @@ _FUNCS = {
     "sweep": ("weight_march", "visibility", "transmit_march", "mask_march"),
     "extract": ("iso_points",),
     "background": ("background_forward", "background_backward"),
+    "compat": ("compat_forward", "compat_backward"),
 }
 
 _libs: dict = {}
@@ -590,11 +604,14 @@ def backward_ray(offsets, smp: dict, trunc_a, opt, g_rgb, g_ray_losses, g_cache=
 
 def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed,
                    n_surf_c: int, level_sets, near_grid_t: float, fs_std, opt, contrib, d_alpha,
-                   d_t, d_col, g_ray_losses, win=None):
+                   d_t, d_col, g_ray_losses, win=None, want_sh_mult: bool = False):
     """K5b: gradients of the density (cap,), surface (cap, n_surf_c) and SH
     (cap, 3 bd) rows and of fake_sample_std (1,) from K5a's slot cotangents
     and the inward-norm and density-lap rows of the ray-loss cotangents,
-    the latter for the entries ``win`` (K4's count window; None: all)."""
+    the latter for the entries ``win`` (K4's count window; None: all).
+    With ``want_sh_mult`` also the gradient of the per-ray basis sh_mult
+    (B, bd), a fifth output (a launch with it also counts as
+    ``backward_entry_basis``)."""
     M, B, bd, cap, C8 = _pool_args(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links,
                                    packed, n_surf_c, level_sets)
     fss = _scalar_ptr("fs_std", fs_std)
@@ -611,6 +628,7 @@ def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, pac
     g_surface = torch.zeros((cap, n_surf_c), dtype=torch.float32, device=dev)
     g_sh = torch.zeros((cap, 3 * bd), dtype=torch.float32, device=dev)
     g_fss = torch.zeros(1, dtype=torch.float32, device=dev)
+    g_shm = torch.zeros((B, bd), dtype=torch.float32, device=dev) if want_sh_mult else None
     if M > 0:
         X, Y, Z = links.shape
         _launch("backward", "backward_entry", "backward_entry",
@@ -624,8 +642,11 @@ def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, pac
                 int(opt.no_surf_grad_from_sh), _ptr(contrib), _ptr(d_alpha), _ptr(d_t),
                 _ptr(d_col), _ptr(g_ray_losses), _ptr(win) if win is not None else None,
                 _ptr(g_density), _ptr(g_surface), _ptr(g_sh),
-                _ptr(g_fss) if fs_std is not None else 0)
-    return g_density, g_surface, g_sh, g_fss
+                _ptr(g_fss) if fs_std is not None else 0, _ptr(g_shm) if want_sh_mult else None)
+        if want_sh_mult:
+            LAUNCHES["backward_entry_basis"] += 1
+    out = (g_density, g_surface, g_sh, g_fss)
+    return out + (g_shm,) if want_sh_mult else out
 
 
 # ---------------------------------------------------------------------------
@@ -804,6 +825,22 @@ def reg_background_tv(links, cells, data, scaling: float, scaling_density: float
     return loss.float(), g_data
 
 
+def reg_basis_tv(data, scale: float):
+    """K12g, the TV of the learned 3D-texture basis (R, R, R, bd), every
+    (R-1)^3 cell, times ``scale``. Returns the loss (1,) and its gradient
+    (R, R, R, bd)."""
+    _check("basis_data", data, torch.float32)
+    R, bd = data.shape[0], data.shape[-1]
+    if data.dim() != 4 or tuple(data.shape[:3]) != (R, R, R):
+        raise ValueError(f"basis_data: expected (R, R, R, bd), got {tuple(data.shape)}")
+    loss = torch.zeros(1, dtype=torch.float64, device=data.device)
+    grad = torch.zeros_like(data)
+    if R >= 2 and bd > 0:
+        _launch("reg", "reg_basis_tv", "reg_basis_tv", _ptr(data), R, bd, float(scale),
+                _ptr(loss), _ptr(grad))
+    return loss.float(), grad
+
+
 # ---------------------------------------------------------------------------
 # K7
 # ---------------------------------------------------------------------------
@@ -820,8 +857,6 @@ def rmsprop(param, rms, grad, lr: float, beta: float, epsilon: float, minval, gr
     if rows == 0:
         return
     C = param[0].numel()
-    if C > 32:
-        raise ValueError(f"rmsprop: rows of {C} channels; the kernel takes at most 32")
     _launch("rmsprop", "rmsprop", "rmsprop", _ptr(param), _ptr(rms), _ptr(grad), rows, C,
             float(lr), float(beta), float(1.0 - beta), float(epsilon),
             int(grad_abs_max is not None), float(grad_abs_max or 0.0), int(minval is not None),
@@ -912,10 +947,12 @@ def cuvol_forward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_scal
 
 def cuvol_backward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_scale, tmin, tmax,
                    links, density, sh, step: float, n_slots: int, last_sample_opaque: bool,
-                   bg: float, log_T, entry_pre, g_rgb, bg_rgb=None):
+                   bg: float, log_T, entry_pre, g_rgb, bg_rgb=None, want_sh_mult: bool = False):
     """K8 backward: the gradients of density (cap,) and SH (cap, 3 bd) from
     the cotangent of rgb (B, 3), given the forward's log_T and entry_pre
-    (and the forward's ``bg_rgb``)."""
+    (and the forward's ``bg_rgb``). With ``want_sh_mult`` also the gradient
+    of the per-ray basis sh_mult (B, bd), a third output (a launch with it
+    also counts as ``cuvol_backward_basis``; bd at most 32)."""
     B, bd, grid_args = _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links,
                                    density, sh)
     M = _pool_entry_args(offsets, l, close_t, far_t, B)
@@ -924,13 +961,21 @@ def cuvol_backward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_sca
     _check("g_rgb", g_rgb, torch.float32, (B, 3))
     g_density = torch.zeros_like(density)
     g_sh = torch.zeros_like(sh)
+    g_shm = None
+    if want_sh_mult:
+        if bd > 32:
+            raise ValueError(f"cuvol_backward: the basis gradient takes bd <= 32, got {bd}")
+        g_shm = torch.zeros((B, bd), dtype=torch.float32, device=origins.device)
     bgp = _bg_rgb_ptr(bg_rgb, B)
     if B > 0 and M > 0:
         _launch("cuvol", "cuvol_backward", "cuvol_backward",
                 _ptr(offsets), B, _ptr(l), _ptr(close_t), _ptr(far_t), _ptr(origins), _ptr(dirs),
                 *grid_args, float(step), int(n_slots), int(last_sample_opaque), float(bg), bgp,
-                _ptr(log_T), _ptr(entry_pre), _ptr(g_rgb), _ptr(g_density), _ptr(g_sh))
-    return g_density, g_sh
+                _ptr(log_T), _ptr(entry_pre), _ptr(g_rgb), _ptr(g_density), _ptr(g_sh),
+                _ptr(g_shm) if want_sh_mult else None)
+        if want_sh_mult:
+            LAUNCHES["cuvol_backward_basis"] += 1
+    return (g_density, g_sh, g_shm) if want_sh_mult else (g_density, g_sh)
 
 
 def cuvol_march(origins, dirs, sh_mult, delta_scale, tmin, tmax, links, density, sh,
@@ -1231,3 +1276,61 @@ def background_backward(origins, dirs, delta_scale, reso, links, n_steps: int,
         _launch("background", "background_backward", "background_backward", *args, int(n_steps),
                 float(brightness), _ptr(log_T), _ptr(g_c), _ptr(g_lt), _ptr(g_data))
     return g_data
+
+
+# ---------------------------------------------------------------------------
+# K14: the compat marches
+# ---------------------------------------------------------------------------
+
+COMPAT_MODES = ("nvol", "svox1")
+
+
+def _compat_mode(mode: str) -> int:
+    if mode not in COMPAT_MODES:
+        raise ValueError(f"compat mode {mode!r}; one of {COMPAT_MODES}")
+    return COMPAT_MODES.index(mode)
+
+
+def compat_forward(mode: str, origins, dirs, sh_mult, delta_scale, tmin, tmax, links, density,
+                   sh, step: float, n_steps: int, sigma_thresh: float, bg: float) -> dict:
+    """K14 forward, ``mode`` "nvol" or "svox1": rgb (B, 3), depth (B,) and
+    acc (B,), the total alpha (nvol) or the log transmittance (svox1), of
+    each ray's march t = tmin + k step, k < n_steps, while t <= tmax."""
+    m = _compat_mode(mode)
+    B, bd, grid_args = _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links,
+                                   density, sh)
+    f32 = dict(dtype=torch.float32, device=origins.device)
+    out = {"rgb": torch.empty((B, 3), **f32), "depth": torch.empty(B, **f32),
+           "acc": torch.empty(B, **f32)}
+    if B > 0:
+        _launch("compat", "compat_forward", f"compat_forward_{mode}", m, B, _ptr(origins),
+                _ptr(dirs), *grid_args, float(step), int(n_steps), float(sigma_thresh), float(bg),
+                _ptr(out["rgb"]), _ptr(out["depth"]), _ptr(out["acc"]))
+    return out
+
+
+def compat_backward(mode: str, origins, dirs, sh_mult, delta_scale, tmin, tmax, links, density,
+                    sh, step: float, n_steps: int, sigma_thresh: float, bg: float, g_rgb,
+                    want_sh_mult: bool = False):
+    """K14 backward: the gradients of density (cap,) and SH (cap, 3 bd) from
+    the cotangent of rgb (B, 3), and with ``want_sh_mult`` that of the
+    per-ray basis (B, bd), a third output (bd at most 32; svox1 at most
+    8192 steps)."""
+    m = _compat_mode(mode)
+    B, bd, grid_args = _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links,
+                                   density, sh)
+    _check("g_rgb", g_rgb, torch.float32, (B, 3))
+    if want_sh_mult and bd > 32:
+        raise ValueError(f"compat_backward: the basis gradient takes bd <= 32, got {bd}")
+    if mode == "svox1" and n_steps > 8192:
+        raise ValueError(f"compat_backward: svox1 marches at most 8192 steps, got {n_steps}")
+    g_density = torch.zeros_like(density)
+    g_sh = torch.zeros_like(sh)
+    g_shm = (torch.zeros((B, bd), dtype=torch.float32, device=origins.device) if want_sh_mult
+             else None)
+    if B > 0:
+        _launch("compat", "compat_backward", f"compat_backward_{mode}", m, B, _ptr(origins),
+                _ptr(dirs), *grid_args, float(step), int(n_steps), float(sigma_thresh), float(bg),
+                _ptr(g_rgb), _ptr(g_density), _ptr(g_sh), _ptr(g_shm) if want_sh_mult else None)
+    return (g_density, g_sh, g_shm) if want_sh_mult else (g_density, g_sh)
+

@@ -2,7 +2,8 @@
 ``losses.reg`` (svox2's loss_kernel.cu and its Python twins).
 
 The regularizers of the surface train step run on the card through K6 and,
-for the extended surface terms, K12a-K12d (``csrc/reg.cu``): one pass
+for the extended surface terms, K12a-K12d, for the background's K12e-K12f
+and for the learned texture's TV K12g (``csrc/reg.cu``): one pass
 computes the loss and the gradient of the rows, as svox2's kernels did, and
 an autograd Function hands back the saved gradient times the loss's
 cotangent. On the CPU each has a plain PyTorch
@@ -601,3 +602,27 @@ def background_tv_loss(grid: SparseGrid, cells_bg: torch.Tensor, scaling: float,
                                           grid.background_data.detach(), scaling,
                                           scaling_density, scale),
         grid.background_data)
+
+
+def _basis_tv_plain(basis_data: torch.Tensor) -> torch.Tensor:
+    bd = basis_data
+    return torch.mean(torch.sqrt(
+        1e-5
+        + (bd[:-1, :-1, 1:] - bd[:-1, :-1, :-1]) ** 2
+        + (bd[:-1, 1:, :-1] - bd[:-1, :-1, :-1]) ** 2
+        + (bd[1:, :-1, :-1] - bd[:-1, :-1, :-1]) ** 2
+    ).sum(-1))
+
+
+def basis_tv_loss(grid: SparseGrid):
+    """K12g: the TV of the learned 3D-texture basis (reg.py:717;
+    inplace_tv_basis_grad, svox2.py:5959-5970), dense: the mean over the
+    (R-1)^3 cells of the sum over channels of sqrt(1e-5 + dz^2 + dy^2 +
+    dx^2), the forward differences of each channel. 0 without a texture."""
+    if grid.basis_data is None:
+        return 0.0
+    bd = grid.basis_data
+    if not bd.is_cuda:
+        return _basis_tv_plain(bd)
+    R = bd.shape[0]
+    return _KernelLoss.apply(lambda: kernels.reg_basis_tv(bd.detach(), 1.0 / (R - 1) ** 3), bd)

@@ -22,10 +22,11 @@ half-voxel band (outside the vertex lattice but inside the sample domain
 [-0.5, gsz-0.5]), which the dense march renders with an edge-clamped
 trilerp: the two agree only where the boundary voxels are empty.
 
-Gradients: when density or SH requires grad, the plain path on the CPU is
-differentiated by autograd (the pool is a constant of the parameters, as
-the JAX package's stop_gradient makes it); on the card ``_PackedCuvolFn``
-runs K8's forward and backward for the cotangent of ``rgb``.
+Gradients: when density, SH or a learned basis requires grad, the plain
+path on the CPU is differentiated by autograd (the pool is a constant of
+the parameters, as the JAX package's stop_gradient makes it); on the card
+``_PackedCuvolFn`` runs K8's forward and backward for the cotangent of
+``rgb``, the per-ray basis ``sh_mult`` among its inputs.
 
 A grid with an MSI background composites it behind the density in both
 renderers: K13 (``render.background``) gives each ray its background colour,
@@ -119,16 +120,22 @@ def n_slots(opt: RenderOptions) -> int:
     return int(math.ceil(math.sqrt(3.0) / opt.step_size)) + 1
 
 
-def _prep(grid: SparseGrid, rays: Rays, opt: RenderOptions):
-    """Grid-space rays, their SH basis and world step scale, and the cuvol
-    bounds (sphere or sample box)."""
+def _prep_rays(grid: SparseGrid, rays: Rays, opt: RenderOptions):
+    """Grid-space rays, their view directions and world step scale, and the
+    cuvol bounds (sphere or sample box)."""
     origins, dirs, viewdirs, delta_scale = dda.preprocess_rays(grid, rays.origins, rays.dirs)
-    sh_mult = eval_basis(grid, viewdirs)
     if opt.use_spheric_clip:
         tmin, tmax = dda.spheric_bounds(grid, origins, dirs, opt.near_clip)
     else:
         tmin, tmax = _cuvol_bounds(grid, origins, dirs, opt)
-    return origins, dirs, sh_mult, delta_scale, tmin, tmax
+    return origins, dirs, viewdirs, delta_scale, tmin, tmax
+
+
+def _prep(grid: SparseGrid, rays: Rays, opt: RenderOptions):
+    """``_prep_rays`` with the rays' basis ``sh_mult`` in the place of
+    their view directions."""
+    origins, dirs, viewdirs, *rest = _prep_rays(grid, rays, opt)
+    return (origins, dirs, eval_basis(grid, viewdirs), *rest)
 
 
 def _corner_links(grid: SparseGrid, lT: torch.Tensor) -> torch.Tensor:
@@ -264,13 +271,14 @@ def _k8_forward(c: _CuvolChunk, density, sh, save_entry_pre: bool) -> dict:
 
 class _PackedCuvolFn(torch.autograd.Function):
     """K8 forward and backward on the card. ``rgb`` carries the gradient
-    to density and SH, and to the background colour ``bg_rgb`` (the
-    chunk's, an input here so that its cotangent reaches K13's backward);
-    ``depth`` and ``log_T`` take no cotangent, and ``t_sig`` (the
-    depth_sigma_thresh output) none by construction."""
+    to density and SH, to the background colour ``bg_rgb`` (the chunk's,
+    an input here so that its cotangent reaches K13's backward) and to the
+    per-ray basis ``sh_mult`` (likewise, for a learned basis); ``depth``
+    and ``log_T`` take no cotangent, and ``t_sig`` (the depth_sigma_thresh
+    output) none by construction."""
 
     @staticmethod
-    def forward(ctx, density, sh, bg_rgb, chunk: _CuvolChunk):
+    def forward(ctx, density, sh, bg_rgb, sh_mult, chunk: _CuvolChunk):
         d, s = density.detach()[:, 0], sh.detach()
         out = _k8_forward(chunk, d, s, save_entry_pre=True)
         ctx.chunk = chunk
@@ -293,12 +301,13 @@ class _PackedCuvolFn(torch.autograd.Function):
         B = c.rays[0].shape[0]
         g_rgb = (torch.zeros((B, 3), dtype=torch.float32, device=log_T.device) if g_rgb is None
                  else g_rgb.contiguous())
-        g_density, g_sh = kernels.cuvol_backward(
-            *_k8_args(c, grid.density_data.detach()[:, 0], grid.sh_data.detach()), log_T,
-            entry_pre, g_rgb, bg_rgb=c.bg_rgb)
         need = ctx.needs_input_grad
+        g_density, g_sh, *g_shm = kernels.cuvol_backward(
+            *_k8_args(c, grid.density_data.detach()[:, 0], grid.sh_data.detach()), log_T,
+            entry_pre, g_rgb, bg_rgb=c.bg_rgb, want_sh_mult=need[3])
         g_bg = g_rgb * torch.exp(log_T)[:, None] if need[2] else None
-        return (g_density[:, None] if need[0] else None, g_sh if need[1] else None, g_bg, None)
+        return (g_density[:, None] if need[0] else None, g_sh if need[1] else None, g_bg,
+                g_shm[0] if need[3] else None, None)
 
 
 def cuvol_pool(grid: SparseGrid, origins, dirs, tmin_cu, tmax_cu, words) -> Pool:
@@ -338,19 +347,20 @@ def volume_render_cuvol_packed(
     ``entries_per_ray`` is accepted for signature parity."""
     _check_grid(grid)
     with torch.no_grad():
-        origins, dirs, sh_mult, delta_scale, tmin_cu, tmax_cu = _prep(grid, rays, opt)
+        origins, dirs, viewdirs, delta_scale, tmin_cu, tmax_cu = _prep_rays(grid, rays, opt)
         words = density_occupancy_words(grid) if occupancy is None else occupancy
         pool = cuvol_pool(grid, origins, dirs, tmin_cu, tmax_cu, words)
+    sh_mult = eval_basis(grid, viewdirs)  # under autograd: a learned basis's gradient
     bg = background_color(grid, opt, origins, dirs, delta_scale)
     if origins.is_cuda:
         bg_rgb = None if bg is None else bg[0]
-        chunk = _CuvolChunk(grid, opt, pool, tuple(x.contiguous() for x in (
+        chunk = _CuvolChunk(grid, opt, pool, tuple(x.detach().contiguous() for x in (
             origins, dirs, sh_mult, delta_scale, tmin_cu, tmax_cu)), depth_sigma_thresh,
             None if bg_rgb is None else bg_rgb.detach().contiguous())
         params = (grid.density_data, grid.sh_data)
         if torch.is_grad_enabled() and (any(p.requires_grad for p in params) or (
-                bg_rgb is not None and bg_rgb.requires_grad)):
-            rgb, depth, log_T, t_sig = _PackedCuvolFn.apply(*params, bg_rgb, chunk)
+                bg_rgb is not None and bg_rgb.requires_grad) or sh_mult.requires_grad):
+            rgb, depth, log_T, t_sig = _PackedCuvolFn.apply(*params, bg_rgb, sh_mult, chunk)
         else:
             k = _k8_forward(chunk, grid.density_data.detach()[:, 0], grid.sh_data.detach(), False)
             rgb, depth, log_T, t_sig = k["rgb"], k["depth"], k["log_T"], k["t_sig"]
@@ -432,9 +442,11 @@ def volume_render_cuvol(
     if max_steps is None:
         max_steps = max_steps_for(grid, opt)
     n_steps = (max_steps + step_chunk - 1) // step_chunk * step_chunk
-    params = (grid.density_data, grid.sh_data, grid.background_data)
+    params = (grid.density_data, grid.sh_data, grid.background_data, grid.basis_data,
+              *(() if grid.basis_mlp is None else grid.basis_mlp.parameters()))
     with torch.no_grad():
-        origins, dirs, sh_mult, delta_scale, tmin, tmax = _prep(grid, rays, opt)
+        origins, dirs, viewdirs, delta_scale, tmin, tmax = _prep_rays(grid, rays, opt)
+    sh_mult = eval_basis(grid, viewdirs)
     if origins.is_cuda and torch.is_grad_enabled() and any(
             p is not None and p.requires_grad for p in params):
         raise NotImplementedError(
@@ -443,7 +455,7 @@ def volume_render_cuvol(
     bg = background_color(grid, opt, origins, dirs, delta_scale)
     if origins.is_cuda:
         m = kernels.cuvol_march(
-            *(x.contiguous() for x in (origins, dirs, sh_mult, delta_scale, tmin, tmax)),
+            *(x.detach().contiguous() for x in (origins, dirs, sh_mult, delta_scale, tmin, tmax)),
             grid.links, grid.density_data.detach()[:, 0], grid.sh_data.detach(), opt.step_size,
             n_steps, opt.last_sample_opaque, opt.background_brightness, depth_sigma_thresh,
             bg_rgb=None if bg is None else bg[0])

@@ -35,11 +35,16 @@ renderer: K13 (``render.background``) gives each ray its background colour,
 which K4 takes where it took the brightness, and K5 backward carries the
 colour's cotangent to K13's backward kernel.
 
+The per-ray basis ``sh_mult`` (SH, or a learned 3D texture or MLP,
+``core.sh.eval_basis``) is an input of ``_SurfaceFn``: under a gradient K5b
+also returns its cotangent (B, bd), which autograd carries on into the
+learned basis's parameters.
+
 Two output options of K3/K4 serve the extractors: ``depth_sigma_thresh``
 (K4's walk keeps a per-ray minimum) and ``return_intersections`` (K4 writes
 each slot's weight and contribution flag; ``intersect_points`` the world
-points). Only SDF grids and the SH basis are carried; the rest raises
-``NotImplementedError`` naming its ROADMAP item.
+points). Only SDF grids are carried; the other surface types raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -143,7 +148,9 @@ def _check_supported(grid: SparseGrid, opt: RenderOptions) -> None:
         )
 
 
-def _prep(grid: SparseGrid, rays: Rays, opt: RenderOptions):
+def _prep_rays(grid: SparseGrid, rays: Rays, opt: RenderOptions):
+    """Grid-space rays and their bounds: (origins, dirs, viewdirs, tnear,
+    tmax, near_grid_t, ray_ok, delta_scale)."""
     origins, dirs, viewdirs, delta_scale = dda.preprocess_rays(grid, rays.origins, rays.dirs)
     tnear, tmax = dda.ray_bounds(grid, origins, dirs)
     if opt.use_spheric_clip:
@@ -152,13 +159,19 @@ def _prep(grid: SparseGrid, rays: Rays, opt: RenderOptions):
         sp_near, sp_max = dda.spheric_bounds(grid, origins, dirs, opt.near_clip)
         tnear = torch.maximum(tnear, sp_near)
         tmax = torch.minimum(tmax, sp_max)
-    sh_mult = eval_basis(grid, viewdirs)
     if opt.use_spheric_clip or opt.near_clip == 0.0:
         near_grid_t = 0.0
     else:
         near_grid_t = float(opt.near_clip * torch.mean(grid.scaling * grid.gsz))
     ray_ok = torch.isfinite(tnear) & torch.isfinite(tmax) & (tnear <= tmax)
-    return origins, dirs, sh_mult, tnear, tmax, near_grid_t, ray_ok, delta_scale
+    return origins, dirs, viewdirs, tnear, tmax, near_grid_t, ray_ok, delta_scale
+
+
+def _prep(grid: SparseGrid, rays: Rays, opt: RenderOptions):
+    """``_prep_rays`` with the rays' basis ``sh_mult`` in the place of
+    their view directions, as the JAX package's ``_prep``."""
+    origins, dirs, viewdirs, *rest = _prep_rays(grid, rays, opt)
+    return (origins, dirs, eval_basis(grid, viewdirs), *rest)
 
 
 # ---------------------------------------------------------------------------
@@ -980,12 +993,14 @@ _CACHE_KEYS = _CACHE_DIFF + ("fake_mask", "n_cached", "cache_med")
 
 class _SurfaceFn(torch.autograd.Function):
     """K3 and K4 forward; K5 backward into density, surface, SH and
-    fake_sample_std, and into the per-ray background colour ``bg_rgb``
-    (K13's, or None). ``rgb``, ``ray_losses`` and the cache's ts, alphas
-    and weights (K11d) take a cotangent."""
+    fake_sample_std, into the per-ray background colour ``bg_rgb`` (K13's,
+    or None) and into the per-ray basis ``sh_mult`` (the chunk holds its
+    detached copy; its gradient reaches a learned basis). ``rgb``,
+    ``ray_losses`` and the cache's ts, alphas and weights (K11d) take a
+    cotangent."""
 
     @staticmethod
-    def forward(ctx, density, surface, sh, fss, bg_rgb, chunk: _Chunk):
+    def forward(ctx, density, surface, sh, fss, bg_rgb, sh_mult, chunk: _Chunk):
         c = chunk
         smp = voxel_samples(c.grid, c.opt, c.pool, c.origins, c.dirs, c.sh_mult, c.near_grid_t,
                             c.packed)
@@ -1028,15 +1043,16 @@ class _SurfaceFn(torch.autograd.Function):
         d_alpha, d_t, d_col = kernels.backward_ray(
             c.pool.offsets, smp, c.grid.truncated_vol_render_a, c.opt, g_rgb, g_rl, g_c,
             bg_rgb=ctx.bg_rgb)
-        g_density, g_surface, g_sh, g_fss = kernels.backward_entry(
+        need = ctx.needs_input_grad
+        g_density, g_surface, g_sh, g_fss, *g_shm = kernels.backward_entry(
             c.pool.ray_id, c.pool.l, c.pool.close_t, c.pool.far_t, c.origins, c.dirs, c.sh_mult,
             c.grid.links, c.packed, c.grid.surface_data.shape[1], c.grid.level_set_data,
             c.near_grid_t, _fss(c.grid), c.opt, smp["contrib"], d_alpha, d_t, d_col, g_rl,
-            ctx.win)
-        need = ctx.needs_input_grad
+            ctx.win, want_sh_mult=need[5])
         g_bg = g_rgb * torch.exp(ctx.log_T)[:, None] if need[4] else None
         return (g_density[:, None] if need[0] else None, g_surface if need[1] else None,
-                g_sh if need[2] else None, g_fss.reshape(1, 1) if need[3] else None, g_bg, None)
+                g_sh if need[2] else None, g_fss.reshape(1, 1) if need[3] else None, g_bg,
+                g_shm[0] if need[5] else None, None)
 
 
 _FN_OUTPUTS = ("rgb", "ray_losses", "depth", "normal", "log_T", "depth_mode", "depth_med",
@@ -1092,7 +1108,8 @@ def _render_pool(grid, opt, prep, pool, mode: _Mode, packed, sig_thresh=None,
     origins, dirs, sh_mult, near_grid_t = prep
     bg_rgb = None if bg is None else bg[0]
     params = (grid.density_data, grid.surface_data, grid.sh_data, grid.fake_sample_std)
-    train = torch.is_grad_enabled() and any(p is not None and p.requires_grad for p in params)
+    train = torch.is_grad_enabled() and (any(p is not None and p.requires_grad for p in params)
+                                         or sh_mult.requires_grad)
     autograd = train and not origins.is_cuda  # K5 differentiates on the card
     if packed is None or autograd:
         with torch.set_grad_enabled(autograd):
@@ -1102,14 +1119,17 @@ def _render_pool(grid, opt, prep, pool, mode: _Mode, packed, sig_thresh=None,
             raise NotImplementedError(
                 "return_intersections and depth_sigma_thresh are outputs of the forward "
                 "render; K5 does not carry them (ROADMAP §2 item 4)")
-        chunk = _Chunk(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed, mode)
-        res = _SurfaceFn.apply(*params, bg_rgb, chunk)
+        chunk = _Chunk(grid, opt, pool, origins, dirs, sh_mult.detach().contiguous(), near_grid_t,
+                       packed, mode)
+        res = _SurfaceFn.apply(*params, bg_rgb, sh_mult, chunk)
         comp = dict(zip(_FN_OUTPUTS, res))
         if mode.cache_size is not None:
             cache = dict(zip(_CACHE_KEYS, res[len(_FN_OUTPUTS):]))
             comp["cache_med"] = cache.pop("cache_med")
             comp["cache"] = cache
         return comp, None
+    if origins.is_cuda:
+        sh_mult = sh_mult.detach().contiguous()
     smp = voxel_samples(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed)
     return composite(grid, opt, pool.offsets, smp, sig_thresh, want_live, mode, bg_rgb), smp
 
@@ -1117,11 +1137,15 @@ def _render_pool(grid, opt, prep, pool, mode: _Mode, packed, sig_thresh=None,
 def _begin(grid, rays, opt, occupancy):
     """Ray setup shared by the renderers: (origins, dirs, sh_mult, tnear,
     tmax, near_grid_t, ray_ok), the occupancy words and the background
-    (``background_color``'s pair, None without one: K13 on the card)."""
+    (``background_color``'s pair, None without one: K13 on the card).
+    ``sh_mult`` is evaluated under autograd, so that a learned basis whose
+    parameters require grad receives its gradient through the renderer."""
     _check_supported(grid, opt)
     with torch.no_grad():
-        origins, dirs, sh_mult, tnear, tmax, near_grid_t, ray_ok, ds = _prep(grid, rays, opt)
+        origins, dirs, viewdirs, tnear, tmax, near_grid_t, ray_ok, ds = _prep_rays(grid, rays,
+                                                                                   opt)
         words = occupancy_words(grid, opt) if occupancy is None else occupancy
+    sh_mult = eval_basis(grid, viewdirs)
     bg = background_color(grid, opt, origins, dirs, ds)
     return origins, dirs, sh_mult, tnear, tmax, near_grid_t, ray_ok, words, bg
 

@@ -16,7 +16,12 @@ a grid's MSI background through K13 and, when the rms state holds a
 "background" group, train it (the JAX package's aux group): the background
 TV (K12f) and, with ``use_lumisphere_tv``, the SH colours' lumisphere TV
 (K12e) join the loss, and K7 steps the background's (link, layer) rows. On
-the card each makes one host sync, the one that sizes K2's pool. Per-step
+the card each makes one host sync, the one that sizes K2's pool. Both steps
+train a learned basis when the rms state holds its group (JAX's aux groups
+"basis_data" and "basis_mlp"): the renderer's per-ray basis carries the
+gradient (K5b's and K8's ``sh_mult`` output), the texture's TV (K12g)
+joins the loss at ``lambda_tv_basis``, and K7 steps the texture's cells,
+each weight matrix's rows and each bias as one row at ``lr_basis``. Per-step
 scalars come in ``HParams`` as Python floats; a term whose weight is 0 is
 computed all the same, as the JAX step does, except ``l2_color_loss`` (a
 full pass over the SH rows for nothing) and the background TV with both of
@@ -141,25 +146,42 @@ WINDOWS = ("tv", "tv_sh", "tv_surface", "normal", "sparsify", "sign_change", "lu
 EXT_FLAGS = ("use_eikonal", "use_norm_match", "use_viscosity", "use_sign_change")
 CUVOL_WINDOWS = ("tv", "tv_sh", "lumisphere")
 _PARAMS = (("density", "density_data"), ("sh", "sh_data"), ("surface", "surface_data"),
-           ("fake_sample_std", "fake_sample_std"), ("background", "background_data"))
+           ("fake_sample_std", "fake_sample_std"), ("background", "background_data"),
+           ("basis_data", "basis_data"))
+# the learned MLP basis's group: a dict of its four tensors, as JAX's
+MLP_GROUP = "basis_mlp"
+
+
+def _mlp_tensors(grid: SparseGrid) -> dict:
+    return {} if grid.basis_mlp is None else grid.basis_mlp.tensors()
 
 
 def init_rms(grid: SparseGrid) -> dict:
     """Zero rms state of each trained group, keyed as the JAX ``init_rms``
-    (the background's "background" included)."""
-    return {k: rmsprop_init(getattr(grid, f)) for k, f in _PARAMS
-            if getattr(grid, f) is not None}
+    (the background's "background", the texture's "basis_data" and the
+    MLP's "basis_mlp", a dict of w0, b0, w1, b1, included)."""
+    rms = {k: rmsprop_init(getattr(grid, f)) for k, f in _PARAMS if getattr(grid, f) is not None}
+    if grid.basis_mlp is not None:
+        rms[MLP_GROUP] = {k: rmsprop_init(v) for k, v in _mlp_tensors(grid).items()}
+    return rms
+
+
+def _map_state(fn, rms: dict) -> dict:
+    return {k: ({kk: fn(vv) for kk, vv in v.items()} if isinstance(v, dict) else fn(v))
+            for k, v in rms.items()}
 
 
 def rms_to_numpy(rms: dict) -> dict:
-    return {k: v.detach().cpu().numpy() for k, v in rms.items()}
+    """numpy arrays of an rms state, JAX's nested key names kept."""
+    return _map_state(lambda v: v.detach().cpu().numpy(), rms)
 
 
 def rms_from_numpy(arrays: dict, device="cuda", dtype=None) -> dict:
     """An rms state from numpy arrays keyed as the JAX ``init_rms`` dict
-    (for a JAX state: ``{k: np.asarray(v.rms)}``)."""
+    (for a JAX state: ``{k: np.asarray(v.rms)}``, and for its "basis_mlp"
+    a dict of the four tensors' states)."""
     dev = resolve_device(device)
-    return {k: torch.tensor(np.asarray(v), dtype=dtype, device=dev) for k, v in arrays.items()}
+    return _map_state(lambda v: torch.tensor(np.asarray(v), dtype=dtype, device=dev), arrays)
 
 
 @contextlib.contextmanager
@@ -184,27 +206,32 @@ def _check_config(cfg: StepConfig) -> None:
 
 
 def _check_rms(rms: dict) -> None:
-    extra = set(rms) - {k for k, _ in _PARAMS}
+    extra = set(rms) - {k for k, _ in _PARAMS} - {MLP_GROUP}
     if extra:
-        raise NotImplementedError(
-            f"rms groups {sorted(extra)} (the learned basis) are not ported yet "
-            "(ROADMAP §1 item 2b)")
+        raise ValueError(f"unknown rms groups {sorted(extra)}")
 
 
 def _trained(grid: SparseGrid, rms: dict) -> dict:
     """The parameters a step trains: each group of ``rms`` whose grid field
-    exists (the background, like JAX's aux groups, only then)."""
-    return {k: getattr(grid, f) for k, f in _PARAMS if k in rms and getattr(grid, f) is not None}
+    exists (the background and the learned bases, like JAX's aux groups,
+    only then); the MLP's tensors as "basis_mlp.w0" ..."""
+    out = {k: getattr(grid, f) for k, f in _PARAMS if k in rms and getattr(grid, f) is not None}
+    if MLP_GROUP in rms:
+        out.update({f"{MLP_GROUP}.{k}": v for k, v in _mlp_tensors(grid).items()})
+    return out
 
 
 def _aux_reg_losses(grid: SparseGrid, hp: HParams, cfg: StepConfig, generator, starts):
     """The regularizers both stages add (steps.py:177-194): the L2 of the
-    SH colours, the background TV (K12f) over ``bg_sparsity`` of its cells
-    drawn with replacement, and with ``use_lumisphere_tv`` the lumisphere TV
-    (K12e) over the "lumisphere" lattice window along a drawn direction."""
+    SH colours, the learned texture's TV (K12g), the background TV (K12f)
+    over ``bg_sparsity`` of its cells drawn with replacement, and with
+    ``use_lumisphere_tv`` the lumisphere TV (K12e) over the "lumisphere"
+    lattice window along a drawn direction."""
     loss = 0.0
     if hp.lambda_l2_color != 0.0:
         loss = loss + hp.lambda_l2_color * reg.l2_color_loss(grid)
+    if grid.basis_data is not None:
+        loss = loss + hp.lambda_tv_basis * reg.basis_tv_loss(grid)
     if grid.background_data is not None and (hp.lambda_tv_background != 0.0
                                              or hp.lambda_tv_background_density != 0.0):
         cells_bg = reg.sample_background_cells(generator, grid, cfg.bg_sparsity)
@@ -222,6 +249,24 @@ def _step_background(grid: SparseGrid, rms: dict, g: dict, hp: HParams, beta: fl
     if "background" in g:
         rmsprop_step(grid.background_data.view(-1, 4), rms["background"].view(-1, 4),
                      g["background"].reshape(-1, 4), hp.lr_background, beta)
+
+
+def _step_basis(grid: SparseGrid, rms: dict, g: dict, hp: HParams, beta: float) -> None:
+    """K7 on the learned bases' groups at ``lr_basis`` (``_aux_optim``,
+    steps.py:200-213), with JAX's mask any(grad != 0, axis=-1): the
+    texture's (R^3, bd) cells, each weight matrix's rows, and each 1-D bias
+    as one whole row (1, n), so that a bias whose gradient is zero but for
+    one unit still steps (and decays the rms of) every unit."""
+    if "basis_data" in g:
+        bd = grid.basis_data.shape[-1]
+        rmsprop_step(grid.basis_data.view(-1, bd), rms["basis_data"].view(-1, bd),
+                     g["basis_data"].reshape(-1, bd), hp.lr_basis, beta)
+    for k, v in _mlp_tensors(grid).items():
+        name = f"{MLP_GROUP}.{k}"
+        if name in g:
+            shape = (1, -1) if v.dim() == 1 else tuple(v.shape)
+            rmsprop_step(v.view(shape), rms[MLP_GROUP][k].view(shape), g[name].reshape(shape),
+                         hp.lr_basis, beta)
 
 
 def _window_starts(window_starts, names) -> dict:
@@ -385,6 +430,7 @@ def make_surface_step(cfg: StepConfig):
                 rmsprop_step(grid.fake_sample_std, rms["fake_sample_std"],
                              g["fake_sample_std"], hp.lr_fake_sample_std, beta,
                              minval=1e-8)  # opt.py:1141-1142
+            _step_basis(grid, rms, g, hp, beta)
             _step_background(grid, rms, g, hp, beta)
         stats = {"loss": loss.detach(), "mse": mse.detach(),
                  "pool_overflow": torch.zeros((), dtype=torch.int32, device=mse.device)}
@@ -422,7 +468,7 @@ def make_cuvol_step(cfg: StepConfig):
         starts = _window_starts(window_starts, CUVOL_WINDOWS)
         reg_scale, sample = _sampler(generator, grid, row_coords, starts)
         params = {k: p for k, p in _trained(grid, rms).items()
-                  if k in ("density", "sh", "background")}
+                  if k not in ("surface", "fake_sample_std")}
         with _requires_grad(list(params.values())):
             out = volume_render_cuvol_packed(grid, rays, cfg.opt, occupancy=occ)
             mse = torch.mean((out["rgb"] - rgb_gt) ** 2)
@@ -444,6 +490,7 @@ def make_cuvol_step(cfg: StepConfig):
             rmsprop_step(grid.density_data, rms["density"], g["density"], hp.lr_sigma,
                          cfg.rms_beta)
             rmsprop_step(grid.sh_data, rms["sh"], g["sh"], hp.lr_sh, cfg.rms_beta)
+            _step_basis(grid, rms, g, hp, cfg.rms_beta)
             _step_background(grid, rms, g, hp, cfg.rms_beta)
         stats = {"loss": loss.detach(), "mse": mse.detach(),
                  "pool_overflow": torch.zeros((), dtype=torch.int32, device=mse.device)}

@@ -1,7 +1,8 @@
 """Checkpoint I/O, the counterpart of the JAX package's ``utils.io``: the same
 npz keys (svox2's ``SparseGrid.save``/``load``, svox2.py:4693-4838), SH
-stored as float16, and the flat-order renumbering of data rows on load, so a
-checkpoint written by either package loads in both."""
+stored as float16, the learned bases as ``basis_data`` and
+``basis_mlp.{w0,b0,w1,b1}``, and the flat-order renumbering of data rows on
+load, so a checkpoint written by either package loads in both."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,9 +11,6 @@ import torch
 from .. import defs
 from ..core.device import resolve_device
 from ..core.grid import SparseGrid
-
-# checkpoint keys of fields the port does not carry yet (ROADMAP §1 item 2b)
-_UNSUPPORTED_KEYS = ("basis_data",)
 
 
 def save_grid(grid: SparseGrid, path: str, step_id: int = 0) -> None:
@@ -33,6 +31,11 @@ def save_grid(grid: SparseGrid, path: str, step_id: int = 0) -> None:
     if a["background_data"] is not None:
         data["background_links"] = np.asarray(a["background_links"])
         data["background_data"] = np.asarray(a["background_data"], np.float32)
+    if a["basis_data"] is not None:
+        data["basis_data"] = np.asarray(a["basis_data"], np.float32)
+    if a["basis_mlp"] is not None:
+        for k, v in a["basis_mlp"].items():
+            data[f"basis_mlp.{k}"] = np.asarray(v, np.float32)
     np.savez(path, **data)
 
 
@@ -41,11 +44,6 @@ def load_grid(path: str, device="cuda", dtype=torch.float32) -> tuple[SparseGrid
     Returns (grid, step_id)."""
     dev = resolve_device(device)
     z = np.load(path, allow_pickle=True)
-    for k in _UNSUPPORTED_KEYS:
-        if k in z.files and z[k].size:
-            raise NotImplementedError(f"checkpoint field {k!r} is not ported yet (ROADMAP §1 item 2b)")
-    if any(k.startswith("basis_mlp.") for k in z.files):
-        raise NotImplementedError("the learned MLP basis is not ported yet (ROADMAP §1 item 2b)")
     sh_data = z["sh_data"].astype(np.float32)
     density_data = z["density_data"].astype(np.float32)
     links = z["links"]
@@ -87,5 +85,10 @@ def load_grid(path: str, device="cuda", dtype=torch.float32) -> tuple[SparseGrid
     if "background_data" in z:
         arrays["background_links"] = z["background_links"].astype(np.int32)
         arrays["background_data"] = z["background_data"].astype(np.float32)
+    if "basis_data" in z and z["basis_data"].size:  # an empty one (svox2's SH grids): None
+        arrays["basis_data"] = z["basis_data"].astype(np.float32)
+    mlp_keys = [k for k in z.files if k.startswith("basis_mlp.")]
+    if mlp_keys:
+        arrays["basis_mlp"] = {k.split(".", 1)[1]: z[k].astype(np.float32) for k in mlp_keys}
     step_id = int(z["step_id"]) if "step_id" in z else 0
     return SparseGrid.from_numpy(arrays, device=dev, dtype=dtype), step_id

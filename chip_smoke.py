@@ -12,7 +12,9 @@ transmittance march, K9f mask sweep, K9g iso points, K4's sigma-thresh
 depth and intersect_points, K11a dense walk count + fill, K11b capped
 fill, K11c the first-K cache in K4, K11d its gradient in K5, K12a-K12d the
 extended surface regularizers, K12e the lumisphere TV, K12f the background
-TV, K13 the MSI background forward and backward), then:
+TV, K13 the MSI background forward and backward, K12g the learned texture's
+TV, K5b's and K8's per-ray basis gradient, K14 the compat marches nvol and
+svox1 forward and backward), then:
 
 1. prints the card, its power limit, nvcc's register/spill lines and the
    build seconds;
@@ -72,7 +74,7 @@ TV, K13 the MSI background forward and backward), then:
    finite Chamfer;
 8. the DTU masked-capture path: K9f against its plain version on one
    16,384-ray chunk of a 1600x1200 view of the 256^3 blobby grid, timed;
-   a DTU-format scan written by the port (16 views at 1600x1200 of
+   a DTU-format scan written by the port (12 views at 1600x1200 of
    make_gt_grid(256), PNG images and masks, cameras_sphere.npz); then,
    with the counters set to 0 just before and read just after,
    ``alphasurf_torch.app.train.main`` on it with dataset_type dtu (the
@@ -99,7 +101,7 @@ TV, K13 the MSI background forward and backward), then:
    train step with all four on against the plain step at 128^3 and
    bench_step's protocol with them at full width, with a profiled step;
    a Blender-layout scene written by the script (make_gt_grid(256)
-   through the dense walk, 100 train and 8 test RGBA views at 800x800,
+   through the dense walk, 50 train and 8 test RGBA views at 800x800,
    nerf_synthetic's camera angle); then, with the counters set to 0 just
    before and read just after, app/pipeline.run_pipeline with
    dataset_type nerf on it at 256^3 (K12d through the Trainer's
@@ -107,7 +109,7 @@ TV, K13 the MSI background forward and backward), then:
    untrained grid's, a finite Chamfer against the scene's GT points);
    app/eval_imgs and app/debug_render on its checkpoint;
 11. a Tanks-and-Temples-style capture with an MSI background: an
-   NSVF-layout scene written by the script (24 train and 4 test RGB views
+   NSVF-layout scene written by the script (12 train and 2 test RGB views
    at 1920x1080, cameras at radius 0.95 inside the 256^3 foreground grid
    after the loader's normalisation, a sphere of 0.25 inside, a 64-layer
    MSI at reso 1024, 2.15 GB, behind); K13 forward and backward, K12e and
@@ -117,14 +119,31 @@ TV, K13 the MSI background forward and backward), then:
    then, with the counters set to 0 just before and read just after,
    app/train.main on it with dataset_type nsvf (resumed from a checkpoint
    holding the ground-truth MSI: the warm start, init_surface and the
-   surface stage, 100 + 100 steps) and app/render_imgs on the test split,
+   surface stage, 60 + 60 steps) and app/render_imgs on the test split,
    beside the same run without a background (the run with it must score
    higher); one 1920x1080 frame through app/render_circle from each;
-12. prints one JSON line with each kernel's numbers, then the ok line.
+12. the learned bases: K12g against its plain version on the 32^3 x 9
+   texture; K5b's and K8's sh_mult output against autograd of the plain
+   renderers (the 512^3 shell chunk, the 256^3 blobby chunk, the texture),
+   their null-pointer paths bit for bit equal to the output's path on
+   entries or rays whose rows nothing else touches, each timed with and
+   without the output; the MLP basis on the card against float64; a
+   surface step with the texture against the plain step at 128^3; then,
+   with the counters set to 0 just before and read
+   just after, bench_step's protocol with the texture and with the MLP, the
+   cuvol step at 256^3 with the texture, and two 800x800 frames through
+   app/render_circle from a 512^3 checkpoint with each basis (the texture's
+   within BASIS_TEX_MAX of the SH frames);
+13. the compat marches: K14 forward and backward, nvol and svox1, against
+   their plain versions on a 16,384-ray chunk of the 256^3 blobby grid;
+   then, with the counters set to 0 just before and read just after, an
+   800x800 frame and a chunk's gradient through volume_render in each
+   mode; to_svox1_npz of the grid's shell, reloaded and walked;
+14. prints one JSON line with each kernel's numbers, then the ok line.
 
 ``--phases`` runs a subset (kernels, serve, train, warm, stages,
-extract, dtu, renderers, blender, tnt); the default runs them all, as the
-checks above require. Exits non-zero, printing no result,
+extract, dtu, renderers, blender, tnt, basis, compat); the default runs
+them all, as the checks above require. Exits non-zero, printing no result,
 without a CUDA device or without the ``alphasurf_torch`` package beside
 it. Imports nothing of JAX.
 """
@@ -195,6 +214,7 @@ _JAX_SURFACE = f"{JAX_PACKAGE}/render/surface.py"
 _JAX_REG = f"{JAX_PACKAGE}/losses/reg.py"
 _JAX_CUVOL = f"{JAX_PACKAGE}/render/cuvol.py"
 _JAX_TOPO = f"{JAX_PACKAGE}/core/topology_device.py"
+_JAX_COMPAT = f"{JAX_PACKAGE}/render/compat.py"
 KERNELS = {  # name -> (source, the JAX routine it replaces)
     "occupancy": ("alphasurf_torch/csrc/occupancy.cu", f"{_JAX_SURFACE}:1149"),
     "phase_a_count": ("alphasurf_torch/csrc/phase_a.cu", f"{_JAX_SURFACE}:1652"),
@@ -248,6 +268,14 @@ KERNELS = {  # name -> (source, the JAX routine it replaces)
                            f"{JAX_PACKAGE}/render/background.py:32"),
     "background_backward": ("alphasurf_torch/csrc/background.cu",
                             f"{JAX_PACKAGE}/render/background.py:32"),
+    "reg_basis_tv": ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:717"),
+    "backward_entry_basis": ("alphasurf_torch/csrc/backward.cu",
+                             f"{JAX_PACKAGE}/core/sh.py:112"),
+    "cuvol_backward_basis": ("alphasurf_torch/csrc/cuvol.cu", f"{_JAX_CUVOL}:122"),
+    "compat_forward_nvol": ("alphasurf_torch/csrc/compat.cu", f"{_JAX_COMPAT}:58"),
+    "compat_backward_nvol": ("alphasurf_torch/csrc/compat.cu", f"{_JAX_COMPAT}:58"),
+    "compat_forward_svox1": ("alphasurf_torch/csrc/compat.cu", f"{_JAX_COMPAT}:115"),
+    "compat_backward_svox1": ("alphasurf_torch/csrc/compat.cu", f"{_JAX_COMPAT}:115"),
 }
 SERVE_KERNELS = ("occupancy", "phase_a_count", "phase_a_fill", "phase_b", "composite")
 TRAIN_KERNELS = SERVE_KERNELS + ("backward_ray", "backward_entry", "reg_tv", "reg_normal",
@@ -265,10 +293,15 @@ RENDERER_KERNELS = ("dense_walk_count", "dense_walk_fill", "compact_fill", "comp
 EXTENDED_KERNELS = ("reg_norm_match", "reg_viscosity", "reg_sign_change", "reg_eikonal")
 BACKGROUND_KERNELS = ("background_forward", "background_backward", "reg_lumisphere",
                       "reg_background_tv")
+BASIS_KERNELS = ("reg_basis_tv", "backward_entry_basis", "cuvol_backward_basis")
+COMPAT_KERNELS = ("compat_forward_nvol", "compat_backward_nvol", "compat_forward_svox1",
+                  "compat_backward_svox1")
 # the three-stage run initialises its surface from the density: every kernel
-# but K9e, the DTU path's, the compact and dense renderers', K12's and K13's
+# but K9e, the DTU path's, the compact and dense renderers', K12's, K13's,
+# the learned bases' and K14's
 STAGE_RUN_KERNELS = tuple(k for k in KERNELS if k not in ("transmit_march",) + DTU_KERNELS
-                          + RENDERER_KERNELS + EXTENDED_KERNELS + BACKGROUND_KERNELS)
+                          + RENDERER_KERNELS + EXTENDED_KERNELS + BACKGROUND_KERNELS
+                          + BASIS_KERNELS + COMPAT_KERNELS)
 # the pipeline: the Plenoxels stage and its eval, the weight init with
 # visibility pruning, the surface stage, the extraction
 PIPELINE_KERNELS = TRAIN_KERNELS + WARM_NEW_KERNELS + (
@@ -276,11 +309,12 @@ PIPELINE_KERNELS = TRAIN_KERNELS + WARM_NEW_KERNELS + (
     "dense_walk_count", "dense_walk_fill")  # K11a renders the dataset's ground truth
 # the DTU path: the three stages with mask pruning at the surface init,
 # the extractors: every kernel but K9e, the compact and dense renderers',
-# K12's and K13's
+# K12's, K13's, the learned bases' and K14's
 DTU_PATH_KERNELS = tuple(k for k in KERNELS if k not in ("transmit_march",) + RENDERER_KERNELS
-                         + EXTENDED_KERNELS + BACKGROUND_KERNELS)
+                         + EXTENDED_KERNELS + BACKGROUND_KERNELS + BASIS_KERNELS
+                         + COMPAT_KERNELS)
 PHASES = ("kernels", "serve", "train", "warm", "stages", "extract", "dtu", "renderers", "blender",
-          "tnt")
+          "tnt", "basis", "compat")
 CUVOL_RESO = 256  # the warm start's grid (the Config's first reso)
 WARM_STEPS = 100  # Trainer steps of the warm-start run
 TRAIN_BATCH = 40960
@@ -1013,27 +1047,32 @@ def profile_frame(grid, opt, device, card: str) -> None:
                    f"one {WIDTH}x{HEIGHT} frame", card)
 
 
-def check_step(device, flags=(), hp_extra=None) -> None:
+def check_step(device, flags=(), hp_extra=None, basis: str = "sh") -> None:
     """One train step through the kernels on the card against one step of
     the plain versions on a CPU copy, at 128^3 with a 4,096-ray batch of
     the bench camera and the same regularizer windows (rays whose float32
     bounds differ between the two are left out); ``flags`` turn on
-    StepConfig switches, ``hp_extra`` adds HParams. RMSprop's first step
+    StepConfig switches, ``hp_extra`` adds HParams, ``basis`` "texture"
+    gives the grid bench_step's learned texture (then trained at
+    lr_basis). RMSprop's first step
     moves a row by about lr / sqrt(1 - beta) whatever its gradient, so the
     parameters agree to 1e-3 of that step on all but 1e-3 of the rows either
     updates; the rms (0.05 g^2) agrees in norm to 1e-3."""
     import torch
 
-    from alphasurf_torch.app.bench_step import bench_hparams, bench_options, bench_rays
+    from alphasurf_torch.app.bench_step import (bench_hparams, bench_options, bench_rays,
+                                                with_basis)
     from alphasurf_torch.core.grid import SparseGrid
     from alphasurf_torch.core.rays import Rays
     from alphasurf_torch.render import surface as S
     from alphasurf_torch.train.steps import WINDOWS, StepConfig, init_rms, make_surface_step
 
     grid, rc = shell_grid(SMALL_RESO, device)
+    grid = with_basis(grid, basis)
     cpu = SparseGrid.from_numpy(grid.to_numpy(), device="cpu")
-    old = {f: getattr(cpu, f).detach().clone()
-           for f in ("density_data", "sh_data", "surface_data", "fake_sample_std")}
+    fields = ("density_data", "sh_data", "surface_data", "fake_sample_std") + (
+        ("basis_data",) if basis == "texture" else ())
+    old = {f: getattr(cpu, f).detach().clone() for f in fields}
     rays = bench_rays(WIDTH, device)
     # float32 ray bounds accept a plane hit only within an absolute 1e-6 of
     # the lattice (ROADMAP §3), so a ray whose prepared bounds round
@@ -1070,11 +1109,13 @@ def check_step(device, flags=(), hp_extra=None) -> None:
     if abs(lk - lp) > 1e-5 * abs(lp) or abs(float(st_k["mse"]) - float(st_p["mse"])) > 1e-5 * lp:
         raise AssertionError(f"train step loss {lk} differs from the plain step's {lp}")
     lrs = {"density_data": hp.lr_alpha, "sh_data": hp.lr_sh, "surface_data": hp.lr_surface,
-           "fake_sample_std": hp.lr_fake_sample_std}
+           "fake_sample_std": hp.lr_fake_sample_std, "basis_data": hp.lr_basis}
     msg = []
-    for (f, o), rk in zip(old.items(), ("density", "sh", "surface", "fake_sample_std")):
-        dk = getattr(grid, f).detach().cpu() - o
-        dp = getattr(cpu, f).detach() - o
+    for (f, o), rk in zip(old.items(), ("density", "sh", "surface", "fake_sample_std",
+                                        "basis_data")):
+        dk = (getattr(grid, f).detach().cpu() - o).reshape(o.shape[0] if o.dim() < 4 else -1,
+                                                           o.shape[-1])
+        dp = (getattr(cpu, f).detach() - o).reshape(dk.shape)
         unit = lrs[f] / (1.0 - beta) ** 0.5
         moved = (dk != 0).any(-1) | (dp != 0).any(-1)
         bad = ((dk - dp).abs() > 1e-3 * unit).any(-1) & moved
@@ -1084,7 +1125,8 @@ def check_step(device, flags=(), hp_extra=None) -> None:
         msg.append(f"{rk}: {int(moved.sum())} rows moved, {int(bad.sum())} off, rms rel {rel:.2e}")
         if frac > 1e-3 or rel > 1e-3 or not moved.any():
             raise AssertionError(f"train step {rk} differs from the plain step: {msg[-1]}")
-    log(f"train step at {SMALL_RESO}^3, {nb} rays{' with ' + ', '.join(flags) if flags else ''}: "
+    extra = ", ".join(list(flags) + ([f"the {basis} basis"] if basis != "sh" else []))
+    log(f"train step at {SMALL_RESO}^3, {nb} rays{' with ' + extra if extra else ''}: "
         f"loss {lk:.7f} (plain {lp:.7f}); " + "; ".join(msg))
     del grid, rc, cpu
     torch.cuda.empty_cache()
@@ -1800,7 +1842,7 @@ def check_stage_kernels(device, card: str) -> dict:
     return res
 
 
-def stages_config() -> str:
+def stages_config(steps=STAGE_STEPS) -> str:
     """The three-stage run's config file: tools/recipe_run.py's
     configuration (reso 256^3, 256^3, 512^3; its thresholds, level sets,
     alpha rescale, max_grid_elements and surface-stage schedules, with the
@@ -1813,8 +1855,9 @@ def stages_config() -> str:
     at the level sets) nearly transparent for longer than this run. The synthetic dataset of
     the warm phase; an eval at the end of each stage, with the recipe's
     in-training extraction and Chamfer (log_pts, eval_cf, 3 samples, raw
-    density threshold 0.1) against the data dir's shape.npy."""
-    n0, n1, n2 = STAGE_STEPS
+    density threshold 0.1) against the data dir's shape.npy. ``steps``
+    replaces STAGE_STEPS."""
+    n0, n1, n2 = steps
     total, ns = n0 + n1 + n2, n1 + n2
     R, U = CUVOL_RESO, UPSAMPLE_RESO
     keys = {
@@ -1847,7 +1890,8 @@ def stages_config() -> str:
         "truncated_vol_render_a": "5.0", "truncated_vol_render_a_final": "1.0",
         "truncated_vol_render_a_decay_steps": n0 + ns // 2, "truncated_vol_render_a_delay": n0,
         "sigma_thresh": "-10000.0", "stop_thresh": "-10000.0", "eval_every_iter": n0,
-        "print_every": max(1, min(STAGE_STEPS) // 2), "save_every": -1, "n_eval_test": 2,
+        "print_every": max(1, min(x for x in steps if x) // 2), "save_every": -1,
+        "n_eval_test": 2,
         "final_render_eval": "False", "tune_mode": "True",
         "log_pts": "True", "eval_cf": "True", "surf_eval_n_sample": 3,
         "surf_eval_intersect_th": "0.1",
@@ -1993,6 +2037,7 @@ ISO_BATCH = 65536  # cells a K9g launch, the JAX package's batch
 INTERSECT_TH = 0.1  # train_eval.sh --intersect_th, an alpha
 GT_POINTS = 20000  # points of synthetic_gt_points
 PIPELINE_STEPS = (100, 100)  # Plenoxels, surface
+PIPELINE_VIEWS = 20  # train views of the pipeline's dataset
 PIPELINE_BATCH = 8192
 # the surface stage's overrides: the weight init, so that K9e runs, and the
 # recipe's 256^3 surface learning rate (tools/recipe_run.py:126): the JAX
@@ -2195,8 +2240,8 @@ def check_apps(device, card: str, ckpt: Path, work: Path) -> None:
 
 
 def pipeline_run(device, card: str, work: Path) -> dict:
-    """Phase 7d: app/pipeline.run_pipeline at full width (CUVOL_RESO^3, 20
-    train and 2 test views at 800x800, PIPELINE_STEPS, the surface stage
+    """Phase 7d: app/pipeline.run_pipeline at full width (CUVOL_RESO^3,
+    PIPELINE_VIEWS train and 2 test views at 800x800, PIPELINE_STEPS, the surface stage
     with PIPELINE_SURFACE, train_eval.sh's Chamfer downsample 0.001), with
     the counters set to 0 just before and read just after. Returns the
     run's launches."""
@@ -2213,7 +2258,7 @@ def pipeline_run(device, card: str, work: Path) -> dict:
     kernels.reset_launches()
     t0 = time.perf_counter()
     res = pipeline.run_pipeline(
-        str(out_dir), reso=CUVOL_RESO, n_train_images=20, image_size=WIDTH,
+        str(out_dir), reso=CUVOL_RESO, n_train_images=PIPELINE_VIEWS, image_size=WIDTH,
         n_iters_plenoxels=PIPELINE_STEPS[0], n_iters_surface=PIPELINE_STEPS[1],
         batch_size=PIPELINE_BATCH, n_eval_images=2, overrides_surface=PIPELINE_SURFACE,
         eval_downsample=0.001, device=device)
@@ -2266,7 +2311,7 @@ def extract(device, card: str, work: Path) -> tuple[dict, dict]:
 # the DTU masked-capture path
 # ---------------------------------------------------------------------------
 
-DTU_VIEWS = 16  # a DTU scan has 49 or 64: the depth cut of the time limit
+DTU_VIEWS = 12  # a DTU scan has 49 or 64: the depth cut of the time limit
 DTU_W, DTU_H = 1600, 1200  # DTU's own image size
 DTU_FOCAL = 2400.0
 MM_PER_UNIT = 100.0  # scale_mat: the unit sphere onto a 100 mm object
@@ -2282,7 +2327,7 @@ GT_DTU_POINTS = 100000  # the stl: points of the analytic sphere
 
 
 def dtu_cameras():
-    """The scene's 16 views: (normalized c2w, fx, fy, cx, cy) on the upper
+    """The scene's DTU_VIEWS views: (normalized c2w, fx, fy, cx, cy) on the upper
     hemisphere at distance 2.7, each with its own principal point."""
     import numpy as np
 
@@ -2530,7 +2575,7 @@ def check_mask_kernel(device, card: str) -> dict:
 
 def dtu(device, card: str, work: Path) -> tuple[dict, dict]:
     """Phase 8: the DTU masked-capture path. K9f against its plain version;
-    a DTU-format scene of 16 views at 1600x1200 written by the port; then,
+    a DTU-format scene of 12 views at 1600x1200 written by the port; then,
     with the counters set to 0 just before and read just after,
     app/train.main on it with dataset_type dtu (the warm start, mask
     pruning over all 30.7M training rays, each K9f launch held against the
@@ -3136,7 +3181,7 @@ EXT_HP = {"lambda_norm_match": 1e-4, "lambda_viscosity": 1e-4, "lambda_sign_chan
           "lambda_eikonal": 1e-4}
 VISCOSITY_ETA = 1e-2  # StepConfig.viscosity_eta's default
 CAMERA_ANGLE_X = 0.6911112  # nerf_synthetic's
-BLENDER_TRAIN, BLENDER_TEST = 100, 8  # nerf_synthetic: 100 train, 200 test views
+BLENDER_TRAIN, BLENDER_TEST = 50, 8  # nerf_synthetic: 100 train, 200 test (cut for time)
 SCENE_SCALE = 2.0 / 3.0  # the NeRF loader's default
 # the eikonal weight of the pipeline's surface stage: near a tenth of the
 # stage's test mse, as two_pass_config chose its weights (at 3e-3 the
@@ -3565,7 +3610,8 @@ def blender(device, card: str, work: Path) -> tuple[dict, dict]:
 
 TNT_W, TNT_H = 1920, 1080  # Tanks and Temples' image size
 TNT_FOCAL = 1165.0  # near the intrinsics of Tanks and Temples' 1920x1080 captures
-TNT_TRAIN, TNT_TEST = 24, 4  # cut from a capture's few hundred views for the time limit
+TNT_TRAIN, TNT_TEST = 12, 2  # cut from a capture's few hundred views for the time limit
+TNT_STEPS = (60, 60)  # warm start, surface stage: cut from STAGE_STEPS' 100 + 100 for time
 BG_LAYERS, BG_RESO = 64, 1024  # the Plenoxels Tanks-and-Temples background
 CAM_SCALE_FACTOR = 0.95  # the NSVF loader's: cameras at a median radius 0.95
 TNT_OBJECT_RADIUS = 0.25  # the object's sphere, in the normalised scene (cameras outside it)
@@ -3737,14 +3783,14 @@ def write_tnt_scene(device, root: Path) -> dict:
 
 def tnt_config(data_dir: Path) -> str:
     """The capture's run: stages_config cut to its 256^3 warm start and 256^3
-    surface stage (STAGE_STEPS[:2] steps of 8192) on the NSVF loader,
+    surface stage (TNT_STEPS steps of 8192) on the NSVF loader,
     resumed from the checkpoint in the train dir (load_ckpt); the surface
     init by the alpha threshold, without camera sweeps or visibility
-    pruning (tools/recipe_run.py's choice: the sweeps of 24 full-size views
+    pruning (tools/recipe_run.py's choice: the sweeps of the full-size views
     are host work this cell does not measure); no in-training extraction
     (the capture has no GT points); one eval view."""
-    n0, n1 = STAGE_STEPS[:2]
-    keys = dict(line.split(" = ", 1) for line in stages_config().splitlines())
+    n0, n1 = TNT_STEPS
+    keys = dict(line.split(" = ", 1) for line in stages_config((n0, n1, 0)).splitlines())
     for k in [k for k in keys if k.startswith("dataset_")] + ["n_train_images", "log_pts",
                                                               "eval_cf", "surf_eval_n_sample",
                                                               "surf_eval_intersect_th"]:
@@ -4132,7 +4178,7 @@ def tnt_run(device, card: str, work: Path, scene: Path, with_bg: bool) -> dict:
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     log(f"tnt run {tag} the background: checkpoint written in {ckpt_s:.2f} s, train "
-        f"{train_s:.2f} s ({STAGE_STEPS[0]} + {STAGE_STEPS[1]} steps of 8192), render_imgs "
+        f"{train_s:.2f} s ({TNT_STEPS[0]} + {TNT_STEPS[1]} steps of 8192), render_imgs "
         f"{render_s:.2f} s ({TNT_TEST} test views at {TNT_W}x{TNT_H}): test PSNR {psnr:.4f}, "
         f"max_memory_allocated {peak / 2**30:.3f} GiB [{card}]")
     log("launches " + json.dumps(launches))
@@ -4142,7 +4188,7 @@ def tnt_run(device, card: str, work: Path, scene: Path, with_bg: bool) -> dict:
 
 def tnt(device, card: str, work: Path) -> tuple[dict, dict]:
     """Phase 11: the Tanks-and-Temples-style capture. An NSVF-layout scene
-    (write_tnt_scene: 24 + 4 views at 1920x1080, cameras at radius 0.95
+    (write_tnt_scene: 12 + 2 views at 1920x1080, cameras at radius 0.95
     inside the foreground grid, the 64 x 1024 MSI behind); K13, K12e and
     K12f against their plain versions and K4, K5a, K8 and K10 with per-ray
     colours (check_background_kernels); the step at bench.py's protocol
@@ -4221,6 +4267,589 @@ def tnt(device, card: str, work: Path) -> tuple[dict, dict]:
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# the learned bases (3D texture and MLP) and K12g
+# ---------------------------------------------------------------------------
+
+BASIS_TEX_MAX, BASIS_TEX_MEAN = 5e-3, 5e-4  # texture frames against the SH frames
+# the MLP basis on the card against float64 on the CPU, relative to its
+# largest value: float32 products and sums of 27 and 64 terms (~1e-6); TF32,
+# were it on, would round the products' inputs to 10 bits (~1e-3)
+MLP_RTOL = 1e-5
+
+
+def check_mlp_basis(device) -> float:
+    """The MLP basis (init_basis_mlp's defaults) at an 800x800 frame's view
+    directions on the card, against the same parameters in float64 on the
+    CPU; returns the error relative to the largest value."""
+    import torch
+
+    from alphasurf_torch.core.sh import BasisMLP, eval_basis_mlp, init_basis_mlp
+
+    mlp = init_basis_mlp(torch.Generator().manual_seed(SEED), 9, device=device)
+    d = frame_camera(0, 2).gen_rays_device(device).dirs
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    got = eval_basis_mlp(mlp, d).double().cpu()
+    ref = eval_basis_mlp(BasisMLP.from_dict(mlp.tensors(), device="cpu", dtype=torch.float64),
+                         d.double().cpu())
+    err = float((got - ref).abs().max() / ref.abs().max())
+    log(f"MLP basis at {d.shape[0]} view directions, the card against float64: rel err "
+        f"{err:.3e} (limit {MLP_RTOL}; matmul TF32 {torch.backends.cuda.matmul.allow_tf32})")
+    if not err <= MLP_RTOL:
+        raise AssertionError(f"the MLP basis on the card is {err} from float64")
+    return err
+
+
+def disjoint_units(units, n_vertices: int, keys=None) -> list:
+    """Indices of a greedy selection of ``units`` (arrays of flat vertex ids)
+    that share no vertex with each other (and, with ``keys``, no key): the
+    rows a kernel's atomics reach then each take adds from one thread only,
+    so its outputs are bit for bit reproducible."""
+    import numpy as np
+
+    used = np.zeros(n_vertices, dtype=bool)
+    seen, chosen = set(), []
+    for i, ids in enumerate(units):
+        if keys is not None and keys[i] in seen:
+            continue
+        if used[ids].any():
+            continue
+        used[ids] = True
+        if keys is not None:
+            seen.add(keys[i])
+        chosen.append(i)
+    return chosen
+
+
+def corner_vertices(grid, l):
+    """(8, M) flat vertex ids of the corners of voxels l (M, 3), clamped."""
+    import torch
+
+    X, Y, Z = grid.reso
+    lx, ly, lz = (l[:, a].long() for a in range(3))
+    return torch.stack([(torch.clamp(lx + dx, max=X - 1) * Y + torch.clamp(ly + dy, max=Y - 1))
+                        * Z + torch.clamp(lz + dz, max=Z - 1)
+                        for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)])
+
+
+def basis_grad_check(label: str, kernel: str, g_kernel: dict, g_plain: dict) -> float:
+    """grad_check on every group of a learned basis's gradient (the MLP's
+    tensors as rows); returns the max abs error."""
+    err = 0.0
+    log(f"{kernel} backward with the learned basis ({label}), kernels against autograd of the "
+        f"plain path:")
+    for k, gp in g_plain.items():
+        gk = g_kernel[k]
+        if gp.dim() == 1:
+            gk, gp = gk.reshape(1, -1), gp.reshape(1, -1)
+        err = max(err, grad_check(k, gk.reshape(-1, gk.shape[-1]), gp.reshape(-1, gp.shape[-1]),
+                                  kernel))
+    return err
+
+
+def check_basis_kernels(device, card: str) -> dict:
+    """Phase 12a: K12g against its plain version on the 32^3 x 9 texture;
+    K5b with the sh_mult output (the texture's and the SH rows' gradients of
+    the bench loss on a 16,384-ray chunk of the 512^3 shell, through the
+    renderer, against autograd of the plain renderer), and its null-pointer
+    path bit for bit equal to the output's path on entries whose corner rows
+    no other entry touches; K8's backward likewise on the 256^3 blobby grid,
+    on rays whose rows no other ray touches. Each timed with and without the
+    output."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app.bench_step import (BASIS_RESO, bench_options, cuvol_options,
+                                                with_basis)
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.core.sh import eval_basis
+    from alphasurf_torch.losses import reg as R
+    from alphasurf_torch.render import cuvol as C
+    from alphasurf_torch.render import surface as S
+
+    res = {}
+    # K12g on a perturbed SH texture (the init alone has many equal cells)
+    g0 = torch.Generator(device=device).manual_seed(SEED)
+    grid, _ = shell_grid(RESO, device)
+    grid = with_basis(grid, "texture")
+    with torch.no_grad():
+        grid.basis_data.add_(0.05 * torch.randn(grid.basis_data.shape, generator=g0,
+                                                 device=device))
+    tex = grid.basis_data.detach()
+    Rb, bd = tex.shape[0], tex.shape[-1]
+    scale = 1.0 / (Rb - 1) ** 3
+    lk, gk = kernels.reg_basis_tv(tex, scale)
+    t = tex.clone().requires_grad_(True)
+    lp = R._basis_tv_plain(t)
+    (gp,) = torch.autograd.grad(lp, [t])
+    if abs(float(lk) - float(lp)) > REG_LOSS_RTOL * abs(float(lp)):
+        raise AssertionError(f"K12g loss {float(lk)} differs from the plain {float(lp)}")
+    log(f"K12g basis TV {Rb}^3 x {bd}: loss {float(lk):.7f} (plain {float(lp):.7f})")
+    err = grad_check("basis_data", gk.reshape(-1, bd), gp.reshape(-1, bd), "K12g",
+                     rel_tol=DENSE_TV_GRAD_REL)
+
+    def k12g_plain():
+        t2 = tex.clone().requires_grad_(True)
+        return torch.autograd.grad(R._basis_tv_plain(t2), [t2])
+
+    res["reg_basis_tv"] = dict(max_abs_err=err, ms=time_ms(lambda: kernels.reg_basis_tv(tex, scale),
+                                                           50),
+                               plain_ms=time_ms(k12g_plain, 10),
+                               bound=bound_ms(2 * tex.numel() * 4 + 8,
+                                              (Rb - 1) ** 3 * bd * 30))
+    del t, gk, gp
+
+    # K5 with the sh_mult output, on the bench options' chunk of frame 0
+    opt = bench_options()
+    rays_all = frame_camera(0, 2).gen_rays_device(device)
+    s = (WIDTH * HEIGHT) // 2 - CHUNK // 2
+    rays = Rays(rays_all.origins[s:s + CHUNK].contiguous(), rays_all.dirs[s:s + CHUNK].contiguous())
+    words = S.occupancy_words(grid, opt)
+    origins, dirs, viewdirs, tnear, tmax, ngt, ok, _ = S._prep_rays(grid, rays, opt)
+    tn = torch.where(ok, tnear, torch.zeros_like(tnear))
+    tx = torch.where(ok, tmax, torch.full_like(tmax, -1.0))
+    pool = S._compact_crossings_plain(grid.reso, origins, dirs, tn, tx, words)
+    B, M = CHUNK, pool.close_t.shape[0]
+    params = [grid.basis_data, grid.sh_data]
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        out = S.volume_render_surface_packed(grid, rays, opt, occupancy=words)
+        g_kernel = torch.autograd.grad(torch.mean((out["rgb"] - 0.5) ** 2), params)
+        shm = eval_basis(grid, viewdirs)
+        comp = S._render_plain(grid, opt, pool, origins, dirs, shm, ngt, S.pack_grid_data(grid))
+        loss_p = torch.mean((comp["rgb"] - 0.5) ** 2)
+        g_plain = torch.autograd.grad(loss_p, params, retain_graph=True)
+        plain_ms = time_ms(lambda: torch.autograd.grad(loss_p, params, retain_graph=True), 3)
+        del comp, loss_p, shm
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    err = basis_grad_check("texture, 512^3 shell chunk", "K5",
+                           dict(zip(("basis_data", "sh"), g_kernel)),
+                           dict(zip(("basis_data", "sh"), g_plain)))
+    del g_kernel, g_plain
+    # K5a's cotangents of the chunk, then K5b with and without the output
+    sh_mult = eval_basis(grid, viewdirs).detach().contiguous()
+    packed = S.pack_grid_data(grid)
+    fss = grid.fake_sample_std.detach()
+    sk = kernels.phase_b(pool.ray_id, pool.l, pool.close_t, pool.far_t, origins, dirs, sh_mult,
+                         grid.links, packed, 1, grid.level_set_data, ngt, fss, opt)
+    ck = kernels.composite(pool.offsets, sk, grid.truncated_vol_render_a, opt)
+    g_rgb = (2.0 * (ck["rgb"] - 0.5) / (3 * B)).contiguous()
+    g_rl = torch.zeros((12, B), dtype=torch.float32, device=device)
+    d_alpha, d_t, d_col = kernels.backward_ray(pool.offsets, sk, grid.truncated_vol_render_a, opt,
+                                               g_rgb, g_rl)
+
+    def k5b(want, sub=None, fs=fss):
+        e = slice(None) if sub is None else sub
+        return kernels.backward_entry(
+            pool.ray_id[e].contiguous(), pool.l[e].contiguous(), pool.close_t[e].contiguous(),
+            pool.far_t[e].contiguous(), origins, dirs, sh_mult, grid.links, packed, 1,
+            grid.level_set_data, ngt, fs, opt, sk["contrib"][:, e].contiguous(),
+            d_alpha[:, e].contiguous(), d_t[:, e].contiguous(), d_col[:, :, e].contiguous(), g_rl,
+            None, want_sh_mult=want)
+
+    verts_t = corner_vertices(grid, pool.l)
+    verts = verts_t.T.cpu().numpy()
+    sub = torch.as_tensor(disjoint_units(verts, grid.links.numel(),
+                                         pool.ray_id.cpu().numpy()), device=device)
+    a0, a1 = k5b(False, sub, None), k5b(True, sub, None)
+    if not all(torch.equal(x, y) for x, y in zip(a0[:3], a1[:3])):
+        raise AssertionError("K5b's gradients with the sh_mult output differ from its null path")
+    log(f"K5b null path: on {sub.numel()} of {M} entries whose corner rows no other touches (one "
+        f"a ray), density, surface and SH gradients bit for bit equal with and without the "
+        f"sh_mult output; |g_sh_mult| {float(a1[4].norm()):.4e}")
+    M_rays = int(torch.unique(pool.ray_id).numel())
+    # as check_backward's K5b bound, with the basis's gradient written
+    pos = torch.unique(verts_t)
+    n_rows = int((grid.links.reshape(-1)[pos] >= 0).sum())
+    bytes_b = (M * 24 + B * 60 + pos.numel() * 4 + n_rows * packed.shape[1] * 4
+               + sk["n_slots"] * M * 21 + B * 8 + grid.capacity * 29 * 4)
+    ops_b = M * 2 * (48 * grid.basis_dim + 60 + grid.level_set_data.numel() * 550 + 200)
+    ms0, ms1 = time_ms(lambda: k5b(False), 20), time_ms(lambda: k5b(True), 20)
+    log(f"K5b on the chunk ({M} entries of {M_rays} rays): {ms0:.4f} ms without the sh_mult "
+        f"output, {ms1:.4f} ms with it [{card}]")
+    res["backward_entry_basis"] = dict(max_abs_err=err, ms=ms1, plain_ms=plain_ms,
+                                       ms_without=ms0,
+                                       bound=bound_ms(bytes_b + B * bd * 4,
+                                                      ops_b + M * 8 * 3 * bd * 2))
+    del grid, packed, pool, sk, ck, d_alpha, d_t, d_col, a0, a1
+    torch.cuda.empty_cache()
+
+    # K8's backward with the sh_mult output on the 256^3 blobby grid
+    cg, _ = blobby_cuvol_grid(CUVOL_RESO, device)
+    cg = with_basis(cg, "texture")
+    copt = cuvol_options()
+    cwords = C.density_occupancy_words(cg)
+    params = [cg.basis_data, cg.sh_data, cg.density_data]
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        out = C.volume_render_cuvol_packed(cg, rays, copt, occupancy=cwords)
+        g_kernel = torch.autograd.grad(torch.mean((out["rgb"] - 0.5) ** 2), params)
+        o, d, vd, ds, tmin, tmax = C._prep_rays(cg, rays, copt)
+        cpool = C.cuvol_pool(cg, o, d, tmin, tmax, cwords)
+        shm = eval_basis(cg, vd)
+        smp = C._entry_samples_plain(cg, copt, cpool, o, d, shm, ds, tmin, tmax)
+        fp = C._composite_cuvol_plain(cpool.offsets, *smp, copt.background_brightness, None)
+        loss_p = torch.mean((fp["rgb"] - 0.5) ** 2)
+        g_plain = torch.autograd.grad(loss_p, params, retain_graph=True)
+        plain_ms = time_ms(lambda: torch.autograd.grad(loss_p, params, retain_graph=True), 3)
+        del smp, fp, loss_p, shm
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    names = ("basis_data", "sh", "density")
+    err = basis_grad_check("texture, 256^3 blobby chunk", "K8", dict(zip(names, g_kernel)),
+                           dict(zip(names, g_plain)))
+    del g_kernel, g_plain
+    ray_t, cpool = cuvol_chunk(cg, copt, rays, cwords)
+    chunk = C._CuvolChunk(cg, copt, cpool, ray_t, None)
+    dens, sh = cg.density_data.detach()[:, 0].contiguous(), cg.sh_data.detach()
+    fk = C._k8_forward(chunk, dens, sh, True)
+    g_rgb = (2.0 * (fk["rgb"] - 0.5) / (3 * B)).contiguous()
+
+    def k8b(want, ch=chunk, f=fk, g=g_rgb):
+        return kernels.cuvol_backward(*C._k8_args(ch, dens, sh), f["log_T"], f["entry_pre"], g,
+                                      want_sh_mult=want)
+
+    # rays whose entries' corner rows no other ray's touch
+    offs = cpool.offsets.cpu().numpy()
+    verts = corner_vertices(cg, cpool.l).T.reshape(-1).cpu().numpy()
+    units = [verts[offs[r] * 8:offs[r + 1] * 8] for r in range(B)]
+    keep = [r for r in disjoint_units(units, cg.links.numel()) if offs[r + 1] > offs[r]]
+    kt = torch.as_tensor(keep, device=device)
+    sub_rays = Rays(rays.origins[kt].contiguous(), rays.dirs[kt].contiguous())
+    sub_t, sub_pool = cuvol_chunk(cg, copt, sub_rays, cwords)
+    sub_chunk = C._CuvolChunk(cg, copt, sub_pool, sub_t, None)
+    sub_f = C._k8_forward(sub_chunk, dens, sh, True)
+    sub_g = g_rgb[kt].contiguous()
+    b0 = k8b(False, sub_chunk, sub_f, sub_g)
+    b1 = k8b(True, sub_chunk, sub_f, sub_g)
+    if not (torch.equal(b0[0], b1[0]) and torch.equal(b0[1], b1[1])):
+        raise AssertionError("K8's gradients with the sh_mult output differ from its null path")
+    log(f"K8 backward null path: on {len(keep)} of {B} rays whose rows no other ray touches, "
+        f"density and SH gradients bit for bit equal with and without the sh_mult output")
+    Mc = cpool.close_t.shape[0]
+    n_links, n_rows = corner_rows(cg, ((cpool.l[:, 0].long() * CUVOL_RESO + cpool.l[:, 1].long())
+                                       * CUVOL_RESO + cpool.l[:, 2].long()))
+    in_bytes = Mc * 20 + (B + 1) * 8 + B * 72 + n_links * 4 + n_rows * 28 * 4
+    ms0, ms1 = time_ms(lambda: k8b(False), 20), time_ms(lambda: k8b(True), 20)
+    log(f"K8 backward on the chunk ({Mc} entries): {ms0:.4f} ms without the sh_mult output, "
+        f"{ms1:.4f} ms with it [{card}]")
+    res["cuvol_backward_basis"] = dict(
+        max_abs_err=err, ms=ms1, plain_ms=plain_ms, ms_without=ms0,
+        bound=bound_ms(in_bytes + B * 16 + Mc * 4 + cg.capacity * 28 * 4 + B * bd * 4,
+                       Mc * 8 * 3 * 9 * 4))
+    del cg, chunk, cpool, fk
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) [{card}]")
+    return res
+
+
+def basis(device, card: str, work: Path) -> tuple[dict, dict]:
+    """Phase 12: the learned bases. The kernel checks (check_basis_kernels);
+    a surface step with the texture against the plain step on a CPU copy at
+    128^3; then, each with the counters set to 0 just before and read just
+    after: bench_step's protocol (512^3, batch 40960, 1 + 33 steps) with
+    each basis and the cuvol step at 256^3 with the texture, at lr_basis and
+    lambda_tv_basis 1e-2 (rays/s, finite losses, basis rows moved); then
+    two 800x800 frames through app/render_circle from a saved 512^3 shell
+    checkpoint with each basis beside the SH one (before them, the MLP on
+    the card against float64, check_mlp_basis): the texture's frames (the
+    SH init on a 32^3 cube) within BASIS_TEX_MAX / BASIS_TEX_MEAN of the SH
+    frames, the MLP's finite and not flat. Returns the numbers of K12g and
+    K5b's and K8's basis variants and their launches from the bench runs."""
+    import numpy as np
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import bench_step, render_circle
+    from alphasurf_torch.utils.io import save_grid
+    from alphasurf_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    res = check_basis_kernels(device, card)
+    check_mlp_basis(device)
+    check_step(device, hp_extra=bench_step.BASIS_HP, basis="texture")
+    launches = {}
+    for stage, b in (("surface", "texture"), ("surface", "mlp"), ("cuvol", "texture")):
+        kernels.reset_launches()
+        reso = RESO if stage == "surface" else CUVOL_RESO
+        out = bench_step.main(["--stage", stage, "--reso", str(reso), "--batch", str(TRAIN_BATCH),
+                               "--steps", "33", "--width", str(WIDTH), "--basis", b,
+                               "--device", str(device)])
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        log(f"bench_step --stage {stage} --basis {b}: {out['steps']} steps of {out['batch']} rays "
+            f"at {out['reso']}^3: {out['rays_per_s_fwd_bwd']:.1f} rays/s, "
+            f"{out['seconds'] / out['steps'] * 1e3:.3f} ms per step, loss {out['first_loss']:.6f}"
+            f" -> {out['last_loss']:.6f}, {out['rows_moved']} rows and {out['basis_moved']} basis "
+            f"rows moved [{card}]")
+        need = (("backward_entry_basis", "backward_entry", "rmsprop") if stage == "surface"
+                else ("cuvol_backward_basis", "cuvol_backward", "rmsprop"))
+        need += ("reg_basis_tv",) if b == "texture" else ()
+        log("launches " + json.dumps({k: got[k] for k in need}))
+        if any(got[k] == 0 for k in need):
+            raise AssertionError(f"a kernel of the basis path was not launched: {got}")
+        if not (out["losses_finite"] and out["rows_moved"] > 0 and out["basis_moved"] > 0):
+            raise AssertionError(f"training with the {b} basis did not run right: {out}")
+        for k in need:
+            if k in BASIS_KERNELS and k not in launches:
+                launches[k] = got[k]
+
+    frames = {}
+    for b in ("sh", "texture", "mlp"):
+        g, _ = shell_grid(RESO, device)
+        ckpt = work / f"basis_{b}.npz"
+        save_grid(bench_step.with_basis(g, b), str(ckpt))
+        del g
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        out = render_circle.main([str(ckpt), "--n_frames", "2", "--width", str(WIDTH), "--height",
+                                  str(HEIGHT), "--out_dir", str(work / f"circle_{b}"),
+                                  "--device", str(device)])
+        torch.cuda.synchronize()
+        imgs = [read_png(str(work / f"circle_{b}" / f"{i:04d}.png")) for i in range(2)]
+        frames[b] = np.stack(imgs).astype(np.float64) / 255.0
+        log(f"render_circle with the {b} basis: ms per frame "
+            f"{[round(x * 1e3, 3) for x in out['frame_seconds']]}, frame 0 mean "
+            f"{frames[b][0].mean():.4f} std {frames[b][0].std():.4f}; "
+            f"{kernels.LAUNCHES['composite']} K4 launches [{card}]")
+        if kernels.LAUNCHES["composite"] == 0:
+            raise AssertionError(f"serving the {b} checkpoint launched no kernel")
+    d = np.abs(frames["texture"] - frames["sh"])
+    log(f"texture frames against the SH frames (8-bit PNGs): max {d.max():.5f}, mean "
+        f"{d.mean():.6f} (limits {BASIS_TEX_MAX}, {BASIS_TEX_MEAN})")
+    if not (d.max() <= BASIS_TEX_MAX and d.mean() <= BASIS_TEX_MEAN):
+        raise AssertionError("the texture's frames differ from the SH frames")
+    m = frames["mlp"]
+    if not (np.isfinite(m).all() and m.std() > 0.01):
+        raise AssertionError("the MLP's frames are flat or not finite")
+    log(f"basis phase in {time.perf_counter() - t_phase:.1f} s")
+    return res, launches
+
+
+# ---------------------------------------------------------------------------
+# the compat marches (K14) and the svox1 export
+# ---------------------------------------------------------------------------
+
+COMPAT_OPT = dict(step_size=0.5, sigma_thresh=1e-10)  # RenderOptions' defaults
+
+
+def compat_work(grid, mode: str, ray_t, step: float, n_steps: int) -> tuple[int, int, int]:
+    """(active steps, distinct links, distinct present rows) of a K14 march:
+    t = tmin + k step <= tmax; nvol reads the 8 corners of voxel_of's voxel,
+    svox1 the truncated voxel itself."""
+    import torch
+
+    from alphasurf_torch.ops.trilerp import voxel_of
+
+    origins, dirs, _, _, tmin, tmax = ray_t
+    X, Y, Z = grid.reso
+    n, seen = 0, []
+    for k0 in range(0, n_steps, 16):
+        t = tmin[:, None] + torch.arange(k0, k0 + 16, device=tmin.device)[None, :] * step
+        act = t <= tmax[:, None]
+        if not bool(act.any()):
+            break
+        n += int(act.sum())
+        pos = (origins[:, None, :] + t[..., None] * dirs[:, None, :])[act]
+        if mode == "nvol":
+            l, _ = voxel_of(pos, grid.reso)
+        else:
+            hi = torch.tensor([X - 1, Y - 1, Z - 1], device=pos.device)
+            l = torch.minimum(torch.clamp(pos.to(torch.int32), min=0), hi)
+        l = l.long()
+        seen.append(torch.unique((l[:, 0] * Y + l[:, 1]) * Z + l[:, 2]))
+    vox = torch.unique(torch.cat(seen))
+    if mode == "nvol":
+        return (n, *corner_rows(grid, vox))
+    return n, vox.numel(), int((grid.links.reshape(-1)[vox] >= 0).sum())
+
+
+def check_svox1_file(path: Path, grid) -> dict:
+    """The N3Tree npz reloaded: its fields, and 4,096 present voxels walked
+    from the root, each leaf equal to the voxel's row in float16."""
+    import numpy as np
+
+    z = np.load(path)
+    child, data = z["child"], z["data"]
+    links = grid.links.cpu().numpy()
+    L = int(np.log2(links.shape[0]))
+    rng = np.random.default_rng(SEED)
+    occ = np.argwhere(links >= 0)
+    v = occ[rng.choice(len(occ), min(4096, len(occ)), replace=False)]
+    node = np.zeros(len(v), np.int64)
+    for dpt in range(L - 1):
+        bit = (v >> (L - 1 - dpt)) & 1
+        step = child[node, bit[:, 0], bit[:, 1], bit[:, 2]]
+        if (step == 0).any():
+            raise AssertionError("the svox1 tree has no node above a present voxel")
+        node = node + step
+    bit = v & 1
+    leaf = data[node, bit[:, 0], bit[:, 1], bit[:, 2]]
+    rows = links[v[:, 0], v[:, 1], v[:, 2]]
+    want = np.concatenate([grid.sh_data.detach().cpu().numpy()[rows],
+                           grid.density_data.detach().cpu().numpy()[rows]], -1).astype(np.float16)
+    if not np.array_equal(leaf, want):
+        raise AssertionError("svox1 leaves differ from the grid's rows")
+    fields = sorted(z.files)
+    if fields != sorted(["child", "data", "data_dim", "data_format", "invradius3", "offset"]):
+        raise AssertionError(f"svox1 file fields {fields}")
+    return {"n_nodes": int(child.shape[0]), "data_format": str(z["data_format"]),
+            "checked": len(v)}
+
+
+def compat(device, card: str, work: Path) -> tuple[dict, dict]:
+    """Phase 13: the compat marches. K14 forward and backward, both modes,
+    against their plain versions (the backward through the autograd
+    Function against autograd of the plain march, density, SH and the
+    per-ray basis) on a 16,384-ray chunk of an 800x800 view of the 256^3
+    blobby grid, each timed; then, with the counters set to 0 just before
+    and read just after, an 800x800 frame through volume_render with "nvol"
+    and with "svox1" (finite, not flat) and one gradient of a chunk's mse
+    through each; then to_svox1_npz of the 256^3 grid, reloaded and
+    checked. Returns K14's numbers and launches."""
+    import numpy as np
+    import torch
+
+    import alphasurf_torch as pt
+    from alphasurf_torch import kernels
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.geometry.svox1 import to_svox1_npz
+    from alphasurf_torch.render import compat as Cm
+
+    t_phase = time.perf_counter()
+    grid, _ = blobby_cuvol_grid(CUVOL_RESO, device)
+    opt = pt.RenderOptions(**COMPAT_OPT)
+    rays_all = frame_camera(0, 2).gen_rays_device(device)
+    s = (WIDTH * HEIGHT) // 2 - CHUNK // 2
+    rays = Rays(rays_all.origins[s:s + CHUNK].contiguous(), rays_all.dirs[s:s + CHUNK].contiguous())
+    n_steps = Cm.max_steps_for(grid, opt)
+    dens, sh = grid.density_data.detach()[:, 0].contiguous(), grid.sh_data.detach()
+    res = {}
+    for mode in Cm.BACKENDS:
+        setup = Cm._march_setup(grid, rays, mode == "svox1")
+        origins, dirs, ds, shm, tmin, tmax = setup
+        ray_t = tuple(x.detach().contiguous() for x in (origins, dirs, shm, ds, tmin, tmax))
+        c = Cm._Compat(mode, grid, opt, ray_t, n_steps)
+        plain_fn = Cm._nvol_plain if mode == "nvol" else Cm._svox1_plain
+
+        def plain(shm_in, g=grid):
+            rgb, depth, acc = plain_fn(g, opt, origins, dirs, ds, shm_in, tmin, tmax, n_steps)
+            bgw = (1.0 - acc) if mode == "nvol" else torch.exp(acc)
+            return rgb + bgw[:, None] * opt.background_brightness, depth, acc
+
+        fk = kernels.compat_forward(*Cm._k14_args(c, dens, sh))
+        (rgb_p, depth_p, acc_p), plain_fwd_ms = timed_once(lambda: plain(ray_t[2]))
+        errs = [allclose_err(fk["rgb"], rgb_p), allclose_err(fk["acc"], acc_p),
+                allclose_err(fk["depth"], depth_p, atol=1e-4)]
+        if max(e[1] for e in errs) > 0:
+            raise AssertionError(f"K14 {mode} forward differs from its plain version: {errs}")
+        n_act, n_links, n_rows = compat_work(grid, mode, ray_t, opt.step_size, n_steps)
+        log(f"K14 {mode} forward: {CHUNK} rays, {n_act} steps (at most {n_steps} a ray), max abs "
+            f"err {max(e[0] for e in errs):.3e}; rgb mean {float(fk['rgb'].mean()):.4f}")
+        step_ops = 28 * 8 * 2 + 60 if mode == "nvol" else 60 + 27 * 2
+        in_bytes = CHUNK * 72 + n_links * 4 + n_rows * 28 * 4
+        res[f"compat_forward_{mode}"] = dict(
+            max_abs_err=max(e[0] for e in errs),
+            ms=time_ms(lambda: kernels.compat_forward(*Cm._k14_args(c, dens, sh)), 10),
+            plain_ms=plain_fwd_ms,
+            bound=bound_ms(in_bytes + CHUNK * 20, n_act * step_ops))
+        # the backward: density, SH and the per-ray basis as leaves
+        shm_leaf = ray_t[2].clone().requires_grad_(True)
+        params = [grid.density_data, grid.sh_data]
+        for p in params:
+            p.requires_grad_(True)
+        try:
+            rgb_k, _, _ = Cm._CompatFn.apply(grid.density_data, grid.sh_data, shm_leaf, c)
+            g_kernel = torch.autograd.grad(torch.mean((rgb_k - 0.5) ** 2), params + [shm_leaf])
+            rgb_p, _, _ = plain(shm_leaf)
+            loss_p = torch.mean((rgb_p - 0.5) ** 2)
+            # the plain march's backward is timed once: it recomputes every
+            # checkpointed step (~14 s for nvol on the H100)
+            g_plain, plain_ms = timed_once(lambda: torch.autograd.grad(loss_p,
+                                                                       params + [shm_leaf]))
+            del rgb_p, loss_p
+        finally:
+            for p in params:
+                p.requires_grad_(False)
+        log(f"K14 {mode} backward: gradients of the mse against 0.5, kernel against autograd of "
+            f"the plain march:")
+        err = max(grad_check(n, a, b, "K14") for n, a, b in
+                  zip(("density", "sh", "sh_mult"), g_kernel, g_plain))
+        g_rgb = (2.0 * (fk["rgb"] - 0.5) / (3 * CHUNK)).contiguous()
+        res[f"compat_backward_{mode}"] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: kernels.compat_backward(*Cm._k14_args(c, dens, sh), g_rgb,
+                                                       want_sh_mult=True), 5),
+            plain_ms=plain_ms,
+            bound=bound_ms(in_bytes + CHUNK * 12 + grid.capacity * 28 * 4 + CHUNK * 9 * 4,
+                           n_act * step_ops * 3))
+        del g_kernel, g_plain, shm_leaf
+        torch.cuda.empty_cache()
+    for name, r in res.items():
+        log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}) [{card}]")
+
+    # the path: a frame and a gradient through volume_render in each mode
+    kernels.reset_launches()
+    for mode in Cm.BACKENDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = pt.volume_render(grid, rays_all, opt, mode)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        img = out["rgb"].reshape(HEIGHT, WIDTH, 3).cpu().numpy()
+        log(f"volume_render {mode}: one {WIDTH}x{HEIGHT} frame in {ms:.3f} ms, mean "
+            f"{img.mean():.4f} std {img.std():.4f} [{card}]")
+        if not (np.isfinite(img).all() and img.std() > 0.01):
+            raise AssertionError(f"the {mode} frame is flat or not finite")
+        params = [grid.density_data, grid.sh_data]
+        for p in params:
+            p.requires_grad_(True)
+        try:
+            o = pt.volume_render(grid, rays, opt, mode)
+            g = torch.autograd.grad(torch.mean((o["rgb"] - 0.5) ** 2), params)
+        finally:
+            for p in params:
+                p.requires_grad_(False)
+        if not all(bool(torch.isfinite(x).all()) and float(x.abs().max()) > 0 for x in g):
+            raise AssertionError(f"the {mode} gradient is zero or not finite")
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in COMPAT_KERNELS}
+    log("launches " + json.dumps(launches))
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"a kernel of the compat path was not launched: {launches}")
+
+    # the export of the grid's shell (its links of positive density, as a
+    # trained grid is pruned): every sphere-bound link would make a 0.5 GB
+    # compressed write of ~40 s
+    with torch.no_grad():
+        shell = grid.replace(links=torch.where(
+            (grid.links >= 0) & (grid.density_data[:, 0].clamp(min=0)[grid.links.clamp(min=0)
+                                                                      .long()] > 0),
+            grid.links, torch.full_like(grid.links, -1)))
+    t0 = time.perf_counter()
+    path = work / "svox1.npz"
+    info = to_svox1_npz(shell, str(path))
+    t_write = time.perf_counter() - t0
+    chk = check_svox1_file(path, shell)
+    log(f"to_svox1_npz {CUVOL_RESO}^3, the shell's {int((shell.links >= 0).sum())} links of "
+        f"{grid.capacity}: {info['n_nodes']} nodes, "
+        f"data_dim {info['data_dim']}, {path.stat().st_size / 2**20:.1f} MiB in {t_write:.2f} s; "
+        f"reloaded, format {chk['data_format']}, {chk['checked']} voxels walked from the root equal")
+    if chk["n_nodes"] != info["n_nodes"]:
+        raise AssertionError("the svox1 file's node count differs")
+    log(f"compat phase in {time.perf_counter() - t_phase:.1f} s")
+    return res, launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4252,7 +4881,8 @@ def main(argv=None) -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     build_log = kernels.build()
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    log(f"kernels built in {build_s:.1f} s")
     for name, info in build_log.items():
         log(f"  {name}: nvcc {info['seconds']:.1f} s")
         for line in info["ptxas"]:
@@ -4261,43 +4891,38 @@ def main(argv=None) -> int:
     work = HERE / "build" / "smoke"
     work.mkdir(parents=True, exist_ok=True)
     res, launches = {}, {}
+    runners = {
+        "kernels": lambda: (check_kernels(device, card), {}),
+        "serve": lambda: ({}, serve(device, card, work)),
+        "train": lambda: ({}, train(device, card)),
+        "warm": lambda: warm(device, card, work),
+        "stages": lambda: stages(device, card, work),
+        "extract": lambda: extract(device, card, work),
+        "dtu": lambda: dtu(device, card, work),
+        "renderers": lambda: renderers(device, card, work),
+        "blender": lambda: blender(device, card, work),
+        "tnt": lambda: tnt(device, card, work),
+        "basis": lambda: basis(device, card, work),
+        "compat": lambda: compat(device, card, work),
+    }
+    # the launches each phase reports for the JSON line: serving is the
+    # main path of K1-K4, training that of K5-K7, and each later phase's
+    # of the kernels it brought
+    keep = {"warm": WARM_NEW_KERNELS, "stages": STAGE_KERNELS, "extract": EXTRACT_KERNELS,
+            "dtu": DTU_KERNELS, "blender": EXTENDED_KERNELS}
+    walls = {}
     try:
-        if "kernels" in phases:
-            res.update(check_kernels(device, card))
-        if "serve" in phases:
-            launches.update(serve(device, card, work))
-        if "train" in phases:
-            train_launches = train(device, card)
-            # serving is the main path of K1-K4, training that of K5-K7
-            launches.update({k: v for k, v in train_launches.items() if k not in launches})
-        if "warm" in phases:
-            warm_res, warm_launches = warm(device, card, work)
-            res.update(warm_res)
-            launches.update({k: warm_launches[k] for k in WARM_NEW_KERNELS})
-        if "stages" in phases:
-            stage_res, stage_launches = stages(device, card, work)
-            res.update(stage_res)
-            launches.update({k: stage_launches[k] for k in STAGE_KERNELS})
-        if "extract" in phases:
-            extract_res, extract_launches = extract(device, card, work)
-            res.update(extract_res)
-            launches.update({k: extract_launches[k] for k in EXTRACT_KERNELS})
-        if "dtu" in phases:
-            dtu_res, dtu_launches = dtu(device, card, work)
-            res.update(dtu_res)
-            launches.update({k: dtu_launches[k] for k in DTU_KERNELS})
-        if "renderers" in phases:
-            rend_res, rend_launches = renderers(device, card, work)
-            res.update(rend_res)
-            launches.update(rend_launches)
-        if "blender" in phases:
-            blend_res, blend_launches = blender(device, card, work)
-            res.update(blend_res)
-            launches.update({k: blend_launches[k] for k in EXTENDED_KERNELS})
-        if "tnt" in phases:
-            tnt_res, tnt_launches = tnt(device, card, work)
-            res.update(tnt_res)
-            launches.update(tnt_launches)
+        for name in PHASES:
+            if name not in phases:
+                continue
+            t0 = time.perf_counter()
+            phase_res, phase_launches = runners[name]()
+            walls[name] = time.perf_counter() - t0
+            log(f"phase {name}: {walls[name]:.1f} s wall")
+            res.update(phase_res)
+            if name in keep:
+                phase_launches = {k: phase_launches[k] for k in keep[name]}
+            launches.update({k: v for k, v in phase_launches.items() if k not in launches})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4315,6 +4940,8 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None,
         })
+    log("phase walls " + json.dumps({k: round(v, 1) for k, v in walls.items()}) + ", build "
+        f"{build_s:.1f} s")
     log(card)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -481,3 +481,99 @@ def test_k11_cache_gradients_match_autograd_of_plain_path(cuda, renderer):
     for n, x, r in zip(names, got, ref):
         x, r = x.cpu().double(), r.double()
         assert float((x - r).norm()) <= 1e-3 * float(r.norm()) + 1e-6, n
+
+
+def _basis_inputs(cuda, basis):
+    """A float32 16^3 grid with a learned basis and 64 rays on the card."""
+    from test_torch_basis import basis_arrays
+
+    a = _float32(basis_arrays(np_grid(16, seed=3, prune=0.2, basis_dim=4), basis))
+    if "basis_mlp" in a:
+        a["basis_mlp"] = {k: np.asarray(v, np.float32) for k, v in a["basis_mlp"].items()}
+    o, d = np_rays(64, seed=4)
+    rays = pt.Rays(torch.as_tensor(o, dtype=torch.float32, device=cuda),
+                   torch.as_tensor(d, dtype=torch.float32, device=cuda))
+    return a, rays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("basis", ["texture", "mlp"])
+@pytest.mark.parametrize("renderer", ["packed", "cuvol_packed"])
+def test_basis_gradients_match_autograd_of_plain_path(cuda, renderer, basis):
+    """K5b's and K8's sh_mult output: the learned basis's gradient through
+    the renderer on the card against autograd of the plain path on the CPU
+    (norm to 1e-3); the launch counted as the basis variant."""
+    from alphasurf_torch.render import cuvol as C
+    from test_torch_basis import basis_params
+
+    a, rays = _basis_inputs(cuda, basis)
+    opt = pt.RenderOptions(**{**BASE, **OPTION_SETS[1]}) if renderer == "packed" else \
+        pt.RenderOptions(near_clip=0.05)
+    render = S.volume_render_surface_packed if renderer == "packed" else \
+        C.volume_render_cuvol_packed
+    counter = "backward_entry_basis" if renderer == "packed" else "cuvol_backward_basis"
+
+    def grads(g, r):
+        params = list(basis_params(g).values()) + [g.sh_data]
+        for p in params:
+            p.requires_grad_(True)
+        return torch.autograd.grad((render(g, r, opt)["rgb"] ** 2).sum(), params)
+
+    kernels.reset_launches()
+    got = grads(SparseGrid.from_numpy(a, device=cuda), rays)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[counter] == 1
+    ref = grads(SparseGrid.from_numpy(a, device="cpu"),
+                pt.Rays(rays.origins.cpu(), rays.dirs.cpu()))
+    for x, r in zip(got, ref):
+        x, r = x.cpu().double(), r.double()
+        assert float(r.norm()) > 0 and float((x - r).norm()) <= 1e-3 * float(r.norm())
+
+
+@pytest.mark.cuda
+def test_basis_tv_kernel_matches_plain_version(cuda):
+    """K12g against the plain texture TV: loss and gradient."""
+    from alphasurf_torch.losses import reg as R
+    from test_torch_basis import np_texture
+
+    tex = torch.as_tensor(np_texture(R=8), dtype=torch.float32, device=cuda)
+    lk, gk = kernels.reg_basis_tv(tex, 1.0 / 7 ** 3)
+    t = tex.clone().requires_grad_(True)
+    lp = R._basis_tv_plain(t)
+    (gp,) = torch.autograd.grad(lp, [t])
+    np.testing.assert_allclose(float(lk), float(lp.detach()), rtol=1e-5)
+    np.testing.assert_allclose(gk.cpu().numpy(), gp.cpu().numpy(), rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nvol", "svox1"])
+def test_compat_kernels_match_plain_versions(cuda, mode):
+    """K14 forward and backward (density, SH, basis) against the plain march
+    on the same card, float32."""
+    from alphasurf_torch.render import compat as Cm
+
+    a, rays = _basis_inputs(cuda, "texture")
+    opt = pt.RenderOptions(step_size=0.5, sigma_thresh=0.1)
+    names = ("density_data", "sh_data", "basis_data")
+
+    def run(g):
+        params = [getattr(g, n).requires_grad_(True) for n in names]
+        out = Cm.BACKENDS[mode](g, rays, opt)
+        return out, torch.autograd.grad((out["rgb"] ** 2).sum(), params)
+
+    kernels.reset_launches()
+    got, gk = run(SparseGrid.from_numpy(a, device=cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[f"compat_forward_{mode}"] == 1
+    assert kernels.LAUNCHES[f"compat_backward_{mode}"] == 1
+    g = SparseGrid.from_numpy(a, device=cuda)
+    fn = Cm._nvol_plain if mode == "nvol" else Cm._svox1_plain
+    params = [getattr(g, n).requires_grad_(True) for n in names]
+    o, dd, ds, shm, tmin, tmax = Cm._march_setup(g, rays, mode == "svox1")
+    rgb, _, acc = fn(g, opt, o, dd, ds, shm, tmin, tmax, Cm.max_steps_for(g, opt))
+    rgb = rgb + ((1 - acc) if mode == "nvol" else torch.exp(acc))[:, None] * 1.0
+    gp = torch.autograd.grad((rgb ** 2).sum(), params)
+    np.testing.assert_allclose(got["rgb"].detach().cpu().numpy(), rgb.detach().cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    for x, r in zip(gk, gp):
+        assert float((x - r).norm()) <= 1e-3 * float(r.norm()) + 1e-7

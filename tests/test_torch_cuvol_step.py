@@ -118,10 +118,11 @@ def test_cuvol_step_unported_options_raise():
     for kw in (dict(renderer="dense"), dict(axis_name="data")):
         with pytest.raises(NotImplementedError):
             T.make_cuvol_step(T.StepConfig(opt=opt, **kw))
-    # the lumisphere TV is ported (K12e); the learned basis's group is not
+    # the lumisphere TV (K12e) and the learned basis's groups are ported
     assert callable(T.make_cuvol_step(T.StepConfig(opt=opt, use_lumisphere_tv=True)))
-    with pytest.raises(NotImplementedError, match="§1 item 2b"):
-        T._check_rms({"density": None, "sh": None, "basis_mlp": None})
+    T._check_rms({"density": None, "sh": None, "basis_mlp": None})
+    with pytest.raises(ValueError, match="unknown rms groups"):
+        T._check_rms({"density": None, "sh": None, "mlp": None})
     g = SparseGrid.from_numpy(jax_to_np(_grid(8)), device="cpu")
     o, d = np_rays(8, seed=4)
     step = T.make_cuvol_step(T.StepConfig(opt=opt))

@@ -131,8 +131,8 @@ def _grid_with_background(reso=8, nlayers=3):
 
 def test_checkpoint_round_trip_with_background(tmp_path):
     """JAX save -> port load -> port save -> JAX load: equal arrays, the
-    background's links and rows among them; the learned basis still
-    raises, naming ROADMAP §1 item 2b."""
+    background's links and rows among them; a learned texture basis
+    written beside them loads too."""
     gj = _grid_with_background()
     JIO.save_grid(gj, str(tmp_path / "j.npz"), step_id=5)
     g, step = TIO.load_grid(str(tmp_path / "j.npz"), device="cpu")
@@ -147,12 +147,13 @@ def test_checkpoint_round_trip_with_background(tmp_path):
     z = dict(np.load(tmp_path / "t.npz"))
     z["basis_data"] = np.ones((2, 2, 2, 4), np.float32)
     np.savez(tmp_path / "b.npz", **z)
-    with pytest.raises(NotImplementedError, match="§1 item 2b"):
-        TIO.load_grid(str(tmp_path / "b.npz"), device="cpu")
+    gb, _ = TIO.load_grid(str(tmp_path / "b.npz"), device="cpu")
+    np.testing.assert_array_equal(gb.basis_data.numpy(), z["basis_data"])
+    assert gb.use_background
     a = jax_to_np(gj)
     a["basis_data"] = np.ones((2, 2, 2, 4))
-    with pytest.raises(NotImplementedError, match="§1 item 2b"):
-        SparseGrid.from_numpy(a, device="cpu")
+    np.testing.assert_array_equal(SparseGrid.from_numpy(a, device="cpu").basis_data.numpy(),
+                                  a["basis_data"])
 
 
 @pytest.mark.parametrize("thresh,dilate", [(2.4, 1), (1.5, 0), (2.8, 2)])

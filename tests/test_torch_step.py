@@ -195,17 +195,19 @@ def test_window_draws_keep_their_sequence(dense, flags, monkeypatch):
 
 
 def test_unported_options_raise():
-    """Data-parallel steps and the learned basis's rms groups still raise,
-    naming their ROADMAP item; so does a cuvol step that would train through
-    the dense march. The lumisphere TV (K12e) no longer raises."""
+    """Data-parallel steps still raise, naming their ROADMAP item; so does a
+    cuvol step that would train through the dense march. The lumisphere TV
+    (K12e) and the learned basis's rms groups no longer raise; a group no
+    package has does."""
     opt = pt.RenderOptions(**OPT)
     for kw in (dict(use_lumisphere_tv=True), dict(use_lumisphere_tv=True, use_eikonal=True)):
         assert callable(T.make_surface_step(T.StepConfig(opt=opt, **kw)))
     with pytest.raises(NotImplementedError, match="§1 item 4"):
         T.make_surface_step(T.StepConfig(opt=opt, axis_name="data"))
     for group in ("basis_data", "basis_mlp"):
-        with pytest.raises(NotImplementedError, match="§1 item 2b"):
-            T._check_rms({"density": None, "background": None, group: None})
+        T._check_rms({"density": None, "background": None, group: None})
+    with pytest.raises(ValueError, match="unknown rms groups"):
+        T._check_rms({"density": None, "basis": None})
     with pytest.raises(NotImplementedError, match="§2 item 4"):
         T.make_cuvol_step(T.StepConfig(opt=opt, renderer="dense"))
 
