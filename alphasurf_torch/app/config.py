@@ -193,7 +193,7 @@ class Config:
     entries_per_ray_max: float = 256.0
     supers_per_ray: float = 8.0
 
-    # --- multi-device (the JAX package's; no svox2 analog; not ported, ROADMAP §1 item 4) ---
+    # --- multi-device (the JAX package's; no svox2 analog; not ported, ROADMAP §1 item 3) ---
     # number of mesh devices for data-parallel ray sharding: 1 = single
     # device, 0 = all visible devices. Grid params are replicated (or
     # tile-sharded over mesh_model rows); gradient psum over ICI is

@@ -66,7 +66,7 @@ def main(argv=None) -> float:
         else:
             img = render_image(grid, cam, opt, device=device)
         gt = dset.gt[i]
-        p, s = psnr(img, gt), compute_ssim(img, gt)
+        p, s = psnr(img, gt), compute_ssim(img, gt, device=device)
         psnrs.append(p)
         ssims.append(s)
         lp = lpips_fn(img, gt) if lpips_fn is not None else None

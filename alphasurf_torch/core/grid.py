@@ -252,16 +252,13 @@ def create_grid(
     ``use_sphere_bound``, the vertices within the unit sphere's bound
     (the JAX package's ``core.grid.create_grid``, svox2.py:580-990). The
     mask is computed in float32 numpy, as the JAX package does, so both
-    keep the same vertices. Only ``SURFACE_TYPE_NONE`` grids: the surface
-    initialisers wait for ROADMAP §1 item 5. ``basis_type`` with
-    ``basis_data`` (a 3D texture, ``core.sh.reinit_learned_bases``) or
-    ``basis_mlp`` (``core.sh.init_basis_mlp``) gives the grid a learned
-    basis, as the JAX package's ``grid.replace`` does after
-    ``create_grid``."""
-    if surface_type != defs.SURFACE_TYPE_NONE:
-        raise NotImplementedError(
-            f"create_grid's surface initialisers (surface_type {surface_type}, surface_init "
-            f"{surface_init!r}) are not ported yet (ROADMAP §1 item 5)")
+    keep the same vertices. A surface grid (``surface_type`` other than
+    NONE) gets the rows of ``surface_init`` from ``init_surface``, bit for
+    bit JAX's; a UDF_ALPHA grid's ``density_data`` is its (n_lv, 1) table of
+    per-level-set alphas, zeros. ``basis_type`` with ``basis_data`` (a 3D
+    texture, ``core.sh.reinit_learned_bases``) or ``basis_mlp``
+    (``core.sh.init_basis_mlp``) gives the grid a learned basis, as the JAX
+    package's ``grid.replace`` does after ``create_grid``."""
     dev = resolve_device(device)
     if isinstance(reso, int):
         reso = (reso, reso, reso)
@@ -284,19 +281,140 @@ def create_grid(
         capacity = n3
         links = np.arange(n3, dtype=np.int32)
     f = dict(dtype=dtype, device=dev)
+    density = torch.full((capacity, 1), float(init_sigma), **f)
+    surface = level_sets = None
+    if surface_type != defs.SURFACE_TYPE_NONE:
+        surf_np, lv_np = init_surface(reso, links, capacity, surface_init, surface_type)
+        surface = torch.as_tensor(surf_np, **f)
+        level_sets = torch.as_tensor(lv_np, **f)
+        if surface_type == defs.SURFACE_TYPE_UDF_ALPHA:
+            # one alpha per level set instead of per vertex (svox2.py:950-953)
+            density = torch.zeros((lv_np.shape[0], 1), **f)
     return SparseGrid(
         links=torch.as_tensor(links.reshape(reso), device=dev),
-        density_data=torch.full((capacity, 1), float(init_sigma), **f),
+        density_data=density,
         sh_data=torch.full((capacity, basis_dim * 3), float(init_rgb), **f),
-        surface_data=None,
-        level_set_data=None,
+        surface_data=surface,
+        level_set_data=level_sets,
         fake_sample_std=torch.ones((1, 1), **f) if trainable_fake_sample_std else None,
         truncated_vol_render_a=torch.tensor(1.0, **f),
         radius=torch.as_tensor(radius, **f),
         center=torch.as_tensor(center, **f),
         basis_dim=basis_dim,
-        surface_type=defs.SURFACE_TYPE_NONE,
+        surface_type=surface_type,
         basis_type=basis_type,
         basis_data=None if basis_data is None else torch.as_tensor(basis_data, **f),
         basis_mlp=basis_mlp,
     )
+
+
+# the unsigned-distance types: softplus of the surface values, fixed level sets
+UDF_TYPES = (defs.SURFACE_TYPE_UDF, defs.SURFACE_TYPE_UDF_ALPHA,
+             defs.SURFACE_TYPE_UDF_FAKE_SAMPLE)
+_NEAREST_CHUNK = 1 << 20  # lattice vertices a block of the nearest-sphere search
+
+
+def _nearest_sphere(rs: np.ndarray, sphere_rs: np.ndarray) -> np.ndarray:
+    """Per vertex, its signed distance to the nearest of the concentric
+    spheres, the first on ties: the JAX package's argmin over its
+    (n, n_spheres) distance matrix (7.5 GB at 256^3 with spheres every 4
+    voxels). The radii are evenly spaced, so the nearest is one of the three
+    around rs's position in them; those three distances, in index order,
+    are computed as JAX's (rs - r), a block of rows at a time."""
+    out = np.empty(rs.shape[0], np.float64)
+    n = sphere_rs.shape[0]
+    step = (sphere_rs[-1] - sphere_rs[0]) / max(n - 1, 1)
+    for i0 in range(0, rs.shape[0], _NEAREST_CHUNK):
+        r = rs[i0:i0 + _NEAREST_CHUNK]
+        k = np.floor((r - sphere_rs[0]) / step).astype(np.int64) if n > 1 else np.zeros(
+            r.shape, np.int64)
+        cand = np.clip(k[:, None] + np.arange(-1, 3)[None, :], 0, n - 1)  # ascending indices
+        dists = r[:, None] - sphere_rs[cand]
+        out[i0:i0 + _NEAREST_CHUNK] = dists[np.arange(r.shape[0]), np.abs(dists).argmin(axis=-1)]
+    return out
+
+
+def init_surface(reso, links: np.ndarray, capacity: int, surface_init, surface_type):
+    """The surface initialisers of the JAX package's ``core.grid._init_surface``
+    (grid.py:211-314; svox2.py:770-961) in host numpy, in its order of
+    operations and random draws, so that the rows are bit for bit JAX's.
+    ``links`` is the flat int32 link array. Returns float32 numpy
+    (surface (cap, C), level sets (n_lv,)); C is 4 for PLANE, 1 otherwise."""
+    coords = np.stack(np.meshgrid(np.arange(reso[0]), np.arange(reso[1]), np.arange(reso[2]),
+                                  indexing="ij"), axis=-1).reshape(-1, 3)
+    grid_center = np.asarray(reso) / 2.0
+    rs = np.sqrt(np.sum((coords - grid_center) ** 2, axis=-1))
+    r_half = float(np.linalg.norm(grid_center))
+    lnk = links.reshape(-1)
+    valid = lnk >= 0
+    rng = np.random.default_rng(0)
+    level_sets = np.array([0.0], np.float32)
+    data = np.zeros((capacity, 1), dtype=np.float32)
+
+    if surface_type == defs.SURFACE_TYPE_PLANE:
+        # per-vertex plane (a, b, c, d): ax + by + cz + d = 0 (svox2.py:850-884)
+        data = np.zeros((capacity, 4), np.float32)
+        if surface_init in (None, "random"):
+            d4 = rng.random((capacity, 4), np.float32) - 0.5
+            d4[:, :3] /= np.linalg.norm(d4[:, :3], axis=-1, keepdims=True)
+            data = d4
+        elif surface_init == "sphere":
+            dirs = (coords - grid_center).astype(np.float32)
+            n = np.linalg.norm(dirs, axis=-1, keepdims=True)
+            dirs = np.where(n > 0, dirs / np.where(n == 0, 1, n), 1.0 / np.sqrt(3))
+            data[lnk[valid], :3] = dirs[valid]
+        else:
+            raise ValueError(f"surface_init={surface_init!r} for PLANE grids")
+        # the plane passes through its vertex (svox2.py:862-866)
+        data[lnk[valid], 3] = -np.sum(coords[valid] * data[lnk[valid], :3], axis=-1)
+        return data, level_sets
+
+    if surface_type in UDF_TYPES:
+        # an unsigned distance field with fixed level sets (svox2.py:885-949)
+        if surface_init is None:
+            level_sets = np.array([64.0], np.float32)
+        elif surface_init == "sphere":
+            data[lnk[valid], 0] = rs[valid]
+            level_sets = (np.arange(0, r_half, 4) + 0.5).astype(np.float32)
+        elif surface_init == "single_lv":
+            level_sets = np.array([64.0], np.float32)
+            data[lnk[valid], 0] = (rs - (r_half / 2.0 - level_sets[0]))[valid]
+        elif surface_init == "single_lv_multi_sphere":
+            level_sets = np.array([64.0], np.float32)
+            nearest = _nearest_sphere(rs, np.arange(0, r_half, 4) + 0.5)
+            data[lnk[valid], 0] = nearest[valid] + level_sets[0]
+        else:
+            raise ValueError(f"surface_init={surface_init!r} for UDF grids")
+        return data, level_sets
+
+    if surface_type == defs.SURFACE_TYPE_VOXEL_FACE:
+        # zeros: the geometry is the voxels' faces (svox2.py:955-957)
+        return data, level_sets
+
+    # SDF (svox2.py:772-846)
+    if surface_init is None:
+        pass
+    elif surface_init == "sphere":
+        # concentric spheres every 2 voxels (svox2.py:779-793)
+        data[lnk[valid], 0] = _nearest_sphere(rs, np.arange(0, r_half, 2) + 0.5)[valid]
+    elif surface_init == "single_sphere":
+        # one sphere of radius |grid_center| / 2, rescaled (svox2.py:808-820)
+        data[lnk[valid], 0] = (rs - r_half / 2.0)[valid]
+        data *= 10.0 / rs.max()
+    elif surface_init == "outwards":
+        # random magnitudes, the sign flipped in alternating shells (svox2.py:822-841)
+        data[:, 0] = rng.random(capacity, np.float32)
+        abs_max_axis = np.abs(coords - grid_center.astype(np.int64)).argmax(-1)
+        for axis_id in range(3):
+            sel = (abs_max_axis == axis_id) & (coords[:, axis_id] % 2 == 0) & valid
+            data[lnk[sel], 0] *= -1.0
+    elif surface_init == "plane_init":
+        # noisy planes alternating along x (svox2.py:843-846)
+        data[:, 0] = rng.random(capacity, np.float32) * 0.1 + 1.0
+        sel = (coords[:, 0] % 2 == 1) & valid
+        data[lnk[sel], 0] *= -1.0
+    elif surface_init == "random":
+        data[lnk[valid], 0] = rng.standard_normal(int(valid.sum())) * 0.1
+    else:
+        raise ValueError(f"surface_init={surface_init!r}")
+    return data, level_sets

@@ -1,6 +1,6 @@
 """Ray batches and pinhole cameras, the counterpart of
 the JAX package's ``core.rays`` (svox2's ``Rays``/``Camera``, svox2.py:108-237).
-OpenCV convention. NDC cameras are not ported yet (ROADMAP §1 item 5)."""
+OpenCV convention. NDC cameras are not ported yet (ROADMAP §1 item 4)."""
 from __future__ import annotations
 
 import dataclasses

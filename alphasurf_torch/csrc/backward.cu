@@ -33,6 +33,18 @@
 // atomicAdd; the fake_sample_std gradient is summed over the warp first,
 // since every entry of the pool adds to that one address.
 //
+// The surface types' branches of K5b follow K3's: the UDF types multiply
+// the corner-value cotangents by softplus's derivative and add the udf-var
+// term's (ray loss 10); PLANE's root carries its cotangent into the mean
+// plane (the clip of d taken as jnp.clip, max then min, half at a tie) and
+// an eighth of that into each corner's 4 surface channels; VOXEL_FACE's
+// alpha into corner 0's density through the sigmoid. UDF_ALPHA's slots
+// read their alpha from the (n_lv,) table: every entry of the pool adds to
+// one of its few rows, so each thread keeps its sums of the first
+// MAX_LV_TABLE level sets and each warp adds them with one atomic a row;
+// a level set past those adds its own atomics (a grid's many level sets
+// are nested shells, each crossed by few of a warp's entries).
+//
 // K11d, the gradient through the first-K sample cache (K11c): the
 // cotangents of the cached ts, alphas and weights, (B, cache_K) each, join
 // K5a's per-slot cotangents. Pass 2 of backward_ray recounts a slot's cache
@@ -63,6 +75,9 @@
 // derivative at an exact tie (half the gradient), so the kernel and the
 // plain version (autograd of the plain renderer) agree on ties in float32.
 #include "samples.cuh"
+
+// the level sets whose UDF_ALPHA table cotangents K5b sums per warp
+constexpr int MAX_LV_TABLE = 64;
 
 // ---------------------------------------------------------------------------
 // K5a
@@ -250,6 +265,8 @@ struct BackEntryParams {
     const float* level_sets;
     int n_lv;
     int S0;
+    int stype;
+    const float* lv_alpha;  // UDF_ALPHA's (n_lv,) alphas, else null
     float near_grid_t, sigma_thresh;
     const float* fs_std;  // (1,) or null
     float min_vox_len;
@@ -260,7 +277,7 @@ struct BackEntryParams {
     const float* d_col;
     const float* g_rl;
     const bool* win;   // (M,) K4's count window, or null: every entry
-    float* g_density;  // (cap,)
+    float* g_density;  // (cap,), or UDF_ALPHA's (n_lv,) table
     float* g_surface;  // (cap, n_surf_c)
     float* g_sh;       // (cap, 3 bd)
     float* g_fss;      // (1,) or null
@@ -309,9 +326,77 @@ HD float safe_fp(float fp) {
     return fp < 0.0f ? -1e-10f : 1e-10f;
 }
 
+// d min(a, b) / d a, JAX's (and torch's) half at a tie
+HD float min_grad(float a, float b) { return a < b ? 1.0f : (a == b ? 0.5f : 0.0f); }
+
+// One real slot's cotangents: the raw alpha's (returned in draw; into the
+// corner alphas unless the alpha comes from UDF_ALPHA's table) and the
+// colours' (into dC). Returns the cotangent of the slot's t: d_t plus that
+// of the sample position, which moves with t.
+HD float real_slot_vjp(const BackEntryParams& p, const Corners& cs, const RealSlot& s, int64_t k,
+                       const float d[3], float g_in, float g_lap, float dA8[8], float dC[3][8],
+                       float& draw) {
+    const int64_t SM = (int64_t)p.S0 * p.M;
+    draw = 0.0f;
+    float da = p.d_alpha[k];
+    if (p.contrib[k]) {
+        const float alpha = alpha_act(s.raw, p.act_sigmoid);
+        da = da + g_in * inward_sq(s.sn, d) + g_lap * lap_grad(alpha);
+    }
+    const float dcol[3] = {p.d_col[k], p.d_col[SM + k], p.d_col[2 * SM + k]};
+    const float dt_in = p.d_t[k];
+    if (da == 0.0f && dt_in == 0.0f && dcol[0] == 0.0f && dcol[1] == 0.0f && dcol[2] == 0.0f)
+        return 0.0f;
+    draw = da * alpha_act_grad(s.raw, p.act_sigmoid);
+    float dw8[8];
+    for (int c = 0; c < 8; ++c) {
+        if (!p.lv_alpha) dA8[c] = dA8[c] + draw * s.w8[c];
+        dw8[c] = p.lv_alpha ? 0.0f : draw * cs.alpha8[c];
+    }
+    for (int ch = 0; ch < 3; ++ch) {
+        const float dpre = dcol[ch] * clip_lo_grad(s.pre_rgb[ch], 0.0f);
+        for (int c = 0; c < 8; ++c) {
+            dC[ch][c] = dC[ch][c] + dpre * s.w8[c];
+            if (!p.no_sh_surf_grad) dw8[c] = dw8[c] + dpre * cs.crgb[ch][c];
+        }
+    }
+    // the sample position: clip(where(geo_ok, o + t d - l, 0.5), 0, 1)
+    float dfs[3];
+    trilerp_weights_vjp(s.fs, dw8, dfs);
+    float dt = dt_in;
+    if (s.geo_pre)
+        for (int a = 0; a < 3; ++a) dt = dt + dfs[a] * clip_grad(s.frac[a], 0.0f, 1.0f) * d[a];
+    return dt;
+}
+
+// PLANE: the cotangent dt of t_pl = -(abc . o + dpl) / den into the mean
+// plane (a, b, c, d), dpl = min(max(d, lo), hi), lo/hi = -+0.3 - xyz
+HD void plane_root_vjp(const PlaneRoot& q, float p3, const float o[3], const float d[3],
+                       const int l[3], float dt, float dP[4]) {
+    const float dN = -dt / q.den;
+    const float dden = fabsf(q.den_raw) < 1e-12f ? 0.0f : dt * q.N / (q.den * q.den);
+    const float g_m = dN * min_grad(q.m, q.hi);
+    const float g_hi = dN * min_grad(q.hi, q.m);
+    const float g_lo = g_m * clip_lo_grad(q.lo, p3);
+    const float dxyz = -(g_lo + g_hi);
+    for (int k = 0; k < 3; ++k)
+        dP[k] = dP[k] + dN * o[k] + dden * d[k] + dxyz * ((float)l[k] + 0.5f);
+    dP[3] = dP[3] + g_m * clip_lo_grad(p3, q.lo);
+}
+
+// add v to level set i's alpha cotangent: the thread's sum, or past the
+// first MAX_LV_TABLE level sets the table row itself
+HD void add_table(const BackEntryParams& p, float* gtab, int i, float v) {
+    if (i < MAX_LV_TABLE)
+        gtab[i] = gtab[i] + v;
+    else if (v != 0.0f)
+        atomic_add(p.g_density + i, v);
+}
+
 // returns this entry's part of the fake_sample_std gradient; fills sg for
 // the sh_mult gradient (sg.ray stays -1 for an entry that adds nothing)
-HD float backward_entry_thread(const BackEntryParams& p, int64_t m, ShMultGrad& sg) {
+// and, for UDF_ALPHA, adds each level set's alpha cotangent to gtab
+HD float backward_entry_thread(const BackEntryParams& p, int64_t m, ShMultGrad& sg, float* gtab) {
     const int r = p.ray_id[m];
     const int l[3] = {p.l[3 * m], p.l[3 * m + 1], p.l[3 * m + 2]};
     const float close_t = p.close_t[m], far_t = p.far_t[m];
@@ -323,128 +408,158 @@ HD float backward_entry_thread(const BackEntryParams& p, int64_t m, ShMultGrad& 
     const float* shm = p.sh_mult + (int64_t)r * p.bd;
     Corners cs;
     gather_corners(p.links, p.X, p.Y, p.Z, p.packed, p.cap, p.C8, p.n_surf_c, p.bd, shm,
-                   p.sigma_thresh, l, cs);
+                   p.sigma_thresh, p.stype, l, cs);
     if (!cs.vox_ok) return 0.0f;  // no slot of the entry contributes
-
-    float smin = cs.surf8[0], smax = cs.surf8[0];
-    for (int c = 1; c < 8; ++c) {
-        smin = fminf(smin, cs.surf8[c]);
-        smax = fmaxf(smax, cs.surf8[c]);
-    }
-    float u[3], f[4];
-    for (int a = 0; a < 3; ++a) u[a] = o[a] + close_t * d[a] - (float)l[a];
-    cubic_coeffs(cs.surf8, u, d, f);
 
     const int64_t SM = (int64_t)p.S0 * p.M;
     const bool in_win = !p.win || p.win[m];
     const float g_in = in_win ? p.g_rl[7 * p.B + r] : 0.0f;
     const float g_lap = in_win ? p.g_rl[8 * p.B + r] : 0.0f;
-    float dA8[8], dS8[8], dC[3][8];
+    const float g_udf = in_win ? p.g_rl[10 * p.B + r] : 0.0f;
+    float dA8[8], dS8[8], dC[3][8], dP[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     for (int c = 0; c < 8; ++c) {
         dA8[c] = dS8[c] = 0.0f;
         for (int ch = 0; ch < 3; ++ch) dC[ch][c] = 0.0f;
     }
-    float df[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    bool vox_has_sample = false, vox_has_surf = false;
-    for (int i = 0; i < p.n_lv; ++i) {
-        const float lv = p.level_sets[i];
-        const bool lv_ok = cs.vox_ok && lv >= smin && lv <= smax;
-        vox_has_surf = vox_has_surf || lv_ok;
-        float roots[3];
-        bool has[3];
-        cubic_roots(f[0] - lv, f[1], f[2], f[3], roots, has);
-        for (int j = 0; j < 3; ++j) {
-            RealSlot s;
-            real_slot(cs, o, d, l, close_t, roots[j], lv_ok, p.near_grid_t, p.only_outward, s);
-            vox_has_sample = vox_has_sample || s.geo_pre;
-            const int64_t k = (int64_t)(3 * i + j) * p.M + m;
-            float da = p.d_alpha[k];
-            if (p.contrib[k]) {
-                const float alpha = alpha_act(s.raw, p.act_sigmoid);
-                da = da + g_in * inward_sq(s.sn, d) + g_lap * lap_grad(alpha);
-            }
-            const float dcol[3] = {p.d_col[k], p.d_col[SM + k], p.d_col[2 * SM + k]};
-            const float dt_in = p.d_t[k];
-            if (da == 0.0f && dt_in == 0.0f && dcol[0] == 0.0f && dcol[1] == 0.0f && dcol[2] == 0.0f)
-                continue;
-            const float draw = da * alpha_act_grad(s.raw, p.act_sigmoid);
-            float dw8[8];
-            for (int c = 0; c < 8; ++c) {
-                dA8[c] = dA8[c] + draw * s.w8[c];
-                dw8[c] = draw * cs.alpha8[c];
-            }
-            for (int ch = 0; ch < 3; ++ch) {
-                const float dpre = dcol[ch] * clip_lo_grad(s.pre_rgb[ch], 0.0f);
-                for (int c = 0; c < 8; ++c) {
-                    dC[ch][c] = dC[ch][c] + dpre * s.w8[c];
-                    if (!p.no_sh_surf_grad) dw8[c] = dw8[c] + dpre * cs.crgb[ch][c];
+    float g_fss = 0.0f;
+
+    if (p.stype == SURF_VOXEL_FACE) {
+        // alpha = sigmoid(corner 0's raw alpha); the colour at the entry
+        FaceSlot f;
+        face_slot(cs, o, d, l, close_t, p.near_grid_t, p.X, p.Y, p.Z, f);
+        float da = p.d_alpha[m];
+        if (p.contrib[m]) da = da + g_lap * lap_grad(f.alpha);  // its normal is 0: no inward term
+        dA8[0] = da * (f.alpha * (1.0f - f.alpha));
+        for (int ch = 0; ch < 3; ++ch) {
+            const float dpre = p.d_col[ch * SM + m] * clip_lo_grad(f.pre_rgb[ch], 0.0f);
+            for (int c = 0; c < 8; ++c) dC[ch][c] = dC[ch][c] + dpre * f.ew8[c];
+        }
+    } else if (p.stype == SURF_PLANE) {
+        float pl[4];
+        mean_plane(p.packed, p.cap, p.C8, cs, pl);
+        PlaneRoot q;
+        plane_root(pl, o, d, l, q);
+        RealSlot s;
+        real_slot(cs, o, d, l, close_t, q.t_pl - close_t, cs.vox_ok && q.t_pl > 0.0f,
+                  p.near_grid_t, p.only_outward, q.abc, s);
+        float draw;
+        const float dt = real_slot_vjp(p, cs, s, m, d, g_in, g_lap, dA8, dC, draw);
+        // t = close_t + (t_pl - close_t): its cotangent is t_pl's
+        if (dt != 0.0f) plane_root_vjp(q, pl[3], o, d, l, dt, dP);
+    } else {
+        float smin = cs.surf8[0], smax = cs.surf8[0];
+        for (int c = 1; c < 8; ++c) {
+            smin = fminf(smin, cs.surf8[c]);
+            smax = fmaxf(smax, cs.surf8[c]);
+        }
+        float u[3], f[4];
+        for (int a = 0; a < 3; ++a) u[a] = o[a] + close_t * d[a] - (float)l[a];
+        cubic_coeffs(cs.surf8, u, d, f);
+
+        float df[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        bool vox_has_sample = false, vox_has_surf = false;
+        int n_lv_hull = 0;
+        for (int i = 0; i < p.n_lv; ++i) {
+            const float lv = p.level_sets[i];
+            const bool lv_ok = cs.vox_ok && lv >= smin && lv <= smax;
+            vox_has_surf = vox_has_surf || lv_ok;
+            n_lv_hull += lv_ok ? 1 : 0;
+            float roots[3];
+            bool has[3];
+            cubic_roots(f[0] - lv, f[1], f[2], f[3], roots, has);
+            for (int j = 0; j < 3; ++j) {
+                RealSlot s;
+                real_slot(cs, o, d, l, close_t, roots[j], lv_ok, p.near_grid_t, p.only_outward,
+                          nullptr, s);
+                if (p.lv_alpha) s.raw = p.lv_alpha[i];
+                vox_has_sample = vox_has_sample || s.geo_pre;
+                float draw;
+                const float dt = real_slot_vjp(p, cs, s, (int64_t)(3 * i + j) * p.M + m, d, g_in,
+                                               g_lap, dA8, dC, draw);
+                if (p.lv_alpha) add_table(p, gtab, i, draw);
+                // t = close_t + root; the root moves with the coefficients
+                if (has[j] && dt != 0.0f) {
+                    const float ts = roots[j];
+                    const float fp = 3.0f * f[3] * ts * ts + 2.0f * f[2] * ts + f[1];
+                    const float gt = -dt / safe_fp(fp);
+                    df[0] = df[0] + gt;
+                    df[1] = df[1] + gt * ts;
+                    df[2] = df[2] + gt * ts * ts;
+                    df[3] = df[3] + gt * ts * ts * ts;
                 }
             }
-            // the sample position: clip(where(geo_ok, o + t d - l, 0.5), 0, 1)
-            float dfs[3];
-            trilerp_weights_vjp(s.fs, dw8, dfs);
-            float dt = dt_in;
-            if (s.geo_pre)
-                for (int a = 0; a < 3; ++a) dt = dt + dfs[a] * clip_grad(s.frac[a], 0.0f, 1.0f) * d[a];
-            // t = close_t + root; the root moves with the coefficients
-            if (has[j] && dt != 0.0f) {
-                const float ts = roots[j];
-                const float fp = 3.0f * f[3] * ts * ts + 2.0f * f[2] * ts + f[1];
-                const float gt = -dt / safe_fp(fp);
-                df[0] = df[0] + gt;
-                df[1] = df[1] + gt * ts;
-                df[2] = df[2] + gt * ts * ts;
-                df[3] = df[3] + gt * ts * ts * ts;
+        }
+        if (df[0] != 0.0f || df[1] != 0.0f || df[2] != 0.0f || df[3] != 0.0f) {
+            // the coefficients are linear in the corner values: f(e_c) is d f / d s_c
+            for (int c = 0; c < 8; ++c) {
+                float e[8], fc[4];
+                for (int k = 0; k < 8; ++k) e[k] = k == c ? 1.0f : 0.0f;
+                cubic_coeffs(e, u, d, fc);
+                dS8[c] = dS8[c] + df[0] * fc[0] + df[1] * fc[1] + df[2] * fc[2] + df[3] * fc[3];
             }
         }
-    }
-    if (df[0] != 0.0f || df[1] != 0.0f || df[2] != 0.0f || df[3] != 0.0f) {
-        // the coefficients are linear in the corner values: f(e_c) is d f / d s_c
-        for (int c = 0; c < 8; ++c) {
-            float e[8], fc[4];
-            for (int k = 0; k < 8; ++k) e[k] = k == c ? 1.0f : 0.0f;
-            cubic_coeffs(e, u, d, fc);
-            dS8[c] = dS8[c] + df[0] * fc[0] + df[1] * fc[1] + df[2] * fc[2] + df[3] * fc[3];
-        }
-    }
 
-    float g_fss = 0.0f;
-    if (p.fake_sample) {
-        const float fss = p.fs_std ? p.fs_std[0] : 1.0f;
-        FakeSlot fk;
-        fake_slot(cs, o, d, l, close_t, far_t, vox_has_sample, vox_has_surf, p.min_vox_len,
-                  p.limited_fake, p.normalize_surf, p.level_sets, p.n_lv, p.sigma_thresh, fss,
-                  p.act_sigmoid, fk);
-        const int64_t k = (int64_t)(p.S0 - 1) * p.M + m;
-        float da = p.d_alpha[k];
-        if (p.contrib[k]) da = da + g_in * inward_sq(fk.fsn, d) + g_lap * lap_grad(fk.falpha);
-        const float dcol[3] = {p.d_col[k], p.d_col[SM + k], p.d_col[2 * SM + k]};
-        if (da != 0.0f || dcol[0] != 0.0f || dcol[1] != 0.0f || dcol[2] != 0.0f) {
-            // falpha = alpha_act(fraw) * exp(-q^2 / 2), q = fake_dist / fss
-            const float draw = da * fk.gauss * alpha_act_grad(fk.fraw, p.act_sigmoid);
-            for (int c = 0; c < 8; ++c) dA8[c] = dA8[c] + draw * fk.fw8[c];
-            const float dq = da * fk.base * (fk.gauss * -fk.q);
-            g_fss = dq * (-fk.q / fss);
-            const float ds = dq / fss;  // d fake_dist = d s_norm
-            if (p.normalize_surf) {
-                // s_norm = sum_c fw8 s_c / std, std = sqrt(max(var, 1e-9))
-                for (int c = 0; c < 8; ++c) dS8[c] = dS8[c] + ds * (fk.fw8[c] / fk.std_);
-                const float dstd = -ds * fk.s_norm / fk.std_;
-                const float dvar = dstd * (0.5f / fk.std_) * clip_lo_grad(fk.var, 1e-9f);
+        if (p.fake_sample) {
+            const float fss = p.fs_std ? p.fs_std[0] : 1.0f;
+            FakeSlot fk;
+            fake_slot(cs, o, d, l, close_t, far_t, vox_has_sample, vox_has_surf, p.min_vox_len,
+                      p.limited_fake, p.normalize_surf, p.level_sets, p.n_lv, p.sigma_thresh,
+                      fss, p.act_sigmoid, p.lv_alpha, fk);
+            const int64_t k = (int64_t)(p.S0 - 1) * p.M + m;
+            float da = p.d_alpha[k];
+            if (p.contrib[k]) da = da + g_in * inward_sq(fk.fsn, d) + g_lap * lap_grad(fk.falpha);
+            const float dcol[3] = {p.d_col[k], p.d_col[SM + k], p.d_col[2 * SM + k]};
+            if (da != 0.0f || dcol[0] != 0.0f || dcol[1] != 0.0f || dcol[2] != 0.0f) {
+                // falpha = alpha_act(fraw) * exp(-q^2 / 2), q = fake_dist / fss
+                const float draw = da * fk.gauss * alpha_act_grad(fk.fraw, p.act_sigmoid);
+                if (p.lv_alpha)
+                    add_table(p, gtab, fk.amin, draw);
+                else
+                    for (int c = 0; c < 8; ++c) dA8[c] = dA8[c] + draw * fk.fw8[c];
+                const float dq = da * fk.base * (fk.gauss * -fk.q);
+                g_fss = dq * (-fk.q / fss);
+                const float ds = dq / fss;  // d fake_dist = d s_norm
+                if (p.normalize_surf) {
+                    // s_norm = sum_c fw8 s_c / std, std = sqrt(max(var, 1e-9))
+                    for (int c = 0; c < 8; ++c) dS8[c] = dS8[c] + ds * (fk.fw8[c] / fk.std_);
+                    const float dstd = -ds * fk.s_norm / fk.std_;
+                    const float dvar = dstd * (0.5f / fk.std_) * clip_lo_grad(fk.var, 1e-9f);
+                    float dmu = 0.0f;
+                    for (int c = 0; c < 8; ++c) {
+                        const float gv = dvar * (2.0f * (cs.surf8[c] - fk.mu) / 8.0f);
+                        dS8[c] = dS8[c] + gv;
+                        dmu = dmu - gv;
+                    }
+                    for (int c = 0; c < 8; ++c) dS8[c] = dS8[c] + dmu / 8.0f;
+                } else {
+                    for (int c = 0; c < 8; ++c) dS8[c] = dS8[c] + ds * fk.fw8[c];
+                }
+                for (int ch = 0; ch < 3; ++ch) {
+                    const float dpre = dcol[ch] * clip_lo_grad(fk.pre_rgb[ch], 0.0f);
+                    for (int c = 0; c < 8; ++c) dC[ch][c] = dC[ch][c] + dpre * fk.fw8[c];
+                }
+            }
+        }
+
+        if (is_udf(p.stype)) {
+            // the udf-var term: factor * sum_c (s_c - mu)^2 / 7
+            const float kf = udf_hull_factor(p.stype, n_lv_hull, p.n_lv, p.fake_sample,
+                                             p.limited_fake);
+            const float gv = g_udf * kf / 7.0f;
+            if (gv != 0.0f) {
+                float mu;
+                udf_var(cs.surf8, mu);
                 float dmu = 0.0f;
                 for (int c = 0; c < 8; ++c) {
-                    const float gv = dvar * (2.0f * (cs.surf8[c] - fk.mu) / 8.0f);
-                    dS8[c] = dS8[c] + gv;
-                    dmu = dmu - gv;
+                    const float e = gv * (2.0f * (cs.surf8[c] - mu));
+                    dS8[c] = dS8[c] + e;
+                    dmu = dmu - e;
                 }
                 for (int c = 0; c < 8; ++c) dS8[c] = dS8[c] + dmu / 8.0f;
-            } else {
-                for (int c = 0; c < 8; ++c) dS8[c] = dS8[c] + ds * fk.fw8[c];
             }
-            for (int ch = 0; ch < 3; ++ch) {
-                const float dpre = dcol[ch] * clip_lo_grad(fk.pre_rgb[ch], 0.0f);
-                for (int c = 0; c < 8; ++c) dC[ch][c] = dC[ch][c] + dpre * fk.fw8[c];
-            }
+            // the corner values are softplus of the rows
+            for (int c = 0; c < 8; ++c)
+                if (dS8[c] != 0.0f) dS8[c] = dS8[c] * softplus_grad(cs.sraw[c]);
         }
     }
 
@@ -456,8 +571,15 @@ HD float backward_entry_thread(const BackEntryParams& p, int64_t m, ShMultGrad& 
     }
     for (int c = 0; c < 8; ++c) {
         const int64_t row = cs.link[c];  // present: vox_ok holds
-        if (dA8[c] != 0.0f) atomic_add(p.g_density + row, dA8[c]);
-        if (dS8[c] != 0.0f) atomic_add(p.g_surface + row * p.n_surf_c, dS8[c]);
+        if (!p.lv_alpha && dA8[c] != 0.0f) atomic_add(p.g_density + row, dA8[c]);
+        if (p.stype == SURF_PLANE) {
+            for (int k = 0; k < 4; ++k) {
+                const float v = dP[k] / 8.0f;  // the mean's share of each corner
+                if (v != 0.0f) atomic_add(p.g_surface + row * p.n_surf_c + k, v);
+            }
+        } else if (dS8[c] != 0.0f) {
+            atomic_add(p.g_surface + row * p.n_surf_c, dS8[c]);
+        }
         for (int ch = 0; ch < 3; ++ch) {
             if (dC[ch][c] == 0.0f) continue;
             for (int b = 0; b < p.bd; ++b)
@@ -491,9 +613,19 @@ __global__ void backward_entry_kernel(BackEntryParams p) {
     const int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     ShMultGrad sg;
     sg.ray = -1;
-    float g = m < p.M ? backward_entry_thread(p, m, sg) : 0.0f;
+    float gtab[MAX_LV_TABLE];  // UDF_ALPHA's level-set alpha cotangents of this entry
+    const int n_tab = p.lv_alpha ? min(p.n_lv, MAX_LV_TABLE) : 0;
+    for (int i = 0; i < n_tab; ++i) gtab[i] = 0.0f;
+    float g = m < p.M ? backward_entry_thread(p, m, sg, gtab) : 0.0f;
     g = warp_sum(g);
     if ((threadIdx.x & 31) == 0 && g != 0.0f && p.g_fss) atomicAdd(p.g_fss, g);
+    if (p.lv_alpha) {
+        // every entry adds to the few rows of the table: one atomic a warp and row
+        for (int i = 0; i < n_tab; ++i) {
+            const float v = warp_sum(gtab[i]);
+            if ((threadIdx.x & 31) == 0 && v != 0.0f) atomicAdd(p.g_density + i, v);
+        }
+    }
     if (kShMult) {
         // every lane takes part in the shuffles, the tail's (m >= M) too
         const int r = m < p.M ? p.ray_id[m] : -1;
@@ -530,7 +662,8 @@ extern "C" cudaError_t backward_entry(const int* ray_id, const int* l, const flo
                                       const float* dirs, const float* sh_mult, int bd,
                                       const int* links, int X, int Y, int Z, const float* packed,
                                       int cap, int C8, int n_surf_c, const float* level_sets,
-                                      int n_lv, int S0, float near_grid_t, float sigma_thresh,
+                                      int n_lv, int S0, int stype, const float* lv_alpha,
+                                      float near_grid_t, float sigma_thresh,
                                       const float* fs_std, float min_vox_len, int only_outward,
                                       int fake_sample, int limited_fake, int normalize_surf,
                                       int act_sigmoid, int no_sh_surf_grad, const bool* contrib,
@@ -541,7 +674,8 @@ extern "C" cudaError_t backward_entry(const int* ray_id, const int* l, const flo
     if (M <= 0) return cudaSuccess;
     const BackEntryParams p{ray_id, l, close_t, far_t, M, B, origins, dirs, sh_mult, bd, links,
                             X, Y, Z, packed, cap, C8, n_surf_c, level_sets, n_lv, S0,
-                            near_grid_t, sigma_thresh, fs_std, min_vox_len, only_outward,
+                            stype, lv_alpha, near_grid_t, sigma_thresh, fs_std, min_vox_len,
+                            only_outward,
                             fake_sample, limited_fake, normalize_surf, act_sigmoid,
                             no_sh_surf_grad, contrib, d_alpha, d_t, d_col, g_rl, win,
                             g_density, g_surface, g_sh, g_fss, g_sh_mult};

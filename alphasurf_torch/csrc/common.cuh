@@ -74,6 +74,12 @@ HD float clip_lo_grad(float x, float lo) {
     return x > lo ? 1.0f : (x == lo ? 0.5f : 0.0f);
 }
 
+// jax.nn.softplus, logaddexp(x, 0), in torch.logaddexp's arithmetic
+HD float softplus_f(float x) { return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x))); }
+
+// its derivative, the logistic sigmoid, as logaddexp's: exp(x - softplus(x))
+HD float softplus_grad(float x) { return expf(x - softplus_f(x)); }
+
 // atomic add on the device; a plain add when the per-thread code runs on
 // the host
 HD void atomic_add(float* p, float v) {

@@ -52,7 +52,8 @@ struct CompositeParams {
     const int* counted;
     const float* rgb;
     const float* snorm;
-    const float* loss_e;
+    const float* loss_e;  // (n_le, M): inward, lap, lap count (+ the UDF types' udf-var sum, count)
+    int n_le;
     int truncated;
     const float* trunc_a;  // (1,) on the device
     float trunc_wmin;
@@ -102,7 +103,7 @@ HD void composite_ray(const CompositeParams& p, int r) {
     float preA = 0.0f, preS = 0.0f, preAw = 0.0f, preSw = 0.0f;
     float l_dist = 0.0f, l_dist_a = 0.0f, ent = 0.0f, ent_a = 0.0f;
     float sp_logsig = 0.0f, sp_logsig_w = 0.0f, sp_w = 0.0f;
-    float inward = 0.0f, lap = 0.0f, lap_cnt = 0.0f;
+    float inward = 0.0f, lap = 0.0f, lap_cnt = 0.0f, udf_sum = 0.0f, udf_cnt = 0.0f;
     float t_sig = INFINITY;
     int cnt_win = 0, ncache = 0;
     bool chunk_live = true;
@@ -193,6 +194,10 @@ HD void composite_ray(const CompositeParams& p, int r) {
             inward = inward + p.loss_e[e];
             lap = lap + p.loss_e[p.M + e];
             lap_cnt = lap_cnt + p.loss_e[2 * p.M + e];
+            if (p.n_le == 5) {
+                udf_sum = udf_sum + p.loss_e[3 * p.M + e];
+                udf_cnt = udf_cnt + p.loss_e[4 * p.M + e];
+            }
         }
     }
 
@@ -244,7 +249,7 @@ HD void composite_ray(const CompositeParams& p, int r) {
     p.n_int[r] = cnt_win;
     if (p.sig_on) p.depth_sig[r] = finite(t_sig) ? t_sig : 0.0f;
     const float losses[12] = {l_dist, l_dist_a, ent, ent_a, sp_logsig, sp_logsig_w, sp_w,
-                              inward, lap, lap_cnt, 0.0f, 0.0f};
+                              inward, lap, lap_cnt, udf_sum, udf_cnt};
     for (int k = 0; k < 12; ++k) p.losses[(int64_t)k * p.B + r] = losses[k];
 }
 
@@ -257,7 +262,7 @@ __global__ void composite_kernel(CompositeParams p) {
 extern "C" cudaError_t composite(const int64_t* offsets, int B, long long M, int S0,
                                  const float* t, const float* alpha, const bool* contrib,
                                  const bool* fake, const int* counted, const float* rgb,
-                                 const float* snorm, const float* loss_e, int truncated,
+                                 const float* snorm, const float* loss_e, int n_le, int truncated,
                                  const float* trunc_a, float trunc_wmin, int stop_on, float log_stop,
                                  float bg, const float* bg_rgb, int fake_l_dist,
                                  float* out_rgb, float* depth,
@@ -269,7 +274,7 @@ extern "C" cudaError_t composite(const int64_t* offsets, int B, long long M, int
                                  bool* win, void* stream) {
     if (B <= 0) return cudaSuccess;
     const CompositeParams p{offsets, B, M, S0, t, alpha, contrib, fake, counted, rgb, snorm,
-                            loss_e, truncated, trunc_a, trunc_wmin, stop_on, log_stop, bg,
+                            loss_e, n_le, truncated, trunc_a, trunc_wmin, stop_on, log_stop, bg,
                             bg_rgb, fake_l_dist, out_rgb, depth, normal, log_T, depth_mode, depth_med,
                             n_int, losses, weight, sig_on, sig_thresh, depth_sig, live, window,
                             mode_first, cache_K, c_ts, c_alpha, c_w, c_fake, n_cached, cache_med,

@@ -4,11 +4,17 @@
 // pack_occupancy_bits (1326-1338). A voxel is occupied when all 8 corner
 // links are present, the largest corner raw alpha is >= sigma_thresh and,
 // with the hull test on, a level set lies within the corners' surface
-// min/max.
+// min/max. The surface types' branches: the UDF types test the softplus of
+// their corner values (udf); UDF_ALPHA has one alpha per level set, so the
+// caller passes the table's largest as a single value that every corner
+// reads (dens_stride 0); PLANE and VOXEL_FACE skip the hull (hull 0), as
+// do unrestricted fake samples. The surface rows are n_surf_c wide
+// (PLANE's 4), channel 0 is read, and only under the hull test.
 //
 // Bound: bytes. The kernel must read the (X, Y, Z) int32 links once
 // (537 MB at 512^3) and write (X-1)(Y-1)ceil((Z-1)/32) words; the density
-// and surface rows it gathers are the capacity-sized tables. Design: one
+// rows it gathers are the capacity-sized table (UDF_ALPHA's one value),
+// and the surface rows too under the hull test. Design: one
 // thread per voxel, one warp per 32 consecutive z-voxels, so each corner
 // load is one coalesced 128-byte line and __ballot_sync forms the packed
 // word in registers. The JAX version first scatters two dense (X, Y, Z)
@@ -25,15 +31,21 @@
 
 struct OccParams {
     const int* links;
-    const float* density;
-    const float* surface;
+    const float* density;  // (cap,), or (1,) read by every corner (dens_stride 0)
+    int dens_stride;
+    const float* surface;  // (cap, n_surf_c), channel 0
+    int n_surf_c;
     const float* level_sets;
     int n_lv;
     int X, Y, Z;
     float sigma_thresh;
-    int hull;
+    int hull, udf;
 };
 
+// kTypes: the strided rows, the softplus and the skipped hull of the other
+// surface types; without it SDF's unit strides under the hull test, in the
+// 32 registers that keep a full SM of warps (the general path takes 37)
+template <bool kTypes>
 HD bool voxel_occupied(const OccParams& p, int x, int y, int z) {
     float dmax = -INFINITY, smin = INFINITY, smax = -INFINITY;
     for (int c = 0; c < 8; ++c) {
@@ -41,8 +53,17 @@ HD bool voxel_occupied(const OccParams& p, int x, int y, int z) {
             ((int64_t)(x + corner_dx(c)) * p.Y + (y + corner_dy(c))) * p.Z + (z + corner_dz(c));
         const int link = p.links[idx];
         if (link < 0) return false;
-        dmax = fmaxf(dmax, p.density[link]);
-        const float s = p.surface[link];
+        if (!kTypes) {
+            dmax = fmaxf(dmax, p.density[link]);
+            const float s = p.surface[link];
+            smin = fminf(smin, s);
+            smax = fmaxf(smax, s);
+            continue;
+        }
+        dmax = fmaxf(dmax, p.density[(int64_t)link * p.dens_stride]);
+        if (!p.hull) continue;  // the surface rows only feed the hull test
+        const float raw = p.surface[(int64_t)link * p.n_surf_c];
+        const float s = p.udf ? softplus_f(raw) : raw;
         smin = fminf(smin, s);
         smax = fmaxf(smax, s);
     }
@@ -67,6 +88,7 @@ HD bool density_voxel_occupied(const int* links, const float* density, int Y, in
 }
 
 #ifdef __CUDACC__
+template <bool kTypes>
 __global__ void occupancy_kernel(OccParams p, int W, int64_t n_words, unsigned* words) {
     const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
@@ -76,23 +98,29 @@ __global__ void occupancy_kernel(OccParams p, int W, int64_t n_words, unsigned* 
     const int y = (int)(xy % (p.Y - 1));
     const int x = (int)(xy / (p.Y - 1));
     const int z = w * 32 + lane;
-    const bool occ = z < p.Z - 1 && voxel_occupied(p, x, y, z);
+    const bool occ = z < p.Z - 1 && voxel_occupied<kTypes>(p, x, y, z);
     const unsigned bits = __ballot_sync(0xffffffffu, occ);
     if (lane == 0) words[warp] = bits;
 }
 
-extern "C" cudaError_t occupancy_words(const int* links, const float* density,
-                                       const float* surface, const float* level_sets,
-                                       int n_lv, int X, int Y, int Z, float sigma_thresh,
-                                       int hull, int* words, void* stream) {
-    const OccParams p{links, density, surface, level_sets, n_lv, X, Y, Z, sigma_thresh, hull};
+extern "C" cudaError_t occupancy_words(const int* links, const float* density, int dens_stride,
+                                       const float* surface, int n_surf_c,
+                                       const float* level_sets, int n_lv, int X, int Y, int Z,
+                                       float sigma_thresh, int hull, int udf, int* words,
+                                       void* stream) {
+    const OccParams p{links, density, dens_stride, surface, n_surf_c, level_sets,
+                      n_lv, X, Y, Z, sigma_thresh, hull, udf};
     const int W = (Z - 1 + 31) / 32;
     const int64_t n_words = (int64_t)(X - 1) * (Y - 1) * W;
     if (n_words <= 0) return cudaSuccess;
     const int block = 256;
     const int64_t grid = (n_words * 32 + block - 1) / block;
-    occupancy_kernel<<<(unsigned)grid, block, 0, (cudaStream_t)stream>>>(
-        p, W, n_words, reinterpret_cast<unsigned*>(words));
+    unsigned* out = reinterpret_cast<unsigned*>(words);
+    const unsigned nb = (unsigned)grid;
+    if (dens_stride == 1 && n_surf_c == 1 && !udf && hull)
+        occupancy_kernel<false><<<nb, block, 0, (cudaStream_t)stream>>>(p, W, n_words, out);
+    else
+        occupancy_kernel<true><<<nb, block, 0, (cudaStream_t)stream>>>(p, W, n_words, out);
     return cudaGetLastError();
 }
 

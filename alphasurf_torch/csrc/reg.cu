@@ -24,6 +24,12 @@
 // atomicAdd; the loss is summed over the block and added with one atomic,
 // in double: a float32 sum over millions of cells (every-cell mode) drifts.
 //
+// A density table shorter than the capacity (UDF_ALPHA's one alpha per
+// level set) is read and written at row min(link, rows - 1), as the JAX
+// package's fetch_links clips its links (core/grid.py:354); the
+// sparsifier then sums the last row's gradient, which every link past the
+// table adds to, over the warp before its one atomic.
+//
 // Bound: bytes, and at the main path's window (0.01 of 2.47M rows) the
 // launch itself: each cell reads 4 (TV, norm match, sign change), 7
 // (viscosity), 8 (eikonal) or 27 (normal) links and as many rows and adds
@@ -55,39 +61,47 @@ struct TVParams {
     const int* cells;  // (n,) flat ids, or null for every lattice cell
     int64_t n;
     const float* data;
+    int64_t rows;  // rows of data: a link reads row min(link, rows - 1)
     int C, c0, c1;
-    const float* wdens;  // (cap,) raw alpha, or null for no weighting
+    const float* wdens;  // (wrows,) raw alpha, or null for no weighting
+    int64_t wrows;
     float scale;
     double* loss;  // (1,), float64
     float* grad;  // (cap, C)
 };
 
+// the row a link reads in a table of `rows` rows (fetch_links's clip)
+HD int64_t row_of(int link, int64_t rows) { return link < rows ? (int64_t)link : rows - 1; }
+
 HD float tv_cell(const TVParams& p, int64_t n) {
     int64_t x, y, z;
     decode_cell(p.cells ? (int64_t)p.cells[n] : n, p.Y, p.Z, x, y, z);
-    const int l0 = link_at(p.links, p.X, p.Y, p.Z, x, y, z);
-    const int lx = link_at(p.links, p.X, p.Y, p.Z, x + 1, y, z);
-    const int ly = link_at(p.links, p.X, p.Y, p.Z, x, y + 1, z);
-    const int lz = link_at(p.links, p.X, p.Y, p.Z, x, y, z + 1);
+    const int64_t l0 = row_of(link_at(p.links, p.X, p.Y, p.Z, x, y, z), p.rows);
+    const int64_t lx = row_of(link_at(p.links, p.X, p.Y, p.Z, x + 1, y, z), p.rows);
+    const int64_t ly = row_of(link_at(p.links, p.X, p.Y, p.Z, x, y + 1, z), p.rows);
+    const int64_t lz = row_of(link_at(p.links, p.X, p.Y, p.Z, x, y, z + 1), p.rows);
     float aw = 1.0f;
-    if (p.wdens) aw = 1.0f / (1.0f + expf(-(l0 >= 0 ? p.wdens[l0] : 0.0f)));
+    if (p.wdens) {
+        const int w0 = link_at(p.links, p.X, p.Y, p.Z, x, y, z);
+        aw = 1.0f / (1.0f + expf(-(w0 >= 0 ? p.wdens[row_of(w0, p.wrows)] : 0.0f)));
+    }
     float loss = 0.0f;
     for (int ch = p.c0; ch < p.c1; ++ch) {
-        const float v0 = l0 >= 0 ? p.data[(int64_t)l0 * p.C + ch] : 0.0f;
-        const float vx = lx >= 0 ? p.data[(int64_t)lx * p.C + ch] : 0.0f;
-        const float vy = ly >= 0 ? p.data[(int64_t)ly * p.C + ch] : 0.0f;
-        const float vz = lz >= 0 ? p.data[(int64_t)lz * p.C + ch] : 0.0f;
+        const float v0 = l0 >= 0 ? p.data[l0 * p.C + ch] : 0.0f;
+        const float vx = lx >= 0 ? p.data[lx * p.C + ch] : 0.0f;
+        const float vy = ly >= 0 ? p.data[ly * p.C + ch] : 0.0f;
+        const float vz = lz >= 0 ? p.data[lz * p.C + ch] : 0.0f;
         const float dx = (l0 >= 0 && lx >= 0) ? vx - v0 : 0.0f;
         const float dy = (l0 >= 0 && ly >= 0) ? vy - v0 : 0.0f;
         const float dz = (l0 >= 0 && lz >= 0) ? vz - v0 : 0.0f;
         const float sq = sqrtf(1e-5f + dx * dx + dy * dy + dz * dz);
         loss = loss + sq;
         const float g = p.scale * aw / sq;
-        if (dx != 0.0f) atomic_add(p.grad + (int64_t)lx * p.C + ch, g * dx);
-        if (dy != 0.0f) atomic_add(p.grad + (int64_t)ly * p.C + ch, g * dy);
-        if (dz != 0.0f) atomic_add(p.grad + (int64_t)lz * p.C + ch, g * dz);
+        if (dx != 0.0f) atomic_add(p.grad + lx * p.C + ch, g * dx);
+        if (dy != 0.0f) atomic_add(p.grad + ly * p.C + ch, g * dy);
+        if (dz != 0.0f) atomic_add(p.grad + lz * p.C + ch, g * dz);
         const float g0 = -(g * dx + g * dy + g * dz);
-        if (g0 != 0.0f) atomic_add(p.grad + (int64_t)l0 * p.C + ch, g0);
+        if (g0 != 0.0f) atomic_add(p.grad + l0 * p.C + ch, g0);
     }
     return loss * aw * p.scale;
 }
@@ -293,7 +307,8 @@ struct SparsifyParams {
     int X, Y, Z;
     const int* cells;
     int64_t n;
-    const float* density;  // (cap,)
+    const float* density;  // (rows,)
+    int64_t rows;
     const float* surf;     // (cap, n_surf_c), channel 0
     int n_surf_c;
     float scale_alpha, scale_surf, surf_sign, surf_thresh, scale;
@@ -302,11 +317,14 @@ struct SparsifyParams {
     float* g_surface;
 };
 
-HD float sparsify_cell(const SparsifyParams& p, int64_t n) {
+// g_last: the cell's gradient of the density table's last row, when the
+// table is shorter than the capacity (the caller sums it over the warp)
+HD float sparsify_cell(const SparsifyParams& p, int64_t n, float& g_last) {
     int64_t x, y, z;
     decode_cell(p.cells ? (int64_t)p.cells[n] : n, p.Y, p.Z, x, y, z);
     const int l0 = link_at(p.links, p.X, p.Y, p.Z, x, y, z);
-    const float a = l0 >= 0 ? p.density[l0] : 0.0f;
+    const int64_t r0 = row_of(l0, p.rows);
+    const float a = l0 >= 0 ? p.density[r0] : 0.0f;
     const float s = l0 >= 0 ? p.surf[(int64_t)l0 * p.n_surf_c] : 0.0f;
     // log_sigmoid(a) = -softplus(-a); sigmoid(-a) is its derivative
     const float log_sig = -(fmaxf(-a, 0.0f) + log1pf(expf(-fabsf(a))));
@@ -315,7 +333,10 @@ HD float sparsify_cell(const SparsifyParams& p, int64_t n) {
     if (l0 >= 0) {
         const float ga = p.scale * p.scale_alpha * sig_neg;
         const float gs = p.scale * p.scale_surf * w * p.surf_sign;
-        if (ga != 0.0f) atomic_add(p.g_density + l0, ga);
+        if (r0 == p.rows - 1)
+            g_last = ga;
+        else if (ga != 0.0f)
+            atomic_add(p.g_density + r0, ga);
         if (gs != 0.0f) atomic_add(p.g_surface + (int64_t)l0 * p.n_surf_c, gs);
     }
     return (p.scale_alpha * log_sig + p.scale_surf * (w * s * p.surf_sign)) * p.scale;
@@ -335,7 +356,8 @@ struct ExtParams {
     int cap;
     const float* surf;  // (cap, n_surf_c), channel 0
     int n_surf_c;
-    const float* density;  // (cap,): K12a's second field
+    const float* density;  // (n_dens,): K12a's second field, read at row_of(link, n_dens)
+    int64_t n_dens;
     const float* h;  // (1,) grid spacing on the device: K12b
     float eta;  // K12b
     float target;  // K12d
@@ -388,10 +410,10 @@ HD float norm_match_cell(const ExtParams& p, int64_t n) {
                        link_at(p.links, p.X, p.Y, p.Z, x, y + 1, z),
                        link_at(p.links, p.X, p.Y, p.Z, x, y, z + 1)};
     float gs[3], ga[3];
-    const float s0 = surf_at(p, l0), a0 = p.density[l0];
+    const float s0 = surf_at(p, l0), a0 = p.density[row_of(l0, p.n_dens)];
     for (int k = 0; k < 3; ++k) {
         gs[k] = ln[k] >= 0 ? surf_at(p, ln[k]) - s0 : 0.0f;
-        ga[k] = ln[k] >= 0 ? p.density[ln[k]] - a0 : 0.0f;
+        ga[k] = ln[k] >= 0 ? p.density[row_of(ln[k], p.n_dens)] - a0 : 0.0f;
     }
     SafeUnit us, ua;
     safe_unit(gs, us);
@@ -410,12 +432,12 @@ HD float norm_match_cell(const ExtParams& p, int64_t n) {
     for (int k = 0; k < 3; ++k) {
         if (ln[k] < 0) continue;
         add_surf(p, ln[k], dgs[k]);
-        if (dga[k] != 0.0f) atomic_add(p.g_density + ln[k], dga[k]);
+        if (dga[k] != 0.0f) atomic_add(p.g_density + row_of(ln[k], p.n_dens), dga[k]);
         c0s = c0s - dgs[k];
         c0a = c0a - dga[k];
     }
     add_surf(p, l0, c0s);
-    if (c0a != 0.0f) atomic_add(p.g_density + l0, c0a);
+    if (c0a != 0.0f) atomic_add(p.g_density + row_of(l0, p.n_dens), c0a);
     return cell_loss * p.scale;
 }
 
@@ -715,7 +737,10 @@ __global__ void reg_normal_kernel(NormalParams p) {
 
 __global__ void reg_sparsify_kernel(SparsifyParams p) {
     const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    block_sum_atomic(n < p.n ? sparsify_cell(p, n) : 0.0f, p.loss);
+    float g_last = 0.0f;
+    block_sum_atomic(n < p.n ? sparsify_cell(p, n, g_last) : 0.0f, p.loss);
+    g_last = warp_sum(g_last);
+    if ((threadIdx.x & 31) == 0 && g_last != 0.0f) atomicAdd(p.g_density + p.rows - 1, g_last);
 }
 
 __global__ void reg_norm_match_kernel(ExtParams p) {
@@ -767,10 +792,12 @@ __global__ void reg_basis_tv_kernel(BasisTVParams p) {
 static unsigned n_blocks(int64_t n) { return (unsigned)((n + REG_BLOCK - 1) / REG_BLOCK); }
 
 extern "C" cudaError_t reg_tv(const int* links, int X, int Y, int Z, const int* cells, long long n,
-                              const float* data, int C, int c0, int c1, const float* wdens,
-                              float scale, double* loss, float* grad, void* stream) {
+                              const float* data, long long rows, int C, int c0, int c1,
+                              const float* wdens, long long wrows, float scale, double* loss,
+                              float* grad, void* stream) {
     if (n <= 0) return cudaSuccess;
-    const TVParams p{links, X, Y, Z, cells, n, data, C, c0, c1, wdens, scale, loss, grad};
+    const TVParams p{links, X, Y, Z, cells, n, data, rows, C, c0, c1, wdens, wrows, scale, loss,
+                     grad};
     reg_tv_kernel<<<n_blocks(n), REG_BLOCK, 0, (cudaStream_t)stream>>>(p);
     return cudaGetLastError();
 }
@@ -788,12 +815,13 @@ extern "C" cudaError_t reg_normal(const int* links, int X, int Y, int Z, const i
 }
 
 extern "C" cudaError_t reg_sparsify(const int* links, int X, int Y, int Z, const int* cells,
-                                    long long n, const float* density, const float* surf,
-                                    int n_surf_c, float scale_alpha, float scale_surf,
-                                    float surf_sign, float surf_thresh, float scale, double* loss,
+                                    long long n, const float* density, long long rows,
+                                    const float* surf, int n_surf_c, float scale_alpha,
+                                    float scale_surf, float surf_sign, float surf_thresh,
+                                    float scale, double* loss,
                                     float* g_density, float* g_surface, void* stream) {
     if (n <= 0) return cudaSuccess;
-    const SparsifyParams p{links, X, Y, Z, cells, n, density, surf, n_surf_c, scale_alpha,
+    const SparsifyParams p{links, X, Y, Z, cells, n, density, rows, surf, n_surf_c, scale_alpha,
                            scale_surf, surf_sign, surf_thresh, scale, loss, g_density, g_surface};
     reg_sparsify_kernel<<<n_blocks(n), REG_BLOCK, 0, (cudaStream_t)stream>>>(p);
     return cudaGetLastError();
@@ -802,13 +830,14 @@ extern "C" cudaError_t reg_sparsify(const int* links, int X, int Y, int Z, const
 // 4 lumisphere TV (which reads sh, mult and dir_factor and writes g_sh)
 extern "C" cudaError_t reg_ext(int kind, const int* links, int X, int Y, int Z, const int* cells,
                                long long n, int cap, const float* surf, int n_surf_c,
-                               const float* density, const float* h, float eta, float target,
+                               const float* density, long long n_dens, const float* h,
+                               float eta, float target,
                                float scale, double* loss, float* g_surface, float* g_density,
                                const float* sh, int bd, const float* mult, float dir_factor,
                                float* g_sh, void* stream) {
     if (n <= 0) return cudaSuccess;
-    const ExtParams p{links, X, Y, Z, cells, n, cap, surf, n_surf_c, density, h, eta, target,
-                      scale, loss, g_surface, g_density, sh, bd, mult, dir_factor, g_sh};
+    const ExtParams p{links, X, Y, Z, cells, n, cap, surf, n_surf_c, density, n_dens, h, eta,
+                      target, scale, loss, g_surface, g_density, sh, bd, mult, dir_factor, g_sh};
     const cudaStream_t s = (cudaStream_t)stream;
     switch (kind) {
         case 0: reg_norm_match_kernel<<<n_blocks(n), REG_BLOCK, 0, s>>>(p); break;

@@ -5,12 +5,32 @@
 //
 // JAX counterparts: render/surface.py:_voxel_samples_T (469-734),
 // ops/cubic.py:cubic_coeffs_T and _cubic_roots_raw, ops/trilerp.py.
+//
+// The surface types (defs.py, svox2's values): SDF and the three UDF types
+// are scalar fields with 3 root slots a level set (the UDF types' corner
+// values pass through softplus; UDF_ALPHA reads a slot's raw alpha from its
+// level set's row of an (n_lv,) table and has no corner-alpha gate); PLANE
+// takes one root of the corners' mean plane; VOXEL_FACE one sample where
+// the ray enters the voxel.
 #pragma once
 
 #include "common.cuh"
 
+constexpr int SURF_PLANE = 101;
+constexpr int SURF_SDF = 102;
+constexpr int SURF_UDF = 103;
+constexpr int SURF_UDF_ALPHA = 104;
+constexpr int SURF_UDF_FAKE_SAMPLE = 105;
+constexpr int SURF_VOXEL_FACE = 106;
+
+HD bool is_udf(int stype) {
+    return stype == SURF_UDF || stype == SURF_UDF_ALPHA || stype == SURF_UDF_FAKE_SAMPLE;
+}
+
+HD float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
+
 HD float alpha_act(float raw, int sigmoid) {
-    return sigmoid ? 1.0f / (1.0f + expf(-raw)) : 1.0f - expf(-fmaxf(raw, 0.0f));
+    return sigmoid ? sigmoid_f(raw) : 1.0f - expf(-fmaxf(raw, 0.0f));
 }
 
 // d alpha_act / d raw; relu'(0) = 0 as jax.nn.relu
@@ -127,17 +147,18 @@ HD void unit_normal(const float g[3], float n[3]) {
     for (int k = 0; k < 3; ++k) n[k] = -g[k] / den;
 }
 
-// the 8 corner rows of one voxel: raw alpha, surface, and the SH colour
+// the 8 corner rows of one voxel: raw alpha, surface (the UDF types'
+// softplus of the row's value, which sraw keeps), and the SH colour
 // contracted with the ray's basis while each row streams in
 struct Corners {
     int link[8];
-    float alpha8[8], surf8[8], crgb[3][8];
-    bool vox_ok;  // all 8 corners present and some raw alpha >= sigma_thresh
+    float alpha8[8], surf8[8], sraw[8], crgb[3][8];
+    bool vox_ok;  // all 8 corners present and (but for UDF_ALPHA) some raw alpha >= sigma_thresh
 };
 
 HD void gather_corners(const int* links, int X, int Y, int Z, const float* packed, int cap, int C8,
-                       int n_surf_c, int bd, const float* shm, float sigma_thresh, const int l[3],
-                       Corners& cs) {
+                       int n_surf_c, int bd, const float* shm, float sigma_thresh, int stype,
+                       const int l[3], Corners& cs) {
     bool vox_ok = true, any_alpha = false;
     const int sh_base = 1 + n_surf_c;
     for (int c = 0; c < 8; ++c) {
@@ -150,7 +171,8 @@ HD void gather_corners(const int* links, int X, int Y, int Z, const float* packe
         vox_ok = vox_ok && present;
         const float* row = packed + (int64_t)clampi(link, 0, cap - 1) * C8;
         cs.alpha8[c] = present ? row[0] : 0.0f;
-        cs.surf8[c] = present ? row[1] : 0.0f;
+        cs.sraw[c] = present ? row[1] : 0.0f;
+        cs.surf8[c] = is_udf(stype) ? softplus_f(cs.sraw[c]) : cs.sraw[c];
         for (int ch = 0; ch < 3; ++ch) {
             const float* sh = row + sh_base + ch * bd;
             float acc = (present ? sh[0] : 0.0f) * shm[0];
@@ -159,7 +181,42 @@ HD void gather_corners(const int* links, int X, int Y, int Z, const float* packe
         }
         any_alpha = any_alpha || cs.alpha8[c] >= sigma_thresh;
     }
-    cs.vox_ok = vox_ok && any_alpha;
+    cs.vox_ok = vox_ok && (any_alpha || stype == SURF_UDF_ALPHA);
+}
+
+// PLANE: the mean of the 8 corners' planes (a, b, c, d), summed in corner
+// order (surface.py:592)
+HD void mean_plane(const float* packed, int cap, int C8, const Corners& cs, float pl[4]) {
+    for (int k = 0; k < 4; ++k) pl[k] = 0.0f;
+    for (int c = 0; c < 8; ++c) {
+        const float* row = packed + (int64_t)clampi(cs.link[c], 0, cap - 1) * C8;
+        const bool present = cs.link[c] >= 0;
+        for (int k = 0; k < 4; ++k) pl[k] = c == 0 ? (present ? row[1 + k] : 0.0f)
+                                                   : pl[k] + (present ? row[1 + k] : 0.0f);
+    }
+    for (int k = 0; k < 4; ++k) pl[k] = pl[k] / 8.0f;
+}
+
+// the plane's one root (surface.py:593-603): d clamped to +-0.3 about the
+// voxel centre, the ray-plane t in global grid coordinates
+struct PlaneRoot {
+    float abc[3], xyz, lo, hi, m, dpl, den_raw, den, N, t_pl;
+};
+
+HD void plane_root(const float pl[4], const float o[3], const float d[3], const int l[3],
+                   PlaneRoot& q) {
+    for (int k = 0; k < 3; ++k) q.abc[k] = pl[k];
+    float xyz = ((float)l[0] + 0.5f) * pl[0];
+    xyz = xyz + ((float)l[1] + 0.5f) * pl[1];
+    q.xyz = xyz + ((float)l[2] + 0.5f) * pl[2];
+    q.lo = -0.3f - q.xyz;
+    q.hi = 0.3f - q.xyz;
+    q.m = fmaxf(pl[3], q.lo);
+    q.dpl = fminf(q.m, q.hi);
+    q.den_raw = dot3(q.abc, d);
+    q.den = fabsf(q.den_raw) < 1e-12f ? 1e-12f : q.den_raw;
+    q.N = dot3(q.abc, o) + q.dpl;
+    q.t_pl = -q.N / q.den;
 }
 
 // one real-root slot: root -> t -> position in the voxel -> alpha, colour,
@@ -176,19 +233,26 @@ struct RealSlot {
     bool geo_ok;
 };
 
+// plane_n: PLANE's normal (a, b, c), whose root counts from -1e-6; null for
+// the scalar fields, whose normal is the field's gradient and whose root
+// counts above 0
 HD void real_slot(const Corners& cs, const float o[3], const float d[3], const int l[3],
                   float close_t, float root, bool lv_ok, float near_grid_t, int only_outward,
-                  RealSlot& s) {
+                  const float* plane_n, RealSlot& s) {
     s.t = close_t + root;
     bool in_cube = true;
     for (int a = 0; a < 3; ++a) {
         s.frac[a] = o[a] + s.t * d[a] - (float)l[a];
         in_cube = in_cube && s.frac[a] >= 0.0f && s.frac[a] <= 1.0f;
     }
-    s.geo_pre = lv_ok && root > 0.0f && in_cube && s.t >= near_grid_t;
+    const bool root_pos = plane_n ? root > -1e-6f : root > 0.0f;
+    s.geo_pre = lv_ok && root_pos && in_cube && s.t >= near_grid_t;
     for (int a = 0; a < 3; ++a) s.fs[a] = fminf(fmaxf(s.geo_pre ? s.frac[a] : 0.5f, 0.0f), 1.0f);
     float g[3];
-    field_grad(cs.surf8, s.fs[0], s.fs[1], s.fs[2], g);
+    if (plane_n)
+        for (int a = 0; a < 3; ++a) g[a] = plane_n[a];
+    else
+        field_grad(cs.surf8, s.fs[0], s.fs[1], s.fs[2], g);
     s.geo_ok = s.geo_pre && (!only_outward || dot3(g, d) > 0.0f);
     unit_normal(g, s.sn);
     trilerp_weights(s.fs[0], s.fs[1], s.fs[2], s.w8);
@@ -208,13 +272,15 @@ struct FakeSlot {
     float s_norm, fake_dist, q;
     float base, gauss, falpha;
     float fsn[3];
+    int amin;  // the nearest level set
     bool take;
 };
 
 HD void fake_slot(const Corners& cs, const float o[3], const float d[3], const int l[3],
                   float close_t, float far_t, bool vox_has_sample, bool vox_has_surf,
                   float min_vox_len, int limited_fake, int normalize_surf, const float* level_sets,
-                  int n_lv, float sigma_thresh, float fs_std, int act_sigmoid, FakeSlot& f) {
+                  int n_lv, float sigma_thresh, float fs_std, int act_sigmoid,
+                  const float* lv_alpha, FakeSlot& f) {
     bool take = cs.vox_ok && !vox_has_sample && (far_t - close_t) > min_vox_len;
     if (limited_fake) take = take && vox_has_surf;
     f.tf = 0.5f * (close_t + far_t);
@@ -235,10 +301,15 @@ HD void fake_slot(const Corners& cs, const float o[3], const float d[3], const i
     f.s_norm = corner_dot(f.fw8, sn8);
     // signed distance to the nearest level set (first on ties)
     f.fake_dist = f.s_norm - level_sets[0];
+    f.amin = 0;
     for (int i = 1; i < n_lv; ++i) {
         const float di = f.s_norm - level_sets[i];
-        if (fabsf(di) < fabsf(f.fake_dist)) f.fake_dist = di;
+        if (fabsf(di) < fabsf(f.fake_dist)) {
+            f.fake_dist = di;
+            f.amin = i;
+        }
     }
+    if (lv_alpha) f.fraw = lv_alpha[f.amin];  // UDF_ALPHA: the nearest level set's alpha
     f.take = take && f.fraw > sigma_thresh;
     f.q = f.fake_dist / fs_std;
     f.base = alpha_act(f.fraw, act_sigmoid);
@@ -258,6 +329,47 @@ HD float inward_sq(const float sn_in[3], const float d[3]) {
 HD float lap_term(float alpha) {
     const float p_lap = expf(-alpha) + expf(-(1.0f - alpha));
     return -logf(p_lap);
+}
+
+// VOXEL_FACE's one sample at the entry (surface.py:556-588)
+struct FaceSlot {
+    float ef[3], ew8[8], pre_rgb[3], alpha;
+    bool contrib;
+};
+
+HD void face_slot(const Corners& cs, const float o[3], const float d[3], const int l[3],
+                  float close_t, float near_grid_t, int X, int Y, int Z, FaceSlot& f) {
+    const float gsz[3] = {(float)X, (float)Y, (float)Z};
+    bool inside = true;
+    for (int a = 0; a < 3; ++a) {
+        const float e = o[a] + close_t * d[a];
+        inside = inside && e >= 1e-6f && e <= gsz[a] - 1.0f - 1e-6f;
+        f.ef[a] = fminf(fmaxf(cs.vox_ok ? e - (float)l[a] : 0.5f, 0.0f), 1.0f);
+    }
+    trilerp_weights(f.ef[0], f.ef[1], f.ef[2], f.ew8);
+    for (int ch = 0; ch < 3; ++ch) f.pre_rgb[ch] = corner_dot(f.ew8, cs.crgb[ch]) + 0.5f;
+    f.alpha = sigmoid_f(cs.alpha8[0]);
+    f.contrib = cs.vox_ok && inside && close_t >= near_grid_t;
+}
+
+// the UDF types' per-voxel variance term (surface.py:754-770): the factor
+// max(n_lv_in_hull - 1, 0), and the unbiased variance of the 8 corners
+HD float udf_var(const float s8[8], float& mu) {
+    float acc = s8[0];
+    for (int c = 1; c < 8; ++c) acc = acc + s8[c];
+    mu = acc / 8.0f;
+    float v = (s8[0] - mu) * (s8[0] - mu);
+    for (int c = 1; c < 8; ++c) v = v + (s8[c] - mu) * (s8[c] - mu);
+    return v / 7.0f;
+}
+
+HD float udf_hull_factor(int stype, int n_lv_hull, int n_lv, int fake_sample, int limited_fake) {
+    float n = (float)n_lv_hull;
+    if (fake_sample && !limited_fake)
+        n = (float)n_lv;
+    else if (stype == SURF_UDF_FAKE_SAMPLE)
+        n = fmaxf(n, 1.0f);
+    return fmaxf(n - 1.0f, 0.0f);
 }
 
 HD float lap_grad(float alpha) {

@@ -1,9 +1,9 @@
 """Dataset registry, the counterpart of the JAX package's ``data``
 (svox2's opt/util/dataset.py:8-33): the procedural synthetic dataset, the
 NeRF-synthetic (Blender), DTU and NSVF loaders. ``auto`` tells a scene by
-its files in the JAX package's order, NSVF last; the LLFF and CO3D loaders
-wait for ROADMAP §1 item 5 (CO3D first for a JPEG decoder of the port's
-own)."""
+its files in the JAX package's order, NSVF last; the LLFF loader waits for
+ROADMAP §1 item 4 (with a JPEG decoder of the port's own), CO3D for §1
+item 5."""
 from os import path
 
 from .base import DatasetBase, Intrin, RayBatch
@@ -13,10 +13,10 @@ from .nsvf import NSVFDataset
 from .synthetic import SyntheticDataset
 
 
-def _unported(name: str, why: str = ""):
+def _unported(name: str, item: int, why: str = ""):
     def make(*args, **kwargs):
         raise NotImplementedError(
-            f"the {name!r} dataset loader is not ported yet (ROADMAP §1 item 5{why})")
+            f"the {name!r} dataset loader is not ported yet (ROADMAP §1 item {item}{why})")
 
     return make
 
@@ -41,8 +41,8 @@ datasets = {
     "synthetic": SyntheticDataset,
     "dtu": DTUDataset,
     "nsvf": NSVFDataset,
-    "llff": _unported("llff"),
-    "co3d": _unported("co3d", ": it reads JPEG frames, and the port has no JPEG decoder yet"),
+    "llff": _unported("llff", 4),
+    "co3d": _unported("co3d", 5, ": it reads JPEG frames, and the port has no JPEG decoder yet"),
 }
 
 __all__ = ["DatasetBase", "DTUDataset", "Intrin", "NeRFDataset", "NSVFDataset", "RayBatch",

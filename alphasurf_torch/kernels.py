@@ -21,8 +21,12 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
+
+from . import defs
+from .core.grid import UDF_TYPES
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -83,34 +87,47 @@ LAUNCHES = {
     "compat_backward_nvol": 0,
     "compat_backward_svox1": 0,
 }
+# the surface types' branches of K1, K3 and K5b (a launch on such a grid
+# also counts as "<kernel>_<type>"), and the sparsifier's launches on a
+# density table shorter than the surface rows (UDF_ALPHA's)
+TYPE_NAMES = {defs.SURFACE_TYPE_PLANE: "plane", defs.SURFACE_TYPE_UDF: "udf",
+              defs.SURFACE_TYPE_UDF_ALPHA: "udf_alpha",
+              defs.SURFACE_TYPE_UDF_FAKE_SAMPLE: "udf_fake_sample",
+              defs.SURFACE_TYPE_VOXEL_FACE: "voxel_face"}
+for _k in ("occupancy", "phase_b", "backward_entry"):
+    LAUNCHES.update({f"{_k}_{_t}": 0 for _t in TYPE_NAMES.values()})
+LAUNCHES["reg_sparsify_table"] = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _ARGTYPES = {
-    "occupancy_words": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _P],
+    "occupancy_words": [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P],
     "phase_a_count": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "phase_a_fill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "compact_fill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "dense_walk_count": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "dense_walk_fill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "phase_b": [_P, _P, _P, _P, _L, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _I,
-                _I, _F, _F, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "composite": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _P, _I,
+                _I, _I, _P, _F, _F, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                _P],
+    "composite": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _F, _I, _F, _F, _P,
+                  _I,
                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                   _P, _P, _P, _P],
     "intersect_points": [_P, _P, _P, _P, _I, _L, _F, _F, _F, _F, _F, _F, _P, _P],
     "backward_ray": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _P, _I, _P,
                      _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "backward_entry": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P,
-                       _I, _I, _F, _F, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _P],
-    "reg_tv": [_P, _I, _I, _I, _P, _L, _P, _I, _I, _I, _P, _F, _P, _P, _P],
+                       _I, _I, _I, _P, _F, _F, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _P, _P],
+    "reg_tv": [_P, _I, _I, _I, _P, _L, _P, _L, _I, _I, _I, _P, _L, _F, _P, _P, _P],
     "reg_normal": [_P, _I, _I, _I, _P, _L, _P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P],
-    "reg_sparsify": [_P, _I, _I, _I, _P, _L, _P, _P, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P],
-    "reg_ext": [_I, _P, _I, _I, _I, _P, _L, _I, _P, _I, _P, _P, _F, _F, _F, _P, _P, _P, _P, _I,
-                _P, _F, _P, _P],
+    "reg_sparsify": [_P, _I, _I, _I, _P, _L, _P, _L, _P, _I, _F, _F, _F, _F, _F, _P, _P, _P,
+                     _P],
+    "reg_ext": [_I, _P, _I, _I, _I, _P, _L, _I, _P, _I, _P, _L, _P, _F, _F, _F, _P, _P, _P, _P,
+                _I, _P, _F, _P, _P],
     "reg_background_tv": [_P, _I, _I, _P, _I, _P, _L, _F, _F, _F, _P, _P, _P],
     "reg_basis_tv": [_P, _I, _I, _F, _P, _P, _P],
     "rmsprop": [_P, _P, _P, _L, _I, _F, _F, _F, _F, _I, _F, _I, _F, _I, _P],
@@ -256,21 +273,39 @@ def _ptr(x: torch.Tensor) -> int:
 # K1
 # ---------------------------------------------------------------------------
 
-def occupancy(links, density, surface, level_sets, sigma_thresh: float, hull: bool):
-    """K1: (X-1, Y-1, ceil((Z-1)/32)) int32 occupancy words."""
+def occupancy(links, density, surface, level_sets, sigma_thresh: float, hull: bool,
+              stype: int = defs.SURFACE_TYPE_SDF):
+    """K1: (X-1, Y-1, ceil((Z-1)/32)) int32 occupancy words. ``density``
+    (cap,) raw alphas, or (1,), one value every corner reads (UDF_ALPHA's
+    largest alpha); ``surface`` (cap,) or (cap, C), channel 0 read; ``hull``
+    the level-set hull test (the render options decide it). ``stype``, the
+    grid's surface type: the UDF types test the softplus of their surface
+    values, and a launch on another type than SDF also counts as
+    ``occupancy_<type>``."""
     X, Y, Z = links.shape
     _check("links", links, torch.int32)
-    cap = density.shape[0]
-    _check("density", density, torch.float32, (cap,))
-    _check("surface", surface, torch.float32, (cap,))
+    cap = surface.shape[0]
+    n_surf_c = 1 if surface.dim() == 1 else surface.shape[1]
+    _check("surface", surface, torch.float32)
+    _check("density", density, torch.float32)
+    if density.shape not in ((cap,), (1,)):
+        raise ValueError(f"density: expected shape ({cap},) or (1,), got {tuple(density.shape)}")
     _check("level_sets", level_sets, torch.float32)
     words = torch.empty((X - 1, Y - 1, (Z - 1 + 31) // 32), dtype=torch.int32, device=links.device)
     if words.numel() == 0:
         return words
     _launch("occupancy", "occupancy_words", "occupancy",
-            _ptr(links), _ptr(density), _ptr(surface), _ptr(level_sets), level_sets.numel(),
-            X, Y, Z, float(sigma_thresh), int(hull), _ptr(words))
+            _ptr(links), _ptr(density), 0 if density.shape[0] == 1 and cap > 1 else 1,
+            _ptr(surface), n_surf_c, _ptr(level_sets), level_sets.numel(), X, Y, Z,
+            float(sigma_thresh), int(hull), int(stype in UDF_TYPES), _ptr(words))
+    _count_type("occupancy", stype)
     return words
+
+
+def _count_type(kernel: str, stype: int) -> None:
+    """Count a launch on a grid of another surface type than SDF."""
+    if stype in TYPE_NAMES:
+        LAUNCHES[f"{kernel}_{TYPE_NAMES[stype]}"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -375,6 +410,29 @@ def _scalar_ptr(name: str, x) -> int:
     return _ptr(x)
 
 
+class SurfaceSpec(NamedTuple):
+    """What K3 and K5b read of a grid's surface type: the type (defs'
+    values), the surface channels of a row, and UDF_ALPHA's (n_lv,)
+    per-level-set alphas (None for the other types)."""
+
+    stype: int
+    n_surf_c: int
+    lv_alpha: torch.Tensor | None = None
+
+
+SDF = SurfaceSpec(defs.SURFACE_TYPE_SDF, 1)
+
+
+def _spec_args(spec: SurfaceSpec, level_sets) -> tuple:
+    """(stype, lv_alpha pointer) after checking the table."""
+    if (spec.stype == defs.SURFACE_TYPE_UDF_ALPHA) != (spec.lv_alpha is not None):
+        raise ValueError("UDF_ALPHA grids, and they only, carry a level-set alpha table")
+    if spec.lv_alpha is None:
+        return spec.stype, None
+    _check("lv_alpha", spec.lv_alpha, torch.float32, (level_sets.numel(),))
+    return spec.stype, _ptr(spec.lv_alpha)
+
+
 def _pool_args(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed, n_surf_c: int,
                level_sets):
     M = close_t.shape[0]
@@ -396,19 +454,30 @@ def _pool_args(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed,
     return M, B, bd, cap, C8
 
 
-def _n_slots(level_sets, opt) -> int:
+def _n_slots(level_sets, opt, stype: int = defs.SURFACE_TYPE_SDF) -> int:
+    """S0: one slot for PLANE and VOXEL_FACE, else 3 a level set and the
+    fake sample's."""
+    if stype in (defs.SURFACE_TYPE_PLANE, defs.SURFACE_TYPE_VOXEL_FACE):
+        return 1
     return 3 * level_sets.numel() + (1 if opt.surf_fake_sample else 0)
 
 
-def phase_b(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed, n_surf_c: int,
+def _n_loss_e(stype: int) -> int:
+    """Rows of K3's per-entry loss sums: the UDF types add udf-var's two."""
+    return 5 if stype in UDF_TYPES else 3
+
+
+def phase_b(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed, spec: SurfaceSpec,
             level_sets, near_grid_t: float, fs_std, opt) -> dict:
     """K3: slot arrays of every pool entry (see render.surface.voxel_samples).
-    ``fs_std`` is the grid's (1, 1) fake_sample_std on the card, or None."""
+    ``spec`` the grid's ``SurfaceSpec``; ``fs_std`` is the grid's (1, 1)
+    fake_sample_std on the card, or None."""
     M, B, bd, cap, C8 = _pool_args(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links,
-                                   packed, n_surf_c, level_sets)
+                                   packed, spec.n_surf_c, level_sets)
+    stype, lvp = _spec_args(spec, level_sets)
     fss = _scalar_ptr("fs_std", fs_std)
     n_lv = level_sets.numel()
-    S0 = _n_slots(level_sets, opt)
+    S0 = _n_slots(level_sets, opt, stype)
     dev = close_t.device
     out = {
         "t": torch.empty((S0, M), dtype=torch.float32, device=dev),
@@ -418,7 +487,7 @@ def phase_b(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed, n_
         "fake": torch.empty((S0, M), dtype=torch.bool, device=dev),
         "snorm": torch.empty((3, S0, M), dtype=torch.float32, device=dev),
         "counted": torch.empty((S0, M), dtype=torch.int32, device=dev),
-        "loss_e": torch.empty((3, M), dtype=torch.float32, device=dev),
+        "loss_e": torch.empty((_n_loss_e(stype), M), dtype=torch.float32, device=dev),
         "n_slots": S0,
     }
     if M > 0:  # an empty pool launches nothing
@@ -426,13 +495,14 @@ def phase_b(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed, n_
         _launch("phase_b", "phase_b", "phase_b",
                 _ptr(ray_id), _ptr(l), _ptr(close_t), _ptr(far_t), M,
                 _ptr(origins), _ptr(dirs), _ptr(sh_mult), bd, _ptr(links), X, Y, Z,
-                _ptr(packed), cap, C8, n_surf_c, _ptr(level_sets), n_lv, S0,
+                _ptr(packed), cap, C8, spec.n_surf_c, _ptr(level_sets), n_lv, S0, stype, lvp,
                 float(near_grid_t), float(opt.sigma_thresh), fss,
                 float(opt.surf_fake_sample_min_vox_len), int(opt.only_outward_intersect),
                 int(opt.surf_fake_sample), int(opt.limited_fake_sample),
                 int(opt.fake_sample_normalize_surf), int(opt.alpha_activation_type == 0),
                 *(_ptr(out[k]) for k in ("t", "alpha", "contrib", "fake", "counted", "rgb",
                                          "snorm", "loss_e")))
+        _count_type("phase_b", stype)
     return out
 
 
@@ -448,10 +518,13 @@ def _check_slots(smp: dict, S0: int, M: int, keys=_SLOT_KEYS + ("snorm", "loss_e
         ("t", torch.float32, (S0, M)), ("alpha", torch.float32, (S0, M)),
         ("contrib", torch.bool, (S0, M)), ("fake", torch.bool, (S0, M)),
         ("counted", torch.int32, (S0, M)), ("rgb", torch.float32, (3, S0, M)),
-        ("snorm", torch.float32, (3, S0, M)), ("loss_e", torch.float32, (3, M)),
+        ("snorm", torch.float32, (3, S0, M)),
+        ("loss_e", torch.float32, (smp["loss_e"].shape[0] if "loss_e" in smp else 3, M)),
     ):
         if k in keys:
             _check(k, smp[k], dt, shape)
+    if "loss_e" in keys and smp["loss_e"].shape[0] not in (3, 5):
+        raise ValueError(f"loss_e: expected 3 or 5 rows, got {smp['loss_e'].shape[0]}")
 
 
 def _composite_opts(opt) -> tuple:
@@ -522,7 +595,7 @@ def composite(offsets, smp: dict, trunc_a, opt, sig_thresh: float | None = None,
         stop_on, log_stop, bg, fake_l_dist = _composite_opts(opt)
         _launch("composite", "composite", "composite",
                 _ptr(offsets), B, M, S0,
-                *(_ptr(smp[k]) for k in _SLOT_KEYS + ("snorm", "loss_e")),
+                *(_ptr(smp[k]) for k in _SLOT_KEYS + ("snorm", "loss_e")), smp["loss_e"].shape[0],
                 int(opt.truncated_vol_render), ta, float(opt.trunc_vol_weight_min),
                 stop_on, log_stop, bg, bgp, fake_l_dist,
                 *(_ptr(out[k]) for k in ("rgb", "depth", "normal", "log_T", "depth_mode",
@@ -603,19 +676,22 @@ def backward_ray(offsets, smp: dict, trunc_a, opt, g_rgb, g_ray_losses, g_cache=
 
 
 def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed,
-                   n_surf_c: int, level_sets, near_grid_t: float, fs_std, opt, contrib, d_alpha,
-                   d_t, d_col, g_ray_losses, win=None, want_sh_mult: bool = False):
-    """K5b: gradients of the density (cap,), surface (cap, n_surf_c) and SH
-    (cap, 3 bd) rows and of fake_sample_std (1,) from K5a's slot cotangents
-    and the inward-norm and density-lap rows of the ray-loss cotangents,
-    the latter for the entries ``win`` (K4's count window; None: all).
+                   spec: SurfaceSpec, level_sets, near_grid_t: float, fs_std, opt, contrib,
+                   d_alpha, d_t, d_col, g_ray_losses, win=None, want_sh_mult: bool = False):
+    """K5b: gradients of the density (cap,) (UDF_ALPHA: of its (n_lv,)
+    table), surface (cap, n_surf_c) and SH (cap, 3 bd) rows and of
+    fake_sample_std (1,) from K5a's slot cotangents and the inward-norm,
+    density-lap and udf-var rows of the ray-loss cotangents, the latter for
+    the entries ``win`` (K4's count window; None: all).
     With ``want_sh_mult`` also the gradient of the per-ray basis sh_mult
     (B, bd), a fifth output (a launch with it also counts as
     ``backward_entry_basis``)."""
     M, B, bd, cap, C8 = _pool_args(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links,
-                                   packed, n_surf_c, level_sets)
+                                   packed, spec.n_surf_c, level_sets)
+    stype, lvp = _spec_args(spec, level_sets)
+    n_surf_c = spec.n_surf_c
     fss = _scalar_ptr("fs_std", fs_std)
-    S0 = _n_slots(level_sets, opt)
+    S0 = _n_slots(level_sets, opt, stype)
     _check("contrib", contrib, torch.bool, (S0, M))
     _check("d_alpha", d_alpha, torch.float32, (S0, M))
     _check("d_t", d_t, torch.float32, (S0, M))
@@ -624,7 +700,8 @@ def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, pac
     if win is not None:
         _check("win", win, torch.bool, (M,))
     dev = close_t.device
-    g_density = torch.zeros(cap, dtype=torch.float32, device=dev)
+    g_density = torch.zeros(cap if lvp is None else level_sets.numel(), dtype=torch.float32,
+                            device=dev)
     g_surface = torch.zeros((cap, n_surf_c), dtype=torch.float32, device=dev)
     g_sh = torch.zeros((cap, 3 * bd), dtype=torch.float32, device=dev)
     g_fss = torch.zeros(1, dtype=torch.float32, device=dev)
@@ -635,7 +712,7 @@ def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, pac
                 _ptr(ray_id), _ptr(l), _ptr(close_t), _ptr(far_t), M, B,
                 _ptr(origins), _ptr(dirs), _ptr(sh_mult), bd, _ptr(links), X, Y, Z,
                 _ptr(packed), cap, C8, n_surf_c, _ptr(level_sets), level_sets.numel(), S0,
-                float(near_grid_t), float(opt.sigma_thresh), fss,
+                stype, lvp, float(near_grid_t), float(opt.sigma_thresh), fss,
                 float(opt.surf_fake_sample_min_vox_len), int(opt.only_outward_intersect),
                 int(opt.surf_fake_sample), int(opt.limited_fake_sample),
                 int(opt.fake_sample_normalize_surf), int(opt.alpha_activation_type == 0),
@@ -645,6 +722,7 @@ def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, pac
                 _ptr(g_fss) if fs_std is not None else 0, _ptr(g_shm) if want_sh_mult else None)
         if want_sh_mult:
             LAUNCHES["backward_entry_basis"] += 1
+        _count_type("backward_entry", stype)
     out = (g_density, g_surface, g_sh, g_fss)
     return out + (g_shm,) if want_sh_mult else out
 
@@ -662,22 +740,27 @@ def _cells_arg(links, cells):
 
 
 def reg_tv(links, cells, data, c0: int, c1: int, wdens, scale: float):
-    """K6, TV over channels [c0, c1) of ``data`` (cap, C) at ``cells``
+    """K6, TV over channels [c0, c1) of ``data`` (rows, C) at ``cells``
     (flat ids, int32) or at every lattice cell (None); cells weighted by
-    sigmoid(wdens) when ``wdens`` (cap,) is given. Returns the loss (1,),
-    summed in float64 and returned as float32, and its gradient (cap, C)."""
-    cap, C = data.shape
+    sigmoid(wdens) when ``wdens`` (rows',) is given. A link reads row
+    min(link, rows - 1), as fetch_links clips (UDF_ALPHA's density table).
+    Returns the loss (1,), summed in float64 and returned as float32, and
+    its gradient (rows, C)."""
+    rows, C = data.shape
     _check("data", data, torch.float32)
     cp = _cells_arg(links, cells)
     if wdens is not None:
-        _check("wdens", wdens, torch.float32, (cap,))
+        _check("wdens", wdens, torch.float32)
+        if wdens.dim() != 1:
+            raise ValueError(f"wdens: expected one dimension, got {tuple(wdens.shape)}")
     n = links.numel() if cells is None else cells.numel()
     loss = torch.zeros(1, dtype=torch.float64, device=data.device)
     grad = torch.zeros_like(data)
     X, Y, Z = links.shape
     if n > 0:
-        _launch("reg", "reg_tv", "reg_tv", _ptr(links), X, Y, Z, cp, n, _ptr(data), C, c0, c1,
-                0 if wdens is None else _ptr(wdens), float(scale), _ptr(loss), _ptr(grad))
+        _launch("reg", "reg_tv", "reg_tv", _ptr(links), X, Y, Z, cp, n, _ptr(data), rows, C, c0,
+                c1, 0 if wdens is None else _ptr(wdens), 0 if wdens is None else wdens.numel(),
+                float(scale), _ptr(loss), _ptr(grad))
     return loss.float(), grad
 
 
@@ -702,10 +785,13 @@ def reg_normal(links, cells, surface, level_sets, con_check: bool, ignore_empty:
 
 def reg_sparsify(links, cells, density, surface, scale_alpha: float, scale_surf: float,
                  surf_decrease: bool, surf_thresh: float, scale: float):
-    """K6, the alpha/surface sparsifier at ``cells``. Returns the loss (1,)
-    and the gradients of density (cap, 1) and surface (cap, n_surf_c)."""
-    cap = density.shape[0]
-    _check("density", density, torch.float32, (cap, 1))
+    """K6, the alpha/surface sparsifier at ``cells``. ``density`` (rows, 1)
+    is read at row min(link, rows - 1), as fetch_links clips (UDF_ALPHA's
+    table; such a launch also counts as ``reg_sparsify_table``). Returns the
+    loss (1,) and the gradients of density (rows, 1) and surface (cap,
+    n_surf_c)."""
+    rows = density.shape[0]
+    _check("density", density, torch.float32, (rows, 1))
     _check("surface", surface, torch.float32)
     cp = _cells_arg(links, cells)
     n = links.numel() if cells is None else cells.numel()
@@ -715,9 +801,11 @@ def reg_sparsify(links, cells, density, surface, scale_alpha: float, scale_surf:
     X, Y, Z = links.shape
     if n > 0:
         _launch("reg", "reg_sparsify", "reg_sparsify", _ptr(links), X, Y, Z, cp, n, _ptr(density),
-                _ptr(surface), surface.shape[1], float(scale_alpha), float(scale_surf),
+                rows, _ptr(surface), surface.shape[1], float(scale_alpha), float(scale_surf),
                 1.0 if surf_decrease else -1.0, float(surf_thresh), float(scale), _ptr(loss),
                 _ptr(g_density), _ptr(g_surface))
+        if rows < surface.shape[0]:
+            LAUNCHES["reg_sparsify_table"] += 1
     return loss.float(), g_density, g_surface
 
 
@@ -739,7 +827,7 @@ def _reg_ext(name: str, links, cells, surface, scale: float, density=None, h=Non
     _check("links", links, torch.int32)
     _check("cells", cells, torch.int32)
     if density is not None:
-        _check("density", density, torch.float32, (cap, 1))
+        _check("density", density, torch.float32, (density.shape[0], 1))
     if h is not None:
         _check("h", h, torch.float32, (1,))
     n = cells.numel()
@@ -750,8 +838,8 @@ def _reg_ext(name: str, links, cells, surface, scale: float, density=None, h=Non
     if n > 0:
         _launch("reg", "reg_ext", name, _EXT_KINDS[name], _ptr(links), X, Y, Z, _ptr(cells), n,
                 cap, _ptr(surface), surface.shape[1], 0 if density is None else _ptr(density),
-                0 if h is None else _ptr(h), float(eta), float(target), float(scale), _ptr(loss),
-                _ptr(g_surface), 0 if g_density is None else _ptr(g_density), None, 0, None,
+                0 if density is None else density.shape[0], 0 if h is None else _ptr(h),
+                float(eta), float(target), float(scale), _ptr(loss), _ptr(g_surface), 0 if g_density is None else _ptr(g_density), None, 0, None,
                 0.0, None)
     return loss.float(), g_surface, g_density
 
@@ -800,7 +888,7 @@ def reg_lumisphere(links, cells, sh, mult, dir_factor: float, scale: float):
     X, Y, Z = links.shape
     if n > 0:
         _launch("reg", "reg_ext", "reg_lumisphere", _EXT_KINDS["reg_lumisphere"], _ptr(links),
-                X, Y, Z, _ptr(cells), n, cap, None, 0, None, None, 0.0, 0.0, float(scale),
+                X, Y, Z, _ptr(cells), n, cap, None, 0, None, 0, None, 0.0, 0.0, float(scale),
                 _ptr(loss), None, None, _ptr(sh), bd, _ptr(mult), float(dir_factor),
                 _ptr(g_sh))
     return loss.float(), g_sh

@@ -59,11 +59,12 @@ from .surface import (Pool, _clip, _excl_cumsum, _sum0, compact_crossings_packed
 def _density_occupancy_plain(grid: SparseGrid) -> torch.Tensor:
     """Plain version of K1d, as the JAX package's ``density_occupancy``
     (cuvol.py:30-62): per-voxel bool (X-1, Y-1, Z-1), the max over present
-    corners of density > 0."""
+    corners of density > 0. A density table shorter than the capacity
+    (UDF_ALPHA's) is read at the clipped row, as JAX's gather clips."""
     links = grid.links
     present = links >= 0
-    safe = torch.clamp(links, 0, grid.capacity - 1).long()
     rows = grid.density_data[:, 0].detach()
+    safe = torch.clamp(links, 0, min(grid.capacity, rows.shape[0]) - 1).long()
     dens = torch.where(present, rows[safe], torch.full_like(rows[:1], -math.inf))
     out = None
     for dx in (0, 1):
@@ -82,7 +83,11 @@ def density_occupancy_words(grid: SparseGrid) -> torch.Tensor:
     grid, the plain version on the CPU."""
     if not grid.links.is_cuda:
         return pack_occupancy_bits(_density_occupancy_plain(grid))
-    return kernels.density_occupancy(grid.links, grid.density_data.detach()[:, 0].contiguous())
+    rows = grid.density_data.detach()[:, 0]
+    if rows.shape[0] < grid.capacity:  # a per-level-set table: each row reads the clipped one
+        rows = rows[torch.clamp(torch.arange(grid.capacity, device=rows.device),
+                                max=rows.shape[0] - 1)]
+    return kernels.density_occupancy(grid.links, rows.contiguous())
 
 
 def density_occupancy(grid: SparseGrid) -> torch.Tensor:
@@ -294,7 +299,7 @@ class _PackedCuvolFn(torch.autograd.Function):
             if g is not None and bool(torch.any(g != 0)):
                 raise NotImplementedError(
                     f"a gradient through {name!r} of the cuvol renderer is not ported yet "
-                    "(ROADMAP §2 item 4); K8 carries rgb")
+                    "(ROADMAP §2 item 3); K8 carries rgb")
         c = ctx.chunk
         log_T, entry_pre = ctx.saved_tensors
         grid = c.grid
@@ -326,10 +331,13 @@ def cuvol_pool(grid: SparseGrid, origins, dirs, tmin_cu, tmax_cu, words) -> Pool
 
 
 def _check_grid(grid: SparseGrid) -> None:
+    """The JAX renderers concatenate the density and SH rows
+    (cuvol.py:156, 354), which raises on UDF_ALPHA's per-level-set density
+    table with a TypeError; so does the port."""
     if grid.capacity != grid.density_data.shape[0]:
-        raise NotImplementedError(
-            "density rows that are not one per vertex row (UDF_ALPHA) are not ported "
-            "(ROADMAP §1 item 5)")
+        raise TypeError(
+            f"the cuvol renderers read one density row a vertex row: density_data has "
+            f"{grid.density_data.shape[0]} rows, sh_data {grid.capacity}")
 
 
 def volume_render_cuvol_packed(
@@ -437,7 +445,7 @@ def volume_render_cuvol(
     exceeds it) when asked. Each ray takes the samples t = tmin + k*step,
     k < ceil(max_steps / step_chunk) * step_chunk, while t <= tmax, as the
     JAX version's scan does. Forward only: on the card it is K10, and a
-    gradient through it is not ported (ROADMAP §2 item 4)."""
+    gradient through it is not ported (ROADMAP §2 item 2)."""
     _check_grid(grid)
     if max_steps is None:
         max_steps = max_steps_for(grid, opt)
@@ -450,7 +458,7 @@ def volume_render_cuvol(
     if origins.is_cuda and torch.is_grad_enabled() and any(
             p is not None and p.requires_grad for p in params):
         raise NotImplementedError(
-            "the gradient of the dense cuvol march is not ported (ROADMAP §2 item 4); "
+            "the gradient of the dense cuvol march is not ported (ROADMAP §2 item 2); "
             "train through volume_render_cuvol_packed")
     bg = background_color(grid, opt, origins, dirs, delta_scale)
     if origins.is_cuda:

@@ -43,8 +43,11 @@ learned basis's parameters.
 Two output options of K3/K4 serve the extractors: ``depth_sigma_thresh``
 (K4's walk keeps a per-ray minimum) and ``return_intersections`` (K4 writes
 each slot's weight and contribution flag; ``intersect_points`` the world
-points). Only SDF grids are carried; the other surface types raise
-``NotImplementedError`` naming their ROADMAP item.
+points). Every surface type is carried: SDF and the UDF types (softplus
+corners; UDF_ALPHA's per-level-set alphas; the udf-var loss) through the
+cubic roots, PLANE through the corners' mean plane, VOXEL_FACE through one
+sample at each voxel's entry, in the plain versions and in K1, K3, K4 and
+K5 alike.
 """
 from __future__ import annotations
 
@@ -55,7 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import defs, kernels
-from ..core.grid import CORNER_OFFSETS, SparseGrid
+from ..core.grid import CORNER_OFFSETS, UDF_TYPES, SparseGrid
 from ..core.options import RenderOptions
 from ..core.rays import Rays
 from ..core.sh import eval_basis
@@ -70,6 +73,9 @@ _RAY_LOSS_KEYS = (
     "sp_logsig", "sp_logsig_w", "sp_w",
     "l_inward", "lap_sum", "lap_cnt", "udf_var_sum", "udf_var_cnt",
 )
+# the per-entry sums K3 writes (``loss_e``, 3 rows, 5 for the UDF types),
+# which K4 sums per ray into ray losses 7-11
+_LOSS_E_KEYS = _RAY_LOSS_KEYS[7:]
 
 
 def surf_alpha_act(raw: torch.Tensor, activation_type: int) -> torch.Tensor:
@@ -126,8 +132,14 @@ def _sum0(x: torch.Tensor) -> torch.Tensor:
 def pack_grid_data(grid: SparseGrid) -> torch.Tensor:
     """(density | surface | sh | pad) rows, one gatherable (cap, C8) array,
     C8 the channel count padded to a multiple of 8. Differentiable in the
-    three parameters where they require grad."""
-    parts = [grid.density_data, grid.surface_data, grid.sh_data]
+    three parameters where they require grad. The surface block is 4
+    channels for PLANE, 1 otherwise; UDF_ALPHA's density block is zeros
+    (its alphas live per level set in the (n_lv, 1) ``density_data``,
+    surface.py:133-154)."""
+    dens = grid.density_data
+    if grid.surface_type == defs.SURFACE_TYPE_UDF_ALPHA:
+        dens = grid.sh_data.new_zeros((grid.capacity, 1))
+    parts = [dens, grid.surface_data, grid.sh_data]
     c = 1 + grid.surface_data.shape[1] + grid.sh_data.shape[1]
     pad = (-c) % 8
     if pad:
@@ -140,11 +152,6 @@ def _check_supported(grid: SparseGrid, opt: RenderOptions) -> None:
         raise NotImplementedError(
             "the surface renderer needs a surface grid; grids without one (cuvol) render "
             "through render.cuvol"
-        )
-    if grid.surface_type != defs.SURFACE_TYPE_SDF:
-        raise NotImplementedError(
-            f"surface_type {grid.surface_type} is not ported yet; only SDF "
-            "(ROADMAP §1 item 5)"
         )
 
 
@@ -178,10 +185,18 @@ def _prep(grid: SparseGrid, rays: Rays, opt: RenderOptions):
 # K1: occupancy
 # ---------------------------------------------------------------------------
 
-def _hull_test(opt: RenderOptions) -> bool:
-    """Whether the level-set hull filter applies (scalar surface fields,
-    unless unrestricted fake samples are on)."""
-    return not (opt.surf_fake_sample and not opt.limited_fake_sample)
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, logaddexp(x, 0): exact for large x, where
+    ``F.softplus``'s threshold turns linear."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _hull_test(grid: SparseGrid, opt: RenderOptions) -> bool:
+    """Whether the level-set hull filter applies: scalar surface fields
+    (PLANE voxels always carry a plane, VOXEL_FACE samples every crossing),
+    unless unrestricted fake samples are on (surface.py:1217-1225)."""
+    scalar = grid.surface_type not in (defs.SURFACE_TYPE_PLANE, defs.SURFACE_TYPE_VOXEL_FACE)
+    return scalar and not (opt.surf_fake_sample and not opt.limited_fake_sample)
 
 
 def pack_occupancy_bits(occ: torch.Tensor) -> torch.Tensor:
@@ -205,17 +220,27 @@ def unpack_occupancy_bits(words: torch.Tensor, Z: int) -> torch.Tensor:
     return bits.reshape(X, Y, W * 32)[..., :Z].bool()
 
 
-def _occupancy_words_plain(grid: SparseGrid, opt: RenderOptions) -> torch.Tensor:
+def _occupancy_words_plain(grid: SparseGrid, opt: RenderOptions,
+                           candidates: bool = False) -> torch.Tensor:
     """Plain version of K1, as the JAX package's ``voxel_occupancy``
     (surface.py:1149-1234): all 8 corner links present, max corner raw alpha
-    >= sigma_thresh and a level set within the corners' surface hull."""
+    >= sigma_thresh (UDF_ALPHA: the largest alpha of its level-set table)
+    and, where ``_hull_test`` holds, a level set within the corners' surface
+    hull (of the softplus of the UDF types' values). With ``candidates``,
+    the voxels ``_candidate_test`` names instead."""
+    sigma_thresh, hull = _candidate_test(grid, opt, candidates)
     links = grid.links
     present = links >= 0
     safe = torch.clamp(links, 0, grid.capacity - 1).long()
-    dens_rows = grid.density_data[:, 0].detach()
     surf_rows = grid.surface_data[:, 0].detach()
+    if grid.surface_type == defs.SURFACE_TYPE_UDF_ALPHA:
+        dens_rows = torch.amax(grid.density_data.detach()).expand(grid.capacity)
+    else:
+        dens_rows = grid.density_data[:, 0].detach()
     dens = torch.where(present, dens_rows[safe], torch.full_like(dens_rows[:1], -math.inf))
     surf = torch.where(present, surf_rows[safe], torch.zeros_like(surf_rows[:1]))
+    if grid.surface_type in UDF_TYPES:
+        surf = softplus(surf)
 
     def corners(v, reduce_fn):
         out = None
@@ -228,8 +253,8 @@ def _occupancy_words_plain(grid: SparseGrid, opt: RenderOptions) -> torch.Tensor
                     out = s if out is None else reduce_fn(out, s)
         return out
 
-    occ = corners(present, torch.logical_and) & (corners(dens, torch.maximum) >= opt.sigma_thresh)
-    if _hull_test(opt):
+    occ = corners(present, torch.logical_and) & (corners(dens, torch.maximum) >= sigma_thresh)
+    if hull:
         smin = corners(surf, torch.minimum)
         smax = corners(surf, torch.maximum)
         has_surf = torch.zeros_like(occ)
@@ -239,16 +264,33 @@ def _occupancy_words_plain(grid: SparseGrid, opt: RenderOptions) -> torch.Tensor
     return pack_occupancy_bits(occ)
 
 
-def occupancy_words(grid: SparseGrid, opt: RenderOptions) -> torch.Tensor:
+def _candidate_test(grid: SparseGrid, opt: RenderOptions, candidates: bool):
+    """K1's (sigma_thresh, hull test). ``candidates``: every voxel the JAX
+    dense walk hands to its samples with vox_ok set, which the udf-var
+    terms count even where no sample is taken (all corners present and, but
+    for UDF_ALPHA, which has no corner gate, some raw alpha >=
+    sigma_thresh); that is the dense walk's voxel list on a UDF grid."""
+    if not candidates:
+        return opt.sigma_thresh, _hull_test(grid, opt)
+    udf_alpha = grid.surface_type == defs.SURFACE_TYPE_UDF_ALPHA
+    return (-math.inf if udf_alpha else opt.sigma_thresh), False
+
+
+def occupancy_words(grid: SparseGrid, opt: RenderOptions, candidates: bool = False) -> torch.Tensor:
     """K1: per-voxel occupancy as bit-packed (X-1, Y-1, ceil((Z-1)/32))
-    int32 words. The kernel on a CUDA grid, the plain version on the CPU."""
+    int32 words (``candidates``: see ``_candidate_test``). The kernel on a
+    CUDA grid, the plain version on the CPU."""
     _check_supported(grid, opt)
     if not grid.links.is_cuda:
-        return _occupancy_words_plain(grid, opt)
+        return _occupancy_words_plain(grid, opt, candidates)
+    sigma_thresh, hull = _candidate_test(grid, opt, candidates)
+    if grid.surface_type == defs.SURFACE_TYPE_UDF_ALPHA:
+        density = torch.amax(grid.density_data.detach()).reshape(1)  # one value for every row
+    else:
+        density = grid.density_data.detach()[:, 0].contiguous()
     return kernels.occupancy(
-        grid.links, grid.density_data.detach()[:, 0].contiguous(),
-        grid.surface_data.detach()[:, 0].contiguous(),
-        grid.level_set_data, opt.sigma_thresh, _hull_test(opt),
+        grid.links, density, grid.surface_data.detach().contiguous(), grid.level_set_data,
+        sigma_thresh, hull, grid.surface_type,
     )
 
 
@@ -503,16 +545,21 @@ def compact_crossings(grid: SparseGrid, origins, dirs, tnear, tmax, words: torch
 
 def _voxel_samples_T(grid: SparseGrid, opt: RenderOptions, oT, dT, shmT,
                      near_grid_t, lT, close_t, far_t, vox_ok, packed):
-    """Plain version of K3 for SDF grids, as the JAX package's
-    ``_voxel_samples_T`` (surface.py:469-734): pool axis M minor; slot axis
-    S = 3*n_lv (+1 fake sample) leading.
+    """Plain version of K3, as the JAX package's ``_voxel_samples_T``
+    (surface.py:469-734): pool axis M minor; slot axis S leading, S =
+    3*n_lv (+1 fake sample) for the scalar fields (SDF and the UDF types,
+    whose corner values pass through softplus), 1 for PLANE (one ray-plane
+    root, no fake sample) and VOXEL_FACE (one sample at the entry).
+    UDF_ALPHA takes a slot's raw alpha from its level set's row of
+    ``density_data`` and has no corner-alpha gate.
 
     :return: dict of (S, M) slot arrays (t, alpha [pre-truncation], contrib,
         fake, counted), (3, S, M) vectors (rgb, snorm, snorm_in), vox_ok,
-        surf8T (8, M), n_slots.
+        surf8T (8, M), n_slots; for the UDF types lv_ok (n_lv, M).
     """
     M = close_t.shape[0]
     dtype = oT.dtype
+    stype = grid.surface_type
     n_surf_c = grid.surface_data.shape[1]
     X, Y, Z = grid.reso
     offs = CORNER_OFFSETS
@@ -530,8 +577,11 @@ def _voxel_samples_T(grid: SparseGrid, opt: RenderOptions, oT, dT, shmT,
     rows = packed[torch.clamp(links8T, 0, cap - 1).long()]  # (8, M, C8)
     v8T = rows.permute(0, 2, 1) * (links8T >= 0)[:, None, :].to(dtype)  # (8, C8, M)
     alpha8T = v8T[:, 0, :]
-    vox_ok = vox_ok & torch.any(alpha8T >= opt.sigma_thresh, dim=0)
+    if stype != defs.SURFACE_TYPE_UDF_ALPHA:
+        vox_ok = vox_ok & torch.any(alpha8T >= opt.sigma_thresh, dim=0)
     surf8T = v8T[:, 1, :]
+    if stype in UDF_TYPES:
+        surf8T = softplus(surf8T)
     fs_std = grid.fake_sample_std[0, 0] if grid.fake_sample_std is not None else 1.0
 
     bd = grid.basis_dim
@@ -544,32 +594,85 @@ def _voxel_samples_T(grid: SparseGrid, opt: RenderOptions, oT, dT, shmT,
             acc_rgb = term if acc_rgb is None else acc_rgb + term
         corner_rgbT.append(acc_rgb)
 
-    smin = torch.amin(surf8T, dim=0)
-    smax = torch.amax(surf8T, dim=0)
-    f0, f1, f2, f3 = cubic_coeffs_T(surf8T, oT + close_t[None, :] * dT - lT.to(dtype), dT)
-    root_chunks, lv_ok_list = [], []
-    for lv in grid.level_set_data:
-        lv_ok = vox_ok & (lv >= smin) & (lv <= smax)
-        lv_ok_list.append(lv_ok)
-        root_chunks.append(cubic_roots_T(f0 - lv, f1, f2, f3))  # (3, M)
-    roots = torch.cat(root_chunks, dim=0)  # (S0, M)
-    lv_ok_s = torch.cat([g[None, :].expand(3, M) for g in lv_ok_list], dim=0)
-    vox_has_surf = torch.any(torch.stack(lv_ok_list, 0), dim=0)
+    if stype == defs.SURFACE_TYPE_VOXEL_FACE:
+        # one sample where the ray enters the voxel, alpha the sigmoid of
+        # corner 0's raw value, colour at the entry point (surface.py:556-588)
+        epos = oT + close_t[None, :] * dT
+        gszT = torch.tensor(grid.reso, dtype=dtype, device=oT.device)[:, None]
+        inside = torch.all(epos >= 1e-6, dim=0) & torch.all(epos <= gszT - 1.0 - 1e-6, dim=0)
+        efrac = epos - lT.to(dtype)
+        efrac = _clip(torch.where(vox_ok[None], efrac, torch.full_like(efrac, 0.5)), 0.0, 1.0)
+        ew8 = trilerp_weights_T(efrac)
+        ergb = torch.stack([_clip(_sum0(ew8 * corner_rgbT[ch]) + 0.5, lo=0.0) for ch in range(3)],
+                           dim=0)
+        contrib = vox_ok & inside & (close_t >= near_grid_t)
+        zero3 = torch.zeros((3, 1, M), dtype=dtype, device=oT.device)
+        return {
+            "t": close_t[None, :],
+            "alpha": torch.sigmoid(alpha8T[0])[None, :],
+            "rgb": ergb[:, None, :],
+            "contrib": contrib[None, :],
+            "fake": torch.zeros_like(contrib)[None, :],
+            "snorm": zero3,
+            "snorm_in": zero3,
+            "counted": contrib[None, :].to(torch.int32),
+            "vox_ok": vox_ok,
+            "surf8T": surf8T,
+            "n_slots": 1,
+        }
+
+    lv_ok_list = None
+    if stype == defs.SURFACE_TYPE_PLANE:
+        # the mean of the 8 corner planes (a, b, c, d), d clamped to +-0.3
+        # about the voxel centre, one root in global grid coordinates
+        # (surface.py:590-606)
+        plane = _sum0(v8T[:, 1:5, :]) / 8.0  # (4, M)
+        abc = plane[:3]
+        xyz_term = _sum0((lT.to(dtype) + 0.5) * abc)
+        th = 0.3
+        dpl = torch.minimum(torch.maximum(plane[3], -th - xyz_term), th - xyz_term)
+        denom = _sum0(abc * dT)
+        denom = torch.where(torch.abs(denom) < 1e-12, torch.full_like(denom, 1e-12), denom)
+        t_pl = -(_sum0(abc * oT) + dpl) / denom
+        roots = (t_pl - close_t)[None, :]  # (1, M)
+        lv_ok_s = vox_ok[None, :] & (t_pl[None, :] > 0)
+        vox_has_surf = vox_ok
+        root_pos = roots > -1e-6
+    else:
+        smin = torch.amin(surf8T, dim=0)
+        smax = torch.amax(surf8T, dim=0)
+        f0, f1, f2, f3 = cubic_coeffs_T(surf8T, oT + close_t[None, :] * dT - lT.to(dtype), dT)
+        root_chunks, lv_ok_list = [], []
+        for lv in grid.level_set_data:
+            lv_ok = vox_ok & (lv >= smin) & (lv <= smax)
+            lv_ok_list.append(lv_ok)
+            root_chunks.append(cubic_roots_T(f0 - lv, f1, f2, f3))  # (3, M)
+        roots = torch.cat(root_chunks, dim=0)  # (S0, M)
+        lv_ok_s = torch.cat([g[None, :].expand(3, M) for g in lv_ok_list], dim=0)
+        vox_has_surf = torch.any(torch.stack(lv_ok_list, 0), dim=0)
+        root_pos = roots > 0
 
     t_real = close_t[None, :] + roots  # (S0, M)
     frac = oT[:, None, :] + t_real[None, :, :] * dT[:, None, :] - lT[:, None, :].to(dtype)
     in_cube = torch.all(frac >= 0, dim=0) & torch.all(frac <= 1, dim=0)
-    geo_ok = lv_ok_s & (roots > 0) & in_cube & (t_real >= near_grid_t)
+    geo_ok = lv_ok_s & root_pos & in_cube & (t_real >= near_grid_t)
     vox_has_sample = torch.any(geo_ok, dim=0)
     frac_safe = _clip(torch.where(geo_ok[None], frac, torch.full_like(frac, 0.5)), 0.0, 1.0)
-    sgrad = trilerp_field_grad_T(surf8T[:, None, :], frac_safe)
+    if stype == defs.SURFACE_TYPE_PLANE:
+        sgrad = abc[:, None, :].expand_as(frac_safe)  # the plane's normal
+    else:
+        sgrad = trilerp_field_grad_T(surf8T[:, None, :], frac_safe)
     if opt.only_outward_intersect:
         geo_ok = geo_ok & (_sum0(sgrad * dT[:, None, :]) > 0)
     nsq = _sum0(sgrad * sgrad)[None]
     snorm_s = -sgrad / torch.sqrt(torch.where(nsq > 1e-20, nsq, torch.full_like(nsq, 1e-20)))
 
     w8 = trilerp_weights_T(frac_safe)  # (8, S0, M)
-    raw_a = _sum0(w8 * alpha8T[:, None, :])
+    if stype == defs.SURFACE_TYPE_UDF_ALPHA:
+        # the alpha of each slot's level set (surface.py:646-650)
+        raw_a = grid.density_data[:, 0].repeat_interleave(3)[:, None].expand(-1, M)
+    else:
+        raw_a = _sum0(w8 * alpha8T[:, None, :])
     w8_sh = trilerp_weights_T(frac_safe.detach()) if opt.no_surf_grad_from_sh else w8
     rgb_s = torch.stack(
         [_clip(_sum0(w8_sh * corner_rgbT[ch][:, None, :]) + 0.5, lo=0.0) for ch in range(3)],
@@ -582,7 +685,7 @@ def _voxel_samples_T(grid: SparseGrid, opt: RenderOptions, oT, dT, shmT,
     counted = geo_ok
     snorm_in = snorm_s
 
-    if opt.surf_fake_sample:
+    if opt.surf_fake_sample and stype != defs.SURFACE_TYPE_PLANE:
         # fake sample at mid-segment with a Gaussian reweight
         # (surf_trav.cu:423-541), appended as the entry's last slot
         take = vox_ok & ~vox_has_sample & ((far_t - close_t) > opt.surf_fake_sample_min_vox_len)
@@ -606,6 +709,8 @@ def _voxel_samples_T(grid: SparseGrid, opt: RenderOptions, oT, dT, shmT,
         dists = s_norm[None, :] - grid.level_set_data[:, None]  # (n_lv, M)
         amin = torch.argmin(torch.abs(dists), dim=0)
         fake_dist = torch.gather(dists, 0, amin[None, :])[0]
+        if stype == defs.SURFACE_TYPE_UDF_ALPHA:
+            fraw = grid.density_data[:, 0][amin]  # the nearest level set's alpha
         take = take & (fraw > opt.sigma_thresh)
         falpha = surf_alpha_act(fraw, opt.alpha_activation_type)
         q = fake_dist / fs_std
@@ -622,7 +727,7 @@ def _voxel_samples_T(grid: SparseGrid, opt: RenderOptions, oT, dT, shmT,
         snorm_s = torch.cat([snorm_s, torch.zeros_like(fsnorm)[:, None, :]], dim=1)
         counted = torch.cat([counted, torch.zeros_like(take)[None, :]], dim=0)
 
-    return {
+    out = {
         "t": t_s,
         "alpha": alpha_s,  # pre-truncation
         "rgb": rgb_s,
@@ -635,23 +740,44 @@ def _voxel_samples_T(grid: SparseGrid, opt: RenderOptions, oT, dT, shmT,
         "surf8T": surf8T,
         "n_slots": contrib.shape[0],
     }
+    if stype in UDF_TYPES:
+        out["lv_ok"] = torch.stack(lv_ok_list, 0)  # (n_lv, M)
+    return out
 
 
-def _accumulate_sample_losses_T(acc: dict, dT, smp: dict) -> dict:
-    """Per-entry inward-norm and density-lap sums over the slots, as
-    the JAX package's ``_accumulate_sample_losses_T`` (surface.py:737-770;
-    the udf-var terms are zero for SDF grids)."""
+def _accumulate_sample_losses_T(grid: SparseGrid, opt: RenderOptions, dT, smp: dict) -> dict:
+    """Per-entry inward-norm and density-lap sums over the slots and, for
+    the UDF types, the udf-var terms, as the JAX package's
+    ``_accumulate_sample_losses_T`` (surface.py:737-770): (M,) each, keyed
+    as the ray losses."""
     contrib = smp["contrib"]
     alpha_pre = smp["alpha"]
     zero = torch.zeros_like(alpha_pre)
     in_dot = _sum0(smp["snorm_in"].detach() * dT[:, None, :])  # normals detached
     in_pos = torch.clamp(in_dot, min=0.0)
-    acc["l_inward"] = acc["l_inward"] + _sum0(
-        torch.where(contrib, alpha_pre * (in_pos * in_pos), zero)
-    )
+    acc = {"l_inward": _sum0(torch.where(contrib, alpha_pre * (in_pos * in_pos), zero))}
     p_lap = torch.exp(-alpha_pre) + torch.exp(-(1.0 - alpha_pre))
-    acc["lap_sum"] = acc["lap_sum"] + _sum0(torch.where(contrib, -torch.log(p_lap), zero))
-    acc["lap_cnt"] = acc["lap_cnt"] + _sum0(contrib.to(alpha_pre.dtype))
+    acc["lap_sum"] = _sum0(torch.where(contrib, -torch.log(p_lap), zero))
+    acc["lap_cnt"] = _sum0(contrib.to(alpha_pre.dtype))
+    if grid.surface_type in UDF_TYPES:
+        # clamp(n_lv_in_hull - 1, 0) * var(8 corners, unbiased) over the
+        # candidate voxels (svox2.py:2597-2606)
+        vox_ok, surf8T = smp["vox_ok"], smp["surf8T"]
+        dtype = surf8T.dtype
+        if opt.surf_fake_sample and not opt.limited_fake_sample:
+            n_lv = float(grid.level_set_data.shape[0])
+            n_hull = torch.where(vox_ok, torch.full_like(surf8T[0], n_lv),
+                                 torch.zeros_like(surf8T[0]))
+        else:
+            n_hull = _sum0(smp["lv_ok"].to(dtype))
+            if grid.surface_type == defs.SURFACE_TYPE_UDF_FAKE_SAMPLE:
+                n_hull = torch.clamp(n_hull, min=1.0)
+        mu = _sum0(surf8T) / 8.0
+        dev_ = surf8T - mu[None, :]
+        var = _sum0(dev_ * dev_) / 7.0
+        acc["udf_var_sum"] = torch.where(vox_ok, torch.clamp(n_hull - 1.0, min=0.0) * var,
+                                         torch.zeros_like(var))
+        acc["udf_var_cnt"] = vox_ok.to(dtype)
     return acc
 
 
@@ -663,9 +789,8 @@ def _voxel_samples_plain(grid, opt, pool: Pool, origins, dirs, sh_mult, near_gri
         pool.l.T, pool.close_t, pool.far_t,
         torch.ones_like(pool.close_t, dtype=torch.bool), packed,
     )
-    zero = torch.zeros_like(pool.close_t)
-    acc = _accumulate_sample_losses_T({"l_inward": zero, "lap_sum": zero, "lap_cnt": zero}, dT, smp)
-    smp["loss_e"] = torch.stack([acc["l_inward"], acc["lap_sum"], acc["lap_cnt"]], 0)
+    acc = _accumulate_sample_losses_T(grid, opt, dT, smp)
+    smp["loss_e"] = torch.stack([acc[k] for k in _LOSS_E_KEYS if k in acc], 0)
     return smp
 
 
@@ -673,12 +798,13 @@ def voxel_samples(grid: SparseGrid, opt: RenderOptions, pool: Pool, origins, dir
                   sh_mult, near_grid_t: float, packed) -> dict:
     """K3: per pool entry the (S0, M) slot arrays t, alpha (pre-truncation),
     contrib, fake, counted; (3, S0, M) rgb and snorm; and ``loss_e`` (3, M),
-    the entry's inward-norm, density-lap and lap-count sums."""
+    the entry's inward-norm, density-lap and lap-count sums, with the UDF
+    types' udf-var sum and count (5, M)."""
     if not origins.is_cuda:
         return _voxel_samples_plain(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed)
     return kernels.phase_b(
         pool.ray_id, pool.l, pool.close_t, pool.far_t, origins, dirs, sh_mult,
-        grid.links, packed, grid.surface_data.shape[1], grid.level_set_data,
+        grid.links, packed, _surface_spec(grid), grid.level_set_data,
         near_grid_t, _fss(grid), opt,
     )
 
@@ -686,6 +812,15 @@ def voxel_samples(grid: SparseGrid, opt: RenderOptions, pool: Pool, origins, dir
 def _fss(grid: SparseGrid):
     """The grid's fake_sample_std as the kernels read it (None: 1)."""
     return None if grid.fake_sample_std is None else grid.fake_sample_std.detach()
+
+
+def _surface_spec(grid: SparseGrid) -> kernels.SurfaceSpec:
+    """What K3 and K5b need to know of the grid's surface type: its type,
+    the surface channels of a row, and UDF_ALPHA's per-level-set alphas."""
+    table = None
+    if grid.surface_type == defs.SURFACE_TYPE_UDF_ALPHA:
+        table = grid.density_data.detach()[:, 0].contiguous()
+    return kernels.SurfaceSpec(grid.surface_type, grid.surface_data.shape[1], table)
 
 
 # ---------------------------------------------------------------------------
@@ -877,12 +1012,12 @@ def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None,
     w_sg = torch.where(contrib, weight, zero).detach()  # weights detached (surface.py:1941)
     win_e = win[ray, pos]
     loss_e_in = torch.where(win_e[None, :], smp["loss_e"], torch.zeros_like(smp["loss_e"]))
-    loss_e = torch.zeros((3, B), dtype=dtype, device=dev).index_add_(1, ray, loss_e_in)
-    zeros_b = torch.zeros(B, dtype=dtype, device=dev)
+    loss_e = torch.zeros((5, B), dtype=dtype, device=dev)
+    loss_e[:loss_e_in.shape[0]].index_add_(1, ray, loss_e_in)
     losses = [
         l_dist, l_dist_a, entropy(w_i), entropy(a_i),
         logsig.sum(dim=1), (logsig * w_sg).sum(dim=1), w_sg.sum(dim=1),
-        loss_e[0], loss_e[1], loss_e[2], zeros_b, zeros_b,
+        *loss_e,
     ]
     c3 = contrib.reshape(B, E, S0)
     samples = {
@@ -1028,7 +1163,7 @@ class _SurfaceFn(torch.autograd.Function):
             if g is not None and bool(torch.any(g != 0)):
                 raise NotImplementedError(
                     f"a gradient through {name!r} of the packed renderer is not ported yet "
-                    "(ROADMAP §2 item 4); K5 carries rgb, ray_losses and the cache"
+                    "(ROADMAP §2 item 3); K5 carries rgb, ray_losses and the cache"
                 )
         c, smp = ctx.chunk, ctx.smp
         B = c.origins.shape[0]
@@ -1046,7 +1181,7 @@ class _SurfaceFn(torch.autograd.Function):
         need = ctx.needs_input_grad
         g_density, g_surface, g_sh, g_fss, *g_shm = kernels.backward_entry(
             c.pool.ray_id, c.pool.l, c.pool.close_t, c.pool.far_t, c.origins, c.dirs, c.sh_mult,
-            c.grid.links, c.packed, c.grid.surface_data.shape[1], c.grid.level_set_data,
+            c.grid.links, c.packed, _surface_spec(c.grid), c.grid.level_set_data,
             c.near_grid_t, _fss(c.grid), c.opt, smp["contrib"], d_alpha, d_t, d_col, g_rl,
             ctx.win, want_sh_mult=need[5])
         g_bg = g_rgb * torch.exp(ctx.log_T)[:, None] if need[4] else None
@@ -1118,7 +1253,7 @@ def _render_pool(grid, opt, prep, pool, mode: _Mode, packed, sig_thresh=None,
         if sig_thresh is not None or want_live:
             raise NotImplementedError(
                 "return_intersections and depth_sigma_thresh are outputs of the forward "
-                "render; K5 does not carry them (ROADMAP §2 item 4)")
+                "render; K5 does not carry them (ROADMAP §2 item 3)")
         chunk = _Chunk(grid, opt, pool, origins, dirs, sh_mult.detach().contiguous(), near_grid_t,
                        packed, mode)
         res = _SurfaceFn.apply(*params, bg_rgb, sh_mult, chunk)
@@ -1179,9 +1314,15 @@ def volume_render_surface(grid: SparseGrid, rays: Rays, opt: RenderOptions,
     package's, with its ``cache`` and cached ``depth_med`` when
     ``cache_size`` is set; ``return_samples`` (the plain path only) adds the
     per-slot ``samples``. ``occupancy`` and ``packed`` may be shared across
-    chunks, as for the packed renderer."""
+    chunks, as for the packed renderer; on a UDF grid the walk's words are
+    ``occupancy_words(grid, opt, candidates=True)``."""
     if max_voxels is None:
         max_voxels = max_voxels_for(grid)
+    if occupancy is None and grid.surface_type in UDF_TYPES:
+        # the JAX walk hands every walked voxel to its samples: the udf-var
+        # count takes the voxels outside the level-set hull too
+        with torch.no_grad():
+            occupancy = occupancy_words(grid, opt, candidates=True)
     origins, dirs, sh_mult, tnear, tmax, ngt, ray_ok, words, bg = _begin(grid, rays, opt,
                                                                           occupancy)
     with torch.no_grad():

@@ -202,7 +202,7 @@ def _check_config(cfg: StepConfig) -> None:
         raise ValueError(f"renderer {cfg.renderer!r}; one of {RENDERERS}")
     if cfg.axis_name is not None:
         raise NotImplementedError("data-parallel steps (axis_name) are not ported yet "
-                                  "(ROADMAP §1 item 4)")
+                                  "(ROADMAP §1 item 3)")
 
 
 def _check_rms(rms: dict) -> None:
@@ -455,14 +455,14 @@ def make_cuvol_step(cfg: StepConfig):
     if cfg.renderer != "packed":
         raise NotImplementedError(
             f"a cuvol step with renderer {cfg.renderer!r} trains through the dense march, whose "
-            "backward is not ported (ROADMAP §2 item 4); use renderer='packed'")
+            "backward is not ported (ROADMAP §2 item 2); use renderer='packed'")
 
     def step(grid: SparseGrid, rms: dict, rays: Rays, rgb_gt: torch.Tensor, hp: HParams,
              generator: torch.Generator, occ=None, row_coords=None, window_starts=None):
         if occ is None:
             raise NotImplementedError(
                 "a cuvol step without an occupancy trains through the dense march, whose "
-                "backward is not ported (ROADMAP §2 item 4); pass "
+                "backward is not ported (ROADMAP §2 item 2); pass "
                 "occ=render.cuvol.density_occupancy_words(grid)")
         _check_rms(rms)
         starts = _window_starts(window_starts, CUVOL_WINDOWS)

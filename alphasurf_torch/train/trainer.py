@@ -14,7 +14,7 @@ is logged with its capacity, its wall seconds and the voxels the
 occupancy (K1d or K1) finds occupied before it and at its first refresh
 after it, kept in ``transitions`` and written to ``transitions.json`` in
 the train dir.
-Multi-device runs raise (ROADMAP §1 item 4). ``surface_renderer`` picks
+Multi-device runs raise (ROADMAP §1 item 3). ``surface_renderer`` picks
 the surface steps' renderer (packed, compact or dense), and
 ``lambda_conv_mode_samp`` > 0 or ``lambda_l_samp_dist`` > 0 turns on the
 two-pass losses on the first-K sample cache, as in the JAX Trainer.
@@ -83,7 +83,7 @@ class Trainer:
         if n_dev > 1 or int(getattr(cfg, "mesh_model", 1)) > 1:
             raise NotImplementedError(
                 f"multi-device training (n_devices={cfg.n_devices}, mesh_model="
-                f"{cfg.mesh_model}) is not ported yet (ROADMAP §1 item 4)")
+                f"{cfg.mesh_model}) is not ported yet (ROADMAP §1 item 3)")
         os.makedirs(cfg.train_dir, exist_ok=True)
         self.log_lines = []
         # the effective config, for reproducibility (opt.py:81-86)
@@ -231,7 +231,7 @@ class Trainer:
             # the warm start trains through the packed cuvol renderer (K8)
             # whatever surface_renderer is: JAX sends it through the dense
             # march for 'compact' and 'dense', whose gradient is not ported
-            # (ROADMAP §2 item 4; §3 records the deviation)
+            # (ROADMAP §2 item 2; §3 records the deviation)
             renderer=cfg.surface_renderer if kind == "surface" else "packed",
         )
         fn = make_cuvol_step(scfg) if kind == "cuvol" else make_surface_step(scfg)

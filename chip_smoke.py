@@ -14,7 +14,8 @@ fill, K11c the first-K cache in K4, K11d its gradient in K5, K12a-K12d the
 extended surface regularizers, K12e the lumisphere TV, K12f the background
 TV, K13 the MSI background forward and backward, K12g the learned texture's
 TV, K5b's and K8's per-ray basis gradient, K14 the compat marches nvol and
-svox1 forward and backward), then:
+svox1 forward and backward, and the surface types' branches of K1, K3,
+K4, K5b and K6), then:
 
 1. prints the card, its power limit, nvcc's register/spill lines and the
    build seconds;
@@ -42,7 +43,7 @@ svox1 forward and backward), then:
    plain step on a CPU copy at 128^3; ``alphasurf_torch.app.bench_step.main
    --stage cuvol`` at 256^3, batch 40960; then the Trainer through
    ``alphasurf_torch.app.train.main`` on the synthetic dataset (20 train and
-   2 test views at 800x800), 256^3, the Config defaults otherwise, 100
+   2 test views at 800x800), 256^3, the Config defaults otherwise, 40
    steps and a final eval whose PSNR must beat the untrained grid's, with
    the counters set to 0 just before and read just after; then one
    profiled cuvol step;
@@ -67,14 +68,14 @@ svox1 forward and backward), then:
    maxima), each timed; ``app/extract_points.main`` and
    ``app/eval_cf.main`` on the shell (Chamfer below 0.01); then
    ``app/pipeline.run_pipeline`` at 256^3 (20 train and 2 test views at
-   800x800, 100 + 100 steps, the weight init of the surface stage at the
+   800x800, 60 + 60 steps, the weight init of the surface stage at the
    recipe's surface learning rate) with
    the counters set to 0 just before and read just after: every kernel
    of its path launched, a PSNR above the untrained grid's, points and a
    finite Chamfer;
 8. the DTU masked-capture path: K9f against its plain version on one
    16,384-ray chunk of a 1600x1200 view of the 256^3 blobby grid, timed;
-   a DTU-format scan written by the port (12 views at 1600x1200 of
+   a DTU-format scan written by the port (8 views at 1600x1200 of
    make_gt_grid(256), PNG images and masks, cameras_sphere.npz); then,
    with the counters set to 0 just before and read just after,
    ``alphasurf_torch.app.train.main`` on it with dataset_type dtu (the
@@ -101,7 +102,7 @@ svox1 forward and backward), then:
    train step with all four on against the plain step at 128^3 and
    bench_step's protocol with them at full width, with a profiled step;
    a Blender-layout scene written by the script (make_gt_grid(256)
-   through the dense walk, 50 train and 8 test RGBA views at 800x800,
+   through the dense walk, 40 train and 8 test RGBA views at 800x800,
    nerf_synthetic's camera angle); then, with the counters set to 0 just
    before and read just after, app/pipeline.run_pipeline with
    dataset_type nerf on it at 256^3 (K12d through the Trainer's
@@ -119,7 +120,7 @@ svox1 forward and backward), then:
    then, with the counters set to 0 just before and read just after,
    app/train.main on it with dataset_type nsvf (resumed from a checkpoint
    holding the ground-truth MSI: the warm start, init_surface and the
-   surface stage, 60 + 60 steps) and app/render_imgs on the test split,
+   surface stage, 30 + 30 steps) and app/render_imgs on the test split,
    beside the same run without a background (the run with it must score
    higher); one 1920x1080 frame through app/render_circle from each;
 12. the learned bases: K12g against its plain version on the 32^3 x 9
@@ -139,10 +140,21 @@ svox1 forward and backward), then:
    then, with the counters set to 0 just before and read just after, an
    800x800 frame and a chunk's gradient through volume_render in each
    mode; to_svox1_npz of the grid's shell, reloaded and walked;
-14. prints one JSON line with each kernel's numbers, then the ok line.
+14. the other surface types (PLANE, UDF, UDF_ALPHA, UDF_FAKE_SAMPLE,
+   VOXEL_FACE), each on create_grid(256, its initialiser, the sphere
+   bound, basis_dim 9) with SH from a seed: its branches of K1, K3 (and
+   K4 on its slots), K5b and, for UDF_ALPHA's one-per-level-set alpha
+   table, K6 against their plain versions on a 16,384-ray chunk, each
+   timed; then, with the counters set to 0 just before and read just
+   after, two 800x800 frames through app/render_circle and bench.py's
+   protocol (1 + 33 steps of 40960 rays) through make_surface_step, with
+   finite, falling losses; then app/train.main with surface_type udf after
+   a 256^3 warm start (train_udf.sh's shape), its eval PSNR above the
+   untrained grid's;
+15. prints one JSON line with each kernel's numbers, then the ok line.
 
 ``--phases`` runs a subset (kernels, serve, train, warm, stages,
-extract, dtu, renderers, blender, tnt, basis, compat); the default runs
+extract, dtu, renderers, blender, tnt, basis, compat, types); the default runs
 them all, as the checks above require. Exits non-zero, printing no result,
 without a CUDA device or without the ``alphasurf_torch`` package beside
 it. Imports nothing of JAX.
@@ -277,6 +289,19 @@ KERNELS = {  # name -> (source, the JAX routine it replaces)
     "compat_forward_svox1": ("alphasurf_torch/csrc/compat.cu", f"{_JAX_COMPAT}:115"),
     "compat_backward_svox1": ("alphasurf_torch/csrc/compat.cu", f"{_JAX_COMPAT}:115"),
 }
+# the surface types' branches of K1, K3 and K5b (kernels.TYPE_NAMES), each at
+# the JAX lines of its branch, and K6 on UDF_ALPHA's density table
+_TYPE_LINES = {  # type -> (voxel_occupancy, _voxel_samples_T) lines of its branch
+    "plane": (1221, 590), "udf": (1179, 534), "udf_alpha": (1171, 646),
+    "udf_fake_sample": (1203, 754), "voxel_face": (1221, 556),
+}
+for _t, (_k1, _k3) in _TYPE_LINES.items():
+    KERNELS[f"occupancy_{_t}"] = ("alphasurf_torch/csrc/occupancy.cu", f"{_JAX_SURFACE}:{_k1}")
+    KERNELS[f"phase_b_{_t}"] = ("alphasurf_torch/csrc/phase_b.cu", f"{_JAX_SURFACE}:{_k3}")
+    KERNELS[f"backward_entry_{_t}"] = ("alphasurf_torch/csrc/backward.cu", f"{_JAX_SURFACE}:{_k3}")
+KERNELS["reg_sparsify_table"] = ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:305")
+TYPE_KERNELS = tuple(k for k in KERNELS if k.endswith(tuple(f"_{t}" for t in _TYPE_LINES))
+                     or k.endswith("_table"))
 SERVE_KERNELS = ("occupancy", "phase_a_count", "phase_a_fill", "phase_b", "composite")
 TRAIN_KERNELS = SERVE_KERNELS + ("backward_ray", "backward_entry", "reg_tv", "reg_normal",
                                  "reg_sparsify", "rmsprop")
@@ -301,7 +326,7 @@ COMPAT_KERNELS = ("compat_forward_nvol", "compat_backward_nvol", "compat_forward
 # the learned bases' and K14's
 STAGE_RUN_KERNELS = tuple(k for k in KERNELS if k not in ("transmit_march",) + DTU_KERNELS
                           + RENDERER_KERNELS + EXTENDED_KERNELS + BACKGROUND_KERNELS
-                          + BASIS_KERNELS + COMPAT_KERNELS)
+                          + BASIS_KERNELS + COMPAT_KERNELS + TYPE_KERNELS)
 # the pipeline: the Plenoxels stage and its eval, the weight init with
 # visibility pruning, the surface stage, the extraction
 PIPELINE_KERNELS = TRAIN_KERNELS + WARM_NEW_KERNELS + (
@@ -312,11 +337,11 @@ PIPELINE_KERNELS = TRAIN_KERNELS + WARM_NEW_KERNELS + (
 # K12's, K13's, the learned bases' and K14's
 DTU_PATH_KERNELS = tuple(k for k in KERNELS if k not in ("transmit_march",) + RENDERER_KERNELS
                          + EXTENDED_KERNELS + BACKGROUND_KERNELS + BASIS_KERNELS
-                         + COMPAT_KERNELS)
+                         + COMPAT_KERNELS + TYPE_KERNELS)
 PHASES = ("kernels", "serve", "train", "warm", "stages", "extract", "dtu", "renderers", "blender",
-          "tnt", "basis", "compat")
+          "tnt", "basis", "compat", "types")
 CUVOL_RESO = 256  # the warm start's grid (the Config's first reso)
-WARM_STEPS = 100  # Trainer steps of the warm-start run
+WARM_STEPS = 40  # Trainer steps of the warm-start run (cut from 100 for time)
 TRAIN_BATCH = 40960
 # the loss of the K5 check: the bench loss (mse against 0.5, bench.py's
 # l_entropy weight) plus small weights on every other ray loss that carries
@@ -469,7 +494,7 @@ def check_kernels(device, card: str) -> dict:
 
         def k1(g=g, dens=dens, surf=surf):
             return kernels.occupancy(g.links, dens, surf, g.level_set_data, serve.sigma_thresh,
-                                     S._hull_test(serve))
+                                     S._hull_test(g, serve))
 
         words = k1()
         ref = S._occupancy_words_plain(g, serve)
@@ -533,7 +558,8 @@ def check_kernels(device, card: str) -> dict:
 
     def k3():
         return kernels.phase_b(pool.ray_id, pool.l, pool.close_t, pool.far_t, origins, dirs,
-                               sh_mult, grid.links, packed, 1, grid.level_set_data, ngt, fss,
+                               sh_mult, grid.links, packed, kernels.SDF, grid.level_set_data, ngt,
+                               fss,
                                bench_opt)
 
     sk = k3()
@@ -741,8 +767,8 @@ def check_backward(grid, opt, rays, words, pool, packed, origins, dirs, sh_mult,
 
     def k5b():
         return kernels.backward_entry(pool.ray_id, pool.l, pool.close_t, pool.far_t, origins, dirs,
-                                      sh_mult, grid.links, packed, 1, grid.level_set_data, ngt,
-                                      fss, opt, sk["contrib"], d_alpha, d_t, d_col, g_rl)
+                                      sh_mult, grid.links, packed, kernels.SDF, grid.level_set_data,
+                                      ngt, fss, opt, sk["contrib"], d_alpha, d_t, d_col, g_rl)
 
     M, S0 = pool.close_t.shape[0], sk["n_slots"]
     pos = torch.unique(torch.stack([
@@ -779,9 +805,10 @@ def window_stats(grid, cells, offsets) -> tuple[int, int]:
     return cells.numel() * 4 + lk.numel() * 4, int((lk >= 0).sum())
 
 
-def reg_check(label: str, run_kernel, run_plain, grid, fields) -> tuple[float, float, float]:
+def reg_check(label: str, run_kernel, run_plain, grid, fields,
+              rel: float = REG_REL) -> tuple[float, float, float]:
     """K6 against the plain version's autograd: (max abs err, kernel ms,
-    plain ms)."""
+    plain ms); each gradient to ``rel`` of its norm."""
     import torch
 
     loss_k, *g_kernel = run_kernel()
@@ -804,9 +831,9 @@ def reg_check(label: str, run_kernel, run_plain, grid, fields) -> tuple[float, f
     errs = [abs(lk - lp)]
     ok = abs(lk - lp) <= REG_LOSS_RTOL * abs(lp)
     for gk, gp in zip(g_kernel, g_plain):
-        rel = float((gk - gp).double().norm() / gp.double().norm().clamp(min=1e-30))
+        rel_err = float((gk - gp).double().norm() / gp.double().norm().clamp(min=1e-30))
         errs.append(float((gk - gp).abs().max()))
-        ok = ok and rel <= REG_REL
+        ok = ok and rel_err <= rel
     log(f"  {label}: loss {lk:.7e} (plain {lp:.7e}), grad max abs err {max(errs[1:]):.3e}")
     if not ok:
         raise AssertionError(f"K6 {label} differs from its plain version")
@@ -1575,7 +1602,9 @@ def warm(device, card: str, work: Path) -> tuple[dict, dict]:
 # the stage transitions
 # ---------------------------------------------------------------------------
 
-STAGE_STEPS = (100, 100, 50)  # warm start, surface at 256^3, surface at 512^3
+# warm start, surface at 256^3, surface at 512^3: the three-stage, dtu and
+# two-pass cells (cut from 100 / 100 / 50 for time)
+STAGE_STEPS = (60, 60, 30)
 UPSAMPLE_RESO = 512
 MAX_ELEMENTS = 6_000_000  # the recipe's max_grid_elements (recipe_run.py:114)
 SURF_LVS = (2.0, 6.0)  # the recipe's density level sets (recipe_run.py:105)
@@ -2036,7 +2065,10 @@ ISO_N = 5  # extract_points' samples along a cell face
 ISO_BATCH = 65536  # cells a K9g launch, the JAX package's batch
 INTERSECT_TH = 0.1  # train_eval.sh --intersect_th, an alpha
 GT_POINTS = 20000  # points of synthetic_gt_points
-PIPELINE_STEPS = (100, 100)  # Plenoxels, surface
+PIPELINE_STEPS = (100, 100)  # Plenoxels, surface: the Blender pipeline's
+# the extraction phase's pipeline (cut from PIPELINE_STEPS for time; the
+# Blender cell keeps its steps, its PSNR margin is 0.58 dB)
+EXTRACT_PIPELINE_STEPS = (60, 60)
 PIPELINE_VIEWS = 20  # train views of the pipeline's dataset
 PIPELINE_BATCH = 8192
 # the surface stage's overrides: the weight init, so that K9e runs, and the
@@ -2241,7 +2273,7 @@ def check_apps(device, card: str, ckpt: Path, work: Path) -> None:
 
 def pipeline_run(device, card: str, work: Path) -> dict:
     """Phase 7d: app/pipeline.run_pipeline at full width (CUVOL_RESO^3,
-    PIPELINE_VIEWS train and 2 test views at 800x800, PIPELINE_STEPS, the surface stage
+    PIPELINE_VIEWS train and 2 test views at 800x800, EXTRACT_PIPELINE_STEPS, the surface stage
     with PIPELINE_SURFACE, train_eval.sh's Chamfer downsample 0.001), with
     the counters set to 0 just before and read just after. Returns the
     run's launches."""
@@ -2259,7 +2291,7 @@ def pipeline_run(device, card: str, work: Path) -> dict:
     t0 = time.perf_counter()
     res = pipeline.run_pipeline(
         str(out_dir), reso=CUVOL_RESO, n_train_images=PIPELINE_VIEWS, image_size=WIDTH,
-        n_iters_plenoxels=PIPELINE_STEPS[0], n_iters_surface=PIPELINE_STEPS[1],
+        n_iters_plenoxels=EXTRACT_PIPELINE_STEPS[0], n_iters_surface=EXTRACT_PIPELINE_STEPS[1],
         batch_size=PIPELINE_BATCH, n_eval_images=2, overrides_surface=PIPELINE_SURFACE,
         eval_downsample=0.001, device=device)
     torch.cuda.synchronize()
@@ -2282,8 +2314,8 @@ def pipeline_run(device, card: str, work: Path) -> dict:
                                  reso=CUVOL_RESO, device=device)
     psnr0 = eval_untrained(device, dset_test)
     s = res["summary"]
-    log(f"pipeline at {CUVOL_RESO}^3, {PIPELINE_STEPS} steps of {PIPELINE_BATCH} rays: PSNR "
-        f"{s['psnr']:.4f} against the untrained grid's {psnr0:.4f}, {st['extract']['n_points']} "
+    log(f"pipeline at {CUVOL_RESO}^3, {EXTRACT_PIPELINE_STEPS} steps of {PIPELINE_BATCH} rays: "
+        f"PSNR {s['psnr']:.4f} against the untrained grid's {psnr0:.4f}, {st['extract']['n_points']} "
         f"points, Chamfer {s['chamfer']:.5f}, {wall:.2f} s in all (data set-up included), "
         f"max_memory_allocated {peak / 2**30:.3f} GiB [{card}]")
     if not (s["psnr"] > psnr0 and st["extract"]["n_points"] > 0 and math.isfinite(s["chamfer"])
@@ -2311,7 +2343,7 @@ def extract(device, card: str, work: Path) -> tuple[dict, dict]:
 # the DTU masked-capture path
 # ---------------------------------------------------------------------------
 
-DTU_VIEWS = 12  # a DTU scan has 49 or 64: the depth cut of the time limit
+DTU_VIEWS = 8  # a DTU scan has 49 or 64: the depth cut of the time limit
 DTU_W, DTU_H = 1600, 1200  # DTU's own image size
 DTU_FOCAL = 2400.0
 MM_PER_UNIT = 100.0  # scale_mat: the unit sphere onto a 100 mm object
@@ -2575,7 +2607,7 @@ def check_mask_kernel(device, card: str) -> dict:
 
 def dtu(device, card: str, work: Path) -> tuple[dict, dict]:
     """Phase 8: the DTU masked-capture path. K9f against its plain version;
-    a DTU-format scene of 12 views at 1600x1200 written by the port; then,
+    a DTU-format scene of DTU_VIEWS views at 1600x1200 written by the port; then,
     with the counters set to 0 just before and read just after,
     app/train.main on it with dataset_type dtu (the warm start, mask
     pruning over all 30.7M training rays, each K9f launch held against the
@@ -3181,7 +3213,7 @@ EXT_HP = {"lambda_norm_match": 1e-4, "lambda_viscosity": 1e-4, "lambda_sign_chan
           "lambda_eikonal": 1e-4}
 VISCOSITY_ETA = 1e-2  # StepConfig.viscosity_eta's default
 CAMERA_ANGLE_X = 0.6911112  # nerf_synthetic's
-BLENDER_TRAIN, BLENDER_TEST = 50, 8  # nerf_synthetic: 100 train, 200 test (cut for time)
+BLENDER_TRAIN, BLENDER_TEST = 40, 8  # nerf_synthetic: 100 train, 200 test (cut for time)
 SCENE_SCALE = 2.0 / 3.0  # the NeRF loader's default
 # the eikonal weight of the pipeline's surface stage: near a tenth of the
 # stage's test mse, as two_pass_config chose its weights (at 3e-3 the
@@ -3469,7 +3501,7 @@ def blender(device, card: str, work: Path) -> tuple[dict, dict]:
     protocol with them at full width; a Blender-layout scene; then, with the
     counters set to 0 just before and read just after,
     app/pipeline.run_pipeline with dataset_type "nerf" at CUVOL_RESO^3 (the
-    extraction cell's 100 + 100 steps of 8192, the weight init at the
+    PIPELINE_STEPS, 100 + 100 steps of 8192, the weight init at the
     recipe's surface rate, lambda_surface_eikonal BLENDER_EIKONAL): every
     kernel of its path launched (K12d through the Trainer), a test PSNR
     above the untrained grid's, a finite Chamfer against the scene's GT
@@ -3610,8 +3642,8 @@ def blender(device, card: str, work: Path) -> tuple[dict, dict]:
 
 TNT_W, TNT_H = 1920, 1080  # Tanks and Temples' image size
 TNT_FOCAL = 1165.0  # near the intrinsics of Tanks and Temples' 1920x1080 captures
-TNT_TRAIN, TNT_TEST = 12, 2  # cut from a capture's few hundred views for the time limit
-TNT_STEPS = (60, 60)  # warm start, surface stage: cut from STAGE_STEPS' 100 + 100 for time
+TNT_TRAIN, TNT_TEST = 8, 2  # cut from a capture's few hundred views for the time limit
+TNT_STEPS = (30, 30)  # warm start, surface stage: cut from 100 + 100 for time
 BG_LAYERS, BG_RESO = 64, 1024  # the Plenoxels Tanks-and-Temples background
 CAM_SCALE_FACTOR = 0.95  # the NSVF loader's: cameras at a median radius 0.95
 TNT_OBJECT_RADIUS = 0.25  # the object's sphere, in the normalised scene (cameras outside it)
@@ -4188,7 +4220,7 @@ def tnt_run(device, card: str, work: Path, scene: Path, with_bg: bool) -> dict:
 
 def tnt(device, card: str, work: Path) -> tuple[dict, dict]:
     """Phase 11: the Tanks-and-Temples-style capture. An NSVF-layout scene
-    (write_tnt_scene: 12 + 2 views at 1920x1080, cameras at radius 0.95
+    (write_tnt_scene: TNT_TRAIN + TNT_TEST views at 1920x1080, cameras at radius 0.95
     inside the foreground grid, the 64 x 1024 MSI behind); K13, K12e and
     K12f against their plain versions and K4, K5a, K8 and K10 with per-ray
     colours (check_background_kernels); the step at bench.py's protocol
@@ -4434,7 +4466,7 @@ def check_basis_kernels(device, card: str) -> dict:
     packed = S.pack_grid_data(grid)
     fss = grid.fake_sample_std.detach()
     sk = kernels.phase_b(pool.ray_id, pool.l, pool.close_t, pool.far_t, origins, dirs, sh_mult,
-                         grid.links, packed, 1, grid.level_set_data, ngt, fss, opt)
+                         grid.links, packed, kernels.SDF, grid.level_set_data, ngt, fss, opt)
     ck = kernels.composite(pool.offsets, sk, grid.truncated_vol_render_a, opt)
     g_rgb = (2.0 * (ck["rgb"] - 0.5) / (3 * B)).contiguous()
     g_rl = torch.zeros((12, B), dtype=torch.float32, device=device)
@@ -4445,7 +4477,7 @@ def check_basis_kernels(device, card: str) -> dict:
         e = slice(None) if sub is None else sub
         return kernels.backward_entry(
             pool.ray_id[e].contiguous(), pool.l[e].contiguous(), pool.close_t[e].contiguous(),
-            pool.far_t[e].contiguous(), origins, dirs, sh_mult, grid.links, packed, 1,
+            pool.far_t[e].contiguous(), origins, dirs, sh_mult, grid.links, packed, kernels.SDF,
             grid.level_set_data, ngt, fs, opt, sk["contrib"][:, e].contiguous(),
             d_alpha[:, e].contiguous(), d_t[:, e].contiguous(), d_col[:, :, e].contiguous(), g_rl,
             None, want_sh_mult=want)
@@ -4850,6 +4882,505 @@ def compat(device, card: str, work: Path) -> tuple[dict, dict]:
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# the other surface types: PLANE, UDF, UDF_ALPHA, UDF_FAKE_SAMPLE, VOXEL_FACE
+# ---------------------------------------------------------------------------
+
+TYPES_RESO = 256  # the recipe's surface-stage width, and the dtu, blender and tnt cells'
+# name: (Config's surface_type, initialiser, render options of the checks and
+# steps): the JAX package's tests/test_trainability_types.py and
+# test_surface_init.py choices; the base options are the trainability test's
+SURFACE_TYPES = {
+    "plane": ("plane", "sphere", {}),
+    "udf": ("udf", "single_lv", {}),
+    "udf_alpha": ("udf_alpha", "single_lv", dict(surf_fake_sample=True,
+                                                 limited_fake_sample=True)),
+    "udf_fake_sample": ("udf_fake_sample", "single_lv_multi_sphere",
+                        dict(surf_fake_sample=True)),
+    "voxel_face": ("voxel_face", None, {}),
+}
+TYPE_BASE_OPT = dict(sigma_thresh=-1e9, stop_thresh=1e-7)
+# The alpha gates, held at the Config's sigma_thresh on grids whose alphas
+# lie on both sides of it (gate_grid): UDF_ALPHA with GATE_LEVEL_SETS level
+# sets (past K5b's per-warp table of 64) and every third table row below the
+# threshold, UDF_FAKE_SAMPLE with raw alpha uniform in [-3, 1]. These pools
+# are several times the main grids' a ray, so their chunk is GATE_RAYS.
+GATE_SIGMA = 1e-8
+GATE_LEVEL_SETS = 66
+GATE_RAYS = 2048
+# K1-K5 branch of each type against its plain version, both float32 on the
+# card: K1 equal (the same comparisons; softplus in torch.logaddexp's
+# arithmetic); K3 and K5 to check_kernels' RTOL/ATOL and GRAD_* (the same
+# per-entry arithmetic; sums in other orders). K6's one-row table: every
+# cell of the window adds to UDF_ALPHA's single alpha, ~88k float32 terms
+# summed per warp and then by atomics in any order against autograd's
+# reduction, so its gradient holds to TABLE_REL of its size.
+TABLE_REL = 1e-4
+# Where a ray grazes a level set the cubic has a near-double root, whose
+# float32 position moves with the last bits of its coefficients: at most
+# ROOT_FRACTION of a type's K3 values may differ beyond RTOL/ATOL (1 of
+# 104k rgb values of UDF_FAKE_SAMPLE's nested spheres in a host build of
+# phase_b.cu against the plain version on the CPU).
+ROOT_FRACTION = 1e-4
+TYPE_STEPS = 33  # bench.py's protocol: 1 + 33 steps of TRAIN_BATCH rays
+UDF_RUN_STEPS = (40, 20)  # the UDF Trainer run: warm start, UDF stage
+
+
+def type_grid(name: str, device, seed: int = SEED):
+    """create_grid(256, surface_type, initialiser, use_sphere_bound,
+    basis_dim 9) of ``name``, SH drawn from ``seed`` (0.3 N(0, 1)), raw
+    alpha uniform in [0.5, 3] (UDF_ALPHA's one-per-level-set table at 1.0),
+    and a fake_sample_std of 0.3 where the type's options take fake
+    samples."""
+    import torch
+
+    from alphasurf_torch import defs
+    from alphasurf_torch.core.grid import create_grid
+
+    stype, init, opts = SURFACE_TYPES[name]
+    grid = create_grid(TYPES_RESO, surface_type=defs.SURFACE_TYPE_STRS[stype], surface_init=init,
+                       use_sphere_bound=True, basis_dim=9, device=device,
+                       trainable_fake_sample_std=bool(opts.get("surf_fake_sample")))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        grid.sh_data.copy_(0.3 * torch.randn(grid.sh_data.shape, generator=gen, device=device))
+        if name == "udf_alpha":
+            grid.density_data.fill_(1.0)
+        else:
+            grid.density_data.uniform_(0.5, 3.0, generator=gen)
+        if grid.fake_sample_std is not None:
+            grid.fake_sample_std.fill_(0.3)
+    return grid
+
+
+def type_options(name: str):
+    from alphasurf_torch.core.options import RenderOptions
+
+    return RenderOptions(**TYPE_BASE_OPT, **SURFACE_TYPES[name][2])
+
+
+def gate_grid(name: str, grid):
+    """``grid`` with alphas on both sides of GATE_SIGMA: UDF_ALPHA's
+    GATE_LEVEL_SETS level sets 0.25 apart around its own, each third row of
+    their table at -1 and the others at 1; UDF_FAKE_SAMPLE's raw alpha
+    uniform in [-3, 1]."""
+    import torch
+
+    dev = grid.links.device
+    if name == "udf_alpha":
+        i = torch.arange(GATE_LEVEL_SETS, device=dev)
+        lv = grid.level_set_data[0] + 0.25 * (i - GATE_LEVEL_SETS // 2).float()
+        table = torch.where(i % 3 == 1, -1.0, 1.0).float()[:, None]
+        return grid.replace(level_set_data=lv, density_data=table)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dens = torch.empty_like(grid.density_data).uniform_(-3.0, 1.0, generator=gen)
+    return grid.replace(density_data=dens)
+
+
+def check_type_kernels(name: str, grid, card: str, opt=None, n_rays: int = CHUNK,
+                       timed: bool = True) -> dict:
+    """The type's branches of K1, K3, K4's input, K5 (and, for UDF_ALPHA,
+    K6 on its table) against their plain versions on an ``n_rays`` chunk of
+    an 800x800 frame at ``opt`` (type_options by default), each timed.
+    Returns the variants' numbers, or with ``timed`` off their errors."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.render import surface as S
+
+    opt = type_options(name) if opt is None else opt
+    R = TYPES_RESO
+    # K1
+    words = S.occupancy_words(grid, opt)
+    ref = S._occupancy_words_plain(grid, opt)
+    if not torch.equal(words, ref):
+        raise AssertionError(f"K1 ({name}) occupancy words differ from the plain version")
+    n_occ = int(S.unpack_occupancy_bits(words, R - 1).sum())
+    log(f"K1 {name}: words equal at {R}^3 at sigma_thresh {opt.sigma_thresh:g}, {n_occ} "
+        "occupied voxels")
+    errs_out = {f"occupancy_{name}": 0.0}
+    if timed:
+        ms1 = time_ms(lambda: S.occupancy_words(grid, opt), 20)
+        pms1 = time_ms(lambda: S._occupancy_words_plain(grid, opt), 3)
+        # the bytes the function needs: links, the density (UDF_ALPHA's one
+        # value), the surface rows only under the hull test, the words
+        n_dens = 1 if name == "udf_alpha" else grid.capacity
+        n_surf = grid.capacity if S._hull_test(grid, opt) else 0
+        nb1 = (grid.links.numel() + n_dens + n_surf + words.numel()) * 4
+        res = {f"occupancy_{name}": dict(max_abs_err=0.0, ms=ms1, plain_ms=pms1,
+                                         bound=bound_ms(nb1, (R - 1) ** 3 * 40))}
+        log(f"  {ms1:.4f} ms, plain {pms1:.3f} ms")
+
+    # the chunk's pool (K2) and K3
+    rays_all = frame_camera(0, 2).gen_rays_device(grid.links.device)
+    s = (WIDTH * HEIGHT) // 2 - n_rays // 2
+    rays = Rays(rays_all.origins[s:s + n_rays].contiguous(),
+                rays_all.dirs[s:s + n_rays].contiguous())
+    origins, dirs, sh_mult, tn, tx, ngt = chunk_inputs(grid, opt, rays)
+    pool = S.compact_crossings_packed(grid, origins, dirs, tn, tx, words)
+    B, M = origins.shape[0], pool.close_t.shape[0]
+    packed = S.pack_grid_data(grid)
+    spec, fss = S._surface_spec(grid), S._fss(grid)
+
+    def k3():
+        return kernels.phase_b(pool.ray_id, pool.l, pool.close_t, pool.far_t, origins, dirs,
+                               sh_mult, grid.links, packed, spec, grid.level_set_data, ngt, fss,
+                               opt)
+
+    sk = k3()
+    sp = S._voxel_samples_plain(grid, opt, pool, origins, dirs, sh_mult, ngt, packed)
+    S0 = sk["n_slots"]
+    if S0 != sp["n_slots"] or (name in ("plane", "voxel_face")) != (S0 == 1):
+        raise AssertionError(f"K3 ({name}): {S0} slots, the plain version {sp['n_slots']}")
+    flips = sum(int((sk[k] != sp[k]).sum()) for k in ("contrib", "fake", "counted"))
+    if flips > FLAG_FRACTION * sp["contrib"].numel():
+        raise AssertionError(f"K3 ({name}): {flips} slot flags differ from the plain version")
+    live = sp["contrib"] | (sp["counted"] > 0)
+    errs = [allclose_err(sk["t"][live], sp["t"][live], rtol=1e-5, atol=1e-4)]
+    errs += [allclose_err(sk[k], sp[k]) for k in ("alpha", "rgb", "snorm")]
+    errs += [allclose_err(sk["loss_e"], sp["loss_e"], rtol=1e-4, atol=1e-4)]
+    if sk["loss_e"].shape != sp["loss_e"].shape or max(e[1] for e in errs) > ROOT_FRACTION:
+        raise AssertionError(f"K3 ({name}) values differ from the plain version: {errs}")
+    k3_err = max(e[0] for e in errs)
+    lk = torch.unique(torch.stack([
+        ((torch.clamp(pool.l[:, 0].long() + dx, max=R - 1) * R
+          + torch.clamp(pool.l[:, 1].long() + dy, max=R - 1)) * R
+         + torch.clamp(pool.l[:, 2].long() + dz, max=R - 1))
+        for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]))
+    n_rows = int((grid.links.reshape(-1)[lk] >= 0).sum())
+    n_le = sk["loss_e"].shape[0]
+    nb3 = M * 24 + B * (24 + 36) + lk.numel() * 4 + n_rows * packed.shape[1] * 4 + S0 * M * 38 \
+        + n_le * M * 4
+    ops3 = M * (48 * grid.basis_dim + 60 + S0 * 200)
+    errs_out[f"phase_b_{name}"] = k3_err
+    if timed:
+        ms3 = time_ms(k3, 20)
+        pms3 = time_ms(lambda: S._voxel_samples_plain(grid, opt, pool, origins, dirs, sh_mult,
+                                                      ngt, packed), 3)
+        res[f"phase_b_{name}"] = dict(max_abs_err=k3_err, ms=ms3, plain_ms=pms3,
+                                      bound=bound_ms(nb3, ops3))
+    # K4 on the type's slots (S0 = 1 for PLANE and VOXEL_FACE; 5 loss rows for the UDF types)
+    smp = {k: sp[k].contiguous() for k in ("t", "alpha", "contrib", "fake", "counted", "rgb",
+                                           "snorm", "loss_e")}
+    ck = kernels.composite(pool.offsets, smp, grid.truncated_vol_render_a, opt)
+    cp = S._composite_plain(opt, grid.truncated_vol_render_a, pool.offsets, sp)
+    e4 = [allclose_err(ck[k], cp[k]) for k in ("rgb", "log_T")]
+    e4 += [allclose_err(ck["ray_losses"], cp["ray_losses"], rtol=1e-4, atol=1e-4)]
+    if not torch.equal(ck["n_intersections"], cp["n_intersections"]) or max(e[1] for e in e4) > 0:
+        raise AssertionError(f"K4 on the {name} slots differs from the plain version: {e4}")
+    log(f"K3 {name}: {M} entries x {S0} slots, {n_le} loss rows, {flips} flag flips, "
+        f"{int(sp['contrib'].sum())} contributing, max abs err {k3_err:.3e}; K4 on its slots max "
+        f"abs err {max(e[0] for e in e4):.3e}"
+        + (f"; {ms3:.4f} ms, plain {pms3:.3f} ms" if timed else ""))
+
+    # K5: the gradients through the kernels against autograd of the plain path
+    names = ("density", "surface", "sh", "fake_sample_std")
+    params = [p for p in (grid.density_data, grid.surface_data, grid.sh_data,
+                          grid.fake_sample_std) if p is not None]
+    lam = torch.tensor([K5_LAMBDAS.get(k, 0.0) + (1e-3 if k == "udf_var_sum" else 0.0)
+                        for k in S._RAY_LOSS_KEYS], dtype=torch.float32, device=origins.device)
+
+    def loss_of(rgb, rl):
+        return torch.mean((rgb - 0.5) ** 2) + torch.sum(lam * rl.mean(dim=1))
+
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        out = S.volume_render_surface_packed(grid, rays, opt, occupancy=words, packed=packed)
+        rl_k = torch.stack([out["ray_losses"][k] for k in S._RAY_LOSS_KEYS])
+        g_kernel = torch.autograd.grad(loss_of(out["rgb"], rl_k), params)
+        comp = S._render_plain(grid, opt, pool, origins, dirs, sh_mult, ngt, S.pack_grid_data(grid))
+        loss_p = loss_of(comp["rgb"], comp["ray_losses"])
+        g_plain = torch.autograd.grad(loss_p, params, retain_graph=True)
+        if timed:
+            pms5 = time_ms(lambda: torch.autograd.grad(loss_p, params, retain_graph=True), 2)
+        del comp, loss_p, out
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    log(f"K5 {name}: gradients over {B} rays, kernels against autograd of the plain path:")
+    e5 = max(grad_check(f"{name} {n}", a, b) for n, a, b in zip(names, g_kernel, g_plain))
+    del g_kernel, g_plain
+    comp_k = kernels.composite(pool.offsets, sk, grid.truncated_vol_render_a, opt)
+    g_rgb = (2.0 * (comp_k["rgb"] - 0.5) / (3 * B)).contiguous()
+    g_rl = (lam[:, None] / B).expand(12, B).contiguous()
+    d_alpha, d_t, d_col = kernels.backward_ray(pool.offsets, sk, grid.truncated_vol_render_a, opt,
+                                               g_rgb, g_rl)
+
+    def k5b():
+        return kernels.backward_entry(pool.ray_id, pool.l, pool.close_t, pool.far_t, origins,
+                                      dirs, sh_mult, grid.links, packed, spec,
+                                      grid.level_set_data, ngt, fss, opt, sk["contrib"], d_alpha,
+                                      d_t, d_col, g_rl)
+
+    errs_out[f"backward_entry_{name}"] = e5
+    if timed:
+        ms5 = time_ms(k5b, 10)
+        # the gradients written: density (UDF_ALPHA's n_lv table rows),
+        # surface and SH rows
+        nb5 = M * 24 + B * 60 + lk.numel() * 4 + n_rows * packed.shape[1] * 4 + S0 * M * 21 \
+            + B * 8 + (grid.density_data.numel() + grid.surface_data.numel()
+                       + grid.sh_data.numel()) * 4
+        res[f"backward_entry_{name}"] = dict(max_abs_err=e5, ms=ms5, plain_ms=pms5,
+                                             bound=bound_ms(nb5, 2 * ops3))
+        log(f"K5b {name}: {ms5:.4f} ms, the plain backward {pms5:.3f} ms")
+    del pool, sk, sp, smp, packed, words, ref
+    torch.cuda.empty_cache()
+    if name == "udf_alpha":
+        table = check_table_reg(grid)
+        if not timed:
+            return {**errs_out, **{k: v["max_abs_err"] for k, v in table.items()}}
+        res.update(table)
+    return res if timed else errs_out
+
+
+def check_table_reg(grid) -> dict:
+    """K6 on UDF_ALPHA's (n_lv, 1) density table, on a window of 0.01 of
+    the rows: the TV of the density (every link past the table reads its
+    last row; logged, its error within reg_tv's) and the sparsifier (every
+    such cell's gradient on the last row), each against its plain
+    version."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.losses import reg as R
+
+    rc = R.row_coords_of(grid)
+    cells = R.sample_present_cells(torch.Generator().manual_seed(SEED), grid, rc, 0.01)
+    n, L = cells.numel(), grid.links
+    rows = grid.density_data.shape[0]
+    log(f"K6 on UDF_ALPHA's {rows}-row density table, a window of {n} cells:")
+    e_tv, ms_tv, pms_tv = reg_check(
+        "TV of the table",
+        lambda: kernels.reg_tv(L, cells, grid.density_data.detach(), 0, 1, None, 1.0 / n),
+        lambda: R._tv_plain(grid, grid.density_data, cells, 0, 1, None, 1.0 / n), grid,
+        ("density_data",))
+    e_sp, ms_sp, pms_sp = reg_check(
+        "sparsify with the table",
+        lambda: kernels.reg_sparsify(L, cells, grid.density_data.detach(),
+                                     grid.surface_data.detach(), 1.0, 1.0, True, 0.15, 1.0 / n),
+        lambda: R._sparsify_plain(grid, cells, 1.0, 1.0, True, 0.15), grid,
+        ("density_data", "surface_data"), rel=TABLE_REL)
+    cb, nr = window_stats(grid, cells, ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1)))
+    log(f"  TV of the table: {ms_tv:.4f} ms (bound {bound_ms(cb + rows * 8, n * 20)[0]:.5f} ms), "
+        f"plain {pms_tv:.3f} ms, max abs err {e_tv:.3e}")
+    return {
+        "reg_sparsify_table": dict(max_abs_err=e_sp, ms=ms_sp, plain_ms=pms_sp,
+                                   bound=bound_ms(cells.numel() * 8 + nr * 4 + rows * 8
+                                                  + grid.capacity * 4, n * 30)),
+    }
+
+
+def check_gates(name: str, grid, card: str, res: dict) -> None:
+    """The type's K1, K3, K5 (and K6) checks again at the Config's
+    sigma_thresh on gate_grid's alphas, on a GATE_RAYS chunk, their errors
+    joined to ``res``; for UDF_ALPHA also K1 with every table row below the
+    threshold (no voxel occupied)."""
+    import torch
+
+    from alphasurf_torch.core.options import RenderOptions
+    from alphasurf_torch.render import surface as S
+
+    opt = RenderOptions(**{**TYPE_BASE_OPT, "sigma_thresh": GATE_SIGMA}, **SURFACE_TYPES[name][2])
+    gated = gate_grid(name, grid)
+    log(f"{name} at sigma_thresh {GATE_SIGMA:g}: {gated.level_set_data.numel()} level sets, "
+        f"{int((gated.density_data > GATE_SIGMA).sum())} of {gated.density_data.numel()} alphas "
+        "above it")
+    for k, e in check_type_kernels(name, gated, card, opt, GATE_RAYS, timed=False).items():
+        res[k]["max_abs_err"] = max(res[k]["max_abs_err"], e)
+    if name == "udf_alpha":
+        low = gated.replace(density_data=-gated.density_data.abs())
+        words = S.occupancy_words(low, opt)
+        if not (torch.equal(words, S._occupancy_words_plain(low, opt)) and not bool(words.any())):
+            raise AssertionError("K1 (udf_alpha) with the table below sigma_thresh occupied voxels")
+        log("K1 udf_alpha: no voxel occupied with every table row below sigma_thresh")
+    del gated
+    torch.cuda.empty_cache()
+
+
+def type_hparams(name: str):
+    """The JAX trainability test's HParams (PLANE's surface rate 0), with
+    the udf-var loss and fake_sample_std's rate added."""
+    from alphasurf_torch.train.steps import HParams
+
+    return HParams(lr_alpha=1e-2, lr_surface=0.0 if name == "plane" else 1e-3, lr_sh=1e-2,
+                   lambda_tv_alpha=1e-6, lambda_tv_surface=1e-6, lambda_udf_var=1e-2,
+                   lr_fake_sample_std=1e-3)
+
+
+def type_steps(name: str, grid, card: str) -> dict:
+    """bench.py's protocol on the type's grid through make_surface_step:
+    1 + 33 steps of 40960 rays of bench_step's 800x800 camera against a
+    grey image, the occupancy refreshed every 16 steps, the present-cell
+    windows of the Trainer; finite losses, falling. Returns its numbers."""
+    import math
+
+    import torch
+
+    from alphasurf_torch.app import bench_step
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.losses import reg as R
+    from alphasurf_torch.render.surface import occupancy_words
+    from alphasurf_torch.train.steps import StepConfig, init_rms, make_surface_step
+
+    opt = type_options(name)
+    step = make_surface_step(StepConfig(opt=opt, cache_size=None))
+    hp = type_hparams(name)
+    rays = bench_step.bench_rays(WIDTH, grid.links.device)
+    rms, gen, rc = init_rms(grid), torch.Generator().manual_seed(SEED), R.row_coords_of(grid)
+    gt = torch.full((TRAIN_BATCH, 3), 0.5, device=grid.links.device)
+    n = rays.origins.shape[0]
+    lo, span = int(n * 0.35), max(int(n * 0.30) - TRAIN_BATCH, 1)
+    occ = occupancy_words(grid, opt)
+
+    def batch(i):
+        s = lo + (i * TRAIN_BATCH) % span
+        return Rays(rays.origins[s:s + TRAIN_BATCH], rays.dirs[s:s + TRAIN_BATCH])
+
+    losses = [step(grid, rms, batch(0), gt, hp, gen, occ=occ, row_coords=rc)[2]["loss"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TYPE_STEPS):
+        if i > 0 and i % 16 == 0:
+            occ = occupancy_words(grid, opt)
+        losses.append(step(grid, rms, batch(i), gt, hp, gen, occ=occ, row_coords=rc)[2]["loss"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = torch.stack(losses).tolist()
+    rate = TYPE_STEPS * TRAIN_BATCH / secs
+    log(f"train {name}: {TYPE_STEPS} steps of {TRAIN_BATCH} rays at {TYPES_RESO}^3: {rate:.1f} "
+        f"rays/s, {secs / TYPE_STEPS * 1e3:.3f} ms per step, loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f} [{card}]")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"the {name} step did not train: {losses}")
+    return {"rays_per_s": rate, "loss": (losses[0], losses[-1])}
+
+
+def serve_type(name: str, grid, work: Path, card: str) -> dict:
+    """Two 800x800 orbit frames of the type's checkpoint through
+    app/render_circle.main: ms per frame, rays/s, finite frames that are
+    not flat."""
+    import numpy as np
+    import torch
+
+    from alphasurf_torch.app import render_circle
+    from alphasurf_torch.utils.io import save_grid
+    from alphasurf_torch.utils.png import read_png
+
+    ckpt = work / f"type_{name}.npz"
+    save_grid(grid, str(ckpt))
+    out = render_circle.main([str(ckpt), "--n_frames", "2", "--width", str(WIDTH), "--height",
+                              str(HEIGHT), "--out_dir", str(work / f"circle_{name}"), "--device",
+                              str(grid.links.device)])
+    torch.cuda.synchronize()
+    ckpt.unlink()
+    img = read_png(str(work / f"circle_{name}" / "0000.png")).astype(np.float64) / 255.0
+    ms = [x * 1e3 for x in out["frame_seconds"]]
+    log(f"render_circle {name}: ms per frame {[round(x, 3) for x in ms]}, "
+        f"{WIDTH * HEIGHT / (ms[-1] / 1e3):.1f} rays/s, frame 0 mean {img.mean():.4f} std "
+        f"{img.std():.4f} [{card}]")
+    if not (np.isfinite(img).all() and img.std() > 0.01):
+        raise AssertionError(f"the {name} frame is flat or not finite")
+    return {"ms_per_frame": ms}
+
+
+def udf_config(steps=UDF_RUN_STEPS) -> str:
+    """train_udf.sh's shape: stages_config cut to its 256^3 warm start and
+    a 256^3 surface stage with surface_type udf (the density -> surface
+    transition at the stage boundary, then grid.replace(surface_type=udf)),
+    the udf-var loss on. The init's surface is (density - zero_lv_density)
+    and its level sets (levels - zero_lv_density), both divided by the
+    field's mean gradient norm: at the default, the middle level, one
+    level set is 0 and one below it, which no softplus of a UDF value
+    reaches (no voxel is occupied). zero_lv_density -1e4 puts both far
+    into softplus's linear range, so the UDF stage starts from the surfaces
+    of the SDF run's density levels (2, 6)."""
+    n0, n1 = steps
+    keys = dict(line.split(" = ", 1) for line in stages_config((n0, n1, 0)).splitlines())
+    keys.update({"reso": f"[[{TYPES_RESO}, {TYPES_RESO}, {TYPES_RESO}], [{TYPES_RESO}, "
+                         f"{TYPES_RESO}, {TYPES_RESO}]]",
+                 "surface_type": "udf", "n_iters": n0 + n1, "lambda_udf_var_loss": "1.0e-3",
+                 "zero_lv_density": "-10000.0", "log_pts": "False", "eval_cf": "False"})
+    return "".join(f"{k} = {v}\n" for k, v in keys.items())
+
+
+def udf_trainer_run(device, card: str, work: Path) -> dict:
+    """app/train.main with surface_type udf after a cuvol warm start on the
+    synthetic dataset at 256^3 (udf_config): the UDF branches launched,
+    finite mse, and an eval PSNR above the untrained grid's."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import train as train_app
+    from alphasurf_torch.data import SyntheticDataset
+
+    cfg_path = work / "udf.yaml"
+    cfg_path.write_text(udf_config())
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    psnr = train_app.main(["", "-t", str(work / "udf"), "-c", str(cfg_path), "--device",
+                           str(device)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    need = ("occupancy_udf", "phase_b_udf", "backward_entry_udf", "density_occupancy",
+            "cuvol_backward", "prune_mask", "visibility")
+    got = {k: kernels.LAUNCHES[k] for k in need}
+    dset_test = SyntheticDataset(split="test", n_images=2, width=WIDTH, height=HEIGHT,
+                                 reso=SMALL_RESO, renderer="packed", device=device)
+    psnr0 = eval_untrained(device, dset_test)
+    log(f"UDF Trainer run through app/train.main: {UDF_RUN_STEPS[0]} warm-start + "
+        f"{UDF_RUN_STEPS[1]} UDF steps at {TYPES_RESO}^3 in {wall:.2f} s, eval PSNR {psnr:.4f} "
+        f"against the untrained grid's {psnr0:.4f} [{card}]")
+    log("launches " + json.dumps(got))
+    if any(v == 0 for v in got.values()):
+        raise AssertionError(f"a kernel of the UDF run was not launched: {got}")
+    if not psnr > psnr0:
+        raise AssertionError(f"the UDF run did not train: PSNR {psnr} <= untrained {psnr0}")
+    return {"psnr": psnr, "psnr_untrained": psnr0, "wall": wall}
+
+
+def types(device, card: str, work: Path) -> tuple[dict, dict]:
+    """Phase 14: the other surface types. For each of PLANE, UDF,
+    UDF_ALPHA, UDF_FAKE_SAMPLE and VOXEL_FACE at 256^3 (type_grid): its
+    branches of K1, K3, K5b (and K6 on UDF_ALPHA's table) against their
+    plain versions (check_type_kernels); then, with the counters set to 0
+    just before and read just after, two 800x800 frames through
+    app/render_circle (serve_type) and bench.py's protocol through
+    make_surface_step (type_steps); then the UDF Trainer run. Returns the
+    variants' numbers and their launches in the serving and training runs."""
+    import torch
+
+    from alphasurf_torch import kernels
+
+    t_phase = time.perf_counter()
+    res, launches = {}, {}
+    for name in SURFACE_TYPES:
+        t0 = time.perf_counter()
+        grid = type_grid(name, device)
+        log(f"type {name}: {grid.reso} grid, capacity {grid.capacity}, "
+            f"{grid.level_set_data.numel()} level sets, surface rows {grid.surface_data.shape[1]} "
+            f"wide, built in {time.perf_counter() - t0:.1f} s")
+        res.update(check_type_kernels(name, grid, card))
+        if name in ("udf_alpha", "udf_fake_sample"):
+            check_gates(name, grid, card, res)
+        kernels.reset_launches()
+        serve_type(name, grid, work, card)
+        type_steps(name, grid, card)
+        got = {k: kernels.LAUNCHES[k] for k in KERNELS if k.endswith(f"_{name}")}
+        if name == "udf_alpha":
+            got["reg_sparsify_table"] = kernels.LAUNCHES["reg_sparsify_table"]
+        log(f"launches ({name}, serving and training) " + json.dumps(got))
+        if any(v == 0 for v in got.values()):
+            raise AssertionError(f"a kernel branch of {name} was not launched: {got}")
+        launches.update(got)
+        del grid
+        torch.cuda.empty_cache()
+    udf_trainer_run(device, card, work)
+    log(f"types phase in {time.perf_counter() - t_phase:.1f} s")
+    return res, launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4904,6 +5435,7 @@ def main(argv=None) -> int:
         "tnt": lambda: tnt(device, card, work),
         "basis": lambda: basis(device, card, work),
         "compat": lambda: compat(device, card, work),
+        "types": lambda: types(device, card, work),
     }
     # the launches each phase reports for the JSON line: serving is the
     # main path of K1-K4, training that of K5-K7, and each later phase's

@@ -577,3 +577,69 @@ def test_compat_kernels_match_plain_versions(cuda, mode):
                                rtol=1e-4, atol=1e-5)
     for x, r in zip(gk, gp):
         assert float((x - r).norm()) <= 1e-3 * float(r.norm()) + 1e-7
+
+
+# the other surface types: (type, initialiser, render options), as
+# chip_smoke.SURFACE_TYPES and tests/test_torch_types.py
+SURFACE_TYPE_CASES = {
+    "plane": (pt.defs.SURFACE_TYPE_PLANE, "sphere", {}),
+    "udf": (pt.defs.SURFACE_TYPE_UDF, "single_lv", {}),
+    "udf_alpha": (pt.defs.SURFACE_TYPE_UDF_ALPHA, "single_lv",
+                  dict(surf_fake_sample=True, limited_fake_sample=True)),
+    "udf_fake_sample": (pt.defs.SURFACE_TYPE_UDF_FAKE_SAMPLE, "single_lv_multi_sphere",
+                        dict(surf_fake_sample=True)),
+    "voxel_face": (pt.defs.SURFACE_TYPE_VOXEL_FACE, None, {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,gate", [(n, False) for n in SURFACE_TYPE_CASES]
+                         + [("udf_alpha", True), ("udf_fake_sample", True)])
+def test_surface_type_branches_match_plain_versions(cuda, name, gate):
+    """Each type's branches of K1 (words equal), K3 and K4 (the render, to
+    1e-4) and K5 (the gradients of the rgb sum through the kernels, to 1e-3
+    of each gradient's largest entry; float32 sums in other orders) against
+    the plain versions on the same card, at 16^3 with SH and raw alpha from
+    a seed. ``gate``: at sigma_thresh 1e-8 with alphas on both sides of it
+    (UDF_ALPHA: 66 level sets, past K5b's per-warp table of 64, every third
+    row of their table below; UDF_FAKE_SAMPLE: raw alpha in [-3, 1])."""
+    from alphasurf_torch.core.grid import create_grid
+
+    stype, init, opts = SURFACE_TYPE_CASES[name]
+    g = create_grid(16, surface_type=stype, surface_init=init, basis_dim=4, device=cuda,
+                    trainable_fake_sample_std=bool(opts))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        g.sh_data.copy_(0.3 * torch.randn(g.sh_data.shape, generator=gen, device=cuda))
+        if stype != pt.defs.SURFACE_TYPE_UDF_ALPHA:
+            g.density_data.uniform_(-3.0 if gate else 0.5, 1.0 if gate else 3.0, generator=gen)
+        else:
+            g.density_data.fill_(1.0)
+    if gate and stype == pt.defs.SURFACE_TYPE_UDF_ALPHA:
+        i = torch.arange(66, device=cuda)
+        g = g.replace(level_set_data=g.level_set_data[0] + 0.25 * (i - 33).float(),
+                      density_data=torch.where(i % 3 == 1, -1.0, 1.0).float()[:, None])
+    opt = pt.RenderOptions(sigma_thresh=1e-8 if gate else -1e9, stop_thresh=1e-7, **opts)
+    assert torch.equal(S.occupancy_words(g, opt), S._occupancy_words_plain(g, opt))
+    o, d = np_rays(64, seed=4)
+    rays = pt.Rays(torch.as_tensor(o, dtype=torch.float32, device=cuda),
+                   torch.as_tensor(d, dtype=torch.float32, device=cuda))
+    params = [p for p in (g.density_data, g.surface_data, g.sh_data, g.fake_sample_std)
+              if p is not None]
+    kernels.reset_launches()
+    for p in params:
+        p.requires_grad_(True)
+    got = S.volume_render_surface_packed(g, rays, opt)
+    g_k = torch.autograd.grad(got["rgb"].sum(), params)
+    assert kernels.LAUNCHES[f"phase_b_{name}"] > 0 and kernels.LAUNCHES[f"backward_entry_{name}"] > 0
+    origins, dirs, sh_mult, tn, tx, ngt, ray_ok, _ = S._prep(g, rays, opt)
+    words = S.occupancy_words(g, opt)
+    pool = S.compact_crossings_packed(g, origins, dirs, torch.where(ray_ok, tn, 0 * tn),
+                                      torch.where(ray_ok, tx, torch.full_like(tx, -1.0)), words)
+    ref = S._render_plain(g, opt, pool, origins, dirs, sh_mult, ngt, S.pack_grid_data(g))
+    g_p = torch.autograd.grad(ref["rgb"].sum(), params)
+    np.testing.assert_allclose(got["rgb"].detach().cpu().numpy(), ref["rgb"].detach().cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    for a_, b_ in zip(g_k, g_p):
+        b_ = b_.cpu().numpy()
+        np.testing.assert_allclose(a_.cpu().numpy(), b_, atol=1e-3 * max(np.abs(b_).max(), 1e-6))

@@ -96,8 +96,25 @@ def test_create_grid_matches_jax(kw):
 
 
 def test_create_grid_surface_initialisers_raise():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        create_grid(8, surface_type=pt.defs.SURFACE_TYPE_SDF, device="cpu")
+    """The surface initialisers are ported (their parity over every type and
+    initialiser is tests/test_torch_types.py's): create_grid(8, SDF) equals
+    JAX's. What still raises is what raises in JAX: the cuvol renderers on
+    UDF_ALPHA's per-level-set density table (a TypeError, as JAX's
+    concatenation of the rows), whose density occupancy both packages take
+    at the clipped row."""
+    gj = at.create_grid(8, surface_type=at.defs.SURFACE_TYPE_SDF)
+    g = create_grid(8, surface_type=pt.defs.SURFACE_TYPE_SDF, device="cpu")
+    for k in ("links", "density_data", "sh_data", "surface_data", "level_set_data"):
+        np.testing.assert_array_equal(getattr(g, k).detach().numpy(), np.asarray(getattr(gj, k)))
+    gj = at.create_grid(8, surface_type=at.defs.SURFACE_TYPE_UDF_ALPHA, surface_init="single_lv")
+    g = create_grid(8, surface_type=pt.defs.SURFACE_TYPE_UDF_ALPHA, surface_init="single_lv",
+                    device="cpu")
+    np.testing.assert_array_equal(TC.density_occupancy(g).numpy(),
+                                  np.asarray(JC.density_occupancy(gj)))
+    rays = pt.Rays(torch.tensor([[0.0, 0.0, -2.5]]), torch.tensor([[0.0, 0.0, 1.0]]))
+    for fn in (TC.volume_render_cuvol_packed, TC.volume_render_cuvol):
+        with pytest.raises(TypeError):
+            fn(g, rays, pt.RenderOptions())
 
 
 @pytest.mark.parametrize("sphere_bound", [False, True])

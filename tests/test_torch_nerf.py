@@ -25,6 +25,7 @@ from alphasurf_torch.utils import lpips, metrics
 from alphasurf_torch.utils.io import save_grid
 from alphasurf_torch.utils.png import read_png, write_png
 from test_lpips import _fake_weights
+from test_torch_util import t64  # noqa: F401  (one torch thread, as every port test)
 
 CAMERA_ANGLE_X = 0.6911112  # nerf_synthetic's
 GL = np.diag([1.0, -1.0, -1.0, 1.0])  # OpenCV <-> OpenGL camera axes
@@ -85,7 +86,7 @@ def test_auto_tells_scenes_as_jax(tmp_path):
         datasets["auto"](str(only), split="test")  # the NeRF loader, as in JAX
     (tmp_path / "llff").mkdir()
     np.save(tmp_path / "llff" / "poses_bounds.npy", np.zeros((2, 17)))
-    with pytest.raises(NotImplementedError, match="'llff'.*ROADMAP §1 item 5"):
+    with pytest.raises(NotImplementedError, match="'llff'.*ROADMAP §1 item 4"):
         datasets["auto"](str(tmp_path / "llff"), split="test")
 
 

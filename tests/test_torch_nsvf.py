@@ -103,7 +103,7 @@ def test_nsvf_loader_matches_jax(tmp_path, scene):
 def test_similarity_from_cameras_and_auto(tmp_path):
     """The normalisation puts cameras that look at one point at a median
     distance 1 from it, up along -y; ``auto`` falls through to NSVF, and
-    CO3D and LLFF still raise, naming ROADMAP §1 item 5."""
+    CO3D and LLFF still raise, naming their ROADMAP items (§1 items 5 and 4)."""
     from alphasurf_tpu.data.nsvf import similarity_from_cameras as j_sim
 
     c2w = np.stack([pose_spherical(a, -20.0, 3.0).astype(np.float64) for a in range(0, 360, 45)])
@@ -117,8 +117,8 @@ def test_similarity_from_cameras_and_auto(tmp_path):
     root = write_nsvf_scene(tmp_path / "scene")
     assert isinstance(datasets["auto"](str(root), split="test"), NSVFDataset)
     assert isinstance(datasets["nsvf"](str(root), split="val"), NSVFDataset)
-    for name, why in (("co3d", "JPEG"), ("llff", "item 5")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item 5.*{why}|{why}"):
+    for name, item, why in (("co3d", 5, "JPEG"), ("llff", 4, "item 4")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}.*{why}|{why}"):
             datasets[name](str(root), split="train")
 
 

@@ -11,6 +11,7 @@ from alphasurf_tpu.optim import rmsprop as JO
 from alphasurf_torch.losses import render_losses as TL
 from alphasurf_torch.optim import rmsprop as TO
 from alphasurf_torch.render.surface import _RAY_LOSS_KEYS
+from test_torch_util import t64  # noqa: F401  (one torch thread, as every port test)
 
 
 def _state(rows=64, C=27, seed=0):

@@ -111,7 +111,7 @@ def test_pipeline_runs_end_to_end_on_the_cpu(tmp_path):
     np.testing.assert_allclose(s["chamfer"], cf["overall"], rtol=1e-6)
     np.testing.assert_allclose(res["stages"]["chamfer"]["d2s"], cf["d2s"], rtol=1e-6)
     # a loader that is not ported raises before any stage runs
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
         pipeline.run_pipeline(str(tmp_path / "llff"), dataset_type="llff", device="cpu")
 
 

@@ -202,13 +202,13 @@ def test_unported_options_raise():
     opt = pt.RenderOptions(**OPT)
     for kw in (dict(use_lumisphere_tv=True), dict(use_lumisphere_tv=True, use_eikonal=True)):
         assert callable(T.make_surface_step(T.StepConfig(opt=opt, **kw)))
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
+    with pytest.raises(NotImplementedError, match="§1 item 3"):
         T.make_surface_step(T.StepConfig(opt=opt, axis_name="data"))
     for group in ("basis_data", "basis_mlp"):
         T._check_rms({"density": None, "background": None, group: None})
     with pytest.raises(ValueError, match="unknown rms groups"):
         T._check_rms({"density": None, "basis": None})
-    with pytest.raises(NotImplementedError, match="§2 item 4"):
+    with pytest.raises(NotImplementedError, match="§2 item 2"):
         T.make_cuvol_step(T.StepConfig(opt=opt, renderer="dense"))
 
 

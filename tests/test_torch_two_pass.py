@@ -28,8 +28,13 @@ def _jax_compile_cache_off():
     cached CPU executables built for other machine features. The cache is
     read once per process, so it is reset on the way in and out, and the
     executables this process already holds are dropped on the way in, so
-    that every program of the run is compiled here. It still fails now and
-    then (ROADMAP §3 item 2)."""
+    that every program of the run is compiled here. Its later failures
+    under pytest-xdist came from elsewhere: test_unported_stages_raise set
+    foreground masks on the datasets of test_torch_trainer._datasets (an
+    lru_cache shared by every Trainer test of a worker), so when it had run
+    first in the same worker, the JAX Trainer here trained with mask
+    pruning and the port's copy without; it sets them through monkeypatch
+    now (ROADMAP §3)."""
     from jax._src import compilation_cache
 
     enabled = jax.config.jax_enable_compilation_cache

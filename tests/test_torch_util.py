@@ -11,6 +11,14 @@ import alphasurf_tpu as at
 from alphasurf_tpu.data.synthetic import make_gt_grid as jax_make_gt_grid
 from alphasurf_torch.core.grid import CORNER_OFFSETS, SparseGrid
 
+# One intra-op thread for the port's CPU ops: the tests run in several
+# pytest-xdist workers at once, and a pool of one OpenMP thread a core in
+# each worker oversubscribes the cores, every test then waiting on the
+# others' spinning threads (one thread took the port's summed test time
+# from 2,985 s to 1,041 s under -n 6 on an 8-core machine). It also fixes
+# the order of the port's CPU sums.
+torch.set_num_threads(1)
+
 # the option sets of tests/test_surface_packed.py::test_packed_matches_dense
 # plus the serving options of bench.py / render_imgs
 BASE = dict(sigma_thresh=-1e9, stop_thresh=-1.0, near_clip=0.0)
