@@ -16,7 +16,9 @@ device, under bench.py's render options and weights, through the renderer
 starting grid, ``create_grid(reso, use_sphere_bound=True, init_sigma=0.1,
 basis_dim=9)``, under the Config defaults' render options and its
 learning rates and TV weights (lr_sigma 3e1, lr_sh 1e-2, lambda_tv 1e-5,
-lambda_tv_sh 1e-3).
+lambda_tv_sh 1e-3), through the packed cuvol renderer (K8 over K2's pool)
+or, with ``--renderer compact`` or ``dense``, the dense march (K10 and
+its backward), as the JAX step does for a renderer that is not packed.
 
 ``--basis texture`` gives either grid a learned 3D-texture basis
 (``reinit_learned_bases(32, 9, "sh")``), ``--basis mlp`` the learned MLP
@@ -28,7 +30,8 @@ counts the basis's moved rows (``basis_moved``).
 Both: rays of the 800x800 camera at pose_spherical(30, 20, 2.7) with
 fx = 1.1 W; batches of ``batch`` consecutive rays cycle over rows 35-65% of
 the image, where the sphere is, against a target of 0.5; regularizer
-windows over present rows. The occupancy is refreshed every 16 steps. One
+windows over present rows. The occupancy (none for the dense march) is
+refreshed every 16 steps. One
 warm-up step must render geometry (loss < 0.24; an empty batch scores
 0.25); then ``steps`` timed steps. Prints one JSON line and returns it as a
 dict.
@@ -176,8 +179,10 @@ def run(reso: int | None = None, batch: int = 40960, steps: int = 33, width: int
     else:
         grid, row_coords = build_cuvol_grid(reso, dev, basis)
         opt, hp = cuvol_options(), cuvol_hparams()
-        step = make_cuvol_step(StepConfig(opt=opt, renderer="packed"))
-        occupancy = density_occupancy_words
+        step = make_cuvol_step(StepConfig(opt=opt, renderer=renderer))
+
+        def occupancy(g):  # the dense march takes none
+            return density_occupancy_words(g) if renderer == "packed" else None
     if basis != "sh":
         hp = hp._replace(**BASIS_HP)
     init = {"density": float(grid.density_data[0, 0]), "sh": 0.0}
@@ -221,7 +226,7 @@ def run(reso: int | None = None, batch: int = 40960, steps: int = 33, width: int
         "metric": "rays_per_s_fwd_bwd",
         "rays_per_s_fwd_bwd": steps * batch / seconds,
         "stage": stage,
-        "renderer": renderer if stage == "surface" else "packed",
+        "renderer": renderer,
         "basis": basis,
         "batch": batch,
         "reso": reso,
@@ -248,13 +253,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--width", type=int, default=800, help="image width and height")
     ap.add_argument("--seed", type=int, default=0, help="seed of the regularizer windows")
     ap.add_argument("--renderer", choices=("packed", "compact", "dense"), default="packed",
-                    help="the surface step's renderer (bench.py's argv[2])")
+                    help="the step's renderer (bench.py's argv[2]); a cuvol step that is not "
+                         "packed trains through the dense march")
     ap.add_argument("--basis", choices=BASES, default="sh",
                     help="the colour basis: SH, or a learned 3D texture or MLP")
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args(argv)
-    if a.stage == "cuvol" and a.renderer != "packed":
-        ap.error("--renderer applies to the surface stage; the cuvol step trains packed")
     out = run(a.reso, a.batch, a.steps, a.width, a.device, a.seed, a.stage, a.renderer, a.basis)
     print(json.dumps(out), flush=True)
     return out

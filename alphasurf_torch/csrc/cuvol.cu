@@ -20,31 +20,51 @@
 //   for the backward, the prefix at each entry's start (entry_pre, one
 //   float per entry). The JAX version's chunk-wide cumsum minus a per-ray
 //   base cancels in float32 (ROADMAP §3); a running sum does not.
-// - cuvol_backward, one thread per ray: the cotangent of rgb only. It walks
-//   the entries backwards carrying the suffix sum of w_k (g . c_k) plus the
-//   background term, which is d loss / d log_att of every earlier sample
-//   minus its own weight's term, so no derivative is a difference of
-//   totals. Each entry's samples are recomputed from entry_pre with the
-//   forward's code in the forward's order, so their transmittances are the
-//   forward's bit for bit. Per entry it sums the 8 corners' density and
-//   colour cotangents over its samples in registers and issues one
-//   atomicAdd per corner channel (8 x (1 + 3 bd)), as K5b does. With a
-//   g_sh_mult output (a learned basis in training) it also gives the
-//   gradient of the ray's basis, sum over its entries and corners of
-//   gc[c][ch] * row_c[ch bd + b]: the thread owns its ray, so the bd sums
-//   stay in registers and are written once, with no atomics. The kernel is
-//   templated on that output; without it the code is today's.
+// - cuvol_backward, one thread per ray: the cotangents of rgb and, in its
+//   second instantiation, of depth and log_T (either may be null). It walks the entries
+//   backwards carrying the suffix sum of w_k G_k plus the background term,
+//   G_k = g . c_k + g_depth t_k, which is d loss / d log_att of every
+//   earlier sample minus its own weight's term (every d log_att also gains
+//   g_log_T), so no derivative is a difference of totals. Each entry's
+//   samples are recomputed from entry_pre with the forward's code in the
+//   forward's order, so their transmittances are the forward's bit for
+//   bit. Per entry it sums the 8 corners' density and colour cotangents
+//   over its samples in registers and issues one atomicAdd per corner
+//   channel (8 x (1 + 3 bd)), as K5b does. With a g_sh_mult output (a
+//   learned basis in training) it also gives the gradient of the ray's
+//   basis, sum over its entries and corners of gc[c][ch] * row_c[ch bd + b]:
+//   the thread owns its ray, so the bd sums stay in registers and are
+//   written once, with no atomics. The kernel is templated on both
+//   outputs; with neither it is the rgb-only code.
 //
 // K10 replaces render/cuvol.py:volume_render_cuvol (297-429), the dense
-// fixed-step march of the eval images: one thread per ray steps
-// t = tmin + k*step while t <= tmax, for at most n_steps samples, with the
-// edge-clamped trilerp of ops/trilerp.py:voxel_of. Forward only.
+// fixed-step march: one thread per ray steps t = tmin + k*step while
+// t <= tmax, for at most n_steps samples, with the edge-clamped trilerp of
+// ops/trilerp.py:voxel_of.
+// - cuvol_march, forward. For training (a ckpt output) it also writes the
+//   ray's running log_T before every kSeg-th step, ceil(n_steps / kSeg)
+//   floats a ray; without it the serving code is unchanged.
+// - cuvol_march_backward, one thread per ray, jax.grad of the march: the
+//   cotangents of rgb, depth and log_T into the density and SH rows, the
+//   per-ray background colour (returned by the wrapper) and, with a
+//   g_sh_mult output, the ray's basis. It walks the kSeg-step segments
+//   from last to first. Each is re-marched forward from its checkpoint
+//   with the forward's code in the forward's order (densities only),
+//   keeping the prefix and sigma of its <= kSeg samples in local memory,
+//   then walked backwards with K8's suffix rule. A sample with sigma <= 0
+//   has weight 0 and a relu gradient of 0 and is skipped, so empty space
+//   gathers no colour rows and issues no atomics. Consecutive samples
+//   often share a voxel (2-3 at step 0.5): their 8 corner cotangents are
+//   summed in registers and flushed by one atomicAdd per corner channel
+//   when the walk leaves the voxel. Positions do not depend on the
+//   parameters, so the edge clamp needs no derivative.
 //
 // Bound: K8 forward and K10 by the random 8-row gathers (each entry or
 // sample reads 8 links and 8 rows of 1 + 3 bd floats; neighbouring rays
-// share corners through the caches); K8 backward also by its atomics into
-// the rows. Design: one thread per ray, no shared memory, nothing sorted;
-// splitting the per-entry work from the per-ray walk is later work.
+// share corners through the caches); K8 and K10 backward also by their
+// atomics into the rows. Design: one thread per ray, no shared memory,
+// nothing sorted; splitting the per-entry work from the per-ray walk is
+// later work.
 #include "common.cuh"
 
 struct CuvolParams {
@@ -76,7 +96,11 @@ struct CuvolParams {
     float* log_T;
     float* t_sig;            // (B,) or null
     float* entry_pre;        // (M,) or null
+    float* ckpt;             // K10: (B, n_seg) log_T before every kSeg-th step, or null
+    int n_seg;
     const float* g_rgb;      // (B, 3)
+    const float* g_depth;    // (B,) or null
+    const float* g_log_T;    // (B,) or null
     float* g_density;        // (cap,)
     float* g_sh;             // (cap, 3 bd)
     float* g_sh_mult;        // (B, bd) or null
@@ -84,6 +108,9 @@ struct CuvolParams {
 
 // the widest basis whose per-ray gradient K8's backward keeps in registers
 constexpr int kMaxBasis = 32;
+// K10: steps between the forward's log_T checkpoints (the backward's
+// segment, held in local memory)
+constexpr int kSeg = 64;
 
 // the background colour of ray r, channel ch
 HD float bg_of(const CuvolParams& p, int r, int ch) {
@@ -225,7 +252,48 @@ HD void cuvol_forward_ray(const CuvolParams& p, int r) {
     if (p.t_sig) p.t_sig[r] = finite(t_sig) ? t_sig : 0.0f;
 }
 
+// d rgb / d log_att of every sample includes the background's exp(log_T) g . bg
+HD float bg_dot(const CuvolParams& p, int r, const float g[3]) {
+    return p.bg_rgb ? g[0] * bg_of(p, r, 0) + g[1] * bg_of(p, r, 1) + g[2] * bg_of(p, r, 2)
+                    : p.bg * (g[0] + g[1] + g[2]);
+}
+
+// one atomicAdd per corner channel of a voxel's summed cotangents gd
+// (density) and gc (colour, before the contraction with the basis), zeros
+// and absent links skipped; with kShMult the basis gradient into gshm
 template <bool kShMult>
+HD void flush_corners(const CuvolParams& p, const Ray& ray, const CuvolCorners& cs,
+                      const float gd[8], const float gc[8][3], float* gshm) {
+    const int C = 3 * p.bd;
+    for (int c = 0; c < 8; ++c) {
+        const int link = cs.link[c];
+        if (link < 0) continue;
+        if (gd[c] != 0.0f) atomic_add(p.g_density + link, gd[c]);
+        float* row = p.g_sh + (int64_t)link * C;
+        const float* sh_row = p.sh + (int64_t)link * C;
+        for (int ch = 0; ch < 3; ++ch) {
+            if (gc[c][ch] == 0.0f) continue;
+            for (int b = 0; b < p.bd; ++b)
+                atomic_add(row + ch * p.bd + b, gc[c][ch] * ray.shm[b]);
+            if (kShMult) {
+#pragma unroll
+                for (int b = 0; b < kMaxBasis; ++b)
+                    if (b < p.bd) gshm[b] = gshm[b] + gc[c][ch] * sh_row[ch * p.bd + b];
+            }
+        }
+    }
+}
+
+template <bool kShMult>
+HD void store_sh_mult_grad(const CuvolParams& p, int r, const float* gshm) {
+    if (kShMult) {
+#pragma unroll
+        for (int b = 0; b < kMaxBasis; ++b)
+            if (b < p.bd) p.g_sh_mult[(int64_t)r * p.bd + b] = gshm[b];
+    }
+}
+
+template <bool kShMult, bool kOut>
 HD void cuvol_backward_ray(const CuvolParams& p, int r) {
     const Ray ray = load_ray(p, r);
     float gshm[kMaxBasis];
@@ -234,12 +302,9 @@ HD void cuvol_backward_ray(const CuvolParams& p, int r) {
     const int64_t e0 = p.offsets[r], e1 = p.offsets[r + 1];
     const float g[3] = {p.g_rgb[3 * (int64_t)r], p.g_rgb[3 * (int64_t)r + 1],
                         p.g_rgb[3 * (int64_t)r + 2]};
-    // d rgb / d log_att of every sample includes the background's exp(log_T) * bg
-    const float gbg = p.bg_rgb ? g[0] * bg_of(p, r, 0) + g[1] * bg_of(p, r, 1) +
-                                     g[2] * bg_of(p, r, 2)
-                               : p.bg * (g[0] + g[1] + g[2]);
-    float suffix = expf(p.log_T[r]) * gbg;
-    const int C = 3 * p.bd;
+    const float g_depth = kOut && p.g_depth ? p.g_depth[r] : 0.0f;
+    const float g_log_T = kOut && p.g_log_T ? p.g_log_T[r] : 0.0f;
+    float suffix = expf(p.log_T[r]) * bg_dot(p, r, g);
     for (int64_t e = e1 - 1; e >= e0; --e) {
         const Entry en = load_entry(p, ray, e);
         CuvolCorners cs;
@@ -270,7 +335,9 @@ HD void cuvol_backward_ray(const CuvolParams& p, int r) {
                 rgb[ch] = fmaxf(smp.pre[ch], 0.0f);
                 G = G + g[ch] * rgb[ch];
             }
-            const float d_la = -T * ea * G + suffix;
+            if (kOut) G = G + g_depth * t;
+            float d_la = -T * ea * G + suffix;
+            if (kOut) d_la = d_la + g_log_T;
             suffix = suffix + w * G;
             const float d_sigma = smp.sigma > 0.0f ? -smp.ws * d_la : 0.0f;
             float d_pre[3];
@@ -280,56 +347,47 @@ HD void cuvol_backward_ray(const CuvolParams& p, int r) {
                 for (int ch = 0; ch < 3; ++ch) gc[c][ch] = gc[c][ch] + smp.w8[c] * d_pre[ch];
             }
         }
-        for (int c = 0; c < 8; ++c) {
-            const int link = cs.link[c];
-            if (link < 0) continue;
-            if (gd[c] != 0.0f) atomic_add(p.g_density + link, gd[c]);
-            float* row = p.g_sh + (int64_t)link * C;
-            const float* sh_row = p.sh + (int64_t)link * C;
-            for (int ch = 0; ch < 3; ++ch) {
-                if (gc[c][ch] == 0.0f) continue;
-                for (int b = 0; b < p.bd; ++b)
-                    atomic_add(row + ch * p.bd + b, gc[c][ch] * ray.shm[b]);
-                if (kShMult) {
-#pragma unroll
-                    for (int b = 0; b < kMaxBasis; ++b)
-                        if (b < p.bd) gshm[b] = gshm[b] + gc[c][ch] * sh_row[ch * p.bd + b];
-                }
-            }
-        }
+        flush_corners<kShMult>(p, ray, cs, gd, gc, gshm);
     }
-    if (kShMult) {
-#pragma unroll
-        for (int b = 0; b < kMaxBasis; ++b)
-            if (b < p.bd) p.g_sh_mult[(int64_t)r * p.bd + b] = gshm[b];
-    }
+    store_sh_mult_grad<kShMult>(p, r, gshm);
 }
 
 // ---------------------------------------------------------------------------
 // K10: the dense march
 // ---------------------------------------------------------------------------
 
-HD void cuvol_march_ray(const CuvolParams& p, int r) {
-    const Ray ray = load_ray(p, r);
+// the edge-clamped voxel l and fraction f of the march's sample at t
+// (ops/trilerp.py:voxel_of)
+HD void march_voxel(const CuvolParams& p, const Ray& ray, float t, int l[3], float f[3]) {
     const float hi[3] = {(float)p.X - 1.0f, (float)p.Y - 1.0f, (float)p.Z - 1.0f};
     const int lmax[3] = {p.X - 2, p.Y - 2, p.Z - 2};
+    for (int a = 0; a < 3; ++a) {
+        const float pos = fminf(fmaxf(ray.o[a] + t * ray.d[a], 0.0f), hi[a]);
+        l[a] = clampi((int)pos, 0, lmax[a]);
+        f[a] = pos - (float)l[a];
+    }
+}
+
+HD float march_ws(const CuvolParams& p, const Ray& ray, float t) {
+    return (p.lso && t + p.step > ray.tmax) ? 1e9f : ray.ws;
+}
+
+template <bool kCkpt>
+HD void cuvol_march_ray(const CuvolParams& p, int r) {
+    const Ray ray = load_ray(p, r);
     float log_T = 0.0f, depth = 0.0f, t_sig = INFINITY;
     float rgb[3] = {0.0f, 0.0f, 0.0f};
     for (int k = 0; k < p.S; ++k) {
         const float t = ray.tmin + (float)k * p.step;
         if (!(t <= ray.tmax)) break;  // t rises with k: no later sample is active
+        if (kCkpt && k % kSeg == 0) p.ckpt[(int64_t)r * p.n_seg + k / kSeg] = log_T;
         int l[3];
         float f[3];
-        for (int a = 0; a < 3; ++a) {
-            const float pos = fminf(fmaxf(ray.o[a] + t * ray.d[a], 0.0f), hi[a]);
-            l[a] = clampi((int)pos, 0, lmax[a]);
-            f[a] = pos - (float)l[a];
-        }
+        march_voxel(p, ray, t, l, f);
         CuvolCorners cs;
         gather_cuvol_corners(p, ray.shm, l[0], l[1], l[2], cs);
-        const float ws = (p.lso && t + p.step > ray.tmax) ? 1e9f : ray.ws;
         Sample smp;
-        eval_sample(ray, cs, f[0], f[1], f[2], ws, smp);
+        eval_sample(ray, cs, f[0], f[1], f[2], march_ws(p, ray, t), smp);
         const float la = log_att_of(smp);
         const float w = expf(log_T) * (1.0f - expf(la));
         for (int ch = 0; ch < 3; ++ch) rgb[ch] = rgb[ch] + w * fmaxf(smp.pre[ch], 0.0f);
@@ -344,21 +402,120 @@ HD void cuvol_march_ray(const CuvolParams& p, int r) {
     if (p.t_sig) p.t_sig[r] = finite(t_sig) ? t_sig : 0.0f;
 }
 
+HD bool same_voxel(const int a[3], const int b[3]) {
+    return a[0] == b[0] && a[1] == b[1] && a[2] == b[2];
+}
+
+template <bool kShMult>
+HD void cuvol_march_backward_ray(const CuvolParams& p, int r) {
+    const Ray ray = load_ray(p, r);
+    float gshm[kMaxBasis];
+#pragma unroll
+    for (int b = 0; b < kMaxBasis; ++b) gshm[b] = 0.0f;
+    const float g[3] = {p.g_rgb[3 * (int64_t)r], p.g_rgb[3 * (int64_t)r + 1],
+                        p.g_rgb[3 * (int64_t)r + 2]};
+    const float g_depth = p.g_depth ? p.g_depth[r] : 0.0f;
+    const float g_log_T = p.g_log_T ? p.g_log_T[r] : 0.0f;
+    int K = 0;  // the forward's samples
+    while (K < p.S && ray.tmin + (float)K * p.step <= ray.tmax) ++K;
+    float suffix = expf(p.log_T[r]) * bg_dot(p, r, g);
+    float pre[kSeg], sig[kSeg];  // a segment's prefixes and sigmas
+    int dv[3] = {-1, -1, -1};    // the voxel of the re-march's densities
+    float dens[8];
+    int bv[3] = {-1, -1, -1};    // the voxel of the reverse walk's corners and sums
+    CuvolCorners cs;
+    float gd[8], gc[8][3];
+    for (int c = 0; c < 8; ++c) {
+        gd[c] = 0.0f;
+        for (int ch = 0; ch < 3; ++ch) gc[c][ch] = 0.0f;
+    }
+    for (int seg = (K - 1) / kSeg; seg >= 0 && K > 0; --seg) {
+        const int k0 = seg * kSeg, k1 = k0 + kSeg < K ? k0 + kSeg : K;
+        // the forward's prefixes, in its order, from the checkpoint
+        float run = p.ckpt[(int64_t)r * p.n_seg + seg];
+        for (int k = k0; k < k1; ++k) {
+            const float t = ray.tmin + (float)k * p.step;
+            int l[3];
+            float f[3];
+            march_voxel(p, ray, t, l, f);
+            if (!same_voxel(l, dv)) {
+                for (int c = 0; c < 8; ++c) {
+                    const int cx = clampi(l[0] + corner_dx(c), 0, p.X - 1);
+                    const int cy = clampi(l[1] + corner_dy(c), 0, p.Y - 1);
+                    const int cz = clampi(l[2] + corner_dz(c), 0, p.Z - 1);
+                    const int link = p.links[((int64_t)cx * p.Y + cy) * p.Z + cz];
+                    dens[c] = link < 0 ? 0.0f : p.density[link];
+                }
+                for (int a = 0; a < 3; ++a) dv[a] = l[a];
+            }
+            float w8[8];
+            trilerp_weights(f[0], f[1], f[2], w8);
+            const float sigma = corner_dot(w8, dens);
+            pre[k - k0] = run;
+            sig[k - k0] = sigma;
+            run = run + -march_ws(p, ray, t) * fmaxf(sigma, 0.0f);
+        }
+        for (int k = k1 - 1; k >= k0; --k) {
+            if (!(sig[k - k0] > 0.0f)) continue;  // weight 0, relu gradient 0
+            const float t = ray.tmin + (float)k * p.step;
+            int l[3];
+            float f[3];
+            march_voxel(p, ray, t, l, f);
+            if (!same_voxel(l, bv)) {
+                if (bv[0] >= 0) flush_corners<kShMult>(p, ray, cs, gd, gc, gshm);
+                gather_cuvol_corners(p, ray.shm, l[0], l[1], l[2], cs);
+                for (int a = 0; a < 3; ++a) bv[a] = l[a];
+                for (int c = 0; c < 8; ++c) {
+                    gd[c] = 0.0f;
+                    for (int ch = 0; ch < 3; ++ch) gc[c][ch] = 0.0f;
+                }
+            }
+            Sample smp;
+            eval_sample(ray, cs, f[0], f[1], f[2], march_ws(p, ray, t), smp);
+            const float la = log_att_of(smp);
+            const float T = expf(pre[k - k0]);
+            const float ea = expf(la);
+            const float w = T * (1.0f - ea);
+            float G = 0.0f;
+            for (int ch = 0; ch < 3; ++ch) G = G + g[ch] * fmaxf(smp.pre[ch], 0.0f);
+            G = G + g_depth * t;
+            const float d_la = -T * ea * G + suffix + g_log_T;
+            suffix = suffix + w * G;
+            const float d_sigma = -smp.ws * d_la;
+            float d_pre[3];
+            for (int ch = 0; ch < 3; ++ch) d_pre[ch] = w * g[ch] * clip_lo_grad(smp.pre[ch], 0.0f);
+            for (int c = 0; c < 8; ++c) {
+                gd[c] = gd[c] + smp.w8[c] * d_sigma;
+                for (int ch = 0; ch < 3; ++ch) gc[c][ch] = gc[c][ch] + smp.w8[c] * d_pre[ch];
+            }
+        }
+    }
+    if (bv[0] >= 0) flush_corners<kShMult>(p, ray, cs, gd, gc, gshm);
+    store_sh_mult_grad<kShMult>(p, r, gshm);
+}
+
 #ifdef __CUDACC__
 __global__ void cuvol_forward_kernel(CuvolParams p) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r < p.B) cuvol_forward_ray(p, r);
 }
 
-template <bool kShMult>
+template <bool kShMult, bool kOut>
 __global__ void cuvol_backward_kernel(CuvolParams p) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r < p.B) cuvol_backward_ray<kShMult>(p, r);
+    if (r < p.B) cuvol_backward_ray<kShMult, kOut>(p, r);
 }
 
+template <bool kCkpt>
 __global__ void cuvol_march_kernel(CuvolParams p) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r < p.B) cuvol_march_ray(p, r);
+    if (r < p.B) cuvol_march_ray<kCkpt>(p, r);
+}
+
+template <bool kShMult>
+__global__ void cuvol_march_backward_kernel(CuvolParams p) {
+    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+    if (r < p.B) cuvol_march_backward_ray<kShMult>(p, r);
 }
 
 static CuvolParams make_params(const int64_t* offsets, int B, const int* l, const float* close_t,
@@ -431,6 +588,7 @@ extern "C" cudaError_t cuvol_backward(const int64_t* offsets, int B, const int* 
                                       float step, int S, int lso, float bg,
                                       const float* bg_rgb, const float* log_T,
                                       const float* entry_pre, const float* g_rgb,
+                                      const float* g_depth, const float* g_log_T,
                                       float* g_density, float* g_sh, float* g_sh_mult,
                                       void* stream) {
     if (B <= 0) return cudaSuccess;
@@ -441,16 +599,26 @@ extern "C" cudaError_t cuvol_backward(const int64_t* offsets, int B, const int* 
     p.log_T = const_cast<float*>(log_T);
     p.entry_pre = const_cast<float*>(entry_pre);
     p.g_rgb = g_rgb;
+    p.g_depth = g_depth;
+    p.g_log_T = g_log_T;
     p.g_density = g_density;
     p.g_sh = g_sh;
     p.g_sh_mult = g_sh_mult;
     const unsigned grid = (B + kBlock - 1) / kBlock;
-    if (g_sh_mult)
-        cuvol_backward_kernel<true><<<grid, kBlock, 0, (cudaStream_t)stream>>>(p);
+    cudaStream_t st = (cudaStream_t)stream;
+    const bool out = g_depth || g_log_T;
+    if (g_sh_mult && out)
+        cuvol_backward_kernel<true, true><<<grid, kBlock, 0, st>>>(p);
+    else if (g_sh_mult)
+        cuvol_backward_kernel<true, false><<<grid, kBlock, 0, st>>>(p);
+    else if (out)
+        cuvol_backward_kernel<false, true><<<grid, kBlock, 0, st>>>(p);
     else
-        cuvol_backward_kernel<false><<<grid, kBlock, 0, (cudaStream_t)stream>>>(p);
+        cuvol_backward_kernel<false, false><<<grid, kBlock, 0, st>>>(p);
     return cudaGetLastError();
 }
+
+static int march_segments(int n_steps) { return (n_steps + kSeg - 1) / kSeg; }
 
 extern "C" cudaError_t cuvol_march(int B, const float* origins, const float* dirs,
                                    const float* sh_mult, int bd, const float* delta_scale,
@@ -458,8 +626,8 @@ extern "C" cudaError_t cuvol_march(int B, const float* origins, const float* dir
                                    int Y, int Z, const float* density, const float* sh,
                                    float step, int n_steps, int lso, float bg,
                                    const float* bg_rgb, int dst_on, float dst, float* rgb,
-                                   float* depth, float* log_T,
-                                   float* t_sig, void* stream) {
+                                   float* depth, float* log_T, float* t_sig, float* ckpt,
+                                   void* stream) {
     if (B <= 0) return cudaSuccess;
     CuvolParams p = make_params(nullptr, B, nullptr, nullptr, nullptr, origins, dirs, sh_mult, bd,
                                 delta_scale, tmin, tmax, links, X, Y, Z, density, sh, step,
@@ -468,7 +636,46 @@ extern "C" cudaError_t cuvol_march(int B, const float* origins, const float* dir
     p.depth = depth;
     p.log_T = log_T;
     p.t_sig = t_sig;
-    cuvol_march_kernel<<<(B + kBlock - 1) / kBlock, kBlock, 0, (cudaStream_t)stream>>>(p);
+    p.ckpt = ckpt;
+    p.n_seg = march_segments(n_steps);
+    const unsigned grid = (B + kBlock - 1) / kBlock;
+    if (ckpt)
+        cuvol_march_kernel<true><<<grid, kBlock, 0, (cudaStream_t)stream>>>(p);
+    else
+        cuvol_march_kernel<false><<<grid, kBlock, 0, (cudaStream_t)stream>>>(p);
+    return cudaGetLastError();
+}
+
+extern "C" cudaError_t cuvol_march_backward(int B, const float* origins, const float* dirs,
+                                            const float* sh_mult, int bd,
+                                            const float* delta_scale, const float* tmin,
+                                            const float* tmax, const int* links, int X, int Y,
+                                            int Z, const float* density, const float* sh,
+                                            float step, int n_steps, int lso, float bg,
+                                            const float* bg_rgb, const float* log_T,
+                                            const float* ckpt, const float* g_rgb,
+                                            const float* g_depth, const float* g_log_T,
+                                            float* g_density, float* g_sh, float* g_sh_mult,
+                                            void* stream) {
+    if (B <= 0) return cudaSuccess;
+    if (g_sh_mult && bd > kMaxBasis) return cudaErrorInvalidValue;
+    CuvolParams p = make_params(nullptr, B, nullptr, nullptr, nullptr, origins, dirs, sh_mult, bd,
+                                delta_scale, tmin, tmax, links, X, Y, Z, density, sh, step,
+                                n_steps, lso, bg, bg_rgb, 0, 0.0f);
+    p.log_T = const_cast<float*>(log_T);
+    p.ckpt = const_cast<float*>(ckpt);
+    p.n_seg = march_segments(n_steps);
+    p.g_rgb = g_rgb;
+    p.g_depth = g_depth;
+    p.g_log_T = g_log_T;
+    p.g_density = g_density;
+    p.g_sh = g_sh;
+    p.g_sh_mult = g_sh_mult;
+    const unsigned grid = (B + kBlock - 1) / kBlock;
+    if (g_sh_mult)
+        cuvol_march_backward_kernel<true><<<grid, kBlock, 0, (cudaStream_t)stream>>>(p);
+    else
+        cuvol_march_backward_kernel<false><<<grid, kBlock, 0, (cudaStream_t)stream>>>(p);
     return cudaGetLastError();
 }
 #endif

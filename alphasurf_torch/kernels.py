@@ -57,7 +57,9 @@ LAUNCHES = {
     "cuvol_forward": 0,
     "cuvol_backward": 0,
     "cuvol_backward_basis": 0,
+    "cuvol_backward_out": 0,
     "cuvol_march": 0,
+    "cuvol_march_backward": 0,
     "keep_mask": 0,
     "prune_mask": 0,
     "lv_band": 0,
@@ -135,9 +137,11 @@ _ARGTYPES = {
     "cuvol_forward": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F,
                       _I, _I, _F, _P, _I, _F, _P, _P, _P, _P, _P, _P],
     "cuvol_backward": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F,
-                       _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P],
+                       _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "cuvol_march": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _I, _F, _P,
-                    _I, _F, _P, _P, _P, _P, _P],
+                    _I, _F, _P, _P, _P, _P, _P, _P],
+    "cuvol_march_backward": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _I,
+                             _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "topo_window_or": [_P, _F, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "topo_prune_valid": [_P, _P, _P, _F, _I, _I, _I, _P, _P],
     "topo_straddle": [_P, _I, _I, _I, _P, _I, _P, _P],
@@ -168,7 +172,7 @@ _FUNCS = {
     "reg": ("reg_tv", "reg_normal", "reg_sparsify", "reg_ext", "reg_background_tv",
             "reg_basis_tv"),
     "rmsprop": ("rmsprop",),
-    "cuvol": ("cuvol_forward", "cuvol_backward", "cuvol_march"),
+    "cuvol": ("cuvol_forward", "cuvol_backward", "cuvol_march", "cuvol_march_backward"),
     "topology": ("topo_window_or", "topo_prune_valid", "topo_straddle", "topo_resample_dense",
                  "topo_resample_rows"),
     "sweep": ("weight_march", "visibility", "transmit_march", "mask_march"),
@@ -1033,58 +1037,115 @@ def cuvol_forward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_scal
     return out
 
 
+def _out_cotangent_ptrs(g_depth, g_log_T, B: int) -> tuple:
+    """The pointers of the depth and log_T cotangents (B,), None for an
+    absent one."""
+    for name, g in (("g_depth", g_depth), ("g_log_T", g_log_T)):
+        if g is not None:
+            _check(name, g, torch.float32, (B,))
+    return tuple(None if g is None else _ptr(g) for g in (g_depth, g_log_T))
+
+
+def _grad_outputs(density, sh, B: int, bd: int, want_sh_mult: bool, kernel: str):
+    g_shm = None
+    if want_sh_mult:
+        if bd > 32:
+            raise ValueError(f"{kernel}: the basis gradient takes bd <= 32, got {bd}")
+        g_shm = torch.zeros((B, bd), dtype=torch.float32, device=density.device)
+    return torch.zeros_like(density), torch.zeros_like(sh), g_shm
+
+
 def cuvol_backward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_scale, tmin, tmax,
                    links, density, sh, step: float, n_slots: int, last_sample_opaque: bool,
-                   bg: float, log_T, entry_pre, g_rgb, bg_rgb=None, want_sh_mult: bool = False):
+                   bg: float, log_T, entry_pre, g_rgb, bg_rgb=None, want_sh_mult: bool = False,
+                   g_depth=None, g_log_T=None):
     """K8 backward: the gradients of density (cap,) and SH (cap, 3 bd) from
-    the cotangent of rgb (B, 3), given the forward's log_T and entry_pre
-    (and the forward's ``bg_rgb``). With ``want_sh_mult`` also the gradient
-    of the per-ray basis sh_mult (B, bd), a third output (a launch with it
-    also counts as ``cuvol_backward_basis``; bd at most 32)."""
+    the cotangent of rgb (B, 3) and, when given, those of depth and log_T
+    (B,) (the launch then also counts as ``cuvol_backward_out``), given the
+    forward's log_T and entry_pre (and the forward's ``bg_rgb``). With
+    ``want_sh_mult`` also the gradient of the per-ray basis sh_mult (B, bd),
+    a third output (a launch with it also counts as
+    ``cuvol_backward_basis``; bd at most 32)."""
     B, bd, grid_args = _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links,
                                    density, sh)
     M = _pool_entry_args(offsets, l, close_t, far_t, B)
     _check("log_T", log_T, torch.float32, (B,))
     _check("entry_pre", entry_pre, torch.float32, (M,))
     _check("g_rgb", g_rgb, torch.float32, (B, 3))
-    g_density = torch.zeros_like(density)
-    g_sh = torch.zeros_like(sh)
-    g_shm = None
-    if want_sh_mult:
-        if bd > 32:
-            raise ValueError(f"cuvol_backward: the basis gradient takes bd <= 32, got {bd}")
-        g_shm = torch.zeros((B, bd), dtype=torch.float32, device=origins.device)
+    out_ptrs = _out_cotangent_ptrs(g_depth, g_log_T, B)
+    g_density, g_sh, g_shm = _grad_outputs(density, sh, B, bd, want_sh_mult, "cuvol_backward")
     bgp = _bg_rgb_ptr(bg_rgb, B)
     if B > 0 and M > 0:
         _launch("cuvol", "cuvol_backward", "cuvol_backward",
                 _ptr(offsets), B, _ptr(l), _ptr(close_t), _ptr(far_t), _ptr(origins), _ptr(dirs),
                 *grid_args, float(step), int(n_slots), int(last_sample_opaque), float(bg), bgp,
-                _ptr(log_T), _ptr(entry_pre), _ptr(g_rgb), _ptr(g_density), _ptr(g_sh),
+                _ptr(log_T), _ptr(entry_pre), _ptr(g_rgb), *out_ptrs, _ptr(g_density), _ptr(g_sh),
                 _ptr(g_shm) if want_sh_mult else None)
         if want_sh_mult:
             LAUNCHES["cuvol_backward_basis"] += 1
+        if out_ptrs != (None, None):
+            LAUNCHES["cuvol_backward_out"] += 1
     return (g_density, g_sh, g_shm) if want_sh_mult else (g_density, g_sh)
+
+
+# K10's checkpoint spacing: the forward keeps log_T before every
+# MARCH_SEGMENT-th step (cuvol.cu's kSeg)
+MARCH_SEGMENT = 64
 
 
 def cuvol_march(origins, dirs, sh_mult, delta_scale, tmin, tmax, links, density, sh,
                 step: float, n_steps: int, last_sample_opaque: bool, bg: float,
-                depth_sigma_thresh=None, bg_rgb=None) -> dict:
+                depth_sigma_thresh=None, bg_rgb=None, checkpoints: bool = False) -> dict:
     """K10: the dense march of each ray, t = tmin + k step for k < n_steps
     while t <= tmax: rgb (B, 3), depth, log_T and t_sig (or None).
     ``bg_rgb`` (B, 3), K13's per-ray background colour, takes the place of
-    ``bg``."""
+    ``bg``. With ``checkpoints`` also ckpt (B, ceil(n_steps /
+    MARCH_SEGMENT)), each ray's log_T before every MARCH_SEGMENT-th step,
+    which ``cuvol_march_backward`` takes (entries past a ray's last step
+    are not written)."""
     B, bd, grid_args = _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links,
                                    density, sh)
     out = _render_outputs(B, origins.device, depth_sigma_thresh)
+    n_seg = (int(n_steps) + MARCH_SEGMENT - 1) // MARCH_SEGMENT
+    out["ckpt"] = (torch.empty((B, n_seg), dtype=torch.float32, device=origins.device)
+                   if checkpoints else None)
     bgp = _bg_rgb_ptr(bg_rgb, B)
     if B > 0:
         dst_on = depth_sigma_thresh is not None
         _launch("cuvol", "cuvol_march", "cuvol_march", B, _ptr(origins), _ptr(dirs), *grid_args,
                 float(step), int(n_steps), int(last_sample_opaque), float(bg), bgp, int(dst_on),
                 float(depth_sigma_thresh) if dst_on else 0.0,
-                *(0 if out[k] is None else _ptr(out[k])
-                  for k in ("rgb", "depth", "log_T", "t_sig")))
+                *(None if out[k] is None else _ptr(out[k])
+                  for k in ("rgb", "depth", "log_T", "t_sig", "ckpt")))
     return out
+
+
+def cuvol_march_backward(origins, dirs, sh_mult, delta_scale, tmin, tmax, links, density, sh,
+                         step: float, n_steps: int, last_sample_opaque: bool, bg: float, log_T,
+                         ckpt, g_rgb, g_depth=None, g_log_T=None, bg_rgb=None,
+                         want_sh_mult: bool = False):
+    """K10 backward: the gradients of density (cap,) and SH (cap, 3 bd) from
+    the cotangents of rgb (B, 3) and, when given, of depth and log_T (B,),
+    given the forward's log_T and ckpt (``cuvol_march(...,
+    checkpoints=True)``, same inputs and ``bg_rgb``). With ``want_sh_mult``
+    also the gradient of the per-ray basis sh_mult (B, bd), a third output
+    (bd at most 32)."""
+    B, bd, grid_args = _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links,
+                                   density, sh)
+    n_seg = (int(n_steps) + MARCH_SEGMENT - 1) // MARCH_SEGMENT
+    _check("log_T", log_T, torch.float32, (B,))
+    _check("ckpt", ckpt, torch.float32, (B, n_seg))
+    _check("g_rgb", g_rgb, torch.float32, (B, 3))
+    out_ptrs = _out_cotangent_ptrs(g_depth, g_log_T, B)
+    g_density, g_sh, g_shm = _grad_outputs(density, sh, B, bd, want_sh_mult,
+                                           "cuvol_march_backward")
+    bgp = _bg_rgb_ptr(bg_rgb, B)
+    if B > 0:
+        _launch("cuvol", "cuvol_march_backward", "cuvol_march_backward", B, _ptr(origins),
+                _ptr(dirs), *grid_args, float(step), int(n_steps), int(last_sample_opaque),
+                float(bg), bgp, _ptr(log_T), _ptr(ckpt), _ptr(g_rgb), *out_ptrs, _ptr(g_density),
+                _ptr(g_sh), _ptr(g_shm) if want_sh_mult else None)
+    return (g_density, g_sh, g_shm) if want_sh_mult else (g_density, g_sh)
 
 
 # ---------------------------------------------------------------------------

@@ -15,23 +15,27 @@ CPU:
                                   the segment, composited per ray; backward
                                   into the density and SH rows
   K10 ``volume_render_cuvol``     the dense fixed-step march (eval images and
-                                  depth), forward only
+                                  depth, and the warm start of a step that
+                                  is not packed or has no occupancy);
+                                  backward into the density and SH rows
 
 As in the JAX package, the packed renderer drops the samples of the outer
 half-voxel band (outside the vertex lattice but inside the sample domain
 [-0.5, gsz-0.5]), which the dense march renders with an edge-clamped
 trilerp: the two agree only where the boundary voxels are empty.
 
-Gradients: when density, SH or a learned basis requires grad, the plain
-path on the CPU is differentiated by autograd (the pool is a constant of
-the parameters, as the JAX package's stop_gradient makes it); on the card
-``_PackedCuvolFn`` runs K8's forward and backward for the cotangent of
-``rgb``, the per-ray basis ``sh_mult`` among its inputs.
+Gradients: when density, SH, a learned basis or the background requires
+grad, the plain path on the CPU is differentiated by autograd (the pool is
+a constant of the parameters, as the JAX package's stop_gradient makes
+it); on the card ``_PackedCuvolFn`` runs K8's forward and backward and
+``_DenseCuvolFn`` K10's, for the cotangents of ``rgb``, ``depth`` and
+``log_transmit``, the per-ray basis ``sh_mult`` and background colour
+among their inputs.
 
 A grid with an MSI background composites it behind the density in both
 renderers: K13 (``render.background``) gives each ray its background colour,
-which K8 and K10 take where they took the brightness; K8's backward carries
-the colour's cotangent to K13's backward kernel.
+which K8 and K10 take where they took the brightness; their backward
+carries the colour's cotangent to K13's backward kernel.
 """
 from __future__ import annotations
 
@@ -274,13 +278,40 @@ def _k8_forward(c: _CuvolChunk, density, sh, save_entry_pre: bool) -> dict:
                                  bg_rgb=c.bg_rgb)
 
 
+def _cotangents(g_rgb, g_depth, g_log_T, log_T) -> tuple:
+    """The output cotangents for K8's and K10's backward: rgb's (zeros for
+    None) and those of depth and log_T (None, or contiguous)."""
+    if g_rgb is None:
+        g_rgb = torch.zeros((log_T.shape[0], 3), dtype=torch.float32, device=log_T.device)
+    return tuple(None if g is None else g.contiguous() for g in (g_rgb, g_depth, g_log_T))
+
+
+def _input_grads(ctx, g_rgb, log_T, grads) -> tuple:
+    """The Functions' gradients of (density, sh, bg_rgb, sh_mult, chunk)
+    from the kernel's (g_density, g_sh[, g_sh_mult]): bg_rgb's is
+    g_rgb exp(log_T)."""
+    need = ctx.needs_input_grad
+    g_density, g_sh, *g_shm = grads
+    g_bg = g_rgb * torch.exp(log_T)[:, None] if need[2] else None
+    return (g_density[:, None] if need[0] else None, g_sh if need[1] else None, g_bg,
+            g_shm[0] if need[3] else None, None)
+
+
+def _wants_grad(grid: SparseGrid, bg_rgb, sh_mult) -> bool:
+    """Is a renderer's Function needed: grad on, and density, SH, the
+    background colour or the basis requiring it?"""
+    return torch.is_grad_enabled() and (
+        grid.density_data.requires_grad or grid.sh_data.requires_grad
+        or (bg_rgb is not None and bg_rgb.requires_grad) or sh_mult.requires_grad)
+
+
 class _PackedCuvolFn(torch.autograd.Function):
-    """K8 forward and backward on the card. ``rgb`` carries the gradient
-    to density and SH, to the background colour ``bg_rgb`` (the chunk's,
-    an input here so that its cotangent reaches K13's backward) and to the
-    per-ray basis ``sh_mult`` (likewise, for a learned basis); ``depth``
-    and ``log_T`` take no cotangent, and ``t_sig`` (the depth_sigma_thresh
-    output) none by construction."""
+    """K8 forward and backward on the card. ``rgb``, ``depth`` and ``log_T``
+    carry the gradient to density and SH, to the background colour
+    ``bg_rgb`` (the chunk's, an input here so that its cotangent reaches
+    K13's backward) and to the per-ray basis ``sh_mult`` (likewise, for a
+    learned basis); ``t_sig`` (the depth_sigma_thresh output) takes none by
+    construction."""
 
     @staticmethod
     def forward(ctx, density, sh, bg_rgb, sh_mult, chunk: _CuvolChunk):
@@ -295,24 +326,15 @@ class _PackedCuvolFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_rgb, g_depth, g_log_T, _g_t_sig):
-        for name, g in (("depth", g_depth), ("log_transmit", g_log_T)):
-            if g is not None and bool(torch.any(g != 0)):
-                raise NotImplementedError(
-                    f"a gradient through {name!r} of the cuvol renderer is not ported yet "
-                    "(ROADMAP §2 item 3); K8 carries rgb")
         c = ctx.chunk
         log_T, entry_pre = ctx.saved_tensors
+        g_rgb, g_depth, g_log_T = _cotangents(g_rgb, g_depth, g_log_T, log_T)
         grid = c.grid
-        B = c.rays[0].shape[0]
-        g_rgb = (torch.zeros((B, 3), dtype=torch.float32, device=log_T.device) if g_rgb is None
-                 else g_rgb.contiguous())
-        need = ctx.needs_input_grad
-        g_density, g_sh, *g_shm = kernels.cuvol_backward(
+        grads = kernels.cuvol_backward(
             *_k8_args(c, grid.density_data.detach()[:, 0], grid.sh_data.detach()), log_T,
-            entry_pre, g_rgb, bg_rgb=c.bg_rgb, want_sh_mult=need[3])
-        g_bg = g_rgb * torch.exp(log_T)[:, None] if need[2] else None
-        return (g_density[:, None] if need[0] else None, g_sh if need[1] else None, g_bg,
-                g_shm[0] if need[3] else None, None)
+            entry_pre, g_rgb, bg_rgb=c.bg_rgb, want_sh_mult=ctx.needs_input_grad[3],
+            g_depth=g_depth, g_log_T=g_log_T)
+        return _input_grads(ctx, g_rgb, log_T, grads)
 
 
 def cuvol_pool(grid: SparseGrid, origins, dirs, tmin_cu, tmax_cu, words) -> Pool:
@@ -365,10 +387,9 @@ def volume_render_cuvol_packed(
         chunk = _CuvolChunk(grid, opt, pool, tuple(x.detach().contiguous() for x in (
             origins, dirs, sh_mult, delta_scale, tmin_cu, tmax_cu)), depth_sigma_thresh,
             None if bg_rgb is None else bg_rgb.detach().contiguous())
-        params = (grid.density_data, grid.sh_data)
-        if torch.is_grad_enabled() and (any(p.requires_grad for p in params) or (
-                bg_rgb is not None and bg_rgb.requires_grad) or sh_mult.requires_grad):
-            rgb, depth, log_T, t_sig = _PackedCuvolFn.apply(*params, bg_rgb, sh_mult, chunk)
+        if _wants_grad(grid, bg_rgb, sh_mult):
+            rgb, depth, log_T, t_sig = _PackedCuvolFn.apply(grid.density_data, grid.sh_data,
+                                                            bg_rgb, sh_mult, chunk)
         else:
             k = _k8_forward(chunk, grid.density_data.detach()[:, 0], grid.sh_data.detach(), False)
             rgb, depth, log_T, t_sig = k["rgb"], k["depth"], k["log_T"], k["t_sig"]
@@ -432,6 +453,50 @@ def _march_plain(grid: SparseGrid, opt: RenderOptions, origins, dirs, sh_mult, d
             "t_sig": None if depth_sigma_thresh is None else t_sig}
 
 
+class _MarchChunk(NamedTuple):
+    """What K10's forward and backward share besides the parameters."""
+
+    grid: SparseGrid
+    opt: RenderOptions
+    rays: tuple  # (origins, dirs, sh_mult, delta_scale, tmin, tmax), float32
+    n_steps: int
+    depth_sigma_thresh: float | None
+    bg_rgb: torch.Tensor | None = None  # (B, 3), K13's background colour (detached)
+
+
+def _k10_args(c: _MarchChunk, density, sh) -> tuple:
+    return (*c.rays, c.grid.links, density, sh, c.opt.step_size, c.n_steps,
+            c.opt.last_sample_opaque, c.opt.background_brightness)
+
+
+class _DenseCuvolFn(torch.autograd.Function):
+    """K10 forward (with its log_T checkpoints) and backward on the card,
+    as ``_PackedCuvolFn`` is K8's: the cotangents of ``rgb``, ``depth`` and
+    ``log_T`` into density, SH, the background colour and the basis."""
+
+    @staticmethod
+    def forward(ctx, density, sh, bg_rgb, sh_mult, chunk: _MarchChunk):
+        m = kernels.cuvol_march(*_k10_args(chunk, density.detach()[:, 0], sh.detach()),
+                                chunk.depth_sigma_thresh, bg_rgb=chunk.bg_rgb, checkpoints=True)
+        ctx.chunk = chunk
+        ctx.save_for_backward(m["log_T"], m["ckpt"])
+        ctx.set_materialize_grads(False)
+        t_sig = m["t_sig"] if m["t_sig"] is not None else m["depth"].new_zeros(0)
+        ctx.mark_non_differentiable(t_sig)
+        return m["rgb"], m["depth"], m["log_T"], t_sig
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_depth, g_log_T, _g_t_sig):
+        c = ctx.chunk
+        log_T, ckpt = ctx.saved_tensors
+        g_rgb, g_depth, g_log_T = _cotangents(g_rgb, g_depth, g_log_T, log_T)
+        grid = c.grid
+        grads = kernels.cuvol_march_backward(
+            *_k10_args(c, grid.density_data.detach()[:, 0], grid.sh_data.detach()), log_T, ckpt,
+            g_rgb, g_depth, g_log_T, bg_rgb=c.bg_rgb, want_sh_mult=ctx.needs_input_grad[3])
+        return _input_grads(ctx, g_rgb, log_T, grads)
+
+
 def volume_render_cuvol(
     grid: SparseGrid,
     rays: Rays,
@@ -444,39 +509,39 @@ def volume_render_cuvol(
     depth, and depth_sigma_thresh (the t of the first sample whose sigma
     exceeds it) when asked. Each ray takes the samples t = tmin + k*step,
     k < ceil(max_steps / step_chunk) * step_chunk, while t <= tmax, as the
-    JAX version's scan does. Forward only: on the card it is K10, and a
-    gradient through it is not ported (ROADMAP §2 item 2)."""
+    JAX version's scan does. On the card it is K10, and under autograd
+    ``_DenseCuvolFn`` (K10 with checkpoints, then K10's backward)."""
     _check_grid(grid)
     if max_steps is None:
         max_steps = max_steps_for(grid, opt)
     n_steps = (max_steps + step_chunk - 1) // step_chunk * step_chunk
-    params = (grid.density_data, grid.sh_data, grid.background_data, grid.basis_data,
-              *(() if grid.basis_mlp is None else grid.basis_mlp.parameters()))
     with torch.no_grad():
         origins, dirs, viewdirs, delta_scale, tmin, tmax = _prep_rays(grid, rays, opt)
     sh_mult = eval_basis(grid, viewdirs)
-    if origins.is_cuda and torch.is_grad_enabled() and any(
-            p is not None and p.requires_grad for p in params):
-        raise NotImplementedError(
-            "the gradient of the dense cuvol march is not ported (ROADMAP §2 item 2); "
-            "train through volume_render_cuvol_packed")
     bg = background_color(grid, opt, origins, dirs, delta_scale)
     if origins.is_cuda:
-        m = kernels.cuvol_march(
-            *(x.detach().contiguous() for x in (origins, dirs, sh_mult, delta_scale, tmin, tmax)),
-            grid.links, grid.density_data.detach()[:, 0], grid.sh_data.detach(), opt.step_size,
-            n_steps, opt.last_sample_opaque, opt.background_brightness, depth_sigma_thresh,
-            bg_rgb=None if bg is None else bg[0])
-        rgb = m["rgb"]
+        bg_rgb = None if bg is None else bg[0]
+        chunk = _MarchChunk(grid, opt, tuple(x.detach().contiguous() for x in (
+            origins, dirs, sh_mult, delta_scale, tmin, tmax)), n_steps, depth_sigma_thresh,
+            None if bg_rgb is None else bg_rgb.detach().contiguous())
+        if _wants_grad(grid, bg_rgb, sh_mult):
+            rgb, depth, log_T, t_sig = _DenseCuvolFn.apply(grid.density_data, grid.sh_data,
+                                                           bg_rgb, sh_mult, chunk)
+        else:
+            m = kernels.cuvol_march(*_k10_args(chunk, grid.density_data.detach()[:, 0],
+                                               grid.sh_data.detach()), depth_sigma_thresh,
+                                    bg_rgb=chunk.bg_rgb)
+            rgb, depth, log_T, t_sig = m["rgb"], m["depth"], m["log_T"], m["t_sig"]
     else:
         m = _march_plain(grid, opt, origins, dirs, sh_mult, delta_scale, tmin, tmax, n_steps,
                          step_chunk, depth_sigma_thresh)
         rgb = m["rgb"] + torch.exp(m["log_T"])[:, None] * (
             opt.background_brightness if bg is None else bg[0])
-    log_T = m["log_T"] if bg is None else m["log_T"] + bg[1]
-    out = {"rgb": rgb, "log_transmit": log_T, "depth": m["depth"]}
+        depth, log_T, t_sig = m["depth"], m["log_T"], m["t_sig"]
+    if bg is not None:
+        log_T = log_T + bg[1]
+    out = {"rgb": rgb, "log_transmit": log_T, "depth": depth}
     if depth_sigma_thresh is not None:
-        t_sig = m["t_sig"]
         out["depth_sigma_thresh"] = torch.where(torch.isfinite(t_sig), t_sig,
                                                 torch.zeros_like(t_sig))
     return out

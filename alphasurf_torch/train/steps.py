@@ -10,7 +10,8 @@ regularizers (K6) and the extended surface regularizers its flags turn on
 (``use_eikonal``, ``use_norm_match``, ``use_viscosity``,
 ``use_sign_change``: K12a-K12d), and applies masked RMSprop (K7) to
 density, SH, surface and fake_sample_std, in place. A cuvol step renders through the
-packed cuvol renderer (K8 forward and backward over K2's pool), adds the TV
+packed cuvol renderer (K8 forward and backward over K2's pool) or, when it is
+not packed or has no occupancy, the dense march (K10 and its backward), adds the TV
 of density and SH (K6) and applies K7 to density and SH. Both steps render
 a grid's MSI background through K13 and, when the rms state holds a
 "background" group, train it (the JAX package's aux group): the background
@@ -43,7 +44,7 @@ from ..core.rays import Rays
 from ..losses import reg
 from ..losses import render_losses as rl
 from ..optim.rmsprop import rmsprop_init, rmsprop_step
-from ..render.cuvol import volume_render_cuvol_packed
+from ..render.cuvol import volume_render_cuvol, volume_render_cuvol_packed
 from ..render.surface import (
     RENDERERS, volume_render_surface, volume_render_surface_compact,
     volume_render_surface_packed,
@@ -100,8 +101,8 @@ class StepConfig:
     exact, so ``entries_per_ray``, ``coarse_factor`` and ``supers_per_ray``
     (the JAX pool's budget) are accepted and not needed. ``max_voxels``
     reaches the dense walk, ``max_intersect_voxels`` and ``voxel_chunk`` the
-    compact renderer; ``max_steps`` belongs to the dense cuvol march, whose
-    gradient is not ported."""
+    compact renderer; ``max_steps`` the dense cuvol march of a cuvol step
+    that is not packed."""
 
     opt: RenderOptions
     max_voxels: Optional[int] = None
@@ -444,33 +445,28 @@ def make_cuvol_step(cfg: StepConfig):
 
     ``step(grid, rms, rays, rgb_gt, hp, generator, occ=None, row_coords=None,
     window_starts=None) -> (grid, rms, stats)``, as ``make_surface_step``:
-    the mse of the packed cuvol render, plus ``reg_scale * lambda_tv`` times
-    the TV of density and ``reg_scale * lambda_tv_sh`` times the TV of SH
-    over windows ``"tv"`` and ``"tv_sh"`` (``CUVOL_WINDOWS``), then masked
-    RMSprop of density (``lr_sigma``) and SH (``lr_sh``) in place. ``occ``
-    are the words of ``render.cuvol.density_occupancy_words``; without
-    them, or with a renderer other than "packed", the JAX step marches
-    densely, whose backward is not ported."""
+    the mse of the cuvol render, plus ``reg_scale * lambda_tv`` times the TV
+    of density and ``reg_scale * lambda_tv_sh`` times the TV of SH over
+    windows ``"tv"`` and ``"tv_sh"`` (``CUVOL_WINDOWS``), then masked
+    RMSprop of density (``lr_sigma``) and SH (``lr_sh``) in place. As in
+    JAX (steps.py:469-485), the render is the packed renderer (K8 over K2's
+    pool) when ``cfg.renderer`` is "packed" and ``occ``, the words of
+    ``render.cuvol.density_occupancy_words``, are given; otherwise the dense
+    march (K10 and its backward) of at most ``cfg.max_steps`` steps."""
     _check_config(cfg)
-    if cfg.renderer != "packed":
-        raise NotImplementedError(
-            f"a cuvol step with renderer {cfg.renderer!r} trains through the dense march, whose "
-            "backward is not ported (ROADMAP §2 item 2); use renderer='packed'")
 
     def step(grid: SparseGrid, rms: dict, rays: Rays, rgb_gt: torch.Tensor, hp: HParams,
              generator: torch.Generator, occ=None, row_coords=None, window_starts=None):
-        if occ is None:
-            raise NotImplementedError(
-                "a cuvol step without an occupancy trains through the dense march, whose "
-                "backward is not ported (ROADMAP §2 item 2); pass "
-                "occ=render.cuvol.density_occupancy_words(grid)")
         _check_rms(rms)
         starts = _window_starts(window_starts, CUVOL_WINDOWS)
         reg_scale, sample = _sampler(generator, grid, row_coords, starts)
         params = {k: p for k, p in _trained(grid, rms).items()
                   if k not in ("surface", "fake_sample_std")}
         with _requires_grad(list(params.values())):
-            out = volume_render_cuvol_packed(grid, rays, cfg.opt, occupancy=occ)
+            if cfg.renderer == "packed" and occ is not None:
+                out = volume_render_cuvol_packed(grid, rays, cfg.opt, occupancy=occ)
+            else:
+                out = volume_render_cuvol(grid, rays, cfg.opt, max_steps=cfg.max_steps)
             mse = torch.mean((out["rgb"] - rgb_gt) ** 2)
             loss = mse
             cells = sample("tv", cfg.tv_sparsity)
@@ -485,7 +481,7 @@ def make_cuvol_step(cfg: StepConfig):
         # the JAX step keeps the old parameters when its pool overflowed
         # (steps.py:520-530); the port's pool never overflows (see
         # make_surface_step)
-        overflow = out["pool_overflow"]
+        overflow = out.get("pool_overflow", 0)
         if overflow == 0 or hp.force_apply > 0:
             rmsprop_step(grid.density_data, rms["density"], g["density"], hp.lr_sigma,
                          cfg.rms_beta)

@@ -15,7 +15,8 @@ occupancy (K1d or K1) finds occupied before it and at its first refresh
 after it, kept in ``transitions`` and written to ``transitions.json`` in
 the train dir.
 Multi-device runs raise (ROADMAP §1 item 3). ``surface_renderer`` picks
-the surface steps' renderer (packed, compact or dense), and
+the steps' renderer (packed, compact or dense; as in JAX, a warm start
+that is not packed trains through the dense cuvol march), and
 ``lambda_conv_mode_samp`` > 0 or ``lambda_l_samp_dist`` > 0 turns on the
 two-pass losses on the first-K sample cache, as in the JAX Trainer.
 
@@ -228,11 +229,7 @@ class Trainer:
             surf_grad_abs_max=cfg.surf_grad_abs_max,
             use_two_pass_losses=(cfg.lambda_conv_mode_samp > 0 or cfg.lambda_l_samp_dist > 0),
             use_eikonal=cfg.lambda_surface_eikonal > 0,
-            # the warm start trains through the packed cuvol renderer (K8)
-            # whatever surface_renderer is: JAX sends it through the dense
-            # march for 'compact' and 'dense', whose gradient is not ported
-            # (ROADMAP §2 item 2; §3 records the deviation)
-            renderer=cfg.surface_renderer if kind == "surface" else "packed",
+            renderer=cfg.surface_renderer,
         )
         fn = make_cuvol_step(scfg) if kind == "cuvol" else make_surface_step(scfg)
         self._step_fns[cache_key] = fn

@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from ``alphasurf_torch/csrc`` (K1 occupancy,
 K2 phase A count + fill, K3 phase B, K4 compositor, K5 backward per ray and
 per entry, K6 regularizers TV / normal / sparsify, K7 RMSprop, K1d density
-occupancy, K8 cuvol forward and backward, K10 dense cuvol march, K9a keep
+occupancy, K8 cuvol forward and backward (also with the depth and log_T
+cotangents), K10 dense cuvol march and its backward, K9a keep
 masks, K9b lattice resample, K9c weight march, K9d visibility walk, K9e
 transmittance march, K9f mask sweep, K9g iso points, K4's sigma-thresh
 depth and intersect_points, K11a dense walk count + fill, K11b capped
@@ -37,16 +38,20 @@ K4, K5b and K6), then:
    40960, 1 + 33 steps) with the counters set to 0 just before and read
    just after; then one profiled train step;
 5. the Plenoxels warm start: K1d, K8 forward, K8 backward (against
-   autograd of the plain cuvol renderer) and K10 against their plain
-   versions on a 256^3 blobby density grid (basis_dim 9), one 16,384-ray
-   chunk of an 800x800 frame; one cuvol step with the kernels against the
-   plain step on a CPU copy at 128^3; ``alphasurf_torch.app.bench_step.main
-   --stage cuvol`` at 256^3, batch 40960; then the Trainer through
+   autograd of the plain cuvol renderer; also with depth and log_T
+   cotangents), K10 and its backward (per-ray background colours with
+   depth and log_T cotangents) against their plain versions on a
+   256^3 blobby density grid (basis_dim 9), one 16,384-ray chunk of an
+   800x800 frame; the cuvol step with the kernels against the plain step
+   on a CPU copy at 128^3, packed, dense and without occupancy;
+   ``alphasurf_torch.app.bench_step.main --stage cuvol`` at 256^3, batch
+   40960, packed and ``--renderer dense``; a batch's gradient through each
+   cuvol renderer with cotangents on all three outputs; then the Trainer through
    ``alphasurf_torch.app.train.main`` on the synthetic dataset (20 train and
    2 test views at 800x800), 256^3, the Config defaults otherwise, 40
    steps and a final eval whose PSNR must beat the untrained grid's, with
    the counters set to 0 just before and read just after; then one
-   profiled cuvol step;
+   profiled cuvol step, packed and dense;
 6. the stage transitions: K9a-K9d against their plain versions at the
    slice's shapes (a 256^3 -> 256^3 weight-threshold resample of the
    blobby grid with one 800x800 camera, init_surface_from_density on it
@@ -94,8 +99,9 @@ K4, K5b and K6), then:
    ray has more than K crossings, dense within DENSE_ATOL), bench_step
    --renderer compact and dense at full width with a profiled step each,
    and app/train.main with the two-pass losses on the compact renderer
-   (two_pass_config: cache losses finite and non-zero on every surface
-   step, a PSNR above the untrained grid's, a finite Chamfer);
+   (two_pass_config: its warm start through K10 and its backward, as
+   JAX's; cache losses finite and non-zero on every surface step, a PSNR
+   above the untrained grid's, a finite Chamfer);
 10. the Blender (NeRF-synthetic) path and the extended surface
    regularizers: K12a-K12d against their plain versions on the 512^3
    shell (bench_step's 0.01 window, timed, and every present row); one
@@ -124,8 +130,8 @@ K4, K5b and K6), then:
    beside the same run without a background (the run with it must score
    higher); one 1920x1080 frame through app/render_circle from each;
 12. the learned bases: K12g against its plain version on the 32^3 x 9
-   texture; K5b's and K8's sh_mult output against autograd of the plain
-   renderers (the 512^3 shell chunk, the 256^3 blobby chunk, the texture),
+   texture; K5b's, K8's and K10's sh_mult output against autograd of the
+   plain renderers (the 512^3 shell chunk, the 256^3 blobby chunk, the texture),
    their null-pointer paths bit for bit equal to the output's path on
    entries or rays whose rows nothing else touches, each timed with and
    without the output; the MLP basis on the card against float64; a
@@ -246,6 +252,9 @@ KERNELS = {  # name -> (source, the JAX routine it replaces)
     "cuvol_forward": ("alphasurf_torch/csrc/cuvol.cu", f"{_JAX_CUVOL}:79"),
     "cuvol_backward": ("alphasurf_torch/csrc/cuvol.cu", f"{_JAX_CUVOL}:79"),
     "cuvol_march": ("alphasurf_torch/csrc/cuvol.cu", f"{_JAX_CUVOL}:297"),
+    "cuvol_backward_out": ("alphasurf_torch/csrc/cuvol.cu", f"{_JAX_CUVOL}:79"),
+    # K10's backward: jax.grad of the dense march
+    "cuvol_march_backward": ("alphasurf_torch/csrc/cuvol.cu", f"{_JAX_CUVOL}:297"),
     # K9a-K9d: the stage transitions (core/topology_device.py, core/weight_render.py)
     "keep_mask": ("alphasurf_torch/csrc/topology.cu", f"{_JAX_TOPO}:110"),
     "prune_mask": ("alphasurf_torch/csrc/topology.cu", f"{_JAX_TOPO}:223"),
@@ -309,6 +318,9 @@ WARM_STEP_KERNELS = ("density_occupancy", "phase_a_count", "phase_a_fill", "cuvo
                      "cuvol_backward", "reg_tv", "rmsprop")
 WARM_KERNELS = WARM_STEP_KERNELS + ("cuvol_march",)
 WARM_NEW_KERNELS = ("density_occupancy", "cuvol_forward", "cuvol_backward", "cuvol_march")
+# the warm start of a compact or dense run: K10 with its checkpoints and its
+# backward
+WARM_DENSE_STEP_KERNELS = ("cuvol_march", "cuvol_march_backward", "reg_tv", "rmsprop")
 STAGE_KERNELS = ("keep_mask", "prune_mask", "lv_band", "resample_dense", "resample_rows",
                  "weight_march", "visibility")
 EXTRACT_KERNELS = ("transmit_march", "iso_points")
@@ -321,12 +333,15 @@ BACKGROUND_KERNELS = ("background_forward", "background_backward", "reg_lumisphe
 BASIS_KERNELS = ("reg_basis_tv", "backward_entry_basis", "cuvol_backward_basis")
 COMPAT_KERNELS = ("compat_forward_nvol", "compat_backward_nvol", "compat_forward_svox1",
                   "compat_backward_svox1")
+# K10's backward (the warm start of a compact or dense run) and K8's
+# depth/log_T cotangents
+CUVOL_GRAD_KERNELS = ("cuvol_march_backward", "cuvol_backward_out")
 # the three-stage run initialises its surface from the density: every kernel
 # but K9e, the DTU path's, the compact and dense renderers', K12's, K13's,
-# the learned bases' and K14's
+# the learned bases', K14's and CUVOL_GRAD_KERNELS
 STAGE_RUN_KERNELS = tuple(k for k in KERNELS if k not in ("transmit_march",) + DTU_KERNELS
                           + RENDERER_KERNELS + EXTENDED_KERNELS + BACKGROUND_KERNELS
-                          + BASIS_KERNELS + COMPAT_KERNELS + TYPE_KERNELS)
+                          + BASIS_KERNELS + COMPAT_KERNELS + TYPE_KERNELS + CUVOL_GRAD_KERNELS)
 # the pipeline: the Plenoxels stage and its eval, the weight init with
 # visibility pruning, the surface stage, the extraction
 PIPELINE_KERNELS = TRAIN_KERNELS + WARM_NEW_KERNELS + (
@@ -334,10 +349,10 @@ PIPELINE_KERNELS = TRAIN_KERNELS + WARM_NEW_KERNELS + (
     "dense_walk_count", "dense_walk_fill")  # K11a renders the dataset's ground truth
 # the DTU path: the three stages with mask pruning at the surface init,
 # the extractors: every kernel but K9e, the compact and dense renderers',
-# K12's, K13's, the learned bases' and K14's
+# K12's, K13's, the learned bases', K14's and CUVOL_GRAD_KERNELS
 DTU_PATH_KERNELS = tuple(k for k in KERNELS if k not in ("transmit_march",) + RENDERER_KERNELS
                          + EXTENDED_KERNELS + BACKGROUND_KERNELS + BASIS_KERNELS
-                         + COMPAT_KERNELS + TYPE_KERNELS)
+                         + COMPAT_KERNELS + TYPE_KERNELS + CUVOL_GRAD_KERNELS)
 PHASES = ("kernels", "serve", "train", "warm", "stages", "extract", "dtu", "renderers", "blender",
           "tnt", "basis", "compat", "types")
 CUVOL_RESO = 256  # the warm start's grid (the Config's first reso)
@@ -1261,32 +1276,61 @@ def corner_rows(grid, voxels) -> tuple[int, int]:
 
 
 def march_samples(grid, ray_t, step: float, n_steps: int) -> tuple:
-    """The dense march's samples (t = tmin + k step <= tmax, k < n_steps)
-    and the flat ids of the voxels they read, as K10 clamps them."""
+    """The dense march's samples (t = tmin + k step <= tmax, k < n_steps),
+    the flat ids of the voxels they read, as K10 clamps them, and the
+    samples whose sigma > 0 (the ones K10's backward differentiates)."""
     import torch
 
-    from alphasurf_torch.ops.trilerp import voxel_of
+    from alphasurf_torch.ops.trilerp import trilerp_weights_T, voxel_of
+    from alphasurf_torch.render import cuvol as C
 
     origins, dirs, _, _, tmin, tmax = ray_t
-    n = 0
+    n = n_pos = 0
     seen = []
+    X, Y, Z = grid.reso
     for k0 in range(0, n_steps, 16):
         t = tmin[:, None] + torch.arange(k0, k0 + 16, device=tmin.device)[None, :] * step
         act = t <= tmax[:, None]
         if not bool(act.any()):
             break
         n += int(act.sum())
-        l, _ = voxel_of(origins[:, None, :] + t[..., None] * dirs[:, None, :], grid.reso)
-        l = l[act].long()
-        X, Y, Z = grid.reso
-        seen.append(torch.unique((l[:, 0] * Y + l[:, 1]) * Z + l[:, 2]))
-    return n, torch.unique(torch.cat(seen))
+        l, frac = voxel_of(origins[:, None, :] + t[..., None] * dirs[:, None, :], grid.reso)
+        links8 = C._corner_links(grid, l.permute(2, 0, 1))
+        dens8 = grid.density_data.detach()[links8.clamp(min=0).long(), 0] * (links8 >= 0)
+        sigma = (trilerp_weights_T(frac.permute(2, 0, 1)) * dens8).sum(0)
+        n_pos += int((act & (sigma > 0)).sum())
+        lv = l[act].long()
+        seen.append(torch.unique((lv[:, 0] * Y + lv[:, 1]) * Z + lv[:, 2]))
+    return n, torch.unique(torch.cat(seen)), n_pos
+
+
+def out_cotangents(B: int, device, seed: int = SEED) -> tuple:
+    """Random cotangents of depth and log_transmit (B,) from a numpy seed,
+    at the scale of the mse's d/d rgb (1/B)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 12)
+    return tuple(torch.as_tensor(rng.standard_normal(B) / B, dtype=torch.float32, device=device)
+                 for _ in range(2))
+
+
+def out_loss(rgb, depth, log_T, cot) -> "torch.Tensor":
+    """The step's mse against 0.5 plus the cotangents ``cot`` (or none) on
+    depth and log_transmit."""
+    loss = ((rgb - 0.5) ** 2).mean()
+    if cot is not None:
+        loss = loss + (depth * cot[0]).sum() + (log_T * cot[1]).sum()
+    return loss
 
 
 def check_cuvol_kernels(device, card: str) -> dict:
-    """Phase 5a: K1d, K8 forward and backward and K10 against their plain
+    """Phase 5a: K1d, K8 forward and backward (also with the depth and log_T
+    cotangents) and K10 forward and backward (per-ray background colours
+    with the depth and log_T cotangents) against their plain
     versions on the 256^3 blobby grid, one 16,384-ray chunk of an 800x800
     frame, under the Config defaults' render options; each timed."""
+    import numpy as np
     import torch
 
     from alphasurf_torch import kernels
@@ -1384,6 +1428,41 @@ def check_cuvol_kernels(device, card: str) -> dict:
                        2 * entry_ops + n_active * 250))
     torch.cuda.empty_cache()
 
+    # K8's second instantiation: random cotangents on depth and log_transmit
+    # beside the mse's, through the renderer against autograd of the plain one
+    cot = out_cotangents(B, device)
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        out = C.volume_render_cuvol_packed(grid, rays, opt, occupancy=words)
+        g_kernel = torch.autograd.grad(out_loss(out["rgb"], out["depth"], out["log_transmit"],
+                                                cot), params)
+        smp = C._entry_samples_plain(grid, opt, pool, *ray_t)
+        fp = C._composite_cuvol_plain(pool.offsets, *smp, opt.background_brightness, None)
+        loss_p = out_loss(fp["rgb"], fp["depth"], fp["log_transmit"], cot)
+        g_plain = torch.autograd.grad(loss_p, params, retain_graph=True)
+        plain_ms = time_ms(lambda: torch.autograd.grad(loss_p, params, retain_graph=True), 3)
+        del smp, fp, loss_p, out
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    log(f"K8 backward with depth and log_T cotangents over {B} rays, kernels against autograd of "
+        f"the plain path:")
+    err = max(grad_check(n, a, b, "K8") for n, a, b in zip(("density", "sh"), g_kernel, g_plain))
+    del g_kernel, g_plain
+
+    def k8b_out():
+        return kernels.cuvol_backward(*C._k8_args(chunk, dens, sh), fk["log_T"], fk["entry_pre"],
+                                      g_rgb, g_depth=cot[0], g_log_T=cot[1])
+
+    res["cuvol_backward_out"] = dict(
+        max_abs_err=err, ms=time_ms(k8b_out, 20), plain_ms=plain_ms,
+        bound=bound_ms(in_bytes + B * 24 + M * 4 + grid.capacity * 28 * 4,
+                       2 * entry_ops + n_active * 254))
+    log(f"K8 backward: rgb only {res['cuvol_backward']['ms']:.4f} ms, with the depth and log_T "
+        f"cotangents {res['cuvol_backward_out']['ms']:.4f} ms [{card}]")
+    torch.cuda.empty_cache()
+
     # K10 on the same chunk
     n_steps = (C.max_steps_for(grid, opt) + 15) // 16 * 16
 
@@ -1400,14 +1479,78 @@ def check_cuvol_kernels(device, card: str) -> dict:
             allclose_err(mk["log_T"], mp["log_T"])]
     if max(e[1] for e in errs) > 0:
         raise AssertionError(f"K10 differs from its plain version: {errs}")
-    n_samp, voxels = march_samples(grid, ray_t, opt.step_size, n_steps)
+    n_samp, voxels, n_pos = march_samples(grid, ray_t, opt.step_size, n_steps)
     n_links, n_rows = corner_rows(grid, voxels)
-    log(f"K10 dense march: {B} rays, {n_samp} samples (at most {n_steps} a ray), max abs err "
-        f"{max(e[0] for e in errs):.3e}")
+    log(f"K10 dense march: {B} rays, {n_samp} samples (at most {n_steps} a ray, {n_pos} with "
+        f"sigma > 0), max abs err {max(e[0] for e in errs):.3e}")
+
+    def k10_ckpt():
+        return kernels.cuvol_march(*ray_t, grid.links, dens, sh, opt.step_size, n_steps,
+                                   opt.last_sample_opaque, opt.background_brightness, None,
+                                   checkpoints=True)
+
+    mc = k10_ckpt()
+    if not all(torch.equal(mc[k], mk[k]) for k in ("rgb", "depth", "log_T")):
+        raise AssertionError("K10 with checkpoints differs from K10 without")
     res["cuvol_march"] = dict(
         max_abs_err=max(e[0] for e in errs), ms=time_ms(k10, 10), plain_ms=time_ms(k10_plain, 2),
         bound=bound_ms(B * 72 + n_links * 4 + n_rows * 28 * 4 + B * 20, n_samp * 490))
-    del grid, dens, sh, pool, chunk, fk, mk, mp
+    ms_ckpt = time_ms(k10_ckpt, 10)
+    log(f"K10 forward: {res['cuvol_march']['ms']:.4f} ms, with the backward's checkpoints "
+        f"{ms_ckpt:.4f} ms (outputs bit for bit equal) [{card}]")
+    del mp
+    torch.cuda.empty_cache()
+
+    # K10 backward through volume_render_cuvol's Function against autograd of
+    # the plain march: the mse against 0.5 with per-ray background colours (a
+    # Function input) and random cotangents on depth and log_transmit; the
+    # plain backward (11.5 s on the H100) timed once
+    bg_cols = torch.as_tensor(np.random.default_rng(SEED + 13).uniform(0.0, 1.0, (B, 3)),
+                              dtype=torch.float32, device=device)
+    mchunk = C._MarchChunk(grid, opt, ray_t, n_steps, None, bg_cols)
+    bg_in = bg_cols.clone().requires_grad_(True)
+    wrt = params + [bg_in]
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        rgb, depth, log_T, _ = C._DenseCuvolFn.apply(*params, bg_in, ray_t[2], mchunk)
+        g_kernel = torch.autograd.grad(out_loss(rgb, depth, log_T, cot), wrt)
+        mp = C._march_plain(grid, opt, *ray_t, n_steps, 16, None)
+        rgb_p = mp["rgb"] + torch.exp(mp["log_T"])[:, None] * bg_in
+        loss_p = out_loss(rgb_p, mp["depth"], mp["log_T"], cot)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g_plain = torch.autograd.grad(loss_p, wrt)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        del mp, rgb_p, loss_p, rgb, depth, log_T
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    log(f"K10 backward over {B} rays, per-ray background colours and depth and log_T "
+        f"cotangents, kernels against autograd of the plain march:")
+    err = max(grad_check(n, a, b, "K10") for n, a, b in zip(("density", "sh", "bg_rgb"),
+                                                             g_kernel, g_plain))
+    del g_kernel, g_plain
+    g_rgb10 = (2.0 * (mc["rgb"] - 0.5) / (3 * B)).contiguous()
+
+    def k10b():
+        return kernels.cuvol_march_backward(*C._k10_args(mchunk, dens, sh), mc["log_T"],
+                                            mc["ckpt"], g_rgb10, cot[0], cot[1], bg_rgb=bg_cols)
+
+    gd10, gs10 = k10b()
+    n_written = int(((gd10 != 0) | (gs10 != 0).any(-1)).sum())
+    # bytes: the rays, the cotangents, log_T and the checkpoints; the links
+    # and rows read; the rows written. Operations: every sample's density
+    # re-march (~40), and for a sample with sigma > 0 its trilerp, colour
+    # and cotangents (~170) plus its share of its voxel's colour contraction
+    # and flush (~350)
+    res["cuvol_march_backward"] = dict(
+        max_abs_err=err, ms=time_ms(k10b, 10), plain_ms=plain_ms,
+        bound=bound_ms(B * (72 + 36) + mc["ckpt"].numel() * 4 + n_links * 4 + n_rows * 28 * 4
+                       + n_written * 28 * 4, n_samp * 40 + n_pos * 520))
+    log(f"K10 backward: {n_written} rows written, {mc['ckpt'].shape[1]} checkpoints a ray")
+    del grid, dens, sh, pool, chunk, fk, mk, mc, mchunk, gd10, gs10
     torch.cuda.empty_cache()
     for name, r in res.items():
         log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
@@ -1415,11 +1558,13 @@ def check_cuvol_kernels(device, card: str) -> dict:
     return res
 
 
-def check_cuvol_step(device) -> None:
+def check_cuvol_step(device, renderer: str = "packed", with_occ: bool = True) -> None:
     """One cuvol step through the kernels on the card against one step of
     the plain versions on a CPU copy, at 128^3 (the blobby grid) with a
     4,096-ray batch of the bench camera whose float32 bounds agree between
-    the two, and the same windows; tolerances as in check_step."""
+    the two, and the same windows; tolerances as in check_step. The step
+    on ``renderer`` with or without occupancy words (the dense march
+    unless packed with them)."""
     import torch
 
     from alphasurf_torch.app.bench_step import bench_rays, cuvol_hparams, cuvol_options
@@ -1452,18 +1597,18 @@ def check_cuvol_step(device) -> None:
     r_p = Rays(r_k.origins.cpu(), r_k.dirs.cpu())
     hp = cuvol_hparams()
     beta = 0.95
-    step = make_cuvol_step(StepConfig(opt=opt, rms_beta=beta))
+    step = make_cuvol_step(StepConfig(opt=opt, rms_beta=beta, renderer=renderer))
     K = max(1, int(0.01 * grid.capacity))
     gen = torch.Generator().manual_seed(SEED)
     starts = {w: int(torch.randint(0, grid.capacity - K + 1, (), generator=gen))
               for w in CUVOL_WINDOWS}
     rms_k, rms_p = init_rms(grid), init_rms(cpu)
     _, _, st_k = step(grid, rms_k, r_k, torch.full((nb, 3), 0.5, device=device), hp,
-                      torch.Generator(), occ=C.density_occupancy_words(grid), row_coords=rc,
-                      window_starts=starts)
+                      torch.Generator(), occ=C.density_occupancy_words(grid) if with_occ else None,
+                      row_coords=rc, window_starts=starts)
     _, _, st_p = step(cpu, rms_p, r_p, torch.full((nb, 3), 0.5), hp, torch.Generator(),
-                      occ=C.density_occupancy_words(cpu), row_coords=rc.cpu(),
-                      window_starts=starts)
+                      occ=C.density_occupancy_words(cpu) if with_occ else None,
+                      row_coords=rc.cpu(), window_starts=starts)
     lk, lp = float(st_k["loss"]), float(st_p["loss"])
     if abs(lk - lp) > 1e-5 * abs(lp) or abs(float(st_k["mse"]) - float(st_p["mse"])) > 1e-5 * lp:
         raise AssertionError(f"cuvol step loss {lk} differs from the plain step's {lp}")
@@ -1479,9 +1624,10 @@ def check_cuvol_step(device) -> None:
         rel = float((a - b).norm() / b.norm().clamp(min=1e-30))
         msg.append(f"{rk}: {int(moved.sum())} rows moved, {int(bad.sum())} off, rms rel {rel:.2e}")
         if frac > 1e-3 or rel > 1e-3 or not moved.any():
-            raise AssertionError(f"cuvol step {rk} differs from the plain step: {msg[-1]}")
-    log(f"cuvol step at {SMALL_RESO}^3, {nb} rays: loss {lk:.7f} (plain {lp:.7f}); "
-        + "; ".join(msg))
+            raise AssertionError(f"cuvol step ({renderer}) {rk} differs from the plain step: "
+                                 f"{msg[-1]}")
+    log(f"cuvol step ({renderer}, {'with' if with_occ else 'without'} occupancy) at "
+        f"{SMALL_RESO}^3, {nb} rays: loss {lk:.7f} (plain {lp:.7f}); " + "; ".join(msg))
     del grid, rc, cpu
     torch.cuda.empty_cache()
 
@@ -1530,30 +1676,66 @@ def warm(device, card: str, work: Path) -> tuple[dict, dict]:
     from alphasurf_torch.app import train as train_app
     from alphasurf_torch.core.rays import Rays
     from alphasurf_torch.data import SyntheticDataset
-    from alphasurf_torch.render.cuvol import density_occupancy_words
+    from alphasurf_torch.render.cuvol import (density_occupancy_words, volume_render_cuvol,
+                                              volume_render_cuvol_packed)
     from alphasurf_torch.train.steps import StepConfig, init_rms, make_cuvol_step
 
     res = check_cuvol_kernels(device, card)
-    check_cuvol_step(device)
+    for renderer, with_occ in (("packed", True), ("dense", True), ("packed", False)):
+        check_cuvol_step(device, renderer, with_occ)
 
-    torch.cuda.reset_peak_memory_stats()
+    main_launches = {}
+    for renderer, step_kernels in (("packed", WARM_STEP_KERNELS),
+                                   ("dense", WARM_DENSE_STEP_KERNELS)):
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        out = bench_step.main(["--stage", "cuvol", "--renderer", renderer, "--reso",
+                               str(CUVOL_RESO), "--batch", str(TRAIN_BATCH), "--steps", "33",
+                               "--width", str(WIDTH), "--device", str(device)])
+        torch.cuda.synchronize()
+        bench_launches = {k: kernels.LAUNCHES[k] for k in step_kernels}
+        peak = torch.cuda.max_memory_allocated()
+        log(f"warm-start bench ({renderer}): {out['steps']} steps of {out['batch']} rays at "
+            f"{CUVOL_RESO}^3 (capacity {out['capacity']}): {out['rays_per_s_fwd_bwd']:.1f} rays/s, "
+            f"{out['seconds'] / out['steps'] * 1e3:.3f} ms per step, loss "
+            f"{out['first_loss']:.6f} -> {out['last_loss']:.6f}, {out['rows_moved']} rows moved, "
+            f"max_memory_allocated {peak / 2**30:.3f} GiB [{card}]")
+        log("launches " + json.dumps(bench_launches))
+        if any(v == 0 for v in bench_launches.values()):
+            raise AssertionError(f"a kernel of the {renderer} warm-start step was not launched: "
+                                 f"{bench_launches}")
+        if not (out["losses_finite"] and out["rows_moved"] > 0):
+            raise AssertionError(f"the {renderer} warm-start bench did not run right: {out}")
+        if renderer == "dense":
+            main_launches["cuvol_march_backward"] = bench_launches["cuvol_march_backward"]
+
+    # a batch's gradient through each cuvol renderer with cotangents on rgb,
+    # depth and log_transmit (the renderers' callers' path to K8's second
+    # instantiation and K10's backward)
+    grid, _ = bench_step.build_cuvol_grid(CUVOL_RESO, device)
+    opt = bench_step.cuvol_options()
+    rays = bench_step.bench_rays(WIDTH, device)
+    s = int(WIDTH * HEIGHT * 0.35)
+    r = Rays(rays.origins[s:s + TRAIN_BATCH], rays.dirs[s:s + TRAIN_BATCH])
+    cot = out_cotangents(TRAIN_BATCH, device)
+    params = [grid.density_data.requires_grad_(True), grid.sh_data.requires_grad_(True)]
     kernels.reset_launches()
-    out = bench_step.main(["--stage", "cuvol", "--reso", str(CUVOL_RESO), "--batch",
-                           str(TRAIN_BATCH), "--steps", "33", "--width", str(WIDTH), "--device",
-                           str(device)])
+    for render in (volume_render_cuvol_packed, volume_render_cuvol):
+        o = render(grid, r, opt)
+        g = torch.autograd.grad(out_loss(o["rgb"], o["depth"], o["log_transmit"], cot), params)
+        if not all(bool(torch.isfinite(x).all()) and bool((x != 0).any()) for x in g):
+            raise AssertionError(f"{render.__name__}: a gradient with the output cotangents is "
+                                 "not finite and non-zero")
     torch.cuda.synchronize()
-    bench_launches = {k: kernels.LAUNCHES[k] for k in WARM_STEP_KERNELS}
-    peak = torch.cuda.max_memory_allocated()
-    log(f"warm-start bench: {out['steps']} steps of {out['batch']} rays at {CUVOL_RESO}^3 "
-        f"(capacity {out['capacity']}): {out['rays_per_s_fwd_bwd']:.1f} rays/s, "
-        f"{out['seconds'] / out['steps'] * 1e3:.3f} ms per step, loss {out['first_loss']:.6f} -> "
-        f"{out['last_loss']:.6f}, {out['rows_moved']} rows moved, max_memory_allocated "
-        f"{peak / 2**30:.3f} GiB [{card}]")
-    log("launches " + json.dumps(bench_launches))
-    if any(v == 0 for v in bench_launches.values()):
-        raise AssertionError(f"a kernel of the warm-start step was not launched: {bench_launches}")
-    if not (out["losses_finite"] and out["rows_moved"] > 0):
-        raise AssertionError(f"the warm-start bench did not run right: {out}")
+    grad_launches = {k: kernels.LAUNCHES[k] for k in ("cuvol_backward_out",
+                                                      "cuvol_march_backward")}
+    log("launches of a batch's gradient through each cuvol renderer with the output cotangents "
+        + json.dumps(grad_launches))
+    if 0 in grad_launches.values():
+        raise AssertionError(f"the output cotangents missed a kernel: {grad_launches}")
+    main_launches["cuvol_backward_out"] = grad_launches["cuvol_backward_out"]
+    del grid, params, g, o
+    torch.cuda.empty_cache()
 
     cfg_path = work / "warm.yaml"
     cfg_path.write_text(warm_config())
@@ -1593,9 +1775,12 @@ def warm(device, card: str, work: Path) -> tuple[dict, dict]:
     del pool
     profile_device(lambda: step(grid, rms, r, gt, hp, gen, occ=occ, row_coords=rc),
                    f"one cuvol step ({TRAIN_BATCH} rays, {CUVOL_RESO}^3)", card)
+    dense_step = make_cuvol_step(StepConfig(opt=opt, renderer="dense"))
+    profile_device(lambda: dense_step(grid, rms, r, gt, hp, gen, row_coords=rc),
+                   f"one dense cuvol step ({TRAIN_BATCH} rays, {CUVOL_RESO}^3)", card)
     del grid, rc, rms
     torch.cuda.empty_cache()
-    return res, launches
+    return res, {**launches, **main_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -3170,9 +3355,12 @@ def renderers(device, card: str, work: Path) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = count("the two-pass Trainer run")
+    warm_k10 = {k: kernels.LAUNCHES[k] for k in ("cuvol_march", "cuvol_march_backward")}
+    log("launches of its warm start (the dense cuvol march, as the compact renderer's in JAX) "
+        + json.dumps(warm_k10))
     if 0 in (got["dense_walk_fill"], got["compact_fill"], got["composite_cache"],
-             got["backward_cache"]):
-        raise AssertionError(f"the two-pass run missed a kernel of its path: {got}")
+             got["backward_cache"], *warm_k10.values()):
+        raise AssertionError(f"the two-pass run missed a kernel of its path: {got}, {warm_k10}")
     n0, n1 = STAGE_STEPS[:2]
     vals = {name: torch.stack([v for k, v in terms if k == name]).float().cpu()
             for name in wrapped}
@@ -4386,8 +4574,9 @@ def check_basis_kernels(device, card: str) -> dict:
     renderer, against autograd of the plain renderer), and its null-pointer
     path bit for bit equal to the output's path on entries whose corner rows
     no other entry touches; K8's backward likewise on the 256^3 blobby grid,
-    on rays whose rows no other ray touches. Each timed with and without the
-    output."""
+    on rays whose rows no other ray touches; K10's backward with the output
+    on the same chunk against autograd of the plain march. Each timed with
+    and without the output."""
     import torch
 
     from alphasurf_torch import kernels
@@ -4574,7 +4763,38 @@ def check_basis_kernels(device, card: str) -> dict:
         max_abs_err=err, ms=ms1, plain_ms=plain_ms, ms_without=ms0,
         bound=bound_ms(in_bytes + B * 16 + Mc * 4 + cg.capacity * 28 * 4 + B * bd * 4,
                        Mc * 8 * 3 * 9 * 4))
-    del cg, chunk, cpool, fk
+
+    # K10's backward with the sh_mult output on the same chunk: the dense
+    # march through volume_render_cuvol against autograd of the plain march
+    n_steps = (C.max_steps_for(cg, copt) + 15) // 16 * 16
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        out = C.volume_render_cuvol(cg, rays, copt)
+        g_kernel = torch.autograd.grad(torch.mean((out["rgb"] - 0.5) ** 2), params)
+        o, d, vd, ds, tmin, tmax = C._prep_rays(cg, rays, copt)
+        mp = C._march_plain(cg, copt, o, d, eval_basis(cg, vd), ds, tmin, tmax, n_steps, 16, None)
+        rgb_p = mp["rgb"] + torch.exp(mp["log_T"])[:, None] * copt.background_brightness
+        g_plain = torch.autograd.grad(torch.mean((rgb_p - 0.5) ** 2), params)
+        del out, mp, rgb_p
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    basis_grad_check("texture, 256^3 blobby chunk, the dense march", "K10",
+                     dict(zip(names, g_kernel)), dict(zip(names, g_plain)))
+    del g_kernel, g_plain
+    mchunk = C._MarchChunk(cg, copt, ray_t, n_steps, None)
+    mc = kernels.cuvol_march(*C._k10_args(mchunk, dens, sh), None, checkpoints=True)
+    g_rgb10 = (2.0 * (mc["rgb"] - 0.5) / (3 * B)).contiguous()
+
+    def k10b(want):
+        return kernels.cuvol_march_backward(*C._k10_args(mchunk, dens, sh), mc["log_T"],
+                                            mc["ckpt"], g_rgb10, want_sh_mult=want)
+
+    ms0, ms1 = time_ms(lambda: k10b(False), 5), time_ms(lambda: k10b(True), 5)
+    log(f"K10 backward on the chunk: {ms0:.4f} ms without the sh_mult output, {ms1:.4f} ms with "
+        f"it [{card}]")
+    del cg, chunk, cpool, fk, mchunk, mc
     torch.cuda.empty_cache()
     for name, r in res.items():
         log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
@@ -5440,7 +5660,8 @@ def main(argv=None) -> int:
     # the launches each phase reports for the JSON line: serving is the
     # main path of K1-K4, training that of K5-K7, and each later phase's
     # of the kernels it brought
-    keep = {"warm": WARM_NEW_KERNELS, "stages": STAGE_KERNELS, "extract": EXTRACT_KERNELS,
+    keep = {"warm": WARM_NEW_KERNELS + CUVOL_GRAD_KERNELS,
+            "stages": STAGE_KERNELS, "extract": EXTRACT_KERNELS,
             "dtu": DTU_KERNELS, "blender": EXTENDED_KERNELS}
     walls = {}
     try:

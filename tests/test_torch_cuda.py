@@ -196,6 +196,43 @@ def test_cuvol_kernels_match_plain_versions(cuda, kw):
                                    err_msg=k)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", CUVOL_SETS)
+@pytest.mark.parametrize("renderer", ["dense", "packed"])
+def test_cuvol_output_cotangents_match_plain_versions(cuda, renderer, kw):
+    """K10 backward and K8's depth/log_T instantiation (through the
+    renderers' autograd Functions) with cotangents on rgb, depth and
+    log_transmit, against autograd of the plain renderers on the CPU,
+    float32, to K8's tolerances above."""
+    from alphasurf_torch.render import cuvol as C
+
+    a, g = _cuvol_grid(cuda)
+    opt = pt.RenderOptions(**kw)
+    o, d = np_rays(64, seed=4)
+    rays = pt.Rays(torch.as_tensor(o, dtype=torch.float32, device=cuda),
+                   torch.as_tensor(d, dtype=torch.float32, device=cuda))
+    gen = torch.Generator().manual_seed(2)
+    cot = {"rgb": torch.randn(64, 3, generator=gen), "depth": 0.1 * torch.randn(64, generator=gen),
+           "log_transmit": 0.1 * torch.randn(64, generator=gen)}
+    render = C.volume_render_cuvol if renderer == "dense" else C.volume_render_cuvol_packed
+
+    def grads(g, r):
+        params = [g.density_data.requires_grad_(True), g.sh_data.requires_grad_(True)]
+        out = render(g, r, opt)
+        loss = sum((out[k] * v.to(out[k].device)).sum() for k, v in cot.items())
+        return [x.cpu() for x in torch.autograd.grad(loss, params)]
+
+    kernels.reset_launches()
+    got = grads(g, rays)
+    torch.cuda.synchronize()
+    counter = "cuvol_march_backward" if renderer == "dense" else "cuvol_backward_out"
+    assert kernels.LAUNCHES[counter] == 1, kernels.LAUNCHES
+    ref = grads(SparseGrid.from_numpy(a, device="cpu"), pt.Rays(rays.origins.cpu(),
+                                                                 rays.dirs.cpu()))
+    for name, x, r in zip(("density", "sh"), got, ref):
+        np.testing.assert_allclose(x.numpy(), r.numpy(), rtol=1e-3, atol=1e-5, err_msg=name)
+
+
 # ---------------------------------------------------------------------------
 # K9a-K9d: the stage transitions
 # ---------------------------------------------------------------------------

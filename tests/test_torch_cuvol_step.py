@@ -114,21 +114,26 @@ def test_three_cuvol_steps_match_jax(opt_kw, present):
 
 
 def test_cuvol_step_unported_options_raise():
+    """Only the data-parallel cuvol step raises: the dense and compact
+    renderers build, and a step without occupancy words trains through the
+    dense march (the rows move, the loss is finite)."""
     opt = pt.RenderOptions()
-    for kw in (dict(renderer="dense"), dict(axis_name="data")):
+    for renderer in ("dense", "compact", "packed"):
         with pytest.raises(NotImplementedError):
-            T.make_cuvol_step(T.StepConfig(opt=opt, **kw))
+            T.make_cuvol_step(T.StepConfig(opt=opt, renderer=renderer, axis_name="data"))
+        assert callable(T.make_cuvol_step(T.StepConfig(opt=opt, renderer=renderer)))
     # the lumisphere TV (K12e) and the learned basis's groups are ported
     assert callable(T.make_cuvol_step(T.StepConfig(opt=opt, use_lumisphere_tv=True)))
     T._check_rms({"density": None, "sh": None, "basis_mlp": None})
     with pytest.raises(ValueError, match="unknown rms groups"):
         T._check_rms({"density": None, "sh": None, "mlp": None})
     g = SparseGrid.from_numpy(jax_to_np(_grid(8)), device="cpu")
+    before = g.density_data.detach().clone()
     o, d = np_rays(8, seed=4)
     step = T.make_cuvol_step(T.StepConfig(opt=opt))
-    with pytest.raises(NotImplementedError, match="dense march"):
-        step(g, T.init_rms(g), pt.Rays(t64(o), t64(d)), t64(np.zeros((8, 3))), T.HParams(),
-             torch.Generator().manual_seed(0))
+    g, _, st = step(g, T.init_rms(g), pt.Rays(t64(o), t64(d)), t64(np.zeros((8, 3))),
+                    T.HParams(**HP), torch.Generator().manual_seed(0))
+    assert np.isfinite(float(st["loss"])) and bool((g.density_data != before).any())
 
 
 def test_bench_step_cuvol_runs_on_the_cpu():

@@ -195,10 +195,10 @@ def test_window_draws_keep_their_sequence(dense, flags, monkeypatch):
 
 
 def test_unported_options_raise():
-    """Data-parallel steps still raise, naming their ROADMAP item; so does a
-    cuvol step that would train through the dense march. The lumisphere TV
-    (K12e) and the learned basis's rms groups no longer raise; a group no
-    package has does."""
+    """Data-parallel steps still raise, naming their ROADMAP item, the cuvol
+    step's too. The lumisphere TV (K12e), the learned basis's rms groups and
+    a cuvol step on the dense march (renderer "dense") no longer raise; a
+    group no package has does."""
     opt = pt.RenderOptions(**OPT)
     for kw in (dict(use_lumisphere_tv=True), dict(use_lumisphere_tv=True, use_eikonal=True)):
         assert callable(T.make_surface_step(T.StepConfig(opt=opt, **kw)))
@@ -208,8 +208,9 @@ def test_unported_options_raise():
         T._check_rms({"density": None, "background": None, group: None})
     with pytest.raises(ValueError, match="unknown rms groups"):
         T._check_rms({"density": None, "basis": None})
-    with pytest.raises(NotImplementedError, match="§2 item 2"):
-        T.make_cuvol_step(T.StepConfig(opt=opt, renderer="dense"))
+    assert callable(T.make_cuvol_step(T.StepConfig(opt=opt, renderer="dense")))
+    with pytest.raises(NotImplementedError, match="§1 item 3"):
+        T.make_cuvol_step(T.StepConfig(opt=opt, renderer="dense", axis_name="data"))
 
 
 def test_bench_step_runs_on_the_cpu():

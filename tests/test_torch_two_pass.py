@@ -2,7 +2,6 @@
 two-pass losses on the first-K sample cache, against the JAX Trainer, on
 the CPU."""
 import contextlib
-import dataclasses
 import functools
 
 import jax
@@ -57,23 +56,18 @@ def test_two_pass_trainer_run_matches_jax(tmp_path, monkeypatch, renderer):
     so both Trainers set use_two_pass_losses with the first-K cache of 64),
     float64, rtol 1e-8 on every step's mse and the final rows. The dense
     step's occupancy is refreshed every 4 steps by the Trainer, so a stale
-    one would show. The JAX Trainer sends
-    the warm start of such a run through the dense cuvol march, whose
-    gradient the port has not ported (ROADMAP §2 item 4); the port trains
-    it through the packed cuvol renderer, so here the JAX warm start is
-    given renderer="packed" too (in float64 the two cuvol renderers
-    differ in rounding only, tests/test_cuvol_packed.py)."""
+    one would show. Both Trainers send the warm start of such a run
+    through the dense cuvol march."""
     from alphasurf_tpu.core import topology as JTopo
 
     jd, jd_test = _datasets()
     monkeypatch.setattr(JT, "create_grid", functools.partial(jax_create_grid, dtype=jnp.float64))
     monkeypatch.setattr(JTopo, "_DEVICE_DISPATCH_SIZE", 1)
-    cuvol_j = JT.make_cuvol_step
-    monkeypatch.setattr(JT, "make_cuvol_step",
-                        lambda cfg, **kw: cuvol_j(dataclasses.replace(cfg, renderer="packed"), **kw))
-    seen = []
-    surface_t = TT.make_surface_step
+    seen, seen_cuvol = [], []
+    surface_t, cuvol_t = TT.make_surface_step, TT.make_cuvol_step
     monkeypatch.setattr(TT, "make_surface_step", lambda cfg: seen.append(cfg) or surface_t(cfg))
+    monkeypatch.setattr(TT, "make_cuvol_step",
+                        lambda cfg: seen_cuvol.append(cfg) or cuvol_t(cfg))
     for cls in (JT.Trainer, TT.Trainer):
         _record_mse(monkeypatch, cls)
         monkeypatch.setattr(cls, "mse_trace", None, raising=False)
@@ -90,6 +84,7 @@ def test_two_pass_trainer_run_matches_jax(tmp_path, monkeypatch, renderer):
     psnr_t = tt.train()
     assert seen and all(c.renderer == renderer and c.use_two_pass_losses and c.cache_size == 64
                         for c in seen)
+    assert seen_cuvol and all(c.renderer == renderer for c in seen_cuvol)
     assert len(tt.mse_trace) == len(tj.mse_trace) == 8
     np.testing.assert_allclose(tt.mse_trace, tj.mse_trace, rtol=1e-8)
     for f in ("density_data", "sh_data", "surface_data"):
