@@ -3,9 +3,11 @@
 //
 // Replaces jax.grad of the JAX package's render/surface.py:
 // volume_render_surface_packed (1737-2015) with the root JVP of
-// ops/cubic.py:_cubic_roots_T_jvp (230-242). The cotangents it takes are
-// those of rgb (B, 3) and ray_losses (12, B); depth, normal and log_T carry
-// none (the autograd Function raises on one).
+// ops/cubic.py:_cubic_roots_T_jvp (230-242). The rgb-only instantiations
+// take the cotangents of rgb (B, 3) and ray_losses (12, B); the second ones
+// those of every other output too (chosen by the entries' last pointer,
+// below: K5a's output cotangents, K5b's d_snorm; the wrappers count them as
+// backward_ray_out and backward_entry_out).
 //
 // K5a, backward_ray: one thread per ray, like K4. Pass 1 walks the ray's
 // slots in (entry, slot) order as K4 does (truncation by running
@@ -67,6 +69,27 @@
 // templated on the output: without it (a null pointer) the code and the
 // other outputs are today's.
 //
+// The outputs' cotangents, K5a's second instantiation (kOut): depth (d w +=
+// g t, d t += g w), normal (d w += g . n; d_snorm = g w, 3 floats a slot for
+// K5b), log_T (joins the suffix sum Sigma of every slot's log(1 - alpha)),
+// the intersections' points (into d t through the ray's direction and
+// grid2world's scale, on every slot), pre-truncation alphas (into d_alpha)
+// and weights, and the samples' t, weights and truncated alphas. The depths
+// that pick one sample take K4's rules on K4's float32 weights in K4's
+// order: pass 1 re-walks the mode (the packed rule: the largest t among the
+// entries whose first max-weight slot holds the ray's max; the walks' rule:
+// the first max-weight slot), the sigma-thresh depth (the smallest t of a
+// real slot above the threshold) and the weight totals; a pass 1b finds the
+// median's first hit (the running weight only grows, so every later
+// contributing slot is a hit too) and the cache median's column. Ties split
+// the cotangent evenly, as jax.grad of a min or max does. K5b's second
+// instantiation (kNormal) carries d_snorm through the unit normal's Jacobian
+// ((I - n n^T) / -|g| above the 1e-20 floor, 1 / -1e-10 below it) into the
+// field's gradient: each corner value's direct term and, through the
+// trilinear weights' mixed second derivatives, the sample position, whose
+// cotangent then joins the root's JVP (PLANE: into the mean plane's a, b,
+// c). Both are template parameters: the rgb-only code is unchanged.
+//
 // Bound: K5a by bytes (each slot's t, alpha, colour and flags read, its
 // cotangents written: about 40 bytes a slot), K5b by the random 8-row
 // gathers and the atomics into the rows (each entry reads 8 rows of 32
@@ -113,6 +136,29 @@ struct BackRayParams {
     const float* g_cw;
 };
 
+// The output cotangents of K5a's second instantiation, each null when
+// absent (kernels.py's _BackRayOut has this layout).
+struct BackRayOut {
+    const float* snorm;  // (3, S0, M), K3's rendered normal
+    const float* dirs;   // (B, 3) grid-space ray directions
+    int mode_first;      // the walks' first-max mode depth, else the packed rule
+    float sig_thresh;
+    float rscale[3];        // grid2world's per-axis scale
+    const float* g_depth;   // (B,)
+    const float* g_normal;  // (B, 3)
+    const float* g_log_T;   // (B,)
+    const float* g_mode;    // (B,)
+    const float* g_med;     // (B,) the cache-free median (the packed renderer's)
+    const float* g_cmed;    // (B,) the cache's median (the dense and compact renderers')
+    const float* g_sig;     // (B,) the sigma-thresh depth
+    const float* g_pts;     // (M S0, 3) the intersections' points, entry-major
+    const float* g_st;      // (S0, M) the slot's t
+    const float* g_sa;      // (S0, M) its pre-truncation alpha
+    const float* g_sw;      // (S0, M) its weight
+    const float* g_sac;     // (S0, M) its truncated alpha where it contributes
+    float* d_snorm;         // (3, S0, M) the normal's cotangent, for K5b; with g_normal
+};
+
 // d/dx of -x log(max(x, 1e-8)) for x > 0
 HD float entropy_grad(float x) {
     const float cx = fmaxf(x, 1e-8f);
@@ -132,7 +178,98 @@ HD float alpha_trunc(const BackRayParams& p, int64_t i, int cnt, float ta) {
     return p.truncated ? a * trunc_rw(cnt - (p.fake[i] ? 1 : 0), ta, p.trunc_wmin) : a;
 }
 
-HD void backward_ray_thread(const BackRayParams& p, int r) {
+// What K5a's second instantiation finds in its forward passes: the samples that the
+// mode, median and sigma-thresh depths take (K4's rules, on the same float32
+// weights in the same order), with their tie counts: jax.grad of a min or a
+// max splits the cotangent evenly over tied elements.
+struct Picks {
+    float totW, ctot;
+    float wmax, t_mode;   // the mode: packed rule (is_best entries, largest t)
+    int n_mode;
+    int64_t i_mode;       // the walks' rule: the first max-weight slot
+    float t_med;          // the cache-free median: smallest t of a hit
+    int n_med;
+    int64_t e_c;          // the first hit's entry and slot; later contributing
+    int s_c;              // slots are hits too (the running weight only grows)
+    int k_med;            // the cache median's column, -1: none
+    float t_sig;
+    int n_sig;
+};
+
+// the ray's slot weight as K4 computes it, from what pass 1 parked: the
+// truncated alpha (< 0: not contributing) and the transmittance
+HD float parked_weight(const BackRayParams& p, int64_t i) {
+    const float at = p.d_alpha[i];
+    if (at < 0.0f) return 0.0f;
+    return p.d_col[2 * (int64_t)p.S0 * p.M + i] * (1.0f - one_minus(at));
+}
+
+// the first max-weight slot of entry e (K4's w_best), by pass 1's parking
+HD int entry_best(const BackRayParams& p, int64_t e, float& w_best) {
+    int s_best = 0;
+    w_best = -1.0f;
+    for (int s = 0; s < p.S0; ++s) {
+        const float w = parked_weight(p, (int64_t)s * p.M + e);
+        if (w > w_best) {
+            w_best = w;
+            s_best = s;
+        }
+    }
+    return s_best;
+}
+
+// pass 1b: the median columns, once the totals are known
+HD void find_medians(const BackRayParams& p, const BackRayOut& q, int64_t e0, int64_t e1,
+                     Picks& k) {
+    k.t_med = INFINITY;
+    k.n_med = 0;
+    k.e_c = e1;
+    k.s_c = 0;
+    k.k_med = -1;
+    if (q.g_med && k.totW > 1e-12f) {
+        float preW = 0.0f;
+        for (int64_t e = e0; e < e1; ++e) {
+            for (int s = 0; s < p.S0; ++s) {
+                const int64_t i = (int64_t)s * p.M + e;
+                const float w = parked_weight(p, i);
+                if (p.d_alpha[i] >= 0.0f && preW + w >= 0.5f * k.totW) {
+                    if (k.e_c == e1) {
+                        k.e_c = e;
+                        k.s_c = s;
+                    }
+                    const float t = p.t[i];
+                    if (t < k.t_med) {
+                        k.t_med = t;
+                        k.n_med = 1;
+                    } else if (t == k.t_med) {
+                        ++k.n_med;
+                    }
+                }
+                preW = preW + w;
+            }
+        }
+    }
+    if (q.g_cmed && p.cache_K > 0 && k.ctot > 0.0f) {
+        const float thr = fmaxf(0.5f * k.ctot, 1e-12f);
+        float cum = 0.0f;
+        int kc = 0;
+        for (int64_t e = e0; e < e1 && k.k_med < 0 && kc < p.cache_K; ++e) {
+            for (int s = 0; s < p.S0 && kc < p.cache_K; ++s) {
+                const int64_t i = (int64_t)s * p.M + e;
+                if (p.d_alpha[i] < 0.0f) continue;
+                cum = cum + parked_weight(p, i);
+                if (cum >= thr) {
+                    k.k_med = kc;
+                    break;
+                }
+                ++kc;
+            }
+        }
+    }
+}
+
+template <bool kOut>
+HD void backward_ray_thread(const BackRayParams& p, const BackRayOut& q, int r) {
     const int64_t e0 = p.offsets[r], e1 = p.offsets[r + 1];
     const int64_t SM = (int64_t)p.S0 * p.M;
     const float ta = p.trunc_a[0];
@@ -141,6 +278,15 @@ HD void backward_ray_thread(const BackRayParams& p, int r) {
     const float g_sls = p.g_rl[4 * p.B + r], g_slsw = p.g_rl[5 * p.B + r];
     const float G[3] = {p.g_rgb[3 * (int64_t)r], p.g_rgb[3 * (int64_t)r + 1],
                         p.g_rgb[3 * (int64_t)r + 2]};
+    Picks k;
+    if constexpr (kOut) {
+        k.totW = k.ctot = k.wmax = 0.0f;
+        k.t_mode = -INFINITY;
+        k.n_mode = 0;
+        k.i_mode = -1;
+        k.t_sig = INFINITY;
+        k.n_sig = 0;
+    }
 
     // pass 1: forward, as K4
     int cnt = 0, n_contrib = 0;
@@ -159,15 +305,22 @@ HD void backward_ray_thread(const BackRayParams& p, int r) {
             alive = entry_pre > p.log_stop;
             entry_pre = entry_pre + la;
         }
+        float w_best = -1.0f, t_best = 0.0f;
         for (int s = 0; s < p.S0; ++s) {
             const int64_t i = (int64_t)s * p.M + e;
             const float at = alpha_trunc(p, i, cnt, ta);
             cnt += p.counted[i];
             if (!(p.contrib[i] && alive)) {
                 p.d_alpha[i] = -1.0f;  // not contributing
+                if constexpr (kOut) {
+                    if (0.0f > w_best) {
+                        w_best = 0.0f;
+                        t_best = p.t[i];
+                    }
+                }
                 continue;
             }
-            ++n_contrib;
+            const int kc = n_contrib++;
             const float om = one_minus(at);
             const float T = expf(fminf(P, 0.0f));
             P = P + logf(om);
@@ -184,23 +337,101 @@ HD void backward_ray_thread(const BackRayParams& p, int r) {
             Sw = Sw + wi * t;
             Aa = Aa + a;
             Sa = Sa + a * t;
+            if constexpr (kOut) {
+                k.totW = k.totW + w;
+                if (kc < p.cache_K) k.ctot = k.ctot + w;
+                if (w > w_best) {
+                    w_best = w;
+                    t_best = t;
+                }
+                if (q.mode_first && w > k.wmax) {
+                    k.wmax = w;
+                    k.i_mode = i;
+                }
+                if (!p.fake[i] && p.alpha[i] > q.sig_thresh) {
+                    if (t < k.t_sig) {
+                        k.t_sig = t;
+                        k.n_sig = 1;
+                    } else if (t == k.t_sig) {
+                        ++k.n_sig;
+                    }
+                }
+            }
         }
+        if constexpr (kOut) {
+            if (q.mode_first) {
+            } else if (w_best > k.wmax) {
+                k.wmax = w_best;
+                k.t_mode = t_best;
+                k.n_mode = 1;
+            } else if (w_best == k.wmax && w_best > 0.0f) {
+                if (t_best > k.t_mode) {
+                    k.t_mode = t_best;
+                    k.n_mode = 1;
+                } else if (t_best == k.t_mode) {
+                    ++k.n_mode;
+                }
+            }
+        }
+    }
+
+    // the per-ray output cotangents
+    float gd = 0.0f, gn[3] = {0.0f, 0.0f, 0.0f}, g_mode = 0.0f, g_sig = 0.0f, g_med = 0.0f;
+    float g_cmed = 0.0f;
+    float dir[3] = {0.0f, 0.0f, 0.0f};
+    if constexpr (kOut) {
+        find_medians(p, q, e0, e1, k);
+        if (q.g_depth) gd = q.g_depth[r];
+        if (q.g_normal)
+            for (int c = 0; c < 3; ++c) gn[c] = q.g_normal[3 * (int64_t)r + c];
+        if (q.g_mode && k.wmax > 0.0f) g_mode = q.g_mode[r] / (q.mode_first ? 1 : k.n_mode);
+        if (q.g_med && k.n_med > 0) g_med = q.g_med[r] / k.n_med;
+        if (q.g_sig && k.n_sig > 0) g_sig = q.g_sig[r] / k.n_sig;
+        if (q.g_cmed && k.k_med >= 0) g_cmed = q.g_cmed[r];
+        if (q.g_pts)
+            for (int c = 0; c < 3; ++c) dir[c] = q.dirs[3 * (int64_t)r + c] * q.rscale[c];
     }
 
     // pass 2: backward; A*, S* now sum the slots after the current one
     const float* bgc = p.bg_rgb ? p.bg_rgb + 3 * (int64_t)r : nullptr;
     float Sigma = (bgc ? G[0] * bgc[0] + G[1] * bgc[1] + G[2] * bgc[2]
                        : p.bg * (G[0] + G[1] + G[2])) * expf(P);
+    if constexpr (kOut) {
+        if (q.g_log_T) Sigma = Sigma + q.g_log_T[r];  // log_T sums every slot's log(1 - alpha)
+    }
     Aw = Sw = Aa = Sa = 0.0f;
     for (int64_t e = e1 - 1; e >= e0; --e) {
+        int s_best = -1;
+        if constexpr (kOut) {
+            if (g_mode != 0.0f && !q.mode_first) {
+                float w_best;
+                const int sb = entry_best(p, e, w_best);
+                if (w_best == k.wmax && w_best > 0.0f && p.t[(int64_t)sb * p.M + e] == k.t_mode)
+                    s_best = sb;
+            }
+        }
         for (int s = p.S0 - 1; s >= 0; --s) {
             const int64_t i = (int64_t)s * p.M + e;
             cnt -= p.counted[i];
             const float at = p.d_alpha[i];
+            float dt_out = 0.0f;  // the cotangent of t from the outputs that read every slot
+            if constexpr (kOut) {
+                if (q.g_st) dt_out = q.g_st[i];
+                if (q.g_pts) {
+                    const float* gp = q.g_pts + 3 * (e * p.S0 + s);
+                    dt_out = dt_out + (gp[0] * dir[0] + gp[1] * dir[1] + gp[2] * dir[2]);
+                }
+            }
             if (at < 0.0f) {
                 p.d_alpha[i] = 0.0f;
                 p.d_t[i] = 0.0f;
-                for (int k = 0; k < 3; ++k) p.d_col[k * SM + i] = 0.0f;
+                for (int c = 0; c < 3; ++c) p.d_col[c * SM + i] = 0.0f;
+                if constexpr (kOut) {
+                    if (q.g_sa) p.d_alpha[i] = q.g_sa[i];
+                    p.d_t[i] = dt_out;
+                    if (q.d_snorm)
+                        for (int c = 0; c < 3; ++c) q.d_snorm[c * SM + i] = 0.0f;
+                }
                 continue;
             }
             const float T = p.d_col[2 * SM + i];
@@ -228,12 +459,34 @@ HD void backward_ray_thread(const BackRayParams& p, int r) {
                 abar = abar + p.g_calpha[ck];
                 dt = dt + p.g_cts[ck];
             }
+            float d_sa = 0.0f;
+            if constexpr (kOut) {
+                // depth = sum w t; normal = sum w n
+                Wbar = Wbar + gd * t;
+                dt = dt + gd * w + dt_out;
+                if (q.g_normal) {
+                    const float* sn = q.snorm + i;
+                    Wbar = Wbar + (gn[0] * sn[0] + gn[1] * sn[SM] + gn[2] * sn[2 * SM]);
+                    for (int c = 0; c < 3; ++c) q.d_snorm[c * SM + i] = gn[c] * w;
+                }
+                if (q.g_sw) Wbar = Wbar + q.g_sw[i];
+                if (q.g_sac) abar = abar + q.g_sac[i];
+                if (q.g_sa) d_sa = q.g_sa[i];
+                // the depths that pick one sample (or split over tied ones)
+                if (g_mode != 0.0f && (q.mode_first ? i == k.i_mode : s == s_best))
+                    dt = dt + g_mode;
+                if (g_med != 0.0f && (e > k.e_c || (e == k.e_c && s >= k.s_c)) && t == k.t_med)
+                    dt = dt + g_med;
+                if (g_sig != 0.0f && !p.fake[i] && p.alpha[i] > q.sig_thresh && t == k.t_sig)
+                    dt = dt + g_sig;
+                if (g_cmed != 0.0f && kc == k.k_med) dt = dt + g_cmed;
+            }
             const float d_om = -T * Wbar + Sigma / om;
             const float d_at = abar - d_om * clip_grad(1.0f - at, 1e-7f, 1.0f - 1e-7f);
             const float rw = p.truncated ? trunc_rw(cnt - (p.fake[i] ? 1 : 0), ta, p.trunc_wmin) : 1.0f;
-            p.d_alpha[i] = d_at * rw;
+            p.d_alpha[i] = kOut ? d_at * rw + d_sa : d_at * rw;
             p.d_t[i] = dt;
-            for (int k = 0; k < 3; ++k) p.d_col[k * SM + i] = G[k] * w;
+            for (int c = 0; c < 3; ++c) p.d_col[c * SM + i] = G[c] * w;
             Sigma = Sigma + Wbar * w;
             Aw = Aw + wi;
             Sw = Sw + wi * t;
@@ -282,6 +535,7 @@ struct BackEntryParams {
     float* g_sh;       // (cap, 3 bd)
     float* g_fss;      // (1,) or null
     float* g_sh_mult;  // (B, bd) or null
+    const float* d_snorm;  // (3, S0, M) the normal's cotangent (the second instantiation), or null
 };
 
 // what the sh_mult gradient needs of one entry: its ray, the 8 corner rows
@@ -320,6 +574,44 @@ HD void trilerp_weights_vjp(const float fs[3], const float dw[8], float dfs[3]) 
     }
 }
 
+// vector-Jacobian product of the unit normal n = -g / sqrt(max(|g|^2, 1e-20))
+// at g: (I - n n^T) dn / -|g| above the floor, -dn / 1e-10 below it (the
+// floor is a constant there, as JAX's where)
+HD void unit_normal_vjp(const float g[3], const float dn[3], float dg[3]) {
+    const float nsq = dot3(g, g);
+    if (nsq > 1e-20f) {
+        const float den = sqrtf(nsq);
+        const float n[3] = {-g[0] / den, -g[1] / den, -g[2] / den};
+        const float nd = dot3(n, dn);
+        for (int a = 0; a < 3; ++a) dg[a] = -(dn[a] - n[a] * nd) / den;
+    } else {
+        const float den = sqrtf(1e-20f);
+        for (int a = 0; a < 3; ++a) dg[a] = -dn[a] / den;
+    }
+}
+
+// vector-Jacobian product of field_grad(s8, fs) (trilinear in the corner
+// values, bilinear in the position): each corner value's direct term into
+// dS8, and into dfs the mixed second derivatives of the trilinear weights
+// (the pure ones are 0)
+HD void field_grad_vjp(const float s8[8], const float fs[3], const float dg[3], float dS8[8],
+                       float dfs[3]) {
+    for (int c = 0; c < 8; ++c) {
+        const float wx = corner_dx(c) ? fs[0] : 1.0f - fs[0];
+        const float wy = corner_dy(c) ? fs[1] : 1.0f - fs[1];
+        const float wz = corner_dz(c) ? fs[2] : 1.0f - fs[2];
+        const float sx = corner_dx(c) ? 1.0f : -1.0f;
+        const float sy = corner_dy(c) ? 1.0f : -1.0f;
+        const float sz = corner_dz(c) ? 1.0f : -1.0f;
+        dS8[c] = dS8[c] + (dg[0] * (sx * (wy * wz)) + dg[1] * (wx * (sy * wz)) +
+                           dg[2] * (wx * (wy * sz)));
+        const float hxy = sx * (sy * wz), hxz = sx * (wy * sz), hyz = wx * (sy * sz);
+        dfs[0] = dfs[0] + s8[c] * (dg[1] * hxy + dg[2] * hxz);
+        dfs[1] = dfs[1] + s8[c] * (dg[0] * hxy + dg[2] * hyz);
+        dfs[2] = dfs[2] + s8[c] * (dg[0] * hxz + dg[1] * hyz);
+    }
+}
+
 // |f'| < 1e-10 becomes sign(f') 1e-10, and 1e-10 where f' == 0 (cubic.py:236)
 HD float safe_fp(float fp) {
     if (fabsf(fp) >= 1e-10f) return fp;
@@ -332,10 +624,14 @@ HD float min_grad(float a, float b) { return a < b ? 1.0f : (a == b ? 0.5f : 0.0
 // One real slot's cotangents: the raw alpha's (returned in draw; into the
 // corner alphas unless the alpha comes from UDF_ALPHA's table) and the
 // colours' (into dC). Returns the cotangent of the slot's t: d_t plus that
-// of the sample position, which moves with t.
+// of the sample position, which moves with t. kNormal: the rendered
+// normal's cotangent too, into the corner surface values (dS8) and the
+// position through the field's gradient, or for PLANE (plane_abc, its mean
+// plane's normal) into dP's a, b, c.
+template <bool kNormal>
 HD float real_slot_vjp(const BackEntryParams& p, const Corners& cs, const RealSlot& s, int64_t k,
                        const float d[3], float g_in, float g_lap, float dA8[8], float dC[3][8],
-                       float& draw) {
+                       float& draw, float dS8[8], const float* plane_abc, float dP[4]) {
     const int64_t SM = (int64_t)p.S0 * p.M;
     draw = 0.0f;
     float da = p.d_alpha[k];
@@ -345,7 +641,14 @@ HD float real_slot_vjp(const BackEntryParams& p, const Corners& cs, const RealSl
     }
     const float dcol[3] = {p.d_col[k], p.d_col[SM + k], p.d_col[2 * SM + k]};
     const float dt_in = p.d_t[k];
-    if (da == 0.0f && dt_in == 0.0f && dcol[0] == 0.0f && dcol[1] == 0.0f && dcol[2] == 0.0f)
+    float dn[3] = {0.0f, 0.0f, 0.0f};
+    bool has_dn = false;
+    if constexpr (kNormal) {
+        for (int a = 0; a < 3; ++a) dn[a] = p.d_snorm[a * SM + k];
+        has_dn = dn[0] != 0.0f || dn[1] != 0.0f || dn[2] != 0.0f;
+    }
+    if (da == 0.0f && dt_in == 0.0f && dcol[0] == 0.0f && dcol[1] == 0.0f && dcol[2] == 0.0f &&
+        !has_dn)
         return 0.0f;
     draw = da * alpha_act_grad(s.raw, p.act_sigmoid);
     float dw8[8];
@@ -363,6 +666,22 @@ HD float real_slot_vjp(const BackEntryParams& p, const Corners& cs, const RealSl
     // the sample position: clip(where(geo_ok, o + t d - l, 0.5), 0, 1)
     float dfs[3];
     trilerp_weights_vjp(s.fs, dw8, dfs);
+    if constexpr (kNormal) {
+        if (has_dn) {
+            // snorm = unit_normal(sgrad), sgrad the field's gradient at fs
+            // (or PLANE's abc); a mask for only_outward_intersect
+            float g[3], dg[3];
+            if (plane_abc)
+                for (int a = 0; a < 3; ++a) g[a] = plane_abc[a];
+            else
+                field_grad(cs.surf8, s.fs[0], s.fs[1], s.fs[2], g);
+            unit_normal_vjp(g, dn, dg);
+            if (plane_abc)
+                for (int a = 0; a < 3; ++a) dP[a] = dP[a] + dg[a];
+            else
+                field_grad_vjp(cs.surf8, s.fs, dg, dS8, dfs);
+        }
+    }
     float dt = dt_in;
     if (s.geo_pre)
         for (int a = 0; a < 3; ++a) dt = dt + dfs[a] * clip_grad(s.frac[a], 0.0f, 1.0f) * d[a];
@@ -396,6 +715,7 @@ HD void add_table(const BackEntryParams& p, float* gtab, int i, float v) {
 // returns this entry's part of the fake_sample_std gradient; fills sg for
 // the sh_mult gradient (sg.ray stays -1 for an entry that adds nothing)
 // and, for UDF_ALPHA, adds each level set's alpha cotangent to gtab
+template <bool kNormal>
 HD float backward_entry_thread(const BackEntryParams& p, int64_t m, ShMultGrad& sg, float* gtab) {
     const int r = p.ray_id[m];
     const int l[3] = {p.l[3 * m], p.l[3 * m + 1], p.l[3 * m + 2]};
@@ -443,7 +763,8 @@ HD float backward_entry_thread(const BackEntryParams& p, int64_t m, ShMultGrad& 
         real_slot(cs, o, d, l, close_t, q.t_pl - close_t, cs.vox_ok && q.t_pl > 0.0f,
                   p.near_grid_t, p.only_outward, q.abc, s);
         float draw;
-        const float dt = real_slot_vjp(p, cs, s, m, d, g_in, g_lap, dA8, dC, draw);
+        const float dt = real_slot_vjp<kNormal>(p, cs, s, m, d, g_in, g_lap, dA8, dC, draw, dS8,
+                                                q.abc, dP);
         // t = close_t + (t_pl - close_t): its cotangent is t_pl's
         if (dt != 0.0f) plane_root_vjp(q, pl[3], o, d, l, dt, dP);
     } else {
@@ -474,8 +795,9 @@ HD float backward_entry_thread(const BackEntryParams& p, int64_t m, ShMultGrad& 
                 if (p.lv_alpha) s.raw = p.lv_alpha[i];
                 vox_has_sample = vox_has_sample || s.geo_pre;
                 float draw;
-                const float dt = real_slot_vjp(p, cs, s, (int64_t)(3 * i + j) * p.M + m, d, g_in,
-                                               g_lap, dA8, dC, draw);
+                const float dt = real_slot_vjp<kNormal>(p, cs, s, (int64_t)(3 * i + j) * p.M + m,
+                                                        d, g_in, g_lap, dA8, dC, draw, dS8,
+                                                        nullptr, dP);
                 if (p.lv_alpha) add_table(p, gtab, i, draw);
                 // t = close_t + root; the root moves with the coefficients
                 if (has[j] && dt != 0.0f) {
@@ -590,9 +912,10 @@ HD float backward_entry_thread(const BackEntryParams& p, int64_t m, ShMultGrad& 
 }
 
 #ifdef __CUDACC__
-__global__ void backward_ray_kernel(BackRayParams p) {
+template <bool kOut>
+__global__ void backward_ray_kernel(BackRayParams p, BackRayOut q) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r < p.B) backward_ray_thread(p, r);
+    if (r < p.B) backward_ray_thread<kOut>(p, q, r);
 }
 
 // the sum of v over the lanes from this one to the last lane of the warp
@@ -608,7 +931,7 @@ __device__ __forceinline__ float segment_sum(float v, int key) {
     return v;
 }
 
-template <bool kShMult>
+template <bool kShMult, bool kNormal>
 __global__ void backward_entry_kernel(BackEntryParams p) {
     const int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     ShMultGrad sg;
@@ -616,7 +939,7 @@ __global__ void backward_entry_kernel(BackEntryParams p) {
     float gtab[MAX_LV_TABLE];  // UDF_ALPHA's level-set alpha cotangents of this entry
     const int n_tab = p.lv_alpha ? min(p.n_lv, MAX_LV_TABLE) : 0;
     for (int i = 0; i < n_tab; ++i) gtab[i] = 0.0f;
-    float g = m < p.M ? backward_entry_thread(p, m, sg, gtab) : 0.0f;
+    float g = m < p.M ? backward_entry_thread<kNormal>(p, m, sg, gtab) : 0.0f;
     g = warp_sum(g);
     if ((threadIdx.x & 31) == 0 && g != 0.0f && p.g_fss) atomicAdd(p.g_fss, g);
     if (p.lv_alpha) {
@@ -638,6 +961,9 @@ __global__ void backward_entry_kernel(BackEntryParams p) {
     }
 }
 
+// K5a. ``out``, a host pointer to the output cotangents (BackRayOut) or
+// null, chooses the instantiation: null the rgb-only one, else the second,
+// which needs K3's normals and writes d_snorm when g_normal is given.
 extern "C" cudaError_t backward_ray(const int64_t* offsets, int B, long long M, int S0,
                                     const float* t, const float* alpha, const bool* contrib,
                                     const bool* fake, const int* counted, const float* rgb,
@@ -646,45 +972,62 @@ extern "C" cudaError_t backward_ray(const int64_t* offsets, int B, long long M, 
                                     const float* bg_rgb, int fake_l_dist,
                                     const float* g_rgb, const float* g_rl, float* d_alpha,
                                     float* d_t, float* d_col, int cache_K, const float* g_cts,
-                                    const float* g_calpha, const float* g_cw, void* stream) {
+                                    const float* g_calpha, const float* g_cw,
+                                    const BackRayOut* out, void* stream) {
     if (B <= 0) return cudaSuccess;
     const BackRayParams p{offsets, B, M, S0, t, alpha, contrib, fake, counted, rgb, truncated,
                           trunc_a, trunc_wmin, stop_on, log_stop, bg, bg_rgb, fake_l_dist,
                           g_rgb, g_rl,
                           d_alpha, d_t, d_col, cache_K, g_cts, g_calpha, g_cw};
     const int block = 128;
-    backward_ray_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(p);
+    const unsigned grid = (B + block - 1) / block;
+    if (out) {
+        if (!out->snorm || (out->g_normal != nullptr) != (out->d_snorm != nullptr))
+            return cudaErrorInvalidValue;
+        backward_ray_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(p, *out);
+    } else {
+        backward_ray_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(p, BackRayOut{});
+    }
     return cudaGetLastError();
 }
 
-extern "C" cudaError_t backward_entry(const int* ray_id, const int* l, const float* close_t,
-                                      const float* far_t, long long M, int B, const float* origins,
-                                      const float* dirs, const float* sh_mult, int bd,
-                                      const int* links, int X, int Y, int Z, const float* packed,
-                                      int cap, int C8, int n_surf_c, const float* level_sets,
-                                      int n_lv, int S0, int stype, const float* lv_alpha,
-                                      float near_grid_t, float sigma_thresh,
-                                      const float* fs_std, float min_vox_len, int only_outward,
-                                      int fake_sample, int limited_fake, int normalize_surf,
-                                      int act_sigmoid, int no_sh_surf_grad, const bool* contrib,
-                                      const float* d_alpha, const float* d_t, const float* d_col,
-                                      const float* g_rl, const bool* win, float* g_density,
-                                      float* g_surface, float* g_sh, float* g_fss,
-                                      float* g_sh_mult, void* stream) {
-    if (M <= 0) return cudaSuccess;
-    const BackEntryParams p{ray_id, l, close_t, far_t, M, B, origins, dirs, sh_mult, bd, links,
-                            X, Y, Z, packed, cap, C8, n_surf_c, level_sets, n_lv, S0,
-                            stype, lv_alpha, near_grid_t, sigma_thresh, fs_std, min_vox_len,
-                            only_outward,
-                            fake_sample, limited_fake, normalize_surf, act_sigmoid,
-                            no_sh_surf_grad, contrib, d_alpha, d_t, d_col, g_rl, win,
-                            g_density, g_surface, g_sh, g_fss, g_sh_mult};
+// the launcher of both K5b instantiations: d_snorm null for the rgb-only
+// one, the normal's cotangent for the second
+static cudaError_t launch_backward_entry(const BackEntryParams& p, cudaStream_t stream) {
+    if (p.M <= 0) return cudaSuccess;
     const int block = 128;
-    const unsigned grid = (unsigned)((M + block - 1) / block);
-    if (g_sh_mult)
-        backward_entry_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(p);
-    else
-        backward_entry_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(p);
+    const unsigned grid = (unsigned)((p.M + block - 1) / block);
+    if (p.d_snorm) {
+        if (p.g_sh_mult)
+            backward_entry_kernel<true, true><<<grid, block, 0, stream>>>(p);
+        else
+            backward_entry_kernel<false, true><<<grid, block, 0, stream>>>(p);
+    } else if (p.g_sh_mult) {
+        backward_entry_kernel<true, false><<<grid, block, 0, stream>>>(p);
+    } else {
+        backward_entry_kernel<false, false><<<grid, block, 0, stream>>>(p);
+    }
     return cudaGetLastError();
+}
+
+// K5b. d_snorm, the cotangent of each slot's rendered normal (3, S0, M), or
+// null, chooses the instantiation.
+extern "C" cudaError_t backward_entry(
+    const int* ray_id, const int* l, const float* close_t, const float* far_t, long long M, int B,
+    const float* origins, const float* dirs, const float* sh_mult, int bd, const int* links,
+    int X, int Y, int Z, const float* packed, int cap, int C8, int n_surf_c,
+    const float* level_sets, int n_lv, int S0, int stype, const float* lv_alpha,
+    float near_grid_t, float sigma_thresh, const float* fs_std, float min_vox_len,
+    int only_outward, int fake_sample, int limited_fake, int normalize_surf, int act_sigmoid,
+    int no_sh_surf_grad, const bool* contrib, const float* d_alpha, const float* d_t,
+    const float* d_col, const float* g_rl, const bool* win, float* g_density, float* g_surface,
+    float* g_sh, float* g_fss, float* g_sh_mult, const float* d_snorm, void* stream) {
+    const BackEntryParams p{ray_id, l, close_t, far_t, M, B, origins, dirs, sh_mult, bd, links,
+                            X, Y, Z, packed, cap, C8, n_surf_c, level_sets, n_lv, S0, stype,
+                            lv_alpha, near_grid_t, sigma_thresh, fs_std, min_vox_len,
+                            only_outward, fake_sample, limited_fake, normalize_surf, act_sigmoid,
+                            no_sh_surf_grad, contrib, d_alpha, d_t, d_col, g_rl, win, g_density,
+                            g_surface, g_sh, g_fss, g_sh_mult, d_snorm};
+    return launch_backward_entry(p, (cudaStream_t)stream);
 }
 #endif

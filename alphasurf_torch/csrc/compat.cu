@@ -21,9 +21,14 @@
 // compat_forward, one thread a ray: rgb, depth, and the per-ray
 // accumulator (nvol: total alpha; svox1: log transmittance).
 //
-// compat_backward, one thread a ray, the cotangent of rgb only, into the
+// compat_backward, one thread a ray, the cotangent of rgb, into the
 // density and SH rows (atomics) and, with a g_sh_mult output, into the
-// ray's basis (summed in registers, written once):
+// ray's basis (summed in registers, written once); its second
+// instantiation (given g_depth or g_acc) also those of depth and acc (depth = sum w t adds
+// g_depth t to each step's colour term G_k; nvol's total is the sum of the
+// increments up to the saturating step, so without one g_acc joins G_ref
+// with a minus sign; svox1's log T sums every step's log_att, so g_acc joins
+// the suffix):
 // - nvol: before the step s that saturates min(total + inc, 1), the
 //   weights are the increments and d rgb.g / d inc_k = G_k - G_ref, with
 //   G_k = g . c_k and G_ref = G_s (or g . bg when no step saturates); the
@@ -72,6 +77,8 @@ struct CompatParams {
     float* g_density;    // (cap,)
     float* g_sh;         // (cap, 3 bd)
     float* g_sh_mult;    // (B, bd) or null
+    const float* g_depth;  // (B,) or null (the second instantiation)
+    const float* g_acc;    // (B,) or null: total alpha (nvol) or log T (svox1)
 };
 
 struct CRay {
@@ -227,17 +234,28 @@ HD void scatter_sample(const CompatParams& p, const CRay& ray, const CSample& s,
     }
 }
 
-template <bool kShMult>
+// the output cotangents of the second instantiation: depth's and acc's (0 where
+// absent)
+HD void out_cotangents(const CompatParams& p, int r, float& gd, float& ga) {
+    gd = p.g_depth ? p.g_depth[r] : 0.0f;
+    ga = p.g_acc ? p.g_acc[r] : 0.0f;
+}
+
+template <bool kShMult, bool kOut>
 HD void nvol_backward_ray(const CompatParams& p, int r) {
     const CRay ray = load_cray(p, r);
     const float g[3] = {p.g_rgb[3 * (int64_t)r], p.g_rgb[3 * (int64_t)r + 1],
                         p.g_rgb[3 * (int64_t)r + 2]};
+    float gd = 0.0f, ga = 0.0f;
+    if constexpr (kOut) out_cotangents(p, r, gd, ga);
     float gshm[kMaxBasis];
 #pragma unroll
     for (int b = 0; b < kMaxBasis; ++b) gshm[b] = 0.0f;
-    // pass 1: the saturating step s and G_s (G_ref = g . bg without one)
+    // pass 1: the saturating step s and H_s = G_s (+ g_depth t_s); without
+    // one H_ref = g . bg (- g_acc: the total is the sum of the increments)
     int s_sat = -1, K = 0;
     float total = 0.0f, g_ref = p.bg * (g[0] + g[1] + g[2]);
+    if constexpr (kOut) g_ref = g_ref - ga;
     for (int k = 0; k < p.n_steps; ++k) {
         const float t = ray.tmin + (float)k * p.step;
         if (!(t <= ray.tmax)) break;
@@ -249,6 +267,7 @@ HD void nvol_backward_ray(const CompatParams& p, int r) {
         if (total + inc >= 1.0f) {
             s_sat = k;
             g_ref = colour_dot(g, s);
+            if constexpr (kOut) g_ref = g_ref + gd * t;
         }
         total = fminf(total + inc, 1.0f);
     }
@@ -264,7 +283,9 @@ HD void nvol_backward_ray(const CompatParams& p, int r) {
         const float nt = fminf(total + inc, 1.0f);
         const float w = nt - total;
         total = nt;
-        const float d_inc = k == s_sat ? 0.0f : colour_dot(g, s) - g_ref;
+        float h = colour_dot(g, s);
+        if constexpr (kOut) h = h + gd * t;
+        const float d_inc = k == s_sat ? 0.0f : h - g_ref;
         // inc = 1 - exp(-ws relu(sigma)): d inc / d sigma = ws exp(la) where sigma > 0
         const float d_sigma = (s.use && s.sigma > 0.0f) ? d_inc * (ray.ws * expf(la)) : 0.0f;
         float d_pre[3];
@@ -278,11 +299,13 @@ HD void nvol_backward_ray(const CompatParams& p, int r) {
     }
 }
 
-template <bool kShMult>
+template <bool kShMult, bool kOut>
 HD void svox1_backward_ray(const CompatParams& p, int r) {
     const CRay ray = load_cray(p, r);
     const float g[3] = {p.g_rgb[3 * (int64_t)r], p.g_rgb[3 * (int64_t)r + 1],
                         p.g_rgb[3 * (int64_t)r + 2]};
+    float gd = 0.0f, ga = 0.0f;
+    if constexpr (kOut) out_cotangents(p, r, gd, ga);
     float gshm[kMaxBasis];
 #pragma unroll
     for (int b = 0; b < kMaxBasis; ++b) gshm[b] = 0.0f;
@@ -300,7 +323,9 @@ HD void svox1_backward_ray(const CompatParams& p, int r) {
         K = k + 1;
     }
     // the suffix: every later step's w G plus the background's T_final g . bg
+    // (and log T's own cotangent, which every step's log_att joins)
     float suffix = expf(log_T) * (p.bg * (g[0] + g[1] + g[2]));
+    if constexpr (kOut) suffix = suffix + ga;
     float pre[kSeg], la[kSeg];
     for (int seg = (K - 1) / kSeg; seg >= 0 && K > 0; --seg) {
         const int k0 = seg * kSeg, k1 = k0 + kSeg < K ? k0 + kSeg : K;
@@ -314,11 +339,13 @@ HD void svox1_backward_ray(const CompatParams& p, int r) {
         }
         for (int k = k1 - 1; k >= k0; --k) {
             CSample s;
-            compat_sample(p, ray, ray.tmin + (float)k * p.step, s);
+            const float t = ray.tmin + (float)k * p.step;
+            compat_sample(p, ray, t, s);
             const float T = expf(pre[k - k0]);
             const float ea = expf(la[k - k0]);
             const float w = T * (1.0f - ea);
-            const float G = colour_dot(g, s);
+            float G = colour_dot(g, s);
+            if constexpr (kOut) G = G + gd * t;  // depth = sum w t
             const float d_la = -T * ea * G + suffix;
             suffix = suffix + w * G;
             const float d_sigma = (s.use && s.sigma > 0.0f) ? -ray.ws * d_la : 0.0f;
@@ -340,14 +367,14 @@ __global__ void compat_forward_kernel(CompatParams p) {
     if (r < p.B) compat_forward_ray(p, r);
 }
 
-template <bool kShMult>
+template <bool kShMult, bool kOut>
 __global__ void compat_backward_kernel(CompatParams p) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= p.B) return;
     if (p.svox1)
-        svox1_backward_ray<kShMult>(p, r);
+        svox1_backward_ray<kShMult, kOut>(p, r);
     else
-        nvol_backward_ray<kShMult>(p, r);
+        nvol_backward_ray<kShMult, kOut>(p, r);
 }
 
 static const int kBlock = 128;
@@ -396,6 +423,8 @@ extern "C" cudaError_t compat_forward(int svox1, int B, const float* origins, co
     return cudaGetLastError();
 }
 
+// the cotangent of rgb (B, 3), and of depth and acc (B,) (each null when
+// absent: both null choose the rgb-only instantiation)
 extern "C" cudaError_t compat_backward(int svox1, int B, const float* origins, const float* dirs,
                                        const float* sh_mult, int bd, const float* delta_scale,
                                        const float* tmin, const float* tmax, const int* links,
@@ -403,7 +432,7 @@ extern "C" cudaError_t compat_backward(int svox1, int B, const float* origins, c
                                        const float* sh, float step, int n_steps,
                                        float sigma_thresh, float bg, const float* g_rgb,
                                        float* g_density, float* g_sh, float* g_sh_mult,
-                                       void* stream) {
+                                       const float* g_depth, const float* g_acc, void* stream) {
     if (B <= 0) return cudaSuccess;
     if (svox1 && n_steps > kSeg * kMaxSeg) return cudaErrorInvalidValue;
     if (g_sh_mult && bd > kMaxBasis) return cudaErrorInvalidValue;
@@ -413,11 +442,20 @@ extern "C" cudaError_t compat_backward(int svox1, int B, const float* origins, c
     p.g_density = g_density;
     p.g_sh = g_sh;
     p.g_sh_mult = g_sh_mult;
+    p.g_depth = g_depth;
+    p.g_acc = g_acc;
     const unsigned grid = (B + kBlock - 1) / kBlock;
-    if (g_sh_mult)
-        compat_backward_kernel<true><<<grid, kBlock, 0, (cudaStream_t)stream>>>(p);
-    else
-        compat_backward_kernel<false><<<grid, kBlock, 0, (cudaStream_t)stream>>>(p);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (g_depth || g_acc) {
+        if (g_sh_mult)
+            compat_backward_kernel<true, true><<<grid, kBlock, 0, st>>>(p);
+        else
+            compat_backward_kernel<false, true><<<grid, kBlock, 0, st>>>(p);
+    } else if (g_sh_mult) {
+        compat_backward_kernel<true, false><<<grid, kBlock, 0, st>>>(p);
+    } else {
+        compat_backward_kernel<false, false><<<grid, kBlock, 0, st>>>(p);
+    }
     return cudaGetLastError();
 }
 #endif

@@ -14,7 +14,8 @@
 // that contributes after the stop_thresh kill, is not fake and whose
 // pre-truncation alpha is above the threshold (0 where none is), a running
 // minimum in the walk; and, for the intersection cloud, each slot's
-// contribution flag after the kill (the weight is written anyway).
+// contribution flag after the kill (the weight is written anyway), with, for
+// the walks' return_samples (surface.py:1052-1062), its truncated alpha.
 // intersect_points, a second kernel, writes the world point of every slot
 // of every pool entry, entry-major, for that cloud: o + t d of the entry's
 // ray, then JAX's grid2world; bound: bytes, one thread per slot.
@@ -85,6 +86,7 @@ struct CompositeParams {
     int* n_cached;     // (B,)
     float* cache_med;  // (B,)
     bool* win;         // (M,) or null
+    float* live_alpha;  // (S0, M) the truncated alpha where live (return_samples), or null
 };
 
 HD float alpha_trunc(const CompositeParams& p, int64_t i, int cnt, float ta) {
@@ -142,6 +144,7 @@ HD void composite_ray(const CompositeParams& p, int r) {
             pre_att = pre_att + logf(om);
             p.weight[i] = w;
             if (p.live) p.live[i] = c;
+            if (p.live_alpha) p.live_alpha[i] = ac;
             totW = totW + w;
             const float t = p.t[i];
             if (p.sig_on && c && !p.fake[i] && p.alpha[i] > p.sig_thresh) t_sig = fminf(t_sig, t);
@@ -271,14 +274,14 @@ extern "C" cudaError_t composite(const int64_t* offsets, int B, long long M, int
                                  float sig_thresh, float* depth_sig, bool* live, int window,
                                  int mode_first, int cache_K, float* c_ts, float* c_alpha,
                                  float* c_w, bool* c_fake, int* n_cached, float* cache_med,
-                                 bool* win, void* stream) {
+                                 bool* win, float* live_alpha, void* stream) {
     if (B <= 0) return cudaSuccess;
     const CompositeParams p{offsets, B, M, S0, t, alpha, contrib, fake, counted, rgb, snorm,
                             loss_e, n_le, truncated, trunc_a, trunc_wmin, stop_on, log_stop, bg,
                             bg_rgb, fake_l_dist, out_rgb, depth, normal, log_T, depth_mode, depth_med,
                             n_int, losses, weight, sig_on, sig_thresh, depth_sig, live, window,
                             mode_first, cache_K, c_ts, c_alpha, c_w, c_fake, n_cached, cache_med,
-                            win};
+                            win, live_alpha};
     const int block = 128;
     composite_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(p);
     return cudaGetLastError();

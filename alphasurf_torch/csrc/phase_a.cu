@@ -37,7 +37,9 @@
 // voxel, t < tmax - 1e-9 to take a step and next_t < tmax + 1e-6 to go on,
 // at most max_voxels steps. An in-bounds voxel whose K1 bit is set becomes
 // an entry (ray, l, the slab's close_t and far_t), in walk order; a stalled
-// walk may list a voxel twice, as JAX's walk composites it twice. Count,
+// walk may list a voxel twice, as JAX's walk composites it twice. The fill
+// optionally writes each entry's walk step (steps, for return_samples'
+// layout; null: not written). Count,
 // exclusive scan and fill, as K2. Bound: operations, ~40 float operations a
 // step for up to 3 (reso - 1) + 2 steps a ray; the pool is a few entries a
 // ray. K3 and K4 then run on the pool unchanged.
@@ -243,7 +245,7 @@ HD void slab_ts(const float o[3], const float d[3], const int l[3], float& ct, f
 // written from pos when WRITE.
 template <bool WRITE>
 HD int dense_walk_ray(const PhaseAParams& p, const bool* ray_ok, int max_voxels, int r,
-                      int64_t pos, const PoolOut& out) {
+                      int64_t pos, const PoolOut& out, int* steps = nullptr) {
     float o[3], d[3];
     for (int a = 0; a < 3; ++a) {
         o[a] = p.origins[3 * (int64_t)r + a];
@@ -276,6 +278,7 @@ HD int dense_walk_ray(const PhaseAParams& p, const bool* ray_ok, int max_voxels,
                     for (int a = 0; a < 3; ++a) out.l[3 * k + a] = l[a];
                     out.close_t[k] = ct;
                     out.far_t[k] = ft;
+                    if (steps) steps[k] = step;
                 }
                 ++n;
             }
@@ -296,10 +299,10 @@ __global__ void dense_walk_count_kernel(PhaseAParams p, const bool* ray_ok, int 
 }
 
 __global__ void dense_walk_fill_kernel(PhaseAParams p, const bool* ray_ok, int max_voxels, int B,
-                                       const int64_t* offsets, PoolOut out) {
+                                       const int64_t* offsets, PoolOut out, int* steps) {
     const int r = blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= B) return;
-    dense_walk_ray<true>(p, ray_ok, max_voxels, r, offsets[r], out);
+    dense_walk_ray<true>(p, ray_ok, max_voxels, r, offsets[r], out, steps);
 }
 
 __global__ void compact_fill_kernel(PhaseAParams p, int B, const int64_t* offsets, PoolOut out) {
@@ -380,12 +383,12 @@ extern "C" cudaError_t dense_walk_fill(const float* origins, const float* dirs, 
                                        const float* tmax, const bool* ray_ok, const int* words,
                                        int B, int X, int Y, int Z, int max_voxels,
                                        const int64_t* offsets, int* ray_id, int* l,
-                                       float* close_t, float* far_t, void* stream) {
+                                       float* close_t, float* far_t, int* steps, void* stream) {
     if (B <= 0) return cudaSuccess;
     const int block = 128;
     dense_walk_fill_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
         make_params(origins, dirs, t0, tmax, words, X, Y, Z), ray_ok, max_voxels, B, offsets,
-        PoolOut{ray_id, l, close_t, far_t});
+        PoolOut{ray_id, l, close_t, far_t}, steps);
     return cudaGetLastError();
 }
 #endif

@@ -88,6 +88,14 @@ LAUNCHES = {
     "compat_forward_svox1": 0,
     "compat_backward_nvol": 0,
     "compat_backward_svox1": 0,
+    # the output cotangents (a launch also counts under the kernel's name)
+    "backward_ray_out": 0,
+    "backward_entry_out": 0,
+    "compat_backward_out_nvol": 0,
+    "compat_backward_out_svox1": 0,
+    # return_samples on the card: K11a's walk steps, K4's truncated alphas
+    "dense_walk_fill_steps": 0,
+    "composite_samples": 0,
 }
 # the surface types' branches of K1, K3 and K5b (a launch on such a grid
 # also counts as "<kernel>_<type>"), and the sparsifier's launches on a
@@ -96,7 +104,7 @@ TYPE_NAMES = {defs.SURFACE_TYPE_PLANE: "plane", defs.SURFACE_TYPE_UDF: "udf",
               defs.SURFACE_TYPE_UDF_ALPHA: "udf_alpha",
               defs.SURFACE_TYPE_UDF_FAKE_SAMPLE: "udf_fake_sample",
               defs.SURFACE_TYPE_VOXEL_FACE: "voxel_face"}
-for _k in ("occupancy", "phase_b", "backward_entry"):
+for _k in ("occupancy", "phase_b", "backward_entry", "backward_entry_out"):
     LAUNCHES.update({f"{_k}_{_t}": 0 for _t in TYPE_NAMES.values()})
 LAUNCHES["reg_sparsify_table"] = 0
 
@@ -110,20 +118,20 @@ _ARGTYPES = {
     "phase_a_fill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "compact_fill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "dense_walk_count": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "dense_walk_fill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "dense_walk_fill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "phase_b": [_P, _P, _P, _P, _L, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _I,
                 _I, _I, _P, _F, _F, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                 _P],
     "composite": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _F, _I, _F, _F, _P,
                   _I,
                   _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-                  _P, _P, _P, _P],
+                  _P, _P, _P, _P, _P],
     "intersect_points": [_P, _P, _P, _P, _I, _L, _F, _F, _F, _F, _F, _F, _P, _P],
     "backward_ray": [_P, _I, _L, _I, _P, _P, _P, _P, _P, _P, _I, _P, _F, _I, _F, _F, _P, _I, _P,
-                     _P, _P, _P, _P, _I, _P, _P, _P, _P],
+                     _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "backward_entry": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P,
                        _I, _I, _I, _P, _F, _F, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _P, _P, _P],
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "reg_tv": [_P, _I, _I, _I, _P, _L, _P, _L, _I, _I, _I, _P, _L, _F, _P, _P, _P],
     "reg_normal": [_P, _I, _I, _I, _P, _L, _P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     "reg_sparsify": [_P, _I, _I, _I, _P, _L, _P, _L, _P, _I, _F, _F, _F, _F, _F, _P, _P, _P,
@@ -160,7 +168,7 @@ _ARGTYPES = {
     "compat_forward": [_I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _F, _F,
                        _P, _P, _P, _P],
     "compat_backward": [_I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _F, _F,
-                        _P, _P, _P, _P, _P],
+                        _P, _P, _P, _P, _P, _P, _P],
 }
 _FUNCS = {
     "occupancy": ("occupancy_words", "density_occupancy_words"),
@@ -387,16 +395,21 @@ def dense_walk_count(origins, dirs, t0, tmax, ray_ok, words, reso, max_voxels: i
 
 
 def dense_walk_fill(origins, dirs, t0, tmax, ray_ok, words, reso, max_voxels: int, offsets,
-                    M: int):
+                    M: int, want_steps: bool = False):
     """K11a fill pass: the pool (ray_id, l, close_t, far_t: the voxel's slab)
-    with ray r's walk-ordered entries at [offsets[r], offsets[r+1])."""
+    with ray r's walk-ordered entries at [offsets[r], offsets[r+1]); with
+    ``want_steps`` also each entry's walk step (M,) int32, a fifth output (a
+    launch with it also counts as ``dense_walk_fill_steps``)."""
     B, args = _dense_inputs(origins, dirs, t0, tmax, ray_ok, words, reso, max_voxels)
     _check("offsets", offsets, torch.int64, (B + 1,))
     pool = _empty_pool(M, origins.device)
+    steps = torch.empty(M, dtype=torch.int32, device=origins.device) if want_steps else None
     if M > 0:
         _launch("phase_a", "dense_walk_fill", "dense_walk_fill", *args, _ptr(offsets),
-                *(_ptr(x) for x in pool))
-    return pool
+                *(_ptr(x) for x in pool), _ptr(steps) if want_steps else None)
+        if want_steps:
+            LAUNCHES["dense_walk_fill_steps"] += 1
+    return pool + (steps,) if want_steps else pool
 
 
 # ---------------------------------------------------------------------------
@@ -548,7 +561,7 @@ def _bg_rgb_ptr(bg_rgb, B: int):
 
 def composite(offsets, smp: dict, trunc_a, opt, sig_thresh: float | None = None,
               want_live: bool = False, window: int = 0, mode_first: bool = False,
-              cache_size: int | None = None, bg_rgb=None) -> dict:
+              cache_size: int | None = None, bg_rgb=None, want_live_alpha: bool = False) -> dict:
     """K4: per-ray compositing (see render.surface.composite); ``trunc_a``
     is the grid's truncated_vol_render_a on the card. ``sig_thresh`` adds
     ``depth_sigma_thresh`` (B,) (a launch in that mode also counts as
@@ -558,7 +571,10 @@ def composite(offsets, smp: dict, trunc_a, opt, sig_thresh: float | None = None,
     n_cached (B,) int32) and its median ``cache_med`` (a launch in that
     mode also counts as ``composite_cache``); ``window`` > 0 adds ``win``
     (M,), the entries inside the count window. ``bg_rgb`` (B, 3), K13's
-    per-ray background colour, takes the place of the brightness."""
+    per-ray background colour, takes the place of the brightness.
+    ``want_live_alpha`` (return_samples) adds ``live_alpha`` (S0, M), each
+    live slot's truncated alpha (0 elsewhere), and the live flags (a launch
+    in that mode also counts as ``composite_samples``)."""
     B = offsets.shape[0] - 1
     S0, M = smp["t"].shape
     _check("offsets", offsets, torch.int64, (B + 1,))
@@ -580,8 +596,11 @@ def composite(offsets, smp: dict, trunc_a, opt, sig_thresh: float | None = None,
     sig_on = sig_thresh is not None
     if sig_on:
         out["depth_sigma_thresh"] = torch.empty(B, dtype=f32, device=dev)
+    want_live = want_live or want_live_alpha
     if want_live:
         out["live"] = torch.empty((S0, M), dtype=torch.bool, device=dev)
+    if want_live_alpha:
+        out["live_alpha"] = torch.empty((S0, M), dtype=f32, device=dev)
     K = 0 if cache_size is None else int(cache_size)
     cache = None
     if cache_size is not None:
@@ -611,7 +630,10 @@ def composite(offsets, smp: dict, trunc_a, opt, sig_thresh: float | None = None,
                 *((_ptr(cache[k]) for k in ("ts", "alphas", "weights", "fake_mask", "n_cached"))
                   if cache is not None else (None,) * 5),
                 _ptr(out["cache_med"]) if cache is not None else None,
-                _ptr(out["win"]) if window > 0 else None)
+                _ptr(out["win"]) if window > 0 else None,
+                _ptr(out["live_alpha"]) if want_live_alpha else None)
+        if want_live_alpha:
+            LAUNCHES["composite_samples"] += 1
         if sig_on:
             LAUNCHES["composite_sigma_thresh"] += 1
         if cache is not None:
@@ -641,18 +663,67 @@ def intersect_points(ray_id, t, origins, dirs, rscaling, roffset):
 # K5
 # ---------------------------------------------------------------------------
 
+class OutCotangents(NamedTuple):
+    """The cotangents of K5a's second instantiation (``backward_ray_out``),
+    each float32 on the card or None: per ray (B,) depth, normal (B, 3),
+    log_T, the mode depth, the cache-free median ``med`` (the packed
+    renderer's), the cache's median ``cache_med`` (the dense and compact
+    renderers') and the sigma-thresh depth ``sig``; the intersections'
+    points ``pts`` (M S0, 3), entry-major; per slot (S0, M) its ``t``, its
+    pre-truncation ``alpha``, its ``weight`` and its truncated alpha where
+    it is live (``live_alpha``)."""
+
+    depth: torch.Tensor | None = None
+    normal: torch.Tensor | None = None
+    log_T: torch.Tensor | None = None
+    mode: torch.Tensor | None = None
+    med: torch.Tensor | None = None
+    cache_med: torch.Tensor | None = None
+    sig: torch.Tensor | None = None
+    pts: torch.Tensor | None = None
+    t: torch.Tensor | None = None
+    alpha: torch.Tensor | None = None
+    weight: torch.Tensor | None = None
+    live_alpha: torch.Tensor | None = None
+
+
+class _BackRayOut(ctypes.Structure):
+    """backward.cu's BackRayOut: K3's normals, the grid-space directions,
+    the mode rule, the sigma-thresh depth's threshold, grid2world's scale,
+    the output cotangents in OutCotangents' order and d_snorm."""
+
+    _fields_ = ([("snorm", _P), ("dirs", _P), ("mode_first", _I), ("sig_thresh", _F),
+                 ("rscale", _F * 3)] + [(f"g_{k}", _P) for k in OutCotangents._fields]
+                + [("d_snorm", _P)])
+
+
+_OUT_SHAPES = {"depth": "B", "normal": "B3", "log_T": "B", "mode": "B", "med": "B",
+               "cache_med": "B", "sig": "B", "pts": "P", "t": "S", "alpha": "S", "weight": "S",
+               "live_alpha": "S"}
+
+
 def backward_ray(offsets, smp: dict, trunc_a, opt, g_rgb, g_ray_losses, g_cache=None,
-                 bg_rgb=None):
+                 bg_rgb=None, out: OutCotangents | None = None, mode_first: bool = False,
+                 sig_thresh: float | None = None, rscaling=None, dirs=None):
     """K5a: per-slot cotangents (d_alpha of the pre-truncation alpha (S0, M),
     d_t (S0, M), d_col of the clipped colour (3, S0, M)) from the cotangents
     of rgb (B, 3) and ray_losses (12, B). K11d: ``g_cache``, the cotangents
     (ts, alphas, weights) of K11c's cache, (B, K) each, join them (a launch
     with them also counts as ``backward_cache``). ``bg_rgb``: K13's per-ray
-    background colour, as in ``composite``."""
+    background colour, as in ``composite``.
+
+    ``out``, the output cotangents (``OutCotangents``): any of them given
+    launches the second instantiation (also counted as
+    ``backward_ray_out``); it needs K3's
+    ``snorm``, the rays' grid-space ``dirs`` (B, 3) and grid2world's
+    ``rscaling`` (3 floats) for the points, ``mode_first`` (the walks' mode
+    rule) and the forward's ``sig_thresh``. It returns a fourth output,
+    d_snorm (3, S0, M), the normal's cotangent for K5b, when ``out.normal``
+    is given (else None)."""
     B = offsets.shape[0] - 1
     S0, M = smp["t"].shape
     _check("offsets", offsets, torch.int64, (B + 1,))
-    _check_slots(smp, S0, M, _SLOT_KEYS)
+    _check_slots(smp, S0, M, _SLOT_KEYS + (("snorm",) if out is not None else ()))
     _check("g_rgb", g_rgb, torch.float32, (B, 3))
     _check("g_ray_losses", g_ray_losses, torch.float32, (12, B))
     ta = _scalar_ptr("trunc_a", trunc_a)
@@ -666,22 +737,51 @@ def backward_ray(offsets, smp: dict, trunc_a, opt, g_rgb, g_ray_losses, g_cache=
         for name, g in zip(("g_cache_ts", "g_cache_alphas", "g_cache_weights"), g_cache):
             _check(name, g, torch.float32, (B, K))
     bgp = _bg_rgb_ptr(bg_rgb, B)
+    d_snorm = None
+    if out is not None:
+        shapes = {"B": (B,), "B3": (B, 3), "P": (M * S0, 3), "S": (S0, M)}
+        for name, g in zip(out._fields, out):
+            if g is not None:
+                _check(f"g_{name}", g, torch.float32, shapes[_OUT_SHAPES[name]])
+        if out.cache_med is not None and g_cache is None:
+            raise ValueError("backward_ray: the cache median's cotangent needs g_cache")
+        if out.pts is not None:
+            _check("dirs", dirs, torch.float32, (B, 3))
+            if rscaling is None or len(rscaling) != 3:
+                raise ValueError("backward_ray: the points' cotangent needs grid2world's rscaling")
+        if out.sig is not None and sig_thresh is None:
+            raise ValueError("backward_ray: the sigma-thresh depth's cotangent needs sig_thresh")
+        if out.normal is not None:
+            d_snorm = torch.empty((3, S0, M), dtype=torch.float32, device=dev)
+    args = (_ptr(offsets), B, M, S0, *(_ptr(smp[k]) for k in _SLOT_KEYS),
+            int(opt.truncated_vol_render), ta, float(opt.trunc_vol_weight_min))
     if B > 0 and M > 0:
         stop_on, log_stop, bg, fake_l_dist = _composite_opts(opt)
-        _launch("backward", "backward_ray", "backward_ray",
-                _ptr(offsets), B, M, S0, *(_ptr(smp[k]) for k in _SLOT_KEYS),
-                int(opt.truncated_vol_render), ta, float(opt.trunc_vol_weight_min),
-                stop_on, log_stop, bg, bgp, fake_l_dist, _ptr(g_rgb), _ptr(g_ray_losses),
+        args = (*args, stop_on, log_stop, bg, bgp, fake_l_dist, _ptr(g_rgb), _ptr(g_ray_losses),
                 _ptr(d_alpha), _ptr(d_t), _ptr(d_col), K,
                 *((_ptr(g) for g in g_cache) if g_cache is not None else (None,) * 3))
+        q = None
+        if out is not None and any(g is not None for g in out):
+            q = _BackRayOut(_ptr(smp["snorm"]), _ptr(dirs) if out.pts is not None else None,
+                            int(mode_first), float(sig_thresh) if sig_thresh is not None else 0.0,
+                            (_F * 3)(*(rscaling if rscaling is not None else (1.0,) * 3)),
+                            *(None if g is None else _ptr(g) for g in out),
+                            _ptr(d_snorm) if d_snorm is not None else None)
+        _launch("backward", "backward_ray", "backward_ray", *args,
+                ctypes.addressof(q) if q is not None else None)
+        if q is not None:
+            LAUNCHES["backward_ray_out"] += 1
         if g_cache is not None:
             LAUNCHES["backward_cache"] += 1
-    return d_alpha, d_t, d_col
+    if out is None:
+        return d_alpha, d_t, d_col
+    return d_alpha, d_t, d_col, d_snorm
 
 
 def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, packed,
                    spec: SurfaceSpec, level_sets, near_grid_t: float, fs_std, opt, contrib,
-                   d_alpha, d_t, d_col, g_ray_losses, win=None, want_sh_mult: bool = False):
+                   d_alpha, d_t, d_col, g_ray_losses, win=None, want_sh_mult: bool = False,
+                   d_snorm=None):
     """K5b: gradients of the density (cap,) (UDF_ALPHA: of its (n_lv,)
     table), surface (cap, n_surf_c) and SH (cap, 3 bd) rows and of
     fake_sample_std (1,) from K5a's slot cotangents and the inward-norm,
@@ -689,7 +789,11 @@ def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, pac
     the entries ``win`` (K4's count window; None: all).
     With ``want_sh_mult`` also the gradient of the per-ray basis sh_mult
     (B, bd), a fifth output (a launch with it also counts as
-    ``backward_entry_basis``)."""
+    ``backward_entry_basis``). ``d_snorm`` (3, S0, M), K5a's cotangent of
+    each slot's rendered normal, launches the second instantiation
+    (``backward_entry_out``, also counted with the type as
+    ``backward_entry_out_<type>``), which carries it into the surface rows
+    and, through the sample position, the roots."""
     M, B, bd, cap, C8 = _pool_args(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links,
                                    packed, spec.n_surf_c, level_sets)
     stype, lvp = _spec_args(spec, level_sets)
@@ -703,6 +807,8 @@ def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, pac
     _check("g_ray_losses", g_ray_losses, torch.float32, (12, B))
     if win is not None:
         _check("win", win, torch.bool, (M,))
+    if d_snorm is not None:
+        _check("d_snorm", d_snorm, torch.float32, (3, S0, M))
     dev = close_t.device
     g_density = torch.zeros(cap if lvp is None else level_sets.numel(), dtype=torch.float32,
                             device=dev)
@@ -723,10 +829,14 @@ def backward_entry(ray_id, l, close_t, far_t, origins, dirs, sh_mult, links, pac
                 int(opt.no_surf_grad_from_sh), _ptr(contrib), _ptr(d_alpha), _ptr(d_t),
                 _ptr(d_col), _ptr(g_ray_losses), _ptr(win) if win is not None else None,
                 _ptr(g_density), _ptr(g_surface), _ptr(g_sh),
-                _ptr(g_fss) if fs_std is not None else 0, _ptr(g_shm) if want_sh_mult else None)
+                _ptr(g_fss) if fs_std is not None else 0, _ptr(g_shm) if want_sh_mult else None,
+                _ptr(d_snorm) if d_snorm is not None else None)
         if want_sh_mult:
             LAUNCHES["backward_entry_basis"] += 1
         _count_type("backward_entry", stype)
+        if d_snorm is not None:
+            LAUNCHES["backward_entry_out"] += 1
+            _count_type("backward_entry_out", stype)
     out = (g_density, g_surface, g_sh, g_fss)
     return out + (g_shm,) if want_sh_mult else out
 
@@ -1038,8 +1148,8 @@ def cuvol_forward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_scal
 
 
 def _out_cotangent_ptrs(g_depth, g_log_T, B: int) -> tuple:
-    """The pointers of the depth and log_T cotangents (B,), None for an
-    absent one."""
+    """The pointers of the depth and log_T (or acc) cotangents (B,), None
+    for an absent one."""
     for name, g in (("g_depth", g_depth), ("g_log_T", g_log_T)):
         if g is not None:
             _check(name, g, torch.float32, (B,))
@@ -1460,15 +1570,18 @@ def compat_forward(mode: str, origins, dirs, sh_mult, delta_scale, tmin, tmax, l
 
 def compat_backward(mode: str, origins, dirs, sh_mult, delta_scale, tmin, tmax, links, density,
                     sh, step: float, n_steps: int, sigma_thresh: float, bg: float, g_rgb,
-                    want_sh_mult: bool = False):
+                    want_sh_mult: bool = False, g_depth=None, g_acc=None):
     """K14 backward: the gradients of density (cap,) and SH (cap, 3 bd) from
     the cotangent of rgb (B, 3), and with ``want_sh_mult`` that of the
     per-ray basis (B, bd), a third output (bd at most 32; svox1 at most
-    8192 steps)."""
+    8192 steps). ``g_depth`` and ``g_acc`` (B,), the cotangents of depth and
+    of acc (nvol's total alpha, svox1's log T), launch the second
+    instantiation (also counted as ``compat_backward_out_<mode>``)."""
     m = _compat_mode(mode)
     B, bd, grid_args = _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links,
                                    density, sh)
     _check("g_rgb", g_rgb, torch.float32, (B, 3))
+    out_ptrs = _out_cotangent_ptrs(g_depth, g_acc, B)
     if want_sh_mult and bd > 32:
         raise ValueError(f"compat_backward: the basis gradient takes bd <= 32, got {bd}")
     if mode == "svox1" and n_steps > 8192:
@@ -1480,6 +1593,9 @@ def compat_backward(mode: str, origins, dirs, sh_mult, delta_scale, tmin, tmax, 
     if B > 0:
         _launch("compat", "compat_backward", f"compat_backward_{mode}", m, B, _ptr(origins),
                 _ptr(dirs), *grid_args, float(step), int(n_steps), float(sigma_thresh), float(bg),
-                _ptr(g_rgb), _ptr(g_density), _ptr(g_sh), _ptr(g_shm) if want_sh_mult else None)
+                _ptr(g_rgb), _ptr(g_density), _ptr(g_sh), _ptr(g_shm) if want_sh_mult else None,
+                *out_ptrs)
+        if out_ptrs != (None, None):
+            LAUNCHES[f"compat_backward_out_{mode}"] += 1
     return (g_density, g_sh, g_shm) if want_sh_mult else (g_density, g_sh)
 

@@ -13,8 +13,9 @@ Both are fixed-step marches of ``RenderOptions.step_size`` (JAX's
 deviation from the reference's cell-boundary walk, kept): on the card K14
 (``csrc/compat.cu``, one thread a ray, forward and backward), on the CPU
 the plain versions below, the JAX scan's steps op for op. ``_CompatFn``
-carries the cotangent of ``rgb`` into density, SH and the per-ray basis;
-``depth``, ``alpha`` and ``log_transmit`` take none. ``volume_render``
+carries the cotangents of ``rgb``, ``depth`` and ``alpha`` /
+``log_transmit`` into density, SH and the per-ray basis (K14's
+``compat_backward_out`` when depth or acc takes one). ``volume_render``
 dispatches the five backends by name, as the JAX package's does.
 """
 from __future__ import annotations
@@ -157,9 +158,9 @@ def _k14_args(c: _Compat, density, sh) -> tuple:
 
 
 class _CompatFn(torch.autograd.Function):
-    """K14 forward and backward on the card: ``rgb`` carries the gradient to
-    density, SH and the per-ray basis ``sh_mult``; ``depth`` and ``acc``
-    (total alpha or log_T) take no cotangent."""
+    """K14 forward and backward on the card: ``rgb``, ``depth`` and ``acc``
+    (total alpha or log_T) carry the gradient to density, SH and the per-ray
+    basis ``sh_mult``."""
 
     @staticmethod
     def forward(ctx, density, sh, sh_mult, c: _Compat):
@@ -170,11 +171,6 @@ class _CompatFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_rgb, g_depth, g_acc):
-        for name, g in (("depth", g_depth), ("alpha / log_transmit", g_acc)):
-            if g is not None and bool(torch.any(g != 0)):
-                raise NotImplementedError(
-                    f"a gradient through {name!r} of the compat marches is not ported; K14 "
-                    "carries rgb")
         c = ctx.c
         B = c.rays[0].shape[0]
         if g_rgb is None:
@@ -182,7 +178,9 @@ class _CompatFn(torch.autograd.Function):
         need = ctx.needs_input_grad
         g_density, g_sh, *g_shm = kernels.compat_backward(
             *_k14_args(c, c.grid.density_data.detach()[:, 0], c.grid.sh_data.detach()),
-            g_rgb.contiguous(), want_sh_mult=need[2])
+            g_rgb.contiguous(), want_sh_mult=need[2],
+            g_depth=None if g_depth is None else g_depth.contiguous(),
+            g_acc=None if g_acc is None else g_acc.contiguous())
         return (g_density[:, None] if need[0] else None, g_sh if need[1] else None,
                 g_shm[0] if need[2] else None, None)
 

@@ -90,6 +90,8 @@ def volume_render_depth(grid: SparseGrid, rays: Rays, opt: RenderOptions,
     if grid.surface_data is not None:
         out = volume_render_surface_packed(grid, rays, opt, entries_per_ray=entries_per_ray,
                                            depth_sigma_thresh=sigma_thresh)
+        if sigma_thresh is not None:
+            return out["depth_sigma_thresh"]
         return {"mode": out["depth_mode"], "med": out["depth_med"]}.get(depth_type, out["depth"])
     out = volume_render_cuvol(grid, rays, opt, depth_sigma_thresh=sigma_thresh)
     if sigma_thresh is not None:

@@ -25,10 +25,14 @@ The three renderers differ only in the pool and in three compositor rules
 Gradients: when a parameter of the grid requires grad, the plain path on the
 CPU is differentiated by autograd, detached where the JAX package stops
 gradients; on the card ``_SurfaceFn`` runs K3 and K4 forward and K5
-(``csrc/backward.cu``) backward, for the cotangents of ``rgb``,
-``ray_losses`` and the cache's ts, alphas and weights (K11d). Clamps in the
-plain path are a maximum then a minimum, as ``jnp.clip``, so an exact tie
-passes half the gradient there too.
+(``csrc/backward.cu``) backward, for the cotangents of every output the JAX
+package differentiates: ``rgb`` and ``ray_losses`` (K5's rgb-only
+instantiations), and depth, normal, log_T (alpha, log_transmit), the mode,
+median and sigma-thresh depths, the cache's ts, alphas, weights (K11d) and
+median, the intersections' points, alphas and weights and the samples'
+(K5's second instantiations). Clamps in the plain path are a maximum then a
+minimum, as ``jnp.clip``, so an exact tie passes half the gradient there
+too.
 
 A grid with an MSI background composites it behind the foreground in every
 renderer: K13 (``render.background``) gives each ray its background colour,
@@ -43,11 +47,12 @@ learned basis's parameters.
 Two output options of K3/K4 serve the extractors: ``depth_sigma_thresh``
 (K4's walk keeps a per-ray minimum) and ``return_intersections`` (K4 writes
 each slot's weight and contribution flag; ``intersect_points`` the world
-points). Every surface type is carried: SDF and the UDF types (softplus
-corners; UDF_ALPHA's per-level-set alphas; the udf-var loss) through the
-cubic roots, PLANE through the corners' mean plane, VOXEL_FACE through one
-sample at each voxel's entry, in the plain versions and in K1, K3, K4 and
-K5 alike.
+points); the walks' ``return_samples`` takes K11a's walk steps and K4's
+truncated alphas of the live slots. Every surface type is carried: SDF and
+the UDF types (softplus corners; UDF_ALPHA's per-level-set alphas; the
+udf-var loss) through the cubic roots, PLANE through the corners' mean
+plane, VOXEL_FACE through one sample at each voxel's entry, in the plain
+versions and in K1, K3, K4 and K5 alike.
 """
 from __future__ import annotations
 
@@ -491,21 +496,25 @@ def _dense_walk_plain(reso, origins, dirs, tnear, tmax, ray_ok, words, max_voxel
 
 
 def dense_walk(grid: SparseGrid, origins, dirs, tnear, tmax, ray_ok, words: torch.Tensor,
-               max_voxels: int) -> Pool:
+               max_voxels: int, want_steps: bool = False):
     """K11a: the occupied voxels of the dense walk, a pool as K2's (entries
     ray-major in walk order; close_t and far_t the voxel's slab). K3 and K4
-    then run on it as on K2's. ``n_occupied`` counts each ray's entries."""
+    then run on it as on K2's. ``n_occupied`` counts each ray's entries.
+    Returns (pool, steps): with ``want_steps`` each entry's walk step
+    (M,) int64, else None."""
     if not origins.is_cuda:
-        return _dense_walk_plain(grid.reso, origins, dirs, tnear, tmax, ray_ok, words,
-                                 max_voxels)[0]
+        pool, st = _dense_walk_plain(grid.reso, origins, dirs, tnear, tmax, ray_ok, words,
+                                     max_voxels)
+        return pool, (st if want_steps else None)
     t0 = torch.where(ray_ok, tnear, torch.zeros_like(tnear))
     n = kernels.dense_walk_count(origins, dirs, t0, tmax, ray_ok, words, grid.reso, max_voxels)
     offsets = torch.zeros(origins.shape[0] + 1, dtype=torch.int64, device=origins.device)
     torch.cumsum(n, dim=0, out=offsets[1:])
     M = int(offsets[-1])  # the host sync that sizes the pool, as K2's
-    ray_id, l, close_t, far_t = kernels.dense_walk_fill(
-        origins, dirs, t0, tmax, ray_ok, words, grid.reso, max_voxels, offsets, M)
-    return Pool(ray_id, l, close_t, far_t, offsets, n)
+    ray_id, l, close_t, far_t, *st = kernels.dense_walk_fill(
+        origins, dirs, t0, tmax, ray_ok, words, grid.reso, max_voxels, offsets, M,
+        want_steps=want_steps)
+    return Pool(ray_id, l, close_t, far_t, offsets, n), (st[0].long() if want_steps else None)
 
 
 def _cap_pool(pool: Pool, K: int) -> Pool:
@@ -877,14 +886,15 @@ def _cache_plain(K: int, contrib, t, alpha_c, weight, fake) -> dict:
 def cache_depth_med(cache: dict) -> torch.Tensor:
     """Median depth from the first-K cache (surface.py:1032-1051): t where
     the running cached weight first reaches half the cached total; 0 where
-    none does."""
+    none does. Differentiable in the cached t, as JAX's take_along_axis
+    (the weights only select the column)."""
     cw = cache["weights"].detach()
     cum = torch.cumsum(cw, dim=1)
     target = 0.5 * cum[:, -1:]
     crossed = cum >= torch.clamp(target, min=1e-12)
     idx = torch.argmax(crossed.to(torch.int8), dim=1)
     has = torch.any(crossed, dim=1) & (cum[:, -1] > 0)
-    t = torch.gather(cache["ts"].detach(), 1, idx[:, None])[:, 0]
+    t = torch.gather(cache["ts"], 1, idx[:, None])[:, 0]
     return torch.where(has, t, torch.zeros_like(t))
 
 
@@ -1019,17 +1029,10 @@ def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None,
         logsig.sum(dim=1), (logsig * w_sg).sum(dim=1), w_sg.sum(dim=1),
         *loss_e,
     ]
-    c3 = contrib.reshape(B, E, S0)
-    samples = {
-        "ts": torch.where(contrib, t, zero).reshape(B, E, S0)[ray, pos].T,
-        "alphas": alpha_c.reshape(B, E, S0)[ray, pos].T,
-        "weights": w3[ray, pos].T,
-        "fake_mask": (fake & contrib).reshape(B, E, S0)[ray, pos].T,
-        "valid": c3[ray, pos].T,
-    }
     return {
         **out,
-        "live": c3[ray, pos].T,
+        "live": contrib.reshape(B, E, S0)[ray, pos].T,
+        "live_alpha": alpha_c.reshape(B, E, S0)[ray, pos].T,
         "rgb": rgb_acc + torch.exp(log_T)[:, None] * (
             opt.background_brightness if bg_rgb is None else bg_rgb),
         "depth": depth,
@@ -1040,7 +1043,6 @@ def _composite_plain(opt: RenderOptions, trunc_a, offsets, smp, sig_thresh=None,
         "n_intersections": cnt,
         "ray_losses": torch.stack(losses, 0),
         "weight": w3[ray, pos].T,
-        "samples": samples,
     }
 
 
@@ -1061,47 +1063,71 @@ PACKED = _Mode()
 
 def composite(grid: SparseGrid, opt: RenderOptions, offsets: torch.Tensor, smp: dict,
               sig_thresh: float | None = None, want_live: bool = False,
-              mode: _Mode = PACKED, bg_rgb=None) -> dict:
+              mode: _Mode = PACKED, bg_rgb=None, want_live_alpha: bool = False) -> dict:
     """K4: per-ray compositing of the (S0, M) slot arrays in (entry, slot)
     order. Returns rgb (with the background), depth, normal, log_T,
     depth_mode, depth_med, n_intersections, ray_losses (12, B) in
     ``_RAY_LOSS_KEYS`` order and the (S0, M) sample weights; with
     ``sig_thresh`` the sigma-thresh depth ``depth_sigma_thresh`` (B,), with
     ``want_live`` (always on the CPU) the (S0, M) flags ``live`` of the
-    samples that contribute after the stop_thresh kill; with
-    ``mode.cache_size`` (K11c) the first-K ``cache`` and its median
-    ``cache_med``. ``bg_rgb`` (B, 3), K13's per-ray background colour,
-    takes the place of the brightness."""
+    samples that contribute after the stop_thresh kill, with
+    ``want_live_alpha`` (always on the CPU) also ``live_alpha``, their
+    truncated alpha (0 elsewhere); with ``mode.cache_size`` (K11c) the
+    first-K ``cache`` and its median ``cache_med``. ``bg_rgb`` (B, 3), K13's
+    per-ray background colour, takes the place of the brightness."""
     trunc_a = grid.truncated_vol_render_a
     if not offsets.is_cuda:
         return _composite_plain(opt, trunc_a, offsets, smp, sig_thresh, *mode, bg_rgb=bg_rgb)
     return kernels.composite(offsets, smp, trunc_a, opt, sig_thresh, want_live, *mode,
-                             bg_rgb=bg_rgb)
+                             bg_rgb=bg_rgb, want_live_alpha=want_live_alpha)
 
 
-def _intersections(grid: SparseGrid, pool: Pool, origins, dirs, smp: dict, comp: dict) -> dict:
-    """The intersection cloud of the JAX package's ``return_intersections``
-    (svox2.py:2746-2761): per slot of every pool entry, entry-major, the
-    world point, the pre-truncation alpha, the weight and whether it is a
-    real sample that contributes. On the card the points come from
-    ``intersect_points``."""
-    t = smp["t"]
+def _grid2world(grid: SparseGrid) -> tuple:
+    """grid2world's per-axis scale and offset, as lists of 3 floats."""
+    return (2.0 * grid.radius / grid.gsz).tolist(), (-grid.radius + grid.center).tolist()
+
+
+def _slot_points(grid: SparseGrid, pool: Pool, origins, dirs, t) -> torch.Tensor:
+    """The world point (M * S0, 3) of every slot of every pool entry,
+    entry-major: ``intersect_points`` on the card, autograd-differentiable
+    torch ops on the CPU."""
     if t.is_cuda:
-        gsz = grid.gsz
-        rscaling = (2.0 * grid.radius / gsz).tolist()
-        roffset = (-grid.radius + grid.center).tolist()
-        pts = kernels.intersect_points(pool.ray_id, t.contiguous(), origins.contiguous(),
-                                       dirs.contiguous(), rscaling, roffset)
-    else:
-        rid = pool.ray_id.long()
-        pts_grid = origins[rid].T[:, None, :] + t[None] * dirs[rid].T[:, None, :]  # (3, S0, M)
-        pts = grid.grid2world(pts_grid.permute(2, 1, 0).reshape(-1, 3))
-    return {
-        "pts": pts,
-        "alpha": smp["alpha"].T.reshape(-1),
-        "weight": comp["weight"].T.reshape(-1),
-        "mask": (comp["live"] & ~smp["fake"]).T.reshape(-1),
-    }
+        return kernels.intersect_points(pool.ray_id, t.detach().contiguous(),
+                                        origins.contiguous(), dirs.contiguous(),
+                                        *_grid2world(grid))
+    rid = pool.ray_id.long()
+    pts_grid = origins[rid].T[:, None, :] + t[None] * dirs[rid].T[:, None, :]  # (3, S0, M)
+    return grid.grid2world(pts_grid.permute(2, 1, 0).reshape(-1, 3))
+
+
+def _slot_outputs(slots: dict, want_live: bool, want_samples: bool) -> dict:
+    """The per-slot outputs of a render from its (S0, M) slot arrays (t, the
+    pre-truncation alpha, weight, live, live_alpha, fake and, with
+    ``want_live``, the points): the intersection cloud of the JAX package's
+    ``return_intersections`` (svox2.py:2746-2761: per slot of every pool
+    entry, entry-major, the world point, the pre-truncation alpha, the
+    weight and whether it is a real sample that contributes) and the
+    samples of its walks' ``return_samples`` (surface.py:1052-1062), per
+    slot before the walks' layout. Both carry gradients where JAX's do."""
+    out = {}
+    if want_live:
+        live, fake = slots["live"], slots["fake"]
+        out["intersections"] = {
+            "pts": slots["pts"],
+            "alpha": slots["alpha"].T.reshape(-1),
+            "weight": slots["weight"].T.reshape(-1),
+            "mask": (live & ~fake).T.reshape(-1),
+        }
+    if want_samples:
+        t, live, fake = slots["t"], slots["live"], slots["fake"]
+        out["samples"] = {
+            "ts": torch.where(live, t, torch.zeros_like(t)),
+            "alphas": slots["live_alpha"],
+            "weights": slots["weight"],
+            "fake_mask": fake & live,
+            "valid": live,
+        }
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1120,19 +1146,34 @@ class _Chunk(NamedTuple):
     near_grid_t: float
     packed: torch.Tensor
     mode: _Mode
+    sig_thresh: float | None = None
+    want_live: bool = False
+    want_samples: bool = False
 
 
+# the outputs of _SurfaceFn: per ray, then per slot (S0, M) (``pts`` (M S0,
+# 3)), then the cache's (B, K) and its median; an output the chunk does not
+# ask for is an empty stand-in
+_FN_OUTPUTS = ("rgb", "ray_losses", "depth", "normal", "log_T", "depth_mode", "depth_med",
+               "depth_sigma_thresh", "n_intersections",
+               "t", "alpha", "weight", "live_alpha", "pts", "live", "fake")
 _CACHE_DIFF = ("ts", "alphas", "weights")
 _CACHE_KEYS = _CACHE_DIFF + ("fake_mask", "n_cached", "cache_med")
+_NON_DIFF = ("n_intersections", "live", "fake", "fake_mask", "n_cached")
 
 
 class _SurfaceFn(torch.autograd.Function):
     """K3 and K4 forward; K5 backward into density, surface, SH and
     fake_sample_std, into the per-ray background colour ``bg_rgb`` (K13's,
     or None) and into the per-ray basis ``sh_mult`` (the chunk holds its
-    detached copy; its gradient reaches a learned basis). ``rgb``,
-    ``ray_losses`` and the cache's ts, alphas and weights (K11d) take a
-    cotangent."""
+    detached copy; its gradient reaches a learned basis). Every output that
+    carries a gradient in the JAX package takes a cotangent: ``rgb`` and
+    ``ray_losses`` through K5a's rgb-only instantiation when they are all;
+    with depth, normal, log_T, the mode, median and sigma-thresh depths,
+    the slots' t, alphas and weights (the intersections and samples) or
+    the cache's median, through K5a's second instantiation (and, for a
+    normal's, K5b's), counted as ``backward_ray_out`` and
+    ``backward_entry_out``."""
 
     @staticmethod
     def forward(ctx, density, surface, sh, fss, bg_rgb, sh_mult, chunk: _Chunk):
@@ -1140,58 +1181,61 @@ class _SurfaceFn(torch.autograd.Function):
         smp = voxel_samples(c.grid, c.opt, c.pool, c.origins, c.dirs, c.sh_mult, c.near_grid_t,
                             c.packed)
         bg_rgb = None if bg_rgb is None else bg_rgb.detach().contiguous()
-        comp = composite(c.grid, c.opt, c.pool.offsets, smp, mode=c.mode, bg_rgb=bg_rgb)
-        ctx.chunk, ctx.smp, ctx.win = chunk, smp, comp.get("win")
-        ctx.bg_rgb, ctx.log_T = bg_rgb, comp["log_T"]
+        comp = composite(c.grid, c.opt, c.pool.offsets, smp, c.sig_thresh,
+                         c.want_live or c.want_samples, c.mode, bg_rgb,
+                         want_live_alpha=c.want_samples)
+        # detached aliases: an output kept on ctx would make a reference
+        # cycle (output -> grad_fn -> ctx -> output) that holds the chunk
+        # until Python's cycle collector runs
+        ctx.chunk, ctx.win = chunk, comp.get("win")
+        ctx.smp = {k: v.detach() if torch.is_tensor(v) else v for k, v in smp.items()}
+        ctx.bg_rgb, ctx.log_T = bg_rgb, comp["log_T"].detach()
         ctx.set_materialize_grads(False)
-        cache = comp.get("cache")
-        if cache is None:  # no cache: empty stand-ins, one tensor each
-            B = comp["depth"].shape[0]
-            cache = {k: comp["depth"].new_zeros((B, 0)) for k in _CACHE_KEYS}
-        else:
-            cache = dict(cache, cache_med=comp["cache_med"])
-        ctx.mark_non_differentiable(comp["depth_mode"], comp["depth_med"],
-                                    comp["n_intersections"],
-                                    *(cache[k] for k in _CACHE_KEYS[3:]))
-        return tuple(comp[k] for k in _FN_OUTPUTS) + tuple(cache[k] for k in _CACHE_KEYS)
+        res = dict(comp, t=smp["t"], alpha=smp["alpha"], fake=smp["fake"])
+        if c.want_live:
+            res["pts"] = _slot_points(c.grid, c.pool, c.origins, c.dirs, smp["t"])
+        if comp.get("cache") is not None:
+            res.update(comp["cache"], cache_med=comp["cache_med"])
+        empty = comp["depth"].new_zeros(0)
+        keys = _FN_OUTPUTS + _CACHE_KEYS
+        out = tuple(res.get(k, empty) for k in keys)
+        ctx.mark_non_differentiable(*(x for k, x in zip(keys, out) if k in _NON_DIFF))
+        return out
 
     @staticmethod
-    def backward(ctx, g_rgb, g_ray_losses, *g_rest):
-        n = len(_FN_OUTPUTS) - 2
-        g_out, g_cache = g_rest[:n], g_rest[n:n + len(_CACHE_DIFF)]
-        for name, g in zip(_FN_OUTPUTS[2:5], g_out):
-            if g is not None and bool(torch.any(g != 0)):
-                raise NotImplementedError(
-                    f"a gradient through {name!r} of the packed renderer is not ported yet "
-                    "(ROADMAP §2 item 3); K5 carries rgb, ray_losses and the cache"
-                )
+    def backward(ctx, *grads):
         c, smp = ctx.chunk, ctx.smp
+        g = {k: None if x is None or x.numel() == 0 else x.contiguous()
+             for k, x in zip(_FN_OUTPUTS + _CACHE_KEYS, grads)}
         B = c.origins.shape[0]
         f32 = dict(dtype=torch.float32, device=c.origins.device)
-        g_rgb = torch.zeros((B, 3), **f32) if g_rgb is None else g_rgb.contiguous()
-        g_rl = torch.zeros((12, B), **f32) if g_ray_losses is None else g_ray_losses.contiguous()
+        g_rgb = torch.zeros((B, 3), **f32) if g["rgb"] is None else g["rgb"]
+        g_rl = torch.zeros((12, B), **f32) if g["ray_losses"] is None else g["ray_losses"]
         K = c.mode.cache_size
         g_c = None
-        if K is not None and any(g is not None for g in g_cache):
-            g_c = tuple(torch.zeros((B, K), **f32) if g is None else g.contiguous()
-                        for g in g_cache)
-        d_alpha, d_t, d_col = kernels.backward_ray(
+        if K is not None and any(g[k] is not None for k in _CACHE_DIFF + ("cache_med",)):
+            g_c = tuple(torch.zeros((B, K), **f32) if g[k] is None else g[k]
+                        for k in _CACHE_DIFF)
+        out = kernels.OutCotangents(
+            depth=g["depth"], normal=g["normal"], log_T=g["log_T"], mode=g["depth_mode"],
+            med=g["depth_med"], cache_med=g["cache_med"], sig=g["depth_sigma_thresh"],
+            pts=g["pts"], t=g["t"], alpha=g["alpha"], weight=g["weight"],
+            live_alpha=g["live_alpha"])
+        d_alpha, d_t, d_col, *d_snorm = kernels.backward_ray(
             c.pool.offsets, smp, c.grid.truncated_vol_render_a, c.opt, g_rgb, g_rl, g_c,
-            bg_rgb=ctx.bg_rgb)
+            bg_rgb=ctx.bg_rgb, out=None if all(x is None for x in out) else out,
+            mode_first=c.mode.mode_first, sig_thresh=c.sig_thresh,
+            rscaling=_grid2world(c.grid)[0] if g["pts"] is not None else None, dirs=c.dirs)
         need = ctx.needs_input_grad
         g_density, g_surface, g_sh, g_fss, *g_shm = kernels.backward_entry(
             c.pool.ray_id, c.pool.l, c.pool.close_t, c.pool.far_t, c.origins, c.dirs, c.sh_mult,
             c.grid.links, c.packed, _surface_spec(c.grid), c.grid.level_set_data,
             c.near_grid_t, _fss(c.grid), c.opt, smp["contrib"], d_alpha, d_t, d_col, g_rl,
-            ctx.win, want_sh_mult=need[5])
+            ctx.win, want_sh_mult=need[5], d_snorm=d_snorm[0] if d_snorm else None)
         g_bg = g_rgb * torch.exp(ctx.log_T)[:, None] if need[4] else None
         return (g_density[:, None] if need[0] else None, g_surface if need[1] else None,
                 g_sh if need[2] else None, g_fss.reshape(1, 1) if need[3] else None, g_bg,
                 g_shm[0] if need[5] else None, None)
-
-
-_FN_OUTPUTS = ("rgb", "ray_losses", "depth", "normal", "log_T", "depth_mode", "depth_med",
-               "n_intersections")
 
 
 # ---------------------------------------------------------------------------
@@ -1235,11 +1279,12 @@ def _finalize(comp: dict, mode: _Mode, cache_med_depth: bool, bg=None) -> dict:
 
 
 def _render_pool(grid, opt, prep, pool, mode: _Mode, packed, sig_thresh=None,
-                 want_live: bool = False, bg=None):
+                 want_live: bool = False, bg=None, want_samples: bool = False) -> dict:
     """K3 and K4 (K5 under a gradient on the card, autograd of the plain
     versions on the CPU) on a pool, composited over the background ``bg``
-    (``background_color``'s pair, or None: the brightness). Returns (comp,
-    smp); smp is None when K5 carries the gradient."""
+    (``background_color``'s pair, or None: the brightness). Returns the
+    compositor's outputs, with the ``intersections`` (``want_live``) and
+    per-slot ``samples`` (``want_samples``) of ``_slot_outputs``."""
     origins, dirs, sh_mult, near_grid_t = prep
     bg_rgb = None if bg is None else bg[0]
     params = (grid.density_data, grid.surface_data, grid.sh_data, grid.fake_sample_std)
@@ -1250,23 +1295,26 @@ def _render_pool(grid, opt, prep, pool, mode: _Mode, packed, sig_thresh=None,
         with torch.set_grad_enabled(autograd):
             packed = pack_grid_data(grid)
     if train and origins.is_cuda:
-        if sig_thresh is not None or want_live:
-            raise NotImplementedError(
-                "return_intersections and depth_sigma_thresh are outputs of the forward "
-                "render; K5 does not carry them (ROADMAP §2 item 3)")
         chunk = _Chunk(grid, opt, pool, origins, dirs, sh_mult.detach().contiguous(), near_grid_t,
-                       packed, mode)
+                       packed, mode, sig_thresh, want_live, want_samples)
         res = _SurfaceFn.apply(*params, bg_rgb, sh_mult, chunk)
         comp = dict(zip(_FN_OUTPUTS, res))
         if mode.cache_size is not None:
             cache = dict(zip(_CACHE_KEYS, res[len(_FN_OUTPUTS):]))
             comp["cache_med"] = cache.pop("cache_med")
             comp["cache"] = cache
-        return comp, None
-    if origins.is_cuda:
-        sh_mult = sh_mult.detach().contiguous()
-    smp = voxel_samples(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed)
-    return composite(grid, opt, pool.offsets, smp, sig_thresh, want_live, mode, bg_rgb), smp
+        slots = comp
+    else:
+        if origins.is_cuda:
+            sh_mult = sh_mult.detach().contiguous()
+        smp = voxel_samples(grid, opt, pool, origins, dirs, sh_mult, near_grid_t, packed)
+        comp = composite(grid, opt, pool.offsets, smp, sig_thresh, want_live or want_samples,
+                         mode, bg_rgb, want_live_alpha=want_samples)
+        slots = dict(comp, t=smp["t"], alpha=smp["alpha"], fake=smp["fake"])
+        if want_live:
+            slots["pts"] = _slot_points(grid, pool, origins, dirs, smp["t"])
+    comp.update(_slot_outputs(slots, want_live, want_samples))
+    return comp
 
 
 def _begin(grid, rays, opt, occupancy):
@@ -1312,8 +1360,9 @@ def volume_render_surface(grid: SparseGrid, rays: Rays, opt: RenderOptions,
     them with the walk's rules (the stop_thresh kill and count per voxel,
     the first max-weight sample's depth). The same keys as the JAX
     package's, with its ``cache`` and cached ``depth_med`` when
-    ``cache_size`` is set; ``return_samples`` (the plain path only) adds the
-    per-slot ``samples``. ``occupancy`` and ``packed`` may be shared across
+    ``cache_size`` is set; ``return_samples`` adds the per-slot ``samples``
+    (on the card from K11a's walk steps, K3's slots and K4's live flags and
+    truncated alphas). ``occupancy`` and ``packed`` may be shared across
     chunks, as for the packed renderer; on a UDF grid the walk's words are
     ``occupancy_words(grid, opt, candidates=True)``."""
     if max_voxels is None:
@@ -1326,16 +1375,11 @@ def volume_render_surface(grid: SparseGrid, rays: Rays, opt: RenderOptions,
     origins, dirs, sh_mult, tnear, tmax, ngt, ray_ok, words, bg = _begin(grid, rays, opt,
                                                                           occupancy)
     with torch.no_grad():
-        if return_samples:
-            if origins.is_cuda:
-                raise NotImplementedError("return_samples runs on the plain path only; pass "
-                                          "CPU rays")
-            pool, step = _dense_walk_plain(grid.reso, origins, dirs, tnear, tmax, ray_ok,
-                                           words, max_voxels)
-        else:
-            pool = dense_walk(grid, origins, dirs, tnear, tmax, ray_ok, words, max_voxels)
+        pool, step = dense_walk(grid, origins, dirs, tnear, tmax, ray_ok, words, max_voxels,
+                                want_steps=return_samples)
     mode = _Mode(1, True, cache_size)
-    comp, _ = _render_pool(grid, opt, (origins, dirs, sh_mult, ngt), pool, mode, packed, bg=bg)
+    comp = _render_pool(grid, opt, (origins, dirs, sh_mult, ngt), pool, mode, packed, bg=bg,
+                        want_samples=return_samples)
     out = _finalize(comp, mode, cache_med_depth=True, bg=bg)
     if return_samples:
         out["samples"] = _samples(comp, pool, step, max_voxels, origins.shape[0])
@@ -1361,15 +1405,15 @@ def volume_render_surface_compact(grid: SparseGrid, rays: Rays, opt: RenderOptio
     with torch.no_grad():
         pool = compact_crossings(grid, origins, dirs, *_phase_a_bounds(tnear, tmax, ray_ok),
                                  words, K)
-    if return_samples and origins.is_cuda:
-        raise NotImplementedError("return_samples runs on the plain path only; pass CPU rays")
     V = max(1, min(voxel_chunk, K))
     mode = _Mode(V, True, cache_size)
-    comp, _ = _render_pool(grid, opt, (origins, dirs, sh_mult, ngt), pool, mode, packed, bg=bg)
+    comp = _render_pool(grid, opt, (origins, dirs, sh_mult, ngt), pool, mode, packed, bg=bg,
+                        want_samples=return_samples)
     out = _finalize(comp, mode, cache_med_depth=True, bg=bg)
     out["n_occupied"] = pool.n_occupied
-    if return_samples:
-        pos = torch.arange(pool.close_t.shape[0]) - pool.offsets[pool.ray_id.long()]
+    if return_samples:  # a slot's position is its pool order
+        pos = (torch.arange(pool.close_t.shape[0], device=pool.offsets.device)
+               - pool.offsets[pool.ray_id.long()])
         out["samples"] = _samples(comp, pool, pos, -(-K // V) * V, origins.shape[0])
     return out
 
@@ -1395,19 +1439,21 @@ def volume_render_surface_packed(
     (the words of ``occupancy_words``) and ``packed`` (``pack_grid_data``)
     may be passed in to share them across chunks.
 
-    When a parameter of the grid requires grad, ``rgb``, ``ray_losses`` and
-    the cache's ts, alphas and weights carry gradients to density, surface,
-    SH and fake_sample_std: on the card through K5, on the CPU through
-    autograd of the plain path (which then packs the rows itself, so that
-    they carry the gradient)."""
+    When a parameter of the grid requires grad, every output the JAX
+    package differentiates (rgb, ray_losses, depth, normal, alpha,
+    log_transmit, the mode, median and sigma-thresh depths, the cache's
+    ts, alphas and weights, the intersections' points, alphas and weights)
+    carries gradients to density, surface, SH and fake_sample_std: on the
+    card through K5, on the CPU through autograd of the plain path (which
+    then packs the rows itself, so that they carry the gradient)."""
     origins, dirs, sh_mult, tnear, tmax, ngt, ray_ok, words, bg = _begin(grid, rays, opt,
                                                                           occupancy)
     with torch.no_grad():
         pool = compact_crossings_packed(grid, origins, dirs,
                                         *_phase_a_bounds(tnear, tmax, ray_ok), words)
     mode = _Mode(cache_size=cache_size)
-    comp, smp = _render_pool(grid, opt, (origins, dirs, sh_mult, ngt), pool, mode, packed,
-                             depth_sigma_thresh, return_intersections, bg)
+    comp = _render_pool(grid, opt, (origins, dirs, sh_mult, ngt), pool, mode, packed,
+                        depth_sigma_thresh, return_intersections, bg)
     out = _finalize(comp, mode, cache_med_depth=False, bg=bg)
     out["n_occupied"] = pool.n_occupied
     out["n_entries_used"] = pool.close_t.shape[0]
@@ -1415,6 +1461,5 @@ def volume_render_surface_packed(
     if depth_sigma_thresh is not None:
         out["depth_sigma_thresh"] = comp["depth_sigma_thresh"]
     if return_intersections:
-        with torch.no_grad():
-            out["intersections"] = _intersections(grid, pool, origins, dirs, smp, comp)
+        out["intersections"] = comp["intersections"]
     return out

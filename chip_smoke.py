@@ -80,7 +80,7 @@ K4, K5b and K6), then:
    finite Chamfer;
 8. the DTU masked-capture path: K9f against its plain version on one
    16,384-ray chunk of a 1600x1200 view of the 256^3 blobby grid, timed;
-   a DTU-format scan written by the port (8 views at 1600x1200 of
+   a DTU-format scan written by the port (6 views at 1600x1200 of
    make_gt_grid(256), PNG images and masks, cameras_sphere.npz); then,
    with the counters set to 0 just before and read just after,
    ``alphasurf_torch.app.train.main`` on it with dataset_type dtu (the
@@ -167,6 +167,8 @@ it. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import shutil
 import subprocess
@@ -297,6 +299,16 @@ KERNELS = {  # name -> (source, the JAX routine it replaces)
     "compat_backward_nvol": ("alphasurf_torch/csrc/compat.cu", f"{_JAX_COMPAT}:58"),
     "compat_forward_svox1": ("alphasurf_torch/csrc/compat.cu", f"{_JAX_COMPAT}:115"),
     "compat_backward_svox1": ("alphasurf_torch/csrc/compat.cu", f"{_JAX_COMPAT}:115"),
+    # the outputs' cotangents: jax.grad of the compositor through depth,
+    # normal, log_T, the picked depths and the intersections (K5a), of the
+    # samples through the normal (K5b), of the compat marches through depth
+    # and acc (K14); return_samples' walk steps (K11a) and truncated alphas (K4)
+    "backward_ray_out": ("alphasurf_torch/csrc/backward.cu", f"{_JAX_SURFACE}:1842"),
+    "backward_entry_out": ("alphasurf_torch/csrc/backward.cu", f"{_JAX_SURFACE}:626"),
+    "compat_backward_out_nvol": ("alphasurf_torch/csrc/compat.cu", f"{_JAX_COMPAT}:58"),
+    "compat_backward_out_svox1": ("alphasurf_torch/csrc/compat.cu", f"{_JAX_COMPAT}:115"),
+    "dense_walk_fill_steps": ("alphasurf_torch/csrc/phase_a.cu", f"{_JAX_SURFACE}:990"),
+    "composite_samples": ("alphasurf_torch/csrc/composite.cu", f"{_JAX_SURFACE}:990"),
 }
 # the surface types' branches of K1, K3 and K5b (kernels.TYPE_NAMES), each at
 # the JAX lines of its branch, and K6 on UDF_ALPHA's density table
@@ -308,6 +320,12 @@ for _t, (_k1, _k3) in _TYPE_LINES.items():
     KERNELS[f"occupancy_{_t}"] = ("alphasurf_torch/csrc/occupancy.cu", f"{_JAX_SURFACE}:{_k1}")
     KERNELS[f"phase_b_{_t}"] = ("alphasurf_torch/csrc/phase_b.cu", f"{_JAX_SURFACE}:{_k3}")
     KERNELS[f"backward_entry_{_t}"] = ("alphasurf_torch/csrc/backward.cu", f"{_JAX_SURFACE}:{_k3}")
+# K5b's normal branches of the types whose samples carry a normal: PLANE's
+# mean plane (590-606), the UDF types' softplus corners (533-534)
+OUT_TYPES = ("plane", "udf", "udf_fake_sample")
+for _t in OUT_TYPES:
+    KERNELS[f"backward_entry_out_{_t}"] = ("alphasurf_torch/csrc/backward.cu",
+                                           f"{_JAX_SURFACE}:{_TYPE_LINES[_t][1]}")
 KERNELS["reg_sparsify_table"] = ("alphasurf_torch/csrc/reg.cu", f"{_JAX_REG}:305")
 TYPE_KERNELS = tuple(k for k in KERNELS if k.endswith(tuple(f"_{t}" for t in _TYPE_LINES))
                      or k.endswith("_table"))
@@ -332,16 +350,22 @@ BACKGROUND_KERNELS = ("background_forward", "background_backward", "reg_lumisphe
                       "reg_background_tv")
 BASIS_KERNELS = ("reg_basis_tv", "backward_entry_basis", "cuvol_backward_basis")
 COMPAT_KERNELS = ("compat_forward_nvol", "compat_backward_nvol", "compat_forward_svox1",
-                  "compat_backward_svox1")
+                  "compat_backward_svox1", "compat_backward_out_nvol", "compat_backward_out_svox1")
 # K10's backward (the warm start of a compact or dense run) and K8's
 # depth/log_T cotangents
 CUVOL_GRAD_KERNELS = ("cuvol_march_backward", "cuvol_backward_out")
+# the surface renderers' second instantiations of K5 and return_samples'
+# outputs (K14's second instantiation is among COMPAT_KERNELS, K5b's type
+# branches of it among TYPE_KERNELS)
+OUT_PATH_KERNELS = ("backward_ray_out", "backward_entry_out", "dense_walk_fill_steps",
+                    "composite_samples")
 # the three-stage run initialises its surface from the density: every kernel
 # but K9e, the DTU path's, the compact and dense renderers', K12's, K13's,
 # the learned bases', K14's and CUVOL_GRAD_KERNELS
 STAGE_RUN_KERNELS = tuple(k for k in KERNELS if k not in ("transmit_march",) + DTU_KERNELS
                           + RENDERER_KERNELS + EXTENDED_KERNELS + BACKGROUND_KERNELS
-                          + BASIS_KERNELS + COMPAT_KERNELS + TYPE_KERNELS + CUVOL_GRAD_KERNELS)
+                          + BASIS_KERNELS + COMPAT_KERNELS + TYPE_KERNELS + CUVOL_GRAD_KERNELS
+                          + OUT_PATH_KERNELS)
 # the pipeline: the Plenoxels stage and its eval, the weight init with
 # visibility pruning, the surface stage, the extraction
 PIPELINE_KERNELS = TRAIN_KERNELS + WARM_NEW_KERNELS + (
@@ -352,7 +376,8 @@ PIPELINE_KERNELS = TRAIN_KERNELS + WARM_NEW_KERNELS + (
 # K12's, K13's, the learned bases', K14's and CUVOL_GRAD_KERNELS
 DTU_PATH_KERNELS = tuple(k for k in KERNELS if k not in ("transmit_march",) + RENDERER_KERNELS
                          + EXTENDED_KERNELS + BACKGROUND_KERNELS + BASIS_KERNELS
-                         + COMPAT_KERNELS + TYPE_KERNELS + CUVOL_GRAD_KERNELS)
+                         + COMPAT_KERNELS + TYPE_KERNELS + CUVOL_GRAD_KERNELS
+                         + OUT_PATH_KERNELS)
 PHASES = ("kernels", "serve", "train", "warm", "stages", "extract", "dtu", "renderers", "blender",
           "tnt", "basis", "compat", "types")
 CUVOL_RESO = 256  # the warm start's grid (the Config's first reso)
@@ -707,35 +732,302 @@ def check_composite_options(grid, opt, pool, origins, dirs, sp, smp, nb4: int) -
     return res
 
 
+def grad_stats(gk, gp, atol: float = GRAD_ATOL) -> dict:
+    """Kernel gradient ``gk`` against plain ``gp`` on one parameter group:
+    the rel err in norm, the touched rows and those outside GRAD_RTOL /
+    ``atol`` elementwise, the max abs err, the norms."""
+    gk, gp = gk.double().reshape(gk.shape[0], -1), gp.double().reshape(gp.shape[0], -1)
+    d = (gk - gp).abs()
+    touched = (gk != 0).any(-1) | (gp != 0).any(-1)
+    bad = ((d > atol + GRAD_RTOL * gp.abs()).any(-1) & touched)
+    return {"rel": float((gk - gp).norm() / gp.norm().clamp(min=1e-30)),
+            "bad": int(bad.sum()), "touched": int(touched.sum()), "max_abs": float(d.max()),
+            "norm": float(gp.norm()), "max_plain": float(gp.abs().max()),
+            "max_kernel": float(gk.abs().max())}
+
+
+def grad_ok(st: dict, rel_tol: float = GRAD_REL) -> bool:
+    return st["rel"] <= rel_tol and st["bad"] / max(st["touched"], 1) <= GRAD_ROW_FRACTION
+
+
 def grad_check(name: str, gk, gp, kernel: str = "K5", atol: float = GRAD_ATOL,
                rel_tol: float = GRAD_REL) -> float:
     """The backward kernels' tolerance (GRAD_*, or the floor ``atol`` and
     the norm tolerance ``rel_tol``) on one parameter group; returns the max
     abs error."""
+    st = grad_stats(gk, gp, atol)
+    log(f"  {name}: |g| {st['norm']:.4e}, max |g| plain {st['max_plain']:.4e} kernel "
+        f"{st['max_kernel']:.4e}, rel err {st['rel']:.3e}, {st['bad']} of "
+        f"{st['touched']} touched rows outside rtol {GRAD_RTOL}/atol {atol:.3e}, "
+        f"max abs err {st['max_abs']:.3e}")
+    if not grad_ok(st, rel_tol):
+        raise AssertionError(f"{kernel} {name} gradient differs from autograd of the plain path: "
+                             f"{st}")
+    return st["max_abs"]
+
+
+# the outputs other than rgb and the ray losses that take a cotangent, and
+# the ones among them that pick one sample (a near-tie of two weights may
+# pick another sample in the kernel than in the plain version: at most
+# SELECT_FRACTION of the rays, whose pick then takes no cotangent on
+# either side)
+OUT_KEYS = ("depth", "normal", "alpha", "log_transmit", "depth_mode", "depth_med",
+            "depth_sigma_thresh")
+PICKED_KEYS = ("depth_mode", "depth_med", "depth_sigma_thresh")
+SAMPLE_KEYS = ("ts", "alphas", "weights")
+
+
+def out_weights(out, seed: int = SEED) -> dict:
+    """Random cotangents from a seed (drawn on the card), at the scale of the mse's
+    d/d rgb (1/B), for every output of ``out`` that takes one: the per-ray
+    outputs, the intersections' points, alphas and weights and the
+    samples' ts, alphas and weights."""
     import torch
 
-    gk, gp = gk.double().reshape(gk.shape[0], -1), gp.double().reshape(gp.shape[0], -1)
-    d = (gk - gp).abs()
-    rel = float((gk - gp).norm() / gp.norm().clamp(min=1e-30))
-    touched = (gk != 0).any(-1) | (gp != 0).any(-1)
-    bad = ((d > atol + GRAD_RTOL * gp.abs()).any(-1) & touched)
-    frac = float(bad.sum()) / max(int(touched.sum()), 1)
-    big = gp.abs().amax(-1)
-    log(f"  {name}: |g| {float(gp.norm()):.4e}, max |g| plain {float(big.max()):.4e} kernel "
-        f"{float(gk.abs().max()):.4e}, rel err {rel:.3e}, {int(bad.sum())} of "
-        f"{int(touched.sum())} touched rows outside rtol {GRAD_RTOL}/atol {atol:.3e}, "
-        f"max abs err {float(d.max()):.3e}")
-    if not (rel <= rel_tol and frac <= GRAD_ROW_FRACTION):
-        raise AssertionError(f"{kernel} {name} gradient differs from autograd of the plain path: "
-                             f"rel {rel}, row fraction {frac}")
-    return float(d.max())
+    B = out["rgb"].shape[0]
+    dev = out["rgb"].device
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=dev) / B
+
+    w = {k: draw(tuple(out[k].shape)) for k in OUT_KEYS if k in out}
+    if "intersections" in out:
+        n = out["intersections"]["alpha"].shape[0]
+        w.update(pts=draw((n, 3)), i_alpha=draw(n), i_weight=draw(n))
+    if "samples" in out:
+        w.update({f"s_{k}": draw(tuple(out["samples"][k].shape)) for k in SAMPLE_KEYS})
+    return w
+
+
+def every_output_terms(out, w: dict, keep: dict, live=None, valid=None) -> dict:
+    """The loss terms of every_output_loss by name: "rgb" the bench's mse
+    against 0.5, then each cotangent of ``w`` on its output of ``out``."""
+    import torch
+
+    terms = {"rgb": torch.mean((out["rgb"] - 0.5) ** 2)}
+    for k in OUT_KEYS:
+        if k in w:
+            m = keep.get(k)
+            x = out[k] * w[k]
+            if m is not None:
+                x = torch.where(m.reshape(m.shape + (1,) * (x.dim() - 1)), x, torch.zeros_like(x))
+            terms[k] = x.sum()
+    if "pts" in w:
+        it = out["intersections"]
+        for k, x in (("pts", (it["pts"] * w["pts"]).sum(-1)),
+                     ("i_alpha", it["alpha"] * w["i_alpha"]),
+                     ("i_weight", it["weight"] * w["i_weight"])):
+            terms[k] = torch.where(live, x, torch.zeros_like(x)).sum()
+    for k in SAMPLE_KEYS:
+        if f"s_{k}" in w:
+            x = out["samples"][k] * w[f"s_{k}"]
+            terms[f"s_{k}"] = torch.where(valid, x, torch.zeros_like(x)).sum()
+    return terms
+
+
+def every_output_loss(out, w: dict, keep: dict, live=None, valid=None):
+    """The bench's mse against 0.5 plus the cotangents ``w`` on every
+    other output of ``out`` that takes one; ``keep`` (B,) masks the picked
+    depths' rays, ``live`` the intersections' slots and ``valid`` the
+    samples' (the slots both the kernel and the plain version count)."""
+    return sum(every_output_terms(out, w, keep, live, valid).values())
+
+
+@contextlib.contextmanager
+def first_calls(module, names):
+    """Records the arguments of the first call of each function ``names``
+    of ``module`` while the block runs (the calls themselves go through)."""
+    calls, orig = {}, {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            calls.setdefault(name, (args, kw))
+            return fn(*args, **kw)
+        return call
+
+    for n, fn in orig.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in orig.items():
+            setattr(module, n, fn)
+
+
+def plain_outputs(grid, opt, pool, origins, dirs, sh_mult, ngt, mode, sig=None,
+                  isect: bool = False, slot=None, n_slots: int = 0) -> dict:
+    """The renderer's outputs from the plain K3 and K4 on ``pool`` (under
+    autograd), as the renderer lays them out: ``mode`` (S._Mode) the
+    compositor's rules, ``sig`` the sigma-thresh depth's threshold,
+    ``isect`` the intersections (their points by torch ops), ``slot`` each
+    entry's slot of return_samples' (B, n_slots S0) layout."""
+    from alphasurf_torch.render import surface as S
+
+    smp = S._voxel_samples_plain(grid, opt, pool, origins, dirs, sh_mult, ngt,
+                                 S.pack_grid_data(grid))
+    comp = S._composite_plain(opt, grid.truncated_vol_render_a, pool.offsets, smp, sig, *mode)
+    slots = dict(comp, t=smp["t"], alpha=smp["alpha"], fake=smp["fake"])
+    if isect:
+        rid = pool.ray_id.long()
+        p = origins[rid].T[:, None, :] + smp["t"][None] * dirs[rid].T[:, None, :]
+        slots["pts"] = grid.grid2world(p.permute(2, 1, 0).reshape(-1, 3))
+    comp.update(S._slot_outputs(slots, isect, slot is not None))
+    out = S._finalize(comp, mode, cache_med_depth=mode.mode_first)
+    if sig is not None:
+        out["depth_sigma_thresh"] = comp["depth_sigma_thresh"]
+    if isect:
+        out["intersections"] = comp["intersections"]
+    if slot is not None:
+        out["samples"] = S._samples(comp, pool, slot, n_slots, origins.shape[0])
+    return out
+
+
+def check_output_grads(label: str, grid, opt, rays, renderer: str, words, packed) -> dict:
+    """Every output cotangent in one loss (every_output_loss) through the
+    renderer's kernels (K3, K4, K5a's backward_ray_out and, for the normal,
+    K5b's backward_entry_out) against autograd of the plain renderer on the
+    same pool, both on the card, under GRAD_*. ``renderer``: "packed"
+    (with the intersections and the sigma-thresh depth), "dense" or
+    "compact" (with their cache, whose median is their depth_med, and
+    their samples, checked against the plain ones). Then each output's
+    cotangent alone, the same way. Returns the largest gradient error, the
+    plain backward's time (of the sum), the kernel's outputs, and the
+    arguments of K5a's and K5b's launches in the sum's backward
+    (``calls``: what _SurfaceFn passes them)."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.render import surface as S
+
+    origins, dirs, sh_mult, tnear, tmax, ngt, ok, _, _ = S._begin(grid, rays, opt, words)
+    B = origins.shape[0]
+    tn, tx = S._phase_a_bounds(tnear, tmax, ok)
+    sig, isect, slot, n_slots = None, False, None, 0
+    if renderer == "packed":
+        kw = dict(return_intersections=True, depth_sigma_thresh=SIG_THRESH)
+        sig, isect, mode = SIG_THRESH, True, S.PACKED
+        pool = S._compact_crossings_plain(grid.reso, origins, dirs, tn, tx, words)
+        render = S.volume_render_surface_packed
+    elif renderer == "dense":
+        kw = dict(cache_size=CACHE_K, return_samples=True)
+        mv = S.max_voxels_for(grid)
+        pool, slot = S._dense_walk_plain(grid.reso, origins, dirs, tnear, tmax, ok, words, mv)
+        mode, n_slots = S._Mode(1, True, CACHE_K), mv
+        render = S.volume_render_surface
+    else:
+        kw = dict(cache_size=CACHE_K, return_samples=True, max_intersect_voxels=COMPACT_K)
+        pool = S._cap_pool(S._compact_crossings_plain(grid.reso, origins, dirs, tn, tx, words),
+                           COMPACT_K)
+        slot = (torch.arange(pool.close_t.shape[0], device=origins.device)
+                - pool.offsets[pool.ray_id.long()])
+        mode, n_slots = S._Mode(8, True, CACHE_K), COMPACT_K
+        render = S.volume_render_surface_compact
+    names = ("density", "surface", "sh", "fake_sample_std")
+    params = [p for p in (grid.density_data, grid.surface_data, grid.sh_data,
+                          grid.fake_sample_std) if p is not None]
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        out_k = render(grid, rays, opt, occupancy=words, packed=packed, **kw)
+        out_p = plain_outputs(grid, opt, pool, origins, dirs, sh_mult, ngt, mode, sig, isect,
+                              slot, n_slots)
+        keep = {}
+        for k in PICKED_KEYS:
+            if k in out_k:
+                a, b = out_k[k].detach(), out_p[k].detach()
+                keep[k] = (a - b).abs() <= 1e-3 + RTOL * b.abs()
+        n_off = {k: int((~m).sum()) for k, m in keep.items()}
+        if max(n_off.values()) > SELECT_FRACTION * B:
+            raise AssertionError(f"{label}: the picked depths differ on too many rays: {n_off}")
+        live = valid = None
+        if isect:
+            mk, mp = out_k["intersections"]["mask"], out_p["intersections"]["mask"]
+            live = mk & mp
+            flips = int((mk != mp).sum())
+        if slot is not None:
+            vk, vp = out_k["samples"]["valid"], out_p["samples"]["valid"]
+            valid = vk & vp
+            flips = int((vk != vp).sum())
+            errs = [allclose_err(out_k["samples"][k].detach()[valid],
+                                 out_p["samples"][k].detach()[valid], atol=1e-4)
+                    for k in SAMPLE_KEYS]
+            if max(e[1] for e in errs) > 0 or not torch.equal(
+                    out_k["samples"]["fake_mask"] & valid, out_p["samples"]["fake_mask"] & valid):
+                raise AssertionError(f"{label}: return_samples differs from the plain walk's: "
+                                     f"{errs}")
+            log(f"{label}: return_samples ({tuple(vk.shape)}) equal to the plain version's on "
+                f"{int(valid.sum())} valid slots, max abs err {max(e[0] for e in errs):.3e}")
+        if (isect or slot is not None) and flips > FLAG_FRACTION * live_count(live, valid):
+            raise AssertionError(f"{label}: {flips} live slot flags flip")
+        w = out_weights(out_k)
+        terms_k = every_output_terms(out_k, w, keep, live, valid)
+        terms_p = every_output_terms(out_p, w, keep, live, valid)
+        with first_calls(kernels, ("backward_ray", "backward_entry")) as calls:
+            g_kernel = torch.autograd.grad(sum(terms_k.values()), params, retain_graph=True)
+        g_plain, plain_ms = timed_once(lambda: torch.autograd.grad(
+            sum(terms_p.values()), params, retain_graph=True))
+        log(f"{label}: every output cotangent over {B} rays ({', '.join(sorted(w))}), kernels "
+            f"against autograd of the plain path; picks off {n_off}:")
+        err = max(grad_check(f"{label} {n}", a, b) for n, a, b in zip(names, g_kernel, g_plain))
+        del g_kernel, g_plain
+        # each output's cotangent alone (a small term's fault could hide
+        # under GRAD_REL of the sum's norm)
+        alone = [k for k in terms_k if k != "rgb"]
+        for i, k in enumerate(alone):
+            gk, gp = (torch.autograd.grad(t[k], params, retain_graph=i < len(alone) - 1,
+                                          allow_unused=True) for t in (terms_k, terms_p))
+            sts = [grad_stats(torch.zeros_like(q) if a is None else a,
+                              torch.zeros_like(q) if b is None else b)
+                   for q, a, b in zip(params, gk, gp)]
+            log(f"  {label}, {k} alone: rel err " + ", ".join(
+                f"{n} {st['rel']:.2e}" for n, st in zip(names, sts)) + ", max abs err "
+                + ", ".join(f"{st['max_abs']:.2e}" for st in sts))
+            if not all(grad_ok(st) for st in sts):
+                raise AssertionError(f"K5 {label}: the gradient of {k} alone differs from "
+                                     f"autograd of the plain path: {sts}")
+            err = max([err] + [st["max_abs"] for st in sts])
+        del out_p, terms_k, terms_p
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    return {"err": err, "plain_ms": plain_ms, "out": out_k, "weights": w, "pool": pool,
+            "slot": slot, "calls": calls}
+
+
+def live_count(live, valid) -> int:
+    return int((live if live is not None else valid).sum())
+
+
+def k5b_work(grid, pool, packed, B: int, S0: int, normal: bool) -> tuple[float, float]:
+    """K5b's bytes and operations on a pool: the pool, its rays, the corner
+    links and rows, the slot cotangents (with the normal's, d_snorm), and
+    the full gradient arrays it returns; the normal's Jacobian and the
+    field's second derivatives cost ~120 operations a real slot."""
+    import torch
+
+    M, (X, Y, Z) = pool.close_t.shape[0], grid.reso
+    pos = torch.unique(torch.stack([
+        ((torch.clamp(pool.l[:, 0].long() + dx, max=X - 1) * Y
+          + torch.clamp(pool.l[:, 1].long() + dy, max=Y - 1)) * Z
+         + torch.clamp(pool.l[:, 2].long() + dz, max=Z - 1))
+        for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]))
+    n_rows = int((grid.links.reshape(-1)[pos] >= 0).sum())
+    n_grad = grid.density_data.numel() + grid.surface_data.numel() + grid.sh_data.numel()
+    nb = (M * 24 + B * 60 + pos.numel() * 4 + n_rows * packed.shape[1] * 4
+          + S0 * M * (21 + 12 * normal) + B * 8 + n_grad * 4)
+    ops = (M * 2 * (48 * grid.basis_dim + 60 + grid.level_set_data.numel() * 550 + 200)
+           + S0 * M * 2 * 120 * normal)
+    return nb, ops
 
 
 def check_backward(grid, opt, rays, words, pool, packed, origins, dirs, sh_mult, ngt, sk) -> dict:
     """K5: the gradients of the bench loss on one chunk through the kernels
     (the renderer's autograd Function: K3, K4, then K5a and K5b) against
-    autograd of the plain renderer, both on the card; then K5a and K5b
-    timed alone on the chunk's slots."""
+    autograd of the plain renderer, both on the card; then with every other
+    output's cotangent too (check_output_grads: K5a's and K5b's second
+    instantiations); then the four instantiations timed alone on the
+    chunk's slots."""
     import torch
 
     from alphasurf_torch import kernels
@@ -785,25 +1077,44 @@ def check_backward(grid, opt, rays, words, pool, packed, origins, dirs, sh_mult,
                                       sh_mult, grid.links, packed, kernels.SDF, grid.level_set_data,
                                       ngt, fss, opt, sk["contrib"], d_alpha, d_t, d_col, g_rl)
 
+    # every output cotangent (K5a's and K5b's second instantiations)
+    # through the renderer, then both timed alone, on the arguments the
+    # renderer passed them, beside the rgb-only ones
+    chk = check_output_grads("K5 outputs", grid, opt, rays, "packed", words, packed)
+    err_out, plain_out_ms = chk["err"], chk["plain_ms"]
+    (a_ray, kw_ray), (a_ent, kw_ent) = chk["calls"]["backward_ray"], chk["calls"]["backward_entry"]
+    if a_ray[0].shape[0] != B + 1:
+        raise AssertionError("the renderer's K5a launch did not take the whole chunk")
+    ms = {}
+    for name, fn in (("backward_ray", k5a), ("backward_ray_out",
+                                              lambda: kernels.backward_ray(*a_ray, **kw_ray)),
+                     ("backward_entry", k5b), ("backward_entry_out",
+                                               lambda: kernels.backward_entry(*a_ent, **kw_ent))):
+        ms[name] = time_ms(fn, 20)
+    log("K5 instantiations timed alone on the chunk's slots, ms: " + json.dumps(
+        {k: round(v, 4) for k, v in ms.items()}) + f" [{card_line()}]")
+    del chk, a_ray, kw_ray, a_ent, kw_ent
+
     M, S0 = pool.close_t.shape[0], sk["n_slots"]
-    pos = torch.unique(torch.stack([
-        ((torch.clamp(pool.l[:, 0].long() + dx, max=RESO - 1) * RESO
-          + torch.clamp(pool.l[:, 1].long() + dy, max=RESO - 1)) * RESO
-         + torch.clamp(pool.l[:, 2].long() + dz, max=RESO - 1))
-        for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]))
-    n_rows = int((grid.links.reshape(-1)[pos] >= 0).sum())
-    # K5a: slots read (t, alpha, flags, colour), cotangents written; K5b: the
-    # pool, its rays, the corner links and rows, the slot cotangents, and the
-    # full gradient arrays it returns
+    # K5a: slots read (t, alpha, flags, colour), cotangents written
     bytes_a = S0 * M * 46 + (B + 1) * 8 + B * 60
-    bytes_b = (M * 24 + B * 60 + pos.numel() * 4 + n_rows * packed.shape[1] * 4 + S0 * M * 21
-               + B * 8 + grid.capacity * 29 * 4)
-    ops_b = M * 2 * (48 * grid.basis_dim + 60 + grid.level_set_data.numel() * 550 + 200)
+    bytes_b, ops_b = k5b_work(grid, pool, packed, B, S0, normal=False)
+    bytes_bo, ops_bo = k5b_work(grid, pool, packed, B, S0, normal=True)
+    # the second instantiations: K5a also reads 32 bytes of cotangents a ray
+    # (depth, normal, log_T, mode, median, sigma-thresh depth), the ray's
+    # direction, 20 a slot (the intersections' point, alpha and weight) and
+    # K3's normal, and writes d_snorm, which K5b reads
+    bytes_ao = bytes_a + B * (32 + 12) + S0 * M * (20 + 12 + 12)
     return {
-        "backward_ray": dict(max_abs_err=err, ms=time_ms(k5a, 20), plain_ms=plain_ms,
+        "backward_ray": dict(max_abs_err=err, ms=ms["backward_ray"], plain_ms=plain_ms,
                              bound=bound_ms(bytes_a, S0 * M * 100)),
-        "backward_entry": dict(max_abs_err=err, ms=time_ms(k5b, 20), plain_ms=plain_ms,
+        "backward_entry": dict(max_abs_err=err, ms=ms["backward_entry"], plain_ms=plain_ms,
                                bound=bound_ms(bytes_b, ops_b)),
+        "backward_ray_out": dict(max_abs_err=err_out, ms=ms["backward_ray_out"],
+                                 plain_ms=plain_out_ms, bound=bound_ms(bytes_ao, S0 * M * 130)),
+        "backward_entry_out": dict(max_abs_err=err_out, ms=ms["backward_entry_out"],
+                                   plain_ms=plain_out_ms,
+                                   bound=bound_ms(bytes_bo, ops_bo)),
     }
 
 
@@ -2528,7 +2839,7 @@ def extract(device, card: str, work: Path) -> tuple[dict, dict]:
 # the DTU masked-capture path
 # ---------------------------------------------------------------------------
 
-DTU_VIEWS = 8  # a DTU scan has 49 or 64: the depth cut of the time limit
+DTU_VIEWS = 6  # a DTU scan has 49 or 64: the depth cut of the time limit
 DTU_W, DTU_H = 1600, 1200  # DTU's own image size
 DTU_FOCAL = 2400.0
 MM_PER_UNIT = 100.0  # scale_mat: the unit sphere onto a 100 mm object
@@ -3172,9 +3483,109 @@ def check_renderer_kernels(device, card: str) -> dict:
         max_abs_err=err, plain_ms=plain_ms, bound=bound_ms(bytes_a, S0 * M * 100),
         ms=time_ms(lambda: kernels.backward_ray(pool_p.offsets, smp, trunc_a, opt, g_rgb, g_rl,
                                                 g_c), 20))
+
+    # return_samples' two kernel outputs: K11a's walk steps (equal to the
+    # plain walk's) and K4's truncated alphas of the live slots
+    steps_k = kernels.dense_walk_fill(origins, dirs, t0, tmax, ok, words, grid.reso, mv, offsets,
+                                      M, want_steps=True)[4]
+    if not torch.equal(steps_k.long(), steps):
+        raise AssertionError("K11a's walk steps differ from the plain walk's")
+    res["dense_walk_fill_steps"] = dict(
+        max_abs_err=0.0, plain_ms=plain_w,
+        bound=bound_ms(ray_bytes + (B + 1) * 8 + M * 28, n_cand * 40),
+        ms=time_ms(lambda: kernels.dense_walk_fill(origins, dirs, t0, tmax, ok, words, grid.reso,
+                                                   mv, offsets, M, want_steps=True), 20))
+
+    def k4s():
+        return kernels.composite(pool_p.offsets, smp, trunc_a, opt, None, False, *mode,
+                                 want_live_alpha=True)
+
+    cs = k4s()
+    la = allclose_err(cs["live_alpha"][cs["live"]], cp["live_alpha"][cs["live"]])
+    flips = int((cs["live"] != cp["live"]).sum())
+    if la[1] > 0 or flips > FLAG_FRACTION * cs["live"].numel():
+        raise AssertionError(f"K4's samples differ from the plain version: {la}, {flips} flips")
+    log(f"K11a's walk steps equal to the plain walk's; K4's samples: {int(cs['live'].sum())} live "
+        f"slots, truncated alphas max abs err {la[0]:.3e}, {flips} flags flip")
+    res["composite_samples"] = dict(
+        max_abs_err=la[0], ms=time_ms(k4s, 50), plain_ms=res["composite_cache"]["plain_ms"],
+        bound=bound_ms(nb4 + B * CACHE_K * 13 + B * 8 + S0 * M * 5, S0 * M * 50))
+
+    # every output cotangent through the walks (K5a's second instantiation
+    # under their rules: the first-max mode, the cache's median), with
+    # their samples
+    for renderer in ("dense", "compact"):
+        chk = check_output_grads(f"K5 outputs, {renderer}", grid, opt, rays, renderer, words,
+                                 packed)
+        for k in ("backward_ray_out", "backward_entry_out"):
+            log(f"  {k} under the {renderer} renderer's rules: max abs err {chk['err']:.3e}, "
+                f"plain backward {chk['plain_ms']:.3f} ms")
+        del chk
     del grid, packed, sp, smp, pool_p, pool_k, full
     torch.cuda.empty_cache()
     return res
+
+
+def out_grad_path(device, card: str) -> dict:
+    """With the counters set to 0 just before and read just after: a
+    chunk's gradient through each surface renderer (packed with the
+    intersections and the sigma-thresh depth; dense and compact with their
+    cache and samples) with the cotangents of every output
+    (every_output_loss), on the 512^3 shell at bench_step's options. Each
+    gradient must be finite and non-zero. Returns the launches."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app.bench_step import bench_options
+    from alphasurf_torch.core.rays import Rays
+    from alphasurf_torch.render import surface as S
+
+    grid, _ = shell_grid(RESO, device)
+    opt = bench_options()
+    rays_all = frame_camera(1, 2).gen_rays_device(device)
+    s = (WIDTH * HEIGHT) // 2 - CHUNK // 2
+    rays = Rays(rays_all.origins[s:s + CHUNK].contiguous(), rays_all.dirs[s:s + CHUNK].contiguous())
+    params = [grid.density_data, grid.surface_data, grid.sh_data, grid.fake_sample_std]
+    calls = {
+        "packed": lambda: S.volume_render_surface_packed(
+            grid, rays, opt, return_intersections=True, depth_sigma_thresh=SIG_THRESH),
+        "dense": lambda: S.volume_render_surface(grid, rays, opt, cache_size=CACHE_K,
+                                                 return_samples=True),
+        "compact": lambda: S.volume_render_surface_compact(
+            grid, rays, opt, cache_size=CACHE_K, return_samples=True,
+            max_intersect_voxels=COMPACT_K),
+    }
+    for p in params:
+        p.requires_grad_(True)
+    kernels.reset_launches()
+    try:
+        for name, call in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            live = out["intersections"]["mask"] if "intersections" in out else None
+            valid = out["samples"]["valid"] if "samples" in out else None
+            g = torch.autograd.grad(every_output_loss(out, out_weights(out), {}, live, valid),
+                                    params)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if not all(bool(torch.isfinite(x).all()) and bool((x != 0).any()) for x in g):
+                raise AssertionError(f"{name}: a gradient with every output cotangent is not "
+                                     "finite and non-zero")
+            log(f"{name}: a {CHUNK}-ray chunk's render and gradient with every output cotangent "
+                f"in {ms:.3f} ms [{card}]")
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    torch.cuda.synchronize()
+    got = {k: kernels.LAUNCHES[k] for k in OUT_PATH_KERNELS}
+    log("launches of a chunk's gradient through each surface renderer with every output "
+        "cotangent " + json.dumps(got))
+    if 0 in got.values():
+        raise AssertionError(f"the output cotangents missed a kernel: {got}")
+    del grid, params, g, out
+    torch.cuda.empty_cache()
+    return got
 
 
 def two_pass_config() -> str:
@@ -3226,6 +3637,7 @@ def renderers(device, card: str, work: Path) -> tuple[dict, dict]:
 
     res = check_renderer_kernels(device, card)
     launches = dict.fromkeys(RENDERER_KERNELS, 0)
+    launches.update(out_grad_path(device, card))
 
     def count(label):
         got = {k: kernels.LAUNCHES[k] for k in RENDERER_KERNELS}
@@ -3830,8 +4242,10 @@ def blender(device, card: str, work: Path) -> tuple[dict, dict]:
 
 TNT_W, TNT_H = 1920, 1080  # Tanks and Temples' image size
 TNT_FOCAL = 1165.0  # near the intrinsics of Tanks and Temples' 1920x1080 captures
-TNT_TRAIN, TNT_TEST = 8, 2  # cut from a capture's few hundred views for the time limit
-TNT_STEPS = (30, 30)  # warm start, surface stage: cut from 100 + 100 for time
+TNT_TRAIN, TNT_TEST = 6, 2  # cut from a capture's few hundred views for the time limit
+# warm start, surface stage: cut from 100 + 100 for time (to 30 + 30, then to 20 + 20 for
+# the output-gradient checks; the margin over the run without a background 13.4 dB)
+TNT_STEPS = (20, 20)
 BG_LAYERS, BG_RESO = 64, 1024  # the Plenoxels Tanks-and-Temples background
 CAM_SCALE_FACTOR = 0.95  # the NSVF loader's: cameras at a median radius 0.95
 TNT_OBJECT_RADIUS = 0.25  # the object's sphere, in the normalised scene (cameras outside it)
@@ -4960,12 +5374,15 @@ def compat(device, card: str, work: Path) -> tuple[dict, dict]:
     """Phase 13: the compat marches. K14 forward and backward, both modes,
     against their plain versions (the backward through the autograd
     Function against autograd of the plain march, density, SH and the
-    per-ray basis) on a 16,384-ray chunk of an 800x800 view of the 256^3
-    blobby grid, each timed; then, with the counters set to 0 just before
-    and read just after, an 800x800 frame through volume_render with "nvol"
-    and with "svox1" (finite, not flat) and one gradient of a chunk's mse
-    through each; then to_svox1_npz of the 256^3 grid, reloaded and
-    checked. Returns K14's numbers and launches."""
+    per-ray basis, from the cotangents of rgb, depth and acc) on a
+    16,384-ray chunk of an 800x800 view of the 256^3 blobby grid, each
+    timed (the backward with and without the depth and acc cotangents);
+    then, with the counters set to 0 just before and read just after, an
+    800x800 frame through volume_render with "nvol" and with "svox1"
+    (finite, not flat) and two gradients of a chunk's mse through each, the
+    second with cotangents on depth and log_transmit; then to_svox1_npz of
+    the 256^3 grid, reloaded and checked. Returns K14's numbers and
+    launches."""
     import numpy as np
     import torch
 
@@ -5012,37 +5429,67 @@ def compat(device, card: str, work: Path) -> tuple[dict, dict]:
             ms=time_ms(lambda: kernels.compat_forward(*Cm._k14_args(c, dens, sh)), 10),
             plain_ms=plain_fwd_ms,
             bound=bound_ms(in_bytes + CHUNK * 20, n_act * step_ops))
-        # the backward: density, SH and the per-ray basis as leaves
+        # the backward: density, SH and the per-ray basis as leaves, from
+        # the cotangents of rgb, depth and acc. Depth's is scaled by the
+        # mean depth, so that no output's part swamps the others' in the
+        # gradient; one plain backward holds both instantiations: the
+        # second on the whole loss, the rgb-only one (rgb's cotangent
+        # alone) plus the second on depth's and acc's alone
         shm_leaf = ray_t[2].clone().requires_grad_(True)
         params = [grid.density_data, grid.sh_data]
+        inputs = params + [shm_leaf]
+        cot = out_cotangents(CHUNK, device)
+        cot = (cot[0] / depth_p.abs().mean().clamp(min=1.0), cot[1])
         for p in params:
             p.requires_grad_(True)
         try:
-            rgb_k, _, _ = Cm._CompatFn.apply(grid.density_data, grid.sh_data, shm_leaf, c)
-            g_kernel = torch.autograd.grad(torch.mean((rgb_k - 0.5) ** 2), params + [shm_leaf])
-            rgb_p, _, _ = plain(shm_leaf)
-            loss_p = torch.mean((rgb_p - 0.5) ** 2)
+            outs = Cm._CompatFn.apply(grid.density_data, grid.sh_data, shm_leaf, c)
+            c_rgb, c_depth, c_acc = torch.autograd.grad(out_loss(*outs, cot), outs,
+                                                        retain_graph=True)
+            n0 = {k: kernels.LAUNCHES[f"compat_backward{k}_{mode}"] for k in ("", "_out")}
+            g_kernel = torch.autograd.grad(outs, inputs, (c_rgb, c_depth, c_acc),
+                                           retain_graph=True)
+            g_rgb_part = torch.autograd.grad(outs[0], inputs, c_rgb, retain_graph=True)
+            n1 = {k: kernels.LAUNCHES[f"compat_backward{k}_{mode}"] for k in ("", "_out")}
+            g_out_part = torch.autograd.grad(outs[1:], inputs, (c_depth, c_acc))
+            if (n1[""] - n0[""], n1["_out"] - n0["_out"]) != (2, 1):
+                raise AssertionError(f"K14 {mode}: the rgb cotangent alone did not launch the "
+                                     "rgb-only instantiation")
+            rgb_p, depth_p, acc_p = plain(shm_leaf)
+            loss_p = out_loss(rgb_p, depth_p, acc_p, cot)
             # the plain march's backward is timed once: it recomputes every
             # checkpointed step (~14 s for nvol on the H100)
-            g_plain, plain_ms = timed_once(lambda: torch.autograd.grad(loss_p,
-                                                                       params + [shm_leaf]))
-            del rgb_p, loss_p
+            g_plain, plain_ms = timed_once(lambda: torch.autograd.grad(loss_p, inputs))
+            del rgb_p, loss_p, outs
         finally:
             for p in params:
                 p.requires_grad_(False)
-        log(f"K14 {mode} backward: gradients of the mse against 0.5, kernel against autograd of "
-            f"the plain march:")
-        err = max(grad_check(n, a, b, "K14") for n, a, b in
-                  zip(("density", "sh", "sh_mult"), g_kernel, g_plain))
+        groups = ("density", "sh", "sh_mult")
+        log(f"K14 {mode} backward: the parts of the kernel's gradient, |g| of rgb's "
+            + ", ".join(f"{n} {float(a.norm()):.4e}" for n, a in zip(groups, g_rgb_part))
+            + "; of depth's and acc's " + ", ".join(f"{n} {float(a.norm()):.4e}"
+                                                     for n, a in zip(groups, g_out_part)))
+        log(f"K14 {mode} backward: gradients of the mse against 0.5 and of random cotangents on "
+            f"depth and acc, the second instantiation against autograd of the plain march:")
+        err_out = max(grad_check(n, a, b, "K14") for n, a, b in zip(groups, g_kernel, g_plain))
+        log(f"K14 {mode} backward: the rgb-only instantiation (rgb's cotangent) plus the second "
+            f"on depth's and acc's, against the same:")
+        err = max(grad_check(n, a + o, b, "K14") for n, a, o, b in
+                  zip(groups, g_rgb_part, g_out_part, g_plain))
         g_rgb = (2.0 * (fk["rgb"] - 0.5) / (3 * CHUNK)).contiguous()
+        b_bytes = in_bytes + CHUNK * 12 + grid.capacity * 28 * 4 + CHUNK * 9 * 4
+        ms_rgb, ms_out = (time_ms(lambda: kernels.compat_backward(
+            *Cm._k14_args(c, dens, sh), g_rgb, want_sh_mult=True, **kw), 5)
+            for kw in ({}, dict(g_depth=cot[0], g_acc=cot[1])))
+        log(f"K14 {mode} backward timed alone: rgb only {ms_rgb:.4f} ms, with the depth and acc "
+            f"cotangents {ms_out:.4f} ms [{card}]")
         res[f"compat_backward_{mode}"] = dict(
-            max_abs_err=err,
-            ms=time_ms(lambda: kernels.compat_backward(*Cm._k14_args(c, dens, sh), g_rgb,
-                                                       want_sh_mult=True), 5),
-            plain_ms=plain_ms,
-            bound=bound_ms(in_bytes + CHUNK * 12 + grid.capacity * 28 * 4 + CHUNK * 9 * 4,
-                           n_act * step_ops * 3))
-        del g_kernel, g_plain, shm_leaf
+            max_abs_err=err, ms=ms_rgb, plain_ms=plain_ms,
+            bound=bound_ms(b_bytes, n_act * step_ops * 3))
+        res[f"compat_backward_out_{mode}"] = dict(
+            max_abs_err=err_out, ms=ms_out, plain_ms=plain_ms,
+            bound=bound_ms(b_bytes + CHUNK * 8, n_act * (step_ops * 3 + 2)))
+        del g_kernel, g_plain, g_rgb_part, g_out_part, shm_leaf
         torch.cuda.empty_cache()
     for name, r in res.items():
         log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
@@ -5065,14 +5512,18 @@ def compat(device, card: str, work: Path) -> tuple[dict, dict]:
         params = [grid.density_data, grid.sh_data]
         for p in params:
             p.requires_grad_(True)
+        cot = out_cotangents(CHUNK, device)
         try:
-            o = pt.volume_render(grid, rays, opt, mode)
-            g = torch.autograd.grad(torch.mean((o["rgb"] - 0.5) ** 2), params)
+            # rgb's cotangent alone, then with depth's and log_transmit's
+            for c_ in (None, cot):
+                o = pt.volume_render(grid, rays, opt, mode)
+                g = torch.autograd.grad(out_loss(o["rgb"], o["depth"], o["log_transmit"], c_),
+                                        params)
+                if not all(bool(torch.isfinite(x).all()) and float(x.abs().max()) > 0 for x in g):
+                    raise AssertionError(f"the {mode} gradient is zero or not finite")
         finally:
             for p in params:
                 p.requires_grad_(False)
-        if not all(bool(torch.isfinite(x).all()) and float(x.abs().max()) > 0 for x in g):
-            raise AssertionError(f"the {mode} gradient is zero or not finite")
     torch.cuda.synchronize()
     launches = {k: kernels.LAUNCHES[k] for k in COMPAT_KERNELS}
     log("launches " + json.dumps(launches))
@@ -5355,6 +5806,77 @@ def check_type_kernels(name: str, grid, card: str, opt=None, n_rays: int = CHUNK
     return res if timed else errs_out
 
 
+def type_chunk(grid):
+    """The centre 16,384-ray chunk of orbit frame 0."""
+    from alphasurf_torch.core.rays import Rays
+
+    rays_all = frame_camera(0, 2).gen_rays_device(grid.links.device)
+    s = (WIDTH * HEIGHT) // 2 - CHUNK // 2
+    return Rays(rays_all.origins[s:s + CHUNK].contiguous(), rays_all.dirs[s:s + CHUNK].contiguous())
+
+
+def check_type_out(name: str, grid, card: str) -> dict:
+    """K5 with every output cotangent on the type's chunk through the
+    packed renderer (check_output_grads; its branch of K5b's second
+    instantiation: PLANE's mean plane, the UDF types' softplus corners)
+    against autograd of the plain renderer under GRAD_*; then that branch
+    timed alone beside the rgb-only one."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.render import surface as S
+
+    opt = type_options(name)
+    rays = type_chunk(grid)
+    words = S.occupancy_words(grid, opt)
+    packed = S.pack_grid_data(grid)
+    chk = check_output_grads(f"K5 outputs, {name}", grid, opt, rays, "packed", words, packed)
+    # the branch timed on the arguments the renderer passed it, with and
+    # without the normal's cotangent
+    a, kw = chk["calls"]["backward_entry"]
+    ms_rgb = time_ms(lambda: kernels.backward_entry(*a, **dict(kw, d_snorm=None)), 10)
+    ms_out = time_ms(lambda: kernels.backward_entry(*a, **kw), 10)
+    log(f"K5b {name} timed alone: rgb only {ms_rgb:.4f} ms, with the normal's cotangent "
+        f"{ms_out:.4f} ms [{card}]")
+    pool = chk["pool"]
+    B, S0 = rays.origins.shape[0], kw["d_snorm"].shape[1]
+    nb, ops = k5b_work(grid, pool, packed, B, S0, normal=True)
+    res = {f"backward_entry_out_{name}": dict(max_abs_err=chk["err"], ms=ms_out,
+                                              plain_ms=chk["plain_ms"], bound=bound_ms(nb, ops))}
+    del chk, a, kw, packed, words
+    torch.cuda.empty_cache()
+    return res
+
+
+def type_out_path(name: str, grid, card: str) -> None:
+    """A chunk's gradient through the packed renderer with every output
+    cotangent on the type's grid (the path to its branch of K5b's second
+    instantiation); finite and non-zero."""
+    import torch
+
+    from alphasurf_torch.render import surface as S
+
+    opt = type_options(name)
+    params = [p for p in (grid.density_data, grid.surface_data, grid.sh_data,
+                          grid.fake_sample_std) if p is not None]
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        out = S.volume_render_surface_packed(grid, type_chunk(grid), opt,
+                                             return_intersections=True,
+                                             depth_sigma_thresh=SIG_THRESH)
+        g = torch.autograd.grad(every_output_loss(out, out_weights(out), {},
+                                                  out["intersections"]["mask"]), params)
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+    if not all(bool(torch.isfinite(x).all()) for x in g) or not bool((g[1] != 0).any()):
+        raise AssertionError(f"{name}: a gradient with every output cotangent is not finite, or "
+                             "does not reach the surface")
+    log(f"{name}: a {CHUNK}-ray chunk's gradient with every output cotangent through the packed "
+        f"renderer [{card}]")
+
+
 def check_table_reg(grid) -> dict:
     """K6 on UDF_ALPHA's (n_lv, 1) density table, on a window of 0.01 of
     the rows: the TV of the density (every link past the table reads its
@@ -5584,9 +6106,13 @@ def types(device, card: str, work: Path) -> tuple[dict, dict]:
         res.update(check_type_kernels(name, grid, card))
         if name in ("udf_alpha", "udf_fake_sample"):
             check_gates(name, grid, card, res)
+        if name in OUT_TYPES:
+            res.update(check_type_out(name, grid, card))
         kernels.reset_launches()
         serve_type(name, grid, work, card)
         type_steps(name, grid, card)
+        if name in OUT_TYPES:
+            type_out_path(name, grid, card)
         got = {k: kernels.LAUNCHES[k] for k in KERNELS if k.endswith(f"_{name}")}
         if name == "udf_alpha":
             got["reg_sparsify_table"] = kernels.LAUNCHES["reg_sparsify_table"]
@@ -5670,6 +6196,8 @@ def main(argv=None) -> int:
                 continue
             t0 = time.perf_counter()
             phase_res, phase_launches = runners[name]()
+            gc.collect()  # a phase's autograd graphs may sit in reference cycles
+            torch.cuda.empty_cache()
             walls[name] = time.perf_counter() - t0
             log(f"phase {name}: {walls[name]:.1f} s wall")
             res.update(phase_res)

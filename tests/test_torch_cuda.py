@@ -680,3 +680,133 @@ def test_surface_type_branches_match_plain_versions(cuda, name, gate):
     for a_, b_ in zip(g_k, g_p):
         b_ = b_.cpu().numpy()
         np.testing.assert_allclose(a_.cpu().numpy(), b_, atol=1e-3 * max(np.abs(b_).max(), 1e-6))
+
+
+# ---------------------------------------------------------------------------
+# The output cotangents (K5a's and K5b's second instantiations, K14's) and
+# return_samples on the card
+# ---------------------------------------------------------------------------
+
+OUT_RENDERERS = {
+    "packed": lambda g, r, o: S.volume_render_surface_packed(
+        g, r, o, cache_size=8, return_intersections=True, depth_sigma_thresh=0.5),
+    "dense": lambda g, r, o: S.volume_render_surface(g, r, o, cache_size=8, return_samples=True),
+    "compact": lambda g, r, o: S.volume_render_surface_compact(
+        g, r, o, cache_size=8, return_samples=True, max_intersect_voxels=16),
+}
+
+
+def _out_grid(name, device):
+    """A float32 16^3 grid of type ``name`` ("sdf", "plane" or "udf")."""
+    if name == "sdf":
+        return SparseGrid.from_numpy(_float32(np_grid(16, seed=3, prune=0.2)), device=device)
+    from test_torch_types import type_arrays
+
+    return SparseGrid.from_numpy(_float32(type_arrays(name, 16)), device=device)
+
+
+def _every_output_loss(out, seed=0):
+    """A weighted sum of every output that takes a cotangent: rgb, depth,
+    normal, alpha, log_transmit, the mode and median depths, the
+    sigma-thresh depth, the intersections (over their mask) and the
+    samples."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def w(x):
+        return torch.rand(x.shape, generator=gen).to(x.device) - 0.5
+
+    loss = 0.0
+    for k in ("rgb", "depth", "normal", "alpha", "log_transmit", "depth_mode", "depth_med",
+              "depth_sigma_thresh"):
+        if k in out:
+            loss = loss + (out[k] * w(out[k])).sum()
+    if "intersections" in out:
+        it = out["intersections"]
+        v = torch.cos(it["pts"]).sum(-1) + 0.7 * it["alpha"] - 0.4 * it["weight"]
+        loss = loss + torch.where(it["mask"], v, torch.zeros_like(v)).sum()
+    for k in ("ts", "alphas", "weights"):
+        if "samples" in out:
+            loss = loss + (out["samples"][k] * w(out["samples"][k])).sum()
+    return loss
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stype", ["sdf", "plane", "udf"])
+@pytest.mark.parametrize("renderer", sorted(OUT_RENDERERS))
+def test_output_cotangents_match_autograd_of_plain_path(cuda, renderer, stype):
+    """Every output cotangent through K5 (backward_ray_out, and
+    backward_entry_out for the normal) against autograd of the plain
+    renderer on the CPU, float32, to 1e-3 of each gradient's norm; the
+    returned samples equal the plain path's."""
+    opt = pt.RenderOptions(**{**BASE, **(OPTION_SETS[4] if stype == "sdf" else {})})
+    o, d = np_rays(64, seed=4)
+    rays = pt.Rays(torch.as_tensor(o, dtype=torch.float32, device=cuda),
+                   torch.as_tensor(d, dtype=torch.float32, device=cuda))
+    render = OUT_RENDERERS[renderer]
+    names = ("density_data", "surface_data", "sh_data", "fake_sample_std")
+
+    def grads(g, r):
+        params = [getattr(g, n).requires_grad_(True) for n in names]
+        out = render(g, r, opt)
+        return out, [torch.zeros_like(p) if x is None else x for p, x in zip(
+            params, torch.autograd.grad(_every_output_loss(out), params, allow_unused=True))]
+
+    kernels.reset_launches()
+    out_k, got = grads(_out_grid(stype, cuda), rays)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["backward_ray_out"] == 1, kernels.LAUNCHES
+    assert kernels.LAUNCHES["backward_entry_out"] == 1, kernels.LAUNCHES
+    if stype != "sdf":
+        assert kernels.LAUNCHES[f"backward_entry_out_{stype}"] == 1
+    out_p, ref = grads(_out_grid(stype, "cpu"), pt.Rays(rays.origins.cpu(), rays.dirs.cpu()))
+    for n, x, r in zip(names, got, ref):
+        x, r = x.cpu().double(), r.double()
+        assert float((x - r).norm()) <= 1e-3 * float(r.norm()) + 1e-6, n
+    if "samples" in out_k:
+        assert kernels.LAUNCHES["composite_samples"] == 1
+        assert renderer != "dense" or kernels.LAUNCHES["dense_walk_fill_steps"] == 1
+        for k in ("valid", "fake_mask"):
+            np.testing.assert_array_equal(out_k["samples"][k].cpu().numpy(),
+                                          out_p["samples"][k].numpy(), err_msg=k)
+        for k in ("ts", "alphas", "weights"):
+            np.testing.assert_allclose(out_k["samples"][k].detach().cpu().numpy(),
+                                       out_p["samples"][k].detach().numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nvol", "svox1"])
+def test_compat_output_cotangents_match_plain_versions(cuda, mode):
+    """K14's compat_backward_out: the cotangents of rgb, depth and alpha /
+    log_transmit against autograd of the plain march on the same card."""
+    from alphasurf_torch.render import compat as Cm
+
+    a, rays = _basis_inputs(cuda, "texture")
+    opt = pt.RenderOptions(step_size=0.5, sigma_thresh=0.1)
+    names = ("density_data", "sh_data")
+    keys = ("rgb", "depth", "log_transmit") + (("alpha",) if mode == "nvol" else ())
+    gen = torch.Generator().manual_seed(1)
+    w = {k: torch.rand((64, 3) if k == "rgb" else (64,), generator=gen).to(cuda) - 0.5
+         for k in keys}
+
+    def run(g, plain):
+        params = [getattr(g, n).requires_grad_(True) for n in names]
+        if plain:
+            fn = Cm._nvol_plain if mode == "nvol" else Cm._svox1_plain
+            o, dd, ds, shm, tmin, tmax = Cm._march_setup(g, rays, mode == "svox1")
+            rgb, depth, acc = fn(g, opt, o, dd, ds, shm, tmin, tmax, Cm.max_steps_for(g, opt))
+            bgw = (1 - acc) if mode == "nvol" else torch.exp(acc)
+            out = {"rgb": rgb + bgw[:, None], "depth": depth, "alpha": acc,
+                   "log_transmit": (torch.log(torch.clamp(1 - acc, min=1e-10)) if mode == "nvol"
+                                    else acc)}
+        else:
+            out = Cm.BACKENDS[mode](g, rays, opt)
+        return torch.autograd.grad(sum((out[k] * w[k]).sum() for k in keys), params)
+
+    kernels.reset_launches()
+    gk = run(SparseGrid.from_numpy(a, device=cuda), False)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[f"compat_backward_out_{mode}"] == 1
+    gp = run(SparseGrid.from_numpy(a, device=cuda), True)
+    for x, r in zip(gk, gp):
+        assert float((x - r).norm()) <= 1e-3 * float(r.norm()) + 1e-7

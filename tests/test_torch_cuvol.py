@@ -18,7 +18,7 @@ from alphasurf_tpu.render.image import render_image as jax_render_image
 from alphasurf_torch.core.grid import SparseGrid, create_grid
 from alphasurf_torch.render import cuvol as TC
 from alphasurf_torch.render.image import render_image, volume_render_depth
-from test_torch_util import jax_to_np, np_rays, t64
+from test_torch_util import BASE, jax_grid, jax_to_np, np_grid, np_rays, t64
 
 # parametrised over last_sample_opaque, use_spheric_clip, near_clip and
 # depth_sigma_thresh; the keys are RenderOptions fields plus "dst"
@@ -278,3 +278,17 @@ def test_volume_render_depth_matches_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-8, atol=1e-12)
     with pytest.raises(NotImplementedError):
         volume_render_depth(g, pt.Rays(t64(o), t64(d)), pt.RenderOptions(), depth_type="mode")
+    # a surface grid: with a threshold, the sigma-thresh depth of the packed
+    # renderer (its mean depth differs on some of these rays)
+    a = np_grid(16, seed=3, prune=0.2)
+    o, d = np_rays(64, seed=4)
+    opt_kw = dict(BASE)
+    ref = jax.jit(lambda gj_, o_, d_: jax_depth(gj_, at.Rays(o_, d_), at.RenderOptions(**opt_kw),
+                                                sigma_thresh=0.5))(
+        jax_grid(a), jnp.asarray(o), jnp.asarray(d))
+    g = SparseGrid.from_numpy(a, device="cpu")
+    got = volume_render_depth(g, pt.Rays(t64(o), t64(d)), pt.RenderOptions(**opt_kw),
+                              sigma_thresh=0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-8, atol=1e-12)
+    mean = volume_render_depth(g, pt.Rays(t64(o), t64(d)), pt.RenderOptions(**opt_kw))
+    assert np.abs(mean.numpy() - np.asarray(ref)).max() > 1.0
