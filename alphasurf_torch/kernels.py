@@ -145,7 +145,7 @@ _ARGTYPES = {
     "cuvol_forward": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F,
                       _I, _I, _F, _P, _I, _F, _P, _P, _P, _P, _P, _P],
     "cuvol_backward": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F,
-                       _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                       _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "cuvol_march": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _I, _F, _P,
                     _I, _F, _P, _P, _P, _P, _P, _P],
     "cuvol_march_backward": [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _I, _I,
@@ -1175,7 +1175,7 @@ def cuvol_backward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_sca
     forward's log_T and entry_pre (and the forward's ``bg_rgb``). With
     ``want_sh_mult`` also the gradient of the per-ray basis sh_mult (B, bd),
     a third output (a launch with it also counts as
-    ``cuvol_backward_basis``; bd at most 32)."""
+    ``cuvol_backward_basis``). bd is at most 32 in every instantiation."""
     B, bd, grid_args = _cuvol_args(origins, dirs, sh_mult, delta_scale, tmin, tmax, links,
                                    density, sh)
     M = _pool_entry_args(offsets, l, close_t, far_t, B)
@@ -1183,6 +1183,8 @@ def cuvol_backward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_sca
     _check("entry_pre", entry_pre, torch.float32, (M,))
     _check("g_rgb", g_rgb, torch.float32, (B, 3))
     out_ptrs = _out_cotangent_ptrs(g_depth, g_log_T, B)
+    if bd > 32:
+        raise ValueError(f"cuvol_backward: a warp adds SH rows of 3 bd <= 96 elements, bd {bd}")
     g_density, g_sh, g_shm = _grad_outputs(density, sh, B, bd, want_sh_mult, "cuvol_backward")
     bgp = _bg_rgb_ptr(bg_rgb, B)
     if B > 0 and M > 0:
@@ -1190,7 +1192,7 @@ def cuvol_backward(offsets, l, close_t, far_t, origins, dirs, sh_mult, delta_sca
                 _ptr(offsets), B, _ptr(l), _ptr(close_t), _ptr(far_t), _ptr(origins), _ptr(dirs),
                 *grid_args, float(step), int(n_slots), int(last_sample_opaque), float(bg), bgp,
                 _ptr(log_T), _ptr(entry_pre), _ptr(g_rgb), *out_ptrs, _ptr(g_density), _ptr(g_sh),
-                _ptr(g_shm) if want_sh_mult else None)
+                _ptr(g_shm) if want_sh_mult else None, density.shape[0])
         if want_sh_mult:
             LAUNCHES["cuvol_backward_basis"] += 1
         if out_ptrs != (None, None):

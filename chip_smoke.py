@@ -42,8 +42,11 @@ K4, K5b and K6), then:
    cotangents), K10 and its backward (per-ray background colours with
    depth and log_T cotangents) against their plain versions on a
    256^3 blobby density grid (basis_dim 9), one 16,384-ray chunk of an
-   800x800 frame; the cuvol step with the kernels against the plain step
-   on a CPU copy at 128^3, packed, dense and without occupancy;
+   800x800 frame; K8 on long rays (1,024 rays of the warm step's own
+   256^3 grid and batch, ~250 entries a ray: the forward and its four
+   backward instantiations against the plain version) and timed at the
+   step's full 40,960-ray batch; the cuvol step with the kernels against
+   the plain step on a CPU copy at 128^3, packed, dense and without occupancy;
    ``alphasurf_torch.app.bench_step.main --stage cuvol`` at 256^3, batch
    40960, packed and ``--renderer dense``; a batch's gradient through each
    cuvol renderer with cotangents on all three outputs; then the Trainer through
@@ -1869,6 +1872,86 @@ def check_cuvol_kernels(device, card: str) -> dict:
     return res
 
 
+LONG_RAYS = 1024  # the rays of K8's long-ray check
+LONG_DST = 0.1  # its depth_sigma_thresh: inside the field's density range [0.05, 0.15]
+
+
+def check_k8_long(device, card: str) -> None:
+    """Phase 5b: K8 on the warm step's own grid and batch
+    (``app/bench_k8.warm_case``: bench_step's 256^3 grid with a smooth
+    field, ~250 entries a ray, so the warp kernels cross many 32-entry
+    groups), the first LONG_RAYS rays: the forward (with depth_sigma_thresh)
+    and each backward instantiation (rgb only; with the depth and log_T
+    cotangents; with the basis gradient; both, with per-ray background
+    colours) against autograd of the plain version, to RTOL/ATOL and
+    GRAD_*. Then K8 timed at the full TRAIN_BATCH rays (the plain version is
+    not timed at that size)."""
+    import numpy as np
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import bench_k8
+    from alphasurf_torch.render import cuvol as C
+
+    grid, opt, full = bench_k8.warm_case(CUVOL_RESO, TRAIN_BATCH, device)
+    chunk = bench_k8.sub_chunk(full, LONG_RAYS)._replace(depth_sigma_thresh=LONG_DST)
+    p, B = chunk.pool, LONG_RAYS
+    n_e = (p.offsets[1:] - p.offsets[:-1]).cpu()
+    log(f"K8 long rays: {B} rays of the warm step's batch at {CUVOL_RESO}^3, {int(n_e.sum())} "
+        f"entries, {float(n_e.float().mean()):.1f} a ray (max {int(n_e.max())}, "
+        f"{int((n_e > 32).sum())} rays past one 32-entry group)")
+    dens, sh = grid.density_data.detach()[:, 0].contiguous(), grid.sh_data.detach()
+    bg_cols = torch.as_tensor(np.random.default_rng(SEED + 14).uniform(0.0, 1.0, (B, 3)),
+                              dtype=torch.float32, device=device)
+    fk = C._k8_forward(chunk, dens, sh, True)
+    shm = chunk.rays[2].clone().requires_grad_(True)
+    params = [grid.density_data, grid.sh_data]
+    for x in params:
+        x.requires_grad_(True)
+    try:
+        smp = C._entry_samples_plain(grid, opt, p, chunk.rays[0], chunk.rays[1], shm,
+                                     *chunk.rays[3:])
+        fps = [C._composite_cuvol_plain(p.offsets, *smp, bg, LONG_DST)
+               for bg in (opt.background_brightness, bg_cols)]
+        errs = [allclose_err(fk[k], fps[0][kp].detach()) for k, kp in (
+            ("rgb", "rgb"), ("depth", "depth"), ("log_T", "log_transmit"),
+            ("t_sig", "depth_sigma_thresh"))]
+        if max(e[1] for e in errs) > 0:
+            raise AssertionError(f"K8 forward differs from the plain version on long rays: {errs}")
+        log(f"  forward (rgb, depth, log_T, t_sig): max abs err {max(e[0] for e in errs):.3e}")
+        g_rgb = (2.0 * (fk["rgb"] - 0.5) / (3 * B)).contiguous()
+        cot = out_cotangents(B, device)
+        for out, basis in ((False, False), (True, False), (False, True), (True, True)):
+            fp = fps[1] if out and basis else fps[0]
+            loss = (fp["rgb"] * g_rgb).sum()
+            if out:
+                loss = loss + (fp["depth"] * cot[0]).sum() + (fp["log_transmit"] * cot[1]).sum()
+            wrt = params + ([shm] if basis else [])
+            g_plain = torch.autograd.grad(loss, wrt, retain_graph=True)
+            g_kernel = kernels.cuvol_backward(
+                *C._k8_args(chunk, dens, sh), fk["log_T"], fk["entry_pre"], g_rgb,
+                bg_rgb=bg_cols if out and basis else None, want_sh_mult=basis,
+                g_depth=cot[0] if out else None, g_log_T=cot[1] if out else None)
+            log(f"  backward{' with depth/log_T' if out else ''}"
+                f"{' with the basis' if basis else ''}"
+                f"{' and per-ray background colours' if out and basis else ''}:")
+            for name, a, b in zip(("density", "sh", "sh_mult"), g_kernel,
+                                  (g_plain[0][:, 0],) + tuple(g_plain[1:])):
+                grad_check(name, a, b, "K8")
+        del smp, fps, fp, loss, g_plain, g_kernel
+    finally:
+        for x in params:
+            x.requires_grad_(False)
+    calls = bench_k8.k8_calls(full)
+    ms = {k: time_ms(fn, 5) for k, fn in calls.items()}
+    log(f"K8 at the warm step's shape ({TRAIN_BATCH} rays, {full.pool.close_t.shape[0]} "
+        f"entries): forward {ms['forward']:.4f} ms, backward rgb {ms['rgb']:.4f}, out "
+        f"{ms['out']:.4f}, basis {ms['basis']:.4f}, out + basis {ms['out_basis']:.4f} ms "
+        f"[{card}]")
+    del grid, full, chunk, calls, fk, dens, sh
+    torch.cuda.empty_cache()
+
+
 def check_cuvol_step(device, renderer: str = "packed", with_occ: bool = True) -> None:
     """One cuvol step through the kernels on the card against one step of
     the plain versions on a CPU copy, at 128^3 (the blobby grid) with a
@@ -1992,6 +2075,7 @@ def warm(device, card: str, work: Path) -> tuple[dict, dict]:
     from alphasurf_torch.train.steps import StepConfig, init_rms, make_cuvol_step
 
     res = check_cuvol_kernels(device, card)
+    check_k8_long(device, card)
     for renderer, with_occ in (("packed", True), ("dense", True), ("packed", False)):
         check_cuvol_step(device, renderer, with_occ)
 

@@ -153,20 +153,35 @@ def test_density_occupancy_kernel_matches_plain_version(cuda):
     assert torch.equal(words.cpu(), ref)
 
 
+def _long_cuvol_case(device):
+    """test_torch_cuvol_long's thin (72, 4, 4) grid in float32 and its rays
+    along x, of 0, 1, 31, 32, 33, 64 and 65 entries and five of 71: K8's
+    warps cross their 32-entry groups there."""
+    from test_torch_cuvol_long import thin_grid, thin_rays
+
+    a = _float32(thin_grid(basis_dim=9))
+    return a, SparseGrid.from_numpy(a, device=device), thin_rays()
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["blobby", "long"])
 @pytest.mark.parametrize("kw", CUVOL_SETS)
-def test_cuvol_kernels_match_plain_versions(cuda, kw):
+def test_cuvol_kernels_match_plain_versions(cuda, kw, case):
     """K8 forward and backward (through the renderer's autograd Function)
-    and K10 against the plain renderers on the CPU, float32."""
+    and K10 against the plain renderers on the CPU, float32: on the blobby
+    grid's 64 rays and on long rays of every group boundary."""
     from alphasurf_torch.render import cuvol as C
 
-    a, g = _cuvol_grid(cuda)
+    if case == "long":
+        a, g, (o, d) = _long_cuvol_case(cuda)
+    else:
+        a, g = _cuvol_grid(cuda)
+        o, d = np_rays(64, seed=4)
     opt = pt.RenderOptions(**kw)
-    o, d = np_rays(64, seed=4)
     rays = pt.Rays(torch.as_tensor(o, dtype=torch.float32, device=cuda),
                    torch.as_tensor(d, dtype=torch.float32, device=cuda))
     rays_cpu = pt.Rays(rays.origins.cpu(), rays.dirs.cpu())
-    cot = torch.randn(64, 3, generator=torch.Generator().manual_seed(1))
+    cot = torch.randn(o.shape[0], 3, generator=torch.Generator().manual_seed(1))
 
     def grads(g, r):
         params = [g.density_data.requires_grad_(True), g.sh_data.requires_grad_(True)]
