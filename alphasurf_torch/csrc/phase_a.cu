@@ -8,25 +8,42 @@
 // voxel it enters in closed form; occupied ones whose voxel slab is not a
 // degenerate sliver (far_t > close_t + 1e-9) are pool entries.
 //
-// Design: a per-ray count kernel, an exclusive scan of the counts outside
-// any kernel, and a per-ray fill kernel that walks the same candidates and
-// writes its entries at its offset. The pool is sized exactly (no budget,
-// no overflow) and needs no sort: the walk merges the three axis-plane
-// sequences, each monotone in t, after the entry candidate, so entries come
-// out ray-major and t-ascending (equal t: lower axis first, the order a
-// stable sort of the plain version's candidate list gives).
+// Design: a count kernel, an exclusive scan of the counts outside any
+// kernel, and a fill kernel that walks the same candidates and writes each
+// ray's entries from its offset. The pool is sized exactly (no budget, no
+// overflow) and needs no sort: entries come out ray-major and t-ascending,
+// the entry candidate first, equal t on two axes lower axis first (the
+// order a stable sort of the plain version's candidate list gives).
 //
-// Bound: operations. Per ray the walk does ~30 float operations for each
-// plane crossed (about 3 * 512 at 512^3) and one lookup in the 16 MB
-// occupancy words, which stay in the 50 MB L2; bytes moved are the rays in
-// and the pool out. One thread per ray; the supervoxel prefilter of the
-// JAX version is left out (it changes no voxel of the set).
+// A warp walks one ray (walk_warp), 32 candidates a window. Every
+// candidate's voxel and slab are closed-form in its t, so a lane evaluates
+// any candidate with the same expressions in the same order whatever the
+// lane. In a window lane j holds the time of the j-th next plane of each
+// axis; an element's merged rank is its index on its axis plus, for each
+// other axis, the count of that axis's times below it (at equal t the
+// lower axis counts as below), found by a binary search over the lanes by
+// shuffles. The elements of rank < 32 go through shared memory to lane
+// rank, which tests occupancy and the sliver; a ballot of the kept lanes
+// gives each entry's slot, so a window's entries go to consecutive slots
+// and each array is written coalesced. A warp a ray keeps the SMs full (a
+// 16,384-ray serving chunk is 16,384 warps, where a thread a ray made 4
+// warps an SM) and its lanes never wait on another ray's length. Measured
+// slower on the H100 (PERF.md): groups of 8 or 16 lanes a ray, and one
+// plane a lane with the lanes split among the axes by |d| (fewer shuffles,
+// more selects and lane masks).
+//
+// Bound: operations. A window costs each lane three plane times, six
+// searches of six shuffles, two corner-snap coordinates, a lookup
+// in the occupancy words (16 MB at 512^3, held in the 50 MB L2) and, where
+// occupied, three slab divisions. Bytes moved are the rays in and the pool
+// out. The supervoxel prefilter of the JAX version is left out (it changes
+// no voxel of the set).
 //
 // K11b, compact_fill: the first K entries of each ray, the JAX package's
 // compact_crossings (render/surface.py:1284) over all_crossings (1237). The
 // count pass is K2's (its n_valid is JAX's uncapped n_occupied); the scan
-// runs over min(n_valid, K), and the fill walks as K2's and stops at the
-// ray's end offset. Bound and design as K2's; the walk ends after K entries.
+// runs over min(n_valid, K), and the fill is K2's walk, writing only the
+// slots below the ray's end offset and stopping there.
 //
 // K11a, dense_walk_count / dense_walk_fill: the occupied voxels of the JAX
 // package's dense DDA walk (render/surface.py:1092 volume_render_surface,
@@ -106,104 +123,34 @@ HD float slab_far_t(const float o[3], const float d[3], const int l[3], float tm
     return fminf(ft, tmax);
 }
 
-// one candidate: count it if occupied, emit it unless degenerate
-template <bool WRITE>
-HD void visit(const PhaseAParams& p, const float o[3], const float d[3], float tmax, float t,
-              const int l[3], int r, int& n_occ, int64_t& pos, const PoolOut& out) {
-    for (int a = 0; a < 3; ++a)
-        if (l[a] < 0 || l[a] > p.reso[a] - 2) return;
-    if (!occ_bit(p, l)) return;
-    ++n_occ;
-    const float far = slab_far_t(o, d, l, tmax);
-    if (!(far > t + 1e-9f)) return;
-    if (WRITE) {
-        out.ray_id[pos] = r;
-        out.l[3 * pos + 0] = l[0];
-        out.l[3 * pos + 1] = l[1];
-        out.l[3 * pos + 2] = l[2];
-        out.close_t[pos] = t;
-        out.far_t[pos] = far;
-    }
-    ++pos;
-}
-
 HD float plane_t(int q, float o, float d) { return ((float)q - o) / d; }
 
-// Walk ray r's candidates in t order. Returns the occupied-candidate count;
-// pos advances by the number of entries (written at pos when WRITE). With
-// CAPPED the walk stops once pos reaches end.
-template <bool WRITE, bool CAPPED = false>
-HD int walk_ray(const PhaseAParams& p, int r, int64_t& pos, const PoolOut& out,
-                int64_t end = 0) {
-    float o[3], d[3];
-    for (int a = 0; a < 3; ++a) {
-        o[a] = p.origins[3 * (int64_t)r + a];
-        d[a] = p.dirs[3 * (int64_t)r + a];
-    }
-    const float tn = p.tnear[r], tx = p.tmax[r];
-    const float lo = tn + 1e-9f, hi = tx - 1e-9f;
-    int n_occ = 0;
+// The first plane of one axis in travel order with lo < t, if its t < hi
+// (live). The planes with lo < t < hi are a contiguous run from it, since t
+// is monotone in the plane.
+struct AxisRun {
+    int q, step;
+    bool live;
+};
 
-    if (tx > lo) {
-        const int l[3] = {entry_coord(o[0], d[0], tn), entry_coord(o[1], d[1], tn),
-                          entry_coord(o[2], d[2], tn)};
-        visit<WRITE>(p, o, d, tx, tn, l, r, n_occ, pos, out);
+HD AxisRun first_plane(float o, float d, float tn, float lo, float hi, int pmax) {
+    AxisRun run{0, d < 0.0f ? -1 : 1, false};
+    if (d == 0.0f || pmax < 1) return run;
+    const float pos0 = o + tn * d;
+    const float guess = d > 0.0f ? floorf(pos0) : ceilf(pos0);
+    int k = (int)fminf(fmaxf(guess, 1.0f), (float)pmax);
+    if (d > 0.0f) {
+        while (k > 1 && plane_t(k - 1, o, d) > lo) --k;
+        while (k <= pmax && !(plane_t(k, o, d) > lo)) ++k;
+        if (k > pmax) return run;
+    } else {
+        while (k < pmax && plane_t(k + 1, o, d) > lo) ++k;
+        while (k >= 1 && !(plane_t(k, o, d) > lo)) --k;
+        if (k < 1) return run;
     }
-
-    // per axis: the next plane in travel order and its crossing time; the
-    // planes with lo < t < hi are a contiguous run, since t is monotone in p
-    int q[3], step[3];
-    float tq[3];
-    bool live[3];
-    for (int a = 0; a < 3; ++a) {
-        live[a] = false;
-        const int pmax = p.reso[a] - 2;
-        if (d[a] == 0.0f || pmax < 1) continue;
-        const float pos0 = o[a] + tn * d[a];
-        const float guess = d[a] > 0.0f ? floorf(pos0) : ceilf(pos0);
-        int k = (int)fminf(fmaxf(guess, 1.0f), (float)pmax);
-        if (d[a] > 0.0f) {
-            step[a] = 1;
-            while (k > 1 && plane_t(k - 1, o[a], d[a]) > lo) --k;
-            while (k <= pmax && !(plane_t(k, o[a], d[a]) > lo)) ++k;
-            if (k > pmax) continue;
-        } else {
-            step[a] = -1;
-            while (k < pmax && plane_t(k + 1, o[a], d[a]) > lo) ++k;
-            while (k >= 1 && !(plane_t(k, o[a], d[a]) > lo)) --k;
-            if (k < 1) continue;
-        }
-        const float t = plane_t(k, o[a], d[a]);
-        if (!(t < hi)) continue;
-        q[a] = k;
-        tq[a] = t;
-        live[a] = true;
-    }
-
-    while (!(CAPPED && pos >= end)) {
-        int a = -1;
-        for (int k = 0; k < 3; ++k)
-            if (live[k] && (a < 0 || tq[k] < tq[a])) a = k;
-        if (a < 0) break;
-        const float t = tq[a];
-        int l[3];
-        for (int b = 0; b < 3; ++b)
-            l[b] = b == a ? q[a] - (d[a] < 0.0f ? 1 : 0) : cross_coord(o[b], d[b], t, b < a);
-        visit<WRITE>(p, o, d, tx, t, l, r, n_occ, pos, out);
-        const int k = q[a] + step[a];
-        if (k < 1 || k > p.reso[a] - 2) {
-            live[a] = false;
-            continue;
-        }
-        const float tk = plane_t(k, o[a], d[a]);
-        if (!(tk < hi)) {
-            live[a] = false;
-            continue;
-        }
-        q[a] = k;
-        tq[a] = tk;
-    }
-    return n_occ;
+    run.q = k;
+    run.live = plane_t(k, o, d) < hi;
+    return run;
 }
 
 // ---------------------------------------------------------------------------
@@ -305,27 +252,166 @@ __global__ void dense_walk_fill_kernel(PhaseAParams p, const bool* ray_ok, int m
     dense_walk_ray<true>(p, ray_ok, max_voxels, r, offsets[r], out, steps);
 }
 
-__global__ void compact_fill_kernel(PhaseAParams p, int B, const int64_t* offsets, PoolOut out) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= B) return;
-    int64_t pos = offsets[r];
-    walk_ray<true, true>(p, r, pos, out, offsets[r + 1]);
+// ---------------------------------------------------------------------------
+// K2's walk: a warp a ray
+// ---------------------------------------------------------------------------
+
+constexpr int kPhaseABlock = 128;
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// the number of the warp's lanes whose v is below t (v <= t with le); v
+// ascends over the lanes. Every lane calls it.
+__device__ __forceinline__ int lanes_below(float v, float t, bool le) {
+    int n = 0;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+        const float u = __shfl_sync(kFullWarp, v, n + s - 1);
+        if (le ? u <= t : u < t) n += s;
+    }
+    const float u = __shfl_sync(kFullWarp, v, n);
+    return n + ((le ? u <= t : u < t) ? 1 : 0);
 }
 
-__global__ void phase_a_count_kernel(PhaseAParams p, int B, int* n_occupied, int* n_valid) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+// Walk ray r's candidates in t order, 32 a window, with every lane of the
+// warp. Returns the occupied-candidate count; pos advances by the number
+// of entries (written from pos when WRITE). With CAPPED only the slots
+// below end are written and the walk stops there. s_t and s_qa are the
+// warp's 32 slots of shared memory.
+template <bool WRITE, bool CAPPED>
+__device__ int walk_warp(const PhaseAParams& p, int r, int64_t& pos, const PoolOut& out,
+                         int64_t end, float* s_t, int* s_qa) {
+    const int lane = threadIdx.x & 31;
+    const unsigned below = (1u << lane) - 1u;
+    float o[3], d[3];
+    for (int a = 0; a < 3; ++a) {
+        o[a] = p.origins[3 * (int64_t)r + a];
+        d[a] = p.dirs[3 * (int64_t)r + a];
+    }
+    const float tn = p.tnear[r], tx = p.tmax[r];
+    const float lo = tn + 1e-9f, hi = tx - 1e-9f;
+    // bit b: d[b] < 0 (a bit mask, not d[a] at a lane-dependent a, which
+    // the compiler reads from local memory)
+    const int neg = (d[0] < 0.0f ? 1 : 0) | (d[1] < 0.0f ? 2 : 0) | (d[2] < 0.0f ? 4 : 0);
+    AxisRun run[3];
+    for (int a = 0; a < 3; ++a) run[a] = first_plane(o[a], d[a], tn, lo, hi, p.reso[a] - 2);
+    int entry = tx > lo ? 1 : 0;  // the entry candidate leads the first window
+    int n_occ = 0;
+
+    for (;;) {
+        // lane j: the j-th next plane of each axis, t = inf past the run
+        float ta[3];
+        int ka[3], nv[3];
+        int n_win = entry;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            ka[a] = run[a].q + run[a].step * lane;
+            ta[a] = INFINITY;
+            if (run[a].live && ka[a] >= 1 && ka[a] <= p.reso[a] - 2) {
+                const float t = plane_t(ka[a], o[a], d[a]);
+                if (t < hi) ta[a] = t;
+            }
+            nv[a] = __popc(__ballot_sync(kFullWarp, ta[a] < INFINITY));
+            n_win += nv[a];
+        }
+        n_win = min(n_win, 32);
+        if (n_win == 0) break;
+        // merged rank: lower axes count as below at equal t
+        int took[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            int rank = entry + lane;
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+                if (b != a) rank += lanes_below(ta[b], ta[a], b < a);
+            const bool sel = ta[a] < INFINITY && rank < 32;
+            if (sel) {
+                s_t[rank] = ta[a];
+                s_qa[rank] = ka[a] * 4 + a;
+            }
+            took[a] = __popc(__ballot_sync(kFullWarp, sel));
+        }
+        if (entry && lane == 0) {
+            s_t[0] = tn;
+            s_qa[0] = 3;
+        }
+        __syncwarp();
+        // lane j: the window's j-th candidate
+        bool occ = false, keep = false;
+        float t = 0.0f, far = 0.0f;
+        int l[3] = {0, 0, 0};
+        if (lane < n_win) {
+            t = s_t[lane];
+            const int qa = s_qa[lane], a = qa & 3;
+            bool in = true;
+            for (int b = 0; b < 3; ++b) {
+                l[b] = a == 3 ? entry_coord(o[b], d[b], tn)
+                       : b == a ? (qa >> 2) - ((neg >> b) & 1)
+                                : cross_coord(o[b], d[b], t, b < a);
+                in = in && l[b] >= 0 && l[b] <= p.reso[b] - 2;
+            }
+            occ = in && occ_bit(p, l);
+            if (occ) {
+                far = slab_far_t(o, d, l, tx);
+                keep = far > t + 1e-9f;
+            }
+        }
+        __syncwarp();  // the slots are read before the next window writes them
+        n_occ += __popc(__ballot_sync(kFullWarp, occ));
+        const unsigned kept = __ballot_sync(kFullWarp, keep);
+        if (WRITE && keep) {
+            const int64_t e = pos + __popc(kept & below);
+            if (!CAPPED || e < end) {
+                out.ray_id[e] = r;
+                out.l[3 * e + 0] = l[0];
+                out.l[3 * e + 1] = l[1];
+                out.l[3 * e + 2] = l[2];
+                out.close_t[e] = t;
+                out.far_t[e] = far;
+            }
+        }
+        pos += __popc(kept);
+        if (CAPPED && pos >= end) break;
+        entry = 0;
+        for (int a = 0; a < 3; ++a) {
+            run[a].q += run[a].step * took[a];
+            run[a].live = took[a] < nv[a] || nv[a] == 32;
+        }
+    }
+    return n_occ;
+}
+
+__global__ void __launch_bounds__(kPhaseABlock)
+phase_a_count_kernel(PhaseAParams p, int B, int* n_occupied, int* n_valid) {
+    __shared__ float s_t[kPhaseABlock];
+    __shared__ int s_qa[kPhaseABlock];
+    const int64_t r = ((int64_t)blockIdx.x * kPhaseABlock + threadIdx.x) / 32;
     if (r >= B) return;
+    const int w = threadIdx.x & ~31;
     int64_t pos = 0;
     const PoolOut none{nullptr, nullptr, nullptr, nullptr};
-    n_occupied[r] = walk_ray<false>(p, r, pos, none);
-    n_valid[r] = (int)pos;
+    const int n_occ = walk_warp<false, false>(p, (int)r, pos, none, 0, s_t + w, s_qa + w);
+    if ((threadIdx.x & 31) == 0) {
+        n_occupied[r] = n_occ;
+        n_valid[r] = (int)pos;
+    }
 }
 
-__global__ void phase_a_fill_kernel(PhaseAParams p, int B, const int64_t* offsets, PoolOut out) {
-    const int r = blockIdx.x * blockDim.x + threadIdx.x;
+// CAPPED: K11b, each ray's slots end at offsets[r + 1]
+template <bool CAPPED>
+__global__ void __launch_bounds__(kPhaseABlock)
+phase_a_fill_kernel(PhaseAParams p, int B, const int64_t* offsets, PoolOut out) {
+    __shared__ float s_t[kPhaseABlock];
+    __shared__ int s_qa[kPhaseABlock];
+    const int64_t r = ((int64_t)blockIdx.x * kPhaseABlock + threadIdx.x) / 32;
     if (r >= B) return;
+    const int w = threadIdx.x & ~31;
     int64_t pos = offsets[r];
-    walk_ray<true>(p, r, pos, out);
+    walk_warp<true, CAPPED>(p, (int)r, pos, out, CAPPED ? offsets[r + 1] : 0, s_t + w, s_qa + w);
+}
+
+// a warp a ray
+static int warp_blocks(int B) {
+    return (int)(((int64_t)B * 32 + kPhaseABlock - 1) / kPhaseABlock);
 }
 
 static PhaseAParams make_params(const float* origins, const float* dirs, const float* tnear,
@@ -338,8 +424,7 @@ extern "C" cudaError_t phase_a_count(const float* origins, const float* dirs, co
                                      const float* tmax, const int* words, int B, int X, int Y,
                                      int Z, int* n_occupied, int* n_valid, void* stream) {
     if (B <= 0) return cudaSuccess;
-    const int block = 128;
-    phase_a_count_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
+    phase_a_count_kernel<<<warp_blocks(B), kPhaseABlock, 0, (cudaStream_t)stream>>>(
         make_params(origins, dirs, tnear, tmax, words, X, Y, Z), B, n_occupied, n_valid);
     return cudaGetLastError();
 }
@@ -349,8 +434,7 @@ extern "C" cudaError_t phase_a_fill(const float* origins, const float* dirs, con
                                     int Z, const int64_t* offsets, int* ray_id, int* l,
                                     float* close_t, float* far_t, void* stream) {
     if (B <= 0) return cudaSuccess;
-    const int block = 128;
-    phase_a_fill_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
+    phase_a_fill_kernel<false><<<warp_blocks(B), kPhaseABlock, 0, (cudaStream_t)stream>>>(
         make_params(origins, dirs, tnear, tmax, words, X, Y, Z), B, offsets,
         PoolOut{ray_id, l, close_t, far_t});
     return cudaGetLastError();
@@ -361,8 +445,7 @@ extern "C" cudaError_t compact_fill(const float* origins, const float* dirs, con
                                     int Z, const int64_t* offsets, int* ray_id, int* l,
                                     float* close_t, float* far_t, void* stream) {
     if (B <= 0) return cudaSuccess;
-    const int block = 128;
-    compact_fill_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
+    phase_a_fill_kernel<true><<<warp_blocks(B), kPhaseABlock, 0, (cudaStream_t)stream>>>(
         make_params(origins, dirs, tnear, tmax, words, X, Y, Z), B, offsets,
         PoolOut{ray_id, l, close_t, far_t});
     return cudaGetLastError();

@@ -480,38 +480,42 @@ def allclose_err(a, b, rtol=RTOL, atol=ATOL):
     return float(d.max()), float(bad.float().mean())
 
 
-def sorted_pool(ray_id, l, close_t, far_t):
-    import numpy as np
-
-    r, lv, c, f = (x.cpu().numpy() for x in (ray_id, l, close_t, far_t))
-    key = np.lexsort((lv[:, 2], lv[:, 1], lv[:, 0], c, r))
-    return r[key], lv[key], c[key], f[key]
-
-
-def check_phase_a(grid, words, origins, dirs, tn, tx):
-    """K2 count + fill against the plain version: the same pool after a
-    (ray, t, l) sort (JAX's sort is not stable on t ties), the same offsets
+def check_phase_a(grid, words, origins, dirs, tn, tx, label: str = "chunk"):
+    """K2 count + fill against the plain version: the same pool element for
+    element in pool order and after a (ray, t, l) sort, the same offsets
     and n_occupied. Returns the plain pool."""
-    import numpy as np
-    import torch
-
-    from alphasurf_torch import kernels
+    from alphasurf_torch.app import bench_k2
     from alphasurf_torch.render import surface as S
 
-    B = origins.shape[0]
-    n_occ, n_val = kernels.phase_a_count(origins, dirs, tn, tx, words, grid.reso)
-    offsets = torch.zeros(B + 1, dtype=torch.int64, device=origins.device)
-    torch.cumsum(n_val, 0, out=offsets[1:])
-    M = int(offsets[-1])
-    pool_k = kernels.phase_a_fill(origins, dirs, tn, tx, words, grid.reso, offsets, M)
+    pool_k = bench_k2.kernel_pool(grid.reso, origins, dirs, tn, tx, words)
     pool_p = S._compact_crossings_plain(grid.reso, origins, dirs, tn, tx, words)
-    a, b = sorted_pool(*pool_k), sorted_pool(*pool_p[:4])
-    if not (all(np.array_equal(x, y) for x, y in zip(a, b)) and torch.equal(n_occ, pool_p.n_occupied)
-            and torch.equal(offsets, pool_p.offsets)):
-        raise AssertionError("K2 pool differs from the plain version")
-    log(f"K2 phase A: pool of {M} entries for {B} rays equal after a (ray, t, l) sort; "
-        f"n_occupied equal")
+    same = bench_k2.compare_pools(pool_k, pool_p)
+    if not (same["in_order"] and same["sorted"] and same["offsets"] and same["n_occupied"]):
+        raise AssertionError(f"K2 pool ({label}) differs from the plain version: {same}")
+    log(f"K2 phase A ({label}): pool of {pool_k.close_t.shape[0]} entries for "
+        f"{origins.shape[0]} rays equal in pool order and after a (ray, t, l) sort; offsets "
+        f"and n_occupied equal")
     return pool_p
+
+
+def time_phase_a(label: str, grid, words, inputs, pool, card: str) -> dict:
+    """K2's count and fill timed on ``inputs`` with ``pool``'s offsets,
+    beside their bounds (app/bench_k2.k2_bounds); the plain version timed
+    once. Logs a line and returns the numbers."""
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import bench_k2
+    from alphasurf_torch.render import surface as S
+
+    B, M = inputs[0].shape[0], pool.close_t.shape[0]
+    n_cand = bench_k2.n_candidates(grid.reso, *inputs)
+    bound = bench_k2.k2_bounds(B, M, words.numel(), n_cand)
+    ms_c = time_ms(lambda: kernels.phase_a_count(*inputs, words, grid.reso), 20)
+    ms_f = time_ms(lambda: kernels.phase_a_fill(*inputs, words, grid.reso, pool.offsets, M), 20)
+    plain = time_ms(lambda: S._compact_crossings_plain(grid.reso, *inputs, words), 1)
+    log(f"time K2 ({label}: {B} rays, {n_cand} candidates, {M} entries): count {ms_c:.4f} ms, "
+        f"fill {ms_f:.4f} ms, bounds {bound['count'][0]:.5f} / {bound['fill'][0]:.5f} ms "
+        f"({bound['fill'][1]}), plain {plain:.3f} ms [{card}]")
+    return dict(count=ms_c, fill=ms_f, plain_ms=plain, bound=bound)
 
 
 def check_kernels(device, card: str) -> dict:
@@ -521,6 +525,7 @@ def check_kernels(device, card: str) -> dict:
     import torch
 
     from alphasurf_torch import kernels
+    from alphasurf_torch.app import bench_k2
     from alphasurf_torch.app.bench_step import bench_options
     from alphasurf_torch.app.render_circle import circle_render_options
     from alphasurf_torch.core.rays import Camera, Rays
@@ -567,32 +572,25 @@ def check_kernels(device, card: str) -> dict:
     B = origins.shape[0]
 
     # K2, on this chunk and on the central rays of a camera on the x axis,
-    # which cross voxel edges and corners where the tie rules decide
-    pool_p = check_phase_a(grid, words, origins, dirs, tn, tx)
-    offsets, M = pool_p.offsets, pool_p.close_t.shape[0]
+    # which cross voxel edges and corners where the tie rules decide; then
+    # on the surface step's 40,960-ray batch (app/bench_k2.step_rays)
+    pool_p = check_phase_a(grid, words, origins, dirs, tn, tx, "serving chunk")
+    M = pool_p.close_t.shape[0]
     axis_rays = Camera.make(pose_spherical(0.0, 0.0, 2.7), fx=1.2 * WIDTH, width=WIDTH,
                             height=HEIGHT).gen_rays_device(device)
     o2, d2, _, tn2, tx2, _ = chunk_inputs(grid, bench_opt, Rays(
         axis_rays.origins[s:s + CHUNK].contiguous(), axis_rays.dirs[s:s + CHUNK].contiguous()))
-    check_phase_a(grid, words, o2, d2, tn2, tx2)
-    # candidates this run's rays visit: the entry plus each interior plane
-    # crossed in (tnear, tmax), about 30 float operations each
-    n_cand = B
-    for ax in range(3):
-        p0 = origins[:, ax] + tn * dirs[:, ax]
-        p1 = origins[:, ax] + torch.maximum(tx, tn) * dirs[:, ax]
-        lo = torch.clamp(torch.floor(torch.minimum(p0, p1)) + 1, min=1)
-        hi = torch.clamp(torch.ceil(torch.maximum(p0, p1)) - 1, max=RESO - 2)
-        n_cand += int(torch.clamp(hi - lo + 1, min=0).sum())
-    ray_bytes = B * 8 * 4 + words.numel() * 4
-    ms_c = time_ms(lambda: kernels.phase_a_count(origins, dirs, tn, tx, words, grid.reso), 50)
-    ms_f = time_ms(lambda: kernels.phase_a_fill(origins, dirs, tn, tx, words, grid.reso, offsets, M),
-                   50)
-    plain_a = time_ms(lambda: S._compact_crossings_plain(grid.reso, origins, dirs, tn, tx, words), 3)
-    res["phase_a_count"] = dict(max_abs_err=0.0, ms=ms_c, plain_ms=plain_a,
-                                bound=bound_ms(ray_bytes + B * 8, n_cand * 30))
-    res["phase_a_fill"] = dict(max_abs_err=0.0, ms=ms_f, plain_ms=plain_a,
-                               bound=bound_ms(ray_bytes + (B + 1) * 8 + M * 24, n_cand * 30))
+    check_phase_a(grid, words, o2, d2, tn2, tx2, "x-axis camera")
+    del o2, d2, tn2, tx2, axis_rays
+    k2 = time_phase_a("serving chunk", grid, words, (origins, dirs, tn, tx), pool_p, card)
+    res["phase_a_count"] = dict(max_abs_err=0.0, ms=k2["count"], plain_ms=k2["plain_ms"],
+                                bound=k2["bound"]["count"])
+    res["phase_a_fill"] = dict(max_abs_err=0.0, ms=k2["fill"], plain_ms=k2["plain_ms"],
+                               bound=k2["bound"]["fill"])
+    step_in = bench_k2.surface_inputs(grid, bench_k2.step_rays(device, TRAIN_BATCH))
+    step_pool = check_phase_a(grid, words, *step_in, f"{RESO}^3 surface step batch")
+    time_phase_a(f"{RESO}^3 surface step batch", grid, words, step_in, step_pool, card)
+    del step_in, step_pool
 
     # K3 on the (equal) pool
     pool = pool_p
@@ -1890,10 +1888,16 @@ def check_k8_long(device, card: str) -> None:
     import torch
 
     from alphasurf_torch import kernels
-    from alphasurf_torch.app import bench_k8
+    from alphasurf_torch.app import bench_k2, bench_k8
     from alphasurf_torch.render import cuvol as C
 
     grid, opt, full = bench_k8.warm_case(CUVOL_RESO, TRAIN_BATCH, device)
+    # K2 on the warm step's batch over K1d's words, in pool order, timed
+    words = C.density_occupancy_words(grid)
+    warm_in = bench_k2.warm_inputs(grid, full.rays)
+    check_phase_a(grid, words, *warm_in, f"warm step batch, {CUVOL_RESO}^3")
+    time_phase_a(f"warm step batch, {CUVOL_RESO}^3", grid, words, warm_in, full.pool, card)
+    del words, warm_in
     chunk = bench_k8.sub_chunk(full, LONG_RAYS)._replace(depth_sigma_thresh=LONG_DST)
     p, B = chunk.pool, LONG_RAYS
     n_e = (p.offsets[1:] - p.offsets[:-1]).cpu()
@@ -3403,6 +3407,8 @@ TRAIN_RAYS_PER_S = {}  # the train phase's packed bench, for the renderers phase
 
 
 def _pool_key(pool):
+    from alphasurf_torch.app.bench_k2 import sorted_pool
+
     return sorted_pool(pool.ray_id, pool.l, pool.close_t, pool.far_t)
 
 
@@ -3417,6 +3423,7 @@ def check_renderer_kernels(device, card: str) -> dict:
     import torch
 
     from alphasurf_torch import kernels
+    from alphasurf_torch.app import bench_k2
     from alphasurf_torch.app.bench_step import bench_options
     from alphasurf_torch.core.rays import Rays
     from alphasurf_torch.losses import render_losses as RL
@@ -3473,12 +3480,11 @@ def check_renderer_kernels(device, card: str) -> dict:
     full = S._compact_crossings_plain(grid.reso, origins, dirs, tn, tx, words)
     for K in (2, COMPACT_K):
         pk, pp = S.compact_crossings(grid, origins, dirs, tn, tx, words, K), S._cap_pool(full, K)
-        if not (all(np.array_equal(a, b) for a, b in zip(_pool_key(pk), _pool_key(pp)))
-                and torch.equal(pk.offsets, pp.offsets)
-                and torch.equal(pk.n_occupied, pp.n_occupied)):
-            raise AssertionError(f"K11b's K = {K} pool differs from the plain version")
+        same = bench_k2.compare_pools(pk, pp)
+        if not (same["in_order"] and same["offsets"] and same["n_occupied"]):
+            raise AssertionError(f"K11b's K = {K} pool differs from the plain version: {same}")
         log(f"K11b compact pool, K = {K}: {pk.close_t.shape[0]} entries equal to the plain "
-            f"version; {int((pk.n_occupied > K).sum())} rays over K (max n_occupied "
+            f"version in pool order; {int((pk.n_occupied > K).sum())} rays over K (max n_occupied "
             f"{int(pk.n_occupied.max())})")
     cap_off = torch.zeros(B + 1, dtype=torch.int64, device=device)
     torch.cumsum(torch.clamp(pk.n_occupied, max=COMPACT_K), 0, out=cap_off[1:])
@@ -5773,7 +5779,7 @@ def check_type_kernels(name: str, grid, card: str, opt=None, n_rays: int = CHUNK
     rays = Rays(rays_all.origins[s:s + n_rays].contiguous(),
                 rays_all.dirs[s:s + n_rays].contiguous())
     origins, dirs, sh_mult, tn, tx, ngt = chunk_inputs(grid, opt, rays)
-    pool = S.compact_crossings_packed(grid, origins, dirs, tn, tx, words)
+    pool = check_phase_a(grid, words, origins, dirs, tn, tx, f"{name}, {R}^3")
     B, M = origins.shape[0], pool.close_t.shape[0]
     packed = S.pack_grid_data(grid)
     spec, fss = S._surface_spec(grid), S._fss(grid)

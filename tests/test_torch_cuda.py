@@ -9,7 +9,7 @@ import alphasurf_torch as pt
 from alphasurf_torch import kernels
 from alphasurf_torch.core.grid import SparseGrid
 from alphasurf_torch.render import surface as S
-from test_torch_util import OPTION_SETS, BASE, np_grid, np_rays
+from test_torch_util import OPTION_SETS, BASE, lattice_rays, np_grid, np_rays
 
 
 @pytest.fixture
@@ -46,6 +46,38 @@ def test_kernels_match_plain_versions(cuda, kw):
     np.testing.assert_array_equal(got["n_occupied"].cpu().numpy(), ref["n_occupied"].numpy())
     np.testing.assert_array_equal(got["n_intersections"].cpu().numpy(),
                                   ref["n_intersections"].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rays", ["camera", "lattice"])
+def test_phase_a_pool_matches_plain_version_in_order(cuda, rays):
+    """K2 (count, scan, fill) and K11b: the pool equal to the plain
+    version's element for element in pool order, on camera rays and on
+    lattice rays with exact ties between axes."""
+    a = _float32(np_grid(16, seed=7, prune=0.1))
+    g = SparseGrid.from_numpy(a, device=cuda)
+    opt = pt.RenderOptions(**BASE)
+    if rays == "camera":
+        o, d = np_rays(64, seed=8)
+        origins, dirs, _, tnear, tmax, _, ok, _ = S._prep(g, pt.Rays(
+            torch.as_tensor(o, dtype=torch.float32, device=cuda),
+            torch.as_tensor(d, dtype=torch.float32, device=cuda)), opt)
+        inputs = (origins, dirs, *S._phase_a_bounds(tnear, tmax, ok))
+    else:
+        inputs = [torch.as_tensor(x, device=cuda) for x in lattice_rays(64, 16, seed=9)]
+    inputs = [x.contiguous() for x in inputs]
+    words = S.occupancy_words(g, opt)
+    kernels.reset_launches()
+    got = S.compact_crossings_packed(g, *inputs, words)
+    capped = S.compact_crossings(g, *inputs, words, 3)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["phase_a_fill"] == 1 and kernels.LAUNCHES["compact_fill"] == 1
+    ref = S._compact_crossings_plain(g.reso, *inputs, words)
+    assert ref.close_t.shape[0] > 0
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    for x, y in zip(capped, S._cap_pool(ref, 3)):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

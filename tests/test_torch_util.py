@@ -101,6 +101,23 @@ def np_rays(n=64, seed=1, dist=2.5):
     return o, d / np.linalg.norm(d, axis=-1, keepdims=True)
 
 
+def lattice_rays(n, reso, seed):
+    """Grid-space rays from lattice points (and half-way points) along
+    diagonals and axes, so that planes of two or three axes are crossed at
+    the same t; every seventh ray misses (tmax = -1)."""
+    rng = np.random.default_rng(seed)
+    dirs = np.array([[1, 1, 1], [1, -1, 1], [-1, -1, -1], [1, 1, 0], [0, 0, 1], [-1, 0, 0],
+                     [2, 1, 1], [1, 2, 2]], np.float32)
+    o = rng.integers(0, reso - 1, (n, 3)).astype(np.float32)
+    o[1::5] += 0.5
+    d = dirs[rng.integers(0, len(dirs), n)]
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tn = np.zeros(n, np.float32)
+    tx = rng.uniform(1.0, 2.0 * reso, n).astype(np.float32)
+    tx[::7] = -1.0
+    return o, d, tn, tx
+
+
 def corner_camera_rays(n_side=8):
     """The near-axis camera of test_packed_corner_crossings_camera (48x48,
     through the lattice centre): its central n_side x n_side rays, which
