@@ -9,10 +9,13 @@
 // below: K5a's output cotangents, K5b's d_snorm; the wrappers count them as
 // backward_ray_out and backward_entry_out).
 //
-// K5a, backward_ray: one thread per ray, like K4. Pass 1 walks the ray's
-// slots in (entry, slot) order as K4 does (truncation by running
-// intersection index, the stop_thresh kill of whole entries, transmittance)
-// and parks in the output arrays what pass 2 needs: the slot's truncated
+// K5a, backward_ray: one thread per ray. Pass 1 walks the ray's slots in
+// (entry, slot) order (truncation by running intersection index, the
+// stop_thresh kill of whole entries, transmittance), the log transmittance
+// at each entry by K4's scan over its groups of kK4Lanes entries
+// (common.cuh's serial_prefix: K4's additions in K4's order), so the kill
+// and the weights have K4's bits, and parks in the output arrays what pass
+// 2 needs: the slot's truncated
 // alpha (-1 where it does not contribute), its transmittance, and the
 // prefix parts of the l_dist(_a) derivatives. Pass 2 walks back and turns
 // them into per-slot cotangents of the pre-truncation alpha, of t and of
@@ -75,14 +78,15 @@
 // the intersections' points (into d t through the ray's direction and
 // grid2world's scale, on every slot), pre-truncation alphas (into d_alpha)
 // and weights, and the samples' t, weights and truncated alphas. The depths
-// that pick one sample take K4's rules on K4's float32 weights in K4's
-// order: pass 1 re-walks the mode (the packed rule: the largest t among the
-// entries whose first max-weight slot holds the ray's max; the walks' rule:
-// the first max-weight slot), the sigma-thresh depth (the smallest t of a
-// real slot above the threshold) and the weight totals; a pass 1b finds the
-// median's first hit (the running weight only grows, so every later
-// contributing slot is a hit too) and the cache median's column. Ties split
-// the cotangent evenly, as jax.grad of a min or max does. K5b's second
+// that pick one sample take K4's rules on K4's float32 weights: pass 1
+// re-walks the mode (the packed rule: the largest t among the entries whose
+// first max-weight slot holds the ray's max; the walks' rule: the first
+// max-weight slot) and the sigma-thresh depth (the smallest t of a real
+// slot above the threshold), which do not depend on the order; a pass 1b
+// finds the median's hits and the cache median's column with K4's sums in
+// K4's order (its lanes' totals, its scans over each group), so each picks
+// K4's sample. Ties split the cotangent evenly, as jax.grad of a min or max
+// does. K5b's second
 // instantiation (kNormal) carries d_snorm through the unit normal's Jacobian
 // ((I - n n^T) / -|g| above the 1e-20 floor, 1 / -1e-10 below it) into the
 // field's gradient: each corner value's direct term and, through the
@@ -179,18 +183,18 @@ HD float alpha_trunc(const BackRayParams& p, int64_t i, int cnt, float ta) {
 }
 
 // What K5a's second instantiation finds in its forward passes: the samples that the
-// mode, median and sigma-thresh depths take (K4's rules, on the same float32
-// weights in the same order), with their tie counts: jax.grad of a min or a
-// max splits the cotangent evenly over tied elements.
+// mode, median and sigma-thresh depths take (K4's rules on K4's float32
+// weights, its sums in its order), with their tie counts: jax.grad of a min
+// or a max splits the cotangent evenly over tied elements.
 struct Picks {
-    float totW, ctot;
+    float lane_w[kK4Lanes];  // K4's lanes' weight sums, whose total sets the median's threshold
     float wmax, t_mode;   // the mode: packed rule (is_best entries, largest t)
     int n_mode;
     int64_t i_mode;       // the walks' rule: the first max-weight slot
-    float t_med;          // the cache-free median: smallest t of a hit
-    int n_med;
-    int64_t e_c;          // the first hit's entry and slot; later contributing
-    int s_c;              // slots are hits too (the running weight only grows)
+    float thr;            // the cache-free median: half the total weight,
+    float t_med;          // the smallest t of a hit,
+    int n_med;            // the hits at that t
+    int64_t i_med;        // and the first of them
     int k_med;            // the cache median's column, -1: none
     float t_sig;
     int n_sig;
@@ -218,54 +222,114 @@ HD int entry_best(const BackRayParams& p, int64_t e, float& w_best) {
     return s_best;
 }
 
-// pass 1b: the median columns, once the totals are known
+// K4's median test over the ray's contributing slots in walk order:
+// visit(i, hit) for each, hit when the running weight before the slot by
+// K4's sums (the entries' weight sums scanned over each group of kK4Lanes
+// entries, then serial within an entry) plus its own weight reaches thr;
+// visit returns false to stop. A slot's test depends only on the slots
+// before it.
+template <class Visit>
+HD void median_scan(const BackRayParams& p, int64_t e0, int64_t e1, float thr, Visit visit) {
+    constexpr int G = kK4Lanes;
+    float preW_c = 0.0f;
+    for (int64_t base = e0; base < e1; base += G) {
+        float ws[G];
+        for (int j = 0; j < G; ++j) {
+            ws[j] = 0.0f;
+            if (base + j < e1)
+                for (int s = 0; s < p.S0; ++s)
+                    ws[j] = ws[j] + parked_weight(p, (int64_t)s * p.M + base + j);
+        }
+        serial_prefix<G>(ws);
+        for (int j = 0; j < G && base + j < e1; ++j) {
+            float pw = preW_c + (j > 0 ? ws[j - 1] : 0.0f);
+            for (int s = 0; s < p.S0; ++s) {
+                const int64_t i = (int64_t)s * p.M + base + j;
+                const float w = parked_weight(p, i);
+                if (p.d_alpha[i] >= 0.0f && !visit(i, pw + w >= thr)) return;
+                pw = pw + w;
+            }
+        }
+        preW_c = preW_c + ws[G - 1];
+    }
+}
+
+// K4's cached weights (the ray's first cache_K contributing slots') in its
+// groups of kK4Lanes columns: f(w, k0, n) for each, w the group's weights
+// (zeros past the n cached), k0 its first column
+template <class F>
+HD void cache_groups(const BackRayParams& p, int64_t e0, int64_t e1, F f) {
+    constexpr int G = kK4Lanes;
+    float w[G];
+    int n = 0, k0 = 0;
+    for (int64_t e = e0; e < e1 && k0 + n < p.cache_K; ++e) {
+        for (int s = 0; s < p.S0 && k0 + n < p.cache_K; ++s) {
+            const int64_t i = (int64_t)s * p.M + e;
+            if (p.d_alpha[i] < 0.0f) continue;
+            w[n++] = parked_weight(p, i);
+            if (n == G) {
+                f(w, k0, n);
+                k0 += G;
+                n = 0;
+            }
+        }
+    }
+    if (n > 0) {
+        for (int j = n; j < G; ++j) w[j] = 0.0f;
+        f(w, k0, n);
+    }
+}
+
+// pass 1b: the median picks, once the totals are known, by K4's sums in
+// K4's order: the same bits, so the same samples
 HD void find_medians(const BackRayParams& p, const BackRayOut& q, int64_t e0, int64_t e1,
                      Picks& k) {
+    constexpr int G = kK4Lanes;
     k.t_med = INFINITY;
     k.n_med = 0;
-    k.e_c = e1;
-    k.s_c = 0;
+    k.i_med = -1;
     k.k_med = -1;
-    if (q.g_med && k.totW > 1e-12f) {
-        float preW = 0.0f;
-        for (int64_t e = e0; e < e1; ++e) {
-            for (int s = 0; s < p.S0; ++s) {
-                const int64_t i = (int64_t)s * p.M + e;
-                const float w = parked_weight(p, i);
-                if (p.d_alpha[i] >= 0.0f && preW + w >= 0.5f * k.totW) {
-                    if (k.e_c == e1) {
-                        k.e_c = e;
-                        k.s_c = s;
-                    }
-                    const float t = p.t[i];
-                    if (t < k.t_med) {
-                        k.t_med = t;
-                        k.n_med = 1;
-                    } else if (t == k.t_med) {
-                        ++k.n_med;
-                    }
-                }
-                preW = preW + w;
+    const float totW = serial_allsum<G>(k.lane_w);
+    k.thr = 0.5f * totW;
+    if (q.g_med && totW > 1e-12f) {
+        median_scan(p, e0, e1, k.thr, [&](int64_t i, bool hit) {
+            const float t = p.t[i];
+            if (hit && t < k.t_med) {
+                k.t_med = t;
+                k.n_med = 1;
+                k.i_med = i;
+            } else if (hit && t == k.t_med) {
+                ++k.n_med;
             }
+            return true;
+        });
+    }
+    if (q.g_cmed && p.cache_K > 0) {
+        float tot = 0.0f;
+        cache_groups(p, e0, e1, [&](float* w, int, int) { tot = tot + serial_allsum<G>(w); });
+        if (tot > 0.0f) {
+            const float thr = fmaxf(0.5f * tot, 1e-12f);
+            float cum = 0.0f;
+            cache_groups(p, e0, e1, [&](float* w, int k0, int n) {
+                serial_prefix<G>(w);
+                for (int j = 0; j < n && k.k_med < 0; ++j)
+                    if (cum + w[j] >= thr) k.k_med = k0 + j;
+                cum = cum + w[G - 1];
+            });
         }
     }
-    if (q.g_cmed && p.cache_K > 0 && k.ctot > 0.0f) {
-        const float thr = fmaxf(0.5f * k.ctot, 1e-12f);
-        float cum = 0.0f;
-        int kc = 0;
-        for (int64_t e = e0; e < e1 && k.k_med < 0 && kc < p.cache_K; ++e) {
-            for (int s = 0; s < p.S0 && kc < p.cache_K; ++s) {
-                const int64_t i = (int64_t)s * p.M + e;
-                if (p.d_alpha[i] < 0.0f) continue;
-                cum = cum + parked_weight(p, i);
-                if (cum >= thr) {
-                    k.k_med = kc;
-                    break;
-                }
-                ++kc;
-            }
-        }
-    }
+}
+
+// whether slot i is a hit of K4's median test (pass 2's ties: slots before
+// i are as pass 1 parked them)
+HD bool median_hit(const BackRayParams& p, int64_t e0, int64_t e1, float thr, int64_t i) {
+    bool out = false;
+    median_scan(p, e0, e1, thr, [&](int64_t j, bool hit) {
+        if (j != i) return true;
+        out = hit;
+        return false;
+    });
+    return out;
 }
 
 template <bool kOut>
@@ -276,11 +340,12 @@ HD void backward_ray_thread(const BackRayParams& p, const BackRayOut& q, int r) 
     const float g_ld = p.g_rl[r], g_lda = p.g_rl[p.B + r];
     const float g_ent = p.g_rl[2 * p.B + r], g_enta = p.g_rl[3 * p.B + r];
     const float g_sls = p.g_rl[4 * p.B + r], g_slsw = p.g_rl[5 * p.B + r];
-    const float G[3] = {p.g_rgb[3 * (int64_t)r], p.g_rgb[3 * (int64_t)r + 1],
+    const float Gc[3] = {p.g_rgb[3 * (int64_t)r], p.g_rgb[3 * (int64_t)r + 1],
                         p.g_rgb[3 * (int64_t)r + 2]};
     Picks k;
     if constexpr (kOut) {
-        k.totW = k.ctot = k.wmax = 0.0f;
+        for (int j = 0; j < kK4Lanes; ++j) k.lane_w[j] = 0.0f;
+        k.wmax = 0.0f;
         k.t_mode = -INFINITY;
         k.n_mode = 0;
         k.i_mode = -1;
@@ -288,88 +353,112 @@ HD void backward_ray_thread(const BackRayParams& p, const BackRayOut& q, int r) 
         k.n_sig = 0;
     }
 
-    // pass 1: forward, as K4
+    // pass 1: forward, as K4 computes it, in its groups of G entries: each
+    // entry's log transmittance at its start by K4's scan over the group,
+    // so that the stop_thresh kill, the weights and log_T keep K4's bits,
+    // and with them every pick
+    constexpr int G = kK4Lanes;
     int cnt = 0, n_contrib = 0;
-    float entry_pre = 0.0f, P = 0.0f;
+    int64_t e_dead = e1;  // entries from here on were killed by stop_thresh
+    float pre_c = 0.0f;   // the log transmittance before the group (K4's log_T at the end)
     float Aw = 0.0f, Sw = 0.0f, Aa = 0.0f, Sa = 0.0f;
-    for (int64_t e = e0; e < e1; ++e) {
-        bool alive = true;
-        if (p.stop_on) {
-            float la = 0.0f;
-            int c = cnt;
+    for (int64_t base = e0; base < e1; base += G) {
+        // the entries' log attenuations while the ray lives, scanned
+        float la[G];
+        int c = cnt;
+        for (int j = 0; j < G; ++j) {
+            la[j] = 0.0f;
+            if (base + j >= e1) continue;
             for (int s = 0; s < p.S0; ++s) {
-                const int64_t i = (int64_t)s * p.M + e;
-                if (p.contrib[i]) la = la + logf(one_minus(alpha_trunc(p, i, c, ta)));
+                const int64_t i = (int64_t)s * p.M + base + j;
+                if (base + j < e_dead && p.contrib[i])
+                    la[j] = la[j] + logf(one_minus(alpha_trunc(p, i, c, ta)));
                 c += p.counted[i];
             }
-            alive = entry_pre > p.log_stop;
-            entry_pre = entry_pre + la;
         }
-        float w_best = -1.0f, t_best = 0.0f;
-        for (int s = 0; s < p.S0; ++s) {
-            const int64_t i = (int64_t)s * p.M + e;
-            const float at = alpha_trunc(p, i, cnt, ta);
-            cnt += p.counted[i];
-            if (!(p.contrib[i] && alive)) {
-                p.d_alpha[i] = -1.0f;  // not contributing
+        serial_prefix<G>(la);
+        const float pre_g = pre_c;
+        int k_dead = -1;  // the group's first entry the kill takes
+        for (int j = 0; p.stop_on && j < G && k_dead < 0; ++j)
+            if (base + j < e1 && base + j < e_dead &&
+                !(pre_g + (j > 0 ? la[j - 1] : 0.0f) > p.log_stop))
+                k_dead = j;
+        if (k_dead >= 0) {
+            e_dead = base + k_dead;
+            pre_c = pre_g + (k_dead > 0 ? la[k_dead - 1] : 0.0f);
+        } else {
+            pre_c = pre_g + la[G - 1];
+        }
+        for (int j = 0; j < G && base + j < e1; ++j) {
+            const int64_t e = base + j;
+            const bool alive = e < e_dead;
+            const float e_pre = pre_g + (j > 0 ? la[j - 1] : 0.0f);
+            float local = 0.0f;  // the log attenuation of the entry's slots so far
+            float w_best = -1.0f, t_best = 0.0f;
+            for (int s = 0; s < p.S0; ++s) {
+                const int64_t i = (int64_t)s * p.M + e;
+                const float at = alpha_trunc(p, i, cnt, ta);
+                cnt += p.counted[i];
+                if (!(p.contrib[i] && alive)) {
+                    p.d_alpha[i] = -1.0f;  // not contributing
+                    if constexpr (kOut) {
+                        if (0.0f > w_best) {
+                            w_best = 0.0f;
+                            t_best = p.t[i];
+                        }
+                    }
+                    continue;
+                }
+                ++n_contrib;
+                const float om = one_minus(at);
+                const float T = expf(fminf(e_pre + local, 0.0f));
+                local = local + logf(om);
+                const bool inc = p.fake_l_dist || !p.fake[i];
+                const float w = T * (1.0f - om);
+                const float wi = inc ? w : 0.0f, a = inc ? at : 0.0f;
+                const float t = p.t[i];
+                p.d_alpha[i] = at;
+                p.d_t[i] = g_ld * wi * Aw + g_lda * a * Aa;
+                p.d_col[i] = g_ld * (t * Aw - Sw);
+                p.d_col[SM + i] = g_lda * (t * Aa - Sa);
+                p.d_col[2 * SM + i] = T;
+                Aw = Aw + wi;
+                Sw = Sw + wi * t;
+                Aa = Aa + a;
+                Sa = Sa + a * t;
                 if constexpr (kOut) {
-                    if (0.0f > w_best) {
-                        w_best = 0.0f;
-                        t_best = p.t[i];
+                    k.lane_w[j] = k.lane_w[j] + w;
+                    if (w > w_best) {
+                        w_best = w;
+                        t_best = t;
+                    }
+                    if (q.mode_first && w > k.wmax) {
+                        k.wmax = w;
+                        k.i_mode = i;
+                    }
+                    if (!p.fake[i] && p.alpha[i] > q.sig_thresh) {
+                        if (t < k.t_sig) {
+                            k.t_sig = t;
+                            k.n_sig = 1;
+                        } else if (t == k.t_sig) {
+                            ++k.n_sig;
+                        }
                     }
                 }
-                continue;
             }
-            const int kc = n_contrib++;
-            const float om = one_minus(at);
-            const float T = expf(fminf(P, 0.0f));
-            P = P + logf(om);
-            const bool inc = p.fake_l_dist || !p.fake[i];
-            const float w = T * (1.0f - om);
-            const float wi = inc ? w : 0.0f, a = inc ? at : 0.0f;
-            const float t = p.t[i];
-            p.d_alpha[i] = at;
-            p.d_t[i] = g_ld * wi * Aw + g_lda * a * Aa;
-            p.d_col[i] = g_ld * (t * Aw - Sw);
-            p.d_col[SM + i] = g_lda * (t * Aa - Sa);
-            p.d_col[2 * SM + i] = T;
-            Aw = Aw + wi;
-            Sw = Sw + wi * t;
-            Aa = Aa + a;
-            Sa = Sa + a * t;
             if constexpr (kOut) {
-                k.totW = k.totW + w;
-                if (kc < p.cache_K) k.ctot = k.ctot + w;
-                if (w > w_best) {
-                    w_best = w;
-                    t_best = t;
-                }
-                if (q.mode_first && w > k.wmax) {
-                    k.wmax = w;
-                    k.i_mode = i;
-                }
-                if (!p.fake[i] && p.alpha[i] > q.sig_thresh) {
-                    if (t < k.t_sig) {
-                        k.t_sig = t;
-                        k.n_sig = 1;
-                    } else if (t == k.t_sig) {
-                        ++k.n_sig;
-                    }
-                }
-            }
-        }
-        if constexpr (kOut) {
-            if (q.mode_first) {
-            } else if (w_best > k.wmax) {
-                k.wmax = w_best;
-                k.t_mode = t_best;
-                k.n_mode = 1;
-            } else if (w_best == k.wmax && w_best > 0.0f) {
-                if (t_best > k.t_mode) {
+                if (q.mode_first) {
+                } else if (w_best > k.wmax) {
+                    k.wmax = w_best;
                     k.t_mode = t_best;
                     k.n_mode = 1;
-                } else if (t_best == k.t_mode) {
-                    ++k.n_mode;
+                } else if (w_best == k.wmax && w_best > 0.0f) {
+                    if (t_best > k.t_mode) {
+                        k.t_mode = t_best;
+                        k.n_mode = 1;
+                    } else if (t_best == k.t_mode) {
+                        ++k.n_mode;
+                    }
                 }
             }
         }
@@ -394,8 +483,8 @@ HD void backward_ray_thread(const BackRayParams& p, const BackRayOut& q, int r) 
 
     // pass 2: backward; A*, S* now sum the slots after the current one
     const float* bgc = p.bg_rgb ? p.bg_rgb + 3 * (int64_t)r : nullptr;
-    float Sigma = (bgc ? G[0] * bgc[0] + G[1] * bgc[1] + G[2] * bgc[2]
-                       : p.bg * (G[0] + G[1] + G[2])) * expf(P);
+    float Sigma = (bgc ? Gc[0] * bgc[0] + Gc[1] * bgc[1] + Gc[2] * bgc[2]
+                       : p.bg * (Gc[0] + Gc[1] + Gc[2])) * expf(pre_c);
     if constexpr (kOut) {
         if (q.g_log_T) Sigma = Sigma + q.g_log_T[r];  // log_T sums every slot's log(1 - alpha)
     }
@@ -440,9 +529,9 @@ HD void backward_ray_thread(const BackRayParams& p, const BackRayOut& q, int r) 
             const bool inc = p.fake_l_dist || !p.fake[i];
             const float wi = inc ? w : 0.0f, a = inc ? at : 0.0f;
             const float t = p.t[i];
-            float Wbar = G[0] * p.rgb[i];
-            Wbar = Wbar + G[1] * p.rgb[SM + i];
-            Wbar = Wbar + G[2] * p.rgb[2 * SM + i];
+            float Wbar = Gc[0] * p.rgb[i];
+            Wbar = Wbar + Gc[1] * p.rgb[SM + i];
+            Wbar = Wbar + Gc[2] * p.rgb[2 * SM + i];
             float abar = (g_sls + g_slsw * w) * logsig_grad(at);
             float dt = p.d_t[i];
             if (inc) {
@@ -475,7 +564,8 @@ HD void backward_ray_thread(const BackRayParams& p, const BackRayOut& q, int r) 
                 // the depths that pick one sample (or split over tied ones)
                 if (g_mode != 0.0f && (q.mode_first ? i == k.i_mode : s == s_best))
                     dt = dt + g_mode;
-                if (g_med != 0.0f && (e > k.e_c || (e == k.e_c && s >= k.s_c)) && t == k.t_med)
+                if (g_med != 0.0f && t == k.t_med &&
+                    (i == k.i_med || (k.n_med > 1 && median_hit(p, e0, e1, k.thr, i))))
                     dt = dt + g_med;
                 if (g_sig != 0.0f && !p.fake[i] && p.alpha[i] > q.sig_thresh && t == k.t_sig)
                     dt = dt + g_sig;
@@ -486,7 +576,7 @@ HD void backward_ray_thread(const BackRayParams& p, const BackRayOut& q, int r) 
             const float rw = p.truncated ? trunc_rw(cnt - (p.fake[i] ? 1 : 0), ta, p.trunc_wmin) : 1.0f;
             p.d_alpha[i] = kOut ? d_at * rw + d_sa : d_at * rw;
             p.d_t[i] = dt;
-            for (int c = 0; c < 3; ++c) p.d_col[c * SM + i] = G[c] * w;
+            for (int c = 0; c < 3; ++c) p.d_col[c * SM + i] = Gc[c] * w;
             Sigma = Sigma + Wbar * w;
             Aw = Aw + wi;
             Sw = Sw + wi * t;
@@ -727,8 +817,9 @@ HD float backward_entry_thread(const BackEntryParams& p, int64_t m, ShMultGrad& 
     }
     const float* shm = p.sh_mult + (int64_t)r * p.bd;
     Corners cs;
+    float pl[4];  // PLANE's mean plane
     gather_corners(p.links, p.X, p.Y, p.Z, p.packed, p.cap, p.C8, p.n_surf_c, p.bd, shm,
-                   p.sigma_thresh, p.stype, l, cs);
+                   p.sigma_thresh, p.stype, l, cs, p.stype == SURF_PLANE ? pl : nullptr);
     if (!cs.vox_ok) return 0.0f;  // no slot of the entry contributes
 
     const int64_t SM = (int64_t)p.S0 * p.M;
@@ -755,8 +846,6 @@ HD float backward_entry_thread(const BackEntryParams& p, int64_t m, ShMultGrad& 
             for (int c = 0; c < 8; ++c) dC[ch][c] = dC[ch][c] + dpre * f.ew8[c];
         }
     } else if (p.stype == SURF_PLANE) {
-        float pl[4];
-        mean_plane(p.packed, p.cap, p.C8, cs, pl);
         PlaneRoot q;
         plane_root(pl, o, d, l, q);
         RealSlot s;

@@ -50,6 +50,31 @@ HD float corner_dot(const float w[8], const float v[8]) {
     return acc;
 }
 
+// The corners of voxel l that are also corners of voxel lo, the entry
+// before it on the ray, as a bit set (present links only), and the XOR
+// `flip` that takes a corner index of l to the same vertex's index in lo:
+// the axes where the two voxels differ. Consecutive entries are face
+// neighbours in the walk (4 shared corners) unless unoccupied voxels lie
+// between them (an edge or vertex, or none).
+HD unsigned shared_corners(const int l[3], const int lo[3], const int link[8], int& flip) {
+    flip = 0;
+    int need[3];  // the offset a shared corner has on each axis, -1: either
+    for (int a = 0; a < 3; ++a) {
+        const int d = l[a] - lo[a];
+        if (d < -1 || d > 1) return 0u;
+        need[a] = d == 0 ? -1 : (d > 0 ? 0 : 1);
+        if (d != 0) flip |= 4 >> a;
+    }
+    unsigned set = 0u;
+    for (int c = 0; c < 8; ++c) {
+        const int o[3] = {corner_dx(c), corner_dy(c), corner_dz(c)};
+        bool ok = link[c] >= 0;
+        for (int a = 0; a < 3; ++a) ok = ok && (need[a] < 0 || o[a] == need[a]);
+        if (ok) set |= 1u << c;
+    }
+    return set;
+}
+
 // truncated-vol-render cosine ramp at running intersection index ids
 // (surface.py:trunc_vol_render_rw)
 HD float trunc_rw(int ids, float a, float wmin) {
@@ -80,6 +105,32 @@ HD float softplus_f(float x) { return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x))); 
 // its derivative, the logistic sigmoid, as logaddexp's: exp(x - softplus(x))
 HD float softplus_grad(float x) { return expf(x - softplus_f(x)); }
 
+// K4's lanes a ray (composite.cu). K5a (backward.cu) re-derives K4's
+// stop_thresh kill and picks on one thread, with K4's groups of entries
+// and the sums below.
+constexpr int kK4Lanes = 16;
+
+// warp_prefix over a segment of W values, on one thread: the same
+// additions in the same order, so the same bits (v: the segment's lanes
+// in order; inclusive prefixes on return)
+template <int W, typename T>
+HD void serial_prefix(T v[W]) {
+    for (int d = 1; d < W; d <<= 1)
+        for (int i = W - 1; i >= d; --i) v[i] = v[i] + v[i - d];
+}
+
+// warp_allsum over a segment of W values, on one thread, with its bits
+template <int W>
+HD float serial_allsum(const float v[W]) {
+    float x[W], y[W];
+    for (int i = 0; i < W; ++i) x[i] = v[i];
+    for (int d = W / 2; d > 0; d >>= 1) {
+        for (int i = 0; i < W; ++i) y[i] = x[i] + x[i ^ d];
+        for (int i = 0; i < W; ++i) x[i] = y[i];
+    }
+    return x[0];
+}
+
 // atomic add on the device; a plain add when the per-thread code runs on
 // the host
 HD void atomic_add(float* p, float v) {
@@ -91,6 +142,87 @@ HD void atomic_add(float* p, float v) {
 }
 
 #ifdef __CUDACC__
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// Scans and reductions over segments of W consecutive lanes (W a power of
+// two up to 32; W = 32 the whole warp): every lane of the warp calls them,
+// lane is this lane's index within its segment. A segment never reads
+// another's values (the shuffles' width argument).
+
+// inclusive prefix sum over the segment's lanes below and at this one
+template <int W = 32, typename T>
+__device__ __forceinline__ T warp_prefix(T v, int lane) {
+#pragma unroll
+    for (int d = 1; d < W; d <<= 1) {
+        const T u = __shfl_up_sync(kFullWarp, v, d, W);
+        if (lane >= d) v = v + u;
+    }
+    return v;
+}
+
+// inclusive suffix sum over this lane and the segment's lanes above it
+template <int W = 32, typename T>
+__device__ __forceinline__ T warp_suffix(T v, int lane) {
+#pragma unroll
+    for (int d = 1; d < W; d <<= 1) {
+        const T u = __shfl_down_sync(kFullWarp, v, d, W);
+        if (lane + d < W) v = v + u;
+    }
+    return v;
+}
+
+// the sum over the segment, the same bits in every lane (each butterfly
+// step adds the same two partial sums in both partners)
+template <int W = 32, typename T>
+__device__ __forceinline__ T warp_allsum(T v) {
+#pragma unroll
+    for (int d = W / 2; d > 0; d >>= 1) v = v + __shfl_xor_sync(kFullWarp, v, d, W);
+    return v;
+}
+
+template <int W = 32>
+__device__ __forceinline__ float warp_allmin(float v) {
+#pragma unroll
+    for (int d = W / 2; d > 0; d >>= 1) v = fminf(v, __shfl_xor_sync(kFullWarp, v, d, W));
+    return v;
+}
+
+// the exclusive prefix from the inclusive one: the lane below's value, 0
+// in the segment's first lane (never a difference of two sums)
+template <int W = 32, typename T>
+__device__ __forceinline__ T warp_exclusive(T incl, int lane) {
+    const T below = __shfl_up_sync(kFullWarp, incl, 1, W);
+    return lane > 0 ? below : T(0);
+}
+
+// the segment's total from the inclusive prefix: its last lane's value
+template <int W = 32, typename T>
+__device__ __forceinline__ T warp_total(T incl) {
+    return __shfl_sync(kFullWarp, incl, W - 1, W);
+}
+
+// this segment's W bits of a warp ballot, lane 0 of the segment in bit 0
+template <int W = 32>
+__device__ __forceinline__ unsigned segment_bits(unsigned ballot, int warp_lane) {
+    return W == 32 ? ballot : (ballot >> (warp_lane & ~(W - 1))) & ((1u << (W & 31)) - 1u);
+}
+
+// v[c] <- v[c ^ flip] for every corner c (a permutation: one swap per axis)
+__device__ __forceinline__ void flip_corners(float v[8], int flip) {
+#pragma unroll
+    for (int bit = 1; bit < 8; bit <<= 1) {
+        if (flip & bit) {
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+                if (c & bit) continue;
+                const float x = v[c];
+                v[c] = v[c | bit];
+                v[c | bit] = x;
+            }
+        }
+    }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
     return v;

@@ -342,31 +342,6 @@ HD void entry_corner_grads(const CuvolParams& p, const Ray& ray, const Entry& en
     }
 }
 
-// The corners of voxel l that are also corners of voxel lo, the entry
-// before it on the ray, as a bit set (present links only), and the XOR
-// `flip` that takes a corner index of l to the same vertex's index in lo:
-// the axes where the two voxels differ. Consecutive entries are face
-// neighbours in the walk (4 shared corners) unless unoccupied voxels lie
-// between them (an edge or vertex, or none).
-HD unsigned shared_corners(const int l[3], const int lo[3], const int link[8], int& flip) {
-    flip = 0;
-    int need[3];  // the offset a shared corner has on each axis, -1: either
-    for (int a = 0; a < 3; ++a) {
-        const int d = l[a] - lo[a];
-        if (d < -1 || d > 1) return 0u;
-        need[a] = d == 0 ? -1 : (d > 0 ? 0 : 1);
-        if (d != 0) flip |= 4 >> a;
-    }
-    unsigned set = 0u;
-    for (int c = 0; c < 8; ++c) {
-        const int o[3] = {corner_dx(c), corner_dy(c), corner_dz(c)};
-        bool ok = link[c] >= 0;
-        for (int a = 0; a < 3; ++a) ok = ok && (need[a] < 0 || o[a] == need[a]);
-        if (ok) set |= 1u << c;
-    }
-    return set;
-}
-
 // ---------------------------------------------------------------------------
 // K10: the dense march
 // ---------------------------------------------------------------------------
@@ -549,7 +524,6 @@ HD void cuvol_march_backward_ray(const CuvolParams& p, int r) {
 // K8 on the card: a warp per ray, lane i on the ray's entry base + i
 // ---------------------------------------------------------------------------
 
-constexpr unsigned kFullWarp = 0xffffffffu;
 // warps of a K8 block, and the SH row's lanes: 3 bd <= 3 kMaxBasis = 96
 // elements, kRowChunks rounds of 32 lanes
 constexpr int kK8Warps = 4;
@@ -560,56 +534,6 @@ constexpr int kRowChunks = (3 * kMaxBasis + 31) / 32;
 // spill more than they gain: PERF.md §6)
 constexpr int kK8ForwardBlocks = 5;
 constexpr int kK8BackwardBlocks = 4;
-
-// inclusive prefix sum over the lanes below and at this one
-__device__ __forceinline__ float warp_prefix(float v, int lane) {
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-        const float u = __shfl_up_sync(kFullWarp, v, d);
-        if (lane >= d) v = v + u;
-    }
-    return v;
-}
-
-// inclusive suffix sum over this lane and the lanes above it
-__device__ __forceinline__ float warp_suffix(float v, int lane) {
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-        const float u = __shfl_down_sync(kFullWarp, v, d);
-        if (lane + d < 32) v = v + u;
-    }
-    return v;
-}
-
-// the sum over the warp, the same bits in every lane (each butterfly step
-// adds the same two partial sums in both partners)
-__device__ __forceinline__ float warp_allsum(float v) {
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) v = v + __shfl_xor_sync(kFullWarp, v, d);
-    return v;
-}
-
-__device__ __forceinline__ float warp_allmin(float v) {
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) v = fminf(v, __shfl_xor_sync(kFullWarp, v, d));
-    return v;
-}
-
-// v[c] <- v[c ^ flip] for every corner c (a permutation: one swap per axis)
-__device__ __forceinline__ void flip_corners(float v[8], int flip) {
-#pragma unroll
-    for (int bit = 1; bit < 8; bit <<= 1) {
-        if (flip & bit) {
-#pragma unroll
-            for (int c = 0; c < 8; ++c) {
-                if (c & bit) continue;
-                const float x = v[c];
-                v[c] = v[c | bit];
-                v[c | bit] = x;
-            }
-        }
-    }
-}
 
 // The 8 corners of each valid lane's voxel l, as gather_cuvol_corners gives
 // them (the same contraction in the same order, so the same bits). A

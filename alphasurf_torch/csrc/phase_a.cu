@@ -257,7 +257,6 @@ __global__ void dense_walk_fill_kernel(PhaseAParams p, const bool* ray_ok, int m
 // ---------------------------------------------------------------------------
 
 constexpr int kPhaseABlock = 128;
-constexpr unsigned kFullWarp = 0xffffffffu;
 
 // the number of the warp's lanes whose v is below t (v <= t with le); v
 // ascends over the lanes. Every lane calls it.

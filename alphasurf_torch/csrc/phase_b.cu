@@ -19,15 +19,30 @@
 //
 // Bound: bytes. Each entry reads 8 rows of C8 = 32 floats (1 KB, random
 // rows of the capacity-sized table, neighbouring entries share corners)
-// and writes S0 slots of t, alpha, rgb, snorm and flags. Design: one
-// thread per entry; the corner colours are contracted with the ray's SH
-// basis while each row streams in, so a thread keeps 8 alphas, 8 surface
-// values and 8x3 colours in registers instead of 8x32 floats.
+// and writes S0 slots of t, alpha, rgb, snorm and flags.
+//
+// Design (the H100): an entry is a group of G lanes (G = 4: a warp holds 8
+// entries). Lane c reads corner c's link and then its row (corner c + 4
+// too at G = 4) in 16-byte loads and contracts the colour with the ray's
+// basis, so a load instruction of the warp reads 16 bytes of each of 32
+// rows (basis_dim 9, the SH rows: the row's layout is known at compile
+// time and sits in registers; other bases take it element by element).
+// The group then hands every lane the 8 corners' alpha, surface value
+// and colour by shuffles, and lane j computes slot j: root j mod 3
+// of level set j / 3 (S0 > G: lane j takes slots j, j + G, ...); the fake
+// sample follows on every lane, once a ballot has told the group whether
+// any real slot kept a root, and the lane of slot S0 - 1 writes it. The
+// entry's loss sums are added in slot order, so loss_e keeps the serial
+// walk's bits, as t, alpha and the flags keep theirs: every slot is
+// computed by the same expressions as before (--fmad=false). The kernel
+// is a template on the surface type, so each type's branches cost the
+// others nothing. The row reads (corner_row), the roots (cubic_root) and
+// the mean plane are samples.cuh's, which K5b also calls.
 //
 // Outputs keep the JAX package's layout: slot arrays (S0, M), vectors
-// (3, S0, M), loss sums (3, M), (5, M) for the UDF types. The per-entry math is in samples.cuh,
-// which K5b (backward.cu) shares to recompute the samples it
-// differentiates.
+// (3, S0, M), loss sums (3, M), (5, M) for the UDF types. The per-entry
+// math is in samples.cuh, which K5b (backward.cu) shares to recompute the
+// samples it differentiates.
 #include "samples.cuh"
 
 
@@ -95,7 +110,92 @@ HD void write_losses(const PhaseBParams& p, int64_t m, const SlotSums& sums) {
     p.loss_e[2 * p.M + m] = sums.lap_cnt;
 }
 
-HD void phase_b_entry(const PhaseBParams& p, int64_t m) {
+#ifdef __CUDACC__
+constexpr int kK3Lanes = 4;  // lanes an entry
+constexpr int kK3Block = 128;
+constexpr int kK3MinBlocks = 5;  // blocks an SM the kernel is compiled for (<= 96 registers)
+
+// The 8 corner rows of the group's voxel l, each by corner_row as
+// gather_corners reads it (the same values in the same order of
+// operations, so the same bits): lane lg reads corners lg and lg + 4;
+// every lane of the warp calls it and every lane of the group returns all
+// 8 corners, with PLANE's mean plane in pl. kBd > 0: rows of basis_dim kBd
+// in 16-byte loads, laid out at compile time (every element a register);
+// kBd = 0: any basis_dim, element by element.
+template <int kType, int kBd>
+__device__ __forceinline__ void gather_corners_lanes(const PhaseBParams& p, const float* shm,
+                                                     const int l[3], int lane, Corners& cs,
+                                                     float pl[4]) {
+    constexpr int G = kK3Lanes, kPer = 8 / G;
+    constexpr int kShBase = 1 + (kType == SURF_PLANE ? 4 : 1);
+    const int lg = lane & (G - 1);
+    float shm_r[kBd > 0 ? kBd : 1];
+#pragma unroll
+    for (int b = 0; b < (kBd > 0 ? kBd : 1); ++b) shm_r[b] = kBd > 0 ? shm[b] : 0.0f;
+    float a_own[kPer], s_own[kPer], c_own[3][kPer], pl_own[4][kPer];
+    bool own_ok = true;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+        const int link = corner_link(p.links, p.X, p.Y, p.Z, l, lg + k * G);
+        const bool present = link >= 0;
+        own_ok = own_ok && present;
+        float a, sr, q[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc[3];
+        float* qp = kType == SURF_PLANE ? q : nullptr;
+        if constexpr (kBd > 0) {
+            constexpr int kN4 = (kShBase + 3 * kBd + 3) / 4;
+            const float4* row =
+                reinterpret_cast<const float4*>(p.packed) + (int64_t)(present ? link : 0) * (p.C8 / 4);
+            float x[4 * kN4];
+#pragma unroll
+            for (int qi = 0; qi < kN4; ++qi) {
+                const float4 v4 = present ? __ldg(row + qi) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                x[4 * qi] = v4.x;
+                x[4 * qi + 1] = v4.y;
+                x[4 * qi + 2] = v4.z;
+                x[4 * qi + 3] = v4.w;
+            }
+            corner_row<kBd, kShBase>([&](int j) { return x[j]; }, kShBase, kBd, shm_r, a, sr, qp,
+                                     acc);
+        } else {
+            const float* row = p.packed + (int64_t)(present ? link : 0) * p.C8;
+            corner_row([&](int j) { return present ? __ldg(row + j) : 0.0f; }, 1 + p.n_surf_c,
+                       p.bd, shm, a, sr, qp, acc);
+        }
+        a_own[k] = a;
+        s_own[k] = is_udf(kType) ? softplus_f(sr) : sr;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) c_own[ch][k] = acc[ch];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) pl_own[kk][k] = q[kk];
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+        const int src = c % G, k = c / G;
+        cs.alpha8[c] = __shfl_sync(kFullWarp, a_own[k], src, G);
+        cs.surf8[c] = __shfl_sync(kFullWarp, s_own[k], src, G);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) cs.crgb[ch][c] = __shfl_sync(kFullWarp, c_own[ch][k], src, G);
+        if (kType == SURF_PLANE) {
+            float q[4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) q[kk] = __shfl_sync(kFullWarp, pl_own[kk][k], src, G);
+            plane_add(pl, q, c);
+        }
+    }
+    if (kType == SURF_PLANE) plane_mean(pl);
+    const bool all = segment_bits<G>(__ballot_sync(kFullWarp, own_ok), lane) == (1u << G) - 1u;
+    cs.vox_ok = voxel_ok(all, cs.alpha8, p.sigma_thresh, kType);
+}
+
+template <int kType, int kBd>
+__global__ void __launch_bounds__(kK3Block, kK3MinBlocks) phase_b_kernel(PhaseBParams p) {
+    constexpr int G = kK3Lanes;
+    const int lane = threadIdx.x & 31, lg = lane & (G - 1);
+    const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if ((gid - lane) / G >= p.M) return;  // the whole warp is past the last entry
+    // a group past the last entry works on it and writes nothing
+    const bool valid = gid / G < p.M;
+    const int64_t m = valid ? gid / G : p.M - 1;
     const int r = p.ray_id[m];
     const int l[3] = {p.l[3 * m], p.l[3 * m + 1], p.l[3 * m + 2]};
     const float close_t = p.close_t[m], far_t = p.far_t[m];
@@ -105,24 +205,24 @@ HD void phase_b_entry(const PhaseBParams& p, int64_t m) {
         d[a] = p.dirs[3 * (int64_t)r + a];
     }
     Corners cs;
-    gather_corners(p.links, p.X, p.Y, p.Z, p.packed, p.cap, p.C8, p.n_surf_c, p.bd,
-                   p.sh_mult + (int64_t)r * p.bd, p.sigma_thresh, p.stype, l, cs);
-    SlotSums sums;
+    float pl[4];
+    gather_corners_lanes<kType, kBd>(p, p.sh_mult + (int64_t)r * p.bd, l, lane, cs, pl);
+    const bool writer = valid && lg == 0;
     const float zero3[3] = {0.0f, 0.0f, 0.0f};
+    SlotSums sums;
 
-    if (p.stype == SURF_VOXEL_FACE) {
+    if constexpr (kType == SURF_VOXEL_FACE) {
         FaceSlot f;
         face_slot(cs, o, d, l, close_t, p.near_grid_t, p.X, p.Y, p.Z, f);
         float rgb[3];
         for (int ch = 0; ch < 3; ++ch) rgb[ch] = fmaxf(f.pre_rgb[ch], 0.0f);
+        if (!writer) return;
         write_slot(p, m, 0, close_t, f.alpha, rgb, f.contrib, false, f.contrib ? 1 : 0, zero3);
         add_slot_losses(sums, f.contrib, f.alpha, zero3, d);
         write_losses(p, m, sums);
         return;
     }
-    if (p.stype == SURF_PLANE) {
-        float pl[4];
-        mean_plane(p.packed, p.cap, p.C8, cs, pl);
+    if constexpr (kType == SURF_PLANE) {
         PlaneRoot q;
         plane_root(pl, o, d, l, q);
         RealSlot s;
@@ -132,6 +232,7 @@ HD void phase_b_entry(const PhaseBParams& p, int64_t m) {
         for (int ch = 0; ch < 3; ++ch) rgb[ch] = fmaxf(s.pre_rgb[ch], 0.0f);
         const bool contrib = s.geo_ok && s.raw > p.sigma_thresh;
         const float alpha = alpha_act(s.raw, p.act_sigmoid);
+        if (!writer) return;
         write_slot(p, m, 0, s.t, alpha, rgb, contrib, false, s.geo_ok ? 1 : 0, s.sn);
         add_slot_losses(sums, contrib, alpha, s.sn, d);
         write_losses(p, m, sums);
@@ -147,55 +248,85 @@ HD void phase_b_entry(const PhaseBParams& p, int64_t m) {
     for (int a = 0; a < 3; ++a) u[a] = o[a] + close_t * d[a] - (float)l[a];
     cubic_coeffs(cs.surf8, u, d, f);
 
-    bool vox_has_sample = false, vox_has_surf = false;
+    // lane j: slot j = root j mod 3 of level set j / 3 (and j + G, ...)
+    const int n_real = 3 * p.n_lv;
+    bool has_sample = false, has_surf = false;
     int n_lv_hull = 0;
-    for (int i = 0; i < p.n_lv; ++i) {
+    for (int j0 = 0; j0 < n_real; j0 += G) {
+        const int j = j0 + lg;
+        const bool mine = j < n_real;
+        const int i = mine ? j / 3 : 0;
+        const int jr = j - 3 * i;
         const float lv = p.level_sets[i];
         const bool lv_ok = cs.vox_ok && lv >= smin && lv <= smax;
-        vox_has_surf = vox_has_surf || lv_ok;
-        n_lv_hull += lv_ok ? 1 : 0;
-        float roots[3];
-        bool has[3];
-        cubic_roots(f[0] - lv, f[1], f[2], f[3], roots, has);
-        for (int j = 0; j < 3; ++j) {
-            RealSlot s;
-            real_slot(cs, o, d, l, close_t, roots[j], lv_ok, p.near_grid_t, p.only_outward,
-                      nullptr, s);
-            if (p.lv_alpha) s.raw = p.lv_alpha[i];  // UDF_ALPHA: the level set's alpha
-            vox_has_sample = vox_has_sample || s.geo_pre;
-            float rgb[3];
-            for (int ch = 0; ch < 3; ++ch) rgb[ch] = fmaxf(s.pre_rgb[ch], 0.0f);
-            const bool contrib = s.geo_ok && s.raw > p.sigma_thresh;
-            const float alpha = alpha_act(s.raw, p.act_sigmoid);
-            write_slot(p, m, 3 * i + j, s.t, alpha, rgb, contrib, false, s.geo_ok ? 1 : 0, s.sn);
-            add_slot_losses(sums, contrib, alpha, s.sn, d);
+        bool has;
+        const float root = cubic_root(f[0] - lv, f[1], f[2], f[3], jr, has);
+        RealSlot s;
+        real_slot(cs, o, d, l, close_t, root, lv_ok, p.near_grid_t, p.only_outward, nullptr, s);
+        if (kType == SURF_UDF_ALPHA) s.raw = p.lv_alpha[i];  // the level set's alpha
+        float rgb[3];
+        for (int ch = 0; ch < 3; ++ch) rgb[ch] = fmaxf(s.pre_rgb[ch], 0.0f);
+        const bool contrib = mine && s.geo_ok && s.raw > p.sigma_thresh;
+        const float alpha = alpha_act(s.raw, p.act_sigmoid);
+        if (mine && valid) write_slot(p, m, j, s.t, alpha, rgb, contrib, false, s.geo_ok ? 1 : 0, s.sn);
+        has_sample = has_sample || (mine && s.geo_pre);
+        has_surf = has_surf || (mine && lv_ok);
+        n_lv_hull += mine && jr == 0 && lv_ok ? 1 : 0;
+        // the slots' loss terms, added in slot order in every lane
+        SlotSums one;
+        add_slot_losses(one, contrib, alpha, s.sn, d);
+#pragma unroll
+        for (int src = 0; src < G; ++src) {
+            const float vi = __shfl_sync(kFullWarp, one.inward, src, G);
+            const float vl = __shfl_sync(kFullWarp, one.lap, src, G);
+            const float vc = __shfl_sync(kFullWarp, one.lap_cnt, src, G);
+            if (j0 + src < n_real) {
+                sums.inward = sums.inward + vi;
+                sums.lap = sums.lap + vl;
+                sums.lap_cnt = sums.lap_cnt + vc;
+            }
         }
     }
+    has_sample = segment_bits<G>(__ballot_sync(kFullWarp, has_sample), lane) != 0u;
+    has_surf = segment_bits<G>(__ballot_sync(kFullWarp, has_surf), lane) != 0u;
+    n_lv_hull = warp_allsum<G>(n_lv_hull);
 
-    if (p.fake_sample) {
+    if (p.fake_sample) {  // on every lane; slot S0 - 1's lane writes it
         FakeSlot fs;
-        fake_slot(cs, o, d, l, close_t, far_t, vox_has_sample, vox_has_surf, p.min_vox_len,
+        fake_slot(cs, o, d, l, close_t, far_t, has_sample, has_surf, p.min_vox_len,
                   p.limited_fake, p.normalize_surf, p.level_sets, p.n_lv, p.sigma_thresh,
                   p.fs_std ? p.fs_std[0] : 1.0f, p.act_sigmoid, p.lv_alpha, fs);
         float frgb[3];
         for (int ch = 0; ch < 3; ++ch) frgb[ch] = fmaxf(fs.pre_rgb[ch], 0.0f);
-        write_slot(p, m, p.S0 - 1, fs.tf, fs.falpha, frgb, fs.take, true, 0, zero3);
+        if (valid && lg == (p.S0 - 1) % G)
+            write_slot(p, m, p.S0 - 1, fs.tf, fs.falpha, frgb, fs.take, true, 0, zero3);
         add_slot_losses(sums, fs.take, fs.falpha, fs.fsn, d);
     }
+    if (!writer) return;
     write_losses(p, m, sums);
-    if (is_udf(p.stype)) {
+    if (is_udf(kType)) {
         float mu;
         const float var = udf_var(cs.surf8, mu);
-        const float k = udf_hull_factor(p.stype, n_lv_hull, p.n_lv, p.fake_sample, p.limited_fake);
+        const float k = udf_hull_factor(kType, n_lv_hull, p.n_lv, p.fake_sample, p.limited_fake);
         p.loss_e[3 * p.M + m] = cs.vox_ok ? k * var : 0.0f;
         p.loss_e[4 * p.M + m] = cs.vox_ok ? 1.0f : 0.0f;
     }
 }
 
-#ifdef __CUDACC__
-__global__ void phase_b_kernel(PhaseBParams p) {
-    const int64_t m = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (m < p.M) phase_b_entry(p, m);
+// rows of basis_dim 9 (SH), laid out at compile time: C8 = 32 for every type
+constexpr int kK3FixedBd = 9;
+
+template <int kType>
+cudaError_t launch_phase_b(const PhaseBParams& p, cudaStream_t stream) {
+    const int64_t threads = p.M * kK3Lanes;
+    const unsigned grid = (unsigned)((threads + kK3Block - 1) / kK3Block);
+    constexpr int kShBase = 1 + (kType == SURF_PLANE ? 4 : 1);
+    constexpr int kC8 = (kShBase + 3 * kK3FixedBd + 7) / 8 * 8;
+    if (p.bd == kK3FixedBd && p.C8 == kC8 && p.n_surf_c == kShBase - 1)
+        phase_b_kernel<kType, kK3FixedBd><<<grid, kK3Block, 0, stream>>>(p);
+    else
+        phase_b_kernel<kType, 0><<<grid, kK3Block, 0, stream>>>(p);
+    return cudaGetLastError();
 }
 
 extern "C" cudaError_t phase_b(const int* ray_id, const int* l, const float* close_t,
@@ -210,13 +341,23 @@ extern "C" cudaError_t phase_b(const int* ray_id, const int* l, const float* clo
                                float* alpha, bool* contrib, bool* fake, int* counted, float* rgb,
                                float* snorm, float* loss_e, void* stream) {
     if (M <= 0) return cudaSuccess;
+    // the rows are read in 16-byte loads
+    if ((reinterpret_cast<uintptr_t>(packed) & 15u) != 0u || C8 % 4 != 0)
+        return cudaErrorMisalignedAddress;
     const PhaseBParams p{ray_id, l, close_t, far_t, M, origins, dirs, sh_mult, bd, links,
                          X, Y, Z, packed, cap, C8, n_surf_c, level_sets, n_lv, S0,
                          stype, lv_alpha, near_grid_t, sigma_thresh, fs_std, min_vox_len,
                          only_outward, fake_sample, limited_fake, normalize_surf, act_sigmoid,
                          t, alpha, contrib, fake, counted, rgb, snorm, loss_e};
-    const int block = 128;
-    phase_b_kernel<<<(unsigned)((M + block - 1) / block), block, 0, (cudaStream_t)stream>>>(p);
-    return cudaGetLastError();
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (stype) {
+        case SURF_SDF: return launch_phase_b<SURF_SDF>(p, s);
+        case SURF_UDF: return launch_phase_b<SURF_UDF>(p, s);
+        case SURF_UDF_ALPHA: return launch_phase_b<SURF_UDF_ALPHA>(p, s);
+        case SURF_UDF_FAKE_SAMPLE: return launch_phase_b<SURF_UDF_FAKE_SAMPLE>(p, s);
+        case SURF_PLANE: return launch_phase_b<SURF_PLANE>(p, s);
+        case SURF_VOXEL_FACE: return launch_phase_b<SURF_VOXEL_FACE>(p, s);
+        default: return cudaErrorInvalidValue;
+    }
 }
 #endif

@@ -66,9 +66,10 @@ HD void cubic_coeffs(const float s[8], const float u[3], const float v[3], float
     f[0] = c0 * (1.0f - ux) + c1 * ux;
 }
 
-// ops/cubic.py:_cubic_roots_raw; slots without a root hold -1, has[j] says
-// which slots hold one
-HD void cubic_roots(float f0, float f1, float f2, float f3, float r[3], bool has[3]) {
+// Root j (0, 1 or 2) of ops/cubic.py:_cubic_roots_raw: -1 where it has
+// none (has says which). Root j alone costs only its own cosine and Newton
+// steps, as one lane of K3 computes one slot.
+HD float cubic_root(float f0, float f1, float f2, float f3, int j, bool& has) {
     const bool is3 = fabsf(f3) >= 1e-10f;
     const bool is2 = !is3 && fabsf(f2) >= 1e-10f;
     const bool is1 = !is3 && !is2 && fabsf(f1) >= 1e-10f;
@@ -90,34 +91,40 @@ HD void cubic_roots(float f0, float f1, float f2, float f3, float r[3], bool has
     const float arg = fminf(fmaxf(R / (sqrtQ * sqrtQ * sqrtQ), -1.0f + 1e-10f), 1.0f - 1e-10f);
     const float theta = acosf(arg);
     const float pi = 3.14159265358979323846f;
-    const float t_c0 = -2.0f * sqrtQ * cosf(theta / 3.0f) - b / 3.0f;
-    const float t_c1 = -2.0f * sqrtQ * cosf((theta - 2.0f * pi) / 3.0f) - b / 3.0f;
-    const float t_c2 = -2.0f * sqrtQ * cosf((theta + 2.0f * pi) / 3.0f) - b / 3.0f;
+    const float th = j == 0 ? theta : (j == 1 ? theta - 2.0f * pi : theta + 2.0f * pi);
+    const float t_c = -2.0f * sqrtQ * cosf(th / 3.0f) - b / 3.0f;
 
-    const bool one = is3 && !three;
-    const float disc = one ? R * R - Q * Q * Q : 1.0f;
-    const float sgn = R > 0.0f ? 1.0f : (R < 0.0f ? -1.0f : 0.0f);
-    const float A = -sgn * powf(fabsf(R) + sqrtf(fmaxf(disc, 1e-8f)), 1.0f / 3.0f);
-    const float Bv = A == 0.0f ? 0.0f : Q / A;
-    const float t_s = A + Bv - b / 3.0f;
-
-    r[0] = three ? t_c0 : one ? t_s : has2 ? fminf(q0, q1) : is1 ? t_lin : 0.0f;
-    r[1] = three ? t_c1 : has2 ? fmaxf(q0, q1) : 0.0f;
-    r[2] = three ? t_c2 : 0.0f;
-    has[0] = three || one || has2 || is1;
-    has[1] = three || has2;
-    has[2] = three;
-    for (int j = 0; j < 3; ++j) {
-        float x = r[j];
-        for (int it = 0; it < 2; ++it) {
-            const float ft = ((f3 * x + f2) * x + f1) * x + f0;
-            const float fp = (3.0f * f3 * x + 2.0f * f2) * x + f1;
-            const float step = fabsf(fp) > 1e-6f ? ft / fp : 0.0f;
-            x = x - fminf(fmaxf(step, -0.5f), 0.5f);
-        }
-        has[j] = has[j] && fabsf(x) < 1e4f;
-        r[j] = has[j] ? x : -1.0f;
+    float x;
+    if (j == 0) {  // three real roots, one (Cardano), a quadratic's or a line's
+        const bool one = is3 && !three;
+        const float disc = one ? R * R - Q * Q * Q : 1.0f;
+        const float sgn = R > 0.0f ? 1.0f : (R < 0.0f ? -1.0f : 0.0f);
+        const float A = -sgn * powf(fabsf(R) + sqrtf(fmaxf(disc, 1e-8f)), 1.0f / 3.0f);
+        const float Bv = A == 0.0f ? 0.0f : Q / A;
+        const float t_s = A + Bv - b / 3.0f;
+        x = three ? t_c : one ? t_s : has2 ? fminf(q0, q1) : is1 ? t_lin : 0.0f;
+        has = three || one || has2 || is1;
+    } else if (j == 1) {
+        x = three ? t_c : has2 ? fmaxf(q0, q1) : 0.0f;
+        has = three || has2;
+    } else {
+        x = three ? t_c : 0.0f;
+        has = three;
     }
+    for (int it = 0; it < 2; ++it) {
+        const float ft = ((f3 * x + f2) * x + f1) * x + f0;
+        const float fp = (3.0f * f3 * x + 2.0f * f2) * x + f1;
+        const float step = fabsf(fp) > 1e-6f ? ft / fp : 0.0f;
+        x = x - fminf(fmaxf(step, -0.5f), 0.5f);
+    }
+    has = has && fabsf(x) < 1e4f;
+    return has ? x : -1.0f;
+}
+
+// ops/cubic.py:_cubic_roots_raw; slots without a root hold -1, has[j] says
+// which slots hold one
+HD void cubic_roots(float f0, float f1, float f2, float f3, float r[3], bool has[3]) {
+    for (int j = 0; j < 3; ++j) r[j] = cubic_root(f0, f1, f2, f3, j, has[j]);
 }
 
 // render/surface.py:trilerp_field_grad_T
@@ -156,45 +163,74 @@ struct Corners {
     bool vox_ok;  // all 8 corners present and (but for UDF_ALPHA) some raw alpha >= sigma_thresh
 };
 
-HD void gather_corners(const int* links, int X, int Y, int Z, const float* packed, int cap, int C8,
-                       int n_surf_c, int bd, const float* shm, float sigma_thresh, int stype,
-                       const int l[3], Corners& cs) {
-    bool vox_ok = true, any_alpha = false;
-    const int sh_base = 1 + n_surf_c;
-    for (int c = 0; c < 8; ++c) {
-        const int cx = clampi(l[0] + corner_dx(c), 0, X - 1);
-        const int cy = clampi(l[1] + corner_dy(c), 0, Y - 1);
-        const int cz = clampi(l[2] + corner_dz(c), 0, Z - 1);
-        const int link = links[((int64_t)cx * Y + cy) * Z + cz];
-        cs.link[c] = link;
-        const bool present = link >= 0;
-        vox_ok = vox_ok && present;
-        const float* row = packed + (int64_t)clampi(link, 0, cap - 1) * C8;
-        cs.alpha8[c] = present ? row[0] : 0.0f;
-        cs.sraw[c] = present ? row[1] : 0.0f;
-        cs.surf8[c] = is_udf(stype) ? softplus_f(cs.sraw[c]) : cs.sraw[c];
-        for (int ch = 0; ch < 3; ++ch) {
-            const float* sh = row + sh_base + ch * bd;
-            float acc = (present ? sh[0] : 0.0f) * shm[0];
-            for (int b = 1; b < bd; ++b) acc = acc + (present ? sh[b] : 0.0f) * shm[b];
-            cs.crgb[ch][c] = acc;
-        }
-        any_alpha = any_alpha || cs.alpha8[c] >= sigma_thresh;
+// the link of corner c of voxel l (clamped to the grid)
+HD int corner_link(const int* links, int X, int Y, int Z, const int l[3], int c) {
+    const int cx = clampi(l[0] + corner_dx(c), 0, X - 1);
+    const int cy = clampi(l[1] + corner_dy(c), 0, Y - 1);
+    const int cz = clampi(l[2] + corner_dz(c), 0, Z - 1);
+    return links[((int64_t)cx * Y + cy) * Z + cz];
+}
+
+// One corner row as K3 and K5b read it, x(j) its element j (0 for an
+// absent corner): raw alpha, raw surface value, PLANE's plane a, b, c, d
+// (elements 1-4; q may be null), and the colour contracted with the ray's
+// basis shm in basis order from element sh_base on. kBd > 0 fixes the
+// basis_dim and kShBase the colour's first element at compile time, so
+// that x may index registers.
+template <int kBd = 0, int kShBase = 0, class Elem>
+HD void corner_row(Elem x, int sh_base, int bd, const float* shm, float& a, float& sr,
+                   float* q, float acc[3]) {
+    const int nb = kBd > 0 ? kBd : bd;
+    const int base = kBd > 0 ? kShBase : sh_base;
+    a = x(0);
+    sr = x(1);
+    if (q)
+        for (int k = 0; k < 4; ++k) q[k] = x(1 + k);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+        float v = x(base + ch * nb) * shm[0];
+#pragma unroll
+        for (int b = 1; b < nb; ++b) v = v + x(base + ch * nb + b) * shm[b];
+        acc[ch] = v;
     }
-    cs.vox_ok = vox_ok && (any_alpha || stype == SURF_UDF_ALPHA);
 }
 
 // PLANE: the mean of the 8 corners' planes (a, b, c, d), summed in corner
-// order (surface.py:592)
-HD void mean_plane(const float* packed, int cap, int C8, const Corners& cs, float pl[4]) {
-    for (int k = 0; k < 4; ++k) pl[k] = 0.0f;
-    for (int c = 0; c < 8; ++c) {
-        const float* row = packed + (int64_t)clampi(cs.link[c], 0, cap - 1) * C8;
-        const bool present = cs.link[c] >= 0;
-        for (int k = 0; k < 4; ++k) pl[k] = c == 0 ? (present ? row[1 + k] : 0.0f)
-                                                   : pl[k] + (present ? row[1 + k] : 0.0f);
-    }
+// order (surface.py:592): plane_add for corners 0..7, then plane_mean
+HD void plane_add(float pl[4], const float q[4], int c) {
+    for (int k = 0; k < 4; ++k) pl[k] = c == 0 ? q[k] : pl[k] + q[k];
+}
+
+HD void plane_mean(float pl[4]) {
     for (int k = 0; k < 4; ++k) pl[k] = pl[k] / 8.0f;
+}
+
+HD bool voxel_ok(bool all_present, const float alpha8[8], float sigma_thresh, int stype) {
+    bool any_alpha = false;
+    for (int c = 0; c < 8; ++c) any_alpha = any_alpha || alpha8[c] >= sigma_thresh;
+    return all_present && (any_alpha || stype == SURF_UDF_ALPHA);
+}
+
+// the voxel's 8 corner rows, and PLANE's mean plane into pl (or null)
+HD void gather_corners(const int* links, int X, int Y, int Z, const float* packed, int cap, int C8,
+                       int n_surf_c, int bd, const float* shm, float sigma_thresh, int stype,
+                       const int l[3], Corners& cs, float* pl = nullptr) {
+    bool all = true;
+    for (int c = 0; c < 8; ++c) {
+        const int link = corner_link(links, X, Y, Z, l, c);
+        cs.link[c] = link;
+        const bool present = link >= 0;
+        all = all && present;
+        const float* row = packed + (int64_t)clampi(link, 0, cap - 1) * C8;
+        float q[4], acc[3];
+        corner_row([&](int j) { return present ? row[j] : 0.0f; }, 1 + n_surf_c, bd, shm,
+                   cs.alpha8[c], cs.sraw[c], pl ? q : nullptr, acc);
+        cs.surf8[c] = is_udf(stype) ? softplus_f(cs.sraw[c]) : cs.sraw[c];
+        for (int ch = 0; ch < 3; ++ch) cs.crgb[ch][c] = acc[ch];
+        if (pl) plane_add(pl, q, c);
+    }
+    if (pl) plane_mean(pl);
+    cs.vox_ok = voxel_ok(all, cs.alpha8, sigma_thresh, stype);
 }
 
 // the plane's one root (surface.py:593-603): d clamped to +-0.3 about the

@@ -427,25 +427,12 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def shell_grid(reso: int, device, seed: int = SEED):
-    """bench.py's sparse sphere-shell SDF grid (reso^3, one level set,
-    basis_dim 9, fake_sample_std 0.1), built on the card, with raw alpha in
-    [0.5, 3] and a smooth SH colour field drawn from a numpy seed; and its
-    row coords."""
-    import numpy as np
-    import torch
+    """bench.py's sparse sphere-shell SDF grid with raw alpha in [0.5, 3]
+    and a smooth SH colour field from ``seed``, and its row coords
+    (app/bench_k34.shell_grid)."""
+    from alphasurf_torch.app.bench_k34 import shell_grid as k34_shell_grid
 
-    from alphasurf_torch.app.bench_step import build_bench_grid
-
-    grid, row_coords = build_bench_grid(reso, device)
-    coords = row_coords.float() / reso
-    rng = np.random.default_rng(seed)
-    freqs = torch.as_tensor(rng.normal(size=(3, 27)) * 2.0, dtype=torch.float32, device=device)
-    phase = torch.as_tensor(rng.uniform(0, 2 * np.pi, 27), dtype=torch.float32, device=device)
-    with torch.no_grad():
-        grid.sh_data.copy_(0.35 * torch.sin(coords @ freqs * (2 * np.pi / 4) + phase))
-        grid.density_data.copy_(torch.as_tensor(rng.uniform(0.5, 3.0, (grid.capacity, 1)),
-                                                dtype=torch.float32, device=device))
-    return grid, row_coords
+    return k34_shell_grid(reso, device, seed)
 
 
 def frame_camera(i: int, n_frames: int):
@@ -1027,11 +1014,12 @@ def check_backward(grid, opt, rays, words, pool, packed, origins, dirs, sh_mult,
     (the renderer's autograd Function: K3, K4, then K5a and K5b) against
     autograd of the plain renderer, both on the card; then with every other
     output's cotangent too (check_output_grads: K5a's and K5b's second
-    instantiations); then the four instantiations timed alone on the
-    chunk's slots."""
+    instantiations); K5a's kill and picks against K4's; then the four
+    instantiations timed alone on the chunk's slots."""
     import torch
 
     from alphasurf_torch import kernels
+    from alphasurf_torch.app import bench_k34
     from alphasurf_torch.render import surface as S
 
     B = origins.shape[0]
@@ -1061,6 +1049,14 @@ def check_backward(grid, opt, rays, words, pool, packed, origins, dirs, sh_mult,
         f"the plain path:")
     err = max(grad_check(n, a, b) for n, a, b in zip(names, g_kernel, g_plain))
     del g_kernel, g_plain
+
+    # K5a's stop_thresh kill and one-sample picks against K4's: K5a takes
+    # them with K4's sums in K4's order, so no ray may differ
+    picks = bench_k34.pick_disagreements(pool, sk, grid.truncated_vol_render_a, opt)
+    log(f"K5a against K4 on the chunk's K3 slots, rays whose kill or pick differs: "
+        f"{json.dumps(picks)}")
+    if any(picks.values()):
+        raise AssertionError(f"K5a's kill or picks differ from K4's: {picks}")
 
     # K5a and K5b alone, on K3's slots of this chunk
     comp_k = kernels.composite(pool.offsets, sk, grid.truncated_vol_render_a, opt)
