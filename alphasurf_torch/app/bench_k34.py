@@ -1,13 +1,15 @@
-"""Time K3 (phase B) and K4 (the compositor) at the main path's three
-shapes, each on K2's pool: the serving chunk (``bench_k2.serve_rays``, the
-16,384 central rays of render_circle's first 800x800 frame, on
-chip_smoke.py's 512^3 shell grid under bench_step's render options), the
-512^3 surface step batch (``bench_k2.step_rays``, 40,960 rays) and a dense
-type chunk (the serving chunk's rays on a 256^3 VOXEL_FACE grid built as
-chip_smoke.py's ``type_grid``, under its type options: ~280 entries a ray).
-K4 is also timed on an empty pool (the background only), as on the chunks of
-a frame that hit nothing, and K5a and K5b, which read K3's and K4's outputs
-(K5b shares K3's samples.cuh), on each shape's slots. Each time is taken
+"""Time K3 (phase B), K4 (the compositor) and K5 (their backward, K5a and
+K5b) at the main path's three shapes, each on K2's pool: the serving chunk
+(``bench_k2.serve_rays``, the 16,384 central rays of render_circle's first
+800x800 frame, on chip_smoke.py's 512^3 shell grid under bench_step's render
+options), the 512^3 surface step batch (``bench_k2.step_rays``, 40,960
+rays) and a dense type chunk (the serving chunk's rays on a 256^3
+VOXEL_FACE grid built as chip_smoke.py's ``type_grid``, under its type
+options: ~280 entries a ray). K4 is also timed on an empty pool (the
+background only), as on the chunks of a frame that hit nothing; K5a and K5b
+on each shape's slots, rgb-only and in their second instantiations
+(``backward_ray_out``, ``backward_entry_out``, on the arguments the
+renderer passes them with every output's cotangent). Each time is taken
 twice: per call as the host issues it (chip_smoke.py's time_ms: the
 wrapper's host time included, which sets the time of a small launch) and on
 the device alone (a CUDA graph of the calls, replayed).
@@ -16,13 +18,15 @@ the device alone (a CUDA graph of the calls, replayed).
 
 At each shape K3 and K4 are first held against their plain versions under
 chip_smoke.py's tolerances (check_kernels' on the shell, check_type_kernels'
-on the type chunk), and K5a's picks against K4's (``pick_disagreements``).
-Prints one JSON line: for each shape the rays, entries and slots, K3's,
-K4's, K5a's and K5b's milliseconds by CUDA events (per call and on the
-device), K3's and K4's bounds by chip_smoke.py's formulas, the checks'
-errors, the rays whose stop_thresh kill differs from the plain version's
-and the rays whose K5a picks differ from K4's; the registers nvcc reported
-and the card. Needs a card.
+on the type chunk), K5a's picks against K4's (``pick_disagreements``), and
+K5a and K5b against autograd of the plain renderer under chip_smoke.py's
+GRAD_* (``backward_check``: rgb and the ray losses, then every output's
+cotangent). Prints one JSON line: for each shape the rays, entries and
+slots, the milliseconds (per call and on the device), the bounds by
+chip_smoke.py's formulas (K5's as its check_backward and k5b_work count
+them), the checks' errors, the rays whose stop_thresh kill differs from the
+plain version's and the rays whose K5a picks differ from K4's; the
+registers nvcc reported and the card. Needs a card.
 
 Another checkout's kernels are timed in the same call by running this file
 from that checkout's root with the checkout on PYTHONPATH (``cd
@@ -32,6 +36,7 @@ parent, change, change, parent.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -54,6 +59,11 @@ FLAG_FRACTION = 1e-5
 ROOT_FRACTION = 1e-4
 TYPE_OPT = dict(sigma_thresh=-1e9, stop_thresh=1e-7)  # chip_smoke.py's TYPE_BASE_OPT
 SMP_KEYS = ("t", "alpha", "contrib", "fake", "counted", "rgb", "snorm", "loss_e")
+# chip_smoke.py's tolerances of K5 against autograd of the plain renderer:
+# |g_k - g_p| <= GRAD_REL |g_p| in norm, and at most GRAD_ROW_FRACTION of
+# the touched rows with an element outside GRAD_ATOL + GRAD_RTOL |g_p|
+GRAD_REL, GRAD_ROW_FRACTION, GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-4, 1e-3, 1e-6
+SIG_THRESH = 0.2  # the sigma-thresh depth's threshold of the output checks
 
 
 def shell_grid(reso: int, device, seed: int = 0):
@@ -293,27 +303,150 @@ def pick_disagreements(pool, smp, trunc_a, opt) -> dict:
     return out
 
 
-def backward_calls(c, sk, smp):
-    """K5a and K5b (rgb-only) on the shape's K3 slots: K5a from a cotangent
-    of rgb and the ray losses, K5b from K5a's."""
-    g, p, B = c["grid"], c["pool"], c["origins"].shape[0]
-    gen = torch.Generator(device=p.offsets.device).manual_seed(0)
-    g_rgb = torch.randn((B, 3), generator=gen, device=p.offsets.device) / (3 * B)
-    g_rl = torch.full((12, B), 0.1 / B, device=p.offsets.device)
-    ta = g.truncated_vol_render_a
+def grad_stats(gk, gp) -> dict:
+    """chip_smoke.py's grad_stats: the kernel gradient ``gk`` against the
+    plain ``gp`` on one parameter group, its rel err in norm, the touched
+    rows and those outside GRAD_RTOL / GRAD_ATOL, the max abs err."""
+    gk, gp = gk.double().reshape(gk.shape[0], -1), gp.double().reshape(gp.shape[0], -1)
+    d = (gk - gp).abs()
+    touched = (gk != 0).any(-1) | (gp != 0).any(-1)
+    bad = (d > GRAD_ATOL + GRAD_RTOL * gp.abs()).any(-1) & touched
+    return {"rel": float((gk - gp).norm() / gp.norm().clamp(min=1e-30)), "bad": int(bad.sum()),
+            "touched": int(touched.sum()), "max_abs": float(d.max()) if d.numel() else 0.0}
 
-    def k5a():
-        return kernels.backward_ray(p.offsets, smp, ta, c["opt"], g_rgb, g_rl)
 
-    d_alpha, d_t, d_col = k5a()
+def grad_ok(st: dict) -> bool:
+    return st["rel"] <= GRAD_REL and st["bad"] <= GRAD_ROW_FRACTION * max(st["touched"], 1)
 
-    def k5b():
-        return kernels.backward_entry(p.ray_id, p.l, p.close_t, p.far_t, c["origins"], c["dirs"],
-                                      c["sh_mult"], g.links, c["packed"], S._surface_spec(g),
-                                      g.level_set_data, c["ngt"], S._fss(g), c["opt"],
-                                      sk["contrib"], d_alpha, d_t, d_col, g_rl)
 
-    return k5a, k5b
+@contextlib.contextmanager
+def recorded_calls(names=("backward_ray", "backward_entry")):
+    """Records the arguments of the first call of each kernels function of
+    ``names`` while the block runs (the calls go through)."""
+    calls, orig = {}, {n: getattr(kernels, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            calls.setdefault(name, (args, kw))
+            return fn(*args, **kw)
+        return call
+
+    for n, fn in orig.items():
+        setattr(kernels, n, wrap(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in orig.items():
+            setattr(kernels, n, fn)
+
+
+def slot_points(grid, pool, origins, dirs, t):
+    """The world point of every slot, entry-major, by torch ops (autograd)."""
+    rid = pool.ray_id.long()
+    p = origins[rid].T[:, None, :] + t[None] * dirs[rid].T[:, None, :]
+    return grid.grid2world(p.permute(2, 1, 0).reshape(-1, 3))
+
+
+def backward_check(c, every: bool = False, mode=S.PACKED, sig: float | None = None,
+                   seed: int = 0) -> dict:
+    """K5a and K5b against autograd of the plain renderer on the same pool
+    and device: the gradients into density, surface, SH and
+    fake_sample_std of a loss with random cotangents (from ``seed``, at the
+    scale 1 / B) on rgb and every ray loss, through the renderer's autograd
+    Function (_SurfaceFn: K3 and K4 forward, K5a and K5b backward) and
+    through autograd of the plain K3 and K4. ``every``: a cotangent on
+    every other output too (depth, normal, log_T, the mode and median
+    depths, the sigma-thresh depth with ``sig``, the slots' t, alphas and
+    weights, the intersections' points or, with ``mode``'s cache, the cache
+    and the samples' alphas), through K5a's and K5b's second
+    instantiations. A ray whose picked depth differs between K4 and the
+    plain version (a near-tie) takes no cotangent on it on either side.
+    Returns each group's grad_stats, ``ok`` under GRAD_*, the rays so
+    masked, the slots whose live flags differ and the arguments of K5a's and
+    K5b's launches (``calls``)."""
+    g, opt, pool = c["grid"], c["opt"], c["pool"]
+    origins, dirs, sh_mult, ngt = c["origins"], c["dirs"], c["sh_mult"], c["ngt"]
+    B = origins.shape[0]
+    dev = origins.device
+    cache = mode.cache_size is not None
+    want_live, want_samples = every and not cache, every and cache
+    keys = ["rgb", "ray_losses"]
+    if every:
+        keys += ["depth", "normal", "log_T", "depth_mode", "t", "alpha", "weight"]
+        keys += (["cache_med", "ts", "alphas", "weights", "live_alpha"] if cache
+                 else ["depth_med", "pts"])
+        keys += ["depth_sigma_thresh"] if sig is not None else []
+    names = ("density", "surface", "sh", "fake_sample_std")
+    params = [g.density_data, g.surface_data, g.sh_data, g.fake_sample_std]
+    used = [p for p in params if p is not None]
+    for p in used:
+        p.requires_grad_(True)
+    try:
+        chunk = S._Chunk(g, opt, pool, origins, dirs, sh_mult.detach().contiguous(), ngt,
+                         c["packed"], mode, sig, want_live, want_samples)
+        res = S._SurfaceFn.apply(*params, None, sh_mult, chunk)
+        out_k = dict(zip(S._FN_OUTPUTS + S._CACHE_KEYS, res))
+        smp = S._voxel_samples_plain(g, opt, pool, origins, dirs, sh_mult, ngt,
+                                     S.pack_grid_data(g))
+        out_p = S._composite_plain(opt, g.truncated_vol_render_a, pool.offsets, smp, sig, *mode)
+        out_p.update(t=smp["t"], alpha=smp["alpha"])
+        if cache:
+            out_p.update(out_p.pop("cache"))
+        if want_live:
+            out_p["pts"] = slot_points(g, pool, origins, dirs, smp["t"])
+        gen = torch.Generator().manual_seed(seed)
+        w = {k: (torch.randn(tuple(out_k[k].shape), generator=gen, dtype=torch.float64) / B)
+             .float().to(dev) for k in keys}
+        keep = {}
+        for k in ("depth_mode", "depth_med", "cache_med", "depth_sigma_thresh"):
+            if k in keys:
+                a, b = out_k[k].detach(), out_p[k].detach()
+                keep[k] = (a - b).abs() <= 1e-3 + RTOL * b.abs()
+
+        def loss(out):
+            return sum(torch.where(keep[k], out[k] * w[k], torch.zeros_like(w[k])).sum()
+                       if k in keep else (out[k] * w[k]).sum() for k in keys)
+
+        with recorded_calls() as calls:
+            gk = torch.autograd.grad(loss(out_k), used, allow_unused=True)
+        gp = torch.autograd.grad(loss(out_p), used, allow_unused=True)
+        gk, gp = ([torch.zeros_like(q) if x is None else x for q, x in zip(used, gs)]
+                  for gs in (gk, gp))
+        live_flips = int((out_k["weight"].detach() > 0).ne(out_p["weight"].detach() > 0).sum())
+    finally:
+        for p in used:
+            p.requires_grad_(False)
+    stats = {n: grad_stats(a, b) for n, a, b in zip(
+        [n for n, p in zip(names, params) if p is not None], gk, gp)}
+    return {"ok": all(grad_ok(st) for st in stats.values()), "stats": stats,
+            "picks_masked": {k: int((~m).sum()) for k, m in keep.items()},
+            "live_flips": live_flips, "calls": calls}
+
+
+def k5_work(c, S0: int) -> dict:
+    """K5a's and K5b's bytes and operations at a shape, as chip_smoke.py's
+    check_backward (K5a) and k5b_work (K5b) count them: K5a reads each
+    slot's t, alpha, flags and colour and writes its cotangents (46 bytes a
+    slot), the second instantiation also the output cotangents, the ray's
+    direction, the slot's point, alpha, weight and normal cotangents and
+    K3's normal, and writes d_snorm; K5b reads the pool, its rays, the
+    corner links and rows and the slot cotangents (with d_snorm) and writes
+    the gradient arrays."""
+    g, pool, packed = c["grid"], c["pool"], c["packed"]
+    M, B = pool.close_t.shape[0], c["origins"].shape[0]
+    n_vert, n_rows = corner_rows(g, pool.l)
+    n_grad = g.density_data.numel() + g.surface_data.numel() + g.sh_data.numel()
+    bytes_a = S0 * M * 46 + (B + 1) * 8 + B * 60
+    bytes_ao = bytes_a + B * (32 + 12) + S0 * M * (20 + 12 + 12)
+    out = {"backward_ray": bench_k2.bound_ms(bytes_a, S0 * M * 100),
+           "backward_ray_out": bench_k2.bound_ms(bytes_ao, S0 * M * 130)}
+    for name, normal in (("backward_entry", 0), ("backward_entry_out", 1)):
+        nb = (M * 24 + B * 60 + n_vert * 4 + n_rows * packed.shape[1] * 4
+              + S0 * M * (21 + 12 * normal) + B * 8 + n_grad * 4)
+        ops = (M * 2 * (48 * g.basis_dim + 60 + g.level_set_data.numel() * 550 + 200)
+               + S0 * M * 2 * 120 * normal)
+        out[name] = bench_k2.bound_ms(nb, ops)
+    return out
 
 
 def shape_case(label: str, c, reps: int, typed: bool) -> dict:
@@ -329,15 +462,27 @@ def shape_case(label: str, c, reps: int, typed: bool) -> dict:
     c4 = check_k4(c, k4(), sp, typed)
     del sp
     picks = pick_disagreements(c["pool"], smp, c["grid"].truncated_vol_render_a, c["opt"])
-    k5a, k5b = backward_calls(c, sk, smp)
+    # K5a and K5b against autograd of the plain renderer: rgb-only, then
+    # every output's cotangent (the second instantiations); each timed on
+    # the arguments the renderer passed it
+    bw = backward_check(c)
+    bo = backward_check(c, every=True, sig=SIG_THRESH)
+    calls, calls_out = bw.pop("calls"), bo.pop("calls")
+    (a_ray, kw_ray), (a_ent, kw_ent) = calls["backward_ray"], calls["backward_entry"]
+    (o_ray, ko_ray), (o_ent, ko_ent) = calls_out["backward_ray"], calls_out["backward_entry"]
     S0 = sk["n_slots"]
     return {"shape": label, "reso": list(c["grid"].reso), "rays": B, "entries": M, "slots": S0,
             "max_entries_a_ray": int((c["pool"].offsets[1:] - c["pool"].offsets[:-1]).max()),
             "check": {"phase_b": c3, "composite": c4,
-                      "backward_picks": {"ok": not any(picks.values()), "rays_differ": picks}},
+                      "backward_picks": {"ok": not any(picks.values()), "rays_differ": picks},
+                      "backward": bw, "backward_out": bo},
             "ms": {"phase_b": timed(k3, reps), "composite": timed(k4, reps),
-                   "backward_ray": timed(k5a, reps), "backward_entry": timed(k5b, reps)},
-            "bound": bounds(c, S0, sk["loss_e"].shape[0], typed),
+                   "backward_ray": timed(lambda: kernels.backward_ray(*a_ray, **kw_ray), reps),
+                   "backward_entry": timed(lambda: kernels.backward_entry(*a_ent, **kw_ent), reps),
+                   "backward_ray_out": timed(lambda: kernels.backward_ray(*o_ray, **ko_ray), reps),
+                   "backward_entry_out": timed(lambda: kernels.backward_entry(*o_ent, **ko_ent),
+                                               reps)},
+            "bound": {**bounds(c, S0, sk["loss_e"].shape[0], typed), **k5_work(c, S0)},
             "_smp": smp}
 
 
@@ -400,8 +545,9 @@ def main(argv=None) -> dict:
     out = run(a.reps, a.seed)
     print(json.dumps(out), flush=True)
     if not all(c["check"][k]["ok"] for c in out["cases"]
-               for k in ("phase_b", "composite", "backward_picks")):
-        raise SystemExit("K3 or K4 differs from its plain version, or K5a's picks from K4's")
+               for k in ("phase_b", "composite", "backward_picks", "backward", "backward_out")):
+        raise SystemExit("K3 or K4 differs from its plain version, K5a's picks from K4's, or K5 "
+                         "from autograd of the plain renderer")
     return out
 
 

@@ -105,31 +105,9 @@ HD float softplus_f(float x) { return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x))); 
 // its derivative, the logistic sigmoid, as logaddexp's: exp(x - softplus(x))
 HD float softplus_grad(float x) { return expf(x - softplus_f(x)); }
 
-// K4's lanes a ray (composite.cu). K5a (backward.cu) re-derives K4's
-// stop_thresh kill and picks on one thread, with K4's groups of entries
-// and the sums below.
+// K4's lanes a ray (composite.cu), and K5a's (backward.cu), which takes
+// K4's stop_thresh kill and picks with K4's scans in K4's groups of entries
 constexpr int kK4Lanes = 16;
-
-// warp_prefix over a segment of W values, on one thread: the same
-// additions in the same order, so the same bits (v: the segment's lanes
-// in order; inclusive prefixes on return)
-template <int W, typename T>
-HD void serial_prefix(T v[W]) {
-    for (int d = 1; d < W; d <<= 1)
-        for (int i = W - 1; i >= d; --i) v[i] = v[i] + v[i - d];
-}
-
-// warp_allsum over a segment of W values, on one thread, with its bits
-template <int W>
-HD float serial_allsum(const float v[W]) {
-    float x[W], y[W];
-    for (int i = 0; i < W; ++i) x[i] = v[i];
-    for (int d = W / 2; d > 0; d >>= 1) {
-        for (int i = 0; i < W; ++i) y[i] = x[i] + x[i ^ d];
-        for (int i = 0; i < W; ++i) x[i] = y[i];
-    }
-    return x[0];
-}
 
 // atomic add on the device; a plain add when the per-thread code runs on
 // the host
@@ -199,6 +177,20 @@ __device__ __forceinline__ T warp_exclusive(T incl, int lane) {
 template <int W = 32, typename T>
 __device__ __forceinline__ T warp_total(T incl) {
     return __shfl_sync(kFullWarp, incl, W - 1, W);
+}
+
+// the exclusive suffix from the inclusive one: the lane above's value, 0
+// in the segment's last lane
+template <int W = 32, typename T>
+__device__ __forceinline__ T warp_exclusive_suffix(T incl, int lane) {
+    const T above = __shfl_down_sync(kFullWarp, incl, 1, W);
+    return lane + 1 < W ? above : T(0);
+}
+
+// the segment's total from the inclusive suffix: its first lane's value
+template <int W = 32, typename T>
+__device__ __forceinline__ T warp_suffix_total(T incl) {
+    return __shfl_sync(kFullWarp, incl, 0, W);
 }
 
 // this segment's W bits of a warp ballot, lane 0 of the segment in bit 0

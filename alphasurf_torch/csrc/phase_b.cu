@@ -36,8 +36,9 @@
 // walk's bits, as t, alpha and the flags keep theirs: every slot is
 // computed by the same expressions as before (--fmad=false). The kernel
 // is a template on the surface type, so each type's branches cost the
-// others nothing. The row reads (corner_row), the roots (cubic_root) and
-// the mean plane are samples.cuh's, which K5b also calls.
+// others nothing. The group's row reader (gather_corners_lanes, over
+// corner_row), the roots (cubic_root) and the mean plane are samples.cuh's,
+// which K5b also calls.
 //
 // Outputs keep the JAX package's layout: slot arrays (S0, M), vectors
 // (3, S0, M), loss sums (3, M), (5, M) for the UDF types. The per-entry
@@ -111,81 +112,8 @@ HD void write_losses(const PhaseBParams& p, int64_t m, const SlotSums& sums) {
 }
 
 #ifdef __CUDACC__
-constexpr int kK3Lanes = 4;  // lanes an entry
 constexpr int kK3Block = 128;
 constexpr int kK3MinBlocks = 5;  // blocks an SM the kernel is compiled for (<= 96 registers)
-
-// The 8 corner rows of the group's voxel l, each by corner_row as
-// gather_corners reads it (the same values in the same order of
-// operations, so the same bits): lane lg reads corners lg and lg + 4;
-// every lane of the warp calls it and every lane of the group returns all
-// 8 corners, with PLANE's mean plane in pl. kBd > 0: rows of basis_dim kBd
-// in 16-byte loads, laid out at compile time (every element a register);
-// kBd = 0: any basis_dim, element by element.
-template <int kType, int kBd>
-__device__ __forceinline__ void gather_corners_lanes(const PhaseBParams& p, const float* shm,
-                                                     const int l[3], int lane, Corners& cs,
-                                                     float pl[4]) {
-    constexpr int G = kK3Lanes, kPer = 8 / G;
-    constexpr int kShBase = 1 + (kType == SURF_PLANE ? 4 : 1);
-    const int lg = lane & (G - 1);
-    float shm_r[kBd > 0 ? kBd : 1];
-#pragma unroll
-    for (int b = 0; b < (kBd > 0 ? kBd : 1); ++b) shm_r[b] = kBd > 0 ? shm[b] : 0.0f;
-    float a_own[kPer], s_own[kPer], c_own[3][kPer], pl_own[4][kPer];
-    bool own_ok = true;
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-        const int link = corner_link(p.links, p.X, p.Y, p.Z, l, lg + k * G);
-        const bool present = link >= 0;
-        own_ok = own_ok && present;
-        float a, sr, q[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc[3];
-        float* qp = kType == SURF_PLANE ? q : nullptr;
-        if constexpr (kBd > 0) {
-            constexpr int kN4 = (kShBase + 3 * kBd + 3) / 4;
-            const float4* row =
-                reinterpret_cast<const float4*>(p.packed) + (int64_t)(present ? link : 0) * (p.C8 / 4);
-            float x[4 * kN4];
-#pragma unroll
-            for (int qi = 0; qi < kN4; ++qi) {
-                const float4 v4 = present ? __ldg(row + qi) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-                x[4 * qi] = v4.x;
-                x[4 * qi + 1] = v4.y;
-                x[4 * qi + 2] = v4.z;
-                x[4 * qi + 3] = v4.w;
-            }
-            corner_row<kBd, kShBase>([&](int j) { return x[j]; }, kShBase, kBd, shm_r, a, sr, qp,
-                                     acc);
-        } else {
-            const float* row = p.packed + (int64_t)(present ? link : 0) * p.C8;
-            corner_row([&](int j) { return present ? __ldg(row + j) : 0.0f; }, 1 + p.n_surf_c,
-                       p.bd, shm, a, sr, qp, acc);
-        }
-        a_own[k] = a;
-        s_own[k] = is_udf(kType) ? softplus_f(sr) : sr;
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch) c_own[ch][k] = acc[ch];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) pl_own[kk][k] = q[kk];
-    }
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-        const int src = c % G, k = c / G;
-        cs.alpha8[c] = __shfl_sync(kFullWarp, a_own[k], src, G);
-        cs.surf8[c] = __shfl_sync(kFullWarp, s_own[k], src, G);
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch) cs.crgb[ch][c] = __shfl_sync(kFullWarp, c_own[ch][k], src, G);
-        if (kType == SURF_PLANE) {
-            float q[4];
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) q[kk] = __shfl_sync(kFullWarp, pl_own[kk][k], src, G);
-            plane_add(pl, q, c);
-        }
-    }
-    if (kType == SURF_PLANE) plane_mean(pl);
-    const bool all = segment_bits<G>(__ballot_sync(kFullWarp, own_ok), lane) == (1u << G) - 1u;
-    cs.vox_ok = voxel_ok(all, cs.alpha8, p.sigma_thresh, kType);
-}
 
 template <int kType, int kBd>
 __global__ void __launch_bounds__(kK3Block, kK3MinBlocks) phase_b_kernel(PhaseBParams p) {

@@ -155,11 +155,10 @@ HD void unit_normal(const float g[3], float n[3]) {
 }
 
 // the 8 corner rows of one voxel: raw alpha, surface (the UDF types'
-// softplus of the row's value, which sraw keeps), and the SH colour
-// contracted with the ray's basis while each row streams in
+// softplus of the row's value), and the SH colour contracted with the
+// ray's basis while each row streams in
 struct Corners {
-    int link[8];
-    float alpha8[8], surf8[8], sraw[8], crgb[3][8];
+    float alpha8[8], surf8[8], crgb[3][8];
     bool vox_ok;  // all 8 corners present and (but for UDF_ALPHA) some raw alpha >= sigma_thresh
 };
 
@@ -171,12 +170,12 @@ HD int corner_link(const int* links, int X, int Y, int Z, const int l[3], int c)
     return links[((int64_t)cx * Y + cy) * Z + cz];
 }
 
-// One corner row as K3 and K5b read it, x(j) its element j (0 for an
-// absent corner): raw alpha, raw surface value, PLANE's plane a, b, c, d
-// (elements 1-4; q may be null), and the colour contracted with the ray's
-// basis shm in basis order from element sh_base on. kBd > 0 fixes the
-// basis_dim and kShBase the colour's first element at compile time, so
-// that x may index registers.
+// One corner row as K3 and K5b read it (gather_corners_lanes), x(j) its
+// element j (0 for an absent corner): raw alpha, raw surface value, PLANE's
+// plane a, b, c, d (elements 1-4; q may be null), and the colour contracted
+// with the ray's basis shm in basis order from element sh_base on. kBd > 0
+// fixes the basis_dim and kShBase the colour's first element at compile
+// time, so that x may index registers.
 template <int kBd = 0, int kShBase = 0, class Elem>
 HD void corner_row(Elem x, int sh_base, int bd, const float* shm, float& a, float& sr,
                    float* q, float acc[3]) {
@@ -209,28 +208,6 @@ HD bool voxel_ok(bool all_present, const float alpha8[8], float sigma_thresh, in
     bool any_alpha = false;
     for (int c = 0; c < 8; ++c) any_alpha = any_alpha || alpha8[c] >= sigma_thresh;
     return all_present && (any_alpha || stype == SURF_UDF_ALPHA);
-}
-
-// the voxel's 8 corner rows, and PLANE's mean plane into pl (or null)
-HD void gather_corners(const int* links, int X, int Y, int Z, const float* packed, int cap, int C8,
-                       int n_surf_c, int bd, const float* shm, float sigma_thresh, int stype,
-                       const int l[3], Corners& cs, float* pl = nullptr) {
-    bool all = true;
-    for (int c = 0; c < 8; ++c) {
-        const int link = corner_link(links, X, Y, Z, l, c);
-        cs.link[c] = link;
-        const bool present = link >= 0;
-        all = all && present;
-        const float* row = packed + (int64_t)clampi(link, 0, cap - 1) * C8;
-        float q[4], acc[3];
-        corner_row([&](int j) { return present ? row[j] : 0.0f; }, 1 + n_surf_c, bd, shm,
-                   cs.alpha8[c], cs.sraw[c], pl ? q : nullptr, acc);
-        cs.surf8[c] = is_udf(stype) ? softplus_f(cs.sraw[c]) : cs.sraw[c];
-        for (int ch = 0; ch < 3; ++ch) cs.crgb[ch][c] = acc[ch];
-        if (pl) plane_add(pl, q, c);
-    }
-    if (pl) plane_mean(pl);
-    cs.vox_ok = voxel_ok(all, cs.alpha8, sigma_thresh, stype);
 }
 
 // the plane's one root (surface.py:593-603): d clamped to +-0.3 about the
@@ -412,3 +389,85 @@ HD float lap_grad(float alpha) {
     const float e0 = expf(-alpha), e1 = expf(-(1.0f - alpha));
     return (e0 - e1) / (e0 + e1);
 }
+
+#ifdef __CUDACC__
+constexpr int kK3Lanes = 4;  // lanes an entry in K3 and K5b
+
+// The 8 corner rows of the group's voxel l, each by corner_row (the same
+// values in the same order of operations in every kernel that calls it,
+// so the same bits): lane lg reads corners lg and lg + 4; every lane of
+// the warp calls it and every lane of the group returns all 8 corners,
+// with PLANE's mean plane in pl. kBd > 0: rows of basis_dim kBd in 16-byte
+// loads, laid out at compile time (every element a register); kBd = 0: any
+// basis_dim, element by element. P is K3's or K5b's parameter struct (its
+// links, X, Y, Z, packed, C8, n_surf_c, bd and sigma_thresh). own_link and
+// own_sraw, when given, receive the links and raw surface values of the
+// lane's own two corners.
+template <int kType, int kBd, class P>
+__device__ __forceinline__ void gather_corners_lanes(const P& p, const float* shm, const int l[3],
+                                                     int lane, Corners& cs, float pl[4],
+                                                     int* own_link = nullptr,
+                                                     float* own_sraw = nullptr) {
+    constexpr int G = kK3Lanes, kPer = 8 / G;
+    constexpr int kShBase = 1 + (kType == SURF_PLANE ? 4 : 1);
+    const int lg = lane & (G - 1);
+    float shm_r[kBd > 0 ? kBd : 1];
+#pragma unroll
+    for (int b = 0; b < (kBd > 0 ? kBd : 1); ++b) shm_r[b] = kBd > 0 ? shm[b] : 0.0f;
+    float a_own[kPer], s_own[kPer], c_own[3][kPer], pl_own[4][kPer];
+    bool own_ok = true;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+        const int link = corner_link(p.links, p.X, p.Y, p.Z, l, lg + k * G);
+        const bool present = link >= 0;
+        own_ok = own_ok && present;
+        if (own_link) own_link[k] = link;
+        float a, sr, q[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc[3];
+        float* qp = kType == SURF_PLANE ? q : nullptr;
+        if constexpr (kBd > 0) {
+            constexpr int kN4 = (kShBase + 3 * kBd + 3) / 4;
+            const float4* row =
+                reinterpret_cast<const float4*>(p.packed) + (int64_t)(present ? link : 0) * (p.C8 / 4);
+            float x[4 * kN4];
+#pragma unroll
+            for (int qi = 0; qi < kN4; ++qi) {
+                const float4 v4 = present ? __ldg(row + qi) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                x[4 * qi] = v4.x;
+                x[4 * qi + 1] = v4.y;
+                x[4 * qi + 2] = v4.z;
+                x[4 * qi + 3] = v4.w;
+            }
+            corner_row<kBd, kShBase>([&](int j) { return x[j]; }, kShBase, kBd, shm_r, a, sr, qp,
+                                     acc);
+        } else {
+            const float* row = p.packed + (int64_t)(present ? link : 0) * p.C8;
+            corner_row([&](int j) { return present ? __ldg(row + j) : 0.0f; }, 1 + p.n_surf_c,
+                       p.bd, shm, a, sr, qp, acc);
+        }
+        if (own_sraw) own_sraw[k] = sr;
+        a_own[k] = a;
+        s_own[k] = is_udf(kType) ? softplus_f(sr) : sr;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) c_own[ch][k] = acc[ch];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) pl_own[kk][k] = q[kk];
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+        const int src = c % G, k = c / G;
+        cs.alpha8[c] = __shfl_sync(kFullWarp, a_own[k], src, G);
+        cs.surf8[c] = __shfl_sync(kFullWarp, s_own[k], src, G);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) cs.crgb[ch][c] = __shfl_sync(kFullWarp, c_own[ch][k], src, G);
+        if (kType == SURF_PLANE) {
+            float q[4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) q[kk] = __shfl_sync(kFullWarp, pl_own[kk][k], src, G);
+            plane_add(pl, q, c);
+        }
+    }
+    if (kType == SURF_PLANE) plane_mean(pl);
+    const bool all = segment_bits<G>(__ballot_sync(kFullWarp, own_ok), lane) == (1u << G) - 1u;
+    cs.vox_ok = voxel_ok(all, cs.alpha8, p.sigma_thresh, kType);
+}
+#endif

@@ -23,7 +23,8 @@ K4, K5b and K6), then:
 2. holds every kernel against its plain PyTorch version on the card, at the
    shapes of the main paths (the 512^3 shell grid, one 16,384-ray chunk of
    an 800x800 orbit frame; K1 also at 128^3), and times both with CUDA
-   events: K5's gradients against autograd of the plain renderer, K4 with
+   events: K5's gradients against autograd of the plain renderer (on the
+   chunk and on the 512^3 surface step's 40,960-ray batch), K4 with
    the sigma-thresh depth and its live flags and intersect_points on the
    same chunk, K6 on sampled windows of the 512^3 grid and in its
    every-cell mode at 128^3, K7 on the 512^3 parameter arrays;
@@ -1014,12 +1015,13 @@ def check_backward(grid, opt, rays, words, pool, packed, origins, dirs, sh_mult,
     (the renderer's autograd Function: K3, K4, then K5a and K5b) against
     autograd of the plain renderer, both on the card; then with every other
     output's cotangent too (check_output_grads: K5a's and K5b's second
-    instantiations); K5a's kill and picks against K4's; then the four
-    instantiations timed alone on the chunk's slots."""
+    instantiations); K5a's kill and picks against K4's; the same two
+    comparisons on the 512^3 surface step's batch (bench_k34.backward_check);
+    then the four instantiations timed alone on the chunk's slots."""
     import torch
 
     from alphasurf_torch import kernels
-    from alphasurf_torch.app import bench_k34
+    from alphasurf_torch.app import bench_k2, bench_k34
     from alphasurf_torch.render import surface as S
 
     B = origins.shape[0]
@@ -1057,6 +1059,28 @@ def check_backward(grid, opt, rays, words, pool, packed, origins, dirs, sh_mult,
         f"{json.dumps(picks)}")
     if any(picks.values()):
         raise AssertionError(f"K5a's kill or picks differ from K4's: {picks}")
+
+    # K5a and K5b against autograd of the plain renderer on the surface
+    # step's batch: rgb and every ray loss, then every output's cotangent
+    step = bench_k34.chunk_case(grid, opt, bench_k2.step_rays(origins.device, TRAIN_BATCH))
+    for every in (False, True):
+        chk = bench_k34.backward_check(step, every, sig=bench_k34.SIG_THRESH if every else None)
+        chk.pop("calls")
+        what = "every output" if every else "rgb and ray losses"
+        log(f"K5 on the {RESO}^3 surface step batch ({step['origins'].shape[0]} rays, "
+            f"{step['pool'].close_t.shape[0]} entries), {what}, kernels against autograd of the "
+            f"plain path: " + json.dumps(chk))
+        if not chk["ok"]:
+            raise AssertionError(f"K5 on the surface step batch differs from autograd of the plain "
+                                 f"path: {chk}")
+    step_picks = bench_k34.pick_disagreements(step["pool"], bench_k34.k3_call(step)(),
+                                              grid.truncated_vol_render_a, opt)
+    log(f"K5a against K4 on the surface step batch, rays whose kill or pick differs: "
+        f"{json.dumps(step_picks)}")
+    if any(step_picks.values()):
+        raise AssertionError(f"K5a's kill or picks differ from K4's on the step batch: "
+                             f"{step_picks}")
+    del step
 
     # K5a and K5b alone, on K3's slots of this chunk
     comp_k = kernels.composite(pool.offsets, sk, grid.truncated_vol_render_a, opt)

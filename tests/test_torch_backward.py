@@ -78,7 +78,9 @@ def test_packed_render_gradients_match_jax(kw):
             loss = loss + jnp.sum(out["ray_losses"][k] * w_rl[k])
         return loss, out["pool_overflow"]
 
-    (lj, overflow), ref = jax.value_and_grad(j_loss, argnums=(0, 1, 2, 3), has_aux=True)(
+    # compiled whole: ~7 s on the CPU, where an eager first call compiles
+    # every primitive anew (~60 s); float64 results agree to ~1e-14
+    (lj, overflow), ref = jax.jit(jax.value_and_grad(j_loss, argnums=(0, 1, 2, 3), has_aux=True))(
         *(jnp.asarray(a[k]) for k in PARAMS))
     assert int(overflow) == 0
 

@@ -1,6 +1,7 @@
-"""K3, K4 and K5a on the card against their plain versions and each other,
-at test size, on pools whose rays span several of K4's lane groups and on
-every surface type. Marked ``cuda``: they need a card and skip without
+"""K3, K4, K5a and K5b on the card against their plain versions (K5:
+autograd of the plain renderer) and each other, at test size, on pools
+whose rays span several of K4's and K5a's lane groups and on every surface
+type. Marked ``cuda``: they need a card and skip without
 one. The file imports nothing of JAX (its inputs come from numpy seeds and
 the port's own grid makers), so that it also runs on a card machine without
 JAX, where the tests' conftest cannot load:
@@ -13,7 +14,7 @@ import torch
 
 import alphasurf_torch as pt
 from alphasurf_torch import defs, kernels
-from alphasurf_torch.app.bench_k34 import pick_disagreements
+from alphasurf_torch.app.bench_k34 import backward_check, pick_disagreements
 from alphasurf_torch.core.grid import SparseGrid, create_grid
 from alphasurf_torch.core.rays import Camera
 from alphasurf_torch.data.synthetic import make_gt_grid, pose_spherical
@@ -134,9 +135,36 @@ def _long_pool_case(device):
                               "surf_fake_sample": True, "limited_fake_sample": False,
                               "surf_fake_sample_min_vox_len": 0.0})
     o, d = sphere_rays(64, seed=4)
-    g, pool, _, _, sp = _slot_case(device, a, opt, o, d)
+    g, pool, inputs, packed, sp = _slot_case(device, a, opt, o, d)
     assert int((pool.offsets[1:] - pool.offsets[:-1]).max()) > 32
-    return g, opt, pool, sp
+    return g, opt, pool, sp, _chunk(g, opt, pool, inputs, packed)
+
+
+def _chunk(g, opt, pool, inputs, packed) -> dict:
+    """bench_k34's description of a chunk: the grid, options, pool and K3's inputs."""
+    origins, dirs, sh_mult, ngt = inputs
+    return dict(grid=g, opt=opt, pool=pool, origins=origins, dirs=dirs, sh_mult=sh_mult, ngt=ngt,
+                packed=packed)
+
+
+def _type_case(device, name):
+    """A chunk of type ``name`` ("sdf" or a CASES name) at sigma_thresh 1e-8
+    with raw alphas on both sides of it, so that the corner gate and the
+    slot gate act (UDF_ALPHA: its table's rows on both sides), truncation
+    on: the grid, options, plain pool, K3's inputs, packed rows and plain
+    slots. SDF's rows are SH (basis_dim 9, the kernels' compile-time row),
+    the types' basis_dim 4."""
+    if name == "sdf":
+        a, (o, d), extra = sphere_arrays(16, seed=3, prune=0.2), sphere_rays(64, seed=4), {}
+    else:
+        a, (o, d), extra = type_arrays(name), type_rays(8), dict(CASES[name][2])
+    if not name.endswith("_gate"):
+        a["density_data"] = np.random.default_rng(2).uniform(-1.0, 2.0, a["density_data"].shape)
+    assert (a["density_data"] < 1e-8).any() and (a["density_data"] > 1e-8).any()
+    opt = pt.RenderOptions(**{**BASE, "sigma_thresh": 1e-8, "stop_thresh": 1e-7,
+                              "truncated_vol_render": True, **extra})
+    g, pool, inputs, packed, sp = _slot_case(device, a, opt, o, d)
+    return g, opt, pool, inputs, packed, sp
 
 
 def _close(got, ref, rtol=1e-4, atol=1e-5, err_msg=""):
@@ -156,7 +184,7 @@ def test_composite_on_long_pools_matches_plain_version(cuda, mode):
     card under chip_smoke.py's tolerances (float32 sums in other orders):
     values rtol 1e-4 / atol 1e-5, depths and loss sums atol 1e-4, picks
     atol 1e-3; counts, flags and cache rows' counts equal."""
-    g, opt, pool, sp = _long_pool_case(cuda)
+    g, opt, pool, sp, _ = _long_pool_case(cuda)
     smp = {k: sp[k].contiguous() for k in SMP_KEYS}
     bg = torch.rand((64, 3), generator=torch.Generator().manual_seed(0)).to(cuda)
     ta = g.truncated_vol_render_a.detach()
@@ -191,7 +219,7 @@ def test_backward_ray_picks_are_composite_picks(cuda):
     median) with K4's sums in K4's order: on the long pools, with kills
     mid-ray, no ray's kill or pick differs from K4's (bench_k34's
     pick_disagreements)."""
-    g, opt, pool, sp = _long_pool_case(cuda)
+    g, opt, pool, sp, _ = _long_pool_case(cuda)
     smp = {k: sp[k].contiguous() for k in SMP_KEYS}
     got = pick_disagreements(pool, smp, g.truncated_vol_render_a.detach(), opt)
     assert got == dict.fromkeys(("kill", "mode", "med", "sig", "mode_first", "cache_med"), 0)
@@ -208,16 +236,7 @@ def test_phase_b_and_composite_every_type_with_alpha_gate(cuda, name):
     to chip_smoke.py's RTOL / ATOL (t to 1e-5 / 1e-4), loss sums to 1e-4;
     then K4 on the plain slots to the same tolerances. SDF's rows are SH
     (basis_dim 9, K3's compile-time row), the types' basis_dim 4."""
-    if name == "sdf":
-        a, (o, d), extra = sphere_arrays(16, seed=3, prune=0.2), sphere_rays(64, seed=4), {}
-    else:
-        a, (o, d), extra = type_arrays(name), type_rays(8), dict(CASES[name][2])
-    if not name.endswith("_gate"):
-        a["density_data"] = np.random.default_rng(2).uniform(-1.0, 2.0, a["density_data"].shape)
-    assert (a["density_data"] < 1e-8).any() and (a["density_data"] > 1e-8).any()
-    opt = pt.RenderOptions(**{**BASE, "sigma_thresh": 1e-8, "stop_thresh": 1e-7,
-                              "truncated_vol_render": True, **extra})
-    g, pool, (origins, dirs, sh_mult, ngt), packed, sp = _slot_case(cuda, a, opt, o, d)
+    g, opt, pool, (origins, dirs, sh_mult, ngt), packed, sp = _type_case(cuda, name)
     kernels.reset_launches()
     sk = kernels.phase_b(pool.ray_id, pool.l, pool.close_t, pool.far_t, origins, dirs, sh_mult,
                          g.links, packed, S._surface_spec(g), g.level_set_data, ngt, S._fss(g),
@@ -243,3 +262,55 @@ def test_phase_b_and_composite_every_type_with_alpha_gate(cuda, name):
     for k in ("rgb", "log_T", "weight"):
         _close(ck[k], cp[k], err_msg=k)
     _close(ck["ray_losses"], cp["ray_losses"], atol=1e-4, err_msg="ray_losses")
+
+
+def _check_backward(got: dict, every: bool, type_name: str | None = None) -> None:
+    """The launches of one backward_check and its verdict under GRAD_*."""
+    assert kernels.LAUNCHES["backward_ray"] == 1 and kernels.LAUNCHES["backward_entry"] == 1
+    if every:
+        assert kernels.LAUNCHES["backward_ray_out"] == 1
+        assert kernels.LAUNCHES["backward_entry_out"] == 1
+    if type_name is not None:
+        assert kernels.LAUNCHES[f"backward_entry_{type_name}"] == 1
+    assert got["live_flips"] == 0
+    assert got["ok"], {k: v for k, v in got.items() if k != "calls"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("every", [False, True])
+@pytest.mark.parametrize("rules", ["packed", "walk"])
+def test_backward_on_long_pools_matches_autograd_of_plain_version(cuda, rules, every):
+    """K5a and K5b on the long pools (rays of up to ~40 entries, several of
+    K5a's lane groups; truncation, fake samples, a stop_thresh kill
+    mid-ray) against autograd of the plain renderer on the same card, under
+    chip_smoke.py's GRAD_* (bench_k34.backward_check): random cotangents
+    on rgb and every ray loss, then (``every``) on every other output
+    too, through the second instantiations: depth, normal, log_T, the
+    mode, median and sigma-thresh depths, the slots' t, alphas and weights
+    and the intersections' points, or, by the walks' rules (a count window
+    of 2 entries, the first-maximum mode, a 3-sample cache, which
+    overflows), the cache, its median and the samples' alphas."""
+    g, opt, pool, _, c = _long_pool_case(cuda)
+    mode = S.PACKED if rules == "packed" else S._Mode(2, True, 3)
+    kernels.reset_launches()
+    got = backward_check(c, every, mode, 0.2)
+    _check_backward(got, every)
+    assert kernels.LAUNCHES["backward_cache"] == (rules == "walk" and every)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("every", [False, True])
+@pytest.mark.parametrize("name", ["sdf", "plane", "udf", "udf_alpha_gate", "udf_fake_sample_gate",
+                                  "voxel_face"])
+def test_backward_every_type_matches_autograd_of_plain_version(cuda, name, every):
+    """K5a and K5b on every surface type's chunk (the alpha gates acting)
+    against autograd of the plain renderer on the same card, under
+    chip_smoke.py's GRAD_*, as the long pools' test: each type's template
+    instantiation of K5b, on SDF's compile-time SH row (basis_dim 9) and
+    the types' row of basis_dim 4, rgb-only and with every output's
+    cotangent (the normal through K5b's second instantiation)."""
+    g, opt, pool, inputs, packed, _ = _type_case(cuda, name)
+    kernels.reset_launches()
+    got = backward_check(_chunk(g, opt, pool, inputs, packed), every, S.PACKED, 0.2)
+    _check_backward(got, every, None if name == "sdf" else name.replace("_gate", ""))
+

@@ -132,16 +132,17 @@ def test_density_occupancy_matches_jax(sphere_bound):
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _jax_per_ray_fn(opt, dst):
+def _jax_packed_fn(opt, dst):
+    # compiled whole, for a chunk or one ray: an eager first call compiles
+    # every primitive anew (~40 s on the CPU)
     return jax.jit(lambda g, o, d: JC.volume_render_cuvol_packed(
         g, at.Rays(o, d), opt, entries_per_ray=64.0, depth_sigma_thresh=dst))
 
 
 def _jax_packed(gj, o, d, opt, dst, per_ray: bool) -> dict:
+    f = _jax_packed_fn(opt, dst)
     if not per_ray:
-        return JC.volume_render_cuvol_packed(gj, at.Rays(jnp.asarray(o), jnp.asarray(d)), opt,
-                                             entries_per_ray=64.0, depth_sigma_thresh=dst)
-    f = _jax_per_ray_fn(opt, dst)
+        return f(gj, jnp.asarray(o), jnp.asarray(d))
     outs = [f(gj, jnp.asarray(o[i:i + 1]), jnp.asarray(d[i:i + 1])) for i in range(o.shape[0])]
     return {k: np.concatenate([np.atleast_1d(np.asarray(x[k])) for x in outs]) for k in outs[0]}
 
@@ -183,7 +184,7 @@ def test_packed_gradients_match_jax(kw):
                    jnp.asarray(cot[i:i + 1])) for i in range(B)]
         ref = [sum(np.asarray(p[j]) for p in parts) for j in range(2)]
     else:
-        ref = [np.asarray(x) for x in jax.grad(loss_j, argnums=(0, 1))(
+        ref = [np.asarray(x) for x in jax.jit(jax.grad(loss_j, argnums=(0, 1)))(
             gj.density_data, gj.sh_data, jnp.asarray(o), jnp.asarray(d), jnp.asarray(cot))]
     g = _port_grid(a)
     params = [g.density_data.requires_grad_(True), g.sh_data.requires_grad_(True)]
@@ -204,9 +205,9 @@ def test_packed_float32_matches_jax_on_small_chunks():
         sh_data=jnp.asarray(a["sh_data"], jnp.float32))
     o, d = (x.astype(np.float32) for x in _rays())
     opt_j, opt_t, _ = _opts(PACKED_SETS[0])
-    ref = {k: np.concatenate([np.asarray(JC.volume_render_cuvol_packed(
-        gj32, at.Rays(jnp.asarray(o[i:i + 8]), jnp.asarray(d[i:i + 8])), opt_j,
-        entries_per_ray=64.0)[k]) for i in range(0, B, 8)]) for k in ("rgb", "log_transmit")}
+    f = _jax_packed_fn(opt_j, None)
+    outs = [f(gj32, jnp.asarray(o[i:i + 8]), jnp.asarray(d[i:i + 8])) for i in range(0, B, 8)]
+    ref = {k: np.concatenate([np.asarray(x[k]) for x in outs]) for k in ("rgb", "log_transmit")}
     got = TC.volume_render_cuvol_packed(_port_grid(a, torch.float32),
                                         pt.Rays(torch.as_tensor(o), torch.as_tensor(d)), opt_t)
     np.testing.assert_allclose(got["rgb"].numpy(), ref["rgb"], rtol=1e-5, atol=1e-6)

@@ -1,7 +1,9 @@
 """The slice end to end: the port's ``volume_render_surface_packed`` and
 ``render_image`` against the JAX package's."""
 import dataclasses
+import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,8 +23,12 @@ def test_packed_render_matches_jax(kw):
     a = np_grid(16, seed=3, prune=0.2)
     gj, gt = jax_grid(a), SparseGrid.from_numpy(a, device="cpu")
     o, d = np_rays(64, seed=4)
-    ref = j_render(gj, at.Rays(jnp.asarray(o), jnp.asarray(d)), at.RenderOptions(**{**BASE, **kw}),
-                   entries_per_ray=48)
+    # compiled whole: an eager call's first use in a process compiles every
+    # primitive anew (~40 s on the CPU), jax.jit the program (~7 s); float64
+    # results agree with the eager call's to ~1e-14 relative
+    render = jax.jit(functools.partial(j_render, opt=at.RenderOptions(**{**BASE, **kw}),
+                                       entries_per_ray=48))
+    ref = render(gj, at.Rays(jnp.asarray(o), jnp.asarray(d)))
     assert int(ref["pool_overflow"]) == 0
     got = t_render(gt, pt.Rays(t64(o), t64(d)), pt.RenderOptions(**{**BASE, **kw}))
     for k in ("rgb", "depth", "normal", "log_transmit", "alpha", "depth_mode", "depth_med"):
