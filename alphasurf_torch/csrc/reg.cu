@@ -11,18 +11,18 @@
 // reg_basis_tv, each with its jax.grad, as svox2's
 // loss_kernel.cu computed loss and gradient together. With a cell list the
 // cells are a sampled window (flat lattice ids, reg.py:sample_present_cells
-// or sample_cells); without one (K6 only), every lattice cell is a thread,
-// which is the dense variants
-// surface_tv_loss_dense (384) and surface_normal_loss_dense (428): the
-// latter covers the cells whose 3x3x3 window lies inside the lattice, as
-// its slab formulation does. The caller's ``scale`` is 1/n for a window of
-// n cells and 1/links.size for every cell.
+// or sample_cells). Without one (K6's TV and normal only) the launch covers
+// every lattice cell, the dense variants surface_tv_loss_dense (384) and
+// surface_normal_loss_dense (428): the latter over the cells whose 3x3x3
+// window lies inside the lattice, as its slab formulation does. The
+// caller's ``scale`` is 1/n for a window of n cells and 1/links.size for
+// every cell.
 //
-// Each thread reads its cell's links (+x/+y/+z neighbours, or the 3x3x3
-// window), the rows they name, computes the cell's loss and its analytic
-// gradient, and adds the gradient into its own and its neighbours' rows with
-// atomicAdd; the loss is summed over the block and added with one atomic,
-// in double: a float32 sum over millions of cells (every-cell mode) drifts.
+// Each cell reads its links (+x/+y/+z neighbours, or the 3x3x3 window), the
+// rows they name, computes the cell's loss and its analytic gradient, and
+// adds the gradient into its own and its neighbours' rows with atomicAdd;
+// the loss is summed over the block and added with one atomic, in double:
+// a float32 sum over millions of cells (every-cell mode) drifts.
 //
 // A density table shorter than the capacity (UDF_ALPHA's one alpha per
 // level set) is read and written at row min(link, rows - 1), as the JAX
@@ -30,11 +30,40 @@
 // sparsifier then sums the last row's gradient, which every link past the
 // table adds to, over the warp before its one atomic.
 //
-// Bound: bytes, and at the main path's window (0.01 of 2.47M rows) the
-// launch itself: each cell reads 4 (TV, norm match, sign change), 7
+// Bound: bytes. Each cell reads 4 (TV, norm match, sign change), 7
 // (viscosity), 8 (eikonal) or 27 (normal) links and as many rows and adds
-// as many gradients. Design: one thread per cell, flat ids
-// decoded in the thread, zero gradients not added.
+// as many gradients; at the main path's window (0.01 of 2.47M rows) the
+// launch itself sets the time.
+//
+// Design of K6's TV and normal. Every-cell mode visits the present
+// vertices, not the lattice: a thread takes row n of the (rows, 3) row
+// coordinates that the Trainer keeps once per topology, and stands for
+// the cell there only when the link at those coordinates names row n (an
+// unlinked row's coordinates are (0, 0, 0), reg.py:row_coords_of). At 512^3
+// that is 2.47M threads instead of 134M, and no thread decodes a flat id.
+// An empty cell has zero TV differences and no gradient: it adds the
+// constant k_empty = (c1 - c0) sqrt(1e-5) sigmoid(0) (or 1 unweighted),
+// which the wrapper adds for all links.size cells in float64 and each
+// present vertex takes back. A normal cell gives loss and gradient only
+// when all 8 corners of its base cube exist, so it needs a present base
+// vertex inside the interior box, and every normal cell stops after reading
+// its 27 links when one of those 8 is missing. Rows in raster order (as the
+// package's grid constructors number them; not a checkpoint's Morton
+// order) are consecutive in z, so a warp's link, row and gradient accesses
+// fall on few lines. A window's flat id is int32 and decoded in 32 bits.
+// The normal's cost is its arithmetic (IEEE divisions and square roots
+// under --fmad=false; 87% of the 128^3 shell's rows have a whole base
+// cube) and its atomics (a third of its time), not its reads: handing a
+// cell's gradient at z + 1 and z + 2 to the lanes that hold those vertices
+// along z-runs (8 atomics a cell instead of 20) gained 1-2%, and reading
+// each window plane once per run, shared by shuffles, was 60% slower;
+// neither was kept.
+//
+// The TV of many channels (the 27 SH channels) runs a warp a cell, lane c
+// on channel c0 + c, so that its row reads coalesce, and adds each row's
+// gradient in float4 atomics over the 16-byte slots the row's elements lie
+// in (shuffled from the channels' lanes); a 1-channel TV and the normal
+// window keep a thread a cell.
 #include "common.cuh"
 
 HD int link_at(const int* links, int X, int Y, int Z, int64_t x, int64_t y, int64_t z) {
@@ -49,6 +78,33 @@ HD void decode_cell(int64_t cell, int Y, int Z, int64_t& x, int64_t& y, int64_t&
     x = xy / Y;
 }
 
+// K6: the link at (x, y, z), -1 outside the lattice; coordinates in 32 bits
+HD int link_xyz(const int* links, int X, int Y, int Z, int x, int y, int z) {
+    if ((unsigned)x >= (unsigned)X || (unsigned)y >= (unsigned)Y || (unsigned)z >= (unsigned)Z)
+        return -1;
+    return links[(int64_t)(x * Y + y) * Z + z];
+}
+
+// K6: a window's flat id (int32) decoded in 32 bits
+HD void decode_window(int cell, int Y, int Z, int& x, int& y, int& z) {
+    const unsigned c = (unsigned)cell, yy = (unsigned)Y, zz = (unsigned)Z;
+    const unsigned xy = c / zz;
+    z = (int)(c - xy * zz);
+    const unsigned xq = xy / yy;
+    y = (int)(xy - xq * yy);
+    x = (int)xq;
+}
+
+// K6's every-cell mode: row n's coordinates, and whether the link there
+// names row n (false for a row no link names)
+HD bool row_cell(const int* links, const int* row_coords, int X, int Y, int Z, int64_t n, int& x,
+                 int& y, int& z) {
+    x = row_coords[3 * n];
+    y = row_coords[3 * n + 1];
+    z = row_coords[3 * n + 2];
+    return link_xyz(links, X, Y, Z, x, y, z) == (int)n;
+}
+
 // ---------------------------------------------------------------------------
 // TV over channels [c0, c1) of a (cap, C) array; optionally each cell
 // weighted by sigmoid of its raw alpha (detached), as surface_tv_loss's
@@ -59,13 +115,15 @@ struct TVParams {
     const int* links;
     int X, Y, Z;
     const int* cells;  // (n,) flat ids, or null for every lattice cell
-    int64_t n;
+    const int* row_coords;  // (n, 3) coordinates of each row: every-cell mode
+    int64_t n;  // cells, or rows
     const float* data;
     int64_t rows;  // rows of data: a link reads row min(link, rows - 1)
     int C, c0, c1;
     const float* wdens;  // (wrows,) raw alpha, or null for no weighting
     int64_t wrows;
     float scale;
+    float k_empty;  // every-cell mode: the loss of an empty cell, before scale
     double* loss;  // (1,), float64
     float* grad;  // (cap, C)
 };
@@ -73,18 +131,20 @@ struct TVParams {
 // the row a link reads in a table of `rows` rows (fetch_links's clip)
 HD int64_t row_of(int link, int64_t rows) { return link < rows ? (int64_t)link : rows - 1; }
 
-HD float tv_cell(const TVParams& p, int64_t n) {
-    int64_t x, y, z;
-    decode_cell(p.cells ? (int64_t)p.cells[n] : n, p.Y, p.Z, x, y, z);
-    const int64_t l0 = row_of(link_at(p.links, p.X, p.Y, p.Z, x, y, z), p.rows);
-    const int64_t lx = row_of(link_at(p.links, p.X, p.Y, p.Z, x + 1, y, z), p.rows);
-    const int64_t ly = row_of(link_at(p.links, p.X, p.Y, p.Z, x, y + 1, z), p.rows);
-    const int64_t lz = row_of(link_at(p.links, p.X, p.Y, p.Z, x, y, z + 1), p.rows);
-    float aw = 1.0f;
-    if (p.wdens) {
-        const int w0 = link_at(p.links, p.X, p.Y, p.Z, x, y, z);
-        aw = 1.0f / (1.0f + expf(-(w0 >= 0 ? p.wdens[row_of(w0, p.wrows)] : 0.0f)));
-    }
+// the cell's weight: sigmoid of the raw alpha at its link w0 (0 where w0 is
+// -1), or 1 unweighted
+HD float tv_weight(const TVParams& p, int w0) {
+    if (!p.wdens) return 1.0f;
+    return 1.0f / (1.0f + expf(-(w0 >= 0 ? p.wdens[row_of(w0, p.wrows)] : 0.0f)));
+}
+
+// the TV of the cell at (x, y, z), summed over the channels, its gradient
+// (times aw and scale) added into the rows
+HD float tv_at(const TVParams& p, int x, int y, int z, float aw) {
+    const int64_t l0 = row_of(link_xyz(p.links, p.X, p.Y, p.Z, x, y, z), p.rows);
+    const int64_t lx = row_of(link_xyz(p.links, p.X, p.Y, p.Z, x + 1, y, z), p.rows);
+    const int64_t ly = row_of(link_xyz(p.links, p.X, p.Y, p.Z, x, y + 1, z), p.rows);
+    const int64_t lz = row_of(link_xyz(p.links, p.X, p.Y, p.Z, x, y, z + 1), p.rows);
     float loss = 0.0f;
     for (int ch = p.c0; ch < p.c1; ++ch) {
         const float v0 = l0 >= 0 ? p.data[l0 * p.C + ch] : 0.0f;
@@ -103,8 +163,92 @@ HD float tv_cell(const TVParams& p, int64_t n) {
         const float g0 = -(g * dx + g * dy + g * dz);
         if (g0 != 0.0f) atomic_add(p.grad + l0 * p.C + ch, g0);
     }
+    return loss;
+}
+
+// window cell n, a thread a cell
+HD float tv_cell(const TVParams& p, int64_t n) {
+    int x, y, z;
+    decode_window(p.cells[n], p.Y, p.Z, x, y, z);
+    const float aw = tv_weight(p, link_xyz(p.links, p.X, p.Y, p.Z, x, y, z));
+    return tv_at(p, x, y, z, aw) * aw * p.scale;
+}
+
+// every-cell mode, row n: its cell's loss less the empty cell's, which the
+// wrapper counted for every cell
+HD float tv_row(const TVParams& p, int64_t n) {
+    int x, y, z;
+    if (!row_cell(p.links, p.row_coords, p.X, p.Y, p.Z, n, x, y, z)) return 0.0f;
+    const float aw = tv_weight(p, (int)n);
+    return (tv_at(p, x, y, z, aw) * aw - p.k_empty) * p.scale;
+}
+
+#ifdef __CUDACC__
+// v, lane j's value of element e0 + j (j < m <= 32), added to g (n_el
+// floats) by float4 atomics in the 16-byte slots elements e0 .. e0 + m - 1
+// lie in: slot lane q gathers its 4 elements from their lanes by shuffles,
+// an element outside the m adds 0, and a slot past the array's end adds
+// element by element. Every lane of the warp calls it.
+__device__ __forceinline__ void add_row_slots(float* g, int64_t n_el, int64_t e0, int m, float v,
+                                              int lane) {
+    const int ph = (int)(e0 & 3);
+    float x[4];
+    bool any = false;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+        const int j = 4 * lane + t - ph;
+        const bool in = j >= 0 && j < m;
+        const float w = __shfl_sync(kFullWarp, v, in ? j : 0);
+        x[t] = in ? w : 0.0f;
+        any = any || x[t] != 0.0f;
+    }
+    if (lane < ((ph + m + 3) >> 2) && any) {
+        const int64_t a = e0 - ph + 4 * lane;
+        if (a + 4 <= n_el) {
+            atomicAdd(reinterpret_cast<float4*>(g + a), make_float4(x[0], x[1], x[2], x[3]));
+        } else {
+            for (int t = 0; t < 4; ++t)
+                if (x[t] != 0.0f) atomicAdd(g + a + t, x[t]);
+        }
+    }
+}
+
+// window cell n on a warp, lane c on channels c0 + c, c0 + c + 32, ...:
+// this lane's share of the loss; the row gradients go out in float4 slots
+__device__ __forceinline__ float tv_cell_wide(const TVParams& p, int64_t n, int lane) {
+    int x, y, z;
+    decode_window(p.cells[n], p.Y, p.Z, x, y, z);
+    const int w0 = link_xyz(p.links, p.X, p.Y, p.Z, x, y, z);
+    const int64_t l0 = row_of(w0, p.rows);
+    const int64_t lx = row_of(link_xyz(p.links, p.X, p.Y, p.Z, x + 1, y, z), p.rows);
+    const int64_t ly = row_of(link_xyz(p.links, p.X, p.Y, p.Z, x, y + 1, z), p.rows);
+    const int64_t lz = row_of(link_xyz(p.links, p.X, p.Y, p.Z, x, y, z + 1), p.rows);
+    const float aw = tv_weight(p, w0);
+    const int64_t n_el = p.rows * p.C;
+    float loss = 0.0f;
+    for (int cb = p.c0; cb < p.c1; cb += 32) {
+        const int m = p.c1 - cb < 32 ? p.c1 - cb : 32, ch = cb + lane;
+        const bool on = lane < m;
+        const float v0 = on && l0 >= 0 ? p.data[l0 * p.C + ch] : 0.0f;
+        const float vx = on && lx >= 0 ? p.data[lx * p.C + ch] : 0.0f;
+        const float vy = on && ly >= 0 ? p.data[ly * p.C + ch] : 0.0f;
+        const float vz = on && lz >= 0 ? p.data[lz * p.C + ch] : 0.0f;
+        const float dx = (l0 >= 0 && lx >= 0) ? vx - v0 : 0.0f;
+        const float dy = (l0 >= 0 && ly >= 0) ? vy - v0 : 0.0f;
+        const float dz = (l0 >= 0 && lz >= 0) ? vz - v0 : 0.0f;
+        const float sq = sqrtf(1e-5f + dx * dx + dy * dy + dz * dz);
+        if (on) loss = loss + sq;
+        const float g = p.scale * aw / sq;
+        // the links are the warp's, so every lane takes the same branches
+        if (l0 >= 0 && lx >= 0) add_row_slots(p.grad, n_el, lx * p.C + cb, m, g * dx, lane);
+        if (l0 >= 0 && ly >= 0) add_row_slots(p.grad, n_el, ly * p.C + cb, m, g * dy, lane);
+        if (l0 >= 0 && lz >= 0) add_row_slots(p.grad, n_el, lz * p.C + cb, m, g * dz, lane);
+        if (l0 >= 0 && (lx >= 0 || ly >= 0 || lz >= 0))
+            add_row_slots(p.grad, n_el, l0 * p.C + cb, m, -(g * dx + g * dy + g * dz), lane);
+    }
     return loss * aw * p.scale;
 }
+#endif
 
 // ---------------------------------------------------------------------------
 // normal consistency over the 3x3x3 vertex window of each cell
@@ -114,7 +258,8 @@ struct NormalParams {
     const int* links;
     int X, Y, Z;
     const int* cells;  // (n,) flat ids, or null for every cell of the interior box
-    int64_t n;
+    const int* row_coords;  // (n, 3) coordinates of each row: every-cell mode
+    int64_t n;  // cells, or rows
     const float* surf;  // (cap, n_surf_c), channel 0
     int n_surf_c;
     const float* level_sets;
@@ -208,22 +353,22 @@ HD float ndiff(const float a[3], const float b[3], int use_l1, float g[3]) {
     return acc;
 }
 
-HD float normal_cell(const NormalParams& p, int64_t n) {
-    int64_t x, y, z;
-    if (p.cells)
-        decode_cell(p.cells[n], p.Y, p.Z, x, y, z);
-    else
-        decode_cell(n, p.Y - 2, p.Z - 2, x, y, z);
+// the normal loss of the cell at (x, y, z), its gradient added: its 27
+// links first (independent loads), its values only where the 8 corners of
+// its base cube exist (m000), without which a cell gives nothing
+HD float normal_at(const NormalParams& p, int x, int y, int z) {
     int L[3][3][3];
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j)
+            for (int k = 0; k < 3; ++k)
+                L[i][j][k] = link_xyz(p.links, p.X, p.Y, p.Z, x + i, y + j, z + k);
+    if (!exists(L, 0, 0, 0)) return 0.0f;
     float S[3][3][3];
     for (int i = 0; i < 3; ++i)
         for (int j = 0; j < 3; ++j)
-            for (int k = 0; k < 3; ++k) {
-                L[i][j][k] = link_at(p.links, p.X, p.Y, p.Z, x + i, y + j, z + k);
+            for (int k = 0; k < 3; ++k)
                 S[i][j][k] = L[i][j][k] >= 0 ? p.surf[(int64_t)L[i][j][k] * p.n_surf_c] : 0.0f;
-            }
-    const bool m000 = exists(L, 0, 0, 0), m001 = exists(L, 0, 0, 1);
-    const bool m010 = exists(L, 0, 1, 0), m100 = exists(L, 1, 0, 0);
+    const bool m001 = exists(L, 0, 0, 1), m010 = exists(L, 0, 1, 0), m100 = exists(L, 1, 0, 0);
     bool con001 = true, con010 = true, con100 = true;
     if (p.con_check) {
         con001 = face_con(p, S[0][0][1], S[0][1][1], S[1][0][1], S[1][1][1]);
@@ -237,9 +382,9 @@ HD float normal_cell(const NormalParams& p, int64_t n) {
         e010 = empty(S, 0, 1, 0);
         e100 = empty(S, 1, 0, 0);
     }
-    const bool skip_z = !m001 || !m000 || !con001 || (e000 && e001);
-    const bool skip_y = !m010 || !m000 || !con010 || (e000 && e010);
-    const bool skip_x = !m100 || !m000 || !con100 || (e000 && e100);
+    const bool skip_z = !m001 || !con001 || (e000 && e001);
+    const bool skip_y = !m010 || !con010 || (e000 && e010);
+    const bool skip_x = !m100 || !con100 || (e000 && e100);
     const int count = 3 - (int)skip_z - (int)skip_y - (int)skip_x;
     if (count == 0) return 0.0f;
 
@@ -296,6 +441,22 @@ HD float normal_cell(const NormalParams& p, int64_t n) {
                 if (L[i][j][k] >= 0 && G[i][j][k] != 0.0f)
                     atomic_add(p.grad + (int64_t)L[i][j][k] * p.n_surf_c, G[i][j][k]);
     return cell_loss * p.scale;
+}
+
+// window cell n
+HD float normal_cell(const NormalParams& p, int64_t n) {
+    int x, y, z;
+    decode_window(p.cells[n], p.Y, p.Z, x, y, z);
+    return normal_at(p, x, y, z);
+}
+
+// every-cell mode, row n: the cell whose base vertex it is, in the
+// interior box
+HD float normal_row(const NormalParams& p, int64_t n) {
+    int x, y, z;
+    if (!row_cell(p.links, p.row_coords, p.X, p.Y, p.Z, n, x, y, z)) return 0.0f;
+    if (x > p.X - 3 || y > p.Y - 3 || z > p.Z - 3) return 0.0f;
+    return normal_at(p, x, y, z);
 }
 
 // ---------------------------------------------------------------------------
@@ -725,14 +886,32 @@ HD float basis_tv_cell(const BasisTVParams& p, int64_t i) {
 #ifdef __CUDACC__
 constexpr int REG_BLOCK = 256;
 
+// K6's TV of a channel range at least this wide runs a warp a window cell
+constexpr int kTVWideChannels = 4;
+
 __global__ void reg_tv_kernel(TVParams p) {
     const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     block_sum_atomic(n < p.n ? tv_cell(p, n) : 0.0f, p.loss);
 }
 
+__global__ void reg_tv_wide_kernel(TVParams p) {
+    const int64_t n = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    block_sum_atomic(n < p.n ? tv_cell_wide(p, n, threadIdx.x & 31) : 0.0f, p.loss);
+}
+
+__global__ void reg_tv_rows_kernel(TVParams p) {
+    const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    block_sum_atomic(n < p.n ? tv_row(p, n) : 0.0f, p.loss);
+}
+
 __global__ void reg_normal_kernel(NormalParams p) {
     const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     block_sum_atomic(n < p.n ? normal_cell(p, n) : 0.0f, p.loss);
+}
+
+__global__ void reg_normal_rows_kernel(NormalParams p) {
+    const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    block_sum_atomic(n < p.n ? normal_row(p, n) : 0.0f, p.loss);
 }
 
 __global__ void reg_sparsify_kernel(SparsifyParams p) {
@@ -791,26 +970,42 @@ __global__ void reg_basis_tv_kernel(BasisTVParams p) {
 
 static unsigned n_blocks(int64_t n) { return (unsigned)((n + REG_BLOCK - 1) / REG_BLOCK); }
 
-extern "C" cudaError_t reg_tv(const int* links, int X, int Y, int Z, const int* cells, long long n,
-                              const float* data, long long rows, int C, int c0, int c1,
-                              const float* wdens, long long wrows, float scale, double* loss,
+// K6's TV at window cells (cells, n of them) or, with cells null, at every
+// lattice cell through the n rows of row_coords; the loss is expected to
+// hold the empty cells' share (links.size k_empty scale) in every-cell mode
+extern "C" cudaError_t reg_tv(const int* links, int X, int Y, int Z, const int* cells,
+                              const int* row_coords, long long n, const float* data,
+                              long long rows, int C, int c0, int c1, const float* wdens,
+                              long long wrows, float scale, float k_empty, double* loss,
                               float* grad, void* stream) {
     if (n <= 0) return cudaSuccess;
-    const TVParams p{links, X, Y, Z, cells, n, data, rows, C, c0, c1, wdens, wrows, scale, loss,
-                     grad};
-    reg_tv_kernel<<<n_blocks(n), REG_BLOCK, 0, (cudaStream_t)stream>>>(p);
+    const TVParams p{links, X, Y, Z, cells, row_coords, n, data, rows, C, c0, c1, wdens, wrows,
+                     scale, k_empty, loss, grad};
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (!cells)
+        reg_tv_rows_kernel<<<n_blocks(n), REG_BLOCK, 0, s>>>(p);
+    else if (c1 - c0 >= kTVWideChannels)
+        reg_tv_wide_kernel<<<n_blocks(n * 32), REG_BLOCK, 0, s>>>(p);
+    else
+        reg_tv_kernel<<<n_blocks(n), REG_BLOCK, 0, s>>>(p);
     return cudaGetLastError();
 }
 
+// K6's normal at window cells or, with cells null, at every cell of the
+// interior box through the n rows of row_coords
 extern "C" cudaError_t reg_normal(const int* links, int X, int Y, int Z, const int* cells,
-                                  long long n, const float* surf, int n_surf_c,
-                                  const float* level_sets, int n_lv, int con_check,
+                                  const int* row_coords, long long n, const float* surf,
+                                  int n_surf_c, const float* level_sets, int n_lv, int con_check,
                                   int ignore_empty, int use_l1, float scale, double* loss,
                                   float* grad, void* stream) {
     if (n <= 0) return cudaSuccess;
-    const NormalParams p{links, X, Y, Z, cells, n, surf, n_surf_c, level_sets, n_lv, con_check,
-                         ignore_empty, use_l1, scale, loss, grad};
-    reg_normal_kernel<<<n_blocks(n), REG_BLOCK, 0, (cudaStream_t)stream>>>(p);
+    const NormalParams p{links, X, Y, Z, cells, row_coords, n, surf, n_surf_c, level_sets, n_lv,
+                         con_check, ignore_empty, use_l1, scale, loss, grad};
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (cells)
+        reg_normal_kernel<<<n_blocks(n), REG_BLOCK, 0, s>>>(p);
+    else
+        reg_normal_rows_kernel<<<n_blocks(n), REG_BLOCK, 0, s>>>(p);
     return cudaGetLastError();
 }
 

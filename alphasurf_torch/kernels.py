@@ -23,6 +23,7 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import defs
@@ -51,6 +52,9 @@ LAUNCHES = {
     "backward_entry_basis": 0,
     "reg_tv": 0,
     "reg_normal": 0,
+    # K6's every-cell mode (a launch also counts under the kernel's name)
+    "reg_tv_every": 0,
+    "reg_normal_every": 0,
     "reg_sparsify": 0,
     "rmsprop": 0,
     "density_occupancy": 0,
@@ -132,8 +136,8 @@ _ARGTYPES = {
     "backward_entry": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P,
                        _I, _I, _I, _P, _F, _F, _P, _F, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "reg_tv": [_P, _I, _I, _I, _P, _L, _P, _L, _I, _I, _I, _P, _L, _F, _P, _P, _P],
-    "reg_normal": [_P, _I, _I, _I, _P, _L, _P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P],
+    "reg_tv": [_P, _I, _I, _I, _P, _P, _L, _P, _L, _I, _I, _I, _P, _L, _F, _F, _P, _P, _P],
+    "reg_normal": [_P, _I, _I, _I, _P, _P, _L, _P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     "reg_sparsify": [_P, _I, _I, _I, _P, _L, _P, _L, _P, _I, _F, _F, _F, _F, _F, _P, _P, _P,
                      _P],
     "reg_ext": [_I, _P, _I, _I, _I, _P, _L, _I, _P, _I, _P, _L, _P, _F, _F, _F, _P, _P, _P, _P,
@@ -853,47 +857,78 @@ def _cells_arg(links, cells):
     return _ptr(cells)
 
 
-def reg_tv(links, cells, data, c0: int, c1: int, wdens, scale: float):
+def _rows_arg(cells, row_coords, rows: int):
+    """K6's work list: the window ``cells`` (flat ids, int32), or with
+    ``cells`` None every lattice cell through ``row_coords`` (rows, 3),
+    int32, the lattice coordinates of each data row (reg.row_coords_of).
+    Returns the row coordinates' pointer (0 for a window) and the count of
+    cells or rows."""
+    if cells is not None:
+        return 0, cells.numel()
+    if row_coords is None:
+        raise ValueError("every-cell mode needs row_coords (reg.row_coords_of)")
+    _check("row_coords", row_coords, torch.int32, (rows, 3))
+    return _ptr(row_coords), rows
+
+
+# an empty cell's TV per channel, sqrt(1e-5 + 0) in float32
+TV_FLOOR = float(np.sqrt(np.float32(1e-5)))
+
+
+def reg_tv(links, cells, data, c0: int, c1: int, wdens, scale: float, row_coords=None):
     """K6, TV over channels [c0, c1) of ``data`` (rows, C) at ``cells``
-    (flat ids, int32) or at every lattice cell (None); cells weighted by
-    sigmoid(wdens) when ``wdens`` (rows',) is given. A link reads row
-    min(link, rows - 1), as fetch_links clips (UDF_ALPHA's density table).
-    Returns the loss (1,), summed in float64 and returned as float32, and
-    its gradient (rows, C)."""
+    (flat ids, int32) or, with ``cells`` None, at every lattice cell: the
+    kernel then visits the present rows of ``row_coords`` (rows, 3) and the
+    empty cells add their constant sqrt(1e-5) per channel (times sigmoid(0)
+    when weighted) in float64 here. Cells weighted by sigmoid(wdens) when
+    ``wdens`` (rows',) is given. A link reads row min(link, rows - 1), as
+    fetch_links clips (UDF_ALPHA's density table). Returns the loss (1,),
+    summed in float64 and returned as float32, and its gradient (rows, C)."""
     rows, C = data.shape
     _check("data", data, torch.float32)
     cp = _cells_arg(links, cells)
+    rp, n = _rows_arg(cells, row_coords, rows)
     if wdens is not None:
         _check("wdens", wdens, torch.float32)
         if wdens.dim() != 1:
             raise ValueError(f"wdens: expected one dimension, got {tuple(wdens.shape)}")
-    n = links.numel() if cells is None else cells.numel()
-    loss = torch.zeros(1, dtype=torch.float64, device=data.device)
+    k_empty = 0.0
+    if cells is None:  # float32, as the kernel takes it back for each present cell
+        k_empty = float(np.float32(c1 - c0) * np.float32(TV_FLOOR)
+                        * np.float32(1.0 if wdens is None else 0.5))
+    loss = torch.full((1,), links.numel() * k_empty * scale, dtype=torch.float64,
+                      device=data.device)
     grad = torch.zeros_like(data)
     X, Y, Z = links.shape
     if n > 0:
-        _launch("reg", "reg_tv", "reg_tv", _ptr(links), X, Y, Z, cp, n, _ptr(data), rows, C, c0,
-                c1, 0 if wdens is None else _ptr(wdens), 0 if wdens is None else wdens.numel(),
-                float(scale), _ptr(loss), _ptr(grad))
+        _launch("reg", "reg_tv", "reg_tv", _ptr(links), X, Y, Z, cp, rp, n, _ptr(data), rows, C,
+                c0, c1, 0 if wdens is None else _ptr(wdens), 0 if wdens is None else wdens.numel(),
+                float(scale), k_empty, _ptr(loss), _ptr(grad))
+        if cells is None:
+            LAUNCHES["reg_tv_every"] += 1
     return loss.float(), grad
 
 
 def reg_normal(links, cells, surface, level_sets, con_check: bool, ignore_empty: bool,
-               use_l1: bool, scale: float):
-    """K6, normal consistency of surface channel 0 at ``cells``, or at every
-    cell whose 3x3x3 window lies in the lattice (None). Returns the loss (1,)
-    and its gradient (cap, n_surf_c)."""
+               use_l1: bool, scale: float, row_coords=None):
+    """K6, normal consistency of surface channel 0 at ``cells`` or, with
+    ``cells`` None, at every cell whose 3x3x3 window lies in the lattice:
+    the kernel then visits the present rows of ``row_coords`` (cap, 3), each
+    the base vertex of its cell. Returns the loss (1,) and its gradient
+    (cap, n_surf_c)."""
     _check("surface", surface, torch.float32)
     _check("level_sets", level_sets, torch.float32)
     cp = _cells_arg(links, cells)
+    rp, n = _rows_arg(cells, row_coords, surface.shape[0])
     X, Y, Z = links.shape
-    n = max(X - 2, 0) * max(Y - 2, 0) * max(Z - 2, 0) if cells is None else cells.numel()
     loss = torch.zeros(1, dtype=torch.float64, device=surface.device)
     grad = torch.zeros_like(surface)
     if n > 0:
-        _launch("reg", "reg_normal", "reg_normal", _ptr(links), X, Y, Z, cp, n, _ptr(surface),
+        _launch("reg", "reg_normal", "reg_normal", _ptr(links), X, Y, Z, cp, rp, n, _ptr(surface),
                 surface.shape[1], _ptr(level_sets), level_sets.numel(), int(con_check),
                 int(ignore_empty), int(use_l1), float(scale), _ptr(loss), _ptr(grad))
+        if cells is None:
+            LAUNCHES["reg_normal_every"] += 1
     return loss.float(), grad
 
 

@@ -8,7 +8,8 @@ computes the loss and the gradient of the rows, as svox2's kernels did, and
 an autograd Function hands back the saved gradient times the loss's
 cotangent. On the CPU each has a plain PyTorch
 version, differentiated by autograd. Cells are flat lattice ids (int32);
-the dense variants are the same kernels with every lattice cell a thread.
+the dense variants are the same kernels over the present rows of
+``row_coords_of`` (the empty cells' share in closed form).
 
 The samplers draw a window start from an explicit ``torch.Generator`` (on
 the CPU, so that drawing never waits on the card), or take the start they
@@ -255,13 +256,14 @@ def tv_loss(grid: SparseGrid, data: torch.Tensor, cells: torch.Tensor, start_dim
                                1.0 / cells.numel()), data)
 
 
-def _surface_tv(grid, cells, alpha_weighted, scale):
+def _surface_tv(grid, cells, alpha_weighted, scale, row_coords=None):
     weight = grid.density_data if alpha_weighted else None
     if not grid.links.is_cuda:
         return _tv_plain(grid, grid.surface_data, cells, 0, 1, weight, scale)
     wdens = None if weight is None else weight.detach()[:, 0].contiguous()
     return _KernelLoss.apply(
-        lambda: kernels.reg_tv(grid.links, cells, grid.surface_data.detach(), 0, 1, wdens, scale),
+        lambda: kernels.reg_tv(grid.links, cells, grid.surface_data.detach(), 0, 1, wdens, scale,
+                               row_coords),
         grid.surface_data)
 
 
@@ -272,21 +274,26 @@ def surface_tv_loss(grid: SparseGrid, cells: torch.Tensor, alpha_weighted: bool 
     return _surface_tv(grid, cells, alpha_weighted, 1.0 / cells.numel())
 
 
-def surface_tv_loss_dense(grid: SparseGrid, alpha_weighted: bool = False) -> torch.Tensor:
+def surface_tv_loss_dense(grid: SparseGrid, row_coords: torch.Tensor,
+                          alpha_weighted: bool = False) -> torch.Tensor:
     """``surface_tv_loss`` over every lattice cell, over links.size
-    (reg.py:384: the recipe's tv_surface_sparsity = 1)."""
+    (reg.py:384: the recipe's tv_surface_sparsity = 1). ``row_coords`` is
+    ``row_coords_of(grid)``: on the card K6 visits the present rows through
+    it and adds the empty cells' sqrt(1e-5) floor in closed form; the plain
+    version takes every cell."""
     cells = None if grid.links.is_cuda else torch.arange(grid.links.numel(),
                                                          device=grid.links.device)
-    return _surface_tv(grid, cells, alpha_weighted, 1.0 / grid.links.numel())
+    return _surface_tv(grid, cells, alpha_weighted, 1.0 / grid.links.numel(), row_coords)
 
 
-def _surface_normal(grid, cells, connectivity_check, ignore_empty, use_l1, scale):
+def _surface_normal(grid, cells, connectivity_check, ignore_empty, use_l1, scale,
+                    row_coords=None):
     if not grid.links.is_cuda:
         return _normal_plain(grid, cells, connectivity_check, ignore_empty, use_l1, scale)
     return _KernelLoss.apply(
         lambda: kernels.reg_normal(grid.links, cells, grid.surface_data.detach(),
                                    grid.level_set_data, connectivity_check, ignore_empty, use_l1,
-                                   scale), grid.surface_data)
+                                   scale, row_coords), grid.surface_data)
 
 
 def surface_normal_loss(grid: SparseGrid, cells: torch.Tensor, connectivity_check: bool = True,
@@ -299,13 +306,16 @@ def surface_normal_loss(grid: SparseGrid, cells: torch.Tensor, connectivity_chec
                            1.0 / cells.numel())
 
 
-def surface_normal_loss_dense(grid: SparseGrid, connectivity_check: bool = True,
-                              ignore_empty: bool = False, use_l1: bool = False) -> torch.Tensor:
+def surface_normal_loss_dense(grid: SparseGrid, row_coords: torch.Tensor,
+                              connectivity_check: bool = True, ignore_empty: bool = False,
+                              use_l1: bool = False) -> torch.Tensor:
     """``surface_normal_loss`` over every cell whose 3x3x3 window lies in the
-    lattice, over links.size (reg.py:428: norm_surface_sparsity = 1)."""
+    lattice, over links.size (reg.py:428: norm_surface_sparsity = 1). On the
+    card K6 visits the present rows of ``row_coords`` (``row_coords_of``),
+    each the base vertex of its cell; the plain version takes every cell."""
     cells = None if grid.links.is_cuda else _interior_cells(grid)
     return _surface_normal(grid, cells, connectivity_check, ignore_empty, use_l1,
-                           1.0 / grid.links.numel())
+                           1.0 / grid.links.numel(), row_coords)
 
 
 def alpha_surf_sparsify_loss(grid: SparseGrid, cells: torch.Tensor, scale_alpha: float,

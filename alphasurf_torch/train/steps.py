@@ -365,7 +365,7 @@ def make_surface_step(cfg: StepConfig):
             dense_ok = row_coords is not None
             if dense_ok and cfg.tv_surface_sparsity >= 0.5:
                 loss = loss + hp.lambda_tv_surface * reg.surface_tv_loss_dense(
-                    grid, alpha_weighted=cfg.surf_tv_alpha_weighted)
+                    grid, row_coords, alpha_weighted=cfg.surf_tv_alpha_weighted)
             else:
                 cells = sample("tv_surface", cfg.tv_surface_sparsity)
                 loss = loss + reg_scale * hp.lambda_tv_surface * reg.surface_tv_loss(
@@ -374,9 +374,9 @@ def make_surface_step(cfg: StepConfig):
             cells_n = None
             if dense_ok and cfg.norm_surface_sparsity >= 0.5:
                 loss = loss + hp.lambda_normal_l1 * reg.surface_normal_loss_dense(
-                    grid, con, empty, use_l1=True)
+                    grid, row_coords, con, empty, use_l1=True)
                 loss = loss + hp.lambda_normal_l2 * reg.surface_normal_loss_dense(
-                    grid, con, empty, use_l1=False)
+                    grid, row_coords, con, empty, use_l1=False)
                 if ext:
                     cells_n = sample("normal", cfg.norm_surface_sparsity)
             else:

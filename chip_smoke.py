@@ -182,7 +182,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 RESO = 512
-SMALL_RESO = 128  # K1's second grid, K6's every-cell mode, the step check
+SMALL_RESO = 128  # K1's second grid, one of K6's every-cell checks, the step check
 WIDTH = HEIGHT = 800
 CHUNK = 16384
 STEP_BATCH = 4096  # rays of the kernel-against-plain train step
@@ -1188,9 +1188,9 @@ def reg_check(label: str, run_kernel, run_plain, grid, fields,
 
 
 def check_reg(grid, row_coords, device) -> dict:
-    """K6 on windows of 0.01 of the 512^3 grid's rows (the main path's
-    sparsity), each against its plain version; the every-cell mode on a
-    128^3 shell grid."""
+    """K6 on windows of 0.01 of the 512^3 grid's rows (bench.py's
+    sparsity), each against its plain version; then the every-cell mode
+    (check_reg_every)."""
     import torch
 
     from alphasurf_torch import kernels
@@ -1241,29 +1241,113 @@ def check_reg(grid, row_coords, device) -> dict:
     out["reg_sparsify"] = dict(ms=ms, plain_ms=pms, bound=bound_ms(
         cb + nr * 8 + grid.capacity * 8, n * 30))
 
-    # every-cell mode (the dense variants of the recipe's sparsity 1)
-    g_small, _ = shell_grid(SMALL_RESO, device)
-    L_small = g_small.links
-    scale = 1.0 / L_small.numel()
-    log(f"K6 every-cell mode at {SMALL_RESO}^3:")
-    e, _, _ = reg_check(
-        "surface TV, every cell",
-        lambda: kernels.reg_tv(L_small, None, g_small.surface_data.detach(), 0, 1, None, scale),
-        lambda: R._tv_plain(g_small, g_small.surface_data, torch.arange(L_small.numel(), device=device),
-                            0, 1, None, scale), g_small, ("surface_data",))
-    worst["reg_tv"] = max(worst["reg_tv"], e)
-    e, _, _ = reg_check(
-        "normal L1, every interior cell",
-        lambda: kernels.reg_normal(L_small, None, g_small.surface_data.detach(), g_small.level_set_data,
-                                   False, False, True, scale),
-        lambda: R._normal_plain(g_small, R._interior_cells(g_small), False, False, True, scale), g_small,
-        ("surface_data",))
-    worst["reg_normal"] = max(worst["reg_normal"], e)
+    check_reg_every(grid, row_coords, device, worst)
     for k, v in out.items():
         v["max_abs_err"] = worst[k]
-    del g_small
-    torch.cuda.empty_cache()
     return out
+
+
+EVERY_CHUNK = 1 << 21  # cells a chunk of the plain every-cell versions
+
+
+def plain_chunked(loss_of, cells, param, extra: float = 0.0, grad_cells=None):
+    """The plain loss over ``cells`` in chunks of EVERY_CHUNK, each chunk's
+    autograd gradient in ``param`` summed; the losses summed in float64,
+    plus ``extra``. Returns (loss, grad). With ``grad_cells`` the loss is
+    summed over ``cells`` without autograd and the gradient taken over
+    ``grad_cells``, the cells that can have one: a normal cell whose base
+    vertex is absent skips its three terms and adds exact zeros, but its
+    27 gathers all read row 0, whose accumulation makes autograd's backward
+    over every 256^3 cell take ~50 s."""
+    import torch
+
+    total, grad = extra, torch.zeros_like(param)
+    if grad_cells is not None:
+        with torch.no_grad():
+            for c in torch.split(cells, EVERY_CHUNK):
+                total += float(loss_of(c).double())
+    param.requires_grad_(True)
+    try:
+        for c in torch.split(cells if grad_cells is None else grad_cells, EVERY_CHUNK):
+            lc = loss_of(c)
+            grad += torch.autograd.grad(lc, [param])[0]
+            if grad_cells is None:
+                total += float(lc.detach().double())
+    finally:
+        param.requires_grad_(False)
+    return total, grad
+
+
+def check_reg_every(grid, row_coords, device, worst: dict) -> None:
+    """K6's every-cell mode (the dense losses of the recipe's sparsity 1),
+    which visits the present rows: TV, normal L1 and L2 against the plain
+    version over every cell at 128^3 and 256^3 (the normal's gradient over
+    the cells with a present base vertex: plain_chunked), and at 512^3 over
+    the present vertices (the normal's in the interior box), in chunks,
+    plus the empty cells' floor, which the plain version gives every empty
+    cell; loss to REG_LOSS_RTOL, gradient to REG_REL of its norm. Then its
+    device times (a CUDA graph of the calls) at 512^3 and 256^3."""
+    import torch
+
+    from alphasurf_torch import kernels
+    from alphasurf_torch.app import bench_k6
+    from alphasurf_torch.app.bench_k34 import graph_ms
+    from alphasurf_torch.losses import reg as R
+
+    for reso in (SMALL_RESO, CUVOL_RESO, RESO):
+        g, rc = (grid, row_coords) if reso == RESO else shell_grid(reso, device)
+        N = g.links.numel()
+        scale = 1.0 / N
+        calls = bench_k6.every_cell_calls(g, rc)
+        if reso == RESO:
+            cells = bench_k6.present_cells(g)
+            cells_n = bench_k6.interior(g, cells)
+            floor = (N - cells.numel()) * kernels.TV_FLOOR * scale
+            what = ("the present vertices plus the empty cells' floor",
+                    "the present vertices of the interior box")
+            grad_n = None
+        else:
+            cells, cells_n, floor = torch.arange(N, device=device), R._interior_cells(g), 0.0
+            what = ("every cell", "every cell of the interior box")
+            grad_n = cells_n[g.links.reshape(-1)[cells_n] >= 0]
+        surf = g.surface_data
+        checks = (
+            ("tv_surface", "TV", lambda c: R._tv_plain(g, surf, c, 0, 1, None, scale), cells,
+             floor, what[0], None),
+            ("normal_l1", "normal L1",
+             lambda c: R._normal_plain(g, c, False, False, True, scale), cells_n, 0.0, what[1],
+             grad_n),
+            ("normal_l2", "normal L2",
+             lambda c: R._normal_plain(g, c, False, False, False, scale), cells_n, 0.0, what[1],
+             grad_n))
+        for name, label, loss_of, c, extra, over, grad_cells in checks:
+            lk, gk = calls[name]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lp, gp = plain_chunked(loss_of, c, surf, extra, grad_cells)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            rel = float((gk - gp).double().norm() / gp.double().norm().clamp(min=1e-30))
+            err = max(abs(float(lk) - lp), float((gk - gp).abs().max()))
+            kernel = "reg_tv" if name.startswith("tv") else "reg_normal"
+            worst[kernel] = max(worst[kernel], err)
+            log(f"  K6 every-cell {label} at {reso}^3 ({g.capacity} rows, against the plain "
+                f"version over {over}): loss {float(lk):.9e} (plain {lp:.9e}), grad rel err "
+                f"{rel:.3e}, max abs err {err:.3e}; the plain version with its gradient "
+                f"{plain_ms:.3f} ms, once, on the host's clock")
+            if abs(float(lk) - lp) > REG_LOSS_RTOL * abs(lp) or rel > REG_REL:
+                raise AssertionError(f"K6 every-cell {label} at {reso}^3 differs from its plain "
+                                     f"version")
+        if reso != SMALL_RESO:
+            ms = {name: graph_ms(fn, 20) for name, fn in calls.items()}
+            b = bench_k6.every_cell_bounds(g)
+            log(f"time K6 every-cell mode at {reso}^3 on the device ({g.capacity} threads, one a "
+                f"row): TV {ms['tv_surface']:.4f} ms, normal L1 {ms['normal_l1']:.4f}, normal L2 "
+                f"{ms['normal_l2']:.4f}; present-vertex bound TV {b['present_tv']:.5f}, normal "
+                f"{b['present_normal']:.5f}, lattice bound {b['lattice']:.5f} ms (bytes) [{card_line()}]")
+        if reso != RESO:
+            del g, rc
+        torch.cuda.empty_cache()
 
 
 def check_rmsprop(grid) -> dict:
@@ -1549,6 +1633,12 @@ def train(device, card: str) -> dict:
     occ = occupancy_words(grid, opt)
     profile_device(lambda: step(grid, rms, r, gt, hp, gen, occ=occ, row_coords=rc),
                    f"one train step ({TRAIN_BATCH} rays, {RESO}^3)", card)
+    # and one under the recipe's regularizers: K6's every-cell TV and normal
+    from alphasurf_torch.app.bench_k6 import surface_step
+
+    profile_device(surface_step(grid, rc, device, recipe=True),
+                   f"one train step with the recipe's regularizers ({TRAIN_BATCH} rays, {RESO}^3, "
+                   f"every-cell TV and normal)", card)
     return launches
 
 
@@ -2606,7 +2696,8 @@ def stages(device, card: str, work: Path) -> tuple[dict, dict]:
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     log("launches " + json.dumps(launches))
-    missing = [k for k in STAGE_RUN_KERNELS if launches[k] == 0]
+    missing = [k for k in STAGE_RUN_KERNELS + ("reg_tv_every", "reg_normal_every")
+               if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels of the three-stage run were not launched: {missing}")
 

@@ -88,7 +88,8 @@ def test_surface_tv_matches_jax(alpha_weighted):
                  lambda g: T.surface_tv_loss(g, cells_t, alpha_weighted), a, gj, gt)
     rc = J.row_coords_of(gj)
     _compare(lambda g: J.surface_tv_loss_dense(g, rc, alpha_weighted),
-             lambda g: T.surface_tv_loss_dense(g, alpha_weighted), a, gj, gt)
+             lambda g: T.surface_tv_loss_dense(g, T.row_coords_of(g), alpha_weighted), a, gj,
+             gt)
 
 
 @pytest.mark.parametrize("use_l1", [True, False])
@@ -102,7 +103,8 @@ def test_surface_normal_matches_jax(use_l1, con_check, ignore_empty):
         assert float(v) > 0 and np.abs(np.asarray(g[0])).max() > 0
     rc = J.row_coords_of(gj)
     _compare(lambda g: J.surface_normal_loss_dense(g, rc, con_check, ignore_empty, use_l1),
-             lambda g: T.surface_normal_loss_dense(g, con_check, ignore_empty, use_l1),
+             lambda g: T.surface_normal_loss_dense(g, T.row_coords_of(g), con_check, ignore_empty,
+                                                   use_l1),
              a, gj, gt, ("surface_data",))
 
 
