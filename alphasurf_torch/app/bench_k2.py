@@ -3,31 +3,43 @@ serving chunk (the 16,384 central rays of render_circle's first 800x800
 frame of bench.py's 512^3 shell grid, bench.py's render options), the warm
 step's batch (``app/bench_k8.warm_case``: 40,960 rays at 256^3 over K1d's
 words) and the surface step's batch (bench_step's first 40,960-ray batch at
-512^3).
+512^3); and K1 and K1d, the occupancy words K2 reads.
 
-    python -m alphasurf_torch.app.bench_k2 [--reps 20]
+    python -m alphasurf_torch.app.bench_k2 [--reps 20] [--part k1|k2|all]
 
-At each shape the pool is first held against the plain version, element
-for element in pool order and after a (ray, t, l) sort. Prints one JSON
-line: for each shape the rays, candidates, entries, the count's and the
-fill's milliseconds by CUDA events (and K11b's capped fill at K = 64 on the
-serving chunk), the bounds by chip_smoke.py's formula, the registers nvcc
-reported and the card. Needs a card.
+K2 (``--part k2``): at each shape the pool is first held against the plain
+version, element for element in pool order and after a (ray, t, l) sort.
+The JSON line holds for each shape the rays, candidates, entries, the
+count's and the fill's milliseconds by CUDA events (and K11b's capped fill
+at K = 64 on the serving chunk) and the bounds by chip_smoke.py's formula.
 
-Another checkout's K2 is timed in the same call by running this file from
-that checkout's root with the checkout on PYTHONPATH (``PYTHONPATH=$PWD
-python .../bench_k2.py``).
+K1 and K1d (``--part k1``): the words held equal to the plain version's,
+then timed on the device (``bench_k34.graph_ms``, a CUDA graph of the calls)
+and per call as the host issues them (``time_ms``), at the 512^3 shell under
+bench.py's and render_circle's options, the 256^3 (the recipe's first
+surface stage) and 128^3 shells, one 256^3 grid of each other surface type
+(chip_smoke.py's ``type_grid`` under its ``type_options``) and, for K1d,
+the warm start's 256^3 blobby grid (chip_smoke.py's ``blobby_cuvol_grid``);
+each with its bound by chip_smoke.py's formula (the links, the density
+rows, the surface rows under the hull test and the words, once).
+
+Both parts print the registers nvcc reported and the card, in one JSON
+line. Needs a card, and chip_smoke.py importable (run from the repository
+root). Another checkout's kernels are timed in the same call by running
+this file from that checkout's root with the checkout on PYTHONPATH
+(``PYTHONPATH=$PWD python .../bench_k2.py``).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 
 import numpy as np
 import torch
 
-from alphasurf_torch import kernels
+from alphasurf_torch import defs, kernels
 from alphasurf_torch.app.bench_k8 import FP32_OPS_PER_S, HBM_BYTES_PER_S, WIDTH, time_ms, warm_case
 from alphasurf_torch.app.bench_step import bench_options, bench_rays, build_bench_grid
 from alphasurf_torch.core.rays import Camera, Rays
@@ -167,14 +179,26 @@ def cap_offsets(pool: S.Pool, K: int) -> torch.Tensor:
     return out
 
 
-def registers() -> dict:
-    """The registers and spills nvcc reported for phase_a.cu's kernels in
-    this process's build (empty when the library was built before it)."""
+def registers(source: str = "phase_a", keys=("phase_a",)) -> dict:
+    """The registers and spills nvcc reported for ``source``'s kernels whose
+    names hold one of ``keys`` (from this process's build, or from a build
+    of that source alone into a scratch file under build/ when the library
+    was built before it)."""
+    lines = kernels.BUILD_LOG.get(source, {}).get("ptxas")
+    if lines is None:
+        out_so = kernels.BUILD_DIR / f"{source}_ptxas.{os.getpid()}.tmp"
+        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        text = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out_so),
+                               str(kernels.CSRC / f"{source}.cu")], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True).stdout
+        out_so.unlink(missing_ok=True)
+        lines = [ln for ln in text.splitlines()
+                 if "registers" in ln or "spill" in ln or "entry function" in ln]
     out, name = {}, None
-    for ln in kernels.BUILD_LOG.get("phase_a", {}).get("ptxas", []):
+    for ln in lines:
         if "entry function" in ln:
             name = ln.split("'")[1] if "'" in ln else None
-        elif name and "phase_a" in name:
+        elif name and any(k in name for k in keys):
             out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
     return out
 
@@ -198,9 +222,81 @@ def shape_case(label: str, grid, inputs, words, reps: int, with_cap: bool) -> di
     }
 
 
-def run(reps: int = 20, seed: int = 0) -> dict:
-    dev = torch.device("cuda")
-    kernels.build()
+def k1_args(grid, opt) -> tuple:
+    """K1's wrapper arguments as render/surface.occupancy_words passes them."""
+    sigma_thresh, hull = S._candidate_test(grid, opt, False)
+    if grid.surface_type == defs.SURFACE_TYPE_UDF_ALPHA:
+        density = torch.amax(grid.density_data.detach()).reshape(1)
+    else:
+        density = grid.density_data.detach()[:, 0].contiguous()
+    return (grid.links, density, grid.surface_data.detach().contiguous(), grid.level_set_data,
+            sigma_thresh, hull, grid.surface_type)
+
+
+def occupancy_bound(grid, n_dens: int, n_surf: int, n_words: int) -> tuple[float, str]:
+    """chip_smoke.py's bound of K1 and K1d: the links, ``n_dens`` density
+    and ``n_surf`` surface values and the words, each once, as bytes; about
+    40 operations a voxel (its corners' max, min and max)."""
+    X, Y, Z = grid.reso
+    return bound_ms((grid.links.numel() + n_dens + n_surf + n_words) * 4,
+                    (X - 1) * (Y - 1) * (Z - 1) * 40)
+
+
+def occupancy_case(label: str, fn, plain, grid, n_dens: int, n_surf: int, reps: int) -> dict:
+    """One K1 or K1d shape: the words against the plain version, then the
+    device and per-call times beside the bound."""
+    from alphasurf_torch.app.bench_k34 import graph_ms
+
+    words = fn()
+    ref = plain()
+    equal = torch.equal(words, ref)
+    del ref
+    b = occupancy_bound(grid, n_dens, n_surf, words.numel())
+    out = {"shape": label, "reso": list(grid.reso), "capacity": grid.capacity,
+           "occupied": int(S.unpack_occupancy_bits(words, grid.reso[2] - 1).sum()),
+           "equal": equal, "device_ms": graph_ms(fn, reps), "call_ms": time_ms(fn, reps),
+           "bound_ms": b[0], "bound_by": b[1]}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def k1_cases(dev, reps: int, seed: int) -> list:
+    """K1 at the shells and each type's grid, K1d at the warm start's grid."""
+    import chip_smoke
+    from alphasurf_torch.app.bench_k34 import shell_grid
+    from alphasurf_torch.app.render_circle import circle_render_options
+
+    cases = []
+
+    def k1_case(label, grid, opt):
+        args = k1_args(grid, opt)
+        n_dens = 1 if args[1].shape[0] == 1 and grid.capacity > 1 else grid.capacity
+        cases.append(occupancy_case(
+            label, lambda: kernels.occupancy(*args), lambda: S._occupancy_words_plain(grid, opt),
+            grid, n_dens, grid.capacity if args[5] else 0, reps))
+
+    for reso in (512, 256, 128):
+        grid, _ = shell_grid(reso, dev, seed)
+        k1_case(f"shell {reso} serve", grid, circle_render_options())
+        if reso == 512:
+            k1_case("shell 512 bench", grid, bench_options())
+        del grid
+        torch.cuda.empty_cache()
+    for name in chip_smoke.SURFACE_TYPES:
+        grid = chip_smoke.type_grid(name, dev, seed)
+        k1_case(f"{name} 256", grid, chip_smoke.type_options(name))
+        del grid
+        torch.cuda.empty_cache()
+    grid, _ = chip_smoke.blobby_cuvol_grid(256, dev, seed)
+    dens = grid.density_data.detach()[:, 0].contiguous()
+    cases.append(occupancy_case(
+        "warm 256 (K1d)", lambda: kernels.density_occupancy(grid.links, dens),
+        lambda: S.pack_occupancy_bits(C._density_occupancy_plain(grid)), grid, grid.capacity, 0,
+        reps))
+    return cases
+
+
+def k2_cases(dev, reps: int, seed: int) -> list:
     cases = []
     grid, _ = build_bench_grid(512, dev)
     words = S.occupancy_words(grid, bench_options())
@@ -213,24 +309,40 @@ def run(reps: int = 20, seed: int = 0) -> dict:
     grid, _, chunk = warm_case(256, BATCH, dev, seed)
     words = C.density_occupancy_words(grid)
     cases.append(shape_case("warm", grid, warm_inputs(grid, chunk.rays), words, reps, False))
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
-    return {"reps": reps, "package": kernels.__file__, "cases": cases, "registers": registers(),
-            "card": card}
+    return cases
+
+
+def run(reps: int = 20, seed: int = 0, part: str = "all") -> dict:
+    dev = torch.device("cuda")
+    kernels.build()
+    out = {"reps": reps, "package": kernels.__file__}
+    if part in ("k2", "all"):
+        out["cases"] = k2_cases(dev, reps, seed)
+        out["registers"] = registers()
+    if part in ("k1", "all"):
+        out["k1_cases"] = k1_cases(dev, reps, seed)
+        out["k1_registers"] = registers("occupancy", ("occupancy",))
+    out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                  "--format=csv,noheader"],
+                                 capture_output=True, text=True).stdout.strip()
+    return out
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--part", choices=("k1", "k2", "all"), default="all")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_k2 needs a CUDA card")
-    out = run(a.reps, a.seed)
+    out = run(a.reps, a.seed, a.part)
     print(json.dumps(out), flush=True)
     if not all(c["equal"]["in_order"] and c["equal"]["offsets"] and c["equal"]["n_occupied"]
-               for c in out["cases"]):
+               for c in out.get("cases", [])):
         raise SystemExit("K2's pool differs from the plain version")
+    if not all(c["equal"] for c in out.get("k1_cases", [])):
+        raise SystemExit("K1 or K1d words differ from the plain version")
     return out
 
 

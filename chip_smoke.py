@@ -183,6 +183,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 RESO = 512
 SMALL_RESO = 128  # K1's second grid, one of K6's every-cell checks, the step check
+ODD_RESO = 130  # K1's grid with Z % 4 != 0 (its scalar loads)
 WIDTH = HEIGHT = 800
 CHUNK = 16384
 STEP_BATCH = 4096  # rays of the kernel-against-plain train step
@@ -521,9 +522,11 @@ def check_kernels(device, card: str) -> dict:
     from alphasurf_torch.render import surface as S
 
     res = {}
-    # K1 at 128^3, then at 512^3 (the main path's shape, timed)
+    # K1 at 128^3, at 130^3 (Z % 4 != 0: the scalar loads; windows that end
+    # mid-word), at 256^3 (the recipe's first surface stage) and at 512^3
+    # (the main path's shape, timed per call and on the device)
     serve = circle_render_options()
-    for reso in (SMALL_RESO, RESO):
+    for reso in (SMALL_RESO, ODD_RESO, TYPES_RESO, RESO):
         g, _ = shell_grid(reso, device)
         dens = g.density_data.detach()[:, 0].contiguous()
         surf = g.surface_data.detach()[:, 0].contiguous()
@@ -539,11 +542,15 @@ def check_kernels(device, card: str) -> dict:
         log(f"K1 occupancy {reso}^3: words equal, {int(S.unpack_occupancy_bits(words, reso - 1).sum())} "
             f"occupied voxels")
         if reso == RESO:
+            from alphasurf_torch.app.bench_k34 import graph_ms
+
             ms = time_ms(k1, 20)
             plain = time_ms(lambda g=g: S._occupancy_words_plain(g, serve), 3)
             nb = g.links.numel() * 4 + 2 * g.capacity * 4 + words.numel() * 4
             res["occupancy"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                                     bound=bound_ms(nb, (reso - 1) ** 3 * 32))
+            log(f"time K1 {reso}^3: {ms:.4f} ms a call, {graph_ms(k1, 20):.4f} ms on the device, "
+                f"bound {res['occupancy']['bound'][0]:.5f} ms, plain {plain:.3f} ms [{card}]")
         del g, dens, surf, words, ref
         torch.cuda.empty_cache()
 
@@ -1756,6 +1763,7 @@ def check_cuvol_kernels(device, card: str) -> dict:
     import torch
 
     from alphasurf_torch import kernels
+    from alphasurf_torch.app.bench_k34 import graph_ms
     from alphasurf_torch.app.bench_step import cuvol_options
     from alphasurf_torch.core.rays import Rays
     from alphasurf_torch.render import cuvol as C
@@ -1782,6 +1790,9 @@ def check_cuvol_kernels(device, card: str) -> dict:
         max_abs_err=0.0, ms=time_ms(k1d, 20), plain_ms=time_ms(k1d_plain, 3),
         bound=bound_ms(grid.links.numel() * 4 + grid.capacity * 4 + words.numel() * 4,
                        (CUVOL_RESO - 1) ** 3 * 8))
+    r = res["density_occupancy"]
+    log(f"time K1d {CUVOL_RESO}^3: {r['ms']:.4f} ms a call, {graph_ms(k1d, 20):.4f} ms on the "
+        f"device, bound {r['bound'][0]:.5f} ms, plain {r['plain_ms']:.3f} ms [{card}]")
 
     opt = cuvol_options()
     rays_all = frame_camera(0, 2).gen_rays_device(device)

@@ -185,6 +185,28 @@ def test_density_occupancy_kernel_matches_plain_version(cuda):
     assert torch.equal(words.cpu(), ref)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("stype", ["sdf", "plane", "udf", "udf_alpha", "udf_fake_sample",
+                                   "voxel_face"])
+def test_occupancy_kernel_matches_plain_version_bit_for_bit(cuda, stype):
+    """K1's walk equal to its plain version, torch.equal, on the lattices
+    of the CPU transcription (tests/occ_grids.py: 2^3 to 130^3, windows and
+    runs that end early, Z % 4 both ways, links not 16-byte aligned) and its
+    edge cases (an absent tile, a window's extra vertex alone, bit 31),
+    every option set, both modes."""
+    from occ_grids import check_k1_card
+
+    assert check_k1_card(stype, cuda) > 0
+
+
+@pytest.mark.cuda
+def test_density_occupancy_walk_matches_plain_version_bit_for_bit(cuda):
+    """K1d's walk likewise, on the same lattices and edge cases."""
+    from occ_grids import check_k1d_card
+
+    assert check_k1d_card(cuda) > 0
+
+
 def _long_cuvol_case(device):
     """test_torch_cuvol_long's thin (72, 4, 4) grid in float32 and its rays
     along x, of 0, 1, 31, 32, 33, 64 and 65 entries and five of 71: K8's
